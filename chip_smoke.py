@@ -5,20 +5,30 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels from csrc/
-     (one nvcc per source, in parallel) and print ptxas' register summary;
+  1. the card's name and power limit; build the CUDA kernels K1-K6 from
+     csrc/ (one nvcc per source, in parallel) and print ptxas' register
+     summary;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes of the main path, in bf16, with the tolerance stated;
+     shapes of the main paths, in bf16, with the tolerance stated;
   3. each kernel's time (CUDA events over many launches queued behind a
-     device sleep, weights rotated past the 50 MB L2), its bound from bytes
-     and operations, its plain version's time and a one-call PyTorch
-     yardstick where one exists;
-  4. the main path: AutoQuickModel at Mistral-7B width, 32 layers, random
-     QTPU weights from a seed, generate() for 4 prompts of 128 tokens plus
-     64 greedy tokens; the kernels' launch counts must be exactly those of
+     device sleep, weights and KV pages rotated past the 50 MB L2), its
+     bound from bytes and operations, its plain version's time and a
+     one-call PyTorch yardstick where one exists;
+  4. the generate() path: AutoQuickModel at Mistral-7B width, 32 layers,
+     random QTPU weights from a seed, 4 prompts of 128 tokens plus 64
+     greedy tokens; the kernels' launch counts must be exactly those of
      the path;
-  5. the kernel path against the plain path (on the CPU) for a 2-layer
-     model at full width: prefill logits and 8 decode steps.
+  5. the serving path: the continuous-batching Engine over the paged KV
+     cache, same model, 32 ShareGPT-like requests that share a one-page
+     system prefix; a warm-up run and two timed runs; every request at its
+     exact length, the same greedy streams in both runs, launch counts
+     exactly those the Engine's recorded schedule implies, no host sync
+     while a decode window or prefill sub-batch is dispatched, and a
+     profile of a few decode windows;
+  6. the kernel path against the plain path (on the CPU) for a 2-layer
+     model at full width: dense cache (prefill logits, 8 decode steps) and
+     paged cache (one 16-token chunk for 4 slots at different starts, 8
+     decode steps).
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
@@ -48,11 +58,20 @@ L2_BYTES = 50 * 2**20
 # kernel vs plain: atol = rtol (|out - ref| <= tol * (1 + |ref|)). Both sum
 # in f32 in different orders and round the output to bf16; the attention
 # kernels also round p to bf16 against a running rather than final max.
-TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2}
+TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2,
+       "paged_attention": 2e-2}
 TOL_CACHE = 1e-2   # K3's written k row: one bf16 step (f32 fma contraction)
-#: phase 5 logits, 2 layers at full width, bf16 activations: the paths differ
+#: phase 6 logits, 2 layers at full width, bf16 activations: the paths differ
 #: by single bf16 steps of the logits, d / (1 + |ref|) <= 2^-7 per step
 TOL_MODEL = 1e-2
+#: the serving phase: the JAX Engine's defaults (quick_tpu/runtime/
+#: serving.py:130-185) with 16 slots of up to 1024 tokens; the default pool
+#: is 16 x 16 + 1 = 257 pages of 64 tokens (2.2 GB of bf16 K/V at 32 layers).
+#: chunk 16, not 64: supports_chunk(64, 32, 8, 64) is false (25 MB of TPU
+#: VMEM temporaries), so a 64-token chunk would never reach the chunk kernel
+ENGINE = dict(max_slots=16, max_seq=1024, page_size=64, chunk=16,
+              decode_window=8, prefill_rows=8, reserve="full", prefix_cache=True)
+N_REQUESTS, SYSTEM_PREFIX = 32, 64
 
 
 def fail(msg: str) -> None:
@@ -140,8 +159,9 @@ def gemm_shapes(cfg):
 
 
 def main_path_gemms(cfg):
-    """(prologue, M, K, N) of every kind of K1 launch on the main path: the
-    four projections at prefill (M = B * S), then at decode (M = B)."""
+    """(prologue, M, K, N) of every kind of K1 launch on the generate()
+    path: the four projections at prefill (M = B * S), then at decode
+    (M = B)."""
     s = gemm_shapes(cfg)
     M0, M1 = BATCH * PROMPT, BATCH
     return [
@@ -150,6 +170,14 @@ def main_path_gemms(cfg):
         ("rmsnorm", M1, *s["qkv"]), (None, M1, *s["o"]),
         ("rmsnorm", M1, *s["gate_up"]), ("glu", M1, *s["down"]),
     ]
+
+
+def engine_gemms(cfg):
+    """(prologue, M, K, N) of the K1 launches of the serving path: the four
+    projections at decode windows (M = max_slots, past the 8-row prologue
+    limit) and at prefill sub-batches (M = prefill_rows * chunk)."""
+    rows = (ENGINE["max_slots"], ENGINE["prefill_rows"] * ENGINE["chunk"])
+    return [(None, M, K, N) for M in rows for K, N in gemm_shapes(cfg).values()]
 
 
 def rand_qlinear(gen, dev, K, N, copies=1):
@@ -174,7 +202,7 @@ def check_gemms(cfg, gen, dev):
     shapes = list(gemm_shapes(cfg).values())
     cases = [(p, M, K, N) for p in (None, "rmsnorm", "glu") for M in (1, 4)
              for K, N in shapes]
-    cases += [(None, BATCH * PROMPT, K, N) for K, N in shapes]
+    cases += [(None, BATCH * PROMPT, K, N) for K, N in shapes] + engine_gemms(cfg)
     for prologue, M, K, N in cases:
         (qw, s, zs), = rand_qlinear(gen, dev, K, N)
         x = torch.randn((M, 2 * K if prologue == "glu" else K), generator=gen,
@@ -192,13 +220,15 @@ def check_gemms(cfg, gen, dev):
     return errs
 
 
-def time_gemms(cfg, gen, dev, errs):
+def time_gemms(cfg, gen, dev, errs, gemms, path):
+    """K1's rows at ``gemms``; their launches are read from ``path``'s run
+    ("generate" or "engine")."""
     from quick_tpu_torch.ops import quantized_matmul as qm
     from quick_tpu_torch.ops.norms import rms_norm
 
-    print("[3] K1 timing at the main path's shapes (weights rotated past L2)")
+    print(f"[3] K1 timing at the {path} path's shapes (weights rotated past L2)")
     rows = []
-    for prologue, M, K, N in main_path_gemms(cfg):
+    for prologue, M, K, N in gemms:
         wbytes = K * N // 2 + 2 * (K // 128) * N * 4
         copies = max(1, min(8, math.ceil(2 * L2_BYTES / wbytes)))
         ws = rand_qlinear(gen, dev, K, N, copies)
@@ -238,7 +268,7 @@ def time_gemms(cfg, gen, dev, errs):
             name=f"quantized_matmul[{key}]", route="cuda",
             source="quick_tpu_torch/csrc/quantized_matmul.cu",
             replaces=f"quick_tpu/ops/quantized_matmul.py:{src}",
-            launches=("quantized_matmul", key), max_abs_err=errs[key],
+            launches=(path, "quantized_matmul", key), max_abs_err=errs[key],
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms,
         ))
@@ -299,7 +329,7 @@ def flash_row(cfg, gen, dev):
         name=f"flash_attention[{key}]", route="cuda",
         source="quick_tpu_torch/csrc/flash_attention.cu",
         replaces="quick_tpu/ops/flash_attention.py:40",
-        launches=("flash_attention", key), max_abs_err=err,
+        launches=("generate", "flash_attention", key), max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
     )
 
@@ -349,13 +379,263 @@ def fused_row(cfg, gen, dev):
         name=f"fused_decode_step[{key}]", route="cuda",
         source="quick_tpu_torch/csrc/fused_decode_step.cu",
         replaces="quick_tpu/ops/fused_decode_step.py:45",
-        launches=("fused_decode_step", key), max_abs_err=err,
+        launches=("generate", "fused_decode_step", key), max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 2 / 3: the paged kernels K4-K6, at the serving path's shapes
+# ---------------------------------------------------------------------------
+
+def serving_trace(vocab: int, seed: int = 0):
+    """(prompt, max_new_tokens) of the serving phase's requests: lengths
+    from the lognormal fit of ShareGPT in tools/serve_bench.py (:26-30),
+    random token ids, and one shared SYSTEM_PREFIX-token system prompt
+    before each request's own tokens (serve_bench's --shared_prefix)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    plen = np.clip(rng.lognormal(5.0, 0.9, N_REQUESTS).astype(int), 4, 512)
+    olen = np.clip(rng.lognormal(4.9, 0.8, N_REQUESTS).astype(int), 4, 256)
+    prefix = [int(t) for t in rng.integers(0, vocab, SYSTEM_PREFIX)]
+    return [(prefix + [int(t) for t in rng.integers(0, vocab, int(p))], int(o))
+            for p, o in zip(plen, olen)]
+
+
+def paged_geometry(cfg) -> dict:
+    page = ENGINE["page_size"]
+    n_pt = ENGINE["max_seq"] // page
+    return dict(B=ENGINE["max_slots"], Bp=ENGINE["prefill_rows"], S=ENGINE["chunk"],
+                page=page, n_pt=n_pt, P=ENGINE["max_slots"] * n_pt + 1,
+                Hq=cfg.num_attention_heads, Hkv=cfg.num_key_value_heads, D=cfg.head_dim)
+
+
+def trace_positions(trace, g):
+    """Per-slot positions the serving path gives the paged kernels: decode
+    lengths mid-output (prompt + max_new // 2) of requests 0-15, and chunk
+    starts mid-prompt of requests 16-23 (chunks start at multiples of 16)."""
+    dec = [len(p) + n // 2 for p, n in trace[: g["B"]]]
+    chunk = [len(p) // 2 // g["S"] * g["S"] for p, _ in trace[g["B"]: g["B"] + g["Bp"]]]
+    return dec, chunk
+
+
+def page_pool(gen, dev, g, layers):
+    shape = (layers, g["P"], g["Hkv"], g["page"], g["D"])
+    return [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+
+
+def block_table(gen, dev, g, rows):
+    """``rows`` slots with n_pt own pages each, drawn from 1..P-1."""
+    perm = torch.randperm(g["P"] - 1, generator=gen, device=dev)[: rows * g["n_pt"]] + 1
+    return perm.reshape(rows, g["n_pt"]).to(torch.int32)
+
+
+def paged_write_rows(cfg, gen, dev, trace):
+    from quick_tpu_torch.ops import paged_write as pw
+
+    g = paged_geometry(cfg)
+    B, Bp, S, page, Hkv, D = (g[k] for k in ("B", "Bp", "S", "page", "Hkv", "D"))
+    L = cfg.num_hidden_layers
+    dec, chunk = trace_positions(trace, g)
+    print("[2] K4 (paged write) against its plain scatter, bf16: equal outside "
+          "the trash page 0")
+    bt = block_table(gen, dev, g, B).long()
+
+    def addresses(pos, n):
+        """(page_ids [rows, 2], offs [rows]) of an n-token write at each
+        slot's ``pos``, aimed as PagedKVCache.update aims them."""
+        pos = torch.tensor(pos, dtype=torch.int64, device=dev)
+        rows = len(pos)
+        first = torch.gather(bt[:rows], 1, (pos // page)[:, None])[:, 0]
+        nxt = torch.gather(bt[:rows], 1, torch.clamp(pos // page + 1, max=g["n_pt"] - 1)[:, None])[:, 0]
+        off = pos % page
+        second = torch.where(off + n > page, nxt, torch.zeros_like(nxt))
+        return torch.stack([first, second], 1).to(torch.int32), off.to(torch.int32)
+
+    def new_rows(rows, n):
+        return [torch.randn((rows, n, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2)]
+
+    # (entry, tokens, positions, valid): the serving path's decode and
+    # prefill sub-batch writes, then unaligned chunks of all 16 slots that
+    # cross page boundaries, with masked tails
+    span = g["n_pt"] * page - S
+    cases = [("decode", 1, dec, None), ("chunk", S, chunk, [S] * Bp),
+             ("chunk", S, [(p * 7) % span for p in dec], [S - i % 5 for i in range(B)])]
+    small = page_pool(gen, dev, g, 2)
+    err = {}
+    for entry, n, pos, valid in cases:
+        rows = len(pos)
+        pids, offs = addresses(pos, n)
+        if entry == "decode":
+            pids[-3:] = 0  # idle slots: colliding writes to the trash page
+        vt = torch.tensor(valid or [1] * rows, dtype=torch.int32, device=dev)
+        kn, vn = new_rows(rows, n)
+        got = [t.clone() for t in small]
+        ref = [t.clone() for t in small]
+        if entry == "decode":
+            pw.paged_write_decode(*got, kn[:, 0], vn[:, 0], pids[:, 0], offs, 1)
+            pw.paged_write_plain(*ref, kn, vn, pids[:, :1].expand(rows, 2), offs, vt, 1)
+        else:
+            pw.paged_write_chunk(*got, kn, vn, pids, offs, vt, 1)
+            pw.paged_write_plain(*ref, kn, vn, pids, offs, vt, 1)
+        torch.cuda.synchronize()
+        key = pw.launch_key(entry, rows, n, Hkv, page, D, torch.bfloat16)
+        e = max(float((a[:, 1:].float() - b[:, 1:].float()).abs().max()) for a, b in zip(got, ref))
+        if e != 0.0 or torch.equal(got[0][:, 1:], small[0][:, 1:]):
+            fail(f"K4 {key}: pages differ from the plain scatter (max {e}) or nothing written")
+        print(f"  K4 {key}, {'crossing' if pids[:, 1].any() else 'aligned'}: "
+              f"pages 1.. equal to the plain scatter")
+        err[key] = max(err.get(key, 0.0), e)
+
+    print("[3] K4 timing at the serving shapes (page pool of all 32 layers)")
+    big = page_pool(gen, dev, g, L)
+    out = []
+    for entry, n, pos, _ in cases[:2]:
+        rows = len(pos)
+        pids, offs = addresses(pos, n)
+        vt = torch.full((rows,), n, dtype=torch.int32, device=dev)
+        kn, vn = new_rows(rows, n)
+        r = offs.long()[:, None] + torch.arange(n, device=dev)
+        pg = torch.where(r >= page, pids[:, 1:2], pids[:, 0:1]).long()
+        row = torch.where(r >= page, r - page, r)
+        if entry == "decode":
+            def kern(i):
+                pw.paged_write_decode(*big, kn[:, 0], vn[:, 0], pids[:, 0], offs, i % L)
+        else:
+            def kern(i):
+                pw.paged_write_chunk(*big, kn, vn, pids, offs, vt, i % L)
+
+        def plain(i):
+            pw.paged_write_plain(*big, kn, vn, pids, offs, vt, i % L)
+
+        def lib(i):  # yardstick: index_put_ of the k rows and of the v rows
+            big[0][i % L, pg, :, row] = kn
+            big[1][i % L, pg, :, row] = vn
+
+        ms, plain_ms, lib_ms = device_ms(kern, 200), device_ms(plain, 20), device_ms(lib, 200)
+        b_ms, b_by = bound(2 * 2 * rows * n * Hkv * D * 2 + 3 * rows * 4, 0.0)
+        key = pw.launch_key(entry, rows, n, Hkv, page, D, torch.bfloat16)
+        print(f"  {key}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us by {b_by}), "
+              f"plain {plain_ms * 1e3:.1f} us, index_put_ k + v {lib_ms * 1e3:.1f} us")
+        out.append(dict(
+            name=f"paged_write[{key}]", route="cuda",
+            source="quick_tpu_torch/csrc/paged_write.cu",
+            replaces=f"quick_tpu/ops/paged_write.py:{76 if entry == 'decode' else 211}",
+            launches=("engine", "paged_write", key), max_abs_err=err[key],
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        ))
+    del big, small
+    return out
+
+
+def paged_attention_rows(cfg, gen, dev, trace):
+    import torch.nn.functional as F
+
+    from quick_tpu_torch.ops import paged_attention as pa
+
+    g = paged_geometry(cfg)
+    B, Bp, S, page, n_pt = (g[k] for k in ("B", "Bp", "S", "page", "n_pt"))
+    Hq, Hkv, D = g["Hq"], g["Hkv"], g["D"]
+    L = cfg.num_hidden_layers
+    scale = D ** -0.5
+    dec, chunk = trace_positions(trace, g)
+    tol = TOL["paged_attention"]
+    print(f"[2] K5 / K6 (paged attention) against gather + einsum attention, bf16, "
+          f"decode lengths {dec}, chunk starts {chunk}")
+    bt = block_table(gen, dev, g, B)
+    lens = torch.tensor(dec, dtype=torch.int32, device=dev)
+    starts = torch.tensor(chunk, dtype=torch.int32, device=dev)
+    # all 16 slots at unaligned starts: chunks that cross page boundaries
+    starts16 = torch.tensor([(p * 7) % (n_pt * page - S) for p in dec],
+                            dtype=torch.int32, device=dev)
+    qd = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    qc = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    small = page_pool(gen, dev, g, 2)
+    err = {"decode": 0.0, "chunk": 0.0}
+    for name, kw in (("", {}), (", window 100", dict(window=100)),
+                     (", softcap 30", dict(logit_softcap=30.0))):
+        err["decode"] = max(err["decode"], max_err(
+            pa.paged_decode_attention_cuda(qd, *small, bt, lens, 1, scale, **kw),
+            pa.paged_decode_attention_plain(qd, *small, bt, lens, 1, scale, **kw),
+            tol, f"K5 B={B}{name}"))
+        err["chunk"] = max(err["chunk"], max_err(
+            pa.paged_chunk_attention_cuda(qc[:Bp], *small, bt[:Bp], starts, 1, scale, **kw),
+            pa.paged_chunk_attention_plain(qc[:Bp], *small, bt[:Bp], starts, 1, scale, **kw),
+            tol, f"K6 B={Bp} S={S}{name}"))
+        max_err(pa.paged_chunk_attention_cuda(qc, *small, bt, starts16, 1, scale, **kw),
+                pa.paged_chunk_attention_plain(qc, *small, bt, starts16, 1, scale, **kw),
+                tol, f"K6 B={B} S={S} crossing pages{name}")
+    del small
+
+    print("[3] K5 / K6 timing at the serving shapes (pages of all 32 layers)")
+    big = page_pool(gen, dev, g, L)
+    ar = torch.arange(n_pt * page, device=dev)
+    copies = 4  # pre-gathered dense K/V for the yardstick, > 2x L2 in all
+
+    def dense(rows, T):
+        return [[pa.gather_pages(big[j], bt[:rows], layer)[:, :, :T].contiguous()
+                 for j in (0, 1)] for layer in range(copies)]
+
+    # K5: one query per slot at lengths - 1
+    T = max(dec)
+    kv = dense(B, T)
+    mask = (ar[None, :T] < lens[:, None])[:, None, None, :]
+    q4 = qd[:, :, None, :]
+    ms = device_ms(lambda i: pa.paged_decode_attention_cuda(qd, *big, bt, lens, i % L, scale), 50)
+    plain_ms = device_ms(lambda i: pa.paged_decode_attention_plain(
+        qd, *big, bt, lens, i % L, scale), 5, warmup=1)
+    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        q4, *kv[i % copies], attn_mask=mask, scale=scale, enable_gqa=True), 50)
+    keys = sum(dec)
+    b_ms, b_by = bound(2 * keys * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * (n_pt + 1) * 4,
+                       4.0 * Hq * D * keys)
+    key5 = pa.launch_key(B, None, Hq, Hkv, page, D, n_pt)
+    print(f"  {key5}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa on gathered K/V {lib_ms * 1e3:.1f} us")
+    rows = [dict(
+        name=f"paged_attention[{key5}]", route="cuda",
+        source="quick_tpu_torch/csrc/paged_attention.cu",
+        replaces="quick_tpu/ops/paged_attention.py:32",
+        launches=("engine", "paged_attention", key5), max_abs_err=err["decode"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    )]
+    del kv
+
+    # K6: a prefill sub-batch's chunk, query i at starts + i
+    T = max(chunk) + S
+    kv = dense(Bp, T)
+    qpos = starts[:, None] + torch.arange(S, device=dev)
+    mask = (ar[None, None, :T] <= qpos[:, :, None])[:, None]
+    q4 = qc[:Bp].transpose(1, 2)
+    ms = device_ms(lambda i: pa.paged_chunk_attention_cuda(
+        qc[:Bp], *big, bt[:Bp], starts, i % L, scale), 50)
+    plain_ms = device_ms(lambda i: pa.paged_chunk_attention_plain(
+        qc[:Bp], *big, bt[:Bp], starts, i % L, scale), 5, warmup=1)
+    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        q4, *kv[i % copies], attn_mask=mask, scale=scale, enable_gqa=True), 50)
+    keys = sum(c + S for c in chunk)
+    pairs = sum(c * S + S * (S + 1) // 2 for c in chunk)
+    b_ms, b_by = bound(2 * keys * Hkv * D * 2 + 2 * Bp * S * Hq * D * 2 + Bp * (n_pt + 1) * 4,
+                       4.0 * Hq * D * pairs)
+    key6 = pa.launch_key(Bp, S, Hq, Hkv, page, D, n_pt)
+    print(f"  {key6}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa on gathered K/V {lib_ms * 1e3:.1f} us")
+    rows.append(dict(
+        name=f"paged_attention[{key6}]", route="cuda",
+        source="quick_tpu_torch/csrc/paged_attention.cu",
+        replaces="quick_tpu/ops/paged_attention.py:179",
+        launches=("engine", "paged_attention", key6), max_abs_err=err["chunk"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    ))
+    del kv, big
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the generate() path
 # ---------------------------------------------------------------------------
 
 def phase4_main_path(cfg, dev):
@@ -364,7 +644,7 @@ def phase4_main_path(cfg, dev):
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
 
-    print(f"[4] main path: {cfg.model_type} width, {cfg.num_hidden_layers} layers, "
+    print(f"[4] generate() path: {cfg.model_type} width, {cfg.num_hidden_layers} layers, "
           f"B={BATCH}, {PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
     t0 = time.perf_counter()
     model = AutoQuickModel(init_quant_params(cfg, seed=0, device=dev), cfg)
@@ -383,7 +663,7 @@ def phase4_main_path(cfg, dev):
     out = model.generate(prompts, NEW_TOKENS, max_seq=MAX_SEQ)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    totals = {k.name: k.launches for k in kernels}
+    totals = {k.name: k.launches for k in kernels if k.launches}
     counts = {k.name: dict(k.launches_by_key) for k in kernels}
     peak = torch.cuda.max_memory_allocated()
 
@@ -435,63 +715,267 @@ def phase4_main_path(cfg, dev):
     )
     print("  " + json.dumps(stats))
     stats["decode_profile"] = profile_decode(model, cfg, prompts, dev)
-    del model, cache
+    del cache
     torch.cuda.empty_cache()
-    return counts, stats
+    return counts, stats, model.params
 
 
 def profile_decode(model, cfg, prompts, dev, steps: int = 8) -> dict:
-    """Device busy share of decode steps and where their time goes, from
-    torch.profiler (CPU + CUDA activities): the sum of device activity
-    durations over the wall time, the largest device kernels, and the
-    largest host-side aten ops by self CPU time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device busy share of decode steps and where their time goes."""
     from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
 
     cache = make_cache(cfg, BATCH, MAX_SEQ, device=dev)
     logits, cache = prefill(model.params, cfg, prompts, cache)
     first = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
+    out = device_profile(lambda: decode_loop(model.params, cfg, first, cache, steps), steps)
+    print("  decode profile: " + json.dumps(out))
+    return out
+
+
+def device_profile(run, steps: int) -> dict:
+    """Run ``run()`` (``steps`` steps of some kind) under torch.profiler
+    (CPU + CUDA activities): the sum of device activity durations over the
+    wall time, the largest device kernels, and the largest host-side aten
+    ops by self CPU time, per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_loop(model.params, cfg, first, cache, steps)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device, host = {}, {}
+    n_kernels = n_calls = 0  # device activities; aten ops called from Python
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_kernels += 1
         elif e.name.startswith("aten::"):
             host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+            parent = e.cpu_parent
+            n_calls += parent is None or not parent.name.startswith("aten::")
     busy_us = sum(device.values())
     out = dict(
         steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
         device_busy_ms_per_step=busy_us / steps / 1e3,
         device_busy_share=busy_us / wall_us if busy_us else None,
         aten_self_cpu_ms_per_step=sum(host.values()) / steps / 1e3,
+        aten_calls_per_step=n_calls / steps, device_activities_per_step=n_kernels / steps,
         top_device_us_per_step={k[:60]: v / steps for k, v in
                                 sorted(device.items(), key=lambda kv: -kv[1])[:8]},
         top_aten_cpu_us_per_step={k: v / steps for k, v in
                                   sorted(host.items(), key=lambda kv: -kv[1])[:10]},
     )
-    print("  decode profile: " + json.dumps(out))
     return out
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernel path against the plain path on a 2-layer full-width model
+# Phase 5: the serving path
 # ---------------------------------------------------------------------------
 
-def phase5_plain_vs_kernel(cfg, dev):
+def engine_launches(cfg, stats) -> dict:
+    """Launches per kernel and key that the Engine's recorded schedule
+    implies: each forward runs L launches of K4, L of K5 (S = 1) or K6
+    (S > 1) and 4 L of K1, at the forward's [rows, S]. Decode windows and
+    [B, 1] mixed steps run [max_slots, 1], prefill sub-batches
+    [prefill_rows, chunk], [B, chunk] mixed steps [max_slots, chunk]."""
+    from quick_tpu_torch.ops.paged_attention import launch_key as attn_key
+    from quick_tpu_torch.ops.paged_write import launch_key as write_key
+    from quick_tpu_torch.ops.quantized_matmul import launch_key as gemm_key
+
+    g = paged_geometry(cfg)
+    L = cfg.num_hidden_layers
+    forwards = {
+        (g["B"], 1): stats["window_forwards"] + stats["mixed_steps"] - stats["mixed_chunk_steps"],
+        (g["Bp"], g["S"]): stats["prefill_substeps"],
+        (g["B"], g["S"]): stats["mixed_chunk_steps"],
+    }
+    want = {"quantized_matmul": {}, "paged_write": {}, "paged_attention": {}}
+
+    def add(kernel, key, n):
+        want[kernel][key] = want[kernel].get(key, 0) + n
+
+    for (rows, S), n in forwards.items():
+        if not n:
+            continue
+        for K, N in gemm_shapes(cfg).values():
+            add("quantized_matmul", gemm_key(None, rows * S, K, N), L * n)
+        add("paged_write", write_key("decode" if S == 1 else "chunk", rows, S, g["Hkv"],
+                                     g["page"], g["D"], torch.bfloat16), L * n)
+        add("paged_attention", attn_key(rows, None if S == 1 else S, g["Hq"], g["Hkv"],
+                                        g["page"], g["D"], g["n_pt"]), L * n)
+    return want
+
+
+def phase5_engine(params, cfg, dev):
+    from quick_tpu_torch.ops import all_kernels
+    from quick_tpu_torch.runtime import Engine
+
+    trace = serving_trace(cfg.vocab_size)
+    n_prompt = sum(len(p) for p, _ in trace)
+    n_out = sum(n for _, n in trace)
+    print(f"[5] serving path: Engine({ENGINE}), {N_REQUESTS} requests, {n_prompt} prompt "
+          f"tokens ({SYSTEM_PREFIX}-token shared prefix) + {n_out} output tokens")
+    kernels = all_kernels()
+
+    def serve(wrap=None):
+        eng = Engine(params, cfg, **ENGINE)
+        if wrap is not None:
+            wrap(eng)
+        uids = [eng.submit(p, n) for p, n in trace]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        return eng, [outs[u] for u in uids], time.perf_counter() - t0
+
+    ref, wall = serve()[1:]  # warm-up; its engine and page pool go at once
+    print(f"  warm-up run {wall:.2f} s")
+    runs = []
+    for r in range(2):
+        for k in kernels:
+            k.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        eng, streams, wall = serve()
+        counts = {k.name: dict(k.launches_by_key) for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        if [len(s) for s in streams] != [n for _, n in trace]:
+            fail("a request did not finish with exactly its max_new_tokens")
+        if streams != ref:
+            fail(f"timed run {r + 1} gave other greedy streams than the warm-up run")
+        want = engine_launches(cfg, eng.stats)
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            fail(f"launch counts {got} differ from the schedule's {want}")
+        runs.append(dict(
+            wall_s=wall, output_tok_s=n_out / wall, total_tok_s=(n_prompt + n_out) / wall,
+            peak_mem_gib=peak / 2**30, stats=dict(eng.stats)))
+        print(f"  run {r + 1}: {wall:.3f} s, {n_out / wall:.1f} output tok/s, "
+              f"{(n_prompt + n_out) / wall:.1f} total tok/s, peak {peak / 2**30:.2f} GiB")
+        print(f"    stats {json.dumps(eng.stats)}")
+        del eng
+    print("  launches (both runs, equal to the schedule's):")
+    for name, c in counts.items():
+        for key, v in sorted(c.items()):
+            print(f"    {name} {key}: {v}")
+
+    # A third run with no host sync allowed while a decode window or a
+    # prefill sub-batch is dispatched (torch raises on any synchronizing
+    # call); the host waits only on the drains' events. A few decode
+    # windows in steady state are profiled.
+    checked = {"_dispatch_window": 0, "_prefill_substep": 0}
+
+    def no_sync(eng):
+        for name in checked:
+            def wrapped(*a, _fn=getattr(eng, name), _name=name, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    checked[_name] += 1
+            setattr(eng, name, wrapped)
+
+    eng = Engine(params, cfg, **ENGINE)
+    no_sync(eng)
+    for p, n in trace:
+        eng.submit(p, n)
+    while eng.has_work and len(eng.ready_slots()) < ENGINE["max_slots"] // 2:
+        eng.step()
+    before = dict(eng.stats)
+    steps = 4
+    profile = device_profile(lambda: [eng.step() for _ in range(steps)], steps)
+    grew = {k: eng.stats[k] - before[k] for k in before}
+    profile["decode_windows"] = grew["window_steps"]
+    profile["forwards"] = grew["window_forwards"] + grew["prefill_substeps"] + grew["mixed_steps"]
+    outs = eng.run()
+    if [len(outs[u]) for u in range(N_REQUESTS)] != [n for _, n in trace] or \
+            [outs[u] for u in range(N_REQUESTS)] != ref:
+        fail("the sync-checked run gave other streams")
+    if not all(checked.values()):
+        fail(f"the sync check saw no dispatch: {checked}")
+    print(f"  no host sync inside {checked['_dispatch_window']} decode-window and "
+          f"{checked['_prefill_substep']} prefill sub-batch dispatches")
+    print(f"  profile of {steps} scheduler turns ({profile['decode_windows']} decode "
+          f"windows, {profile['forwards']} forwards): " + json.dumps(profile))
+    del eng
+    torch.cuda.empty_cache()
+    return counts, dict(runs=runs, sync_checked_dispatches=checked, profile=profile)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: kernel path against the plain path on a 2-layer full-width model
+# ---------------------------------------------------------------------------
+
+def phase6_paged_plain_vs_kernel(cfg, dev):
+    """model_forward over a PagedKVCache: one 16-token chunk for 4 slots at
+    different starts (one crossing a page boundary) over random earlier
+    context, then 8 decode steps; the card's kernel path (K4-K6) against
+    the plain path on the CPU."""
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.models.model import init_quant_params, model_forward
+    from quick_tpu_torch.modules.paged_cache import PagedKVCache
+    from quick_tpu_torch.ops import all_kernels
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    B, S, page, max_seq = 4, 16, 64, 256
+    n_pt = max_seq // page
+    P = 1 + B * n_pt
+    starts = [0, 21, 56, 100]  # 56 + 16 crosses the page boundary at 64
+    print(f"[6] 2 layers at full width, paged cache (page {page}), chunk at starts "
+          f"{starts} + 8 decode steps: kernel path (card) vs plain path (CPU), "
+          f"tol {TOL_MODEL} * (1 + |ref|)")
+    p_gpu = init_quant_params(cfg2, seed=2, device=dev)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1).reshape(B, n_pt).to(torch.int32)
+    shape = (2, P, cfg.num_key_value_heads, page, cfg.head_dim)
+    context = [(0.5 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+               for _ in range(2)]
+    caches = []
+    for d in (dev, torch.device("cpu")):
+        c = PagedKVCache.create(2, P, page, B, max_seq, cfg.num_key_value_heads,
+                                cfg.head_dim, device=d)
+        c.k_pages.copy_(context[0])
+        c.v_pages.copy_(context[1])
+        c.block_table.copy_(bt)
+        caches.append(c.with_length(torch.tensor(starts, dtype=torch.int32, device=d)))
+    cg, cc = caches
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset_counts()
+    worst = 0.0
+    with torch.inference_mode():
+        for step in range(9):
+            n = S if step == 0 else 1
+            adv = [torch.full((B,), n, dtype=torch.int32, device=d) for d in (dev, "cpu")]
+            lg, cg = model_forward(p_gpu, cfg2, toks, cg, advance=adv[0], last_valid=adv[0])
+            lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, advance=adv[1], last_valid=adv[1])
+            worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], TOL_MODEL,
+                                       "chunk logits" if step == 0 else f"decode step {step}"))
+            toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    if launched.get("paged_write") != 18 or launched.get("paged_attention") != 18:
+        fail(f"the paged 2-layer path did not run K4-K6 once per layer per step: {launched}")
+    if cg.length.tolist() != cc.length.tolist() or cc.length.tolist() != [s + S + 8 for s in starts]:
+        fail(f"lengths {cg.length.tolist()} / {cc.length.tolist()}")
+    print(f"  launches {launched}")
+    return worst
+
+
+def phase6_dense_plain_vs_kernel(cfg, dev):
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.runtime import make_cache
 
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
-    print("[5] 2 layers at full width: kernel path (card) vs plain path (CPU), "
-          f"tol {TOL_MODEL} * (1 + |ref|)")
+    print("[6] 2 layers at full width, dense cache: kernel path (card) vs plain "
+          f"path (CPU), tol {TOL_MODEL} * (1 + |ref|)")
     p_gpu = init_quant_params(cfg2, seed=1, device=dev)
     p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -529,19 +1013,29 @@ def main() -> None:
     phase1_build()
     cfg = ModelConfig(**MISTRAL_7B)
     gen = torch.Generator(device=dev).manual_seed(0)
+    trace = serving_trace(cfg.vocab_size)
     gemm_errs = check_gemms(cfg, gen, dev)
-    rows = time_gemms(cfg, gen, dev, gemm_errs)
+    rows = time_gemms(cfg, gen, dev, gemm_errs, main_path_gemms(cfg), "generate")
+    rows += time_gemms(cfg, gen, dev, gemm_errs, engine_gemms(cfg), "engine")
     rows.append(flash_row(cfg, gen, dev))
     rows.append(fused_row(cfg, gen, dev))
-    counts, stats = phase4_main_path(cfg, dev)
-    for row in rows:  # (kernel, key) -> this shape's launches on the main path
-        kernel, key = row["launches"]
-        row["launches"] = counts[kernel].get(key, 0)
+    rows += paged_write_rows(cfg, gen, dev, trace)
+    rows += paged_attention_rows(cfg, gen, dev, trace)
+    print(f"  phases 1-3 done at {time.perf_counter() - t_start:.0f} s")
+    counts = {}
+    counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
+    counts["engine"], engine_stats = phase5_engine(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    for row in rows:  # (path, kernel, key) -> this shape's launches on that path
+        path, kernel, key = row["launches"]
+        row["launches"] = counts[path][kernel].get(key, 0)
         if row["launches"] == 0:
-            fail(f"{row['name']} was not launched on the main path")
-    model_err = phase5_plain_vs_kernel(cfg, dev)
-    report = dict(card=card, kernels=rows, main_path=stats, launch_counts=counts,
-                  phase5_max_abs_err=model_err,
+            fail(f"{row['name']} was not launched on the {path} path")
+    dense_err = phase6_dense_plain_vs_kernel(cfg, dev)
+    paged_err = phase6_paged_plain_vs_kernel(cfg, dev)
+    report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
+                  launch_counts=counts, phase6_max_abs_err=dict(dense=dense_err, paged=paged_err),
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -26,3 +27,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. For the card the copy is
+    staged in pinned memory and queued without blocking the host: a plain
+    host-to-card copy waits until the card's queue has drained, which would
+    stall a pipeline of dispatched work."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

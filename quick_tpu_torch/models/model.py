@@ -19,13 +19,13 @@ import torch
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device
 from quick_tpu_torch.modules.blocks import (
+    AnyCache,
     AttentionParams,
     BlockParams,
     MLPParams,
     _fuse_decode_norm_ok,
     block_forward,
 )
-from quick_tpu_torch.modules.cache import KVCache
 from quick_tpu_torch.modules.linear import Linear, QuantLinear
 from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.ops.rope import rope_table
@@ -73,17 +73,29 @@ def model_forward(
     params: ModelParams,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, S] int
-    cache: Optional[KVCache] = None,
+    cache: Optional[AnyCache] = None,
     positions: Optional[torch.Tensor] = None,
     last_token_only: bool = False,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    advance: Optional[torch.Tensor] = None,  # [B] valid-token counts:
+    # chunked serving steps advance per-slot lengths by this instead of S
+    last_valid: Optional[torch.Tensor] = None,  # [B] per-row valid counts:
+    # the head runs on each row's LAST VALID position only ([B, 1, V])
+) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     """Returns (logits [B, S, V] f32 or [B, 1, V], cache). The cache is
-    updated in place and returned with its new length."""
+    updated in place and returned with its new length.
+
+    ``cache`` is the dense KVCache (a host int length shared by every row)
+    or a PagedKVCache ([B] per-slot lengths on the device); with the latter
+    the per-slot start positions, the length update and the last-valid
+    gather all stay on the device."""
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
         start = cache.length if cache is not None else 0
+        if isinstance(start, torch.Tensor):
+            start = start.reshape(-1, 1)  # [B, 1] per-slot starts
         positions = torch.arange(S, device=dev)[None, :] + start
+        # clamp: padded chunk positions must not overrun the rope table
         positions = torch.clamp(positions, max=cfg.max_position_embeddings - 1)
         positions = positions.expand(B, S)
     x = params.embed[tokens].to(torch.bfloat16)
@@ -92,9 +104,13 @@ def model_forward(
             blk, cfg, x, params.rope_cos, params.rope_sin, cache, i, positions
         )
     if cache is not None:
-        cache = cache.with_length(cache.length + S)
+        cache = cache.with_length(cache.length + (S if advance is None else advance))
     if last_token_only:
         x = x[:, -1:]
+    if last_valid is not None and S > 1:
+        # S == 1 (decode) skips the gather, as in the JAX package (:149-154)
+        idx = torch.clamp(last_valid.to(torch.int64) - 1, min=0)
+        x = torch.gather(x, 1, idx.reshape(B, 1, 1).expand(B, 1, x.shape[-1]))
     if _fuse_decode_norm_ok(params.lm_head, x):
         # int4 head: the final RMSNorm rides in the GEMM kernel's prologue
         logits = params.lm_head(x, fuse_norm=(params.final_norm, cfg.rms_norm_eps))

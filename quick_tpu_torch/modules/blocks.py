@@ -1,33 +1,37 @@
 """Decoder blocks, dense llama path (port of ``quick_tpu/modules/blocks.py``).
 
 The port covers the dense llama-family block: pre-RMSNorm, fused QKV and
-gate_up linears, RoPE, the head-major KV cache, attention (with the sliding
-window and the attention-logit softcap the kernels take) and the SwiGLU MLP.
-The other families' switches (qk-norm, sandwich norms, ALiBi, parallel
-residual, LayerNorm, plain MLPs, ...), MoE, MLA, context parallelism, the
-paged cache and the layer-tail kernel are not ported yet: such configs are
-refused by ``models/model.py::check_supported`` (ROADMAP.md).
+gate_up linears, RoPE, the head-major dense KV cache or the paged cache,
+attention (with the sliding window and the attention-logit softcap the
+kernels take) and the SwiGLU MLP. The other families' switches (qk-norm,
+sandwich norms, ALiBi, parallel residual, LayerNorm, plain MLPs, ...), MoE,
+MLA, context parallelism and the layer-tail kernel are not ported yet: such
+configs are refused by ``models/model.py::check_supported`` (ROADMAP.md).
 
 The kernel gates mirror the JAX package's so that both take the same branch
 on the same inputs, with the card in place of the TPU: the decode prologue
 gate ``_fuse_decode_norm_ok`` (:142), the fused decode step gate
-``_use_fused_decode_step`` (:159) and the dense decode kernel gate
-``_use_dense_decode_kernel`` (:115). The thresholds are the TPU's; a later
-slice re-derives them for the card (ROADMAP.md).
+``_use_fused_decode_step`` (:159), the dense decode kernel gate
+``_use_dense_decode_kernel`` (:115), the paged kernels' gate
+``_use_paged_kernel`` (:99) and the chunk kernel's ``supports_chunk``. The
+thresholds are the TPU's; a later slice re-derives them for the card
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.modules.cache import KVCache
 from quick_tpu_torch.modules.linear import AnyLinear, QuantLinear
+from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.ops.attention import causal_attention
 from quick_tpu_torch.ops.norms import rms_norm
+
+AnyCache = Union[KVCache, PagedKVCache]
 
 
 @dataclasses.dataclass
@@ -62,9 +66,17 @@ def _dense_decode_supports(B: int, Hq: int, Hkv: int, T: int, D: int) -> bool:
                for c in (128, 256, 64, 32, 16, 8))
 
 
+def _use_paged_kernel(cache) -> bool:
+    """Paged caches on the card read their pages with the paged-attention
+    kernels K5 / K6 (the JAX package: on the TPU)."""
+    return isinstance(cache, PagedKVCache) and cache.k_pages.is_cuda
+
+
 def _use_dense_decode_kernel(B, Hq, Hkv, cache: KVCache, D, device) -> bool:
     """Where the JAX package takes its dense decode kernel (large caches on
     the accelerator). That kernel is not ported yet: the caller raises."""
+    if isinstance(cache, PagedKVCache):
+        return False
     if not _dense_decode_supports(B, Hq, Hkv, cache.max_seq, D):
         return False
     if device.type != "cuda":
@@ -105,12 +117,12 @@ def attention_forward(
     x: torch.Tensor,  # [B, S, D]
     rope_cos: torch.Tensor,
     rope_sin: torch.Tensor,
-    cache: Optional[KVCache],
+    cache: Optional[AnyCache],
     layer_idx: int,
     positions: torch.Tensor,  # [B, S]
     pre_norm: Optional[tuple] = None,  # (rms_weight, eps): x is the RAW
     # residual and the norm runs in the qkv GEMM's prologue
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
+) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     from quick_tpu_torch.ops.rope import apply_rope
 
     B, S, _ = x.shape
@@ -129,7 +141,7 @@ def attention_forward(
             window = None
     softcap = cfg.attn_logit_softcap
     if (
-        S == 1 and cache is not None
+        S == 1 and isinstance(cache, KVCache)
         and _use_fused_decode_step(cache, B, hd, rope_cos, x.device)
     ):
         from quick_tpu_torch.ops.fused_decode_step import fused_decode_attention
@@ -146,8 +158,18 @@ def attention_forward(
     q = apply_rope(q, positions, rope_cos, rope_sin)
     k = apply_rope(k, positions, rope_cos, rope_sin)
     if cache is not None:
-        start = cache.length
+        start = cache.length  # host int (dense) or [B] device tensor (paged)
         cache = cache.update(layer_idx, k, v, start)  # in place
+        if S == 1 and _use_paged_kernel(cache):
+            from quick_tpu_torch.ops.paged_attention import paged_decode_attention
+
+            # whole page stacks + layer index, as the JAX call site
+            out = paged_decode_attention(
+                q[:, 0], cache.k_pages, cache.v_pages, cache.block_table,
+                start + 1, layer=layer_idx, window=window,
+                logit_softcap=softcap,
+            )[:, None]
+            return p.o_proj(out.reshape(B, S, hq * hd)), cache
         if S == 1 and window is None and _use_dense_decode_kernel(
             B, hq, hkv, cache, hd, x.device
         ):
@@ -156,6 +178,18 @@ def attention_forward(
                 "(quick_tpu ops/decode_attention.py), which is not ported "
                 "yet — ROADMAP B6"
             )
+        if S > 1 and _use_paged_kernel(cache):
+            from quick_tpu_torch.ops.paged_attention import (
+                paged_chunk_attention,
+                supports_chunk,
+            )
+
+            if supports_chunk(S, hq, hkv, cache.page_size):
+                out = paged_chunk_attention(
+                    q, cache.k_pages, cache.v_pages, cache.block_table, start,
+                    layer=layer_idx, window=window, logit_softcap=softcap,
+                )
+                return p.o_proj(out.reshape(B, S, hq * hd)), cache
         k_all, v_all = cache.layer(layer_idx)  # [B, Hkv, T, D] head-major
         out = causal_attention(
             q, k_all, v_all, q_offset=start, kv_len=start + S,
@@ -176,7 +210,14 @@ def mlp_forward(
         # other routes gate first inside the call
         return p.down_proj(gu, fuse_glu=True)
     gate, up = torch.chunk(gu, 2, dim=-1)
-    return p.down_proj(F.silu(gate) * up)
+    return p.down_proj(silu(gate) * up)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` with its rounding: x * (1 / (1 + exp(-x))), each op
+    rounded to x's dtype (``F.silu`` rounds once, which in bf16 differs
+    from the JAX package in a third of the values)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 def block_forward(
@@ -185,10 +226,10 @@ def block_forward(
     x: torch.Tensor,
     rope_cos: torch.Tensor,
     rope_sin: torch.Tensor,
-    cache: Optional[KVCache],
+    cache: Optional[AnyCache],
     layer_idx: int,
     positions: torch.Tensor,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
+) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     eps = cfg.rms_norm_eps
     if _fuse_decode_norm_ok(p.attn.qkv_proj, x):
         # the norm rides in the qkv GEMM's prologue

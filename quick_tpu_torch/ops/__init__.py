@@ -5,9 +5,13 @@ __all__ = ["all_kernels"]
 
 
 def all_kernels():
-    """The port's CUDA kernels (K1, K2, K3), for building and launch counts."""
+    """The port's CUDA kernel libraries, for building and launch counts:
+    K1, K2, K3, K4 (paged writes) and K5 / K6 (paged attention, one
+    library)."""
     from quick_tpu_torch.ops.flash_attention import KERNEL as K2
     from quick_tpu_torch.ops.fused_decode_step import KERNEL as K3
+    from quick_tpu_torch.ops.paged_attention import KERNEL as K56
+    from quick_tpu_torch.ops.paged_write import KERNEL as K4
     from quick_tpu_torch.ops.quantized_matmul import KERNEL as K1
 
-    return [K1, K2, K3]
+    return [K1, K2, K3, K4, K56]

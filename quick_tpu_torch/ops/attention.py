@@ -45,9 +45,8 @@ def causal_attention(
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Causal GQA attention, f32 softmax. Returns [B, S, Hq, Dv]."""
-    B, S, Hq, D = q.shape
+    S, D = q.shape[1], q.shape[3]
     T = k.shape[2] if kv_heads_major else k.shape[1]
-    n_kv = k.shape[1] if kv_heads_major else k.shape[2]
     if scale is None:
         scale = D ** -0.5
     if _use_flash(S, T, D, q.device):
@@ -58,6 +57,31 @@ def causal_attention(
             alibi_slopes=alibi_slopes, kv_heads_major=kv_heads_major,
             window=window, logit_softcap=logit_softcap,
         )
+    return einsum_attention(
+        q, k, v, q_offset, kv_len, scale, alibi_slopes, kv_heads_major,
+        window, logit_softcap,
+    )
+
+
+def einsum_attention(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D] — or [B, Hkv, T, D] if kv_heads_major
+    v: torch.Tensor,
+    q_offset: IntOrTensor = 0,
+    kv_len: Optional[IntOrTensor] = None,
+    scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # [Hq]
+    kv_heads_major: bool = False,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """The einsum path of ``causal_attention`` on any device (no kernel):
+    the plain version the paged-attention kernels are held against."""
+    B, S, Hq, D = q.shape
+    T = k.shape[2] if kv_heads_major else k.shape[1]
+    n_kv = k.shape[1] if kv_heads_major else k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
     kh = k if kv_heads_major else k.transpose(1, 2)  # [B, Hkv, T, D]
     vh = v if kv_heads_major else v.transpose(1, 2)
     g = Hq // n_kv

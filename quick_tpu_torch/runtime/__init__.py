@@ -1,3 +1,4 @@
+from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.runtime.generate import (
     SamplingParams,
     decode_loop,
@@ -7,9 +8,14 @@ from quick_tpu_torch.runtime.generate import (
     make_cache,
     prefill,
     sample_token,
+    sample_token_rows,
 )
+from quick_tpu_torch.runtime.serving import Engine, Request
 
 __all__ = [
+    "Engine",
+    "PagedKVCache",
+    "Request",
     "SamplingParams",
     "decode_loop",
     "decode_step",
@@ -18,4 +24,5 @@ __all__ = [
     "make_cache",
     "prefill",
     "sample_token",
+    "sample_token_rows",
 ]

@@ -4,18 +4,20 @@
 The JAX package runs the decode loop as one ``lax.scan``; here it is a
 Python loop over ``decode_step`` whose tokens stay on the device, so the
 host never waits for the card inside the loop. Random draws take a
-``torch.Generator``. History penalties and ``beam_generate`` are not ported
-yet (ROADMAP.md).
+``torch.Generator``. ``sample_token_rows`` serves the continuous-batching
+engine. History penalties and ``beam_generate`` are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from quick_tpu_torch.config import ModelConfig
-from quick_tpu_torch.device import DeviceLike
+from quick_tpu_torch.device import DeviceLike, to_device
 from quick_tpu_torch.models.model import ModelParams, model_forward
 from quick_tpu_torch.modules.cache import KVCache
 
@@ -58,6 +60,50 @@ def sample_token(
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(filter_logits(logits.to(torch.float32), params), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_token_rows(
+    logits: torch.Tensor,  # [B, V]
+    temps,                 # [B] f32 host array; 0 => greedy for that row
+    top_ks,                # [B] int host array; 0 => disabled
+    top_ps,                # [B] f32 host array; 1.0 => disabled
+    generator: Optional[torch.Generator] = None,
+    min_ps=None,           # [B] f32 host array; 0 => disabled
+) -> torch.Tensor:
+    """Per-row sampling for continuous batching (``sample_token_rows``
+    :105): every slot carries its own temperature, top-k, top-p and min-p,
+    and greedy and sampled rows mix in one batch. The sampling rows are host
+    arrays, so whether any row samples is decided on the host (the JAX
+    package decides it on the device with ``lax.cond``, :148): an all-greedy
+    batch runs the argmax alone, and neither path waits for the card. The
+    draw is an exponential race on the filtered distribution (no
+    ``multinomial``), drawn from ``generator``. Returns [B] int64."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps = np.asarray(temps, np.float32)
+    if not (temps > 0).any():
+        return greedy
+    dev = logits.device
+    V = logits.shape[-1]
+    t = to_device(np.where(temps > 0, temps, 1.0).astype(np.float32), dev)
+    k = to_device(np.clip(np.asarray(top_ks, np.int64), 0, V), dev)
+    tp = to_device(np.asarray(top_ps, np.float32), dev)
+    scaled = logits.to(torch.float32) / t[:, None]
+    sl = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(sl, 1, torch.clamp(k - 1, min=0)[:, None])
+    kth = torch.where((k > 0)[:, None], kth, torch.full_like(kth, -math.inf))
+    cum = torch.cumsum(torch.softmax(sl, dim=-1), dim=-1)
+    # smallest prefix whose mass reaches top_p (top-1 always kept)
+    cut = (cum < tp[:, None]).sum(dim=-1, keepdim=True)
+    thresh = torch.maximum(kth, torch.gather(sl, 1, torch.clamp(cut, max=V - 1)))
+    if min_ps is not None:
+        mp = np.asarray(min_ps, np.float32)
+        mth = sl[:, :1] + to_device(np.log(np.where(mp > 0, mp, 1.0)).astype(np.float32), dev)[:, None]
+        on = to_device(mp > 0, dev)[:, None]
+        thresh = torch.maximum(thresh, torch.where(on, mth, torch.full_like(mth, -math.inf)))
+    masked = torch.where(scaled < thresh, torch.full_like(scaled, -1e9), scaled)
+    race = torch.empty_like(masked).exponential_(generator=generator)
+    drawn = torch.argmax(torch.softmax(masked, dim=-1) / race, dim=-1)
+    return torch.where(to_device(temps == 0, dev), greedy, drawn)
 
 
 def make_cache(

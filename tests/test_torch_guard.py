@@ -39,7 +39,7 @@ def test_port_imports_neither_jax_nor_quick_tpu():
         capture_output=True, text=True, cwd=ROOT, env=_clean_env(), timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 15  # every module
+    assert int(res.stdout.strip().splitlines()[-1]) >= 28  # every module
 
 
 def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch):
@@ -47,24 +47,30 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch):
     from quick_tpu_torch.models.auto import AutoQuickModel
     from quick_tpu_torch.models.model import init_quant_params
     from quick_tpu_torch.ops.rope import rope_table
-    from quick_tpu_torch.runtime import make_cache
+    from quick_tpu_torch.runtime import Engine, PagedKVCache, make_cache
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig(vocab_size=64, hidden_size=128, intermediate_size=256,
                       num_hidden_layers=1, num_attention_heads=2,
                       num_key_value_heads=1, max_position_embeddings=16)
+    m = AutoQuickModel.from_random(cfg, device="cpu")
     for call in (lambda: init_quant_params(cfg),
                  lambda: AutoQuickModel.from_random(cfg),
                  lambda: init_quant_params(cfg, device="cuda"),
                  lambda: make_cache(cfg, 1, 8),
-                 lambda: rope_table(16, 64)):
+                 lambda: rope_table(16, 64),
+                 lambda: Engine(m.params, cfg, max_slots=2, max_seq=16, page_size=16),
+                 lambda: PagedKVCache.create(1, 3, 16, 2, 16, 1, 64)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    m = AutoQuickModel.from_random(cfg, device="cpu")
     assert m.device.type == "cpu"
     out = m.generate(torch.zeros((1, 3), dtype=torch.long), 2)
     assert tuple(out.shape) == (1, 5)
     assert make_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"
+    assert PagedKVCache.create(1, 3, 16, 2, 16, 1, 64, device="cpu").k_pages.device.type == "cpu"
+    eng = Engine(m.params, cfg, max_slots=2, max_seq=16, page_size=16, chunk=4, device="cpu")
+    uid = eng.submit([1, 2, 3], 2)
+    assert len(eng.run()[uid]) == 2 and eng.cache.k_pages.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

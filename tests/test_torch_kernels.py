@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
-K3 fused decode step) against their plain PyTorch versions, on a card.
-Skipped without one. Imports no JAX; on the card run:
+K3 fused decode step, K4 paged writes, K5 / K6 paged attention) against
+their plain PyTorch versions, on a card. Skipped without one. Imports no
+JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
 import numpy as np
 import pytest
@@ -9,7 +10,10 @@ from _torch_port import cuda_device, f32  # noqa: F401
 
 import quick_tpu_torch.ops.flash_attention as tflash
 import quick_tpu_torch.ops.fused_decode_step as tfused
+import quick_tpu_torch.ops.paged_attention as tpa
+import quick_tpu_torch.ops.paged_write as tpw
 import quick_tpu_torch.ops.quantized_matmul as tqmm
+from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.quantize.packing import pack_qtpu
 
 # both sum in f32 in other orders and round the output to bf16; the
@@ -147,3 +151,115 @@ def test_wrappers_refuse_cpu_tensors(cuda_device):
     s = torch.zeros((2, 128))
     with pytest.raises(ValueError, match="CUDA"):
         tqmm.quantized_matmul_cuda(x, w, s, s)
+
+
+def _pages(rng, L, P, Hkv, page, D, dtype=torch.bfloat16):
+    return [torch.from_numpy(rng.standard_normal((L, P, Hkv, page, D)).astype(np.float32)).to(dtype)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_write_kernel_matches_plain(rng, cuda_device, dtype):
+    """K4's decode and chunk entries write exactly the plain scatter's rows
+    (page 0, the trash page, may take colliding writes and is not compared)."""
+    L, P, Hkv, page, D, B, S = 2, 9, 2, 16, 128, 3, 8
+    for entry in ("decode", "chunk"):
+        kp, vp = _pages(rng, L, P, Hkv, page, D, dtype)
+        n = 1 if entry == "decode" else S
+        kn, vn = (torch.from_numpy(rng.standard_normal((B, n, Hkv, D)).astype(np.float32))
+                  for _ in range(2))
+        pgs = torch.tensor([[3, 4], [5, 0], [0, 0]], dtype=torch.int32)
+        offs = torch.tensor([12, 2, 9], dtype=torch.int32)  # crossing, inside, trash
+        valid = torch.tensor([S, 5, S], dtype=torch.int32)
+        ref = [t.clone() for t in (kp, vp)]
+        got = [t.to(cuda_device) for t in (kp, vp)]
+        before = tpw.KERNEL.launches_by_key.copy()
+        if entry == "decode":
+            tpw.paged_write_decode(*ref, kn[:, 0], vn[:, 0], pgs[:, 0], offs, 1)
+            tpw.paged_write_decode(*got, kn[:, 0].to(cuda_device), vn[:, 0].to(cuda_device),
+                                   pgs[:, 0].to(cuda_device), offs.to(cuda_device), 1)
+        else:
+            tpw.paged_write_chunk(*ref, kn, vn, pgs, offs, valid, 1)
+            tpw.paged_write_chunk(*got, kn.to(cuda_device), vn.to(cuda_device),
+                                  pgs.to(cuda_device), offs.to(cuda_device),
+                                  valid.to(cuda_device), 1)
+        torch.cuda.synchronize()
+        assert sum(tpw.KERNEL.launches_by_key.values()) == sum(before.values()) + 1
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(f32(g[:, 1:]), f32(r[:, 1:]))
+
+
+def _paged_attention_case(rng, dev, B, Hq, Hkv, D, page, n_pt, per_slot, S=None):
+    P = 1 + B * n_pt
+    kp, vp = _pages(rng, 2, P, Hkv, page, D)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, P))[: B * n_pt].reshape(B, n_pt).astype(np.int32))
+    qshape = (B, Hq, D) if S is None else (B, S, Hq, D)
+    q = torch.from_numpy(rng.standard_normal(qshape).astype(np.float32)).to(torch.bfloat16)
+    ln = torch.tensor(per_slot, dtype=torch.int32)
+    cpu = (q, kp, vp, bt, ln)
+    return cpu, tuple(t.to(dev) for t in cpu)
+
+
+PAGED_CASES = {
+    "plain": {}, "window": dict(window=20), "softcap": dict(logit_softcap=20.0),
+    "alibi": dict(alibi=True), "window_softcap": dict(window=40, logit_softcap=30.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,Hq,Hkv,D", [(c, 8, 2, 128) for c in PAGED_CASES]
+    + [("plain", 32, 8, 128), ("plain", 4, 4, 64), ("window", 16, 2, 256)],
+)
+def test_paged_decode_kernel_matches_plain(rng, cuda_device, case, Hq, Hkv, D):
+    cpu, gpu = _paged_attention_case(rng, cuda_device, 4, Hq, Hkv, D, 16, 6,
+                                     [1, 37, 96, 64])  # 96 fills the table
+    kw = dict(PAGED_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL.launches
+    out = tpa.paged_decode_attention(*gpu, layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL.launches == before + 1
+    ref = tpa.paged_decode_attention(*cpu, layer=1, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,Hq,Hkv,D", [(c, 8, 2, 128) for c in PAGED_CASES]
+    + [("plain", 32, 8, 128), ("plain", 4, 4, 64), ("softcap", 16, 2, 256)],
+)
+def test_paged_chunk_kernel_matches_plain(rng, cuda_device, case, Hq, Hkv, D):
+    S = 16
+    # starts: fresh, mid-page, crossing a page boundary, ending at the table
+    cpu, gpu = _paged_attention_case(rng, cuda_device, 4, Hq, Hkv, D, 16, 6,
+                                     [0, 21, 40, 80], S=S)
+    kw = dict(PAGED_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    out = tpa.paged_chunk_attention(*gpu, layer=1, **kw)
+    torch.cuda.synchronize()
+    ref = tpa.paged_chunk_attention(*cpu, layer=1, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_cache_update_routes_match_cpu(rng, cuda_device):
+    """PagedKVCache.update on the card (K4 decode and chunk entries) leaves
+    the pages as the CPU scatter does, past-max_seq positions included."""
+    caches = [PagedKVCache.create(2, 9, 16, 2, 64, 2, 128, device=d) for d in ("cpu", cuda_device)]
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    steps = [(8, [0, 9]), (8, [20, 12]), (1, [13, 63]), (1, [14, 64]), (6, [61, 100])]
+    for c in caches:
+        c.block_table.copy_(bt)
+    for S, starts in steps:
+        kn, vn = (torch.from_numpy(rng.standard_normal((2, S, 2, 128)).astype(np.float32))
+                  .to(torch.bfloat16) for _ in range(2))
+        for c in caches:
+            d = c.k_pages.device
+            c.update(1, kn.to(d), vn.to(d), torch.tensor(starts, dtype=torch.int32, device=d))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(f32(caches[1].k_pages[:, 1:]), f32(caches[0].k_pages[:, 1:]))
+    np.testing.assert_array_equal(f32(caches[1].v_pages[:, 1:]), f32(caches[0].v_pages[:, 1:]))
