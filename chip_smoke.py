@@ -5,7 +5,7 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K6 from
+  1. the card's name and power limit; build the CUDA kernels K1-K7 from
      csrc/ (one nvcc per source, in parallel) and print ptxas' register
      summary;
   2. every kernel against its plain PyTorch version on the card, at the
@@ -26,9 +26,17 @@ Phases (any failure exits non-zero):
      while a decode window or prefill sub-batch is dispatched, and a
      profile of a few decode windows;
   6. the kernel path against the plain path (on the CPU) for a 2-layer
-     model at full width: dense cache (prefill logits, 8 decode steps) and
-     paged cache (one 16-token chunk for 4 slots at different starts, 8
-     decode steps).
+     model at full width: dense cache (prefill logits, 8 decode steps), at
+     B=4 through K3 and at B=16 with max_seq 512 through K7, and paged
+     cache (one 16-token chunk for 4 slots at different starts, 8 decode
+     steps);
+  7. the checkpoint path: the phase-4 weights saved with save_quantized
+     under build/, loaded with AutoQuickModel.from_quantized and compared
+     byte for byte, then the 128/128 protocol of examples/benchmark.py
+     (quick_tpu_torch.examples.benchmark.run_round) at B=32 and B=64 and
+     one long-context stream (B=4, ~1,900 tokens of context); launch counts
+     exactly those of the calls made, identical greedy tokens in every
+     timed run; the checkpoint is deleted afterwards.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
@@ -36,6 +44,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -58,8 +67,9 @@ L2_BYTES = 50 * 2**20
 # kernel vs plain: atol = rtol (|out - ref| <= tol * (1 + |ref|)). Both sum
 # in f32 in different orders and round the output to bf16; the attention
 # kernels also round p to bf16 against a running rather than final max.
+# K7 is also held to tol * max|ref| of each query row (row_scaled_err).
 TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2,
-       "paged_attention": 2e-2}
+       "paged_attention": 2e-2, "decode_attention": 2e-2}
 TOL_CACHE = 1e-2   # K3's written k row: one bf16 step (f32 fma contraction)
 #: phase 6 logits, 2 layers at full width, bf16 activations: the paths differ
 #: by single bf16 steps of the logits, d / (1 + |ref|) <= 2^-7 per step
@@ -72,6 +82,18 @@ TOL_MODEL = 1e-2
 ENGINE = dict(max_slots=16, max_seq=1024, page_size=64, chunk=16,
               decode_window=8, prefill_rows=8, reserve="full", prefix_cache=True)
 N_REQUESTS, SYSTEM_PREFIX = 32, 64
+#: the checkpoint phase: examples/benchmark.py's 128/128 protocol (:39-79,
+#: batches 1,8,32,64,... :87) at B=32 (2 timed trials) and B=64 (1), and
+#: one long-context stream: B=4, a 1,900-token prompt, 8 new tokens in a
+#: 2,048-token cache (4 MiB of K/V per row: past the fused step's 3 MiB)
+PROTOCOL_CTX, PROTOCOL_GEN = 128, 128
+PROTOCOL_ROUNDS = ((32, 2), (64, 1))  # (batch, trials)
+LONG_B, LONG_PROMPT, LONG_NEW, LONG_SEQ = 4, 1900, 8, 2048
+#: K7 shapes checked and timed (B, T, lengths): the protocol's decode
+#: (lengths 129-255), the long stream (~1,900) and ragged rows at B=64
+#: (lengths 1 .. 256); each key is launched on the checkpoint path
+DENSE_B_T = {"protocol": (32, 256), "long": (LONG_B, LONG_SEQ), "ragged": (64, 256)}
+CKPT_DIR = ROOT / "build" / "chip_smoke_checkpoint"
 
 
 def fail(msg: str) -> None:
@@ -102,6 +124,21 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, tol: float, what: str) -> floa
     if worst > 0:
         fail(f"{what}: kernel disagrees with its plain version")
     return err
+
+
+def row_scaled_err(out: torch.Tensor, ref: torch.Tensor, tol: float, what: str) -> float:
+    """Max |out - ref| / max|ref| over each row (the last dim); fail above
+    ``tol``. For outputs far below 1, where tol * (1 + |ref|) is loose: a
+    long row's attention output is ~0.03 per element."""
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    rmax = r.abs().amax(dim=-1, keepdim=True)
+    ratio = float(torch.where(d > 0, d / rmax, torch.zeros_like(d)).max())
+    print(f"  {what}: max |err| / max|ref of its row| {ratio:.3e} (tol {tol}), "
+          f"least row max|ref| {float(rmax.min()):.3e}")
+    if not ratio <= tol:  # a row with max|ref| = 0 must match exactly (inf fails)
+        fail(f"{what}: kernel disagrees with its plain version, row-scaled")
+    return ratio
 
 
 def device_ms(fn, n: int, warmup: int = 2) -> float:
@@ -180,6 +217,24 @@ def engine_gemms(cfg):
     return [(None, M, K, N) for M in rows for K, N in gemm_shapes(cfg).values()]
 
 
+def checkpoint_gemms(cfg):
+    """(prologue, M, K, N) of the K1 launches of the checkpoint phase: the
+    protocol rounds' prefill (M = B * 128) and decode (M = B, past the
+    8-row prologue limit) and the long stream's prefill (M = 4 * 1,900).
+    The long stream's decode rows (M = 4, with prologues) are the generate
+    path's shapes and rows."""
+    Ms = [M for B, _ in PROTOCOL_ROUNDS for M in (B * PROTOCOL_CTX, B)]
+    Ms.append(LONG_B * LONG_PROMPT)
+    return [(None, M, K, N) for M in Ms for K, N in gemm_shapes(cfg).values()]
+
+
+def checkpoint_flash_shapes():
+    """(B, S, T) of the K2 launches of the checkpoint phase: each protocol
+    round's prefill into its 256-token cache, and the long stream's."""
+    T = PROTOCOL_CTX + PROTOCOL_GEN
+    return [(B, PROTOCOL_CTX, T) for B, _ in PROTOCOL_ROUNDS] + [(LONG_B, LONG_PROMPT, LONG_SEQ)]
+
+
 def rand_qlinear(gen, dev, K, N, copies=1):
     """QTPU weights with O(1) outputs: full-range int32 words, scales in
     [0.001, 0.011), integer zero points."""
@@ -203,6 +258,7 @@ def check_gemms(cfg, gen, dev):
     cases = [(p, M, K, N) for p in (None, "rmsnorm", "glu") for M in (1, 4)
              for K, N in shapes]
     cases += [(None, BATCH * PROMPT, K, N) for K, N in shapes] + engine_gemms(cfg)
+    cases += checkpoint_gemms(cfg)
     for prologue, M, K, N in cases:
         (qw, s, zs), = rand_qlinear(gen, dev, K, N)
         x = torch.randn((M, 2 * K if prologue == "glu" else K), generator=gen,
@@ -285,12 +341,11 @@ def attn_inputs(gen, dev, B, S, T, Hq, Hkv, D):
     return q, k, v
 
 
-def flash_row(cfg, gen, dev):
+def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate"):
     import torch.nn.functional as F
 
     from quick_tpu_torch.ops import flash_attention as fa
 
-    B, S, T = BATCH, PROMPT, MAX_SEQ
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     print(f"[2] K2 (flash attention) against its plain version, B={B} S={S} T={T}")
     q, k, v = attn_inputs(gen, dev, B, S, T, Hq, Hkv, D)
@@ -329,7 +384,7 @@ def flash_row(cfg, gen, dev):
         name=f"flash_attention[{key}]", route="cuda",
         source="quick_tpu_torch/csrc/flash_attention.cu",
         replaces="quick_tpu/ops/flash_attention.py:40",
-        launches=("generate", "flash_attention", key), max_abs_err=err,
+        launches=(path, "flash_attention", key), max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
     )
 
@@ -631,6 +686,81 @@ def paged_attention_rows(cfg, gen, dev, trace):
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
     ))
     del kv, big
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 / 3: K7, the dense-cache decode attention
+# ---------------------------------------------------------------------------
+
+def dense_lengths(gen, dev, name, B, T):
+    if name == "protocol":  # prompt 128 + 1 .. 127 generated tokens
+        return torch.randint(PROTOCOL_CTX + 1, T, (B,), generator=gen, device=dev)
+    if name == "long":
+        return LONG_PROMPT + torch.randint(0, LONG_NEW, (B,), generator=gen, device=dev)
+    ln = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+    ln[0], ln[1] = 1, T  # a length-1 row and a full row
+    return ln
+
+
+def dense_decode_rows(cfg, gen, dev):
+    """K7 against its plain version at the shapes of DENSE_B_T (softcap 30
+    and ALiBi slopes at the protocol shape too), within tol * (1 + |ref|)
+    and tol * max|ref| of each query row, then timed over a 4-layer
+    stack rotated past L2, against its byte bound and SDPA (enable_gqa)
+    over the cache view with a length mask."""
+    import torch.nn.functional as F
+
+    from quick_tpu_torch.ops import decode_attention as dda
+    from quick_tpu_torch.ops._cuda import sm_count
+
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    scale = D ** -0.5
+    slopes = 2.0 ** (-8.0 * torch.arange(1, Hq + 1, device=dev, dtype=torch.float32) / Hq)
+    rows = []
+    L = 4
+    for name, (B, T) in DENSE_B_T.items():
+        lengths = dense_lengths(gen, dev, name, B, T).to(torch.int32)
+        print(f"[2] K7 (dense decode attention) against its plain version, {name}: B={B} "
+              f"T={T}, lengths {int(lengths.min())}-{int(lengths.max())}")
+        k, v = [torch.randn((L, B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2)]
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        cases = [("", {})]
+        if name == "protocol":
+            cases += [(", softcap 30", dict(logit_softcap=30.0)),
+                      (", ALiBi", dict(alibi_slopes=slopes)),
+                      (", softcap 30 + ALiBi", dict(logit_softcap=30.0, alibi_slopes=slopes))]
+        err = 0.0
+        for label, kw in cases:
+            out = dda.dense_decode_attention_cuda(q, k, v, lengths, 1, scale, **kw)
+            ref = dda.dense_decode_attention_plain(q, k, v, lengths, 1, scale, **kw)
+            torch.cuda.synchronize()
+            err = max(err, max_err(out, ref, TOL["decode_attention"], f"K7 {name}{label}"))
+            row_scaled_err(out, ref, TOL["decode_attention"], f"K7 {name}{label}")
+        _, splits = dda.split_plan(B, Hkv, T, sm_count(dev.index or 0))
+        key = dda.launch_key(B, Hq, Hkv, T, D, splits)
+        ar = torch.arange(T, device=dev)
+        mask = (ar[None, :] < lengths[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        ms = device_ms(lambda i: dda.dense_decode_attention_cuda(q, k, v, lengths, i % L, scale), 100)
+        plain_ms = device_ms(lambda i: dda.dense_decode_attention_plain(
+            q, k, v, lengths, i % L, scale), 5, warmup=1)
+        lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+            q4, k[i % L], v[i % L], attn_mask=mask, scale=scale, enable_gqa=True), 100)
+        keys = int(lengths.sum())
+        b_ms, b_by = bound(2 * keys * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * 4,
+                           4.0 * Hq * D * keys)
+        print(f"  {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, sdpa over the cache view {lib_ms * 1e3:.1f} us")
+        rows.append(dict(
+            name=f"decode_attention[{key}]", route="cuda",
+            source="quick_tpu_torch/csrc/decode_attention.cu",
+            replaces="quick_tpu/ops/decode_attention.py:46",
+            launches=("checkpoint", "decode_attention", key), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        ))
+        del k, v
     return rows
 
 
@@ -968,20 +1098,31 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
     return worst
 
 
-def phase6_dense_plain_vs_kernel(cfg, dev):
+def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROMPT,
+                                 decode_kernel="fused_decode_step"):
+    """model_forward over a dense cache: a prefill and 8 decode steps, the
+    card's kernel path against the plain path on the CPU. At B=4 and
+    max_seq 256 decode takes K3; at B=16 and max_seq 512 (32 MiB of K+V per
+    layer) the dense decode kernel K7."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
+    from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import make_cache
 
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
-    print("[6] 2 layers at full width, dense cache: kernel path (card) vs plain "
-          f"path (CPU), tol {TOL_MODEL} * (1 + |ref|)")
+    kv_mb = 2 * B * max_seq * cfg.num_key_value_heads * cfg.head_dim * 2 / 2**20
+    print(f"[6] 2 layers at full width, dense cache B={B} max_seq {max_seq} ({kv_mb:.0f} MiB "
+          f"of K+V per layer), prompt {prompt}: kernel path (card) vs plain path (CPU), tol "
+          f"{TOL_MODEL} * (1 + |ref|)")
     p_gpu = init_quant_params(cfg2, seed=1, device=dev)
     p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
     gen = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
-    cg = make_cache(cfg2, BATCH, MAX_SEQ, device=dev)
-    cc = make_cache(cfg2, BATCH, MAX_SEQ, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen, device=dev)
+    cg = make_cache(cfg2, B, max_seq, device=dev)
+    cc = make_cache(cfg2, B, max_seq, device="cpu")
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset_counts()
     worst = 0.0
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -991,8 +1132,157 @@ def phase6_dense_plain_vs_kernel(cfg, dev):
             worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], TOL_MODEL,
                                        "prefill logits" if step == 0 else f"decode step {step}"))
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
-    print(f"  {time.perf_counter() - t0:.1f} s")
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    if launched.get(decode_kernel) != 2 * 8:
+        fail(f"the dense 2-layer path did not run {decode_kernel} once per layer per decode "
+             f"step: {launched}")
+    print(f"  launches {launched}; {time.perf_counter() - t0:.1f} s")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the checkpoint path
+# ---------------------------------------------------------------------------
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def checkpoint_launches(cfg, rounds) -> dict:
+    """Launches per kernel and key that the checkpoint phase's calls imply.
+    Every forward runs 4 L launches of K1 (qkv, o, gate_up, down) at
+    M = rows; a prefill forward runs L of K2, a decode forward L of K7 (the
+    B=4 stream's decode rows take K1's RMSNorm / SiLU-GLU prologues).
+    ``rounds``: (batch, prompt, cache length, prefill forwards, decode
+    forwards) of each call."""
+    from quick_tpu_torch.ops._cuda import sm_count
+    from quick_tpu_torch.ops.decode_attention import launch_key as k7_key, split_plan
+    from quick_tpu_torch.ops.quantized_matmul import launch_key as k1_key
+
+    L = cfg.num_hidden_layers
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    s = gemm_shapes(cfg)
+    want = {"quantized_matmul": {}, "flash_attention": {}, "decode_attention": {}}
+
+    def add(kernel, key, n):
+        if n:
+            want[kernel][key] = want[kernel].get(key, 0) + n
+
+    for B, S, T, n_pre, n_dec in rounds:
+        for K, N in s.values():
+            add("quantized_matmul", k1_key(None, B * S, K, N), L * n_pre)
+        pro = {"qkv": "rmsnorm", "o": None, "gate_up": "rmsnorm", "down": "glu"}
+        for name, (K, N) in s.items():
+            add("quantized_matmul", k1_key(pro[name] if B <= 8 else None, B, K, N), L * n_dec)
+        add("flash_attention", f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}", L * n_pre)
+        splits = split_plan(B, Hkv, T, sm_count(0))[1]
+        add("decode_attention", k7_key(B, Hq, Hkv, T, D, splits), L * n_dec)
+    return want
+
+
+def phase7_checkpoint(params, cfg, dev):
+    """save_quantized -> from_quantized at Mistral-7B width, then the
+    128/128 protocol and a long-context stream on the loaded model."""
+    from quick_tpu_torch import QuantConfig
+    from quick_tpu_torch.examples.benchmark import run_round
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.convert import params_to_flat
+    from quick_tpu_torch.ops import all_kernels
+    from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
+    from quick_tpu_torch.utils.checkpoint import save_quantized
+
+    flat = params_to_flat(params, cpu=False)
+    need = sum(t.numel() * t.element_size() for t in flat.values())
+    per_layer = sum(t.numel() * t.element_size() for k, t in flat.items() if k.startswith("blocks.0."))
+    CKPT_DIR.parent.mkdir(exist_ok=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free = shutil.disk_usage(CKPT_DIR.parent).free
+    layers = cfg.num_hidden_layers
+    if free < 1.5 * need + 2e9:  # cut depth, never width
+        layers = max(2, int((free - 2e9 - (need - layers * per_layer)) / 1.5 / per_layer))
+    cfg_ck = dataclasses.replace(cfg, num_hidden_layers=layers)
+    params_ck = dataclasses.replace(params, blocks=params.blocks[:layers])
+    print(f"[7] checkpoint path: {cfg.model_type} width, {layers} of {cfg.num_hidden_layers} "
+          f"layers ({free / 1e9:.1f} GB free on the disk of build/)")
+    del flat
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_quantized(params_ck, cfg_ck, QuantConfig(), str(CKPT_DIR))
+        t_save = time.perf_counter() - t0
+        files = sorted(p.name for p in CKPT_DIR.iterdir())
+        on_disk = sum(p.stat().st_size for p in CKPT_DIR.iterdir())
+        print(f"  save_quantized: {t_save:.2f} s, {on_disk / 1e9:.3f} GB on disk in {files}")
+        t0 = time.perf_counter()
+        model = AutoQuickModel.from_quantized(str(CKPT_DIR))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        got, ref = params_to_flat(model.params, cpu=False), params_to_flat(params_ck, cpu=False)
+        if list(got) != list(ref) or not all(same_bytes(got[k], ref[k]) for k in ref):
+            fail("the loaded checkpoint differs from the saved params")
+        if model.cfg != cfg_ck or model.device.type != "cuda":
+            fail(f"loaded config {model.cfg} / device {model.device}")
+        print(f"  from_quantized: {t_load:.2f} s; {len(ref)} tensors equal to the saved ones "
+              "byte for byte, on the card")
+        del got, ref
+
+        kernels = all_kernels()
+        for k in kernels:
+            k.reset_counts()
+        rows, calls = [], []
+        try:
+            for B, trials in PROTOCOL_ROUNDS:
+                row = run_round(model, B, PROTOCOL_CTX, PROTOCOL_GEN, trials)
+                rows.append(row)
+                calls.append((B, PROTOCOL_CTX, PROTOCOL_CTX + PROTOCOL_GEN,
+                              row["forwards"]["prefill"], row["forwards"]["decode"]))
+                print("  run_round " + json.dumps(row))
+            gen = torch.Generator(device=dev).manual_seed(3)
+            prompts = torch.randint(0, cfg.vocab_size, (LONG_B, LONG_PROMPT), generator=gen, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.generate(prompts, LONG_NEW, max_seq=LONG_SEQ)
+            torch.cuda.synchronize()
+            t_long = time.perf_counter() - t0
+            calls.append((LONG_B, LONG_PROMPT, LONG_SEQ, 1, LONG_NEW - 1))
+        except NotImplementedError as e:
+            fail(f"the checkpoint path raised NotImplementedError: {e}")
+        counts = {k.name: dict(k.launches_by_key) for k in kernels}
+        got = {k: v for k, v in counts.items() if v}
+        want = checkpoint_launches(cfg_ck, calls)
+        print(f"  launches: per call (B, prompt, T, prefill forwards, decode forwards) {calls}; "
+              f"L = {layers}: K1 4 L per forward at M = B x prompt (prefill) or B (decode), "
+              "K2 L per prefill, K7 L per decode step")
+        for name, c in got.items():
+            for key, v in sorted(c.items()):
+                print(f"    {name} {key}: {v}")
+        if got != want:
+            fail(f"launch counts {got} differ from the calls' {want}")
+        if tuple(out.shape) != (LONG_B, LONG_PROMPT + LONG_NEW) or not torch.equal(out[:, :LONG_PROMPT], prompts) \
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+            fail("the long-context stream's tokens are out of range or lost the prompt")
+        print(f"  long-context stream: B={LONG_B}, {LONG_PROMPT} + {LONG_NEW} tokens in a "
+              f"{LONG_SEQ}-token cache, generate {t_long:.3f} s")
+
+        # where the time of a B=32 decode step goes
+        B = PROTOCOL_ROUNDS[0][0]
+        toks = torch.randint(0, cfg.vocab_size, (B, PROTOCOL_CTX), generator=gen, device=dev)
+        cache = make_cache(cfg_ck, B, PROTOCOL_CTX + PROTOCOL_GEN, device=dev)
+        logits, cache = prefill(model.params, cfg_ck, toks, cache)
+        first = torch.argmax(logits, dim=-1)
+        steps = 8
+        profile = device_profile(lambda: decode_loop(model.params, cfg_ck, first, cache, steps), steps)
+        print(f"  B={B} decode profile: " + json.dumps(profile))
+        del model, cache
+        torch.cuda.empty_cache()
+    finally:  # the 4.5 GB checkpoint never outlives the phase
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    stats = dict(layers=layers, save_s=t_save, load_s=t_load, bytes_on_disk=on_disk,
+                 files=files, rounds=rows, long_stream_s=t_long, decode_profile_b32=profile)
+    return counts, stats
 
 
 def main() -> None:
@@ -1021,10 +1311,16 @@ def main() -> None:
     rows.append(fused_row(cfg, gen, dev))
     rows += paged_write_rows(cfg, gen, dev, trace)
     rows += paged_attention_rows(cfg, gen, dev, trace)
+    rows += time_gemms(cfg, gen, dev, gemm_errs, checkpoint_gemms(cfg), "checkpoint")
+    rows += [flash_row(cfg, gen, dev, B=B, S=S, T=T, path="checkpoint")
+             for B, S, T in checkpoint_flash_shapes()]
+    rows += dense_decode_rows(cfg, gen, dev)
     print(f"  phases 1-3 done at {time.perf_counter() - t_start:.0f} s")
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
     counts["engine"], engine_stats = phase5_engine(params, cfg, dev)
+    counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
+    print(f"  phases 4, 5 and 7 done at {time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
     for row in rows:  # (path, kernel, key) -> this shape's launches on that path
@@ -1033,9 +1329,12 @@ def main() -> None:
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on the {path} path")
     dense_err = phase6_dense_plain_vs_kernel(cfg, dev)
+    dense_k7_err = phase6_dense_plain_vs_kernel(cfg, dev, B=16, max_seq=512, prompt=64,
+                                                decode_kernel="decode_attention")
     paged_err = phase6_paged_plain_vs_kernel(cfg, dev)
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
-                  launch_counts=counts, phase6_max_abs_err=dict(dense=dense_err, paged=paged_err),
+                  launch_counts=counts, checkpoint_path=ckpt_stats,
+                  phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err),
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

@@ -1,0 +1,65 @@
+"""Quantize a model (RTN) and save the packed checkpoint; the port's
+counterpart of ``examples/basic_quant.py``:
+
+    python -m quick_tpu_torch.examples.basic_quant --model_path <hf_dir> --quant_path out/
+    python -m quick_tpu_torch.examples.basic_quant --random debug --quant_path out/ --device cpu
+
+``--random <preset>`` builds a random-init float model from seed 0 instead
+of reading a checkpoint; ``--awq_format`` writes an AutoAWQ-GEMM checkpoint
+instead of the native QTPU one. The AWQ scale / clip search is not ported
+(ROADMAP A9), so the calibration options of the JAX example are absent.
+Runs on the card unless given ``--device cpu``.
+"""
+import argparse
+
+from quick_tpu_torch import ModelConfig, QuantConfig
+from quick_tpu_torch.models.auto import AutoQuickModel
+
+PRESETS = {
+    "tinyllama": ModelConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+        num_hidden_layers=22, num_attention_heads=32, num_key_value_heads=4,
+        max_position_embeddings=2048,
+    ),
+    "mistral-7b": ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=4096, model_type="mistral",
+    ),
+    "debug": ModelConfig(
+        vocab_size=1024, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256,
+    ),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model_path", help="HF float checkpoint directory")
+    ap.add_argument("--random", choices=sorted(PRESETS),
+                    help="random-init preset instead of a checkpoint")
+    ap.add_argument("--quant_path", required=True)
+    ap.add_argument("--zero_point", type=int, default=1)
+    ap.add_argument("--q_group_size", type=int, default=128)
+    ap.add_argument("--w_bit", type=int, default=4)
+    ap.add_argument("--awq_format", action="store_true",
+                    help="write an AutoAWQ-GEMM checkpoint instead of QTPU")
+    ap.add_argument("--device", default=None, help="'cpu' for the plain path (default: the card)")
+    args = ap.parse_args(argv)
+
+    if args.random:
+        model = AutoQuickModel.from_random(PRESETS[args.random], device=args.device)
+    elif args.model_path:
+        model = AutoQuickModel.from_pretrained(args.model_path, device=args.device)
+    else:
+        ap.error("need --model_path or --random")
+    qcfg = QuantConfig(zero_point=bool(args.zero_point), q_group_size=args.q_group_size,
+                       w_bit=args.w_bit)
+    model.quantize(quant_config=qcfg, use_awq_search=False)
+    model.save_quantized(args.quant_path, awq_format=args.awq_format)
+    print(f"quantized model saved to {args.quant_path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -83,7 +83,7 @@ def params_from_flat(
     )
 
 
-def _lin_to_flat(prefix: str, lin, out: Dict[str, torch.Tensor]) -> None:
+def _lin_to_flat(prefix: str, lin, out: Dict[str, torch.Tensor], put) -> None:
     fields = (
         ("qweight", "scales", "zeros_x_scales", "bias")
         if isinstance(lin, QuantLinear) else ("weight", "bias")
@@ -91,20 +91,31 @@ def _lin_to_flat(prefix: str, lin, out: Dict[str, torch.Tensor]) -> None:
     for f in fields:
         t = getattr(lin, f)
         if t is not None:
-            out[f"{prefix}.{f}"] = t.detach().cpu()
+            out[f"{prefix}.{f}"] = put(t)
 
 
-def params_to_flat(params: ModelParams) -> Dict[str, torch.Tensor]:
-    """The inverse of :func:`params_from_flat`, as CPU tensors."""
-    out: Dict[str, torch.Tensor] = {"embed": params.embed.cpu()}
+def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`params_from_flat`: the keys, dtypes and bytes of
+    ``quick_tpu.utils.checkpoint.params_to_flat`` (:60) for the dense llama
+    path, in its order (which decides the shard boundaries on save), as
+    contiguous tensors — on the CPU, or where they lie with ``cpu=False``.
+    A tied ``lm_head.weight`` (a transposed view of the embedding) becomes
+    its own contiguous copy, as ``np.asarray`` makes it in the JAX package.
+    Tensors, not numpy arrays: numpy has no bf16 without ``ml_dtypes``."""
+
+    def put(t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        return (t.cpu() if cpu else t).contiguous()
+
+    out: Dict[str, torch.Tensor] = {"embed": put(params.embed)}
     for i, blk in enumerate(params.blocks):
         p = f"blocks.{i}"
-        out[f"{p}.attn_norm"] = blk.attn_norm.cpu()
-        out[f"{p}.mlp_norm"] = blk.mlp_norm.cpu()
-        _lin_to_flat(f"{p}.attn.qkv", blk.attn.qkv_proj, out)
-        _lin_to_flat(f"{p}.attn.o", blk.attn.o_proj, out)
-        _lin_to_flat(f"{p}.mlp.gate_up", blk.mlp.gate_up_proj, out)
-        _lin_to_flat(f"{p}.mlp.down", blk.mlp.down_proj, out)
-    out["final_norm"] = params.final_norm.cpu()
-    _lin_to_flat("lm_head", params.lm_head, out)
+        out[f"{p}.attn_norm"] = put(blk.attn_norm)
+        out[f"{p}.mlp_norm"] = put(blk.mlp_norm)
+        _lin_to_flat(f"{p}.attn.qkv", blk.attn.qkv_proj, out, put)
+        _lin_to_flat(f"{p}.attn.o", blk.attn.o_proj, out, put)
+        _lin_to_flat(f"{p}.mlp.gate_up", blk.mlp.gate_up_proj, out, put)
+        _lin_to_flat(f"{p}.mlp.down", blk.mlp.down_proj, out, put)
+    out["final_norm"] = put(params.final_norm)
+    _lin_to_flat("lm_head", params.lm_head, out, put)
     return out

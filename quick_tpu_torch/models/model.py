@@ -25,7 +25,9 @@ from quick_tpu_torch.modules.blocks import (
     MLPParams,
     _fuse_decode_norm_ok,
     block_forward,
+    dense_decode_route,
 )
+from quick_tpu_torch.modules.cache import KVCache
 from quick_tpu_torch.modules.linear import Linear, QuantLinear
 from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.ops.rope import rope_table
@@ -99,9 +101,18 @@ def model_forward(
         positions = torch.clamp(positions, max=cfg.max_position_embeddings - 1)
         positions = positions.expand(B, S)
     x = params.embed[tokens].to(torch.bfloat16)
+    decode_lengths = None
+    if S == 1 and isinstance(cache, KVCache) and any(
+        dense_decode_route(cfg, cache, B, params.rope_cos, i, dev) == "dense_kernel"
+        for i in range(len(params.blocks))
+    ):
+        # the dense decode kernel reads per-row lengths from the card: one
+        # [B] tensor per forward, shared by every layer
+        decode_lengths = torch.full((B,), cache.length + 1, dtype=torch.int32, device=dev)
     for i, blk in enumerate(params.blocks):
         x, cache = block_forward(
-            blk, cfg, x, params.rope_cos, params.rope_sin, cache, i, positions
+            blk, cfg, x, params.rope_cos, params.rope_sin, cache, i, positions,
+            decode_lengths=decode_lengths,
         )
     if cache is not None:
         cache = cache.with_length(cache.length + (S if advance is None else advance))
@@ -212,17 +223,54 @@ def init_quant_params(
     )
 
 
+#: user-facing / HF-style layer names -> fused linears (the JAX package's
+#: ``_NAME_ALIASES``, :459)
+_NAME_ALIASES = {
+    "q_proj": "qkv", "k_proj": "qkv", "v_proj": "qkv", "qkv_proj": "qkv",
+    "W_pack": "qkv", "query_key_value": "qkv", "Wqkv": "qkv", "c_attn": "qkv",
+    "o_proj": "o", "out_proj": "o", "dense": "o", "c_proj": "o",
+    "gate_proj": "gate_up", "up_proj": "gate_up", "w1": "gate_up",
+    "w3": "gate_up", "fc1": "gate_up", "fc_in": "gate_up",
+    "dense_h_to_4h": "gate_up", "c_fc": "gate_up",
+    "down_proj": "down", "w2": "down", "fc2": "down", "fc_out": "down",
+    "dense_4h_to_h": "down",
+    "gate": "router",
+}
+
+
+def canonical_skips(modules_to_not_convert) -> frozenset:
+    """``modules_to_not_convert`` as fused-linear names ({'qkv', 'o',
+    'gate_up', 'down', 'router'}), matched by substring, longer alias keys
+    first (``canonical_skips`` :477)."""
+    out = set()
+    keys = sorted(_NAME_ALIASES, key=len, reverse=True)
+    for pat in modules_to_not_convert or ():
+        if pat in ("qkv", "o", "gate_up", "down", "router"):
+            out.add(pat)
+            continue
+        for key in keys:
+            if key in pat:
+                out.add(_NAME_ALIASES[key])
+                break
+        else:
+            out.add(pat)  # unknown: kept verbatim (matches nothing)
+    return frozenset(out)
+
+
 def quantize_params(
     params: ModelParams,
     cfg: ModelConfig,
     group_size: int = 128,
     zero_point: bool = True,
+    modules_to_not_convert=None,
 ) -> ModelParams:
     """RTN-quantize every block linear to W4A16 (dense blocks); the
-    embedding and lm_head stay float."""
+    embedding and lm_head stay float. Linears named in
+    ``modules_to_not_convert`` stay float too."""
+    skip = canonical_skips(modules_to_not_convert)
 
-    def q(lin):
-        if isinstance(lin, QuantLinear):
+    def q(lin, name):
+        if isinstance(lin, QuantLinear) or name in skip:
             return lin
         return QuantLinear.from_float(lin.weight, lin.bias, group_size, zero_point)
 
@@ -230,11 +278,11 @@ def quantize_params(
         dataclasses.replace(
             blk,
             attn=dataclasses.replace(
-                blk.attn, qkv_proj=q(blk.attn.qkv_proj), o_proj=q(blk.attn.o_proj)
+                blk.attn, qkv_proj=q(blk.attn.qkv_proj, "qkv"), o_proj=q(blk.attn.o_proj, "o")
             ),
             mlp=dataclasses.replace(
-                blk.mlp, gate_up_proj=q(blk.mlp.gate_up_proj),
-                down_proj=q(blk.mlp.down_proj),
+                blk.mlp, gate_up_proj=q(blk.mlp.gate_up_proj, "gate_up"),
+                down_proj=q(blk.mlp.down_proj, "down"),
             ),
         )
         for blk in params.blocks

@@ -54,18 +54,6 @@ class BlockParams:
     mlp: MLPParams
 
 
-def _dense_decode_supports(B: int, Hq: int, Hkv: int, T: int, D: int) -> bool:
-    """``ops/decode_attention.py::supports`` (:278) with its tile picker's
-    feasibility rule: some chunk of <= ~2 MB K+V divides T."""
-    if Hq % Hkv != 0 or T % 8 != 0 or D % 8 != 0:
-        return False
-    budget = (2 << 20) // (Hkv * D * 2 * 2)
-    if budget < 8:
-        return False
-    return any(c <= T and T % c == 0 and c <= budget
-               for c in (128, 256, 64, 32, 16, 8))
-
-
 def _use_paged_kernel(cache) -> bool:
     """Paged caches on the card read their pages with the paged-attention
     kernels K5 / K6 (the JAX package: on the TPU)."""
@@ -73,11 +61,13 @@ def _use_paged_kernel(cache) -> bool:
 
 
 def _use_dense_decode_kernel(B, Hq, Hkv, cache: KVCache, D, device) -> bool:
-    """Where the JAX package takes its dense decode kernel (large caches on
-    the accelerator). That kernel is not ported yet: the caller raises."""
+    """Dense-cache decode through K7 where the JAX package takes its dense
+    decode kernel: caches of >= 8 MB of K+V per layer on the accelerator."""
+    from quick_tpu_torch.ops.decode_attention import supports
+
     if isinstance(cache, PagedKVCache):
         return False
-    if not _dense_decode_supports(B, Hq, Hkv, cache.max_seq, D):
+    if not supports(B, Hq, Hkv, cache.max_seq, D):
         return False
     if device.type != "cuda":
         return False
@@ -111,6 +101,30 @@ def _use_fused_decode_step(cache: KVCache, B: int, hd: int, rope_cos, device) ->
     return ok and device.type == "cuda"
 
 
+def _attention_window(cfg: ModelConfig, layer_idx: int, reach: int) -> Optional[int]:
+    """The sliding window of this layer, dropped when it cannot bind (the
+    whole reachable context fits in it) so the kernel paths stay live."""
+    window = cfg.sliding_window if cfg.layer_is_sliding(layer_idx) else None
+    return None if window is not None and reach <= window else window
+
+
+def dense_decode_route(cfg: ModelConfig, cache: KVCache, B: int, rope_cos, layer_idx: int,
+                       device) -> str:
+    """The attention a one-token step over the dense cache takes at
+    ``layer_idx``: "fused" (the fused decode step, K3), "dense_kernel" (K7,
+    which reads the [B] lengths ``model_forward`` builds) or "einsum" (the
+    plain attention over the cache view). ``model_forward`` and
+    ``attention_forward`` both ask here."""
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if _use_fused_decode_step(cache, B, hd, rope_cos, device):
+        return "fused"
+    if _attention_window(cfg, layer_idx, cache.max_seq) is None and _use_dense_decode_kernel(
+        B, hq, hkv, cache, hd, device
+    ):
+        return "dense_kernel"
+    return "einsum"
+
+
 def attention_forward(
     p: AttentionParams,
     cfg: ModelConfig,
@@ -122,6 +136,8 @@ def attention_forward(
     positions: torch.Tensor,  # [B, S]
     pre_norm: Optional[tuple] = None,  # (rms_weight, eps): x is the RAW
     # residual and the norm runs in the qkv GEMM's prologue
+    decode_lengths: Optional[torch.Tensor] = None,  # [B] int32 on x's
+    # device: the dense cache's length + 1, for the dense decode kernel
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     from quick_tpu_torch.ops.rope import apply_rope
 
@@ -132,18 +148,12 @@ def attention_forward(
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hkv, hd)
     v = v.reshape(B, S, hkv, hd)
-    # sliding window for this layer, dropped when it cannot bind (the
-    # whole reachable context fits in it) so the kernel paths stay live
-    window = cfg.sliding_window if cfg.layer_is_sliding(layer_idx) else None
-    if window is not None:
-        reach = cache.max_seq if cache is not None else S
-        if reach <= window:
-            window = None
+    window = _attention_window(cfg, layer_idx, cache.max_seq if cache is not None else S)
     softcap = cfg.attn_logit_softcap
-    if (
-        S == 1 and isinstance(cache, KVCache)
-        and _use_fused_decode_step(cache, B, hd, rope_cos, x.device)
-    ):
+    route = None
+    if S == 1 and isinstance(cache, KVCache):
+        route = dense_decode_route(cfg, cache, B, rope_cos, layer_idx, x.device)
+    if route == "fused":
         from quick_tpu_torch.ops.fused_decode_step import fused_decode_attention
 
         pos0 = positions[:, 0]
@@ -170,14 +180,20 @@ def attention_forward(
                 logit_softcap=softcap,
             )[:, None]
             return p.o_proj(out.reshape(B, S, hq * hd)), cache
-        if S == 1 and window is None and _use_dense_decode_kernel(
-            B, hq, hkv, cache, hd, x.device
-        ):
-            raise NotImplementedError(
-                "this decode shape takes the dense decode attention kernel "
-                "(quick_tpu ops/decode_attention.py), which is not ported "
-                "yet — ROADMAP B6"
+        if route == "dense_kernel":
+            from quick_tpu_torch.ops.decode_attention import dense_decode_attention
+
+            if decode_lengths is None:
+                raise ValueError(
+                    "the dense decode kernel reads the [B] lengths that "
+                    "model_forward builds once per forward: pass decode_lengths"
+                )
+            # K7 over the whole cache stack + layer index, as the JAX call site
+            out = dense_decode_attention(
+                q, cache.k, cache.v, decode_lengths, layer=layer_idx,
+                logit_softcap=softcap,
             )
+            return p.o_proj(out.reshape(B, S, hq * hd)), cache
         if S > 1 and _use_paged_kernel(cache):
             from quick_tpu_torch.ops.paged_attention import (
                 paged_chunk_attention,
@@ -229,18 +245,19 @@ def block_forward(
     cache: Optional[AnyCache],
     layer_idx: int,
     positions: torch.Tensor,
+    decode_lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     eps = cfg.rms_norm_eps
     if _fuse_decode_norm_ok(p.attn.qkv_proj, x):
         # the norm rides in the qkv GEMM's prologue
         attn_out, cache = attention_forward(
             p.attn, cfg, x, rope_cos, rope_sin, cache, layer_idx, positions,
-            pre_norm=(p.attn_norm, eps),
+            pre_norm=(p.attn_norm, eps), decode_lengths=decode_lengths,
         )
     else:
         attn_out, cache = attention_forward(
             p.attn, cfg, rms_norm(x, p.attn_norm, eps), rope_cos, rope_sin,
-            cache, layer_idx, positions,
+            cache, layer_idx, positions, decode_lengths=decode_lengths,
         )
     x = x + attn_out
     if _fuse_decode_norm_ok(p.mlp.gate_up_proj, x):

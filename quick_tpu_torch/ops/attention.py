@@ -63,6 +63,24 @@ def causal_attention(
     )
 
 
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [B, T, Hkv, D] (or [B, Hkv, T, D] if heads-major)
+    v_cache: torch.Tensor,
+    cache_len: IntOrTensor,  # scalar or [B]: valid entries (incl. current)
+    scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    kv_heads_major: bool = False,
+) -> torch.Tensor:
+    """Single-token decode attention over a (padded) KV cache (:164): the
+    einsum path with the query at ``cache_len - 1``."""
+    q_offset = cache_len - 1 if isinstance(cache_len, torch.Tensor) else int(cache_len) - 1
+    return causal_attention(
+        q, k_cache, v_cache, q_offset=q_offset, kv_len=cache_len, scale=scale,
+        alibi_slopes=alibi_slopes, kv_heads_major=kv_heads_major,
+    )
+
+
 def einsum_attention(
     q: torch.Tensor,  # [B, S, Hq, D]
     k: torch.Tensor,  # [B, T, Hkv, D] — or [B, Hkv, T, D] if kv_heads_major

@@ -1,0 +1,405 @@
+"""Checkpoint IO: the native quantized format, HF float import and AutoAWQ
+interop (port of ``quick_tpu/utils/checkpoint.py``, dense llama path).
+
+- **native save / load** (``save_quantized`` :270, ``_load_flat`` :432,
+  ``load_quantized`` :555): safetensors shards of at most ``SHARD_BYTES``
+  under the JAX package's flat names, ``model.safetensors.index.json`` when
+  there is more than one shard, ``quant_config.json``, and ``config.json``
+  with an embedded ``quantization_config``. A checkpoint saved by either
+  package loads in the other.
+- **HF float import** (``_LazyRaw`` :588, ``load_hf_float`` :673,
+  ``_import_llama_family`` :708): the dense llama
+  schema, q/k/v and gate/up fused offline. The MoE, sandwich-norm, qk-norm
+  and norm-bias branches and every other ``model_type`` raise, naming the
+  ROADMAP item that ports them (A10, A12); no tensor is dropped silently.
+- **AutoAWQ** (``load_autoawq`` :1924 with GEMM / GEMV / exllama dispatch on
+  ``QuantConfig.version``, ``export_autoawq`` :312).
+
+Everything streams one tensor at a time (``utils/safetensors_io.py``):
+each tensor is read from its file, converted and moved to the device
+before the next is read. Loaders take ``device=`` (the card unless
+``"cpu"``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from quick_tpu_torch.config import ModelConfig, QuantConfig
+from quick_tpu_torch.device import DeviceLike, resolve_device
+from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+from quick_tpu_torch.models.model import ModelParams, _tables, check_supported
+from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams
+from quick_tpu_torch.modules.linear import Linear, QuantLinear, concat_linears
+from quick_tpu_torch.utils.safetensors_io import SafeOpen, save_file
+
+SHARD_BYTES = 4 * 1024**3
+INDEX_FILE = "model.safetensors.index.json"
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# native save / load
+# ---------------------------------------------------------------------------
+
+def save_quantized(params: ModelParams, cfg: ModelConfig, qcfg: QuantConfig, save_dir: str) -> None:
+    """Write the native checkpoint (``save_quantized`` :270): shards filled
+    in ``params_to_flat`` order up to ``SHARD_BYTES``, one tensor copied to
+    the host at a time."""
+    os.makedirs(save_dir, exist_ok=True)
+    store = params_to_flat(params, cpu=False)  # device tensors, copied per shard
+    shards: List[List[str]] = [[]]
+    sizes = [0]
+    for k, v in store.items():
+        n = _nbytes(v)
+        if sizes[-1] + n > SHARD_BYTES and shards[-1]:
+            shards.append([])
+            sizes.append(0)
+        shards[-1].append(k)
+        sizes[-1] += n
+    index = {"metadata": {"total_size": sum(sizes)}, "weight_map": {}}
+    n = len(shards)
+    for i, keys in enumerate(shards):
+        name = "model.safetensors" if n == 1 else f"model-{i + 1:05d}-of-{n:05d}.safetensors"
+        save_file({k: store[k] for k in keys}, os.path.join(save_dir, name))
+        for k in keys:
+            index["weight_map"][k] = name
+    if n > 1:
+        with open(os.path.join(save_dir, INDEX_FILE), "w") as f:
+            json.dump(index, f, indent=2)
+    qcfg.save_pretrained(save_dir)
+    model_cfg = cfg.to_dict()
+    model_cfg["quantization_config"] = qcfg.to_transformers_dict()
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(model_cfg, f, indent=2)
+
+
+def _load_flat(model_dir: str) -> Tuple["_LazyRaw", dict]:
+    """(the checkpoint's flat tensors, config.json): the tensors as a lazy
+    mapping over the index's shards, read one at a time on access."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw_cfg = json.load(f)
+    return _LazyRaw(model_dir), raw_cfg
+
+
+def load_quantized(
+    model_dir: str, device: DeviceLike = None,
+) -> Tuple[ModelParams, ModelConfig, QuantConfig]:
+    """Load a native checkpoint (``load_quantized`` :555) onto ``device``."""
+    dev = resolve_device(device)
+    flat, raw_cfg = _load_flat(model_dir)
+    cfg = ModelConfig.from_dict(raw_cfg)
+    qcfg = QuantConfig.from_pretrained(model_dir)
+    params = params_from_flat(flat, cfg, device=dev, group_size=qcfg.q_group_size)
+    return params, cfg, qcfg
+
+
+# ---------------------------------------------------------------------------
+# streaming access to safetensors checkpoints
+# ---------------------------------------------------------------------------
+
+def _checkpoint_files(model_dir: str) -> List[str]:
+    index_path = os.path.join(model_dir, INDEX_FILE)
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            return sorted(set(json.load(f)["weight_map"].values()))
+    return sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+
+
+class _LazyRaw:
+    """Mapping over a safetensors checkpoint that reads each tensor (as a
+    CPU tensor) on access, the streaming contract of the JAX package's
+    ``_LazyRaw`` (:588) and of its ``_hf_tensor_iter`` (:569), which every
+    loader here uses: ``in``, ``[]``, ``pop`` and ``keys``."""
+
+    def __init__(self, model_dir: str):
+        self._open: Dict[str, SafeOpen] = {}
+        self._where: Dict[str, str] = {}
+        for fname in _checkpoint_files(model_dir):
+            f = SafeOpen(os.path.join(model_dir, fname))
+            self._open[fname] = f
+            for key in f.keys():
+                self._where[key] = fname
+
+    def __contains__(self, key) -> bool:
+        return key in self._where
+
+    def __getitem__(self, key) -> torch.Tensor:
+        return self._open[self._where[key]].get_tensor(key)
+
+    def pop(self, key, *default):
+        if key not in self._where and default:
+            return default[0]
+        t = self[key]
+        del self._where[key]
+        return t
+
+    def keys(self) -> List[str]:
+        return list(self._where)
+
+
+# ---------------------------------------------------------------------------
+# HF float import (dense llama schema)
+# ---------------------------------------------------------------------------
+
+def _check_llama_schema(model_type: str, what: str) -> None:
+    from quick_tpu_torch.models.auto import MODEL_TYPE_MAP
+
+    if model_type not in MODEL_TYPE_MAP:
+        raise NotImplementedError(
+            f"{what}: model_type {model_type!r} is not ported yet; the port "
+            f"maps the dense llama schema {sorted(MODEL_TYPE_MAP)} (ROADMAP A12)"
+        )
+
+
+def load_hf_float(
+    model_dir: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+) -> Tuple[ModelParams, ModelConfig]:
+    """Import an HF float checkpoint of the dense llama schema into
+    ModelParams on ``device``, fusing q/k/v and gate/up (``load_hf_float``
+    :673)."""
+    dev = resolve_device(device)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf_cfg = json.load(f)
+    cfg = ModelConfig.from_hf_config(hf_cfg)
+    _check_llama_schema(cfg.model_type, "HF import")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.model_type}: MoE checkpoints are not ported yet (ROADMAP A10)")
+    check_supported(cfg)
+    raw = _LazyRaw(model_dir)  # tensor at a time
+    return _import_llama_family(raw, cfg, dtype, dev), cfg
+
+
+def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """The dense llama branch of ``_import_llama_family`` (:708). Each
+    tensor is cast on the host, as the JAX package casts it, then moved."""
+
+    def W(key):  # HF stores [out, in]; the port uses [in, out]
+        return raw.pop(key).transpose(-1, -2).to(dtype).contiguous().to(dev)
+
+    def V(key):
+        return raw.pop(key).to(dtype).to(dev)
+
+    def maybe_bias(base):
+        k = base + ".bias"
+        return V(k) if k in raw else None
+
+    for key in raw.keys():
+        for part, item in ((".pre_feedforward_layernorm.", "sandwich norms, ROADMAP A12"),
+                           (".self_attn.q_norm.", "qk-norm, ROADMAP A12"),
+                           (".self_attn.k_norm.", "qk-norm, ROADMAP A12"),
+                           ("layernorm.bias", "LayerNorm biases, ROADMAP A12"),
+                           ("model.norm.bias", "LayerNorm biases, ROADMAP A12"),
+                           (".block_sparse_moe.", "MoE, ROADMAP A10"),
+                           (".mlp.experts.", "MoE, ROADMAP A10")):
+            if part in key:
+                raise NotImplementedError(
+                    f"{cfg.model_type}: tensor {key} belongs to a branch of the "
+                    f"llama importer that is not ported yet ({item})")
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        qw = W(f"{p}.self_attn.q_proj.weight")
+        kw = W(f"{p}.self_attn.k_proj.weight")
+        vw = W(f"{p}.self_attn.v_proj.weight")
+        qb = maybe_bias(f"{p}.self_attn.q_proj")
+        kb = maybe_bias(f"{p}.self_attn.k_proj")
+        vb = maybe_bias(f"{p}.self_attn.v_proj")
+        bias = torch.cat([qb, kb, vb]) if qb is not None else None
+        qkv = Linear(torch.cat([qw, kw, vw], dim=1), bias)
+        o = Linear(W(f"{p}.self_attn.o_proj.weight"), maybe_bias(f"{p}.self_attn.o_proj"))
+        gate = W(f"{p}.mlp.gate_proj.weight")
+        up = W(f"{p}.mlp.up_proj.weight")
+        mlp = MLPParams(gate_up_proj=Linear(torch.cat([gate, up], dim=1)),
+                        down_proj=Linear(W(f"{p}.mlp.down_proj.weight")))
+        blocks.append(BlockParams(
+            attn_norm=V(f"{p}.input_layernorm.weight"),
+            attn=AttentionParams(qkv_proj=qkv, o_proj=o),
+            mlp_norm=V(f"{p}.post_attention_layernorm.weight"),
+            mlp=mlp,
+        ))
+    embed = V("model.embed_tokens.weight")
+    if cfg.tie_word_embeddings or "lm_head.weight" not in raw:
+        raw.pop("lm_head.weight", None)
+        lm_head = Linear(embed.T)
+    else:
+        lm_head = Linear(W("lm_head.weight"))
+    final_norm = V("model.norm.weight")
+    left = [k for k in raw.keys() if not k.endswith("rotary_emb.inv_freq")]
+    if left:
+        raise NotImplementedError(
+            f"{cfg.model_type}: the dense llama importer has no place for "
+            f"{len(left)} tensors, e.g. {left[:4]} (ROADMAP A12)")
+    return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm,
+                       lm_head=lm_head, **_tables(cfg, dev))
+
+
+# ---------------------------------------------------------------------------
+# AutoAWQ interop
+# ---------------------------------------------------------------------------
+
+def load_autoawq(
+    model_dir: str, device: DeviceLike = None,
+) -> Tuple[ModelParams, ModelConfig, QuantConfig]:
+    """Convert an AutoAWQ quantized checkpoint to QTPU params on ``device``
+    (``load_autoawq`` :1924): GEMM layout (qweight int32 [K, N//8], qzeros
+    [K//G, N//8], fp16 scales [K//G, N]), GEMV layout or exllama / GPTQ
+    layout, as ``QuantConfig.version`` says."""
+    from quick_tpu_torch.quantize.packing import import_awq_gemm, import_awq_gemv, import_exllama
+
+    dev = resolve_device(device)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf_cfg = json.load(f)
+    cfg = ModelConfig.from_hf_config(hf_cfg)
+    _check_llama_schema(cfg.model_type, "AutoAWQ import")
+    check_supported(cfg)
+    qcfg = QuantConfig.from_pretrained(model_dir)
+    G = qcfg.q_group_size
+    version = qcfg.version.lower()
+    if version.startswith("exllama"):
+        importer = import_exllama
+    elif version == "gemv":
+        importer = import_awq_gemv
+    else:
+        importer = import_awq_gemm
+    raw = _LazyRaw(model_dir)
+
+    def qlin(base: str) -> QuantLinear:
+        qw, s, zs = importer(
+            raw.pop(base + ".qweight").numpy(),
+            raw.pop(base + ".qzeros").numpy(),
+            raw.pop(base + ".scales").numpy().astype(np.float32),
+            G,
+        )
+        b = raw.pop(base + ".bias", None)
+        return QuantLinear(
+            qweight=torch.from_numpy(qw).to(dev), scales=torch.from_numpy(s).to(dev),
+            zeros_x_scales=torch.from_numpy(zs).to(dev),
+            bias=None if b is None else b.to(torch.float32).to(dev), group_size=G,
+        )
+
+    def V(key):
+        return raw.pop(key).to(torch.bfloat16).to(dev)
+
+    def W(key):
+        return raw.pop(key).transpose(-1, -2).to(torch.bfloat16).contiguous().to(dev)
+
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        qkv = concat_linears(qlin(f"{p}.self_attn.q_proj"), qlin(f"{p}.self_attn.k_proj"),
+                             qlin(f"{p}.self_attn.v_proj"))
+        o = qlin(f"{p}.self_attn.o_proj")
+        gate_up = concat_linears(qlin(f"{p}.mlp.gate_proj"), qlin(f"{p}.mlp.up_proj"))
+        down = qlin(f"{p}.mlp.down_proj")
+        blocks.append(BlockParams(
+            attn_norm=V(f"{p}.input_layernorm.weight"),
+            attn=AttentionParams(qkv_proj=qkv, o_proj=o),
+            mlp_norm=V(f"{p}.post_attention_layernorm.weight"),
+            mlp=MLPParams(gate_up_proj=gate_up, down_proj=down),
+        ))
+    embed = V("model.embed_tokens.weight")
+    lm_head = Linear(W("lm_head.weight")) if "lm_head.weight" in raw else Linear(embed.T)
+    params = ModelParams(embed=embed, blocks=blocks, final_norm=V("model.norm.weight"),
+                         lm_head=lm_head, **_tables(cfg, dev))
+    return params, cfg, qcfg
+
+
+def export_autoawq(params: ModelParams, cfg: ModelConfig, qcfg: QuantConfig, save_dir: str) -> None:
+    """Write an AutoAWQ-GEMM checkpoint (``export_autoawq`` :312): per linear
+    ``qweight`` int32 [K, N//8], ``qzeros`` int32 [K//G, N//8], ``scales``
+    fp16 [K//G, N] under HF llama tensor names, the fused qkv / gate_up
+    split back by column ranges; ``config.json`` in HF form, version
+    "gemm". Dense llama layout only."""
+    from quick_tpu_torch.quantize.packing import export_awq_gemm, unpack_qtpu
+
+    if cfg.is_moe or not cfg.gated_mlp or cfg.layernorm != "rmsnorm":
+        raise NotImplementedError(
+            f"export_autoawq supports the llama-family layout only (model_type={cfg.model_type})")
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    F = cfg.intermediate_size
+    store: Dict[str, np.ndarray] = {}
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    def f16(t: torch.Tensor) -> np.ndarray:
+        return np.ascontiguousarray(host(t.to(torch.float16)))
+
+    def put_qlin(base: str, lin: QuantLinear, col0: int, col1: int) -> None:
+        gw, gz, gs = export_awq_gemm(
+            host(lin.qweight[:, col0:col1]), host(lin.scales[:, col0:col1]),
+            host(lin.zeros_x_scales[:, col0:col1]), lin.group_size)
+        store[base + ".qweight"] = gw
+        store[base + ".qzeros"] = gz
+        store[base + ".scales"] = gs
+        if lin.bias is not None:
+            store[base + ".bias"] = f16(lin.bias[col0:col1])
+
+    def put_float_linear(base: str, lin) -> None:
+        if isinstance(lin, QuantLinear):
+            q = unpack_qtpu(host(lin.qweight), lin.group_size)
+            s, zs = host(lin.scales), host(lin.zeros_x_scales)
+            K = q.shape[0]
+            ng = K // lin.group_size
+            w = (q.astype(np.float32).reshape(ng, lin.group_size, -1) * s[:, None, :]
+                 - zs[:, None, :]).reshape(K, -1)
+        else:
+            w = host(lin.weight.to(torch.float32))
+        store[base + ".weight"] = np.ascontiguousarray(w.T.astype(np.float16))  # HF [out, in]
+        if lin.bias is not None:
+            store[base + ".bias"] = f16(lin.bias)
+
+    for i, blk in enumerate(params.blocks):
+        p = f"model.layers.{i}"
+        qkv = blk.attn.qkv_proj
+        if not isinstance(qkv, QuantLinear):
+            raise ValueError("export_autoawq requires quantized block linears")
+        put_qlin(f"{p}.self_attn.q_proj", qkv, 0, hq * hd)
+        put_qlin(f"{p}.self_attn.k_proj", qkv, hq * hd, (hq + hkv) * hd)
+        put_qlin(f"{p}.self_attn.v_proj", qkv, (hq + hkv) * hd, (hq + 2 * hkv) * hd)
+        put_qlin(f"{p}.self_attn.o_proj", blk.attn.o_proj, 0, cfg.hidden_size)
+        put_qlin(f"{p}.mlp.gate_proj", blk.mlp.gate_up_proj, 0, F)
+        put_qlin(f"{p}.mlp.up_proj", blk.mlp.gate_up_proj, F, 2 * F)
+        put_qlin(f"{p}.mlp.down_proj", blk.mlp.down_proj, 0, cfg.hidden_size)
+        store[f"{p}.input_layernorm.weight"] = f16(blk.attn_norm)
+        store[f"{p}.post_attention_layernorm.weight"] = f16(blk.mlp_norm)
+    store["model.embed_tokens.weight"] = f16(params.embed)
+    store["model.norm.weight"] = f16(params.final_norm)
+    if not cfg.tie_word_embeddings:
+        put_float_linear("lm_head", params.lm_head)
+
+    os.makedirs(save_dir, exist_ok=True)
+    save_file(store, os.path.join(save_dir, "model.safetensors"))
+    qcfg = dataclasses.replace(qcfg, version="gemm")  # the artifact IS GEMM layout
+    hf_cfg = {
+        "model_type": cfg.model_type if cfg.model_type in ("llama", "mistral", "qwen2") else "llama",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "head_dim": cfg.head_dim,
+        "attention_bias": cfg.attention_bias,
+        "torch_dtype": "float16",
+        "quantization_config": qcfg.to_transformers_dict(),
+    }
+    if cfg.rope_scaling:
+        hf_cfg["rope_scaling"] = dict(cfg.rope_scaling)
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    qcfg.save_pretrained(save_dir)

@@ -1,6 +1,7 @@
-"""Guards for the port: it never imports JAX or quick_tpu, its entry points
-refuse to run without a card unless asked for the CPU, and chip_smoke.py
-fails where there is no card."""
+"""Guards for the port: it never imports JAX or quick_tpu, nor the
+safetensors, ml_dtypes or transformers packages (the machine with the card
+has none of them); its entry points refuse to run without a card unless
+asked for the CPU; and chip_smoke.py fails where there is no card."""
 import os
 import subprocess
 import sys
@@ -19,9 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(quick_tpu_torch.__path__, "quick_
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # the chip script imports as a module without running
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "quick_tpu" or m.startswith("quick_tpu."))
+banned = ("jax", "quick_tpu", "safetensors", "ml_dtypes", "transformers")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 assert not bad, bad
 print(len(names))
 """
@@ -39,10 +39,10 @@ def test_port_imports_neither_jax_nor_quick_tpu():
         capture_output=True, text=True, cwd=ROOT, env=_clean_env(), timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 28  # every module
+    assert int(res.stdout.strip().splitlines()[-1]) >= 35  # every module
 
 
-def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch):
+def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tmp_path):
     from quick_tpu_torch import ModelConfig
     from quick_tpu_torch.models.auto import AutoQuickModel
     from quick_tpu_torch.models.model import init_quant_params
@@ -54,7 +54,15 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch):
                       num_hidden_layers=1, num_attention_heads=2,
                       num_key_value_heads=1, max_position_embeddings=16)
     m = AutoQuickModel.from_random(cfg, device="cpu")
-    for call in (lambda: init_quant_params(cfg),
+    ck = tmp_path / "ck"
+    m.quantize(use_awq_search=False)
+    m.save_quantized(str(ck))
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    (hf / "config.json").write_text('{"model_type": "llama"}')
+    for call in (lambda: AutoQuickModel.from_quantized(str(ck)),
+                 lambda: AutoQuickModel.from_pretrained(str(hf)),
+                 lambda: init_quant_params(cfg),
                  lambda: AutoQuickModel.from_random(cfg),
                  lambda: init_quant_params(cfg, device="cuda"),
                  lambda: make_cache(cfg, 1, 8),
@@ -64,6 +72,7 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert m.device.type == "cpu"
+    assert AutoQuickModel.from_quantized(str(ck), device="cpu").device.type == "cpu"
     out = m.generate(torch.zeros((1, 3), dtype=torch.long), 2)
     assert tuple(out.shape) == (1, 5)
     assert make_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
-K3 fused decode step, K4 paged writes, K5 / K6 paged attention) against
+K3 fused decode step, K4 paged writes, K5 / K6 paged attention, K7 dense
+decode attention) against
 their plain PyTorch versions, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
@@ -8,6 +9,7 @@ import pytest
 import torch
 from _torch_port import cuda_device, f32  # noqa: F401
 
+import quick_tpu_torch.ops.decode_attention as tdda
 import quick_tpu_torch.ops.flash_attention as tflash
 import quick_tpu_torch.ops.fused_decode_step as tfused
 import quick_tpu_torch.ops.paged_attention as tpa
@@ -263,3 +265,42 @@ def test_paged_cache_update_routes_match_cpu(rng, cuda_device):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(f32(caches[1].k_pages[:, 1:]), f32(caches[0].k_pages[:, 1:]))
     np.testing.assert_array_equal(f32(caches[1].v_pages[:, 1:]), f32(caches[0].v_pages[:, 1:]))
+
+
+DENSE_CASES = {
+    # the 128/128 protocol's decode, one long-context stream, ragged rows
+    # with a length-1 row, and softcap + ALiBi
+    "protocol": (32, 256, lambda rng, B: rng.integers(129, 256, B)),
+    "long_stream": (4, 2048, lambda rng, B: 1900 + rng.integers(-8, 8, B)),
+    "ragged": (64, 256, lambda rng, B: np.concatenate([[1, 0, 256], rng.integers(1, 257, B - 3)])),
+    "softcap_alibi": (32, 256, lambda rng, B: rng.integers(129, 256, B)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_decode_kernel_matches_plain(rng, cuda_device, case):
+    """K7 over layer 1 of a 2-layer [L, B, Hkv, T, D] stack at Mistral-7B
+    heads (Hq=32, Hkv=8, D=128), lengths on the card."""
+    B, T, lens = DENSE_CASES[case]
+    Hq, Hkv, D = 32, 8, 128
+    lengths = torch.from_numpy(lens(rng, B).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(torch.bfloat16)
+    k, v = [torch.from_numpy(rng.standard_normal((2, B, Hkv, T, D)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2)]
+    kw = {}
+    if case == "softcap_alibi":
+        kw = dict(logit_softcap=30.0, alibi_slopes=torch.from_numpy(alibi_slopes(Hq)))
+    before = tdda.KERNEL.launches
+    out = tdda.dense_decode_attention(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+                                      lengths.to(cuda_device), layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tdda.KERNEL.launches == before + 1
+    ref = tdda.dense_decode_attention(q, k, v, lengths, layer=1, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    # scaled to each query row's output: a long row's values are ~0.03,
+    # where the absolute part of TOL alone would pass a wrong softmax
+    row_max = np.abs(f32(ref)).max(axis=-1, keepdims=True)
+    assert (np.abs(f32(out) - f32(ref)) <= TOL["rtol"] * row_max).all()
+    if case == "ragged":
+        assert not f32(out)[1].any()  # the length-0 row

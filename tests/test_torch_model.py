@@ -160,5 +160,7 @@ def test_decode_gates_match_the_accelerator_branch(monkeypatch, B, Smax, Hkv, D)
         jblocks._use_fused_decode_step(jcache, B, D, jnp.asarray(cos))
     assert not tblocks._use_fused_decode_step(
         tcache, B, D, torch.from_numpy(cos), torch.device("cpu"))
-    assert tblocks._dense_decode_supports(B, 4 * Hkv, Hkv, Smax, D) == \
-        jdda.supports(B, 4 * Hkv, Hkv, Smax, D)
+    from quick_tpu_torch.ops import decode_attention as tdda
+
+    assert tdda.supports(B, 4 * Hkv, Hkv, Smax, D) == jdda.supports(B, 4 * Hkv, Hkv, Smax, D)
+    assert tdda._pick_tiles(B, Hkv, Smax, D) == jdda._pick_tiles(B, Hkv, Smax, D)
