@@ -5,7 +5,7 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K7 from
+  1. the card's name and power limit; build the CUDA kernels K1-K8 from
      csrc/ (one nvcc per source, in parallel) and print ptxas' register
      summary;
   2. every kernel against its plain PyTorch version on the card, at the
@@ -20,27 +20,37 @@ Phases (any failure exits non-zero):
      the path;
   5. the serving path: the continuous-batching Engine over the paged KV
      cache, same model, 32 ShareGPT-like requests that share a one-page
-     system prefix; a warm-up run and two timed runs; every request at its
-     exact length, the same greedy streams in both runs, launch counts
-     exactly those the Engine's recorded schedule implies, no host sync
-     while a decode window or prefill sub-batch is dispatched, and a
-     profile of a few decode windows;
+     system prefix; a warm-up run (no host sync allowed while a decode
+     window or prefill sub-batch is dispatched; a few decode windows
+     profiled) and a timed run; every request at its exact length, the
+     same greedy streams in both runs, launch counts exactly those the
+     Engine's recorded schedule implies;
   6. the kernel path against the plain path (on the CPU) for a 2-layer
-     model at full width: dense cache (prefill logits, 8 decode steps), at
+     model at full width: dense cache (prefill logits, 4 decode steps), at
      B=4 through K3 and at B=16 with max_seq 512 through K7, and paged
-     cache (one 16-token chunk for 4 slots at different starts, 8 decode
+     cache (one 16-token chunk for 4 slots at different starts, 4 decode
      steps);
   7. the checkpoint path: the phase-4 weights saved with save_quantized
      under build/, loaded with AutoQuickModel.from_quantized and compared
      byte for byte, then the 128/128 protocol of examples/benchmark.py
-     (quick_tpu_torch.examples.benchmark.run_round) at B=32 and B=64 and
-     one long-context stream (B=4, ~1,900 tokens of context); launch counts
+     (quick_tpu_torch.examples.benchmark.run_round) at B=32 and B=64 (one
+     timed trial each) and one long-context stream (B=4, ~1,900 tokens of
+     context); launch counts
      exactly those of the calls made, identical greedy tokens in every
-     timed run; the checkpoint is deleted afterwards.
+     timed run; the checkpoint is deleted afterwards;
+  8. the MoE path: K8 (grouped expert GEMM) against its plain version and
+     timed at the routed shapes of Mixtral-8x7B and Qwen1.5-MoE-A2.7B; then
+     Mixtral-8x7B at full width and depth (random QTPU weights, seed 0)
+     through generate() (as phase 4) and the Engine (as phase 5), a
+     2-layer checkpoint round trip, the kernel path against the plain path
+     for 2-layer Mixtral and Qwen1.5-MoE models (a token routed differently
+     must have had a router gap under ROUTE_GAP), and Qwen1.5-MoE's
+     generate() at full depth; launch counts exactly those of each path.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -69,11 +79,12 @@ L2_BYTES = 50 * 2**20
 # kernels also round p to bf16 against a running rather than final max.
 # K7 is also held to tol * max|ref| of each query row (row_scaled_err).
 TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2,
-       "paged_attention": 2e-2, "decode_attention": 2e-2}
+       "paged_attention": 2e-2, "decode_attention": 2e-2, "grouped_matmul": 2e-2}
 TOL_CACHE = 1e-2   # K3's written k row: one bf16 step (f32 fma contraction)
 #: phase 6 logits, 2 layers at full width, bf16 activations: the paths differ
 #: by single bf16 steps of the logits, d / (1 + |ref|) <= 2^-7 per step
 TOL_MODEL = 1e-2
+PHASE6_DECODE = 4  # decode steps after phase 6's prefill or chunk
 #: the serving phase: the JAX Engine's defaults (quick_tpu/runtime/
 #: serving.py:130-185) with 16 slots of up to 1024 tokens; the default pool
 #: is 16 x 16 + 1 = 257 pages of 64 tokens (2.2 GB of bf16 K/V at 32 layers).
@@ -83,11 +94,11 @@ ENGINE = dict(max_slots=16, max_seq=1024, page_size=64, chunk=16,
               decode_window=8, prefill_rows=8, reserve="full", prefix_cache=True)
 N_REQUESTS, SYSTEM_PREFIX = 32, 64
 #: the checkpoint phase: examples/benchmark.py's 128/128 protocol (:39-79,
-#: batches 1,8,32,64,... :87) at B=32 (2 timed trials) and B=64 (1), and
+#: batches 1,8,32,64,... :87) at B=32 and B=64 (1 timed trial each), and
 #: one long-context stream: B=4, a 1,900-token prompt, 8 new tokens in a
 #: 2,048-token cache (4 MiB of K/V per row: past the fused step's 3 MiB)
 PROTOCOL_CTX, PROTOCOL_GEN = 128, 128
-PROTOCOL_ROUNDS = ((32, 2), (64, 1))  # (batch, trials)
+PROTOCOL_ROUNDS = ((32, 1), (64, 1))  # (batch, trials)
 LONG_B, LONG_PROMPT, LONG_NEW, LONG_SEQ = 4, 1900, 8, 2048
 #: K7 shapes checked and timed (B, T, lengths): the protocol's decode
 #: (lengths 129-255), the long stream (~1,900) and ragged rows at B=64
@@ -768,18 +779,34 @@ def dense_decode_rows(cfg, gen, dev):
 # Phase 4: the generate() path
 # ---------------------------------------------------------------------------
 
-def phase4_main_path(cfg, dev):
-    from quick_tpu_torch.models.auto import AutoQuickModel
-    from quick_tpu_torch.models.model import init_quant_params
+def generate_launches(cfg, B=BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS, T=MAX_SEQ) -> dict:
+    """Launches per kernel and key of one generate() call: a prefill
+    forward of [B, prompt] (K1 at M = B x prompt, K2) and new_tokens - 1
+    decode forwards of [B, 1] (K1 at M = B with its prologues where M <= 8,
+    K3); MoE layers add K8's two launches per forward."""
+    L = cfg.num_hidden_layers
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    want = {}
+
+    def add(kernel, key, n):
+        want.setdefault(kernel, {})
+        want[kernel][key] = want[kernel].get(key, 0) + n
+
+    for rows, n in ((B * prompt, 1), (B, new_tokens - 1)):
+        add_forward_launches(cfg, rows, L * n, add)
+    add("flash_attention", f"B={B} S={prompt} T={T} Hq={Hq} Hkv={Hkv} D={D}", L)
+    add("fused_decode_step", f"B={B} Hq={Hq} Hkv={Hkv} S={T} D={D}", L * (new_tokens - 1))
+    return want
+
+
+def run_generate(model, cfg, dev, label: str, want: dict):
+    """generate() of B=4 x (128 + 64) tokens: a warm-up, one counted call
+    whose launches must equal ``want``, then prefill and decode timed apart
+    three times with the same greedy tokens, and a profile of 8 decode
+    steps. Returns (launch counts by kernel and key, stats)."""
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
 
-    print(f"[4] generate() path: {cfg.model_type} width, {cfg.num_hidden_layers} layers, "
-          f"B={BATCH}, {PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
-    t0 = time.perf_counter()
-    model = AutoQuickModel(init_quant_params(cfg, seed=0, device=dev), cfg)
-    torch.cuda.synchronize()
-    print(f"  random QTPU weights (seed 0) in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(0)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
     model.generate(prompts, 2, max_seq=MAX_SEQ)  # warm-up, not counted
@@ -793,25 +820,15 @@ def phase4_main_path(cfg, dev):
     out = model.generate(prompts, NEW_TOKENS, max_seq=MAX_SEQ)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    totals = {k.name: k.launches for k in kernels if k.launches}
     counts = {k.name: dict(k.launches_by_key) for k in kernels}
     peak = torch.cuda.max_memory_allocated()
-
-    L = cfg.num_hidden_layers
-    want_total = {"quantized_matmul": 4 * L + 4 * L * (NEW_TOKENS - 1),
-                  "flash_attention": L, "fused_decode_step": L * (NEW_TOKENS - 1)}
-    print(f"  launches: {totals} (expected {want_total})")
-    for name, c in counts.items():
+    got = {k: v for k, v in counts.items() if v}
+    print(f"  launches of the {label} generate() call:")
+    for name, c in got.items():
         for key, v in sorted(c.items()):
             print(f"    {name} {key}: {v}")
-    if totals != want_total:
-        fail("launch counts differ from the main path's")
-    for prologue, M, K, N in main_path_gemms(cfg):
-        from quick_tpu_torch.ops.quantized_matmul import launch_key
-
-        want = L if M > 8 else L * (NEW_TOKENS - 1)
-        if counts["quantized_matmul"].get(launch_key(prologue, M, K, N), 0) != want:
-            fail(f"K1 {launch_key(prologue, M, K, N)} not launched {want} times")
+    if got != want:
+        fail(f"{label}: launch counts {got} differ from the path's {want}")
     if tuple(out.shape) != (BATCH, PROMPT + NEW_TOKENS):
         fail(f"generate returned {tuple(out.shape)}")
     if not torch.equal(out[:, :PROMPT], prompts) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
@@ -844,9 +861,25 @@ def phase4_main_path(cfg, dev):
         peak_mem_gib=peak / 2**30,
     )
     print("  " + json.dumps(stats))
-    stats["decode_profile"] = profile_decode(model, cfg, prompts, dev)
     del cache
+    stats["decode_profile"] = profile_decode(model, cfg, prompts, dev)
+    stats["aten_calls_per_layer"] = (stats["decode_profile"]["aten_calls_per_step"]
+                                     / cfg.num_hidden_layers)
     torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase4_main_path(cfg, dev):
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.model import init_quant_params
+
+    print(f"[4] generate() path: {cfg.model_type} width, {cfg.num_hidden_layers} layers, "
+          f"B={BATCH}, {PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
+    t0 = time.perf_counter()
+    model = AutoQuickModel(init_quant_params(cfg, seed=0, device=dev), cfg)
+    torch.cuda.synchronize()
+    print(f"  random QTPU weights (seed 0) in {time.perf_counter() - t0:.1f} s")
+    counts, stats = run_generate(model, cfg, dev, cfg.model_type, generate_launches(cfg))
     return counts, stats, model.params
 
 
@@ -906,15 +939,57 @@ def device_profile(run, steps: int) -> dict:
 # Phase 5: the serving path
 # ---------------------------------------------------------------------------
 
+def k1_projections(cfg):
+    """(K, N, prologue at <= 8 decode rows) of each K1 launch of one layer's
+    forward: qkv (RMSNorm prologue) and o; the dense MLP's gate_up (RMSNorm)
+    and down (SiLU-GLU); an MoE layer's shared expert, if any, takes no
+    prologue (its norm is never fused, its gate runs first)."""
+    s = gemm_shapes(cfg)
+    out = [(*s["qkv"], "rmsnorm"), (*s["o"], None)]
+    if not cfg.is_moe:
+        return out + [(*s["gate_up"], "rmsnorm"), (*s["down"], "glu")]
+    D = cfg.hidden_size
+    Fe = cfg.moe_intermediate_size or cfg.intermediate_size
+    Fs = cfg.shared_intermediate_size or Fe * cfg.n_shared_experts
+    return out + ([(D, 2 * Fs, None), (Fs, D, None)] if Fs else [])
+
+
+def k8_launch_keys(cfg, T: int):
+    """K8's two launch keys (gate_up, down) of an MoE layer routing T tokens."""
+    from quick_tpu_torch.ops.grouped_matmul import grouped_row_budget, launch_key, pick_grouped_bm
+
+    E = cfg.num_local_experts
+    tk = T * min(cfg.num_experts_per_tok, E)
+    bm = pick_grouped_bm(tk, E)
+    Mp = grouped_row_budget(tk, E, bm)
+    D, Fe = cfg.hidden_size, cfg.moe_intermediate_size or cfg.intermediate_size
+    return [launch_key(Mp, K, N, E, bm) for K, N in ((D, 2 * Fe), (Fe, D))]
+
+
+def add_forward_launches(cfg, rows: int, n: int, add) -> None:
+    """Add K1's and K8's launches of ``n`` layer-forwards over ``rows``
+    tokens (every layer of these models is dense, or every one MoE)."""
+    from quick_tpu_torch.ops.quantized_matmul import launch_key as gemm_key
+
+    if any(cfg.layer_is_moe(i) != cfg.is_moe for i in range(cfg.num_hidden_layers)):
+        fail(f"{cfg.model_type}: mixed dense and MoE layers are not counted here")
+    for K, N, pro in k1_projections(cfg):
+        add("quantized_matmul", gemm_key(pro if rows <= 8 else None, rows, K, N), n)
+    if cfg.is_moe:
+        for key in k8_launch_keys(cfg, rows):
+            add("grouped_matmul", key, n)
+
+
 def engine_launches(cfg, stats) -> dict:
     """Launches per kernel and key that the Engine's recorded schedule
     implies: each forward runs L launches of K4, L of K5 (S = 1) or K6
-    (S > 1) and 4 L of K1, at the forward's [rows, S]. Decode windows and
-    [B, 1] mixed steps run [max_slots, 1], prefill sub-batches
-    [prefill_rows, chunk], [B, chunk] mixed steps [max_slots, chunk]."""
+    (S > 1), K1's per layer at the forward's [rows, S] (4 L for a dense
+    model, 2 L + the shared expert's for an MoE one) and 2 L of K8 (MoE).
+    Decode windows and [B, 1] mixed steps run [max_slots, 1], prefill
+    sub-batches [prefill_rows, chunk], [B, chunk] mixed steps
+    [max_slots, chunk]."""
     from quick_tpu_torch.ops.paged_attention import launch_key as attn_key
     from quick_tpu_torch.ops.paged_write import launch_key as write_key
-    from quick_tpu_torch.ops.quantized_matmul import launch_key as gemm_key
 
     g = paged_geometry(cfg)
     L = cfg.num_hidden_layers
@@ -924,6 +999,8 @@ def engine_launches(cfg, stats) -> dict:
         (g["B"], g["S"]): stats["mixed_chunk_steps"],
     }
     want = {"quantized_matmul": {}, "paged_write": {}, "paged_attention": {}}
+    if cfg.is_moe:
+        want["grouped_matmul"] = {}
 
     def add(kernel, key, n):
         want[kernel][key] = want[kernel].get(key, 0) + n
@@ -931,8 +1008,7 @@ def engine_launches(cfg, stats) -> dict:
     for (rows, S), n in forwards.items():
         if not n:
             continue
-        for K, N in gemm_shapes(cfg).values():
-            add("quantized_matmul", gemm_key(None, rows * S, K, N), L * n)
+        add_forward_launches(cfg, rows * S, L * n, add)
         add("paged_write", write_key("decode" if S == 1 else "chunk", rows, S, g["Hkv"],
                                      g["page"], g["D"], torch.bfloat16), L * n)
         add("paged_attention", attn_key(rows, None if S == 1 else S, g["Hq"], g["Hkv"],
@@ -940,100 +1016,103 @@ def engine_launches(cfg, stats) -> dict:
     return want
 
 
-def phase5_engine(params, cfg, dev):
+def sync_checked(eng, checked: dict) -> None:
+    """Make ``eng``'s dispatch methods named in ``checked`` raise on any
+    host sync (torch's sync debug mode) and count their calls there."""
+    for name in checked:
+        def wrapped(*a, _fn=getattr(eng, name), _name=name, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                checked[_name] += 1
+        setattr(eng, name, wrapped)
+
+
+def phase_engine(params, cfg, tag: str):
+    """The Engine over the 32-request trace: a warm-up run whose every
+    decode-window and prefill sub-batch dispatch is sync-checked and in
+    which one scheduler turn of steady decode is profiled, then a timed run
+    with every request at its exact length, the warm-up's greedy streams
+    and launch counts equal to those its recorded schedule implies."""
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import Engine
 
     trace = serving_trace(cfg.vocab_size)
     n_prompt = sum(len(p) for p, _ in trace)
     n_out = sum(n for _, n in trace)
-    print(f"[5] serving path: Engine({ENGINE}), {N_REQUESTS} requests, {n_prompt} prompt "
-          f"tokens ({SYSTEM_PREFIX}-token shared prefix) + {n_out} output tokens")
+    print(f"[{tag}] serving path: {cfg.model_type}, Engine({ENGINE}), {N_REQUESTS} requests, "
+          f"{n_prompt} prompt tokens ({SYSTEM_PREFIX}-token shared prefix) + {n_out} output tokens")
     kernels = all_kernels()
+    lengths = [n for _, n in trace]
 
-    def serve(wrap=None):
-        eng = Engine(params, cfg, **ENGINE)
-        if wrap is not None:
-            wrap(eng)
-        uids = [eng.submit(p, n) for p, n in trace]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = eng.run()
-        torch.cuda.synchronize()
-        return eng, [outs[u] for u in uids], time.perf_counter() - t0
-
-    ref, wall = serve()[1:]  # warm-up; its engine and page pool go at once
-    print(f"  warm-up run {wall:.2f} s")
-    runs = []
-    for r in range(2):
-        for k in kernels:
-            k.reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        eng, streams, wall = serve()
-        counts = {k.name: dict(k.launches_by_key) for k in kernels}
-        peak = torch.cuda.max_memory_allocated()
-        if [len(s) for s in streams] != [n for _, n in trace]:
-            fail("a request did not finish with exactly its max_new_tokens")
-        if streams != ref:
-            fail(f"timed run {r + 1} gave other greedy streams than the warm-up run")
-        want = engine_launches(cfg, eng.stats)
-        got = {k: v for k, v in counts.items() if v}
-        if got != want:
-            fail(f"launch counts {got} differ from the schedule's {want}")
-        runs.append(dict(
-            wall_s=wall, output_tok_s=n_out / wall, total_tok_s=(n_prompt + n_out) / wall,
-            peak_mem_gib=peak / 2**30, stats=dict(eng.stats)))
-        print(f"  run {r + 1}: {wall:.3f} s, {n_out / wall:.1f} output tok/s, "
-              f"{(n_prompt + n_out) / wall:.1f} total tok/s, peak {peak / 2**30:.2f} GiB")
-        print(f"    stats {json.dumps(eng.stats)}")
-        del eng
-    print("  launches (both runs, equal to the schedule's):")
-    for name, c in counts.items():
-        for key, v in sorted(c.items()):
-            print(f"    {name} {key}: {v}")
-
-    # A third run with no host sync allowed while a decode window or a
-    # prefill sub-batch is dispatched (torch raises on any synchronizing
-    # call); the host waits only on the drains' events. A few decode
-    # windows in steady state are profiled.
+    # warm-up: no host sync allowed while a decode window or a prefill
+    # sub-batch is dispatched (torch raises on any synchronizing call); the
+    # host waits only on the drains' events
     checked = {"_dispatch_window": 0, "_prefill_substep": 0}
-
-    def no_sync(eng):
-        for name in checked:
-            def wrapped(*a, _fn=getattr(eng, name), _name=name, **kw):
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    return _fn(*a, **kw)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                    checked[_name] += 1
-            setattr(eng, name, wrapped)
-
     eng = Engine(params, cfg, **ENGINE)
-    no_sync(eng)
-    for p, n in trace:
-        eng.submit(p, n)
+    sync_checked(eng, checked)
+    uids = [eng.submit(p, n) for p, n in trace]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     while eng.has_work and len(eng.ready_slots()) < ENGINE["max_slots"] // 2:
         eng.step()
     before = dict(eng.stats)
-    steps = 4
+    steps = 1  # the trace's post-processing is slow: one turn (8 forwards) is enough
     profile = device_profile(lambda: [eng.step() for _ in range(steps)], steps)
     grew = {k: eng.stats[k] - before[k] for k in before}
     profile["decode_windows"] = grew["window_steps"]
     profile["forwards"] = grew["window_forwards"] + grew["prefill_substeps"] + grew["mixed_steps"]
     outs = eng.run()
-    if [len(outs[u]) for u in range(N_REQUESTS)] != [n for _, n in trace] or \
-            [outs[u] for u in range(N_REQUESTS)] != ref:
-        fail("the sync-checked run gave other streams")
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    ref = [outs[u] for u in uids]
+    if [len(st) for st in ref] != lengths:
+        fail(f"{cfg.model_type} Engine: a request did not finish with exactly its max_new_tokens")
     if not all(checked.values()):
         fail(f"the sync check saw no dispatch: {checked}")
-    print(f"  no host sync inside {checked['_dispatch_window']} decode-window and "
-          f"{checked['_prefill_substep']} prefill sub-batch dispatches")
+    print(f"  warm-up run {wall0:.2f} s (profiled); no host sync inside "
+          f"{checked['_dispatch_window']} decode-window and {checked['_prefill_substep']} "
+          "prefill sub-batch dispatches")
     print(f"  profile of {steps} scheduler turns ({profile['decode_windows']} decode "
           f"windows, {profile['forwards']} forwards): " + json.dumps(profile))
     del eng
+    gc.collect()  # the sync-checked methods close a cycle around the engine and its pages
+
+    for k in kernels:
+        k.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, **ENGINE)
+    uids = [eng.submit(p, n) for p, n in trace]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [outs[u] for u in uids]
+    counts = {k.name: dict(k.launches_by_key) for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    if [len(st) for st in streams] != lengths:
+        fail(f"{cfg.model_type} Engine: a request did not finish with exactly its max_new_tokens")
+    if streams != ref:
+        fail(f"{cfg.model_type} Engine: the timed run gave other greedy streams than the warm-up")
+    want = engine_launches(cfg, eng.stats)
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"{cfg.model_type} Engine: launch counts {got} differ from the schedule's {want}")
+    run = dict(wall_s=wall, output_tok_s=n_out / wall, total_tok_s=(n_prompt + n_out) / wall,
+               peak_mem_gib=peak / 2**30, stats=dict(eng.stats))
+    print(f"  timed run: {wall:.3f} s, {n_out / wall:.1f} output tok/s, "
+          f"{(n_prompt + n_out) / wall:.1f} total tok/s, peak {peak / 2**30:.2f} GiB")
+    print(f"    stats {json.dumps(eng.stats)}; launches equal to the schedule's:")
+    for name, c in got.items():
+        for key, v in sorted(c.items()):
+            print(f"    {name} {key}: {v}")
+    del eng
     torch.cuda.empty_cache()
-    return counts, dict(runs=runs, sync_checked_dispatches=checked, profile=profile)
+    return counts, dict(runs=[run], warmup_s=wall0, sync_checked_dispatches=checked,
+                        profile=profile)
 
 
 # ---------------------------------------------------------------------------
@@ -1043,8 +1122,8 @@ def phase5_engine(params, cfg, dev):
 def phase6_paged_plain_vs_kernel(cfg, dev):
     """model_forward over a PagedKVCache: one 16-token chunk for 4 slots at
     different starts (one crossing a page boundary) over random earlier
-    context, then 8 decode steps; the card's kernel path (K4-K6) against
-    the plain path on the CPU."""
+    context, then PHASE6_DECODE decode steps; the card's kernel path
+    (K4-K6) against the plain path on the CPU."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.modules.paged_cache import PagedKVCache
@@ -1056,7 +1135,7 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
     P = 1 + B * n_pt
     starts = [0, 21, 56, 100]  # 56 + 16 crosses the page boundary at 64
     print(f"[6] 2 layers at full width, paged cache (page {page}), chunk at starts "
-          f"{starts} + 8 decode steps: kernel path (card) vs plain path (CPU), "
+          f"{starts} + {PHASE6_DECODE} decode steps: kernel path (card) vs plain path (CPU), "
           f"tol {TOL_MODEL} * (1 + |ref|)")
     p_gpu = init_quant_params(cfg2, seed=2, device=dev)
     p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
@@ -1080,7 +1159,7 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
         k.reset_counts()
     worst = 0.0
     with torch.inference_mode():
-        for step in range(9):
+        for step in range(1 + PHASE6_DECODE):
             n = S if step == 0 else 1
             adv = [torch.full((B,), n, dtype=torch.int32, device=d) for d in (dev, "cpu")]
             lg, cg = model_forward(p_gpu, cfg2, toks, cg, advance=adv[0], last_valid=adv[0])
@@ -1090,9 +1169,10 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels if k.launches}
-    if launched.get("paged_write") != 18 or launched.get("paged_attention") != 18:
+    if launched.get("paged_write") != 2 * (1 + PHASE6_DECODE) or \
+            launched.get("paged_attention") != 2 * (1 + PHASE6_DECODE):
         fail(f"the paged 2-layer path did not run K4-K6 once per layer per step: {launched}")
-    if cg.length.tolist() != cc.length.tolist() or cc.length.tolist() != [s + S + 8 for s in starts]:
+    if cg.length.tolist() != cc.length.tolist() or cc.length.tolist() != [s + S + PHASE6_DECODE for s in starts]:
         fail(f"lengths {cg.length.tolist()} / {cc.length.tolist()}")
     print(f"  launches {launched}")
     return worst
@@ -1100,8 +1180,8 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
 
 def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROMPT,
                                  decode_kernel="fused_decode_step"):
-    """model_forward over a dense cache: a prefill and 8 decode steps, the
-    card's kernel path against the plain path on the CPU. At B=4 and
+    """model_forward over a dense cache: a prefill and PHASE6_DECODE decode
+    steps, the card's kernel path against the plain path on the CPU. At B=4 and
     max_seq 256 decode takes K3; at B=16 and max_seq 512 (32 MiB of K+V per
     layer) the dense decode kernel K7."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
@@ -1126,14 +1206,14 @@ def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROM
     worst = 0.0
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for step in range(9):
+        for step in range(1 + PHASE6_DECODE):
             lg, cg = model_forward(p_gpu, cfg2, toks, cg, last_token_only=True)
             lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, last_token_only=True)
             worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], TOL_MODEL,
                                        "prefill logits" if step == 0 else f"decode step {step}"))
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     launched = {k.name: k.launches for k in kernels if k.launches}
-    if launched.get(decode_kernel) != 2 * 8:
+    if launched.get(decode_kernel) != 2 * PHASE6_DECODE:
         fail(f"the dense 2-layer path did not run {decode_kernel} once per layer per decode "
              f"step: {launched}")
     print(f"  launches {launched}; {time.perf_counter() - t0:.1f} s")
@@ -1285,6 +1365,300 @@ def phase7_checkpoint(params, cfg, dev):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the MoE path (Mixtral-8x7B and Qwen1.5-MoE-A2.7B, full width)
+# ---------------------------------------------------------------------------
+
+#: (path, T) of the token counts routed through K8: Mixtral's decode at B=4
+#: and prefill of 4 x 128 (generate), the Engine's [16, 1] decode and
+#: [8, 16] prefill sub-batch; Qwen1.5-MoE's T=16 (sort branch, 60
+#: experts, most of them without a token; checked only) and its generate
+#: path's two. Each shape runs gate_up and down.
+MOE_K8_CASES = {
+    "mixtral-8x7b": [("moe_generate", BATCH), ("moe_engine", ENGINE["max_slots"]),
+                     ("moe_engine", ENGINE["prefill_rows"] * ENGINE["chunk"]),
+                     ("moe_generate", BATCH * PROMPT)],
+    "qwen1.5-moe-a2.7b": [(None, 16), ("qwen_generate", BATCH),
+                          ("qwen_generate", BATCH * PROMPT)],
+}
+#: phase 8's kernel-vs-plain rule: a token whose top-k expert set differs
+#: between the two paths must have had its k-th and (k+1)-th router logits
+#: within this of each other on one of them (bf16 noise in the hidden
+#: state moves a logit by ~1e-3 here); its row's logits are not compared
+#: from then on
+ROUTE_GAP = 0.05
+MOE_CKPT_DIR = ROOT / "build" / "chip_smoke_moe_checkpoint"
+
+
+def dequant_experts(qw, s, zs) -> torch.Tensor:
+    """[E, N, K] bf16 dequantized expert weights (the yardstick's operand,
+    column-major per expert as torch._grouped_mm takes it)."""
+    from quick_tpu_torch.quantize.packing import unpack_qtpu_tensor
+
+    E, K8, N = qw.shape
+    K = K8 * 8
+    out = torch.empty((E, N, K), dtype=torch.bfloat16, device=qw.device)
+    for e in range(E):
+        codes = unpack_qtpu_tensor(qw[e]).float().reshape(K // 128, 128, N)
+        out[e] = (codes * s[e][:, None] - zs[e][:, None]).reshape(K, N).t().to(torch.bfloat16)
+    return out
+
+
+def grouped_mm_ms(x, sel, pos, wd, ref, n, experts):
+    """Yardstick: torch._grouped_mm of the routed rows, sorted by expert,
+    against the dequantized bf16 weights (copies rotated until the
+    ``experts`` touched exceed 2 x L2); None (with the reason printed)
+    where this torch cannot run it. Prints its distance from K8's plain
+    version on those rows."""
+    flat = sel.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    rows = pos.reshape(-1)[order].long()
+    xr = x[rows].contiguous()
+    offs = torch.cumsum(torch.bincount(flat, minlength=wd.shape[0]), 0).to(torch.int32)
+    b = wd.transpose(-2, -1)
+    try:
+        y = torch._grouped_mm(xr, b, offs=offs)
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print(f"    torch._grouped_mm yardstick not run: {type(e).__name__}: {str(e)[:160]}")
+        return None
+    r = ref[rows].float()
+    print(f"    torch._grouped_mm vs the plain version: max |d| / (1 + |ref|) "
+          f"{float(((y.float() - r).abs() / (1 + r.abs())).max()):.3e}")
+    E, N, K = wd.shape
+    copies = max(1, min(8, math.ceil(2 * L2_BYTES / (experts * K * N * 2))))
+    bs = [b] + [wd.clone().transpose(-2, -1) for _ in range(copies - 1)]
+    ms = device_ms(lambda i: torch._grouped_mm(xr, bs[i % copies], offs=offs), n)
+    del bs
+    return ms
+
+
+def grouped_rows(name, cfg, gen, dev):
+    """[8a, 8b] K8 against its plain version at ``name``'s routed shapes
+    (random routing, full output: padding rows and dead tiles included),
+    then timed with the expert weights rotated past L2: its bound from the
+    bytes of the distinct experts this routing touches and of the routed
+    rows, or from its routed FLOPs; the plain version; torch._grouped_mm."""
+    from quick_tpu_torch.ops import grouped_matmul as gm
+
+    E, kk = cfg.num_local_experts, cfg.num_experts_per_tok
+    D, Fe = cfg.hidden_size, cfg.moe_intermediate_size or cfg.intermediate_size
+    print(f"[8] K8 (grouped MoE GEMM) against its plain version, {name}: E={E}, top-{kk}")
+    out_rows = []
+    for proj, (K, N) in (("gate_up", (D, 2 * Fe)), ("down", (Fe, D))):
+        per_expert = K * N // 2 + 2 * (K // 128) * N * 4
+        ws = rand_qlinear(gen, dev, K, N, copies=E)
+        qw, s, zs = (torch.stack([w[j] for w in ws]) for j in range(3))
+        del ws
+        wd = dequant_experts(qw, s, zs)
+        for path, T in MOE_K8_CASES[name]:
+            sel = torch.argsort(torch.rand((T, E), generator=gen, device=dev), dim=1)[:, :kk]
+            bm = gm.pick_grouped_bm(T * kk, E)
+            _, pos, te, live, _ = gm.build_routing(sel, E, bm)
+            Mp = te.shape[0] * bm
+            x = torch.randn((Mp, K), generator=gen, device=dev).to(torch.bfloat16)
+            key = gm.launch_key(Mp, K, N, E, bm)
+            out = gm.quantized_matmul_grouped_cuda(x, qw, s, zs, te, live, bm)
+            ref = gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm)
+            torch.cuda.synchronize()
+            experts = int(torch.unique(te[live.bool()]).numel())
+            err = max_err(out, ref, TOL["grouped_matmul"],
+                          f"K8 {proj} T={T} {key}, {experts} experts, "
+                          f"{int(live.sum())}/{te.shape[0]} live tiles")
+            if path is None:
+                continue
+            n = 20 if T <= 16 else 5
+            # copies of the stacked experts (other addresses, same values)
+            # until the experts this routing touches exceed 2 x L2
+            copies = max(1, min(8, math.ceil(2 * L2_BYTES / (experts * per_expert))))
+            stacks = [(qw, s, zs)] + [(qw.clone(), s.clone(), zs.clone())
+                                      for _ in range(copies - 1)]
+
+            def kern(i):
+                gm.quantized_matmul_grouped_cuda(x, *stacks[i % copies], te, live, bm)
+
+            ms = device_ms(kern, n)
+            del stacks
+            plain_ms = device_ms(
+                lambda i: gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm), 2, warmup=1)
+            lib_ms = grouped_mm_ms(x, sel, pos, wd, ref, n, experts)
+            # the distinct experts' weights, x and out of the T * topk routed
+            # rows (not the padding rows or dead tiles), the tile layout
+            nbytes = experts * per_expert + T * kk * (K + N) * 2 + 2 * te.shape[0] * 4
+            b_ms, b_by = bound(nbytes, 2.0 * T * kk * K * N)
+            lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+            print(f"  {key}: {ms * 1e3:.1f} us ({copies} weight copies; bound "
+                  f"{b_ms * 1e3:.1f} us by {b_by}), plain "
+                  f"{plain_ms * 1e3:.1f} us, torch._grouped_mm on bf16 weights {lib}")
+            out_rows.append(dict(
+                name=f"grouped_matmul[{key}]", route="cuda",
+                source="quick_tpu_torch/csrc/grouped_matmul.cu",
+                replaces="quick_tpu/ops/grouped_matmul.py:48",
+                launches=(path, "grouped_matmul", key), max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            ))
+            del x, out, ref
+        del qw, s, zs, wd
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def phase8_checkpoint(params, cfg, dev):
+    """[8f] A 2-layer full-width slice of the MoE model saved with
+    save_quantized, loaded with from_quantized, compared byte for byte."""
+    from quick_tpu_torch import QuantConfig
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.convert import params_to_flat
+    from quick_tpu_torch.utils.checkpoint import save_quantized
+
+    layers = 2
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=layers)
+    p2 = dataclasses.replace(params, blocks=params.blocks[:layers])
+    shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_quantized(p2, cfg2, QuantConfig(), str(MOE_CKPT_DIR))
+        t_save = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in MOE_CKPT_DIR.iterdir())
+        t0 = time.perf_counter()
+        model = AutoQuickModel.from_quantized(str(MOE_CKPT_DIR))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        got, ref = params_to_flat(model.params, cpu=False), params_to_flat(p2, cpu=False)
+        if list(got) != list(ref) or not all(same_bytes(got[k], ref[k]) for k in ref):
+            fail("the loaded MoE checkpoint differs from the saved params")
+        if model.cfg != cfg2 or model.device.type != "cuda":
+            fail(f"loaded MoE config {model.cfg} / device {model.device}")
+        n = len(ref)
+        del got, ref, model
+    finally:
+        shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[8] MoE checkpoint: {layers} layers of {cfg.model_type} at full width, "
+          f"{on_disk / 1e9:.3f} GB: save {t_save:.2f} s, load {t_load:.2f} s, {n} tensors equal "
+          "byte for byte")
+    return dict(layers=layers, bytes_on_disk=on_disk, save_s=t_save, load_s=t_load, tensors=n)
+
+
+def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=64):
+    """[8e] A 2-layer full-width MoE model over a dense cache: a prefill of
+    B x prompt tokens and ``steps`` decode steps, the card's kernel path
+    against the plain path on the CPU, logits within TOL_MODEL, with the
+    routing rule of ROUTE_GAP."""
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.models.model import init_quant_params, model_forward
+    from quick_tpu_torch.modules import blocks
+    from quick_tpu_torch.ops import all_kernels
+    from quick_tpu_torch.runtime import make_cache
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    k = cfg.num_experts_per_tok
+    print(f"[8] 2 layers of {name} at full width, dense cache B={B} max_seq {max_seq}, prompt "
+          f"{prompt} + {steps} decode steps: kernel path (card) vs plain path (CPU), tol "
+          f"{TOL_MODEL} * (1 + |ref|) on rows whose routing agrees; a differing top-{k} set "
+          f"needs a router gap < {ROUTE_GAP}")
+    p_gpu = init_quant_params(cfg2, seed=1, device=dev)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen, device=dev)
+    cg = make_cache(cfg2, B, max_seq, device=dev)
+    cc = make_cache(cfg2, B, max_seq, device="cpu")
+    routes = {"cuda": [], "cpu": []}
+    orig = blocks.moe_forward
+
+    def recorded(p, c, x, token_mask=None):
+        v, i = blocks.top_k(p.router(x.to(torch.float32)), k + 1)
+        routes[x.device.type].append((torch.sort(i[..., :k], dim=-1).values.cpu(),
+                                      (v[..., k - 1] - v[..., k]).cpu()))
+        return orig(p, c, x, token_mask)
+
+    kernels = all_kernels()
+    for kern in kernels:
+        kern.reset_counts()
+    flipped_rows = torch.zeros(B, dtype=torch.bool)
+    flips, worst, compared, t0 = 0, 0.0, 0, time.perf_counter()
+    blocks.moe_forward = recorded
+    try:
+        with torch.inference_mode():
+            for step in range(1 + steps):
+                routes["cuda"].clear()
+                routes["cpu"].clear()
+                lg, cg = model_forward(p_gpu, cfg2, toks, cg, last_token_only=True)
+                lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, last_token_only=True)
+                for (sg, gg), (sc, gc) in zip(routes["cuda"], routes["cpu"]):
+                    differ = (sg != sc).any(-1)  # [B, S]
+                    if differ.any():
+                        gap = torch.minimum(gg, gc)[differ]
+                        flips += int(differ.sum())
+                        print(f"  step {step}: {int(differ.sum())} tokens routed differently, "
+                              f"router gaps {[round(float(g), 5) for g in gap]}")
+                        if float(gap.max()) >= ROUTE_GAP:
+                            fail(f"{name}: a token's experts differ between the paths at a "
+                                 f"router gap of {float(gap.max())}")
+                    flipped_rows |= differ.any(-1)
+                keep = ~flipped_rows
+                if keep.any():
+                    compared += int(keep.sum())
+                    what = "prefill logits" if step == 0 else f"decode step {step}"
+                    worst = max(worst, max_err(lg[keep.to(dev), -1].cpu(), lc[keep, -1], TOL_MODEL,
+                                               f"{what} ({int(keep.sum())} of {B} rows)"))
+                toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
+    finally:
+        blocks.moe_forward = orig
+    torch.cuda.synchronize()
+    launched = {kern.name: kern.launches for kern in kernels if kern.launches}
+    if launched.get("grouped_matmul") != 2 * 2 * (1 + steps) or compared == 0:
+        fail(f"{name}: the 2-layer MoE path did not run K8 twice per layer per forward, or no "
+             f"row was compared: {launched}, {compared} rows")
+    print(f"  launches {launched}; {flips} tokens routed differently; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del p_gpu, p_cpu, cg, cc
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, flipped_tokens=flips, rows_compared=compared)
+
+
+def phase8_moe(dev):
+    """Phase 8: K8 at the MoE paths' shapes, then Mixtral-8x7B at full width
+    and depth through generate() and the Engine, a 2-layer checkpoint round
+    trip, the 2-layer kernel-vs-plain agreement of Mixtral and Qwen1.5-MoE,
+    and Qwen1.5-MoE's generate() at full depth."""
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.model import init_quant_params
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for name in MOE_K8_CASES:
+        rows += grouped_rows(name, PRESETS[name], gen, dev)
+    counts, report = {}, {}
+    for name, path in (("mixtral-8x7b", "moe_generate"), ("qwen1.5-moe-a2.7b", "qwen_generate")):
+        cfg = PRESETS[name]
+        print(f"[8] MoE generate() path: {name} ({cfg.model_type}), {cfg.num_hidden_layers} "
+              f"layers, {cfg.num_local_experts} experts top-{cfg.num_experts_per_tok}, B={BATCH}, "
+              f"{PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = AutoQuickModel(init_quant_params(cfg, seed=0, device=dev), cfg)
+        torch.cuda.synchronize()
+        weights = torch.cuda.memory_allocated() - before
+        print(f"  random QTPU weights (seed 0) in {time.perf_counter() - t0:.1f} s: "
+              f"{weights / 1e9:.2f} GB on the card")
+        counts[path], report[name] = run_generate(model, cfg, dev, name, generate_launches(cfg))
+        report[name]["weights_gb"] = weights / 1e9
+        if name == "mixtral-8x7b":
+            counts["moe_engine"], report["mixtral_engine"] = phase_engine(model.params, cfg, "8")
+            report["mixtral_checkpoint"] = phase8_checkpoint(model.params, cfg, dev)
+        del model
+        torch.cuda.empty_cache()
+        if name == "mixtral-8x7b":  # the 2-layer comparisons between the two models
+            report["plain_vs_kernel"] = {
+                n: phase8_plain_vs_kernel(n, PRESETS[n], dev) for n in MOE_K8_CASES}
+    return counts, report, rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1318,11 +1692,15 @@ def main() -> None:
     print(f"  phases 1-3 done at {time.perf_counter() - t_start:.0f} s")
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
-    counts["engine"], engine_stats = phase5_engine(params, cfg, dev)
+    counts["engine"], engine_stats = phase_engine(params, cfg, "5")
     counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
     print(f"  phases 4, 5 and 7 done at {time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
+    moe_counts, moe_report, moe_rows = phase8_moe(dev)
+    counts.update(moe_counts)
+    rows += moe_rows
+    print(f"  phase 8 done at {time.perf_counter() - t_start:.0f} s")
     for row in rows:  # (path, kernel, key) -> this shape's launches on that path
         path, kernel, key = row["launches"]
         row["launches"] = counts[path][kernel].get(key, 0)
@@ -1333,7 +1711,7 @@ def main() -> None:
                                                 decode_kernel="decode_attention")
     paged_err = phase6_paged_plain_vs_kernel(cfg, dev)
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
-                  launch_counts=counts, checkpoint_path=ckpt_stats,
+                  launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err),
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"

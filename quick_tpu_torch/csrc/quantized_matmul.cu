@@ -33,25 +33,17 @@
 //
 // Design, prefill (M > 8): a 64 x 128 output tile per block of 8 warps
 // (2 x 4, 32 x 32 each) on the tensor cores with mma.sync m16n8k16 (bf16
-// in, f32 accumulate). Per group the block stages the 64 x 128 activations
-// and the group's codes, converted to bf16 (exact for 0..15) and stored
-// n-major with k contiguous, both with a padded row (136 elements) so the
-// fragment loads are free of bank conflicts; the group's dot lands in f32
-// registers and is scaled on the output side before the next group, as
-// in the decode path. Codes of packed rows r and r + 1 sit at neighbouring
-// k, so one 32-bit store writes two of them.
+// in, f32 accumulate), the body K8 shares (qmm_mma.cuh): per group the
+// block stages the activations and the group's codes, converted to bf16
+// (exact for 0..15), and scales the group's f32 dot on the output side
+// before the next group, as in the decode path.
 //
 // Not carried over from the TPU: the 8-row padding, the (8, K) broadcast
 // of the norm weight, the VMEM tile pickers. wgmma, TMA and a pipelined
 // prefill kernel are later work.
-#include "common.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
-
-constexpr int kG = 128;      // quant group: 16 packed rows x 8 nibbles
-constexpr int kSlab = 16;    // packed rows per group
-constexpr int kPack = 8;     // nibbles per word
-constexpr int kBN = 128;     // columns (threads) per block; equals kG
 
 enum Prologue { kNone = 0, kRmsNorm = 1, kSiluGlu = 2 };
 
@@ -149,8 +141,7 @@ qmm_kernel(const bf16* __restrict__ x, int ldx,
     for (int r = 0; r < kSlab; ++r) {
 #pragma unroll
       for (int j = 0; j < kPack; ++j) {
-        const float c =
-            __uint_as_float(((w[r] >> (4 * j)) & 0xFu) | 0x4B000000u) - 8388608.f;
+        const float c = code_f32(w[r], j);
         const float* xk = xs + (j * kSlab + r) * ROWS;
 #pragma unroll
         for (int i = 0; i < ROWS; ++i) dot[i] = fmaf(xk[i], c, dot[i]);
@@ -185,30 +176,7 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
   out[i] = __float2bfloat16_rn(s);
 }
 
-constexpr int kMmaBM = 64;        // rows per block (prefill path)
-constexpr int kMmaThreads = 256;  // 8 warps: 2 (rows) x 4 (columns)
-constexpr int kLd = kG + 8;       // padded shared row, in bf16 elements
-
-__device__ __forceinline__ float code_f32(uint32_t w, int j) {
-  return __uint_as_float(((w >> (4 * j)) & 0xFu) | 0x4B000000u) - 8388608.f;
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A (16 x 16, row) * B (16 x 8, col): bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-constexpr size_t kMmaSmem =
-    (size_t)(kMmaBM + kBN) * kLd * 2 + (size_t)(kMmaBM + 2 * kBN) * 4;
+constexpr int kMmaBM = 64;  // rows per block (prefill path): MT = 2
 
 __global__ void __launch_bounds__(kMmaThreads)
 qmm_mma_kernel(const bf16* __restrict__ x, int ldx,
@@ -217,131 +185,14 @@ qmm_mma_kernel(const bf16* __restrict__ x, int ldx,
                int M, int K, int N, int groups_per_split,
                float* __restrict__ partial, bf16* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);   // [64 rows][kLd], k contiguous
-  bf16* Bs = As + kMmaBM * kLd;               // [128 cols][kLd], k contiguous
-  float* xsum_s = reinterpret_cast<float*>(Bs + kBN * kLd);  // [64]
-  float* s_s = xsum_s + kMmaBM;                              // [128]
-  float* z_s = s_s + kBN;                                    // [128]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, tq = lane & 3;
   const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kBN;
   const int ng = K / kG;
   const int g0 = blockIdx.z * groups_per_split;
   const int g1 = min(ng, g0 + groups_per_split);
-
   float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int grp = g0; grp < g1; ++grp) {
-    // activations: 64 rows x 128 k in 16-byte chunks
-    for (int c = tid; c < kMmaBM * (kG / 8); c += kMmaThreads) {
-      const int r = c / (kG / 8), k8 = (c % (kG / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * ldx + grp * kG + k8);
-      *reinterpret_cast<uint4*>(As + r * kLd + k8) = v;
-    }
-    // codes: lane -> (8 columns) x (4 packed-row pairs), conflict-free stores
-#pragma unroll
-    for (int i = 0; i < (kSlab / 2) * kBN / kMmaThreads; ++i) {
-      const int idx = i * kMmaThreads + tid;
-      const int l = idx & 31, q32 = idx >> 5;
-      const int n = (q32 % (kBN / 8)) * 8 + (l & 7);
-      const int r = ((q32 / (kBN / 8)) * 4 + (l >> 3)) * 2;
-      const int gn = n0 + n;
-      uint32_t w0 = 0u, w1 = 0u;
-      if (gn < N) {
-        w0 = __ldg(qw + (size_t)(grp * kSlab + r) * N + gn);
-        w1 = __ldg(qw + (size_t)(grp * kSlab + r + 1) * N + gn);
-      }
-      uint32_t* brow = reinterpret_cast<uint32_t*>(Bs + n * kLd);
-#pragma unroll
-      for (int j = 0; j < kPack; ++j) {
-        __nv_bfloat162 p = __floats2bfloat162_rn(code_f32(w0, j), code_f32(w1, j));
-        brow[(j * kSlab + r) / 2] = *reinterpret_cast<uint32_t*>(&p);
-      }
-    }
-    if (tid < kBN) {
-      const int gn = n0 + tid;
-      s_s[tid] = gn < N ? scales[(size_t)grp * N + gn] : 0.f;
-      z_s[tid] = gn < N ? zs[(size_t)grp * N + gn] : 0.f;
-    }
-    __syncthreads();
-
-    {  // xsum of the group's bf16 activations, 4 threads per row
-      const int r = tid >> 2, part = tid & 3;
-      float sum = 0.f;
-      for (int k = part * (kG / 4); k < (part + 1) * (kG / 4); ++k)
-        sum += bf2f(As[r * kLd + k]);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) xsum_s[r] = sum;
-    }
-    float dot[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dot[mt][nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kG; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* ap = As + (wm * 32 + mt * 16 + g) * kLd + kk + 2 * tq;
-        a[mt][0] = ld_u32(ap);
-        a[mt][1] = ld_u32(ap + 8 * kLd);
-        a[mt][2] = ld_u32(ap + 8);
-        a[mt][3] = ld_u32(ap + 8 * kLd + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bp = Bs + (wn * 32 + nt * 8 + g) * kLd + kk + 2 * tq;
-        b[nt][0] = ld_u32(bp);
-        b[nt][1] = ld_u32(bp + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(dot[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();  // xsum_s complete
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = wm * 32 + mt * 16 + g + (e >= 2 ? 8 : 0);
-          const int n = wn * 32 + nt * 8 + 2 * tq + (e & 1);
-          acc[mt][nt][e] += dot[mt][nt][e] * s_s[n] - xsum_s[m] * z_s[n];
-        }
-    __syncthreads();  // shared tiles are restaged by the next group
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + nt * 8 + 2 * tq + (e & 1);
-        if (m >= M || n >= N) continue;
-        const size_t o = (size_t)m * N + n;
-        if (partial != nullptr) {
-          partial[(size_t)blockIdx.z * M * N + o] = acc[mt][nt][e];
-        } else {
-          out[o] = __float2bfloat16_rn(acc[mt][nt][e]);
-        }
-      }
+  mma_groups<2>(x, ldx, M, qw, scales, zs, N, m0, n0, g0, g1, smem, acc);
+  mma_store<2>(acc, M, N, m0, n0,
+               partial != nullptr ? partial + (size_t)blockIdx.z * M * N : nullptr, out);
 }
 
 struct Args {
@@ -360,10 +211,11 @@ cudaError_t launch_main(const Args& a, cudaStream_t st) {
 }
 
 cudaError_t launch_mma(const Args& a, cudaStream_t st) {
-  cudaError_t err = allow_smem(qmm_mma_kernel, kMmaSmem);
+  constexpr size_t smem = mma_smem_bytes<kMmaBM>();
+  cudaError_t err = allow_smem(qmm_mma_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.N + kBN - 1) / kBN, (a.M + kMmaBM - 1) / kMmaBM, a.splits);
-  qmm_mma_kernel<<<grid, kMmaThreads, kMmaSmem, st>>>(
+  qmm_mma_kernel<<<grid, kMmaThreads, smem, st>>>(
       a.x, a.ldx, a.qw, a.scales, a.zs, a.M, a.K, a.N, a.gps,
       a.splits > 1 ? a.partial : nullptr, a.out);
   return cudaGetLastError();

@@ -26,6 +26,24 @@ PRESETS = {
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
         max_position_embeddings=4096, model_type="mistral",
     ),
+    # mistralai/Mixtral-8x7B-v0.1 config.json; ~26.4 GB at W4A16 (random
+    # packed weights: benchmark.py --random). Its float model is 93 GB.
+    "mixtral-8x7b": ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5,
+        num_local_experts=8, num_experts_per_tok=2, model_type="mixtral",
+    ),
+    # Qwen/Qwen1.5-MoE-A2.7B config.json (the published vocab, 151936)
+    "qwen1.5-moe-a2.7b": ModelConfig(
+        vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+        num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=8192, rope_theta=1e6, rms_norm_eps=1e-6,
+        num_local_experts=60, num_experts_per_tok=4, moe_intermediate_size=1408,
+        shared_intermediate_size=5632, model_type="qwen2_moe",
+        moe_router="softmax_all", moe_freq_shifted=True, attention_bias=True,
+        shared_expert_gate=True, n_shared_experts=1, norm_topk_prob=False,
+    ),
     "debug": ModelConfig(
         vocab_size=1024, hidden_size=256, intermediate_size=512,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

@@ -1,5 +1,5 @@
-"""High-level model API (port of ``quick_tpu/models/auto.py``, dense llama
-path):
+"""High-level model API (port of ``quick_tpu/models/auto.py``, llama path
+with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe):
 
     model = AutoQuickModel.from_pretrained(hf_dir)             # float import
     model.quantize(quant_config=QuantConfig())                 # RTN + pack
@@ -25,14 +25,21 @@ import torch
 from quick_tpu_torch.config import ModelConfig, QuantConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device
 
-#: llama / mistral part of quick_tpu's MODEL_TYPE_MAP: llama-architecture
-#: types need no config switch overrides.
+#: the llama part of quick_tpu's MODEL_TYPE_MAP (:30-74): the llama
+#: architecture types, mixtral (MoE through ``num_local_experts``) and
+#: qwen2_moe with its config switch overrides.
 MODEL_TYPE_MAP: Dict[str, dict] = {
     "llama": {},
     "mistral": {},
     "vicuna": {},
     "yi": {},
     "aquila": {},
+    "mixtral": {},
+    "qwen2_moe": {
+        "moe_router": "softmax_all", "moe_freq_shifted": True,
+        "attention_bias": True, "shared_expert_gate": True,
+        "n_shared_experts": 1, "norm_topk_prob": False,
+    },
 }
 
 #: QuantConfig versions that name an AutoAWQ layout (converted at load)

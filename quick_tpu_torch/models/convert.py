@@ -1,5 +1,5 @@
-"""Flat parameter dicts <-> ModelParams (port of the dense part of
-``quick_tpu/utils/checkpoint.py::params_to_flat`` (:60) and
+"""Flat parameter dicts <-> ModelParams (port of the llama part, dense and
+MoE, of ``quick_tpu/utils/checkpoint.py::params_to_flat`` (:60) and
 ``flat_to_params`` (:143)).
 
 The names are the JAX package's (``embed``, ``blocks.{i}.attn.qkv.qweight``,
@@ -18,7 +18,7 @@ import torch
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device
 from quick_tpu_torch.models.model import ModelParams, _tables, check_supported
-from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams
+from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams, MoEParams
 from quick_tpu_torch.modules.linear import Linear, QuantLinear
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -55,13 +55,34 @@ def params_from_flat(
     group_size: int = 128,
 ) -> ModelParams:
     """The port's params from a flat dict named as the JAX package names
-    them. Dense blocks only; the rope tables are rebuilt from ``cfg``."""
+    them; a block with ``mlp.router.weight`` is an MoE block. The rope
+    tables are rebuilt from ``cfg``."""
     check_supported(cfg)
     dev = resolve_device(device)
+
+    def lin(prefix):
+        return _flat_to_lin(prefix, flat, group_size, dev)
+
+    def opt_lin(prefix):
+        has = f"{prefix}.weight" in flat or f"{prefix}.qweight" in flat
+        return lin(prefix) if has else None
 
     blocks = []
     for i in range(cfg.num_hidden_layers):
         p = f"blocks.{i}"
+        if f"{p}.mlp.router.weight" in flat:
+            mlp = MoEParams(
+                router=lin(f"{p}.mlp.router"),
+                gate_up_proj=lin(f"{p}.mlp.gate_up"),
+                down_proj=lin(f"{p}.mlp.down"),
+                shared_gate_up=opt_lin(f"{p}.mlp.shared_gate_up"),
+                shared_down=opt_lin(f"{p}.mlp.shared_down"),
+                score_bias=(to_tensor(flat[f"{p}.mlp.score_bias"], dev)
+                            if f"{p}.mlp.score_bias" in flat else None),
+                shared_gate=opt_lin(f"{p}.mlp.shared_gate"),
+            )
+        else:
+            mlp = MLPParams(gate_up_proj=lin(f"{p}.mlp.gate_up"), down_proj=lin(f"{p}.mlp.down"))
         blocks.append(BlockParams(
             attn_norm=to_tensor(flat[f"{p}.attn_norm"], dev),
             attn=AttentionParams(
@@ -69,10 +90,7 @@ def params_from_flat(
                 o_proj=_flat_to_lin(f"{p}.attn.o", flat, group_size, dev),
             ),
             mlp_norm=to_tensor(flat[f"{p}.mlp_norm"], dev),
-            mlp=MLPParams(
-                gate_up_proj=_flat_to_lin(f"{p}.mlp.gate_up", flat, group_size, dev),
-                down_proj=_flat_to_lin(f"{p}.mlp.down", flat, group_size, dev),
-            ),
+            mlp=mlp,
         ))
     return ModelParams(
         embed=to_tensor(flat["embed"], dev),
@@ -96,9 +114,10 @@ def _lin_to_flat(prefix: str, lin, out: Dict[str, torch.Tensor], put) -> None:
 
 def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`params_from_flat`: the keys, dtypes and bytes of
-    ``quick_tpu.utils.checkpoint.params_to_flat`` (:60) for the dense llama
-    path, in its order (which decides the shard boundaries on save), as
-    contiguous tensors — on the CPU, or where they lie with ``cpu=False``.
+    ``quick_tpu.utils.checkpoint.params_to_flat`` (:60) for the llama path
+    with dense or MoE blocks, in its order (which decides the shard
+    boundaries on save), as contiguous tensors — on the CPU, or where they
+    lie with ``cpu=False``.
     A tied ``lm_head.weight`` (a transposed view of the embedding) becomes
     its own contiguous copy, as ``np.asarray`` makes it in the JAX package.
     Tensors, not numpy arrays: numpy has no bf16 without ``ml_dtypes``."""
@@ -114,8 +133,19 @@ def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Ten
         out[f"{p}.mlp_norm"] = put(blk.mlp_norm)
         _lin_to_flat(f"{p}.attn.qkv", blk.attn.qkv_proj, out, put)
         _lin_to_flat(f"{p}.attn.o", blk.attn.o_proj, out, put)
-        _lin_to_flat(f"{p}.mlp.gate_up", blk.mlp.gate_up_proj, out, put)
-        _lin_to_flat(f"{p}.mlp.down", blk.mlp.down_proj, out, put)
+        mlp = blk.mlp
+        if isinstance(mlp, MoEParams):
+            _lin_to_flat(f"{p}.mlp.router", mlp.router, out, put)
+        _lin_to_flat(f"{p}.mlp.gate_up", mlp.gate_up_proj, out, put)
+        _lin_to_flat(f"{p}.mlp.down", mlp.down_proj, out, put)
+        if isinstance(mlp, MoEParams):
+            if mlp.shared_gate_up is not None:
+                _lin_to_flat(f"{p}.mlp.shared_gate_up", mlp.shared_gate_up, out, put)
+                _lin_to_flat(f"{p}.mlp.shared_down", mlp.shared_down, out, put)
+            if mlp.shared_gate is not None:
+                _lin_to_flat(f"{p}.mlp.shared_gate", mlp.shared_gate, out, put)
+            if mlp.score_bias is not None:
+                out[f"{p}.mlp.score_bias"] = put(mlp.score_bias)
     out["final_norm"] = put(params.final_norm)
     _lin_to_flat("lm_head", params.lm_head, out, put)
     return out

@@ -23,6 +23,7 @@ from quick_tpu_torch.modules.blocks import (
     AttentionParams,
     BlockParams,
     MLPParams,
+    MoEParams,
     _fuse_decode_norm_ok,
     block_forward,
     dense_decode_route,
@@ -56,12 +57,15 @@ _LLAMA_PATH = dict(
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense llama path; MoE, MLA and the other families'
-    switches raise until their slices land."""
-    if cfg.is_moe or cfg.is_mla:
+    """The port runs the llama path with dense or MoE ("mixtral" and
+    "softmax_all" routers) MLPs; MLA, the deepseek router and the other
+    families' switches raise until their slices land."""
+    if cfg.is_mla:
+        raise NotImplementedError(f"{cfg.model_type}: MLA models are not ported yet (ROADMAP A11)")
+    if cfg.is_moe and cfg.moe_router not in ("mixtral", "softmax_all"):
         raise NotImplementedError(
-            f"{cfg.model_type}: MoE and MLA models are not ported yet "
-            "(ROADMAP A10, A11)"
+            f"{cfg.model_type}: the {cfg.moe_router!r} MoE router is not ported yet "
+            "(ROADMAP A11)"
         )
     off = [k for k, v in _LLAMA_PATH.items() if getattr(cfg, k) != v]
     if off:
@@ -100,6 +104,12 @@ def model_forward(
         # clamp: padded chunk positions must not overrun the rope table
         positions = torch.clamp(positions, max=cfg.max_position_embeddings - 1)
         positions = positions.expand(B, S)
+    # chunked serving steps carry per-slot valid counts: padding tokens get
+    # zero MoE combine weights (:88-92)
+    token_mask = None
+    if advance is not None and cfg.is_moe:
+        token_mask = (torch.arange(S, device=dev)[None, :]
+                      < torch.as_tensor(advance, device=dev).reshape(-1, 1))
     x = params.embed[tokens].to(torch.bfloat16)
     decode_lengths = None
     if S == 1 and isinstance(cache, KVCache) and any(
@@ -112,7 +122,7 @@ def model_forward(
     for i, blk in enumerate(params.blocks):
         x, cache = block_forward(
             blk, cfg, x, params.rope_cos, params.rope_sin, cache, i, positions,
-            decode_lengths=decode_lengths,
+            decode_lengths=decode_lengths, token_mask=token_mask,
         )
     if cache is not None:
         cache = cache.with_length(cache.length + (S if advance is None else advance))
@@ -155,27 +165,49 @@ def _randn(gen, shape, dtype, device, scale):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
+def _moe_params(cfg: ModelConfig, expert_lin, float_lin) -> MoEParams:
+    """A random MoE layer (the MoE branches of ``init_float_params`` :254
+    and ``init_quant_params`` :387): ``expert_lin(kin, kout, experts=None)``
+    builds the experts (stacked) and the shared expert, ``float_lin`` the
+    router and qwen2_moe's [D, 1] shared-expert gate, both float."""
+    D, E = cfg.hidden_size, cfg.num_local_experts
+    Fe = cfg.moe_intermediate_size or cfg.intermediate_size
+    Fs = cfg.shared_intermediate_size or Fe * cfg.n_shared_experts
+    return MoEParams(
+        router=float_lin(D, E),
+        gate_up_proj=expert_lin(D, 2 * Fe, experts=E),
+        down_proj=expert_lin(Fe, D, experts=E),
+        shared_gate_up=expert_lin(D, 2 * Fs) if Fs else None,
+        shared_down=expert_lin(Fs, D) if Fs else None,
+        shared_gate=float_lin(D, 1) if Fs and cfg.shared_expert_gate else None,
+    )
+
+
 def init_float_params(
     cfg: ModelConfig, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
     device: DeviceLike = None,
 ) -> ModelParams:
-    """Random-init float model (dense path)."""
+    """Random-init float model (dense or MoE layers)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, F = cfg.hidden_size, cfg.intermediate_size
     hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
-    def dense(kin, kout):
-        return Linear(_randn(gen, (kin, kout), dtype, dev, 1.0 / math.sqrt(kin)))
+    def dense(kin, kout, experts=None):
+        lead = () if experts is None else (experts,)
+        return Linear(_randn(gen, lead + (kin, kout), dtype, dev, 1.0 / math.sqrt(kin)))
 
     blocks = []
-    for _ in range(cfg.num_hidden_layers):
+    for i in range(cfg.num_hidden_layers):
         qkv = dense(D, (hq + 2 * hkv) * hd)
         if cfg.attention_bias:
             qkv = Linear(qkv.weight, torch.zeros((hq + 2 * hkv) * hd, dtype=dtype, device=dev))
         attn = AttentionParams(qkv_proj=qkv, o_proj=dense(hq * hd, D))
-        mlp = MLPParams(gate_up_proj=dense(D, 2 * F), down_proj=dense(F, D))
+        if cfg.layer_is_moe(i):
+            mlp = _moe_params(cfg, dense, dense)
+        else:
+            mlp = MLPParams(gate_up_proj=dense(D, 2 * F), down_proj=dense(F, D))
         blocks.append(_block(attn, mlp, D, dtype, dev))
     embed = _randn(gen, (cfg.vocab_size, D), dtype, dev, 0.02)
     lm_head = Linear(embed.T) if cfg.tie_word_embeddings else dense(D, cfg.vocab_size)
@@ -199,22 +231,29 @@ def init_quant_params(
     hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     G = group_size
 
-    def qlin(kin, kout):
+    def qlin(kin, kout, experts=None):
+        lead = () if experts is None else (experts,)
         qweight = torch.randint(
-            -2**31, 2**31, (kin // 8, kout), generator=gen, device=dev,
+            -2**31, 2**31, lead + (kin // 8, kout), generator=gen, device=dev,
             dtype=torch.int32,
         )
-        u = torch.rand((kin // G, kout), generator=gen, device=dev)
+        u = torch.rand(lead + (kin // G, kout), generator=gen, device=dev)
         scales = (u * 0.004 + 0.001) / math.sqrt(kin)
-        zeros = torch.round(torch.rand((kin // G, kout), generator=gen, device=dev) * 15)
+        zeros = torch.round(torch.rand(lead + (kin // G, kout), generator=gen, device=dev) * 15)
         return QuantLinear(qweight, scales, zeros * scales, None, G)
 
+    def fdense(kin, kout):
+        return Linear(_randn(gen, (kin, kout), dtype, dev, 1.0 / math.sqrt(kin)))
+
     blocks = []
-    for _ in range(cfg.num_hidden_layers):
+    for i in range(cfg.num_hidden_layers):
         attn = AttentionParams(
             qkv_proj=qlin(D, (hq + 2 * hkv) * hd), o_proj=qlin(hq * hd, D)
         )
-        mlp = MLPParams(gate_up_proj=qlin(D, 2 * F), down_proj=qlin(F, D))
+        if cfg.layer_is_moe(i):
+            mlp = _moe_params(cfg, qlin, fdense)
+        else:
+            mlp = MLPParams(gate_up_proj=qlin(D, 2 * F), down_proj=qlin(F, D))
         blocks.append(_block(attn, mlp, D, dtype, dev))
     embed = _randn(gen, (cfg.vocab_size, D), dtype, dev, 0.02)
     return ModelParams(
@@ -264,8 +303,9 @@ def quantize_params(
     zero_point: bool = True,
     modules_to_not_convert=None,
 ) -> ModelParams:
-    """RTN-quantize every block linear to W4A16 (dense blocks); the
-    embedding and lm_head stay float. Linears named in
+    """RTN-quantize every block linear to W4A16 (``quantize_params`` :498):
+    stacked MoE experts expert by expert; the embedding, lm_head, MoE router
+    and qwen2_moe shared-expert gate stay float. Linears named in
     ``modules_to_not_convert`` stay float too."""
     skip = canonical_skips(modules_to_not_convert)
 
@@ -274,16 +314,40 @@ def quantize_params(
             return lin
         return QuantLinear.from_float(lin.weight, lin.bias, group_size, zero_point)
 
+    def q_stacked(lin, name):
+        """A stacked-expert weight [E, K, N], quantized expert by expert."""
+        if isinstance(lin, QuantLinear) or name in skip:
+            return lin
+        qls = [QuantLinear.from_float(lin.weight[e], None if lin.bias is None else lin.bias[e],
+                                      group_size, zero_point)
+               for e in range(lin.weight.shape[0])]
+        return QuantLinear(
+            qweight=torch.stack([ql.qweight for ql in qls]),
+            scales=torch.stack([ql.scales for ql in qls]),
+            zeros_x_scales=torch.stack([ql.zeros_x_scales for ql in qls]),
+            bias=None if qls[0].bias is None else torch.stack([ql.bias for ql in qls]),
+            group_size=group_size,
+        )
+
+    def q_mlp(mlp):
+        if not isinstance(mlp, MoEParams):
+            return dataclasses.replace(mlp, gate_up_proj=q(mlp.gate_up_proj, "gate_up"),
+                                       down_proj=q(mlp.down_proj, "down"))
+        return dataclasses.replace(
+            mlp,
+            gate_up_proj=q_stacked(mlp.gate_up_proj, "gate_up"),
+            down_proj=q_stacked(mlp.down_proj, "down"),
+            shared_gate_up=None if mlp.shared_gate_up is None else q(mlp.shared_gate_up, "gate_up"),
+            shared_down=None if mlp.shared_down is None else q(mlp.shared_down, "down"),
+        )
+
     blocks = [
         dataclasses.replace(
             blk,
             attn=dataclasses.replace(
                 blk.attn, qkv_proj=q(blk.attn.qkv_proj, "qkv"), o_proj=q(blk.attn.o_proj, "o")
             ),
-            mlp=dataclasses.replace(
-                blk.mlp, gate_up_proj=q(blk.mlp.gate_up_proj, "gate_up"),
-                down_proj=q(blk.mlp.down_proj, "down"),
-            ),
+            mlp=q_mlp(blk.mlp),
         )
         for blk in params.blocks
     ]

@@ -1,12 +1,16 @@
-"""Decoder blocks, dense llama path (port of ``quick_tpu/modules/blocks.py``).
+"""Decoder blocks, llama path with dense or MoE MLPs (port of
+``quick_tpu/modules/blocks.py``).
 
-The port covers the dense llama-family block: pre-RMSNorm, fused QKV and
+The port covers the llama-family block: pre-RMSNorm, fused QKV and
 gate_up linears, RoPE, the head-major dense KV cache or the paged cache,
 attention (with the sliding window and the attention-logit softcap the
-kernels take) and the SwiGLU MLP. The other families' switches (qk-norm,
-sandwich norms, ALiBi, parallel residual, LayerNorm, plain MLPs, ...), MoE,
-MLA, context parallelism and the layer-tail kernel are not ported yet: such
-configs are refused by ``models/model.py::check_supported`` (ROADMAP.md).
+kernels take), the SwiGLU MLP and the sparse MoE MLP (``moe_forward``:
+the "mixtral" and "softmax_all" routers, a sigmoid-gated shared expert,
+quantized experts through the grouped kernel K8). The other families'
+switches (qk-norm, sandwich norms, ALiBi, parallel residual, LayerNorm,
+plain MLPs, ...), the deepseek router, MLA, expert and context parallelism
+and the layer-tail kernel are not ported yet: such configs are refused by
+``models/model.py::check_supported`` (ROADMAP.md).
 
 The kernel gates mirror the JAX package's so that both take the same branch
 on the same inputs, with the card in place of the TPU: the decode prologue
@@ -26,7 +30,7 @@ import torch
 
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.modules.cache import KVCache
-from quick_tpu_torch.modules.linear import AnyLinear, QuantLinear
+from quick_tpu_torch.modules.linear import AnyLinear, Linear, QuantLinear
 from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.ops.attention import causal_attention
 from quick_tpu_torch.ops.norms import rms_norm
@@ -47,11 +51,26 @@ class MLPParams:
 
 
 @dataclasses.dataclass
+class MoEParams:
+    """Sparse MoE (``MoEParams`` :60): a float router and per-expert fused
+    MLPs stacked on a leading expert axis; the optional always-on shared
+    expert, its qwen2_moe sigmoid gate and the deepseek v3 selection bias."""
+
+    router: Linear  # [D, E], kept float
+    gate_up_proj: AnyLinear  # leading expert axis on each array
+    down_proj: AnyLinear
+    shared_gate_up: Optional[AnyLinear] = None  # [D, 2*F_shared]
+    shared_down: Optional[AnyLinear] = None     # [F_shared, D]
+    score_bias: Optional[torch.Tensor] = None   # [E], selection only
+    shared_gate: Optional[AnyLinear] = None     # [D, 1] (qwen2_moe)
+
+
+@dataclasses.dataclass
 class BlockParams:
     attn_norm: torch.Tensor
     attn: AttentionParams
     mlp_norm: torch.Tensor
-    mlp: MLPParams
+    mlp: Union[MLPParams, MoEParams]
 
 
 def _use_paged_kernel(cache) -> bool:
@@ -236,6 +255,158 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last dim in
+    ``lax.top_k``'s order: descending, the lower index first among ties
+    (``torch.topk`` promises no order for ties). A stable sort on the
+    device; no host sync."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _grouped_moe(p: MoEParams, x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
+                 token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped ragged expert dispatch (``_grouped_moe`` :542): expert-sort
+    the routed (token, expert) pairs, run both expert GEMMs as one K8
+    launch each, combine by gathering each token's kk rows. Returns f32
+    [B, S, D].
+
+    The JAX package re-takes the top kk of the combine weights here; with
+    every expert on one card that gives the router's own choice ``sel``
+    [B, S, kk] (positive weights), and experts 0..kk-1 at weight 0 for a
+    masked token (an all-zero row; ``lax.top_k`` takes the lower index
+    first). So the router's choice is used as it is. Slots are sorted by
+    expert id so the f32 combine sums in the JAX package's order."""
+    from quick_tpu_torch.ops.grouped_matmul import (
+        build_routing,
+        pick_grouped_bm,
+        quantized_matmul_grouped,
+    )
+
+    B, S, D = x.shape
+    T, kk = B * S, sel.shape[-1]
+    E_local = _n_local_experts(p)
+    sel, ss = torch.sort(sel.reshape(T, kk), dim=1)  # expert-id-ascending (distinct ids)
+    w = torch.gather(weights.reshape(T, kk).to(torch.float32), 1, ss)
+    if token_mask is not None:
+        m = token_mask.reshape(T, 1)
+        sel = torch.where(m, sel, torch.arange(kk, device=x.device))
+        w = w * m
+    bm = pick_grouped_bm(T * kk, E_local)
+    tok_rows, pos, tile_e, tile_live, _ = build_routing(sel, E_local, bm)
+    xs = x.reshape(T, D)[tok_rows]  # [Mp, D] expert-sorted tokens
+    gup, dnp = p.gate_up_proj, p.down_proj
+    gu = quantized_matmul_grouped(
+        xs, gup.qweight, gup.scales, gup.zeros_x_scales, tile_e, tile_live, bm,
+        group_size=gup.group_size,
+    )
+    gate, up = torch.chunk(gu, 2, dim=-1)
+    yd = quantized_matmul_grouped(
+        silu(gate) * up, dnp.qweight, dnp.scales, dnp.zeros_x_scales, tile_e, tile_live, bm,
+        group_size=dnp.group_size,
+    )
+    yg = yd[pos.reshape(-1)].reshape(T, kk, D).to(torch.float32)
+    return torch.sum(yg * w[..., None], dim=1).reshape(B, S, D)
+
+
+def moe_forward(
+    p: MoEParams, cfg: ModelConfig, x: torch.Tensor,
+    token_mask: Optional[torch.Tensor] = None,  # [B, S]: padding tokens
+    # get zero combine weights
+) -> torch.Tensor:
+    """MoE dispatch (``moe_forward`` :592) on one card (E_local = E; expert
+    parallelism is ROADMAP A15). The router runs on f32 x against its bf16
+    weight cast to f32 (a full-f32 product under PyTorch's default
+    ``allow_tf32=False``). Quantized bias-free experts ride the grouped
+    kernel at every batch size; float or biased experts (left so by
+    ``modules_to_not_convert``) take the per-expert path at B*S <= 32 (every
+    expert is computed: an unrouted one adds exact zeros, and nothing is
+    read back to the host) or the einsum over all experts."""
+    B, S, D = x.shape
+    topk = cfg.num_experts_per_tok
+    logits = p.router(x.to(torch.float32))  # [B, S, E]
+    if cfg.moe_router == "softmax_all":
+        # qwen2/3-MoE: softmax over all experts, then top-k of the scores;
+        # renormalized only under norm_topk_prob
+        weights, sel = top_k(torch.softmax(logits, dim=-1), topk)
+        if cfg.norm_topk_prob and topk > 1:
+            weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+    elif cfg.moe_router == "mixtral":
+        weights, sel = top_k(logits, topk)
+        weights = torch.softmax(weights, dim=-1)
+    else:
+        raise NotImplementedError(
+            f"moe_router={cfg.moe_router!r}: the deepseek router comes with MLA "
+            "and is not ported yet — ROADMAP A11")
+
+    def expert_fn(gu_q, gu_s, gu_z, gu_b, dn_q, dn_s, dn_z, dn_b):
+        gup = _rebuild_linear(p.gate_up_proj, gu_q, gu_s, gu_z, gu_b)
+        dnp = _rebuild_linear(p.down_proj, dn_q, dn_s, dn_z, dn_b)
+        gate, up = torch.chunk(gup(x), 2, dim=-1)
+        return dnp(silu(gate) * up)  # [B, S, D]
+
+    grouped_ok = (
+        isinstance(p.gate_up_proj, QuantLinear) and isinstance(p.down_proj, QuantLinear)
+        and p.gate_up_proj.bias is None and p.down_proj.bias is None
+    )
+    if grouped_ok:
+        y = _grouped_moe(p, x, sel, weights, token_mask)
+    else:
+        # combine weights per expert [B, S, E]: the one-hot sum of the JAX
+        # package, as a scatter (the selected ids of a row are distinct)
+        comb = torch.zeros(logits.shape, dtype=torch.float32, device=x.device).scatter_(
+            -1, sel, weights.to(torch.float32))
+        if token_mask is not None:
+            comb = comb * token_mask[..., None].to(comb.dtype)
+        if B * S <= 32:
+            y = torch.zeros((B, S, D), dtype=torch.float32, device=x.device)
+            for e in range(_n_local_experts(p)):
+                y = y + _apply_expert(p, e, expert_fn).to(torch.float32) * comb[..., e:e + 1]
+        else:
+            outs = _map_experts(p, expert_fn)  # [E, B, S, D]
+            y = torch.einsum("ebsd,bse->bsd", outs.to(torch.float32), comb)
+    y = y.to(x.dtype)
+    if p.shared_gate_up is not None:
+        # always-on shared expert; qwen2_moe gates it per token with
+        # sigmoid(shared_gate(x))
+        gate, up = torch.chunk(p.shared_gate_up(x), 2, dim=-1)
+        sh = p.shared_down(silu(gate) * up)
+        if p.shared_gate is not None:
+            g = torch.sigmoid(p.shared_gate(x).to(torch.float32))
+            sh = (sh.to(torch.float32) * g).to(sh.dtype)
+        y = y + sh
+    return y
+
+
+def _n_local_experts(p: MoEParams) -> int:
+    gu = p.gate_up_proj
+    return (gu.qweight if isinstance(gu, QuantLinear) else gu.weight).shape[0]
+
+
+def _expert_fields(lin: AnyLinear, e: int):
+    """Expert e's slices of one projection, quantized or float."""
+    b = None if lin.bias is None else lin.bias[e]
+    if isinstance(lin, QuantLinear):
+        return (lin.qweight[e], lin.scales[e], lin.zeros_x_scales[e], b)
+    return (lin.weight[e], None, None, b)
+
+
+def _apply_expert(p: MoEParams, e: int, fn):
+    return fn(*_expert_fields(p.gate_up_proj, e), *_expert_fields(p.down_proj, e))
+
+
+def _rebuild_linear(proto: AnyLinear, *fields) -> AnyLinear:
+    if isinstance(proto, QuantLinear):
+        q, s, z, b = fields
+        return QuantLinear(q, s, z, b, proto.group_size)
+    return Linear(fields[0], fields[3])
+
+
+def _map_experts(p: MoEParams, fn) -> torch.Tensor:
+    """Every expert's output stacked on a leading expert axis."""
+    return torch.stack([_apply_expert(p, e, fn) for e in range(_n_local_experts(p))])
+
+
 def block_forward(
     p: BlockParams,
     cfg: ModelConfig,
@@ -246,6 +417,7 @@ def block_forward(
     layer_idx: int,
     positions: torch.Tensor,
     decode_lengths: Optional[torch.Tensor] = None,
+    token_mask: Optional[torch.Tensor] = None,  # [B, S] valid tokens (MoE)
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     eps = cfg.rms_norm_eps
     if _fuse_decode_norm_ok(p.attn.qkv_proj, x):
@@ -260,7 +432,10 @@ def block_forward(
             cache, layer_idx, positions, decode_lengths=decode_lengths,
         )
     x = x + attn_out
-    if _fuse_decode_norm_ok(p.mlp.gate_up_proj, x):
+    if isinstance(p.mlp, MoEParams):
+        # the MLP norm is never fused into an MoE layer (:851-857)
+        mlp_out = moe_forward(p.mlp, cfg, rms_norm(x, p.mlp_norm, eps), token_mask)
+    elif _fuse_decode_norm_ok(p.mlp.gate_up_proj, x):
         mlp_out = mlp_forward(p.mlp, x, pre_norm=(p.mlp_norm, eps))
     else:
         mlp_out = mlp_forward(p.mlp, rms_norm(x, p.mlp_norm, eps))

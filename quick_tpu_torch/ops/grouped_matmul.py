@@ -1,0 +1,204 @@
+"""Grouped (ragged) W4A16 GEMM for MoE experts: CUDA kernel K8, its plain
+version and the expert-sorted routing layout.
+
+Port of ``quick_tpu/ops/grouped_matmul.py``. The routed (token, expert)
+pairs are sorted by expert and each expert's segment is padded to a
+``bm``-row tile (``build_routing``); ``quantized_matmul_grouped`` then
+computes every tile against its own expert's packed weights, read from
+``tile_expert`` on the device, so compute and weight traffic scale with the
+routed tokens and not with E x T. Dead tiles (past the last routed segment)
+are written as zeros. On CUDA tensors the work goes to the hand-written
+kernel ``csrc/grouped_matmul.cu`` (K8); on CPU tensors to the plain version,
+which follows ``_grouped_fallback`` (:146): per 128-group integer dots of
+the bf16 activations summed in f32, scaled on the output side, minus
+``xsum @ (z * s)``.
+
+Routing never reads a device value back to the host: the row budget ``Mp``
+is static from (T, topk, E, bm), and expert counts and ranks come from a
+cumulative sum over a [T * topk, E] one-hot (not ``bincount``, which reads
+its maximum back); that, ``searchsorted`` and the scatters stay on the
+device.
+
+Not ported: the grouped W4A8 kernel (``a8``, ROADMAP B12) and the
+small-group route (G != 128; the JAX package's XLA fallback, ROADMAP B11),
+which only the CPU's plain path takes.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from quick_tpu_torch.ops._cuda import CudaKernel, check, i32, ptr, stream_ptr
+from quick_tpu_torch.ops.quantized_matmul import KERNEL_GROUP, quantized_matmul_plain
+from quick_tpu_torch.quantize.packing import PACK
+
+#: K8. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
+KERNEL = CudaKernel(
+    "grouped_matmul.cu",
+    {"qtt_grouped_matmul": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]},
+)
+
+
+def pick_grouped_bm(tk: int, n_experts: int) -> int:
+    """m-tile height from the average routed rows per expert
+    (``pick_grouped_bm`` :301, without its environment override)."""
+    avg = tk / max(n_experts, 1)
+    if avg <= 48:
+        return 32
+    if avg <= 96:
+        return 64
+    return 128
+
+
+def grouped_row_budget(tk: int, n_experts: int, bm: int) -> int:
+    """Static worst-case rows of the expert-sorted buffer: every expert's
+    segment rounds up to bm, and at most min(tk, E) experts have tokens
+    (``grouped_row_budget`` :322)."""
+    worst = min(tk + n_experts * (bm - 1), tk * bm)
+    return max((worst + bm - 1) // bm * bm, bm)
+
+
+def build_routing(
+    sel: torch.Tensor, n_experts: int, bm: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Expert-sort the (token, slot) pairs of ``sel`` [T, kk] into bm-row
+    per-expert segments (``build_routing`` :330). Returns, on sel's device:
+    tok_rows [Mp] int32 (source token of each sorted row), pos [T, kk]
+    int32 (sorted row of each pair), tile_expert [Mp // bm] int32,
+    tile_live [Mp // bm] int32 (0 past the last routed segment) and valid
+    [Mp] bool. Padding rows gather token 0 and are never read back."""
+    T, kk = sel.shape
+    TK = T * kk
+    Mp = grouped_row_budget(TK, n_experts, bm)
+    dev = sel.device
+    e_flat = sel.reshape(TK).to(torch.int64)
+    pair = torch.arange(TK, device=dev)
+    if TK <= n_experts:
+        # decode-sized batches: each pair owns its own tile (Mp == TK * bm),
+        # no sort; only row 0 of a tile is read back
+        rows = torch.arange(Mp, dtype=torch.int32, device=dev)
+        return ((rows // (bm * kk)), (pair * bm).to(torch.int32).reshape(T, kk),
+                e_flat.to(torch.int32), torch.ones(TK, dtype=torch.int32, device=dev),
+                rows % bm == 0)
+    # a pair's row is its expert's segment base plus its rank among the
+    # expert's pairs in pair order: the order of the JAX package's sort on
+    # the unique key expert * TK + pair, without a sort
+    onehot = (e_flat[:, None] == torch.arange(n_experts, device=dev)).to(torch.int64)
+    seen = torch.cumsum(onehot, 0)  # [TK, E] pairs so far of each expert
+    counts = seen[-1]
+    rank = torch.gather(seen, 1, e_flat[:, None])[:, 0] - 1
+    padc = (counts + bm - 1) // bm * bm
+    cum = torch.cumsum(padc, 0)
+    dest = (cum - padc)[e_flat] + rank  # [TK] rows, all < Mp
+    tok_rows = torch.zeros(Mp, dtype=torch.int32, device=dev).scatter_(
+        0, dest, (pair // kk).to(torch.int32))
+    valid = torch.zeros(Mp, dtype=torch.bool, device=dev).index_fill_(0, dest, True)
+    tile_starts = torch.arange(0, Mp, bm, device=dev)
+    tile_expert = torch.clamp(
+        torch.searchsorted(cum, tile_starts, right=True), max=n_experts - 1
+    ).to(torch.int32)
+    tile_live = (tile_starts < cum[-1]).to(torch.int32)
+    return tok_rows, dest.to(torch.int32).reshape(T, kk), tile_expert, tile_live, valid
+
+
+def quantized_matmul_grouped_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    tile_expert: torch.Tensor,
+    tile_live: torch.Tensor,
+    bm: int,
+    group_size: int = 128,
+) -> torch.Tensor:
+    """Plain version of K8: each live tile's rows times its expert's
+    weights by K1's plain version (f32 out), dead tiles zero. Reads the
+    tile layout back to the host: it serves the CPU and the comparisons on
+    the card, never the card's main path."""
+    Mp = x.shape[0]
+    N = qweight.shape[-1]
+    out = torch.zeros((Mp, N), dtype=torch.float32, device=x.device)
+    tiles = torch.arange(Mp // bm, device=x.device)
+    te, live = tile_expert.tolist(), tile_live.tolist()
+    for e in sorted({int(t) for t, lv in zip(te, live) if lv}):
+        mine = tiles[(tile_expert == e) & (tile_live != 0)]
+        rows = (mine[:, None] * bm + torch.arange(bm, device=x.device)).reshape(-1)
+        out[rows] = quantized_matmul_plain(
+            x[rows], qweight[e], scales[e], zeros_x_scales[e], group_size, torch.float32)
+    return out.to(torch.bfloat16)
+
+
+def launch_key(Mp: int, K: int, N: int, E: int, bm: int) -> str:
+    return f"Mp={Mp} K={K} N={N} E={E} bm={bm}"
+
+
+def quantized_matmul_grouped_cuda(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    tile_expert: torch.Tensor,
+    tile_live: torch.Tensor,
+    bm: int,
+) -> torch.Tensor:
+    """Launch K8 on CUDA tensors: x [Mp, K] bf16 expert-sorted rows,
+    qweight int32 [E, K // 8, N], scales / zeros_x_scales f32
+    [E, K // 128, N], tile_expert / tile_live int32 [Mp // bm]; returns
+    [Mp, N] bf16. bm must be a multiple of 32 (``pick_grouped_bm`` gives
+    32, 64 or 128)."""
+    dev = x.device
+    x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:  # x is read in 16-byte chunks
+        x = x.clone()
+    Mp, K = x.shape
+    E, _, N = qweight.shape
+    ng = K // KERNEL_GROUP
+    if bm % 32 or Mp % bm or K % KERNEL_GROUP:
+        raise ValueError(f"K8 takes bm % 32 == 0, Mp % bm == 0, K % 128 == 0: "
+                         f"bm={bm} Mp={Mp} K={K}")
+    check(qweight, "qweight", torch.int32, (E, K // PACK, N))
+    check(scales, "scales", torch.float32, (E, ng, N))
+    check(zeros_x_scales, "zeros_x_scales", torch.float32, (E, ng, N))
+    check(tile_expert, "tile_expert", torch.int32, (Mp // bm,))
+    check(tile_live, "tile_live", torch.int32, (Mp // bm,))
+    out = torch.empty((Mp, N), dtype=torch.bfloat16, device=dev)
+    KERNEL.launch(
+        "qtt_grouped_matmul", launch_key(Mp, K, N, E, bm),
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros_x_scales.data_ptr(),
+        tile_expert.data_ptr(), tile_live.data_ptr(), Mp, K, N, E, bm,
+        out.data_ptr(), stream_ptr(dev),
+    )
+    return out
+
+
+def quantized_matmul_grouped(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    tile_expert: torch.Tensor,
+    tile_live: torch.Tensor,
+    bm: int,
+    group_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """Ragged multi-expert ``x @ dequant(qweight[e])`` -> [Mp, N] bf16,
+    rows ``i*bm:(i+1)*bm`` with expert ``tile_expert[i]``, zeros where
+    ``tile_live[i] == 0`` (``quantized_matmul_grouped`` :205): K8 on CUDA
+    tensors, the plain version on CPU tensors."""
+    if a8:
+        raise NotImplementedError(
+            "the grouped W4A8 kernel (quick_tpu _make_grouped_kernel_a8) is "
+            "not ported yet — ROADMAP B12")
+    if x.device.type != "cuda":
+        return quantized_matmul_grouped_plain(
+            x, qweight, scales, zeros_x_scales, tile_expert, tile_live, bm, group_size)
+    if group_size != KERNEL_GROUP:
+        raise NotImplementedError(
+            f"group_size={group_size}: the JAX package runs small-group MoE "
+            "experts on its XLA fallback; the port has no kernel for them yet "
+            "— ROADMAP B11")
+    return quantized_matmul_grouped_cuda(
+        x, qweight, scales, zeros_x_scales, tile_expert.to(torch.int32),
+        tile_live.to(torch.int32), bm)

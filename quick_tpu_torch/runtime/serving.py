@@ -11,6 +11,9 @@ metadata (``PagedKVCache.select`` / ``merge``); the padded [B, chunk] or
 [B, 1] mixed step serves cold start, capacity-tight tails and
 ``decode_window=1``. Scheduling (admission, page allocation, retirement,
 prefix caching, preemption) is host-side Python, as in the JAX package.
+MoE models run through the same programs: the padded rows of a chunk or
+of an idle slot get zero expert weights (``advance`` -> ``model_forward``'s
+token mask), and their routing stays on the device.
 
 What differs from the JAX package, which jits each program:
 - The W steps of a window are a Python loop (the JAX ``fori_loop``,
@@ -194,7 +197,7 @@ class Engine:
                 "history penalties and logit_bias (enable_penalties) are not "
                 "ported yet — ROADMAP A6"
             )
-        check_supported(cfg)  # MLA, MoE and other families raise (A10-A12)
+        check_supported(cfg)  # MLA and other families raise (A11, A12)
         dev = resolve_device(device)
         if params.embed.device.type != dev.type:
             raise ValueError(

@@ -1,5 +1,5 @@
 """Checkpoint IO: the native quantized format, HF float import and AutoAWQ
-interop (port of ``quick_tpu/utils/checkpoint.py``, dense llama path).
+interop (port of ``quick_tpu/utils/checkpoint.py``, llama path, dense and MoE).
 
 - **native save / load** (``save_quantized`` :270, ``_load_flat`` :432,
   ``load_quantized`` :555): safetensors shards of at most ``SHARD_BYTES``
@@ -8,12 +8,15 @@ interop (port of ``quick_tpu/utils/checkpoint.py``, dense llama path).
   with an embedded ``quantization_config``. A checkpoint saved by either
   package loads in the other.
 - **HF float import** (``_LazyRaw`` :588, ``load_hf_float`` :673,
-  ``_import_llama_family`` :708): the dense llama
-  schema, q/k/v and gate/up fused offline. The MoE, sandwich-norm, qk-norm
-  and norm-bias branches and every other ``model_type`` raise, naming the
-  ROADMAP item that ports them (A10, A12); no tensor is dropped silently.
+  ``_import_llama_family`` :708): the llama schema, q/k/v and gate/up fused
+  offline, with its MoE branches: mixtral's ``block_sparse_moe`` and
+  qwen2_moe's ``mlp.experts`` with the gated shared expert, experts
+  stacked on a leading axis. The sandwich-norm, qk-norm and norm-bias
+  branches and every other ``model_type`` raise, naming the ROADMAP item
+  that ports them (A12); no tensor is dropped silently.
 - **AutoAWQ** (``load_autoawq`` :1924 with GEMM / GEMV / exllama dispatch on
-  ``QuantConfig.version``, ``export_autoawq`` :312).
+  ``QuantConfig.version``, ``export_autoawq`` :312), dense models only: the
+  JAX package maps no MoE keys there either.
 
 Everything streams one tensor at a time (``utils/safetensors_io.py``):
 each tensor is read from its file, converted and moved to the device
@@ -34,7 +37,7 @@ from quick_tpu_torch.config import ModelConfig, QuantConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device
 from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
 from quick_tpu_torch.models.model import ModelParams, _tables, check_supported
-from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams
+from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams, MoEParams
 from quick_tpu_torch.modules.linear import Linear, QuantLinear, concat_linears
 from quick_tpu_torch.utils.safetensors_io import SafeOpen, save_file
 
@@ -147,7 +150,7 @@ class _LazyRaw:
 
 
 # ---------------------------------------------------------------------------
-# HF float import (dense llama schema)
+# HF float import (llama schema, dense and MoE)
 # ---------------------------------------------------------------------------
 
 def _check_llama_schema(model_type: str, what: str) -> None:
@@ -156,32 +159,30 @@ def _check_llama_schema(model_type: str, what: str) -> None:
     if model_type not in MODEL_TYPE_MAP:
         raise NotImplementedError(
             f"{what}: model_type {model_type!r} is not ported yet; the port "
-            f"maps the dense llama schema {sorted(MODEL_TYPE_MAP)} (ROADMAP A12)"
+            f"maps the llama schema {sorted(MODEL_TYPE_MAP)} (ROADMAP A12)"
         )
 
 
 def load_hf_float(
     model_dir: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
 ) -> Tuple[ModelParams, ModelConfig]:
-    """Import an HF float checkpoint of the dense llama schema into
-    ModelParams on ``device``, fusing q/k/v and gate/up (``load_hf_float``
-    :673)."""
+    """Import an HF float checkpoint of the llama schema (dense, mixtral or
+    qwen2_moe) into ModelParams on ``device``, fusing q/k/v and gate/up
+    (``load_hf_float`` :673)."""
     dev = resolve_device(device)
     with open(os.path.join(model_dir, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = ModelConfig.from_hf_config(hf_cfg)
     _check_llama_schema(cfg.model_type, "HF import")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.model_type}: MoE checkpoints are not ported yet (ROADMAP A10)")
     check_supported(cfg)
     raw = _LazyRaw(model_dir)  # tensor at a time
     return _import_llama_family(raw, cfg, dtype, dev), cfg
 
 
 def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelParams:
-    """The dense llama branch of ``_import_llama_family`` (:708). Each
-    tensor is cast on the host, as the JAX package casts it, then moved."""
+    """The llama branch of ``_import_llama_family`` (:708), with its mixtral
+    (:748) and qwen2_moe (:761) MoE layers. Each tensor is cast on the
+    host, as the JAX package casts it, then moved."""
 
     def W(key):  # HF stores [out, in]; the port uses [in, out]
         return raw.pop(key).transpose(-1, -2).to(dtype).contiguous().to(dev)
@@ -198,9 +199,7 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
                            (".self_attn.q_norm.", "qk-norm, ROADMAP A12"),
                            (".self_attn.k_norm.", "qk-norm, ROADMAP A12"),
                            ("layernorm.bias", "LayerNorm biases, ROADMAP A12"),
-                           ("model.norm.bias", "LayerNorm biases, ROADMAP A12"),
-                           (".block_sparse_moe.", "MoE, ROADMAP A10"),
-                           (".mlp.experts.", "MoE, ROADMAP A10")):
+                           ("model.norm.bias", "LayerNorm biases, ROADMAP A12")):
             if part in key:
                 raise NotImplementedError(
                     f"{cfg.model_type}: tensor {key} belongs to a branch of the "
@@ -217,10 +216,7 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
         bias = torch.cat([qb, kb, vb]) if qb is not None else None
         qkv = Linear(torch.cat([qw, kw, vw], dim=1), bias)
         o = Linear(W(f"{p}.self_attn.o_proj.weight"), maybe_bias(f"{p}.self_attn.o_proj"))
-        gate = W(f"{p}.mlp.gate_proj.weight")
-        up = W(f"{p}.mlp.up_proj.weight")
-        mlp = MLPParams(gate_up_proj=Linear(torch.cat([gate, up], dim=1)),
-                        down_proj=Linear(W(f"{p}.mlp.down_proj.weight")))
+        mlp = _import_mlp(p, raw, cfg, W)
         blocks.append(BlockParams(
             attn_norm=V(f"{p}.input_layernorm.weight"),
             attn=AttentionParams(qkv_proj=qkv, o_proj=o),
@@ -237,10 +233,45 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
     left = [k for k in raw.keys() if not k.endswith("rotary_emb.inv_freq")]
     if left:
         raise NotImplementedError(
-            f"{cfg.model_type}: the dense llama importer has no place for "
+            f"{cfg.model_type}: the llama importer has no place for "
             f"{len(left)} tensors, e.g. {left[:4]} (ROADMAP A12)")
     return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm,
                        lm_head=lm_head, **_tables(cfg, dev))
+
+
+def _import_mlp(p: str, raw: _LazyRaw, cfg: ModelConfig, W) -> "MLPParams | MoEParams":
+    """Layer ``p``'s MLP, chosen by its keys as the JAX importer chooses:
+    mixtral's ``block_sparse_moe`` (experts w1 | w3 fused, w2), qwen2_moe's
+    ``mlp.experts`` with the shared expert and its [D, 1] gate, or the
+    dense gate / up / down. ``W`` pops a weight as [in, out]."""
+
+    def fused(gate_key, up_key):
+        return torch.cat([W(gate_key), W(up_key)], dim=1)
+
+    def experts(base, g, u, d):
+        n = range(cfg.num_local_experts)
+        gu = torch.stack([fused(f"{base}.{e}.{g}.weight", f"{base}.{e}.{u}.weight") for e in n])
+        return Linear(gu), Linear(torch.stack([W(f"{base}.{e}.{d}.weight") for e in n]))
+
+    if cfg.is_moe and f"{p}.block_sparse_moe.gate.weight" in raw:
+        gu, dn = experts(f"{p}.block_sparse_moe.experts", "w1", "w3", "w2")
+        return MoEParams(router=Linear(W(f"{p}.block_sparse_moe.gate.weight")),
+                         gate_up_proj=gu, down_proj=dn)
+    if cfg.is_moe and f"{p}.mlp.gate.weight" in raw:
+        gu, dn = experts(f"{p}.mlp.experts", "gate_proj", "up_proj", "down_proj")
+        shared = {}
+        sh = f"{p}.mlp.shared_expert"
+        if f"{sh}.gate_proj.weight" in raw:
+            shared = dict(
+                shared_gate_up=Linear(fused(f"{sh}.gate_proj.weight", f"{sh}.up_proj.weight")),
+                shared_down=Linear(W(f"{sh}.down_proj.weight")),
+                shared_gate=Linear(W(f"{p}.mlp.shared_expert_gate.weight")),  # [D, 1]
+            )
+        return MoEParams(router=Linear(W(f"{p}.mlp.gate.weight")), gate_up_proj=gu,
+                         down_proj=dn, **shared)
+    return MLPParams(gate_up_proj=Linear(fused(f"{p}.mlp.gate_proj.weight",
+                                               f"{p}.mlp.up_proj.weight")),
+                     down_proj=Linear(W(f"{p}.mlp.down_proj.weight")))
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +293,10 @@ def load_autoawq(
     cfg = ModelConfig.from_hf_config(hf_cfg)
     _check_llama_schema(cfg.model_type, "AutoAWQ import")
     check_supported(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.model_type}: AutoAWQ MoE checkpoints are not mapped (the JAX "
+            "loader reads only dense mlp.*_proj keys, :2006-2010) — ROADMAP A10")
     qcfg = QuantConfig.from_pretrained(model_dir)
     G = qcfg.q_group_size
     version = qcfg.version.lower()
@@ -322,7 +357,11 @@ def export_autoawq(params: ModelParams, cfg: ModelConfig, qcfg: QuantConfig, sav
     "gemm". Dense llama layout only."""
     from quick_tpu_torch.quantize.packing import export_awq_gemm, unpack_qtpu
 
-    if cfg.is_moe or not cfg.gated_mlp or cfg.layernorm != "rmsnorm":
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"export_autoawq: MoE models are not exported, as in the JAX package "
+            f"(:332; model_type={cfg.model_type}) — ROADMAP A10")
+    if not cfg.gated_mlp or cfg.layernorm != "rmsnorm":
         raise NotImplementedError(
             f"export_autoawq supports the llama-family layout only (model_type={cfg.model_type})")
     hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
 K3 fused decode step, K4 paged writes, K5 / K6 paged attention, K7 dense
-decode attention) against
+decode attention, K8 grouped MoE GEMM) against
 their plain PyTorch versions, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
@@ -304,3 +304,42 @@ def test_dense_decode_kernel_matches_plain(rng, cuda_device, case):
     assert (np.abs(f32(out) - f32(ref)) <= TOL["rtol"] * row_max).all()
     if case == "ragged":
         assert not f32(out)[1].any()  # the length-0 row
+
+
+#: (bm, tile experts, live flags, N): 32-row blocks, 64-row blocks over
+#: 64- and 128-row tiles, a ragged N; expert 2 of 4 gets no tile, the last
+#: tiles are dead
+GROUPED_CASES = {
+    "bm32": (32, [0, 0, 1, 3, 3, 3], [1, 1, 1, 1, 1, 0], 384),
+    "bm64": (64, [1, 3, 3, 3], [1, 1, 0, 0], 256),
+    "bm128_ragged_n": (128, [0, 3, 3], [1, 1, 1], 200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_kernel_matches_plain(rng, cuda_device, case):
+    """K8 against its plain version: every tile with its own expert, dead
+    tiles all zeros; group sizes other than 128 raise on the card (B11)."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    bm, te, live, N = GROUPED_CASES[case]
+    E, K = 4, 512
+    q = rng.integers(0, 16, size=(E, K, N), dtype=np.uint8)
+    qw = np.stack([pack_qtpu(q[e]) for e in range(E)])
+    s = (rng.uniform(size=(E, K // 128, N)) * 0.01 + 0.001).astype(np.float32)
+    zs = (np.round(rng.uniform(size=(E, K // 128, N)) * 15) * s).astype(np.float32)
+    x = rng.standard_normal((len(te) * bm, K)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, qw, s, zs, np.asarray(te, np.int32),
+                                          np.asarray(live, np.int32))]
+    args[0] = args[0].to(torch.bfloat16)
+    before = tgm.KERNEL.launches
+    out = tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args), bm)
+    torch.cuda.synchronize()
+    assert tgm.KERNEL.launches == before + 1
+    ref = tgm.quantized_matmul_grouped(*args, bm)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    dead = np.repeat(np.asarray(live) == 0, bm)
+    assert not f32(out)[dead].any()
+    with pytest.raises(NotImplementedError, match="B11"):
+        tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args), bm, group_size=64)
