@@ -5,9 +5,9 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K8 from
-     csrc/ (one nvcc per source, in parallel) and print ptxas' register
-     summary;
+  1. the card's name and power limit; build the CUDA kernels K1-K8, K4q
+     and K5q / K6q from csrc/ (one nvcc per source, in parallel) and print
+     ptxas' register summary;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the main paths, in bf16, with the tolerance stated;
   3. each kernel's time (CUDA events over many launches queued behind a
@@ -41,11 +41,19 @@ Phases (any failure exits non-zero):
   8. the MoE path: K8 (grouped expert GEMM) against its plain version and
      timed at the routed shapes of Mixtral-8x7B and Qwen1.5-MoE-A2.7B; then
      Mixtral-8x7B at full width and depth (random QTPU weights, seed 0)
-     through generate() (as phase 4) and the Engine (as phase 5), a
-     2-layer checkpoint round trip, the kernel path against the plain path
-     for 2-layer Mixtral and Qwen1.5-MoE models (a token routed differently
-     must have had a router gap under ROUTE_GAP), and Qwen1.5-MoE's
-     generate() at full depth; launch counts exactly those of each path.
+     through generate() (as phase 4) and, at MOE_ENGINE_LAYERS layers of
+     full width, the Engine (as phase 5), a 2-layer checkpoint round trip,
+     the kernel path against the plain path for 2-layer Mixtral and
+     Qwen1.5-MoE models (a token routed differently must have had a router
+     gap under ROUTE_GAP), and Qwen1.5-MoE's generate() at full depth;
+     launch counts exactly those of each path;
+  9. INT8 KV pages: (a) K4q (decode and chunk writes, codes and scale tiles
+     byte-equal), K5q and K6q (within tol, K5q also row-scaled) against
+     their plain versions at the INT8 Engine's shapes; (b) their times,
+     bounds and yardsticks; (c) the Engine over INT8 pages, as phase 5, on
+     tools/serve_bench.py's INT8 command (128 requests, 64 slots); (d) the
+     2-layer full-width check over INT8 pages, as phase 6's paged one,
+     with the written codes and scale tiles held to the CPU scatter's.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
@@ -53,6 +61,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -93,6 +102,22 @@ PHASE6_DECODE = 4  # decode steps after phase 6's prefill or chunk
 ENGINE = dict(max_slots=16, max_seq=1024, page_size=64, chunk=16,
               decode_window=8, prefill_rows=8, reserve="full", prefix_cache=True)
 N_REQUESTS, SYSTEM_PREFIX = 32, 64
+#: phase 9, INT8 KV pages: the JAX package's documented INT8 serving
+#: command, tools/serve_bench.py --requests 128 --slots 64 --kv int8 (:11;
+#: its defaults :37-44: page 64, max_seq 1024, decode window 16, prefix
+#: cache on, no shared prefix; prefill_rows is the Engine's default 8), with
+#: chunk 16 for the reason above; 64 x 16 + 1 = 1025 pages
+ENGINE_INT8 = dict(max_slots=64, max_seq=1024, page_size=64, chunk=16, decode_window=16,
+                   prefill_rows=8, reserve="full", prefix_cache=True, dtype=torch.int8)
+INT8_REQUESTS = 128
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor rate (NVIDIA data sheet)
+#: phase 9d logits, 2 layers over INT8 pages: the card quantizes q per
+#: head and p per (head, page) to int8 (K5q) where the CPU path attends
+#: over bf16-dequantized pages, on top of phase 6's bf16 steps
+TOL_INT8_MODEL = 2e-2
+#: the Mixtral Engine (phase 8) runs its first MOE_ENGINE_LAYERS layers of
+#: full width, so that phase 9's Engine fits the script's time budget
+MOE_ENGINE_LAYERS = 8
 #: the checkpoint phase: examples/benchmark.py's 128/128 protocol (:39-79,
 #: batches 1,8,32,64,... :87) at B=32 and B=64 (1 timed trial each), and
 #: one long-context stream: B=4, a 1,900-token prompt, 8 new tokens in a
@@ -169,8 +194,10 @@ def device_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> tuple:
+    """(least ms, "bytes" or "operations"): bytes over the HBM rate, or
+    operations over the tensor-core ``rate`` of their type."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -469,11 +496,11 @@ def serving_trace(vocab: int, seed: int = 0):
             for p, o in zip(plen, olen)]
 
 
-def paged_geometry(cfg) -> dict:
-    page = ENGINE["page_size"]
-    n_pt = ENGINE["max_seq"] // page
-    return dict(B=ENGINE["max_slots"], Bp=ENGINE["prefill_rows"], S=ENGINE["chunk"],
-                page=page, n_pt=n_pt, P=ENGINE["max_slots"] * n_pt + 1,
+def paged_geometry(cfg, engine=ENGINE) -> dict:
+    page = engine["page_size"]
+    n_pt = engine["max_seq"] // page
+    return dict(B=engine["max_slots"], Bp=engine["prefill_rows"], S=engine["chunk"],
+                page=page, n_pt=n_pt, P=engine["max_slots"] * n_pt + 1,
                 Hq=cfg.num_attention_heads, Hkv=cfg.num_key_value_heads, D=cfg.head_dim)
 
 
@@ -498,6 +525,20 @@ def block_table(gen, dev, g, rows):
     return perm.reshape(rows, g["n_pt"]).to(torch.int32)
 
 
+def span_addresses(bt, g, pos, n):
+    """(page_ids [rows, 2], offs [rows]) of an n-token write at each slot's
+    ``pos`` through block table ``bt``, aimed as PagedKVCache.update aims
+    them."""
+    page = g["page"]
+    pos = torch.tensor(pos, dtype=torch.int64, device=bt.device)
+    rows = len(pos)
+    first = torch.gather(bt[:rows], 1, (pos // page)[:, None])[:, 0]
+    nxt = torch.gather(bt[:rows], 1, torch.clamp(pos // page + 1, max=g["n_pt"] - 1)[:, None])[:, 0]
+    off = pos % page
+    second = torch.where(off + n > page, nxt, torch.zeros_like(nxt))
+    return torch.stack([first, second], 1).to(torch.int32), off.to(torch.int32)
+
+
 def paged_write_rows(cfg, gen, dev, trace):
     from quick_tpu_torch.ops import paged_write as pw
 
@@ -510,15 +551,7 @@ def paged_write_rows(cfg, gen, dev, trace):
     bt = block_table(gen, dev, g, B).long()
 
     def addresses(pos, n):
-        """(page_ids [rows, 2], offs [rows]) of an n-token write at each
-        slot's ``pos``, aimed as PagedKVCache.update aims them."""
-        pos = torch.tensor(pos, dtype=torch.int64, device=dev)
-        rows = len(pos)
-        first = torch.gather(bt[:rows], 1, (pos // page)[:, None])[:, 0]
-        nxt = torch.gather(bt[:rows], 1, torch.clamp(pos // page + 1, max=g["n_pt"] - 1)[:, None])[:, 0]
-        off = pos % page
-        second = torch.where(off + n > page, nxt, torch.zeros_like(nxt))
-        return torch.stack([first, second], 1).to(torch.int32), off.to(torch.int32)
+        return span_addresses(bt, g, pos, n)
 
     def new_rows(rows, n):
         return [torch.randn((rows, n, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -980,25 +1013,27 @@ def add_forward_launches(cfg, rows: int, n: int, add) -> None:
             add("grouped_matmul", key, n)
 
 
-def engine_launches(cfg, stats) -> dict:
+def engine_launches(cfg, stats, engine=ENGINE) -> dict:
     """Launches per kernel and key that the Engine's recorded schedule
-    implies: each forward runs L launches of K4, L of K5 (S = 1) or K6
-    (S > 1), K1's per layer at the forward's [rows, S] (4 L for a dense
-    model, 2 L + the shared expert's for an MoE one) and 2 L of K8 (MoE).
-    Decode windows and [B, 1] mixed steps run [max_slots, 1], prefill
-    sub-batches [prefill_rows, chunk], [B, chunk] mixed steps
-    [max_slots, chunk]."""
+    implies: each forward runs L launches of K4 (K4q over INT8 pages), L of
+    K5 / K5q (S = 1) or K6 / K6q (S > 1), K1's per layer at the forward's
+    [rows, S] (4 L for a dense model, 2 L + the shared expert's for an MoE
+    one) and 2 L of K8 (MoE). Decode windows and [B, 1] mixed steps run
+    [max_slots, 1], prefill sub-batches [prefill_rows, chunk], [B, chunk]
+    mixed steps [max_slots, chunk]."""
     from quick_tpu_torch.ops.paged_attention import launch_key as attn_key
     from quick_tpu_torch.ops.paged_write import launch_key as write_key
 
-    g = paged_geometry(cfg)
+    g = paged_geometry(cfg, engine)
     L = cfg.num_hidden_layers
+    kv = engine.get("dtype", torch.bfloat16)
+    sfx = "_int8" if kv == torch.int8 else ""
     forwards = {
         (g["B"], 1): stats["window_forwards"] + stats["mixed_steps"] - stats["mixed_chunk_steps"],
         (g["Bp"], g["S"]): stats["prefill_substeps"],
         (g["B"], g["S"]): stats["mixed_chunk_steps"],
     }
-    want = {"quantized_matmul": {}, "paged_write": {}, "paged_attention": {}}
+    want = {"quantized_matmul": {}, "paged_write" + sfx: {}, "paged_attention" + sfx: {}}
     if cfg.is_moe:
         want["grouped_matmul"] = {}
 
@@ -1009,10 +1044,10 @@ def engine_launches(cfg, stats) -> dict:
         if not n:
             continue
         add_forward_launches(cfg, rows * S, L * n, add)
-        add("paged_write", write_key("decode" if S == 1 else "chunk", rows, S, g["Hkv"],
-                                     g["page"], g["D"], torch.bfloat16), L * n)
-        add("paged_attention", attn_key(rows, None if S == 1 else S, g["Hq"], g["Hkv"],
-                                        g["page"], g["D"], g["n_pt"]), L * n)
+        add("paged_write" + sfx, write_key("decode" if S == 1 else "chunk", rows, S, g["Hkv"],
+                                           g["page"], g["D"], kv), L * n)
+        add("paged_attention" + sfx, attn_key(rows, None if S == 1 else S, g["Hq"], g["Hkv"],
+                                              g["page"], g["D"], g["n_pt"]), L * n)
     return want
 
 
@@ -1030,20 +1065,24 @@ def sync_checked(eng, checked: dict) -> None:
         setattr(eng, name, wrapped)
 
 
-def phase_engine(params, cfg, tag: str):
-    """The Engine over the 32-request trace: a warm-up run whose every
-    decode-window and prefill sub-batch dispatch is sync-checked and in
-    which one scheduler turn of steady decode is profiled, then a timed run
-    with every request at its exact length, the warm-up's greedy streams
-    and launch counts equal to those its recorded schedule implies."""
+def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None):
+    """The Engine over a request trace (default: the 32-request trace with
+    a shared prefix): a warm-up run whose every decode-window and prefill
+    sub-batch dispatch is sync-checked and in which one scheduler turn of
+    steady decode is profiled, then a timed run with every request at its
+    exact length, the warm-up's greedy streams and launch counts equal to
+    those its recorded schedule implies."""
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import Engine
 
-    trace = serving_trace(cfg.vocab_size)
+    if trace is None:
+        trace = serving_trace(cfg.vocab_size)
     n_prompt = sum(len(p) for p, _ in trace)
     n_out = sum(n for _, n in trace)
-    print(f"[{tag}] serving path: {cfg.model_type}, Engine({ENGINE}), {N_REQUESTS} requests, "
-          f"{n_prompt} prompt tokens ({SYSTEM_PREFIX}-token shared prefix) + {n_out} output tokens")
+    shared = len(os.path.commonprefix([p for p, _ in trace]))
+    print(f"[{tag}] serving path: {cfg.model_type}, {cfg.num_hidden_layers} layers, "
+          f"Engine({engine}), {len(trace)} requests, {n_prompt} prompt tokens "
+          f"({shared}-token shared prefix) + {n_out} output tokens")
     kernels = all_kernels()
     lengths = [n for _, n in trace]
 
@@ -1051,15 +1090,15 @@ def phase_engine(params, cfg, tag: str):
     # sub-batch is dispatched (torch raises on any synchronizing call); the
     # host waits only on the drains' events
     checked = {"_dispatch_window": 0, "_prefill_substep": 0}
-    eng = Engine(params, cfg, **ENGINE)
+    eng = Engine(params, cfg, **engine)
     sync_checked(eng, checked)
     uids = [eng.submit(p, n) for p, n in trace]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    while eng.has_work and len(eng.ready_slots()) < ENGINE["max_slots"] // 2:
+    while eng.has_work and len(eng.ready_slots()) < engine["max_slots"] // 2:
         eng.step()
     before = dict(eng.stats)
-    steps = 1  # the trace's post-processing is slow: one turn (8 forwards) is enough
+    steps = 1  # the trace's post-processing is slow: one turn (one window) is enough
     profile = device_profile(lambda: [eng.step() for _ in range(steps)], steps)
     grew = {k: eng.stats[k] - before[k] for k in before}
     profile["decode_windows"] = grew["window_steps"]
@@ -1083,7 +1122,10 @@ def phase_engine(params, cfg, tag: str):
     for k in kernels:
         k.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(params, cfg, **ENGINE)
+    eng = Engine(params, cfg, **engine)
+    c = eng.cache
+    pool = [t.numel() * t.element_size() for t in (c.k_pages, c.v_pages, c.kv_scales)
+            if t is not None]
     uids = [eng.submit(p, n) for p, n in trace]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1097,14 +1139,15 @@ def phase_engine(params, cfg, tag: str):
         fail(f"{cfg.model_type} Engine: a request did not finish with exactly its max_new_tokens")
     if streams != ref:
         fail(f"{cfg.model_type} Engine: the timed run gave other greedy streams than the warm-up")
-    want = engine_launches(cfg, eng.stats)
+    want = engine_launches(cfg, eng.stats, engine)
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         fail(f"{cfg.model_type} Engine: launch counts {got} differ from the schedule's {want}")
     run = dict(wall_s=wall, output_tok_s=n_out / wall, total_tok_s=(n_prompt + n_out) / wall,
-               peak_mem_gib=peak / 2**30, stats=dict(eng.stats))
+               peak_mem_gib=peak / 2**30, stats=dict(eng.stats), pool_bytes=pool)
     print(f"  timed run: {wall:.3f} s, {n_out / wall:.1f} output tok/s, "
-          f"{(n_prompt + n_out) / wall:.1f} total tok/s, peak {peak / 2**30:.2f} GiB")
+          f"{(n_prompt + n_out) / wall:.1f} total tok/s, peak {peak / 2**30:.2f} GiB; "
+          f"page pool {sum(pool) / 1e9:.3f} GB ({' + '.join(f'{b / 1e9:.3f}' for b in pool)})")
     print(f"    stats {json.dumps(eng.stats)}; launches equal to the schedule's:")
     for name, c in got.items():
         for key, v in sorted(c.items()):
@@ -1649,7 +1692,9 @@ def phase8_moe(dev):
         counts[path], report[name] = run_generate(model, cfg, dev, name, generate_launches(cfg))
         report[name]["weights_gb"] = weights / 1e9
         if name == "mixtral-8x7b":
-            counts["moe_engine"], report["mixtral_engine"] = phase_engine(model.params, cfg, "8")
+            counts["moe_engine"], report["mixtral_engine"] = phase_engine(
+                dataclasses.replace(model.params, blocks=model.params.blocks[:MOE_ENGINE_LAYERS]),
+                dataclasses.replace(cfg, num_hidden_layers=MOE_ENGINE_LAYERS), "8")
             report["mixtral_checkpoint"] = phase8_checkpoint(model.params, cfg, dev)
         del model
         torch.cuda.empty_cache()
@@ -1657,6 +1702,338 @@ def phase8_moe(dev):
             report["plain_vs_kernel"] = {
                 n: phase8_plain_vs_kernel(n, PRESETS[n], dev) for n in MOE_K8_CASES}
     return counts, report, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: INT8 KV pages (K4q, K5q, K6q; the Engine over INT8 pages)
+# ---------------------------------------------------------------------------
+
+def serve_bench_trace(vocab: int, n: int = INT8_REQUESTS, max_seq: int = 1024, seed: int = 0):
+    """(prompt, max_new_tokens) of tools/serve_bench.py's requests: lengths
+    from its lognormal fit of ShareGPT (:26-30), prompts clipped to
+    max_seq // 2 and outputs to max_seq // 3 (:116-118), then each prompt's
+    random token ids from the same generator (:124-126), no shared prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    plen = np.clip(rng.lognormal(5.0, 0.9, n).astype(int), 4, max_seq // 2)
+    olen = np.clip(rng.lognormal(4.9, 0.8, n).astype(int), 4, max_seq // 3)
+    return [([int(t) for t in rng.integers(0, vocab, int(p))], int(o))
+            for p, o in zip(plen, olen)]
+
+
+def int8_pool(gen, dev, g, layers, std=1.0):
+    """INT8 k / v pages [layers, P, Hkv, page, D] and their scale tiles,
+    quantized (quantize_kv) from random bf16 rows one layer at a time."""
+    from quick_tpu_torch.ops.paged_write import quantize_kv
+
+    shape = (layers, g["P"], g["Hkv"], g["page"], g["D"])
+    codes = [torch.empty(shape, dtype=torch.int8, device=dev) for _ in range(2)]
+    tiles = torch.zeros((layers, g["P"], 8, g["Hkv"] * g["page"]), device=dev)
+    for layer in range(layers):
+        for j in range(2):
+            x = (std * torch.randn(shape[1:], generator=gen, device=dev)).to(torch.bfloat16)
+            c, sc = quantize_kv(x)
+            codes[j][layer] = c
+            tiles[layer, :, j] = sc.reshape(g["P"], -1)
+    return codes[0], codes[1], tiles
+
+
+def crossing_starts(g, pos):
+    """Chunk starts 2 + i tokens before a page boundary near each of the
+    first prefill_rows positions: every chunk crosses into its next page."""
+    page, n_pt = g["page"], g["n_pt"]
+    return [(p // page) % (n_pt - 1) * page + page - 2 - i for i, p in enumerate(pos[: g["Bp"]])]
+
+
+def int8_write_rows(cfg, gen, dev, trace):
+    """9a / 9b for K4q: its decode and chunk entries against the plain
+    version (quantize_kv + scatter) at the INT8 Engine's shapes, codes and
+    scale tiles byte-equal outside the trash page; then timed over a
+    32-layer pool."""
+    from quick_tpu_torch.ops import paged_write as pw
+
+    g = paged_geometry(cfg, ENGINE_INT8)
+    B, Bp, S, page, Hkv, D = (g[k] for k in ("B", "Bp", "S", "page", "Hkv", "D"))
+    L = cfg.num_hidden_layers
+    dec, chunk = trace_positions(trace, g)
+    print(f"[9a] K4q (INT8 paged write, quantizes bf16 rows) against quantize_kv + scatter: "
+          f"codes and scale tiles byte-equal outside the trash page 0")
+    bt = block_table(gen, dev, g, B).long()
+    # the serving path's decode (64 slots, 3 idle ones aimed at the trash
+    # page) and prefill sub-batch writes, then 8 chunks that cross page
+    # boundaries, with masked tails
+    cases = [("decode", 1, dec, None), ("chunk", S, chunk, [S] * Bp),
+             ("chunk", S, crossing_starts(g, dec), [S - i % 5 for i in range(Bp)])]
+    small = int8_pool(gen, dev, g, 2)
+
+    def rows_of(rows, n):
+        return [torch.randn((rows, n, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2)]
+
+    def plain(pages, kn, vn, pids, offs, vt, layer):
+        (kc, ks), (vc, vs) = pw.quantize_kv(kn), pw.quantize_kv(vn)
+        pw.paged_write_plain(pages[0], pages[1], kc, vc, pids, offs, vt, layer, pages[2], ks, vs)
+
+    for entry, n, pos, valid in cases:
+        rows = len(pos)
+        pids, offs = span_addresses(bt, g, pos, n)
+        if entry == "decode":
+            pids[-3:] = 0
+        vt = torch.tensor(valid or [1] * rows, dtype=torch.int32, device=dev)
+        kn, vn = rows_of(rows, n)
+        got = [t.clone() for t in small]
+        ref = [t.clone() for t in small]
+        if entry == "decode":
+            pw.paged_write_decode(*got[:2], kn[:, 0], vn[:, 0], pids[:, 0], offs, 1,
+                                  kv_scales=got[2])
+            plain(ref, kn, vn, pids[:, :1].expand(rows, 2), offs, vt, 1)
+        else:
+            pw.paged_write_chunk(*got[:2], kn, vn, pids, offs, vt, 1, kv_scales=got[2])
+            plain(ref, kn, vn, pids, offs, vt, 1)
+        torch.cuda.synchronize()
+        key = pw.launch_key(entry, rows, n, Hkv, page, D, torch.int8)
+        same = all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(got, ref))
+        if not same or torch.equal(got[2][:, 1:], small[2][:, 1:]):
+            fail(f"K4q {key}: codes or scale tiles differ from the plain version, or nothing written")
+        print(f"  K4q {key}, {'crossing' if pids[:, 1].any() else 'aligned'}: codes and scale "
+              f"tiles 1.. byte-equal to the plain version")
+
+    print("[9b] K4q timing at the INT8 Engine's shapes (INT8 pool of all 32 layers)")
+    big = int8_pool(gen, dev, g, L)
+    out = []
+    for entry, n, pos, _ in cases[:2]:
+        rows = len(pos)
+        pids, offs = span_addresses(bt, g, pos, n)
+        vt = torch.full((rows,), n, dtype=torch.int32, device=dev)
+        kn, vn = rows_of(rows, n)
+        (kq, ks), (vq, vs) = pw.quantize_kv(kn), pw.quantize_kv(vn)
+        r = offs.long()[:, None] + torch.arange(n, device=dev)
+        pg = torch.where(r >= page, pids[:, 1:2], pids[:, 0:1]).long()
+        row = torch.where(r >= page, r - page, r)
+        col = torch.arange(Hkv, device=dev) * page + row[:, :, None]
+        if entry == "decode":
+            def kern(i):
+                pw.paged_write_decode(*big[:2], kn[:, 0], vn[:, 0], pids[:, 0], offs, i % L,
+                                      kv_scales=big[2])
+        else:
+            def kern(i):
+                pw.paged_write_chunk(*big[:2], kn, vn, pids, offs, vt, i % L, kv_scales=big[2])
+
+        def lib(i):  # yardstick: index_put_ of the k and v codes and of their scales
+            big[0][i % L, pg, :, row] = kq
+            big[1][i % L, pg, :, row] = vq
+            big[2][i % L, pg[:, :, None], 0, col] = ks
+            big[2][i % L, pg[:, :, None], 1, col] = vs
+
+        ms = device_ms(kern, 200)
+        plain_ms = device_ms(lambda i: plain(big, kn, vn, pids, offs, vt, i % L), 20)
+        lib_ms = device_ms(lib, 200)
+        tok = rows * n * Hkv
+        b_ms, b_by = bound(2 * tok * D * 2 + 2 * tok * D + 2 * tok * 4 + 3 * rows * 4, 0.0)
+        key = pw.launch_key(entry, rows, n, Hkv, page, D, torch.int8)
+        print(f"  {key}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us by {b_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, index_put_ of codes and scales {lib_ms * 1e3:.1f} us")
+        out.append(dict(
+            name=f"paged_write_int8[{key}]", route="cuda",
+            source="quick_tpu_torch/csrc/paged_write_int8.cu",
+            replaces=f"quick_tpu/ops/paged_write.py:{40 if entry == 'decode' else 262}",
+            launches=("int8_engine", "paged_write_int8", key), max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        ))
+    del big, small
+    return out
+
+
+def int8_attention_rows(cfg, gen, dev, trace):
+    """9a / 9b for K5q and K6q: against their plain versions (the Pallas
+    INT8 arithmetic) at the INT8 Engine's shapes, K5q also row-scaled;
+    then timed over a 32-layer INT8 pool, with SDPA over the gathered,
+    dequantized bf16 K/V (gather and dequant not timed) as the yardstick."""
+    import torch.nn.functional as F
+
+    from quick_tpu_torch.modules.paged_cache import PagedKVCache
+    from quick_tpu_torch.ops import paged_attention as pa
+
+    g = paged_geometry(cfg, ENGINE_INT8)
+    B, Bp, S, page, n_pt = (g[k] for k in ("B", "Bp", "S", "page", "n_pt"))
+    Hq, Hkv, D = g["Hq"], g["Hkv"], g["D"]
+    L = cfg.num_hidden_layers
+    scale = D ** -0.5
+    dec, chunk = trace_positions(trace, g)
+    tol = TOL["paged_attention"]
+    print(f"[9a] K5q / K6q (INT8 paged attention) against the plain INT8 arithmetic, "
+          f"decode lengths {dec}, chunk starts {chunk}")
+    bt = block_table(gen, dev, g, B)
+    lens = torch.tensor(dec, dtype=torch.int32, device=dev)
+    starts = torch.tensor(chunk, dtype=torch.int32, device=dev)
+    cross = torch.tensor(crossing_starts(g, dec), dtype=torch.int32, device=dev)
+    qd = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    qc = torch.randn((Bp, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    small = int8_pool(gen, dev, g, 2)
+    err = {"decode": 0.0, "chunk": 0.0}
+    for name, kw in (("", {}), (", window 100", dict(window=100)),
+                     (", softcap 30", dict(logit_softcap=30.0))):
+        got = pa.paged_decode_attention_int8_cuda(qd, *small, bt, lens, 1, scale, **kw)
+        ref = pa.paged_decode_attention_int8_plain(qd, *small, bt, lens, 1, scale, **kw)
+        err["decode"] = max(err["decode"], max_err(got, ref, tol, f"K5q B={B}{name}"))
+        row_scaled_err(got, ref, tol, f"K5q B={B}{name}")
+        for st, what in ((starts, ""), (cross, " crossing pages")):
+            err["chunk"] = max(err["chunk"], max_err(
+                pa.paged_chunk_attention_int8_cuda(qc, *small, bt[:Bp], st, 1, scale, **kw),
+                pa.paged_chunk_attention_int8_plain(qc, *small, bt[:Bp], st, 1, scale, **kw),
+                tol, f"K6q B={Bp} S={S}{what}{name}"))
+    del small
+
+    print("[9b] K5q / K6q timing at the INT8 Engine's shapes (INT8 pool of all 32 layers)")
+    big = int8_pool(gen, dev, g, L)
+    ar = torch.arange(n_pt * page, device=dev)
+    copies = min(4, L)  # pre-gathered dequantized K/V for the yardstick, > 2x L2 in all
+
+    def dense(rows, T):  # PagedKVCache.layer: the gather, dequantized in bf16
+        c = PagedKVCache(big[0], big[1], bt[:rows], lens[:rows], big[2])
+        return [[t[:, :, :T].contiguous() for t in c.layer(layer)] for layer in range(copies)]
+
+    def tile_bytes(pages):  # rows 0-1 of each read page's tile, all kv heads
+        return pages * 2 * Hkv * page * 4
+
+    rows = []
+    # K5q: one query per slot at lengths - 1
+    T = max(dec)
+    kv = dense(B, T)
+    mask = (ar[None, :T] < lens[:, None])[:, None, None, :]
+    q4 = qd[:, :, None, :]
+    ms = device_ms(lambda i: pa.paged_decode_attention_int8_cuda(
+        qd, *big, bt, lens, i % L, scale), 50)
+    plain_ms = device_ms(lambda i: pa.paged_decode_attention_int8_plain(
+        qd, *big, bt, lens, i % L, scale), 3, warmup=1)
+    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        q4, *kv[i % copies], attn_mask=mask, scale=scale, enable_gqa=True), 50)
+    keys = sum(dec)
+    pages = sum(-(-n // page) for n in dec)
+    b_ms, b_by = bound(2 * keys * Hkv * D + tile_bytes(pages) + 2 * B * Hq * D * 2
+                       + B * (n_pt + 1) * 4, 4.0 * Hq * D * keys, INT8_OPS)
+    key5 = pa.launch_key(B, None, Hq, Hkv, page, D, n_pt)
+    print(f"  {key5}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa on gathered dequantized K/V {lib_ms * 1e3:.1f} us")
+    rows.append(dict(
+        name=f"paged_attention_int8[{key5}]", route="cuda",
+        source="quick_tpu_torch/csrc/paged_attention_int8.cu",
+        replaces="quick_tpu/ops/paged_attention.py:96",
+        launches=("int8_engine", "paged_attention_int8", key5), max_abs_err=err["decode"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    ))
+    del kv
+
+    # K6q: a prefill sub-batch's chunk, query i at starts + i
+    T = max(chunk) + S
+    kv = dense(Bp, T)
+    qpos = starts[:, None] + torch.arange(S, device=dev)
+    mask = (ar[None, None, :T] <= qpos[:, :, None])[:, None]
+    q4 = qc.transpose(1, 2)
+    ms = device_ms(lambda i: pa.paged_chunk_attention_int8_cuda(
+        qc, *big, bt[:Bp], starts, i % L, scale), 50)
+    plain_ms = device_ms(lambda i: pa.paged_chunk_attention_int8_plain(
+        qc, *big, bt[:Bp], starts, i % L, scale), 3, warmup=1)
+    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        q4, *kv[i % copies], attn_mask=mask, scale=scale, enable_gqa=True), 50)
+    keys = sum(c + S for c in chunk)
+    pages = sum(-(-(c + S) // page) for c in chunk)
+    pairs = sum(c * S + S * (S + 1) // 2 for c in chunk)
+    b_ms, b_by = bound(2 * keys * Hkv * D + tile_bytes(pages) + 2 * Bp * S * Hq * D * 2
+                       + Bp * (n_pt + 1) * 4, 4.0 * Hq * D * pairs)
+    key6 = pa.launch_key(Bp, S, Hq, Hkv, page, D, n_pt)
+    print(f"  {key6}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa on gathered dequantized K/V {lib_ms * 1e3:.1f} us")
+    rows.append(dict(
+        name=f"paged_attention_int8[{key6}]", route="cuda",
+        source="quick_tpu_torch/csrc/paged_attention_int8.cu",
+        replaces="quick_tpu/ops/paged_attention.py:225",
+        launches=("int8_engine", "paged_attention_int8", key6), max_abs_err=err["chunk"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    ))
+    del kv, big
+    return rows
+
+
+def phase9_int8_plain_vs_kernel(cfg, dev):
+    """9d: model_forward over INT8 pages for a 2-layer full-width model, as
+    phase 6's paged check: one 16-token chunk for 4 slots at different
+    starts (one crossing a page boundary) over random INT8 context, then
+    PHASE6_DECODE decode steps; the card's kernel path (K4q, K5q, K6q)
+    against the plain path on the CPU (quantize + scatter, then attention
+    over bf16-dequantized pages). After the chunk, the card's codes and
+    scale tiles must equal the CPU scatter's for the k / v rows the card
+    wrote."""
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.models.model import init_quant_params, model_forward
+    from quick_tpu_torch.modules.paged_cache import PagedKVCache
+    from quick_tpu_torch.ops import all_kernels
+
+    written = []
+
+    class RecordingCache(PagedKVCache):
+        """The card's cache, keeping the k / v rows each update writes."""
+
+        def update(self, layer, k_new, v_new, start):
+            written.append((layer, k_new.clone(), v_new.clone(), start.clone()))
+            return super().update(layer, k_new, v_new, start)
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    B, S, page, max_seq = 4, 16, 64, 256
+    n_pt = max_seq // page
+    g = dict(P=1 + B * n_pt, Hkv=cfg.num_key_value_heads, page=page, D=cfg.head_dim)
+    starts = [0, 21, 56, 100]  # 56 + 16 crosses the page boundary at 64
+    print(f"[9d] 2 layers at full width, INT8 paged cache (page {page}), chunk at starts "
+          f"{starts} + {PHASE6_DECODE} decode steps: kernel path (card) vs plain path (CPU), "
+          f"tol {TOL_INT8_MODEL} * (1 + |ref|)")
+    p_gpu = init_quant_params(cfg2, seed=9, device=dev)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bt = (torch.randperm(g["P"] - 1, generator=gen, device=dev) + 1).reshape(B, n_pt).to(torch.int32)
+    context = int8_pool(gen, dev, g, 2, std=0.5)
+
+    def make(cls, d):
+        c = cls.create(2, g["P"], page, B, max_seq, g["Hkv"], g["D"], torch.int8, device=d)
+        for t, src in zip((c.k_pages, c.v_pages, c.kv_scales), context):
+            t.copy_(src)
+        c.block_table.copy_(bt)
+        return c.with_length(torch.tensor(starts, dtype=torch.int32, device=d))
+
+    cg, cc = make(RecordingCache, dev), make(PagedKVCache, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset_counts()
+    worst = 0.0
+    with torch.inference_mode():
+        for step in range(1 + PHASE6_DECODE):
+            n = S if step == 0 else 1
+            adv = [torch.full((B,), n, dtype=torch.int32, device=d) for d in (dev, "cpu")]
+            lg, cg = model_forward(p_gpu, cfg2, toks, cg, advance=adv[0], last_valid=adv[0])
+            lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, advance=adv[1], last_valid=adv[1])
+            worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], TOL_INT8_MODEL,
+                                       "chunk logits" if step == 0 else f"decode step {step}"))
+            if step == 0:  # the chunk's rows, rewritten by the CPU scatter
+                replay = make(PagedKVCache, "cpu")
+                for layer, k_new, v_new, start in written:
+                    replay.update(layer, k_new.cpu(), v_new.cpu(), start.cpu())
+                for name in ("k_pages", "v_pages", "kv_scales"):
+                    if not torch.equal(getattr(cg, name)[:, 1:].cpu(), getattr(replay, name)[:, 1:]):
+                        fail(f"INT8 chunk write: the card's {name} differ from the CPU scatter's")
+                print("  after the chunk: codes and scale tiles 1.. byte-equal to the CPU "
+                      "scatter of the same k / v rows")
+            toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    want = 2 * (1 + PHASE6_DECODE)
+    if launched.get("paged_write_int8") != want or launched.get("paged_attention_int8") != want \
+            or launched.get("paged_write") or launched.get("paged_attention"):
+        fail(f"the INT8 2-layer path did not run K4q-K6q once per layer per step: {launched}")
+    if cg.length.tolist() != cc.length.tolist():
+        fail(f"lengths {cg.length.tolist()} / {cc.length.tolist()}")
+    print(f"  launches {launched}")
+    return worst
 
 
 def main() -> None:
@@ -1689,12 +2066,16 @@ def main() -> None:
     rows += [flash_row(cfg, gen, dev, B=B, S=S, T=T, path="checkpoint")
              for B, S, T in checkpoint_flash_shapes()]
     rows += dense_decode_rows(cfg, gen, dev)
-    print(f"  phases 1-3 done at {time.perf_counter() - t_start:.0f} s")
+    int8_trace = serve_bench_trace(cfg.vocab_size)
+    rows += int8_write_rows(cfg, gen, dev, int8_trace)
+    rows += int8_attention_rows(cfg, gen, dev, int8_trace)
+    print(f"  phases 1-3 and 9a-b done at {time.perf_counter() - t_start:.0f} s")
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
     counts["engine"], engine_stats = phase_engine(params, cfg, "5")
     counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
-    print(f"  phases 4, 5 and 7 done at {time.perf_counter() - t_start:.0f} s")
+    counts["int8_engine"], int8_stats = phase_engine(params, cfg, "9c", ENGINE_INT8, int8_trace)
+    print(f"  phases 4, 5, 7 and 9c done at {time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
     moe_counts, moe_report, moe_rows = phase8_moe(dev)
@@ -1710,9 +2091,12 @@ def main() -> None:
     dense_k7_err = phase6_dense_plain_vs_kernel(cfg, dev, B=16, max_seq=512, prompt=64,
                                                 decode_kernel="decode_attention")
     paged_err = phase6_paged_plain_vs_kernel(cfg, dev)
+    int8_err = phase9_int8_plain_vs_kernel(cfg, dev)
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
-                  phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err),
+                  int8_engine_path=int8_stats,
+                  phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,
+                                          int8_paged=int8_err),
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

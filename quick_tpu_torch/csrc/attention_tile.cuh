@@ -1,6 +1,6 @@
 // Online-softmax attention over one staged K/V tile, for the rows a warp
-// owns. Shared by the flash prefill kernel (K2) and the fused decode step
-// (K3).
+// owns. Shared by the flash prefill kernel (K2), the fused decode step (K3)
+// and the paged chunk kernels (K6, and K6q with per-key scales).
 //
 // A tile holds BK = 64 keys in shared memory: K as bf16 pairs with a padded
 // row stride (D/2 + 1 words) so that 32 lanes reading 32 different keys hit
@@ -73,13 +73,19 @@ struct RowRule {
 // q: the warp's R rows in shared memory, f32, row stride D; the score is
 // dot(q, k) * score_mul, then softcap (cap * tanh(s / cap) when softcap > 0),
 // then the ALiBi bias, then the causal / length / window mask.
-template <int D, int R>
+// kScaled (INT8 pages, K6q): the tile holds codes converted to bf16 and
+// per-key scales kscale / vscale [kBK] in shared memory; the score is
+// multiplied by kscale after score_mul, and each probability by vscale
+// before it is rounded to bf16 (the running sum l keeps the unscaled p).
+template <int D, int R, bool kScaled = false>
 __device__ __forceinline__ void attend_tile(RowState<D, R>& st,
                                             const float* q,
                                             const RowRule (&rule)[R],
                                             const uint32_t* ks, const bf16* vs,
                                             int t0, float score_mul,
-                                            float softcap, int lane) {
+                                            float softcap, int lane,
+                                            const float* kscale = nullptr,
+                                            const float* vscale = nullptr) {
   constexpr int kDPL = D / 32;
   float s[R][kKeysPerLane];
 #pragma unroll
@@ -111,6 +117,7 @@ __device__ __forceinline__ void attend_tile(RowState<D, R>& st,
     for (int jj = 0; jj < kKeysPerLane; ++jj) {
       const int t = t0 + lane + 32 * jj;
       float sc = s[r][jj] * score_mul;
+      if constexpr (kScaled) sc *= kscale[lane + 32 * jj];
       if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
       sc += rule[r].slope * (float)(t - rule[r].qpos);
       ok[jj] = t <= rule[r].qpos && t < rule[r].klen &&
@@ -148,7 +155,9 @@ __device__ __forceinline__ void attend_tile(RowState<D, R>& st,
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float pj = round_bf16(__shfl_sync(0xffffffffu, p[r][jj], src));
+        float pj = __shfl_sync(0xffffffffu, p[r][jj], src);
+        if constexpr (kScaled) pj *= vscale[j];
+        pj = round_bf16(pj);
 #pragma unroll
         for (int i = 0; i < kDPL; ++i) st.acc[r][i] = fmaf(pj, vf[i], st.acc[r][i]);
       }

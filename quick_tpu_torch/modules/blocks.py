@@ -192,11 +192,12 @@ def attention_forward(
         if S == 1 and _use_paged_kernel(cache):
             from quick_tpu_torch.ops.paged_attention import paged_decode_attention
 
-            # whole page stacks + layer index, as the JAX call site
+            # whole page (and scale-tile) stacks + layer index, as the JAX
+            # call site; INT8 pages take K5q
             out = paged_decode_attention(
                 q[:, 0], cache.k_pages, cache.v_pages, cache.block_table,
-                start + 1, layer=layer_idx, window=window,
-                logit_softcap=softcap,
+                start + 1, layer=layer_idx, kv_scales=cache.kv_scales,
+                window=window, logit_softcap=softcap,
             )[:, None]
             return p.o_proj(out.reshape(B, S, hq * hd)), cache
         if route == "dense_kernel":
@@ -222,10 +223,12 @@ def attention_forward(
             if supports_chunk(S, hq, hkv, cache.page_size):
                 out = paged_chunk_attention(
                     q, cache.k_pages, cache.v_pages, cache.block_table, start,
-                    layer=layer_idx, window=window, logit_softcap=softcap,
+                    layer=layer_idx, kv_scales=cache.kv_scales, window=window,
+                    logit_softcap=softcap,
                 )
                 return p.o_proj(out.reshape(B, S, hq * hd)), cache
-        k_all, v_all = cache.layer(layer_idx)  # [B, Hkv, T, D] head-major
+        # [B, Hkv, T, D] head-major; INT8 pages come back dequantized
+        k_all, v_all = cache.layer(layer_idx)
         out = causal_attention(
             q, k_all, v_all, q_offset=start, kv_len=start + S,
             kv_heads_major=True, window=window, logit_softcap=softcap,

@@ -11,10 +11,16 @@
 The block table and the per-slot ``length`` are int32 tensors on the
 cache's device, so a serving step never needs their values on the host.
 The JAX cache is immutable and returns updated copies; here ``update``
-writes the pages IN PLACE (the page-write kernel K4, or its plain scatter)
-and returns the cache object itself. ``with_length`` and ``select`` return
-new views that share the page tensors. INT8 pages are not ported
-(ROADMAP B7/B8). ``PageAllocator`` is the host-side free list.
+writes the pages IN PLACE (the page-write kernels K4 / K4q, or the plain
+scatter) and returns the cache object itself. ``with_length`` and
+``select`` return new views that share the page tensors (and scale tiles).
+``PageAllocator`` is the host-side free list.
+
+INT8 pages (``create(dtype=torch.int8)``) hold per-token-per-head absmax
+codes; their f32 scales live in ``kv_scales`` [L, P, 8, Hkv*page], the JAX
+package's layout kept byte for byte: one tile per page, row 0 the k
+scales and row 1 the v scales at column ``head * page + token``, rows 2-7
+padding (a TPU tile; ROADMAP notes a leaner layout for the card).
 """
 from __future__ import annotations
 
@@ -25,7 +31,12 @@ import torch
 
 from quick_tpu_torch.device import DeviceLike, resolve_device
 from quick_tpu_torch.ops.paged_attention import gather_pages
-from quick_tpu_torch.ops.paged_write import group_for, paged_write_chunk, paged_write_decode
+from quick_tpu_torch.ops.paged_write import (
+    group_for,
+    paged_write_chunk,
+    paged_write_decode,
+    quantize_kv,
+)
 
 TRASH_PAGE = 0
 
@@ -37,12 +48,15 @@ class PagedKVCache:
     k_pages / v_pages: [L, n_pages, H_kv, page_size, D]
     block_table:       [max_slots, max_pages_per_seq] int32 page ids
     length:            [max_slots] int32 valid tokens per slot
+    kv_scales:         [L, n_pages, 8, H_kv * page_size] f32 scale tiles of
+                       INT8 pages (row 0 k, row 1 v); None for float pages
     """
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     block_table: torch.Tensor
     length: torch.Tensor
+    kv_scales: Optional[torch.Tensor] = None
 
     @classmethod
     def create(
@@ -51,20 +65,24 @@ class PagedKVCache:
         dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
     ) -> "PagedKVCache":
         """A zeroed cache on ``device`` (the card unless given "cpu");
-        every table entry points at the trash page."""
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "INT8 KV pages are not ported yet — ROADMAP B7/B8"
-            )
+        every table entry points at the trash page. ``torch.int8`` makes
+        INT8 pages with their scale tiles."""
         dev = resolve_device(device)
         n_pt = (max_seq + page_size - 1) // page_size
         shape = (n_layers, n_pages, n_kv, page_size, head_dim)
+        quant = dtype == torch.int8
         return cls(
             k_pages=torch.zeros(shape, dtype=dtype, device=dev),
             v_pages=torch.zeros(shape, dtype=dtype, device=dev),
             block_table=torch.full((max_slots, n_pt), TRASH_PAGE, dtype=torch.int32, device=dev),
             length=torch.zeros((max_slots,), dtype=torch.int32, device=dev),
+            kv_scales=(torch.zeros((n_layers, n_pages, 8, n_kv * page_size),
+                                   dtype=torch.float32, device=dev) if quant else None),
         )
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_scales is not None
 
     # -- geometry -------------------------------------------------------------
     @property
@@ -89,10 +107,13 @@ class PagedKVCache:
         go to the trash page; other out-of-range positions hit
         allocated-or-trash pages and are masked by ``length`` when read.
 
-        The routing is the JAX package's (:141-216) with the card in the
+        The routing is the JAX package's (:141-232) with the card in the
         TPU's place: chunks of 2..page_size tokens and single tokens go to
-        the page-write kernel K4 when the page size is a multiple of the
-        dtype's group, anything else (and every CPU tensor) to a scatter."""
+        the page-write kernel (K4, or K4q for INT8 pages, which quantizes
+        the rows itself) when the page size is a multiple of the dtype's
+        group (INT8: 32), anything else (and every CPU tensor) to a
+        scatter, which for INT8 pages quantizes first (``quantize_kv``) and
+        scatters the scales into the tiles too."""
         B, S = k_new.shape[:2]
         page = self.page_size
         n_pt = self.block_table.shape[1]
@@ -117,22 +138,45 @@ class PagedKVCache:
             pgs = torch.stack([pg[:, 0].to(torch.int32), pg2], dim=1)
             valid = torch.full((B,), S, dtype=torch.int32, device=pg.device)
             paged_write_chunk(self.k_pages, self.v_pages, k_new, v_new, pgs,
-                              off[:, 0], valid, layer)
+                              off[:, 0], valid, layer, kv_scales=self.kv_scales)
         elif S == 1 and kernel_ok:
             paged_write_decode(self.k_pages, self.v_pages, k_new[:, 0],
-                               v_new[:, 0], pg[:, 0], off[:, 0], layer)
+                               v_new[:, 0], pg[:, 0], off[:, 0], layer,
+                               kv_scales=self.kv_scales)
         else:
+            if self.quantized:
+                (k_new, ks), (v_new, vs) = quantize_kv(k_new), quantize_kv(v_new)
             # [L, P, H, page, D]: the advanced indices (page, off) straddle
             # the head axis, so the indexed shape is [B, S, H, D] = k_new's
             self.k_pages[layer, pg, :, off] = k_new.to(self.k_pages.dtype)
             self.v_pages[layer, pg, :, off] = v_new.to(self.v_pages.dtype)
+            if self.quantized:
+                # token (slot, j)'s head h scale -> column h * page + off
+                H = k_new.shape[2]
+                col = torch.arange(H, device=off.device) * page + off[:, :, None]
+                self.kv_scales[layer, pg[:, :, None], 0, col] = ks
+                self.kv_scales[layer, pg[:, :, None], 1, col] = vs
         return self
 
     def layer(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Dense head-major [B, H_kv, max_seq, D] gather of layer ``i``'s
-        pages (the contract of ``KVCache.layer``)."""
-        return (gather_pages(self.k_pages, self.block_table, i),
-                gather_pages(self.v_pages, self.block_table, i))
+        pages (the contract of ``KVCache.layer``); INT8 pages come back
+        dequantized in bf16 (codes and scales rounded to bf16, then one
+        bf16 product), as the JAX package's ``layer`` does."""
+        k = gather_pages(self.k_pages, self.block_table, i)
+        v = gather_pages(self.v_pages, self.block_table, i)
+        if not self.quantized:
+            return k, v
+        B, H = k.shape[:2]
+        n_pt, page = self.block_table.shape[1], self.page_size
+        sc = self.kv_scales[i][self.block_table.long()]  # [B, n_pt, 8, H*page]
+
+        def per_token(row):  # [B, n_pt, H*page] -> [B, H, n_pt*page, 1]
+            t = row.reshape(B, n_pt, H, page).transpose(1, 2)
+            return t.reshape(B, H, n_pt * page, 1).to(torch.bfloat16)
+
+        return (k.to(torch.bfloat16) * per_token(sc[:, :, 0]),
+                v.to(torch.bfloat16) * per_token(sc[:, :, 1]))
 
     def with_length(self, length: torch.Tensor) -> "PagedKVCache":
         return dataclasses.replace(self, length=length.to(torch.int32))
@@ -154,11 +198,12 @@ class PagedKVCache:
               row_valid: torch.Tensor) -> "PagedKVCache":
         """Fold a ``select`` view's lengths back by scatter-max: max makes
         duplicate and padding slot ids harmless (lengths only grow between
-        retirements, and invalid rows contribute 0). The pages are already
-        shared."""
+        retirements, and invalid rows contribute 0). The pages and scale
+        tiles are already shared."""
         upd = torch.where(row_valid, sub.length, torch.zeros_like(sub.length))
         ln = self.length.scatter_reduce(0, slot_ids.long(), upd, reduce="amax")
-        return dataclasses.replace(self, k_pages=sub.k_pages, v_pages=sub.v_pages, length=ln)
+        return dataclasses.replace(self, k_pages=sub.k_pages, v_pages=sub.v_pages,
+                                   kv_scales=sub.kv_scales, length=ln)
 
 
 class PageAllocator:

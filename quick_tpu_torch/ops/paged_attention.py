@@ -1,5 +1,6 @@
 """Attention over the paged KV cache: CUDA kernels K5 (decode) and K6
-(chunked prefill) and their plain versions.
+(chunked prefill) over bf16 pages, K5q and K6q over INT8 pages, and their
+plain versions.
 
 Port of ``quick_tpu/ops/paged_attention.py``: ``paged_decode_attention``
 (:437), ``paged_chunk_attention`` (:291) and ``supports_chunk`` (:279),
@@ -9,8 +10,18 @@ lengths or chunk starts on the device, window, softcap and ALiBi slopes.
 CUDA tensors go to ``csrc/paged_attention.cu`` (bf16 pages); CPU tensors to
 the plain version, which is the dense gather of the slot's pages
 (``PagedKVCache.layer``) followed by the einsum attention, as the JAX
-package's fallback does (blocks.py:440-452). INT8 pages (``kv_scales``)
-are not ported (ROADMAP B8).
+package's fallback does (blocks.py:440-452).
+
+INT8 pages (``kv_scales``, the [L, P, 8, Hkv*page] f32 tiles of
+``PagedKVCache``) go to ``csrc/paged_attention_int8.cu`` on the card. Their
+plain versions repeat the Pallas kernels' INT8 arithmetic page by page, not
+the gather: decode (``_paged_kernel`` :96-163) quantizes q per (slot,
+head) to int8 (:528-538), takes int8 x int8 score dots scaled by
+``sq * scale * k_scale``, folds the v scales into the probabilities and
+quantizes them per (query head, page) against the running max at that
+page before an int8 x int8 context dot; chunk (``_paged_chunk_kernel``
+:225-262) converts the codes to bf16 (exact), scales the score columns by
+the k scales and the probability columns by the v scales, with bf16 dots.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 
 from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, stream_ptr
 from quick_tpu_torch.ops.attention import einsum_attention
+from quick_tpu_torch.ops.paged_write import div127
 
 #: K5 and K6 (one source, two entry points). ``KERNEL.launches`` counts
 #: both; ``launches_by_key`` splits them ("decode ..." / "chunk ...").
@@ -36,7 +48,22 @@ KERNEL = CudaKernel(
         ],
     },
 )
+#: K5q and K6q (one source, two entry points), counted apart from K5 / K6.
+KERNEL_INT8 = CudaKernel(
+    "paged_attention_int8.cu",
+    {
+        "qtt_paged_decode_attention_int8": [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            i32, i32, i32, f32, i32, f32, ptr,
+        ],
+        "qtt_paged_chunk_attention_int8": [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            i32, i32, i32, i32, f32, i32, f32, ptr,
+        ],
+    },
+)
 KERNEL_HEAD_DIMS = (64, 128, 256)
+NEG_INF = -1e30  # the Pallas kernels' mask value
 
 
 def launch_key(B: int, S: Optional[int], Hq: int, Hkv: int, page: int, D: int,
@@ -100,7 +127,132 @@ def paged_chunk_attention_plain(
     )
 
 
-def _check_common(q, k_pages, v_pages, block_table, per_slot, layer, alibi_slopes):
+def quantize_q(q: torch.Tensor):
+    """The INT8 decode path's query quantization (:528-538): per (slot,
+    head) ``sq = max(max|q|, 1e-30) / 127`` and codes ``clip(round(q /
+    sq), -127, 127)``. Returns (codes int8 [B, Hq, D], sq f32 [B, Hq, 1])."""
+    qf = q.to(torch.float32)
+    sq = div127(torch.clamp(qf.abs().amax(dim=-1, keepdim=True), min=1e-30))
+    return torch.clamp(torch.round(qf / sq), -127, 127).to(torch.int8), sq
+
+
+def _page_tiles(k_pages, v_pages, kv_scales, layer, pg):
+    """Codes (f32, exact) [B, Hkv, page, D] and k / v scales [B, Hkv, 1,
+    page] of page ids ``pg`` [B]."""
+    B, (Hkv, page) = pg.shape[0], k_pages.shape[2:4]
+    sc = kv_scales[layer, pg]  # [B, 8, Hkv*page]
+    return (k_pages[layer, pg].to(torch.float32), v_pages[layer, pg].to(torch.float32),
+            sc[:, 0].reshape(B, Hkv, 1, page), sc[:, 1].reshape(B, Hkv, 1, page))
+
+
+def paged_decode_attention_int8_plain(
+    q, k_pages, v_pages, kv_scales, block_table, lengths, layer, scale,
+    alibi_slopes=None, window=None, logit_softcap=None,
+) -> torch.Tensor:
+    """Plain version of K5q: the Pallas INT8 decode kernel's arithmetic,
+    one page at a time in table order. Integer dots run as f32 matmuls of
+    integer values, exact while every partial sum stays below 2^24
+    (127 * 127 * D for scores, 127 * 127 * page for the context)."""
+    B, Hq, D = q.shape
+    Hkv, page = k_pages.shape[2], k_pages.shape[3]
+    gq = Hq // Hkv
+    q8, sq = quantize_q(q)
+    q8 = q8.to(torch.float32).reshape(B, Hkv, gq, D)
+    qmul = (sq * scale).reshape(B, Hkv, gq, 1)
+    ln = lengths.to(q.device, torch.int64)
+    lo = ln - window if window else torch.zeros_like(ln)
+    slopes = (None if alibi_slopes is None else
+              alibi_slopes.to(q.device, torch.float32).reshape(1, Hkv, gq, 1))
+    m = torch.full((B, Hkv, gq, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, gq, D), device=q.device)
+    bt = block_table.to(q.device, torch.int64)
+    t = torch.arange(page, device=q.device)
+    for j in range(bt.shape[1]):
+        base = j * page
+        run = (base < ln) & (base + page > lo)  # the kernel's pl.when; others keep their state
+        k, v, ks, vs = _page_tiles(k_pages, v_pages, kv_scales, layer, bt[:, j])
+        s = torch.matmul(q8, k.transpose(-1, -2)) * qmul * ks  # [B, Hkv, gq, page]
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s * (1.0 / logit_softcap))
+        pos = base + t
+        mask = pos[None, :] < ln[:, None]
+        if window:
+            mask = mask & (pos[None, :] >= lo[:, None])
+        mask = mask[:, None, None, :]
+        if slopes is not None:
+            s = s + slopes * (pos[None, :] - (ln[:, None] - 1)).to(torch.float32)[:, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        p = p * vs
+        ps = div127(torch.clamp(p.abs().amax(dim=-1, keepdim=True), min=1e-30))
+        p8 = torch.clamp(torch.round(p / ps), -127, 127)
+        acc_new = acc * alpha + torch.matmul(p8, v) * ps
+        r = run[:, None, None, None]
+        m, l, acc = (torch.where(r, a, b) for a, b in ((m_new, m), (l_new, l), (acc_new, acc)))
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_chunk_attention_int8_plain(
+    q, k_pages, v_pages, kv_scales, block_table, starts, layer, scale,
+    alibi_slopes=None, window=None, logit_softcap=None,
+) -> torch.Tensor:
+    """Plain version of K6q: the Pallas INT8 chunk kernel's arithmetic, one
+    page at a time: q and the codes in bf16 (codes exactly), f32 dots, the
+    k scales on the score columns, the v scales on the probabilities
+    before they are rounded to bf16."""
+    B, S, Hq, D = q.shape
+    Hkv, page = k_pages.shape[2], k_pages.shape[3]
+    gq = Hq // Hkv
+    R = S * gq  # rows of one kv head: (chunk position, head in group)
+    qb = q.to(torch.bfloat16).to(torch.float32).reshape(B, S, Hkv, gq, D)
+    qb = qb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, R, D)
+    st = starts.to(q.device, torch.int64)
+    cap = st + S
+    lo = torch.clamp(st - window + 1, min=0) if window else torch.zeros_like(st)
+    pos_q = (st[:, None] + torch.arange(R, device=q.device)[None, :] // gq)[:, None, :, None]
+    slopes = None
+    if alibi_slopes is not None:
+        sl = alibi_slopes.to(q.device, torch.float32).reshape(Hkv, 1, gq)
+        slopes = sl.expand(Hkv, S, gq).reshape(1, Hkv, R, 1)
+    m = torch.full((B, Hkv, R, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, R, D), device=q.device)
+    bt = block_table.to(q.device, torch.int64)
+    t = torch.arange(page, device=q.device)
+    for j in range(bt.shape[1]):
+        base = j * page
+        run = (base < cap) & (base + page > lo)  # the kernel's pl.when
+        k, v, ks, vs = _page_tiles(k_pages, v_pages, kv_scales, layer, bt[:, j])
+        s = torch.matmul(qb, k.transpose(-1, -2)) * scale * ks  # [B, Hkv, R, page]
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s * (1.0 / logit_softcap))
+        pos_k = (base + t)[None, None, None, :]
+        mask = pos_k <= pos_q
+        if window:
+            mask = mask & (pos_k > pos_q - window)
+        if slopes is not None:
+            s = s + slopes * (pos_k - pos_q).to(torch.float32)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        p = (p * vs).to(torch.bfloat16).to(torch.float32)
+        acc_new = acc * alpha + torch.matmul(p, v)
+        r = run[:, None, None, None]
+        m, l, acc = (torch.where(r, a, b) for a, b in ((m_new, m), (l_new, l), (acc_new, acc)))
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    out = out.reshape(B, Hkv, S, gq, D).permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+    return out.to(q.dtype)
+
+
+def _check_common(q, k_pages, v_pages, block_table, per_slot, layer, alibi_slopes,
+                  page_dtype=torch.bfloat16):
     L, P, Hkv, page, D = k_pages.shape
     B, Hq = q.shape[0], q.shape[-2]
     if D not in KERNEL_HEAD_DIMS or q.shape[-1] != D or v_pages.shape[-1] != D:
@@ -111,8 +263,8 @@ def _check_common(q, k_pages, v_pages, block_table, per_slot, layer, alibi_slope
     if Hq % Hkv or Hq // Hkv > 32 or not 0 <= layer < L:
         raise ValueError(f"Hq={Hq} Hkv={Hkv} layer={layer} L={L}")
     check(q, "q", torch.bfloat16)
-    check(k_pages, "k_pages", torch.bfloat16)
-    check(v_pages, "v_pages", torch.bfloat16, k_pages.shape)
+    check(k_pages, "k_pages", page_dtype)
+    check(v_pages, "v_pages", page_dtype, k_pages.shape)
     check(block_table, "block_table", torch.int32, (B, block_table.shape[1]))
     check(per_slot, "lengths/starts", torch.int32, (B,))
     slopes = None
@@ -161,20 +313,74 @@ def paged_chunk_attention_cuda(
     return out
 
 
-def _dispatch(plain, cuda, q, k_pages, v_pages, block_table, per_slot, layer,
+def _check_int8(q, k_pages, v_pages, kv_scales, block_table, per_slot, layer, alibi_slopes):
+    shapes = _check_common(q, k_pages, v_pages, block_table, per_slot, layer,
+                           alibi_slopes, torch.int8)
+    L, P, Hkv, page = k_pages.shape[:4]
+    if page % 4 or page > 256:
+        raise NotImplementedError(f"the INT8 paged kernels take page % 4 == 0, <= 256: {page}")
+    check(kv_scales, "kv_scales", torch.float32, (L, P, 8, Hkv * page))
+    return shapes
+
+
+def paged_decode_attention_int8_cuda(
+    q, k_pages, v_pages, kv_scales, block_table, lengths, layer, scale,
+    alibi_slopes=None, window=None, logit_softcap=None,
+) -> torch.Tensor:
+    """Launch K5q on CUDA tensors (it quantizes q itself); same arguments
+    as its plain version."""
+    B, Hq, Hkv, page, D, P, n_pt, slopes = _check_int8(
+        q, k_pages, v_pages, kv_scales, block_table, lengths, layer, alibi_slopes)
+    out = torch.empty_like(q)
+    KERNEL_INT8.launch(
+        "qtt_paged_decode_attention_int8", launch_key(B, None, Hq, Hkv, page, D, n_pt),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), kv_scales.data_ptr(),
+        block_table.data_ptr(), lengths.data_ptr(),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, page, D, P, n_pt, layer, float(scale), int(window or 0),
+        float(logit_softcap or 0.0), stream_ptr(q.device),
+    )
+    return out
+
+
+def paged_chunk_attention_int8_cuda(
+    q, k_pages, v_pages, kv_scales, block_table, starts, layer, scale,
+    alibi_slopes=None, window=None, logit_softcap=None,
+) -> torch.Tensor:
+    """Launch K6q on CUDA tensors; same arguments as its plain version."""
+    B, Hq, Hkv, page, D, P, n_pt, slopes = _check_int8(
+        q, k_pages, v_pages, kv_scales, block_table, starts, layer, alibi_slopes)
+    S = q.shape[1]
+    out = torch.empty_like(q)
+    KERNEL_INT8.launch(
+        "qtt_paged_chunk_attention_int8", launch_key(B, S, Hq, Hkv, page, D, n_pt),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), kv_scales.data_ptr(),
+        block_table.data_ptr(), starts.data_ptr(),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+        B, S, Hq, Hkv, page, D, P, n_pt, layer, float(scale), int(window or 0),
+        float(logit_softcap or 0.0), stream_ptr(q.device),
+    )
+    return out
+
+
+def _dispatch(fns, q, k_pages, v_pages, block_table, per_slot, layer,
               scale, alibi_slopes, kv_scales, window, logit_softcap):
-    if kv_scales is not None:
-        raise NotImplementedError(
-            "INT8 KV pages (kv_scales) are not ported yet — ROADMAP B8"
-        )
+    """``fns``: (plain, cuda, int8 plain, int8 cuda)."""
+    plain, cuda, plain_q, cuda_q = fns
+    if k_pages.ndim == 4 and kv_scales is not None:  # one layer's pages
+        kv_scales = kv_scales[None]
     k_pages, v_pages, layer = _stacks(k_pages, v_pages, layer)
+    L, P, Hkv, page = k_pages.shape[:4]
+    if kv_scales is not None and tuple(kv_scales.shape) != (L, P, 8, Hkv * page):
+        raise ValueError(f"kv_scales: expected the pages' scale tiles {(L, P, 8, Hkv * page)}, "
+                         f"got {tuple(kv_scales.shape)}")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     args = (layer, scale, alibi_slopes, window, logit_softcap)
+    pages = (k_pages, v_pages) if kv_scales is None else (k_pages, v_pages, kv_scales)
     if q.device.type != "cuda":
-        return plain(q, k_pages, v_pages, block_table, per_slot, *args)
-    return cuda(
-        q.contiguous(), k_pages, v_pages,
-        block_table.to(torch.int32).contiguous(),
+        return (plain if kv_scales is None else plain_q)(q, *pages, block_table, per_slot, *args)
+    return (cuda if kv_scales is None else cuda_q)(
+        q.contiguous(), *pages, block_table.to(torch.int32).contiguous(),
         per_slot.to(torch.int32).contiguous(), *args,
     )
 
@@ -188,16 +394,18 @@ def paged_decode_attention(
     layer: int = 0,
     scale: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
-    kv_scales: Optional[torch.Tensor] = None,
+    kv_scales: Optional[torch.Tensor] = None,  # [L, P, 8, Hkv*page] f32
+    # scale tiles of INT8 pages (or one layer's [P, 8, Hkv*page])
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns [B, Hq, D]. The current step's K/V must already be in the
     pages (the cache updates before attention)."""
     return _dispatch(
-        paged_decode_attention_plain, paged_decode_attention_cuda, q, k_pages,
-        v_pages, block_table, lengths, layer, scale, alibi_slopes, kv_scales,
-        window, logit_softcap,
+        (paged_decode_attention_plain, paged_decode_attention_cuda,
+         paged_decode_attention_int8_plain, paged_decode_attention_int8_cuda),
+        q, k_pages, v_pages, block_table, lengths, layer, scale, alibi_slopes,
+        kv_scales, window, logit_softcap,
     )
 
 
@@ -210,14 +418,15 @@ def paged_chunk_attention(
     layer: int = 0,
     scale: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
-    kv_scales: Optional[torch.Tensor] = None,
+    kv_scales: Optional[torch.Tensor] = None,  # as paged_decode_attention
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention over the pages; returns [B, S, Hq, D]. The
     chunk's own K/V must already be in the pages."""
     return _dispatch(
-        paged_chunk_attention_plain, paged_chunk_attention_cuda, q, k_pages,
-        v_pages, block_table, starts, layer, scale, alibi_slopes, kv_scales,
-        window, logit_softcap,
+        (paged_chunk_attention_plain, paged_chunk_attention_cuda,
+         paged_chunk_attention_int8_plain, paged_chunk_attention_int8_cuda),
+        q, k_pages, v_pages, block_table, starts, layer, scale, alibi_slopes,
+        kv_scales, window, logit_softcap,
     )

@@ -1,5 +1,5 @@
-"""Paged KV cache writes: CUDA kernel K4 (decode and chunk entries) and its
-plain version.
+"""Paged KV cache writes: CUDA kernels K4 (bf16 / f32 pages) and K4q (INT8
+pages), each with a decode and a chunk entry, and their plain versions.
 
 Port of ``quick_tpu/ops/paged_write.py``: ``paged_write_decode`` (:92)
 writes one token per slot, ``paged_write_chunk`` (:304) a chunk of up to
@@ -15,12 +15,21 @@ itself writes single rows and does not need it (ROADMAP "gates carry TPU
 limits"). The addressing is the Pallas kernels': the chunk's token i lands
 at in-page row ``offs[b] + i`` of ``page_ids[b, 0]`` while that is inside
 the page, else at row ``offs[b] + i - page`` of ``page_ids[b, 1]``, and
-only tokens ``i < valid[b]`` are written. The INT8 (quantized-page)
-variants are not ported (ROADMAP B7).
+only tokens ``i < valid[b]`` are written.
+
+INT8 pages (``kv_scales`` given, the [L, P, 8, Hkv*page] f32 tiles of
+``PagedKVCache``): each token's int8 codes go to its page row and its
+per-head k and v scales to column ``h * page + row`` of rows 0 and 1 of
+the page's tile, as ``_write_kernel_quant`` (:40) and
+``_chunk_write_kernel_quant`` (:262) write them. The new rows are either
+int8 codes with their scales ``ks_new`` / ``vs_new`` (the JAX functions'
+signature) or float rows, which are quantized first with ``quantize_kv``
+(``PagedKVCache._quantize_kv``'s numerics; on the card inside K4q, so a
+page write is one launch).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,6 +44,19 @@ KERNEL = CudaKernel(
         i32, i32, i32, ptr,
     ]},
 )
+
+
+#: K4q, the INT8 page write (one library of its own, so its launches count
+#: apart from K4's); keys as ``launch_key`` with ``torch.int8``.
+KERNEL_INT8 = CudaKernel(
+    "paged_write_int8.cu",
+    {"qtt_paged_write_int8": [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+        i32, i32, i32, i32, i32, i32, ptr,
+    ]},
+)
+#: K4q's input kinds: float rows it quantizes, or int8 codes it copies
+_IN_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
 def launch_key(entry: str, B: int, S: int, Hkv: int, page: int, D: int,
@@ -72,23 +94,50 @@ def _token_addresses(page_ids, offs, valid, S: int, page: int):
     return pg, row, i < valid.to(torch.int64)[:, None]
 
 
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` as an IEEE division on every device, as the INT8 kernels
+    and the JAX package's eager ops compute it: PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal instead, one rounding off."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-per-head symmetric INT8 (``_quantize_kv``,
+    quick_tpu/modules/paged_cache.py:317): x [..., D] -> (codes int8
+    [..., D], scales f32 [...]); f32 absmax, ``max(amax / 127, 1e-8)``,
+    round half to even, clip to +-127."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(div127(xf.abs().amax(dim=-1)), min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
 def paged_write_plain(
     k_pages: torch.Tensor,   # [L, P, Hkv, page, D], written in place
     v_pages: torch.Tensor,
-    k_new: torch.Tensor,     # [B, S, Hkv, D]
+    k_new: torch.Tensor,     # [B, S, Hkv, D] (int8 codes when kv_scales)
     v_new: torch.Tensor,
     page_ids: torch.Tensor,  # [B, 2] (first, second span page)
     offs: torch.Tensor,      # [B] in-page row of token 0
     valid: torch.Tensor,     # [B] tokens written
     layer: int,
+    kv_scales: Optional[torch.Tensor] = None,  # [L, P, 8, Hkv*page] f32
+    ks_new: Optional[torch.Tensor] = None,     # [B, S, Hkv] f32
+    vs_new: Optional[torch.Tensor] = None,
 ) -> None:
-    """Plain version of K4 (both entries): an ``index_put_`` scatter of the
-    written tokens' [Hkv, D] rows."""
-    B, S = k_new.shape[:2]
-    pg, row, ok = _token_addresses(page_ids, offs, valid, S, k_pages.shape[3])
+    """Plain version of K4 and K4q (both entries): an ``index_put_``
+    scatter of the written tokens' [Hkv, D] rows and, for INT8 pages, of
+    their scales into the tiles' rows 0 (k) and 1 (v)."""
+    B, S, Hkv = k_new.shape[:3]
+    page = k_pages.shape[3]
+    pg, row, ok = _token_addresses(page_ids, offs, valid, S, page)
     pg, row = pg[ok], row[ok]
     k_pages[layer, pg, :, row] = k_new[ok].to(k_pages.dtype)
     v_pages[layer, pg, :, row] = v_new[ok].to(v_pages.dtype)
+    if kv_scales is not None:
+        col = torch.arange(Hkv, device=row.device)[None, :] * page + row[:, None]
+        kv_scales[layer, pg[:, None], 0, col] = ks_new[ok].to(torch.float32)
+        kv_scales[layer, pg[:, None], 1, col] = vs_new[ok].to(torch.float32)
 
 
 def paged_write_cuda(
@@ -124,8 +173,85 @@ def paged_write_cuda(
     )
 
 
+def paged_write_int8_cuda(
+    k_pages, v_pages, kv_scales, k_new, v_new, ks_new, vs_new, page_ids,
+    offs, valid, layer: int,
+) -> None:
+    """Launch K4q on CUDA tensors: int8 pages, their scale tiles, and new
+    rows that are bf16 / f32 (quantized in the kernel; ``ks_new`` and
+    ``vs_new`` None) or int8 codes with f32 scales [B, S, Hkv]. Addressing
+    and ``valid`` as ``paged_write_cuda``."""
+    L, P, Hkv, page, D = k_pages.shape
+    B, S = k_new.shape[:2]
+    if S > page or not 0 <= layer < L:
+        raise ValueError(f"chunk S={S} > page {page} or layer {layer} outside {L}")
+    kind = _IN_KIND.get(k_new.dtype)
+    if kind is None or (kind == 2) != (ks_new is not None):
+        raise TypeError(
+            f"K4q takes bf16 / f32 rows, or int8 codes with their scales: "
+            f"got {k_new.dtype}, scales {'given' if ks_new is not None else 'none'}"
+        )
+    check(k_pages, "k_pages", torch.int8)
+    check(v_pages, "v_pages", torch.int8, k_pages.shape)
+    check(kv_scales, "kv_scales", torch.float32, (L, P, 8, Hkv * page))
+    check(k_new, "k_new", k_new.dtype, (B, S, Hkv, D))
+    check(v_new, "v_new", k_new.dtype, (B, S, Hkv, D))
+    if kind == 2:
+        check(ks_new, "ks_new", torch.float32, (B, S, Hkv))
+        check(vs_new, "vs_new", torch.float32, (B, S, Hkv))
+    n_pg = page_ids.shape[1]
+    check(page_ids, "page_ids", torch.int32, (B, n_pg))
+    check(offs, "offs", torch.int32, (B,))
+    if valid is not None:
+        check(valid, "valid", torch.int32, (B,))
+    KERNEL_INT8.launch(
+        "qtt_paged_write_int8",
+        launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D, torch.int8),
+        k_pages.data_ptr(), v_pages.data_ptr(), kv_scales.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(),
+        None if ks_new is None else ks_new.data_ptr(),
+        None if vs_new is None else vs_new.data_ptr(), page_ids.data_ptr(),
+        offs.data_ptr(), None if valid is None else valid.data_ptr(), B, S,
+        Hkv, page, D, P, layer, n_pg, L, kind, stream_ptr(k_new.device),
+    )
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
+
+
+def _write(k_pages, v_pages, k_new, v_new, page_ids, offs, valid, layer,
+           kv_scales, ks_new, vs_new, n_pg: int):
+    """Both entries: the plain version for CPU pages, else K4 or K4q.
+    ``k_new`` / ``v_new`` are [B, S, Hkv, D]; ``valid`` None writes every
+    token (the decode entry)."""
+    B, S = k_new.shape[:2]
+    if kv_scales is None:
+        kn, vn = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
+    elif ks_new is None:
+        kn, vn = k_new, v_new  # float rows: quantized below or in K4q
+    else:
+        kn, vn = k_new.to(torch.int8), v_new.to(torch.int8)
+        ks_new, vs_new = ks_new.to(torch.float32), vs_new.to(torch.float32)
+    if k_pages.device.type != "cuda":
+        if kv_scales is not None and ks_new is None:
+            (kn, ks_new), (vn, vs_new) = quantize_kv(kn), quantize_kv(vn)
+        if valid is None:
+            valid = torch.full((B,), S, dtype=torch.int32)
+        paged_write_plain(k_pages, v_pages, kn, vn, page_ids.reshape(B, -1).expand(B, 2),
+                          offs, valid, layer, kv_scales, ks_new, vs_new)
+        return
+    pids = _i32(page_ids).reshape(B, n_pg)
+    vt = None if valid is None else _i32(valid)
+    if kv_scales is None:
+        paged_write_cuda(k_pages, v_pages, kn.contiguous(), vn.contiguous(), pids,
+                         _i32(offs), vt, layer)
+        return
+    paged_write_int8_cuda(
+        k_pages, v_pages, kv_scales, kn.contiguous(), vn.contiguous(),
+        None if ks_new is None else ks_new.contiguous(),
+        None if vs_new is None else vs_new.contiguous(), pids, _i32(offs), vt, layer,
+    )
 
 
 def paged_write_decode(
@@ -136,24 +262,17 @@ def paged_write_decode(
     page_ids: torch.Tensor,  # [B] physical page per token
     offs: torch.Tensor,      # [B] in-page row per token
     layer: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write one token per slot into ``layer``; returns the page tensors,
-    updated in place."""
+    kv_scales: Optional[torch.Tensor] = None,  # [L, P, 8, Hkv*page] f32
+    ks_new: Optional[torch.Tensor] = None,     # [B, Hkv] f32 (codes given)
+    vs_new: Optional[torch.Tensor] = None,
+) -> tuple:
+    """Write one token per slot into ``layer``; returns the page tensors
+    (and, for INT8 pages, the scale tiles), updated in place."""
     _check_group(k_pages)
-    kn = k_new[:, None].to(k_pages.dtype)
-    vn = v_new[:, None].to(v_pages.dtype)
-    if k_pages.device.type != "cuda":
-        B = k_new.shape[0]
-        paged_write_plain(
-            k_pages, v_pages, kn, vn, page_ids.reshape(B, 1).expand(B, 2),
-            offs, torch.ones(B, dtype=torch.int32), layer,
-        )
-    else:
-        paged_write_cuda(
-            k_pages, v_pages, kn.contiguous(), vn.contiguous(),
-            _i32(page_ids).reshape(-1, 1), _i32(offs), None, layer,
-        )
-    return k_pages, v_pages
+    _write(k_pages, v_pages, k_new[:, None], v_new[:, None], page_ids, offs, None,
+           layer, kv_scales, None if ks_new is None else ks_new[:, None],
+           None if vs_new is None else vs_new[:, None], 1)
+    return (k_pages, v_pages) if kv_scales is None else (k_pages, v_pages, kv_scales)
 
 
 def paged_write_chunk(
@@ -165,20 +284,16 @@ def paged_write_chunk(
     offs: torch.Tensor,      # [B] in-page row of the chunk's first token
     valid: torch.Tensor,     # [B] tokens of the chunk actually fed
     layer: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked-prefill page write; returns the page tensors, updated in
-    place."""
+    kv_scales: Optional[torch.Tensor] = None,  # [L, P, 8, Hkv*page] f32
+    ks_new: Optional[torch.Tensor] = None,     # [B, S, Hkv] f32 (codes given)
+    vs_new: Optional[torch.Tensor] = None,
+) -> tuple:
+    """Chunked-prefill page write; returns the page tensors (and, for INT8
+    pages, the scale tiles), updated in place."""
     _check_group(k_pages)
     S, page = k_new.shape[1], k_pages.shape[3]
     if S > page:
         raise ValueError(f"chunk S={S} must be <= page_size={page}")
-    kn = k_new.to(k_pages.dtype)
-    vn = v_new.to(v_pages.dtype)
-    if k_pages.device.type != "cuda":
-        paged_write_plain(k_pages, v_pages, kn, vn, page_ids, offs, valid, layer)
-    else:
-        paged_write_cuda(
-            k_pages, v_pages, kn.contiguous(), vn.contiguous(), _i32(page_ids),
-            _i32(offs), _i32(valid), layer,
-        )
-    return k_pages, v_pages
+    _write(k_pages, v_pages, k_new, v_new, page_ids, offs, valid, layer,
+           kv_scales, ks_new, vs_new, 2)
+    return (k_pages, v_pages) if kv_scales is None else (k_pages, v_pages, kv_scales)

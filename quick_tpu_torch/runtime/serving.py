@@ -30,10 +30,13 @@ What differs from the JAX package, which jits each program:
 - Random draws come from a ``torch.Generator`` seeded by ``seed``; sampled
   streams do not reproduce ``jax.random``'s, greedy streams match.
 
-Not ported, each raising ``NotImplementedError``: tensor-parallel serving
-(``mesh``, ROADMAP A15), history penalties and ``logit_bias``
-(``enable_penalties``, ROADMAP A6), INT8 KV pages (ROADMAP B7/B8) and MLA
-models (ROADMAP A11). The JAX package's ``QUICK_TPU_ENGINE_TIMING`` and
+``dtype=torch.int8`` serves from INT8 KV pages (``PagedKVCache``: codes
+plus per-page scale tiles, written by K4q and read by K5q / K6q on the
+card); preemption and the prefix cache hand pages on whole, scale tiles
+with them. Not ported, each raising ``NotImplementedError``:
+tensor-parallel serving (``mesh``, ROADMAP A15), history penalties and
+``logit_bias`` (``enable_penalties``, ROADMAP A6) and MLA models (ROADMAP
+A11). The JAX package's ``QUICK_TPU_ENGINE_TIMING`` and
 ``QUICK_TPU_MIXED_COLD`` switches are not carried over.
 """
 from __future__ import annotations
@@ -170,7 +173,8 @@ class Engine:
         page_size: int = 64,
         chunk: int = 16,
         n_pages: Optional[int] = None,
-        dtype: torch.dtype = torch.bfloat16,
+        dtype: torch.dtype = torch.bfloat16,  # torch.int8: INT8 KV pages
+        # (0.5625x the bf16 pool's bytes: codes plus f32 scale tiles)
         mesh=None,
         sampling: Optional[SamplingParams] = None,
         seed: int = 0,

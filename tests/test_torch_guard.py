@@ -68,7 +68,10 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tmp_path):
                  lambda: make_cache(cfg, 1, 8),
                  lambda: rope_table(16, 64),
                  lambda: Engine(m.params, cfg, max_slots=2, max_seq=16, page_size=16),
-                 lambda: PagedKVCache.create(1, 3, 16, 2, 16, 1, 64)):
+                 lambda: Engine(m.params, cfg, max_slots=2, max_seq=16, page_size=16,
+                                dtype=torch.int8),
+                 lambda: PagedKVCache.create(1, 3, 16, 2, 16, 1, 64),
+                 lambda: PagedKVCache.create(1, 3, 32, 2, 32, 1, 64, torch.int8)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert m.device.type == "cpu"
@@ -80,6 +83,10 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tmp_path):
     eng = Engine(m.params, cfg, max_slots=2, max_seq=16, page_size=16, chunk=4, device="cpu")
     uid = eng.submit([1, 2, 3], 2)
     assert len(eng.run()[uid]) == 2 and eng.cache.k_pages.device.type == "cpu"
+    eng = Engine(m.params, cfg, max_slots=2, max_seq=16, page_size=16, chunk=4,
+                 dtype=torch.int8, device="cpu")
+    uid = eng.submit([1, 2, 3], 2)
+    assert len(eng.run()[uid]) == 2 and eng.cache.kv_scales.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

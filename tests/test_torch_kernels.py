@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
 K3 fused decode step, K4 paged writes, K5 / K6 paged attention, K7 dense
-decode attention, K8 grouped MoE GEMM) against
+decode attention, K8 grouped MoE GEMM, K4q INT8 paged writes, K5q / K6q
+INT8 paged attention) against
 their plain PyTorch versions, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
@@ -265,6 +266,140 @@ def test_paged_cache_update_routes_match_cpu(rng, cuda_device):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(f32(caches[1].k_pages[:, 1:]), f32(caches[0].k_pages[:, 1:]))
     np.testing.assert_array_equal(f32(caches[1].v_pages[:, 1:]), f32(caches[0].v_pages[:, 1:]))
+
+
+
+def _int8_pages(rng, L, P, Hkv, page, D):
+    """INT8 pages and their [L, P, 8, Hkv*page] scale tiles, quantized from
+    random float pages as PagedKVCache writes them."""
+    kp, vp = _pages(rng, L, P, Hkv, page, D, torch.float32)
+    (kc, ks), (vc, vs) = tpw.quantize_kv(kp), tpw.quantize_kv(vp)
+    tiles = torch.zeros((L, P, 8, Hkv * page))
+    tiles[:, :, 0] = ks.reshape(L, P, -1)
+    tiles[:, :, 1] = vs.reshape(L, P, -1)
+    return kc, vc, tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["bf16", "f32", "int8_codes"])
+def test_paged_write_int8_kernel_matches_plain(rng, cuda_device, rows):
+    """K4q's decode and chunk entries leave codes and scale tiles byte-equal
+    to the plain version: float rows quantized in the kernel (bf16 or f32),
+    or int8 codes with their scales copied; page-crossing, masked and
+    trash-page writes (page 0 is not compared)."""
+    L, P, Hkv, page, D, B, S = 2, 9, 8, 64, 128, 3, 16
+    for entry in ("decode", "chunk"):
+        pages = list(_int8_pages(rng, L, P, Hkv, page, D))
+        n = 1 if entry == "decode" else S
+        kn, vn = (torch.from_numpy((rng.standard_normal((B, n, Hkv, D)) * 3).astype(np.float32))
+                  for _ in range(2))
+        extra = {}
+        if rows == "bf16":
+            kn, vn = kn.to(torch.bfloat16), vn.to(torch.bfloat16)
+        elif rows == "int8_codes":
+            (kn, ks), (vn, vs) = tpw.quantize_kv(kn), tpw.quantize_kv(vn)
+            extra = dict(ks_new=ks, vs_new=vs)
+        pgs = torch.tensor([[3, 4], [5, 0], [0, 0]], dtype=torch.int32)
+        offs = torch.tensor([60, 2, 9], dtype=torch.int32)  # crossing, inside, trash
+        valid = torch.tensor([S, 5, S], dtype=torch.int32)
+        ref = [t.clone() for t in pages]
+        got = [t.to(cuda_device) for t in pages]
+        dev = {k: v.to(cuda_device) for k, v in extra.items()}
+        before = tpw.KERNEL_INT8.launches
+        if entry == "decode":
+            sel = {k: v[:, 0] for k, v in extra.items()}
+            tpw.paged_write_decode(*ref[:2], kn[:, 0], vn[:, 0], pgs[:, 0], offs, 1,
+                                   kv_scales=ref[2], **sel)
+            tpw.paged_write_decode(*got[:2], kn[:, 0].to(cuda_device), vn[:, 0].to(cuda_device),
+                                   pgs[:, 0].to(cuda_device), offs.to(cuda_device), 1,
+                                   kv_scales=got[2], **{k: v[:, 0] for k, v in dev.items()})
+        else:
+            tpw.paged_write_chunk(*ref[:2], kn, vn, pgs, offs, valid, 1, kv_scales=ref[2], **extra)
+            tpw.paged_write_chunk(*got[:2], kn.to(cuda_device), vn.to(cuda_device),
+                                  pgs.to(cuda_device), offs.to(cuda_device),
+                                  valid.to(cuda_device), 1, kv_scales=got[2], **dev)
+        torch.cuda.synchronize()
+        assert tpw.KERNEL_INT8.launches == before + 1
+        for r, g in zip(ref, got):
+            assert torch.equal(g[:, 1:].cpu(), r[:, 1:])
+
+
+def _int8_attention_case(rng, dev, B, Hq, Hkv, D, page, n_pt, per_slot, S=None):
+    P = 1 + B * n_pt
+    kc, vc, tiles = _int8_pages(rng, 2, P, Hkv, page, D)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, P))[: B * n_pt].reshape(B, n_pt).astype(np.int32))
+    qshape = (B, Hq, D) if S is None else (B, S, Hq, D)
+    q = torch.from_numpy(rng.standard_normal(qshape).astype(np.float32)).to(torch.bfloat16)
+    cpu = (q, kc, vc, bt, torch.tensor(per_slot, dtype=torch.int32))
+    return cpu, tuple(t.to(dev) for t in cpu), tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,Hq,Hkv,D", [(c, 8, 2, 128) for c in PAGED_CASES]
+    + [("plain", 32, 8, 128), ("plain", 4, 4, 64), ("window", 16, 2, 256)],
+)
+def test_paged_decode_int8_kernel_matches_plain(rng, cuda_device, case, Hq, Hkv, D):
+    """K5q (q and p quantized in the kernel, dp4a dots) against the plain
+    version of the Pallas INT8 arithmetic; ragged lengths, one slot of 1."""
+    cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, 4, Hq, Hkv, D, 32, 6,
+                                           [1, 37, 192, 100])  # 192 fills the table
+    kw = dict(PAGED_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL_INT8.launches
+    out = tpa.paged_decode_attention(*gpu, layer=1, kv_scales=tiles.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL_INT8.launches == before + 1
+    ref = tpa.paged_decode_attention(*cpu, layer=1, kv_scales=tiles, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,Hq,Hkv,D", [(c, 8, 2, 128) for c in PAGED_CASES]
+    + [("plain", 32, 8, 128), ("plain", 4, 4, 64), ("softcap", 16, 2, 256)],
+)
+def test_paged_chunk_int8_kernel_matches_plain(rng, cuda_device, case, Hq, Hkv, D):
+    S = 16
+    # starts: fresh, mid-page, crossing a page boundary, ending at the table
+    cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, 4, Hq, Hkv, D, 32, 6,
+                                           [0, 21, 56, 176], S=S)
+    kw = dict(PAGED_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL_INT8.launches
+    out = tpa.paged_chunk_attention(*gpu, layer=1, kv_scales=tiles.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL_INT8.launches == before + 1
+    ref = tpa.paged_chunk_attention(*cpu, layer=1, kv_scales=tiles, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_cache_int8_update_routes_match_cpu(rng, cuda_device):
+    """PagedKVCache(int8).update on the card (K4q's decode and chunk
+    entries, a 40-token chunk through the scatter) leaves codes and scale
+    tiles byte-equal to the CPU's quantize + scatter, past-max_seq
+    positions included."""
+    caches = [PagedKVCache.create(2, 9, 32, 2, 128, 2, 128, torch.int8, device=d)
+              for d in ("cpu", cuda_device)]
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    steps = [(8, [0, 9]), (16, [28, 60]), (1, [13, 127]), (1, [14, 128]), (6, [125, 200]),
+             (40, [30, 70])]
+    for c in caches:
+        c.block_table.copy_(bt)
+    before = tpw.KERNEL_INT8.launches
+    for S, starts in steps:
+        kn, vn = (torch.from_numpy(rng.standard_normal((2, S, 2, 128)).astype(np.float32))
+                  .to(torch.bfloat16) for _ in range(2))
+        for c in caches:
+            d = c.k_pages.device
+            c.update(1, kn.to(d), vn.to(d), torch.tensor(starts, dtype=torch.int32, device=d))
+    torch.cuda.synchronize()
+    assert tpw.KERNEL_INT8.launches == before + 5  # the 40-token chunk is scattered
+    for name in ("k_pages", "v_pages", "kv_scales"):
+        assert torch.equal(getattr(caches[1], name)[:, 1:].cpu(), getattr(caches[0], name)[:, 1:])
 
 
 DENSE_CASES = {

@@ -33,6 +33,7 @@ from quick_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     supports_chunk,
 )
+from quick_tpu_torch.ops.paged_write import quantize_kv
 
 ATOL = 2e-3  # tests/test_paged_attention.py: f32, online vs one-pass softmax
 
@@ -88,12 +89,23 @@ def test_chunk_plain_matches_pallas_interpret(rng, case):
 
 
 def test_single_layer_pages_and_int8_refused(rng):
+    """One layer's pages ([P, Hkv, page, D], float or INT8 with one layer's
+    [P, 8, Hkv*page] scale tiles) as the JAX kernel takes them; an INT8
+    scale tile of the wrong shape is refused."""
     (q, kp, vp, bt, ln), _ = _inputs(rng, "gqa_page_aligned")
     t = [torch.from_numpy(a) for a in (q, kp[1], vp[1], bt, ln)]
     ref = jax_decode(*(jnp.asarray(a) for a in (q, kp[1], vp[1], bt, ln)), interpret=True)
     np.testing.assert_allclose(f32(paged_decode_attention(*t)), f32(ref), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="B8"):
-        paged_decode_attention(*t, kv_scales=torch.zeros(1))
+    (kc, ks), (vc, vs) = quantize_kv(t[1]), quantize_kv(t[2])
+    P = kc.shape[0]
+    tiles = torch.stack([ks.reshape(P, -1), vs.reshape(P, -1)], 1)
+    tiles = torch.cat([tiles, torch.zeros((P, 6, tiles.shape[-1]))], 1)
+    ref = jax_decode(*(jnp.asarray(a.numpy()) for a in (t[0], kc, vc, t[3], t[4])),
+                     kv_scales=jnp.asarray(tiles.numpy()), interpret=True)
+    np.testing.assert_allclose(f32(paged_decode_attention(t[0], kc, vc, *t[3:], kv_scales=tiles)),
+                               f32(ref), atol=ATOL)
+    with pytest.raises(ValueError, match="kv_scales"):
+        paged_decode_attention(t[0], kc, vc, *t[3:], kv_scales=torch.zeros(1))
 
 
 @pytest.mark.parametrize("S,Hq,Hkv,page", [(16, 32, 8, 64), (64, 32, 8, 64), (8, 4, 2, 16),
