@@ -6,7 +6,8 @@ Python loop over ``decode_step`` whose tokens stay on the device, so the
 host never waits for the card inside the loop. Random draws take a
 ``torch.Generator``. ``sample_token_rows`` serves the continuous-batching
 engine. History penalties and ``beam_generate`` are not ported yet
-(ROADMAP.md).
+(ROADMAP A6): ``SamplingParams`` carries the JAX package's penalty fields,
+and ``generate`` / ``decode_loop`` (and the Engine) refuse them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,29 @@ class SamplingParams(NamedTuple):
     top_k: int = 0            # 0 => disabled
     top_p: float = 1.0
     min_p: float = 0.0        # keep tokens with prob >= min_p * max_prob
+    # history-dependent penalties (vLLM/OpenAI semantics), as in the JAX
+    # package; not applied by the port yet (ROADMAP A6), so any non-neutral
+    # value is refused by generate(), decode_loop() and the Engine
+    repetition_penalty: float = 1.0
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+
+    @property
+    def has_penalties(self) -> bool:
+        return (
+            self.repetition_penalty != 1.0
+            or self.frequency_penalty != 0.0
+            or self.presence_penalty != 0.0
+        )
+
+
+def refuse_penalties(sampling: Optional[SamplingParams]) -> None:
+    """Raise for sampling parameters that need history penalties."""
+    if sampling is not None and sampling.has_penalties:
+        raise NotImplementedError(
+            "history penalties (repetition / frequency / presence) are not "
+            "ported yet — ROADMAP A6"
+        )
 
 
 def filter_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor:
@@ -147,6 +171,7 @@ def decode_loop(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Generate ``n_tokens`` autoregressively. Returns (tokens [B, n], cache)."""
+    refuse_penalties(sampling)
     token = first_token
     out = []
     for _ in range(n_tokens):
@@ -171,6 +196,7 @@ def generate(
 ) -> torch.Tensor:
     """Prefill + decode loop. Returns [B, S + max_new_tokens] tokens (prompt
     included); with ``eos_token_id``, tokens after the first EOS become EOS."""
+    refuse_penalties(sampling)
     B, S = prompt_tokens.shape
     if max_seq is None:
         max_seq = S + max_new_tokens

@@ -52,7 +52,7 @@ from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device, to_device
 from quick_tpu_torch.models.model import ModelParams, check_supported, model_forward
 from quick_tpu_torch.modules.paged_cache import TRASH_PAGE, PageAllocator, PagedKVCache
-from quick_tpu_torch.runtime.generate import SamplingParams, sample_token_rows
+from quick_tpu_torch.runtime.generate import SamplingParams, refuse_penalties, sample_token_rows
 from quick_tpu_torch.runtime.prefix_cache import PrefixCache, page_hashes
 
 
@@ -201,6 +201,7 @@ class Engine:
                 "history penalties and logit_bias (enable_penalties) are not "
                 "ported yet — ROADMAP A6"
             )
+        refuse_penalties(sampling)
         check_supported(cfg)  # MLA and other families raise (A11, A12)
         dev = resolve_device(device)
         if params.embed.device.type != dev.type:
@@ -318,6 +319,7 @@ class Engine:
     ) -> int:
         if logit_bias:
             raise NotImplementedError("logit_bias is not ported yet — ROADMAP A6")
+        refuse_penalties(sampling)
         if not prompt:
             raise ValueError("empty prompt")
         full_need = -(-(len(prompt) + max_new_tokens) // self.page_size)
