@@ -5,7 +5,7 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K8, K4q
+  1. the card's name and power limit; build the CUDA kernels K1-K9, K4q
      and K5q / K6q from csrc/ (one nvcc per source, in parallel) and print
      ptxas' register summary;
   2. every kernel against its plain PyTorch version on the card, at the
@@ -53,10 +53,21 @@ Phases (any failure exits non-zero):
      bounds and yardsticks; (c) the Engine over INT8 pages, as phase 5, on
      tools/serve_bench.py's INT8 command (128 requests, 64 slots); (d) the
      2-layer full-width check over INT8 pages, as phase 6's paged one,
-     with the written codes and scale tiles held to the CPU scatter's.
+     with the written codes and scale tiles held to the CPU scatter's;
+ 10. small-group W4A16: (a) K9 (small-group GEMM) against its plain version
+     and timed at the g=32 Mistral-7B shapes and Qwen1.5-MoE's g=64
+     attention and shared-expert shapes, K8 at G=64 at Qwen1.5-MoE's
+     routed shapes; (b) a Q4_K GGUF file at Mistral-7B width written under
+     build/ by the test writer (tests/_torch_port.py), loaded onto the card
+     with AutoQuickModel.from_gguf (tensors byte-equal to the CPU decode),
+     generate() as phase 4 and the 128/128 protocol at B=1, then deleted;
+     (c) Qwen1.5-MoE at full width with g=64 weights through generate();
+     (d) 2-layer full-width checks of both models, as phases 6 and 8, with
+     K9's plain version on the CPU side. Launch counts exact throughout.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -88,7 +99,8 @@ L2_BYTES = 50 * 2**20
 # kernels also round p to bf16 against a running rather than final max.
 # K7 is also held to tol * max|ref| of each query row (row_scaled_err).
 TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2,
-       "paged_attention": 2e-2, "decode_attention": 2e-2, "grouped_matmul": 2e-2}
+       "paged_attention": 2e-2, "decode_attention": 2e-2, "grouped_matmul": 2e-2,
+       "quantized_matmul_dequant": 2e-2}
 TOL_CACHE = 1e-2   # K3's written k row: one bf16 step (f32 fma contraction)
 #: phase 6 logits, 2 layers at full width, bf16 activations: the paths differ
 #: by single bf16 steps of the logits, d / (1 + |ref|) <= 2^-7 per step
@@ -273,15 +285,15 @@ def checkpoint_flash_shapes():
     return [(B, PROTOCOL_CTX, T) for B, _ in PROTOCOL_ROUNDS] + [(LONG_B, LONG_PROMPT, LONG_SEQ)]
 
 
-def rand_qlinear(gen, dev, K, N, copies=1):
+def rand_qlinear(gen, dev, K, N, copies=1, group=128):
     """QTPU weights with O(1) outputs: full-range int32 words, scales in
-    [0.001, 0.011), integer zero points."""
+    [0.001, 0.011), integer zero points, one per ``group`` input channels."""
     out = []
     for _ in range(copies):
         qw = torch.randint(-2**31, 2**31, (K // 8, N), generator=gen, device=dev,
                            dtype=torch.int32)
-        s = torch.rand((K // 128, N), generator=gen, device=dev) * 0.01 + 0.001
-        z = torch.round(torch.rand((K // 128, N), generator=gen, device=dev) * 15)
+        s = torch.rand((K // group, N), generator=gen, device=dev) * 0.01 + 0.001
+        z = torch.round(torch.rand((K // group, N), generator=gen, device=dev) * 15)
         out.append((qw, s, z * s))
     return out
 
@@ -812,23 +824,29 @@ def dense_decode_rows(cfg, gen, dev):
 # Phase 4: the generate() path
 # ---------------------------------------------------------------------------
 
-def generate_launches(cfg, B=BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS, T=MAX_SEQ) -> dict:
+def generate_launches(cfg, B=BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS, T=MAX_SEQ,
+                      group=128, calls=None) -> dict:
     """Launches per kernel and key of one generate() call: a prefill
     forward of [B, prompt] (K1 at M = B x prompt, K2) and new_tokens - 1
     decode forwards of [B, 1] (K1 at M = B with its prologues where M <= 8,
-    K3); MoE layers add K8's two launches per forward."""
+    K3); MoE layers add K8's two launches per forward; at ``group`` 32 or 64
+    K9 takes K1's place. ``calls``, if given: (B, prompt, T, prefill
+    forwards, decode forwards) of several calls over dense caches with
+    B <= 8 (the fused decode step), instead of the one generate() call."""
     L = cfg.num_hidden_layers
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     want = {}
 
     def add(kernel, key, n):
-        want.setdefault(kernel, {})
-        want[kernel][key] = want[kernel].get(key, 0) + n
+        if n:
+            want.setdefault(kernel, {})
+            want[kernel][key] = want[kernel].get(key, 0) + n
 
-    for rows, n in ((B * prompt, 1), (B, new_tokens - 1)):
-        add_forward_launches(cfg, rows, L * n, add)
-    add("flash_attention", f"B={B} S={prompt} T={T} Hq={Hq} Hkv={Hkv} D={D}", L)
-    add("fused_decode_step", f"B={B} Hq={Hq} Hkv={Hkv} S={T} D={D}", L * (new_tokens - 1))
+    for B, S, T, n_pre, n_dec in calls or [(B, prompt, T, 1, new_tokens - 1)]:
+        for rows, n in ((B * S, n_pre), (B, n_dec)):
+            add_forward_launches(cfg, rows, L * n, add, group)
+        add("flash_attention", f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}", L * n_pre)
+        add("fused_decode_step", f"B={B} Hq={Hq} Hkv={Hkv} S={T} D={D}", L * n_dec)
     return want
 
 
@@ -987,7 +1005,7 @@ def k1_projections(cfg):
     return out + ([(D, 2 * Fs, None), (Fs, D, None)] if Fs else [])
 
 
-def k8_launch_keys(cfg, T: int):
+def k8_launch_keys(cfg, T: int, group: int = 128):
     """K8's two launch keys (gate_up, down) of an MoE layer routing T tokens."""
     from quick_tpu_torch.ops.grouped_matmul import grouped_row_budget, launch_key, pick_grouped_bm
 
@@ -996,20 +1014,24 @@ def k8_launch_keys(cfg, T: int):
     bm = pick_grouped_bm(tk, E)
     Mp = grouped_row_budget(tk, E, bm)
     D, Fe = cfg.hidden_size, cfg.moe_intermediate_size or cfg.intermediate_size
-    return [launch_key(Mp, K, N, E, bm) for K, N in ((D, 2 * Fe), (Fe, D))]
+    return [launch_key(Mp, K, N, E, bm, group) for K, N in ((D, 2 * Fe), (Fe, D))]
 
 
-def add_forward_launches(cfg, rows: int, n: int, add) -> None:
-    """Add K1's and K8's launches of ``n`` layer-forwards over ``rows``
-    tokens (every layer of these models is dense, or every one MoE)."""
-    from quick_tpu_torch.ops.quantized_matmul import launch_key as gemm_key
+def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
+    """Add K1's (K9's at ``group`` 32 or 64) and K8's launches of ``n``
+    layer-forwards over ``rows`` tokens (every layer of these models is
+    dense, or every one MoE)."""
+    from quick_tpu_torch.ops.quantized_matmul import dequant_launch_key, launch_key as gemm_key
 
     if any(cfg.layer_is_moe(i) != cfg.is_moe for i in range(cfg.num_hidden_layers)):
         fail(f"{cfg.model_type}: mixed dense and MoE layers are not counted here")
     for K, N, pro in k1_projections(cfg):
-        add("quantized_matmul", gemm_key(pro if rows <= 8 else None, rows, K, N), n)
+        if group == 128:
+            add("quantized_matmul", gemm_key(pro if rows <= 8 else None, rows, K, N), n)
+        else:  # the prologues run as torch ops before K9
+            add("quantized_matmul_dequant", dequant_launch_key(rows, K, N, group), n)
     if cfg.is_moe:
-        for key in k8_launch_keys(cfg, rows):
+        for key in k8_launch_keys(cfg, rows, group):
             add("grouped_matmul", key, n)
 
 
@@ -1222,11 +1244,12 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
 
 
 def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROMPT,
-                                 decode_kernel="fused_decode_step"):
+                                 decode_kernel="fused_decode_step", params=None, tag="6"):
     """model_forward over a dense cache: a prefill and PHASE6_DECODE decode
     steps, the card's kernel path against the plain path on the CPU. At B=4 and
     max_seq 256 decode takes K3; at B=16 and max_seq 512 (32 MiB of K+V per
-    layer) the dense decode kernel K7."""
+    layer) the dense decode kernel K7. ``params``: the 2-layer model on the
+    card and on the CPU (default: random g=128 QTPU weights, seed 1)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.ops import all_kernels
@@ -1234,11 +1257,14 @@ def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROM
 
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
     kv_mb = 2 * B * max_seq * cfg.num_key_value_heads * cfg.head_dim * 2 / 2**20
-    print(f"[6] 2 layers at full width, dense cache B={B} max_seq {max_seq} ({kv_mb:.0f} MiB "
+    print(f"[{tag}] 2 layers at full width, dense cache B={B} max_seq {max_seq} ({kv_mb:.0f} MiB "
           f"of K+V per layer), prompt {prompt}: kernel path (card) vs plain path (CPU), tol "
           f"{TOL_MODEL} * (1 + |ref|)")
-    p_gpu = init_quant_params(cfg2, seed=1, device=dev)
-    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    if params is None:
+        p_gpu = init_quant_params(cfg2, seed=1, device=dev)
+        p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    else:
+        p_gpu, p_cpu = params
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen, device=dev)
     cg = make_cache(cfg2, B, max_seq, device=dev)
@@ -1433,7 +1459,7 @@ ROUTE_GAP = 0.05
 MOE_CKPT_DIR = ROOT / "build" / "chip_smoke_moe_checkpoint"
 
 
-def dequant_experts(qw, s, zs) -> torch.Tensor:
+def dequant_experts(qw, s, zs, group=128) -> torch.Tensor:
     """[E, N, K] bf16 dequantized expert weights (the yardstick's operand,
     column-major per expert as torch._grouped_mm takes it)."""
     from quick_tpu_torch.quantize.packing import unpack_qtpu_tensor
@@ -1442,7 +1468,7 @@ def dequant_experts(qw, s, zs) -> torch.Tensor:
     K = K8 * 8
     out = torch.empty((E, N, K), dtype=torch.bfloat16, device=qw.device)
     for e in range(E):
-        codes = unpack_qtpu_tensor(qw[e]).float().reshape(K // 128, 128, N)
+        codes = unpack_qtpu_tensor(qw[e], group).float().reshape(K // group, group, N)
         out[e] = (codes * s[e][:, None] - zs[e][:, None]).reshape(K, N).t().to(torch.bfloat16)
     return out
 
@@ -1476,33 +1502,36 @@ def grouped_mm_ms(x, sel, pos, wd, ref, n, experts):
     return ms
 
 
-def grouped_rows(name, cfg, gen, dev):
+def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8"):
     """[8a, 8b] K8 against its plain version at ``name``'s routed shapes
     (random routing, full output: padding rows and dead tiles included),
     then timed with the expert weights rotated past L2: its bound from the
     bytes of the distinct experts this routing touches and of the routed
-    rows, or from its routed FLOPs; the plain version; torch._grouped_mm."""
+    rows, or from its routed FLOPs; the plain version; torch._grouped_mm.
+    ``cases`` (path, T) default to MOE_K8_CASES[name]; ``group`` is the
+    experts' quant group."""
     from quick_tpu_torch.ops import grouped_matmul as gm
 
     E, kk = cfg.num_local_experts, cfg.num_experts_per_tok
     D, Fe = cfg.hidden_size, cfg.moe_intermediate_size or cfg.intermediate_size
-    print(f"[8] K8 (grouped MoE GEMM) against its plain version, {name}: E={E}, top-{kk}")
+    print(f"[{tag}] K8 (grouped MoE GEMM) against its plain version, {name}: E={E}, "
+          f"top-{kk}, G={group}")
     out_rows = []
     for proj, (K, N) in (("gate_up", (D, 2 * Fe)), ("down", (Fe, D))):
-        per_expert = K * N // 2 + 2 * (K // 128) * N * 4
-        ws = rand_qlinear(gen, dev, K, N, copies=E)
+        per_expert = K * N // 2 + 2 * (K // group) * N * 4
+        ws = rand_qlinear(gen, dev, K, N, copies=E, group=group)
         qw, s, zs = (torch.stack([w[j] for w in ws]) for j in range(3))
         del ws
-        wd = dequant_experts(qw, s, zs)
-        for path, T in MOE_K8_CASES[name]:
+        wd = dequant_experts(qw, s, zs, group)
+        for path, T in cases or MOE_K8_CASES[name]:
             sel = torch.argsort(torch.rand((T, E), generator=gen, device=dev), dim=1)[:, :kk]
             bm = gm.pick_grouped_bm(T * kk, E)
             _, pos, te, live, _ = gm.build_routing(sel, E, bm)
             Mp = te.shape[0] * bm
             x = torch.randn((Mp, K), generator=gen, device=dev).to(torch.bfloat16)
-            key = gm.launch_key(Mp, K, N, E, bm)
-            out = gm.quantized_matmul_grouped_cuda(x, qw, s, zs, te, live, bm)
-            ref = gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm)
+            key = gm.launch_key(Mp, K, N, E, bm, group)
+            out = gm.quantized_matmul_grouped_cuda(x, qw, s, zs, te, live, bm, group)
+            ref = gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm, group)
             torch.cuda.synchronize()
             experts = int(torch.unique(te[live.bool()]).numel())
             err = max_err(out, ref, TOL["grouped_matmul"],
@@ -1518,12 +1547,12 @@ def grouped_rows(name, cfg, gen, dev):
                                       for _ in range(copies - 1)]
 
             def kern(i):
-                gm.quantized_matmul_grouped_cuda(x, *stacks[i % copies], te, live, bm)
+                gm.quantized_matmul_grouped_cuda(x, *stacks[i % copies], te, live, bm, group)
 
             ms = device_ms(kern, n)
             del stacks
-            plain_ms = device_ms(
-                lambda i: gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm), 2, warmup=1)
+            plain_ms = device_ms(lambda i: gm.quantized_matmul_grouped_plain(
+                x, qw, s, zs, te, live, bm, group), 2, warmup=1)
             lib_ms = grouped_mm_ms(x, sel, pos, wd, ref, n, experts)
             # the distinct experts' weights, x and out of the T * topk routed
             # rows (not the padding rows or dead tiles), the tile layout
@@ -1584,11 +1613,12 @@ def phase8_checkpoint(params, cfg, dev):
     return dict(layers=layers, bytes_on_disk=on_disk, save_s=t_save, load_s=t_load, tensors=n)
 
 
-def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=64):
+def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=64, group=128,
+                           tag="8"):
     """[8e] A 2-layer full-width MoE model over a dense cache: a prefill of
     B x prompt tokens and ``steps`` decode steps, the card's kernel path
     against the plain path on the CPU, logits within TOL_MODEL, with the
-    routing rule of ROUTE_GAP."""
+    routing rule of ROUTE_GAP. ``group``: the quant group of every linear."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.modules import blocks
@@ -1597,12 +1627,13 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
 
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
     k = cfg.num_experts_per_tok
-    print(f"[8] 2 layers of {name} at full width, dense cache B={B} max_seq {max_seq}, prompt "
-          f"{prompt} + {steps} decode steps: kernel path (card) vs plain path (CPU), tol "
+    print(f"[{tag}] 2 layers of {name} at full width, G={group}, dense cache B={B} max_seq "
+          f"{max_seq}, prompt {prompt} + {steps} decode steps: kernel path (card) vs plain path "
+          f"(CPU), tol "
           f"{TOL_MODEL} * (1 + |ref|) on rows whose routing agrees; a differing top-{k} set "
           f"needs a router gap < {ROUTE_GAP}")
-    p_gpu = init_quant_params(cfg2, seed=1, device=dev)
-    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    p_gpu = init_quant_params(cfg2, seed=1, group_size=group, device=dev)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu", group_size=group)
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen, device=dev)
     cg = make_cache(cfg2, B, max_seq, device=dev)
@@ -2036,6 +2067,284 @@ def phase9_int8_plain_vs_kernel(cfg, dev):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: small-group W4A16 (K9; K8 at G = 64): a GGUF Q4_K file at
+# Mistral-7B width (g=32) and Qwen1.5-MoE-A2.7B at g=64
+# ---------------------------------------------------------------------------
+
+GGUF_PATH = ROOT / "build" / "chip_smoke_mistral_q4_k.gguf"
+#: the GGUF linears' spread, x 1 / sqrt(in): init_quant_params' (0.02). At
+#: 1 (unit-variance outputs) a random 2-layer model is chaotic: rounding
+#: alone moves its logits by more than TOL_MODEL
+GGUF_SPREAD = 0.02
+#: K9's (path, M) at the g=32 model's four projections: generate() at B=4
+#: (prefill 4 x 128, decode 4) and the 128/128 protocol at B=1 (prefill
+#: 128, decode 1); M=16 (the Engine's decode rows, not run at g=32) is
+#: checked only
+GGUF_K9_CASES = (("gguf_generate", BATCH * PROMPT), ("gguf_generate", BATCH),
+                 ("gguf_protocol", PROTOCOL_CTX), ("gguf_protocol", 1), (None, 16))
+#: Qwen1.5-MoE at g=64: K9 runs attention and the shared expert, K8 the
+#: routed experts, at generate()'s decode (B=4) and prefill (4 x 128) rows;
+#: K8 at T=16 (60 experts, most without a token) is checked only
+QWEN_G = 64
+QWEN_G_PATH = "qwen_g64_generate"
+QWEN_K9_CASES = ((QWEN_G_PATH, BATCH * PROMPT), (QWEN_G_PATH, BATCH))
+QWEN_K8_CASES = [(None, 16), (QWEN_G_PATH, BATCH), (QWEN_G_PATH, BATCH * PROMPT)]
+
+
+def dequant_rows(name, shapes, cases, G, gen, dev):
+    """[10a] K9 against its plain version at ``shapes`` ({projection: (K,
+    N)}) and ``cases`` ((path, M); path None: checked only), then timed
+    with the weights rotated past L2: its bound from the codes, the f32
+    scales and zeros, x and out (bytes) or its multiply-adds; its plain
+    version; torch.matmul on the same weight dequantized to bf16
+    beforehand."""
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    print(f"[10] K9 (small-group W4A16 GEMM) against its plain version, {name}, G={G}")
+    rows = []
+    for proj, (K, N) in shapes.items():
+        wbytes = K * N // 2 + 2 * (K // G) * N * 4
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / wbytes)))
+        ws = rand_qlinear(gen, dev, K, N, copies, group=G)
+        wd = []  # the yardstick's bf16 weights, also rotated past L2
+        for qw, s, zs in ws[: max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))]:
+            codes = qm.unpack_qtpu_tensor(qw, G).float().reshape(K // G, G, N)
+            wd.append((codes * s[:, None] - zs[:, None]).reshape(K, N).to(torch.bfloat16))
+        for path, M in cases:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            key = qm.dequant_launch_key(M, K, N, G)
+            out = qm.quantized_matmul_dequant_cuda(x, *ws[0], G)
+            ref = qm.quantized_matmul_dequant_plain(x, *ws[0], G)
+            torch.cuda.synchronize()
+            err = max_err(out, ref, TOL["quantized_matmul_dequant"], f"K9 {proj} {key}")
+            if path is None:
+                continue
+            n = 10 if M > 8 else 100
+            ms = device_ms(lambda i: qm.quantized_matmul_dequant_cuda(x, *ws[i % copies], G), n)
+            plain_ms = device_ms(
+                lambda i: qm.quantized_matmul_dequant_plain(x, *ws[i % copies], G), 3, warmup=1)
+            lib_ms = device_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), n)
+            b_ms, b_by = bound(wbytes + M * K * 2 + M * N * 2, 2.0 * M * K * N)
+            rows.append(dict(
+                name=f"quantized_matmul_dequant[{key}]", route="cuda",
+                source="quick_tpu_torch/csrc/quantized_matmul_dequant.cu",
+                replaces="quick_tpu/ops/quantized_matmul.py:522",
+                launches=(path, "quantized_matmul_dequant", key), max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            ))
+            print(f"  {key}: {ms * 1e3:.1f} us ({copies} weight copies; bound {b_ms * 1e3:.1f} us "
+                  f"by {b_by}), plain {plain_ms * 1e3:.1f} us, torch.matmul bf16 "
+                  f"{lib_ms * 1e3:.1f} us")
+        del ws, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gguf_spec(layers: int) -> dict:
+    """The GGUF writer's model: Mistral-7B's widths at ``layers`` layers."""
+    return dict(MISTRAL_7B, num_hidden_layers=layers)
+
+
+def check_gguf_model(model, path: Path, layers: int) -> None:
+    """The loaded model has the file's widths, g=32 linears on the card, and
+    the embedding, the head and layer 0's and the last layer's linears equal
+    byte for byte to the CPU decode of the same file."""
+    from quick_tpu_torch.utils import gguf as ug
+
+    cfg, p = model.cfg, model.params
+    want = gguf_spec(layers)
+    for f in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+              "num_attention_heads", "num_key_value_heads"):
+        if getattr(cfg, f) != want[f]:
+            fail(f"GGUF config {f} = {getattr(cfg, f)}, the file has {want[f]}")
+    if model.device.type != "cuda" or p.blocks[0].attn.qkv_proj.group_size != ug.GROUP:
+        fail(f"GGUF model on {model.device}, G={p.blocks[0].attn.qkv_proj.group_size}")
+    gg = ug.read_gguf(str(path))
+    _, tensors, start, mm = gg
+    checks = {
+        "embed": (p.embed, ug.load_tensor_float(tensors["token_embd.weight"], mm, start)
+                  .to(torch.bfloat16)),
+        "lm_head": (p.lm_head.weight, ug.load_tensor_float(tensors["output.weight"], mm, start)
+                    .t().to(torch.bfloat16)),
+    }
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    for i in (0, layers - 1):
+        b, blk = f"blk.{i}", p.blocks[i]
+        parts = [ug.load_linear(gg, [f"{b}.attn_q.weight"], hq), ug.load_linear(gg, [f"{b}.attn_k.weight"], hkv),
+                 ug.load_linear(gg, [f"{b}.attn_v.weight"])]
+        lins = {"qkv": (blk.attn.qkv_proj, {k: torch.cat([q[k] for q in parts], 1) for k in parts[0]}),
+                "o": (blk.attn.o_proj, ug.load_linear(gg, [f"{b}.attn_output.weight"])),
+                "gate_up": (blk.mlp.gate_up_proj,
+                            ug.load_linear(gg, [f"{b}.ffn_gate.weight", f"{b}.ffn_up.weight"])),
+                "down": (blk.mlp.down_proj, ug.load_linear(gg, [f"{b}.ffn_down.weight"]))}
+        for name, (lin, ref) in lins.items():
+            for f, t in ref.items():
+                checks[f"blocks.{i}.{name}.{f}"] = (getattr(lin, f), t)
+    bad = [k for k, (got, ref) in checks.items() if not same_bytes(got.cpu(), ref)]
+    if bad:
+        fail(f"GGUF tensors loaded on the card differ from the CPU decode: {bad}")
+    print(f"  {len(checks)} tensors equal byte for byte to the CPU decode of the same file")
+
+
+def phase10_gguf(dev):
+    """[10b] A GGUF file at Mistral-7B width (Q4_K block linears, F16
+    embedding and output, 32 layers; random valid blocks from seed 0),
+    written under build/ by the test writer, loaded onto the card with
+    AutoQuickModel.from_gguf, then generate() at B=4 (as phase 4) and the
+    128/128 protocol at B=1, with exact launch counts; the file is deleted
+    afterwards."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_port import write_llama_gguf
+    from quick_tpu_torch.examples.benchmark import run_round
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.ops import all_kernels
+
+    layers = MISTRAL_7B["num_hidden_layers"]
+    print(f"[10] GGUF path: Q4_K at Mistral-7B width, {layers} layers, g=32 through K9")
+    GGUF_PATH.parent.mkdir(exist_ok=True)
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_llama_gguf(str(GGUF_PATH), gguf_spec(layers), seed=0, spread=GGUF_SPREAD)
+        t_write = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = AutoQuickModel.from_gguf(str(GGUF_PATH))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        weights = torch.cuda.memory_allocated() - before
+        print(f"  {nbytes / 1e9:.3f} GB file written in {t_write:.1f} s; from_gguf onto the card "
+              f"in {t_load:.2f} s, {weights / 1e9:.2f} GB on the card")
+        check_gguf_model(model, GGUF_PATH, layers)
+        cfg = model.cfg
+        counts["gguf_generate"], stats = run_generate(
+            model, cfg, dev, "GGUF g=32", generate_launches(cfg, group=32))
+        kernels = all_kernels()
+        for k in kernels:
+            k.reset_counts()
+        row = run_round(model, 1, PROTOCOL_CTX, PROTOCOL_GEN, 1)
+        counts["gguf_protocol"] = {k.name: dict(k.launches_by_key) for k in kernels}
+        got = {k: v for k, v in counts["gguf_protocol"].items() if v}
+        want = generate_launches(cfg, group=32, calls=[(
+            1, PROTOCOL_CTX, PROTOCOL_CTX + PROTOCOL_GEN, row["forwards"]["prefill"],
+            row["forwards"]["decode"])])
+        if got != want:
+            fail(f"GGUF 128/128 at B=1: launch counts {got} differ from the calls' {want}")
+        print("  run_round B=1 " + json.dumps(row))
+        del model
+        torch.cuda.empty_cache()
+    finally:  # the 4.5 GB file never outlives the phase
+        GGUF_PATH.unlink(missing_ok=True)
+    stats.update(file_bytes=nbytes, write_s=t_write, load_s=t_load, weights_gb=weights / 1e9,
+                 protocol_b1=row)
+    return counts, stats
+
+
+def phase10_qwen(dev):
+    """[10c] Qwen1.5-MoE-A2.7B at full width and depth with g=64 random
+    QTPU weights (seed 0) through generate() (as phase 4): K8 at G=64 for
+    the routed experts, K9 for attention and the shared expert."""
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.model import init_quant_params
+
+    name = "qwen1.5-moe-a2.7b"
+    cfg = PRESETS[name]
+    print(f"[10] Qwen1.5-MoE generate() at G={QWEN_G}: {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_local_experts} experts top-{cfg.num_experts_per_tok}, B={BATCH}, "
+          f"{PROMPT} + {NEW_TOKENS} tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = AutoQuickModel(init_quant_params(cfg, seed=0, group_size=QWEN_G, device=dev), cfg)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    counts, stats = run_generate(model, cfg, dev, f"{name} g={QWEN_G}",
+                                 generate_launches(cfg, group=QWEN_G))
+    stats["weights_gb"] = weights / 1e9
+    del model
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+@contextlib.contextmanager
+def k9_plain_on_cpu():
+    """The CPU path with K9's plain version (weights dequantized to bf16,
+    ``_make_kernel_dequant``'s numerics) where the port's CPU dispatch takes
+    the output-side form at G = 32 / 64 (the JAX package's CPU default), so
+    that a model check holds every kernel against its own plain version.
+    K8's plain version keeps its output-side form, which K8 computes."""
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    orig = qm.quantized_matmul_plain
+
+    def plain(x, qweight, scales, zeros_x_scales, group_size=128, out_dtype=torch.bfloat16):
+        if group_size in qm.DEQUANT_GROUPS:
+            return qm.quantized_matmul_dequant_plain(x, qweight, scales, zeros_x_scales,
+                                                     group_size, out_dtype)
+        return orig(x, qweight, scales, zeros_x_scales, group_size, out_dtype)
+
+    qm.quantized_matmul_plain = plain
+    try:
+        yield
+    finally:
+        qm.quantized_matmul_plain = orig
+
+
+def phase10_plain_vs_kernel(dev):
+    """[10d] 2 layers at full width, the card's kernel path against the plain
+    path on the CPU (K9's plain version in place of the CPU's output-side
+    form, k9_plain_on_cpu): a 2-layer Q4_K GGUF at Mistral-7B width, loaded
+    on both (params equal byte for byte), through phase 6's dense check
+    (K9, K2, K3); Qwen1.5-MoE at g=64 through phase 8's (K9, K8 at G=64, the
+    router gap rule). Also printed, not held to a tolerance: how far the
+    CPU's two forms of the g=32 model's prefill logits lie apart."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_port import write_llama_gguf
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.convert import params_to_flat
+    from quick_tpu_torch.models.model import model_forward
+    from quick_tpu_torch.ops.quantized_matmul import KERNEL_DEQUANT
+
+    path = GGUF_PATH.with_name("chip_smoke_mistral_q4_k_2l.gguf")
+    try:
+        write_llama_gguf(str(path), gguf_spec(2), seed=1, spread=GGUF_SPREAD)
+        mg = AutoQuickModel.from_gguf(str(path))
+        mc = AutoQuickModel.from_gguf(str(path), device="cpu")
+    finally:
+        path.unlink(missing_ok=True)
+    got, ref = params_to_flat(mg.params), params_to_flat(mc.params)
+    if list(got) != list(ref) or not all(same_bytes(got[k], ref[k]) for k in ref):
+        fail("the 2-layer GGUF loaded on the card differs from its CPU load")
+    del got, ref
+    toks = torch.randint(0, mc.cfg.vocab_size, (1, 32), generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        out_side = model_forward(mc.params, mc.cfg, toks, last_token_only=True)[0]
+        with k9_plain_on_cpu():
+            deq = model_forward(mc.params, mc.cfg, toks, last_token_only=True)[0]
+    forms = float(((out_side - deq).abs() / (1 + deq.abs())).max())
+    print(f"[10] the g=32 model's CPU prefill logits, output-side form (the JAX package's CPU "
+          f"route) against dequantized bf16 weights (K9's plain version): max |d| / (1 + |ref|) "
+          f"{forms:.3e}")
+    with k9_plain_on_cpu():
+        err = {"gguf_mistral_g32": phase6_dense_plain_vs_kernel(
+            mg.cfg, dev, params=(mg.params, mc.params), tag="10")}
+        if KERNEL_DEQUANT.launches != 4 * 2 * (1 + PHASE6_DECODE):
+            fail(f"the 2-layer GGUF path ran K9 {KERNEL_DEQUANT.launches} times")
+        del mg, mc
+        name, steps = "qwen1.5-moe-a2.7b", 2
+        err[f"qwen_moe_g{QWEN_G}"] = phase8_plain_vs_kernel(
+            name, PRESETS[name], dev, steps=steps, group=QWEN_G, tag="10")
+        if KERNEL_DEQUANT.launches != len(k1_projections(PRESETS[name])) * 2 * (1 + steps):
+            fail(f"the 2-layer g={QWEN_G} MoE path ran K9 {KERNEL_DEQUANT.launches} times")
+    torch.cuda.empty_cache()
+    return err, forms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2082,6 +2391,20 @@ def main() -> None:
     counts.update(moe_counts)
     rows += moe_rows
     print(f"  phase 8 done at {time.perf_counter() - t_start:.0f} s")
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+
+    qwen = PRESETS["qwen1.5-moe-a2.7b"]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows += dequant_rows("Mistral-7B width (GGUF)", gemm_shapes(cfg), GGUF_K9_CASES, 32, gen, dev)
+    rows += dequant_rows("Qwen1.5-MoE attention and shared expert",
+                         {f"{K}x{N}": (K, N) for K, N, _ in k1_projections(qwen)},
+                         QWEN_K9_CASES, QWEN_G, gen, dev)
+    rows += grouped_rows("qwen1.5-moe-a2.7b", qwen, gen, dev, group=QWEN_G,
+                         cases=QWEN_K8_CASES, tag="10")
+    gguf_counts, gguf_stats = phase10_gguf(dev)
+    counts.update(gguf_counts)
+    counts[QWEN_G_PATH], qwen_g_stats = phase10_qwen(dev)
+    print(f"  phase 10a-c done at {time.perf_counter() - t_start:.0f} s")
     for row in rows:  # (path, kernel, key) -> this shape's launches on that path
         path, kernel, key = row["launches"]
         row["launches"] = counts[path][kernel].get(key, 0)
@@ -2092,11 +2415,13 @@ def main() -> None:
                                                 decode_kernel="decode_attention")
     paged_err = phase6_paged_plain_vs_kernel(cfg, dev)
     int8_err = phase9_int8_plain_vs_kernel(cfg, dev)
+    small_g_err, small_g_forms = phase10_plain_vs_kernel(dev)
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
-                  int8_engine_path=int8_stats,
+                  int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,
+                  gguf_cpu_forms_gap=small_g_forms,
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,
-                                          int8_paged=int8_err),
+                                          int8_paged=int8_err, **small_g_err),
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

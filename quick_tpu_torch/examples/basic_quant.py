@@ -5,7 +5,9 @@ counterpart of ``examples/basic_quant.py``:
     python -m quick_tpu_torch.examples.basic_quant --random debug --quant_path out/ --device cpu
 
 ``--random <preset>`` builds a random-init float model from seed 0 instead
-of reading a checkpoint; ``--awq_format`` writes an AutoAWQ-GEMM checkpoint
+of reading a checkpoint (``--q_group_size 32`` or ``64`` quantizes it for
+the card's small-group kernel; ``benchmark.py --random --group`` makes the
+packed weights directly, for the presets whose float model is too large); ``--awq_format`` writes an AutoAWQ-GEMM checkpoint
 instead of the native QTPU one. The AWQ scale / clip search is not ported
 (ROADMAP A9), so the calibration options of the JAX example are absent.
 Runs on the card unless given ``--device cpu``.

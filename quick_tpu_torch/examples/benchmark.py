@@ -4,6 +4,7 @@
     python -m quick_tpu_torch.examples.benchmark --random mistral-7b
     python -m quick_tpu_torch.examples.benchmark --quant_path out/ --batches 1,8,32
     python -m quick_tpu_torch.examples.benchmark --random debug --batches 2 --device cpu
+    python -m quick_tpu_torch.examples.benchmark --random mistral-7b --group 32 --batches 1
 
 Sweeps batch sizes at fixed prompt and generation lengths (the 128/128
 protocol) and prints one JSON row per round: prefill time and tok/s, decode
@@ -88,6 +89,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--quant_path")
     ap.add_argument("--random", help="random preset (see basic_quant.py)")
+    ap.add_argument("--group", type=int, default=128,
+                    help="quant group of the --random packed weights: 128 (K1, K8), or 32 "
+                         "(GGUF's group) and 64 (the small-group kernel K9; K8 at G=64)")
     ap.add_argument("--ctx", type=int, default=128)
     ap.add_argument("--gen", type=int, default=128)
     ap.add_argument("--batches", default="1,8,32,64,128,256")
@@ -110,7 +114,8 @@ def main(argv=None):
             need = 2 * max(int(n) for n in args.lengths.split(","))
             if need > cfg.max_position_embeddings:
                 cfg = dataclasses.replace(cfg, max_position_embeddings=need)
-        model = types.SimpleNamespace(cfg=cfg, params=init_quant_params(cfg, seed=0, device=dev))
+        model = types.SimpleNamespace(
+            cfg=cfg, params=init_quant_params(cfg, seed=0, group_size=args.group, device=dev))
     if dev.type == "cuda":
         print(json.dumps({"device": torch.cuda.get_device_name(dev)}), flush=True)
     if args.lengths:

@@ -6,13 +6,14 @@ with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe):
     model.save_quantized(out_dir)                              # native QTPU
     model.save_quantized(awq_dir, awq_format=True)             # AutoAWQ GEMM
     model = AutoQuickModel.from_quantized(out_dir)             # QTPU or AutoAWQ
+    model = AutoQuickModel.from_gguf(path)                     # llama.cpp, g=32
     out = model.generate(tokens, max_new_tokens=64)
 
 Every constructor puts the weights on the card unless given
 ``device="cpu"``. Not ported: the AWQ scale / clip search (ROADMAP A9), the
 tokenizer and ``generate_text`` (``transformers`` is not a dependency of
-the port), ``from_gguf``, the vision tower and ``shard`` (ROADMAP A7, A15,
-A16).
+the port; a GGUF file's tokenizer waits for A14), the vision tower and
+``shard`` (ROADMAP A7, A15, A16).
 """
 from __future__ import annotations
 
@@ -110,6 +111,21 @@ class AutoQuickModel:
             params, cfg, qcfg = load_quantized(model_dir, device=device)
         check_and_get_model_type(cfg.model_type)
         return cls(params, cfg, qcfg)
+
+    @classmethod
+    def from_gguf(cls, path: str, device: DeviceLike = None) -> "AutoQuickModel":
+        """Load a llama.cpp GGUF file (``from_gguf`` :207). Q4_0 / Q4_1 /
+        Q4_K tensors import bit-exactly onto the (scales, zeros_x_scales)
+        contract at group size 32, which the card runs on K9; other quant
+        types re-quantize to int4 g=32 (``utils/gguf.py``)."""
+        from quick_tpu_torch.utils.gguf import load_gguf
+
+        device = resolve_device(device)  # refuse before reading anything
+        params, cfg, qcfg = load_gguf(path, device=device)
+        check_and_get_model_type(cfg.model_type)
+        m = cls(params, cfg, qcfg)
+        m.gguf_path = path  # the file a tokenizer would load (ROADMAP A14)
+        return m
 
     @classmethod
     def from_random(cls, cfg: ModelConfig, seed: int = 0,

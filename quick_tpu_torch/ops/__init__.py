@@ -8,8 +8,8 @@ def all_kernels():
     """The port's CUDA kernel libraries, for building and launch counts:
     K1, K2, K3, K4 (paged writes), K5 / K6 (paged attention, one
     library), K7 (dense-cache decode attention), K8 (grouped MoE GEMM),
-    K4q (INT8 paged writes) and K5q / K6q (INT8 paged attention, one
-    library)."""
+    K4q (INT8 paged writes), K5q / K6q (INT8 paged attention, one
+    library) and K9 (small-group W4A16 GEMM)."""
     from quick_tpu_torch.ops.decode_attention import KERNEL as K7
     from quick_tpu_torch.ops.flash_attention import KERNEL as K2
     from quick_tpu_torch.ops.fused_decode_step import KERNEL as K3
@@ -19,5 +19,6 @@ def all_kernels():
     from quick_tpu_torch.ops.paged_write import KERNEL as K4
     from quick_tpu_torch.ops.paged_write import KERNEL_INT8 as K4q
     from quick_tpu_torch.ops.quantized_matmul import KERNEL as K1
+    from quick_tpu_torch.ops.quantized_matmul import KERNEL_DEQUANT as K9
 
-    return [K1, K2, K3, K4, K56, K7, K8, K4q, K56q]
+    return [K1, K2, K3, K4, K56, K7, K8, K4q, K56q, K9]

@@ -8,10 +8,12 @@ computes every tile against its own expert's packed weights, read from
 ``tile_expert`` on the device, so compute and weight traffic scale with the
 routed tokens and not with E x T. Dead tiles (past the last routed segment)
 are written as zeros. On CUDA tensors the work goes to the hand-written
-kernel ``csrc/grouped_matmul.cu`` (K8); on CPU tensors to the plain version,
-which follows ``_grouped_fallback`` (:146): per 128-group integer dots of
-the bf16 activations summed in f32, scaled on the output side, minus
-``xsum @ (z * s)``.
+kernel ``csrc/grouped_matmul.cu`` (K8) at G = 128, 64 or 32; on CPU tensors
+to the plain version, which follows ``_grouped_fallback`` (:146): per-group
+integer dots of the bf16 activations summed in f32, scaled on the output
+side, minus ``xsum @ (z * s)``. The JAX package runs G = 128 on its Pallas
+kernel and smaller groups on that fallback; K8 computes the same
+output-side form at every G.
 
 Routing never reads a device value back to the host: the row budget ``Mp``
 is static from (T, topk, E, bm), and expert counts and ranks come from a
@@ -19,9 +21,7 @@ cumulative sum over a [T * topk, E] one-hot (not ``bincount``, which reads
 its maximum back); that, ``searchsorted`` and the scatters stay on the
 device.
 
-Not ported: the grouped W4A8 kernel (``a8``, ROADMAP B12) and the
-small-group route (G != 128; the JAX package's XLA fallback, ROADMAP B11),
-which only the CPU's plain path takes.
+Not ported: the grouped W4A8 kernel (``a8``, ROADMAP B12).
 """
 from __future__ import annotations
 
@@ -36,8 +36,9 @@ from quick_tpu_torch.quantize.packing import PACK
 #: K8. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
 KERNEL = CudaKernel(
     "grouped_matmul.cu",
-    {"qtt_grouped_matmul": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]},
+    {"qtt_grouped_matmul": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr]},
 )
+GROUPS = (128, 64, 32)  # the group sizes K8 is built for
 
 
 def pick_grouped_bm(tk: int, n_experts: int) -> int:
@@ -129,8 +130,9 @@ def quantized_matmul_grouped_plain(
     return out.to(torch.bfloat16)
 
 
-def launch_key(Mp: int, K: int, N: int, E: int, bm: int) -> str:
-    return f"Mp={Mp} K={K} N={N} E={E} bm={bm}"
+def launch_key(Mp: int, K: int, N: int, E: int, bm: int, G: int = KERNEL_GROUP) -> str:
+    key = f"Mp={Mp} K={K} N={N} E={E} bm={bm}"
+    return key if G == KERNEL_GROUP else f"{key} G={G}"
 
 
 def quantized_matmul_grouped_cuda(
@@ -141,22 +143,24 @@ def quantized_matmul_grouped_cuda(
     tile_expert: torch.Tensor,
     tile_live: torch.Tensor,
     bm: int,
+    group_size: int = KERNEL_GROUP,
 ) -> torch.Tensor:
     """Launch K8 on CUDA tensors: x [Mp, K] bf16 expert-sorted rows,
     qweight int32 [E, K // 8, N], scales / zeros_x_scales f32
-    [E, K // 128, N], tile_expert / tile_live int32 [Mp // bm]; returns
-    [Mp, N] bf16. bm must be a multiple of 32 (``pick_grouped_bm`` gives
-    32, 64 or 128)."""
+    [E, K // G, N], tile_expert / tile_live int32 [Mp // bm]; returns
+    [Mp, N] bf16. G is 128, 64 or 32; bm must be a multiple of 32
+    (``pick_grouped_bm`` gives 32, 64 or 128)."""
     dev = x.device
+    G = group_size
     x = x.to(torch.bfloat16).contiguous()
     if x.data_ptr() % 16:  # x is read in 16-byte chunks
         x = x.clone()
     Mp, K = x.shape
     E, _, N = qweight.shape
-    ng = K // KERNEL_GROUP
-    if bm % 32 or Mp % bm or K % KERNEL_GROUP:
-        raise ValueError(f"K8 takes bm % 32 == 0, Mp % bm == 0, K % 128 == 0: "
-                         f"bm={bm} Mp={Mp} K={K}")
+    ng = K // G
+    if G not in GROUPS or bm % 32 or Mp % bm or K % G:
+        raise ValueError(f"K8 takes G in {GROUPS}, bm % 32 == 0, Mp % bm == 0, K % G == 0: "
+                         f"G={G} bm={bm} Mp={Mp} K={K}")
     check(qweight, "qweight", torch.int32, (E, K // PACK, N))
     check(scales, "scales", torch.float32, (E, ng, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (E, ng, N))
@@ -164,9 +168,9 @@ def quantized_matmul_grouped_cuda(
     check(tile_live, "tile_live", torch.int32, (Mp // bm,))
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=dev)
     KERNEL.launch(
-        "qtt_grouped_matmul", launch_key(Mp, K, N, E, bm),
+        "qtt_grouped_matmul", launch_key(Mp, K, N, E, bm, G),
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros_x_scales.data_ptr(),
-        tile_expert.data_ptr(), tile_live.data_ptr(), Mp, K, N, E, bm,
+        tile_expert.data_ptr(), tile_live.data_ptr(), Mp, K, N, E, bm, G,
         out.data_ptr(), stream_ptr(dev),
     )
     return out
@@ -194,11 +198,9 @@ def quantized_matmul_grouped(
     if x.device.type != "cuda":
         return quantized_matmul_grouped_plain(
             x, qweight, scales, zeros_x_scales, tile_expert, tile_live, bm, group_size)
-    if group_size != KERNEL_GROUP:
+    if group_size not in GROUPS:
         raise NotImplementedError(
-            f"group_size={group_size}: the JAX package runs small-group MoE "
-            "experts on its XLA fallback; the port has no kernel for them yet "
-            "— ROADMAP B11")
+            f"group_size={group_size}: K8 takes G in {GROUPS}; other groups — ROADMAP B11")
     return quantized_matmul_grouped_cuda(
         x, qweight, scales, zeros_x_scales, tile_expert.to(torch.int32),
-        tile_live.to(torch.int32), bm)
+        tile_live.to(torch.int32), bm, group_size)

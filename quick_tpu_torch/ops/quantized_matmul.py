@@ -1,17 +1,20 @@
-"""W4A16 GEMM over QTPU-packed weights: CUDA kernel K1 and its plain version.
+"""W4A16 GEMM over QTPU-packed weights: CUDA kernels K1 (G = 128) and K9
+(G = 32 or 64) and their plain versions.
 
 Port of ``quick_tpu/ops/quantized_matmul.py``. ``quantized_matmul`` keeps the
 JAX entry point's contract and dispatch: ``fuse_norm`` / ``fuse_glu`` ride
-in the kernel's prologue when the flattened rows are <= 8, and are applied
-first otherwise (:996-1004). On CUDA tensors the work goes to the
-hand-written kernel ``csrc/quantized_matmul.cu`` (K1); on CPU tensors to
-the plain PyTorch version, which follows ``_quantized_matmul_jnp`` (:88):
-bf16 activations times the integer codes summed in f32 per group, scaled
-on the output side, minus ``xsum @ (z * s)`` with xsum over the
-bf16-rounded activations.
+in K1's prologue when the flattened rows are <= 8 and G = 128, and are
+applied first otherwise (:721-730, :996-1004). On CUDA tensors the work goes
+to the hand-written kernels: ``csrc/quantized_matmul.cu`` (K1) at G = 128,
+``csrc/quantized_matmul_dequant.cu`` (K9, ``_make_kernel_dequant``) at
+G = 32 and 64. On CPU tensors every G takes the plain PyTorch version of
+``_quantized_matmul_jnp`` (:88), which is what the JAX package computes on
+the CPU by default: bf16 activations times the integer codes summed in f32
+per group, scaled on the output side, minus ``xsum @ (z * s)`` with xsum
+over the bf16-rounded activations.
 
-The small-group kernel (G < 128), the W4A8 kernels and the dense-dequant
-route of the JAX package are not ported yet (ROADMAP.md).
+The W4A8 kernels and the dense-dequant route of the JAX package are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -33,9 +36,19 @@ KERNEL = CudaKernel(
     ]},
 )
 
+#: K9, the small-group GEMM (``_make_kernel_dequant``).
+KERNEL_DEQUANT = CudaKernel(
+    "quantized_matmul_dequant.cu",
+    {"qtt_quantized_matmul_dequant": [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+    ]},
+)
+
 _PROLOGUE = {None: 0, "rmsnorm": 1, "glu": 2}
 _BN = 128  # output columns per block (csrc/quantized_matmul.cu kBN)
 KERNEL_GROUP = 128  # the only group size K1 takes
+DEQUANT_GROUPS = (32, 64)  # the group sizes K9 is built for
+_KC = 128  # k per chunk of K9 (csrc/quantized_matmul_dequant.cu kKC)
 
 
 def glu_plain(x: torch.Tensor) -> torch.Tensor:
@@ -72,6 +85,29 @@ def quantized_matmul_plain(
     y = (y * scales.to(torch.float32)[:, None, :]).sum(0)
     xsum = xg.sum(-1).transpose(0, 1)  # [M, ng]
     y = y - xsum @ zeros_x_scales.to(torch.float32)
+    return y.to(out_dtype)
+
+
+def quantized_matmul_dequant_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain version of K9 (``_make_kernel_dequant`` :522): x [M, K] ->
+    [M, N]. Each weight is dequantized to bf16 from two rounded f32
+    operations, ``bf16(code * s - zs)``, then ``bf16(x) @ w`` is summed in
+    f32 (the products of two bf16 values are exact in f32)."""
+    K = x.shape[-1]
+    ng = K // group_size
+    N = qweight.shape[1]
+    codes = unpack_qtpu_tensor(qweight, group_size).to(torch.float32)
+    codes = codes.reshape(ng, group_size, N)
+    w = codes * scales.to(torch.float32)[:, None, :]
+    w = (w - zeros_x_scales.to(torch.float32)[:, None, :]).to(torch.bfloat16)
+    y = x.to(torch.bfloat16).to(torch.float32) @ w.reshape(K, N).to(torch.float32)
     return y.to(out_dtype)
 
 
@@ -153,6 +189,54 @@ def quantized_matmul_cuda(
     return out
 
 
+def dequant_launch_key(M: int, K: int, N: int, G: int) -> str:
+    return f"M={M} K={K} N={N} G={G}"
+
+
+def quantized_matmul_dequant_cuda(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int,
+) -> torch.Tensor:
+    """Launch K9 on CUDA tensors. x: [M, K] bf16; returns [M, N] bf16.
+
+    Takes every shape with K % G == 0. The JAX package falls back to its
+    jnp route where ``(K / G * G / 8) % 8 != 0`` or no K-step depth keeps
+    the TPU's 8-sublane alignment (:731, :761-768): those are limits of
+    the TPU's tiles, not of this kernel. The launch plan is K1's: 1, 2, 4
+    or 8 rows per block on CUDA cores up to 8 rows, 64 on the tensor cores
+    above, and K split over blocks in chunks of 128 when the output tiles
+    cannot fill the card."""
+    dev = x.device
+    G = group_size
+    if G not in DEQUANT_GROUPS:
+        raise ValueError(f"K9 takes G in {DEQUANT_GROUPS}, got {G}")
+    x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:  # the prefill path reads x in 16-byte chunks
+        x = x.clone()
+    M, K = x.shape
+    N = qweight.shape[1]
+    if K % G:
+        raise ValueError(f"K={K} is not a multiple of G={G}")
+    check(qweight, "qweight", torch.int32, (K // PACK, N))
+    check(scales, "scales", torch.float32, (K // G, N))
+    check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
+    # K1's plan over chunks of 128 k (a last partial chunk counts as one)
+    rows, splits, cps = launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    KERNEL_DEQUANT.launch(
+        "qtt_quantized_matmul_dequant", dequant_launch_key(M, K, N, G),
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros_x_scales.data_ptr(),
+        M, K, N, G, rows, splits, cps,
+        None if partial is None else partial.data_ptr(), out.data_ptr(), stream_ptr(dev),
+    )
+    return out
+
+
 def _quantized_matmul_2d(
     x: torch.Tensor,
     qweight: torch.Tensor,
@@ -165,22 +249,28 @@ def _quantized_matmul_2d(
     glu: bool = False,
 ) -> torch.Tensor:
     """x [M, K] @ dequant(qweight) [K, N] -> [M, N] (``_quantized_matmul_2d``
-    :692): the kernel on CUDA tensors, the plain version on CPU tensors."""
-    if x.device.type != "cuda":
+    :692): a kernel on CUDA tensors (K1 at G = 128, K9 at G = 32 or 64,
+    after the prologues as the JAX small-group branch applies them,
+    :721-730), the plain version on CPU tensors."""
+    cuda = x.device.type == "cuda"
+    if not cuda or group_size != KERNEL_GROUP:
         if glu:
             x = glu_plain(x)
         if norm_weight is not None:
             x = rms_norm(x, norm_weight, norm_eps)
+    if not cuda:
         return quantized_matmul_plain(
             x, qweight, scales, zeros_x_scales, group_size, out_dtype
         )
+    if out_dtype != torch.bfloat16:
+        raise NotImplementedError(f"K1 and K9 write bf16, not {out_dtype}")
+    if group_size in DEQUANT_GROUPS:
+        return quantized_matmul_dequant_cuda(x, qweight, scales, zeros_x_scales, group_size)
     if group_size != KERNEL_GROUP:
         raise NotImplementedError(
-            f"group_size={group_size}: the small-group W4A16 kernel "
-            "(quick_tpu _make_kernel_dequant) is not ported yet — ROADMAP B11"
+            f"group_size={group_size}: the card's W4A16 kernels take G = 128 (K1) "
+            f"and G in {DEQUANT_GROUPS} (K9); other groups — ROADMAP B11"
         )
-    if out_dtype != torch.bfloat16:
-        raise NotImplementedError(f"K1 writes bf16, not {out_dtype}")
     return quantized_matmul_cuda(
         x, qweight, scales, zeros_x_scales,
         norm_weight=norm_weight, norm_eps=norm_eps, glu=glu,
@@ -204,7 +294,7 @@ def quantized_matmul(
 
     ``fuse_norm = (rms_weight [K], eps)``: x is the raw residual and the
     RMSNorm runs in the kernel's prologue; ``fuse_glu``: silu(gate) * up
-    runs there. Rows > 8 (or G != 128 for the GLU) apply them first."""
+    runs there. Rows > 8 or G != 128 apply them first."""
     if out_dtype is None:
         out_dtype = x.dtype if x.dtype != torch.float32 else torch.bfloat16
     lead = x.shape[:-1]

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_port import GGUF_Q4_0, write_llama_gguf
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -60,7 +61,11 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tmp_path):
     hf = tmp_path / "hf"
     hf.mkdir()
     (hf / "config.json").write_text('{"model_type": "llama"}')
+    gguf = str(tmp_path / "m.gguf")
+    write_llama_gguf(gguf, dict(vars(cfg)), types={n: GGUF_Q4_0 for n in (
+        "attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")})
     for call in (lambda: AutoQuickModel.from_quantized(str(ck)),
+                 lambda: AutoQuickModel.from_gguf(gguf),
                  lambda: AutoQuickModel.from_pretrained(str(hf)),
                  lambda: init_quant_params(cfg),
                  lambda: AutoQuickModel.from_random(cfg),
@@ -76,6 +81,7 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tmp_path):
             call()
     assert m.device.type == "cpu"
     assert AutoQuickModel.from_quantized(str(ck), device="cpu").device.type == "cpu"
+    assert AutoQuickModel.from_gguf(gguf, device="cpu").device.type == "cpu"
     out = m.generate(torch.zeros((1, 3), dtype=torch.long), 2)
     assert tuple(out.shape) == (1, 5)
     assert make_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
 K3 fused decode step, K4 paged writes, K5 / K6 paged attention, K7 dense
-decode attention, K8 grouped MoE GEMM, K4q INT8 paged writes, K5q / K6q
-INT8 paged attention) against
+decode attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8
+paged writes, K5q / K6q INT8 paged attention, K9 small-group GEMM) against
 their plain PyTorch versions, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
@@ -17,6 +17,7 @@ import quick_tpu_torch.ops.paged_attention as tpa
 import quick_tpu_torch.ops.paged_write as tpw
 import quick_tpu_torch.ops.quantized_matmul as tqmm
 from quick_tpu_torch.modules.paged_cache import PagedKVCache
+from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.quantize.packing import pack_qtpu
 
 # both sum in f32 in other orders and round the output to bf16; the
@@ -67,6 +68,45 @@ def test_gemm_kernel_matches_plain(rng, cuda_device, M, K, N, prologue):
         cpu_kw["fuse_norm"] = (kw["fuse_norm"][0].cpu(), kw["fuse_norm"][1])
     ref = tqmm.quantized_matmul(x.cpu(), *(a.cpu() for a in args), **cpu_kw)
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "M,K,N,G,prologue",
+    [(1, 4096, 6144, 32, "norm"), (4, 4096, 4096, 32, None), (4, 14336, 4096, 32, "glu"),
+     (8, 160, 200, 32, None),  # a last chunk of one group, ragged columns
+     (16, 4096, 4096, 32, None), (128, 512, 384, 64, None),
+     (100, 192, 200, 64, None),  # tensor-core path, ragged rows, columns and chunk
+     (3, 2048, 2816, 64, None), (512, 2048, 6144, 64, None)],
+)
+def test_dequant_gemm_kernel_matches_plain(rng, cuda_device, M, K, N, G, prologue):
+    """K9 (G = 32, 64) through quantized_matmul, prologues applied first as
+    the JAX small-group branch does, against its plain version."""
+    x = rng.standard_normal((M, 2 * K if prologue == "glu" else K)).astype(np.float32)
+    q = rng.integers(0, 16, size=(K, N), dtype=np.uint8)
+    s = (rng.uniform(size=(K // G, N)) * 0.01 + 0.001).astype(np.float32)
+    z = np.round(rng.uniform(size=(K // G, N)) * 15).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (pack_qtpu(q, G), s, z * s)]
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    kw = {}
+    xp = xt
+    if prologue == "norm":
+        w = torch.from_numpy((1 + 0.1 * rng.standard_normal(K)).astype(np.float32))
+        kw["fuse_norm"] = (w.to(cuda_device, torch.bfloat16), 1e-5)
+        xp = rms_norm(xt, w.to(torch.bfloat16), 1e-5)
+    elif prologue == "glu":
+        kw["fuse_glu"] = True
+        xp = tqmm.glu_plain(xt)
+    before = (tqmm.KERNEL.launches, tqmm.KERNEL_DEQUANT.launches)
+    out = tqmm.quantized_matmul(xt.to(cuda_device), *(a.to(cuda_device) for a in args),
+                                group_size=G, **kw)
+    torch.cuda.synchronize()
+    assert (tqmm.KERNEL.launches, tqmm.KERNEL_DEQUANT.launches) == (before[0], before[1] + 1)
+    ref = tqmm.quantized_matmul_dequant_plain(xp, *args, G)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    with pytest.raises(NotImplementedError, match="B11"):
+        tqmm.quantized_matmul(xt.to(cuda_device)[:, :K], *(a.to(cuda_device) for a in args),
+                              group_size=16)
 
 
 ATTN_CASES = {
@@ -455,7 +495,8 @@ GROUPED_CASES = {
 @pytest.mark.parametrize("case", list(GROUPED_CASES))
 def test_grouped_kernel_matches_plain(rng, cuda_device, case):
     """K8 against its plain version: every tile with its own expert, dead
-    tiles all zeros; group sizes other than 128 raise on the card (B11)."""
+    tiles all zeros; group sizes K8 is not built for raise on the card
+    (B11)."""
     import quick_tpu_torch.ops.grouped_matmul as tgm
 
     bm, te, live, N = GROUPED_CASES[case]
@@ -477,4 +518,31 @@ def test_grouped_kernel_matches_plain(rng, cuda_device, case):
     dead = np.repeat(np.asarray(live) == 0, bm)
     assert not f32(out)[dead].any()
     with pytest.raises(NotImplementedError, match="B11"):
-        tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args), bm, group_size=64)
+        tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args), bm, group_size=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [64, 32])
+@pytest.mark.parametrize("case,K", [("bm32", 512), ("bm64", 512), ("bm32", 320)])
+def test_grouped_kernel_small_group_matches_plain(rng, cuda_device, G, case, K):
+    """K8 at G = 64 and 32 (the output-side form of _grouped_fallback)
+    against its plain version; K = 320 ends on a part-filled chunk of 128."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    bm, te, live, N = GROUPED_CASES[case]
+    E = 4
+    q = rng.integers(0, 16, size=(E, K, N), dtype=np.uint8)
+    qw = np.stack([pack_qtpu(q[e], G) for e in range(E)])
+    s = (rng.uniform(size=(E, K // G, N)) * 0.01 + 0.001).astype(np.float32)
+    zs = (np.round(rng.uniform(size=(E, K // G, N)) * 15) * s).astype(np.float32)
+    x = rng.standard_normal((len(te) * bm, K)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, qw, s, zs, np.asarray(te, np.int32),
+                                          np.asarray(live, np.int32))]
+    args[0] = args[0].to(torch.bfloat16)
+    before = tgm.KERNEL.launches
+    out = tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args), bm, group_size=G)
+    torch.cuda.synchronize()
+    assert tgm.KERNEL.launches == before + 1
+    ref = tgm.quantized_matmul_grouped(*args, bm, group_size=G)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    assert not f32(out)[np.repeat(np.asarray(live) == 0, bm)].any()
