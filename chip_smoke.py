@@ -5,9 +5,9 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K9, K4q
-     and K5q / K6q from csrc/ (one nvcc per source, in parallel) and print
-     ptxas' register summary;
+  1. the card's name and power limit; build the CUDA kernels K1-K10, K4q,
+     K5q / K6q and K10q from csrc/ (one nvcc per source, in parallel) and
+     print ptxas' register summary;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the main paths, in bf16, with the tolerance stated;
   3. each kernel's time (CUDA events over many launches queued behind a
@@ -19,7 +19,8 @@ Phases (any failure exits non-zero):
      greedy tokens; the kernels' launch counts must be exactly those of
      the path;
   5. the serving path: the continuous-batching Engine over the paged KV
-     cache, same model, 32 ShareGPT-like requests that share a one-page
+     cache, the same model's first ENGINE_LAYERS layers, 32 ShareGPT-like
+     requests that share a one-page
      system prefix; a warm-up run (no host sync allowed while a decode
      window or prefill sub-batch is dispatched; a few decode windows
      profiled) and a timed run; every request at its exact length, the
@@ -51,19 +52,33 @@ Phases (any failure exits non-zero):
      byte-equal), K5q and K6q (within tol, K5q also row-scaled) against
      their plain versions at the INT8 Engine's shapes; (b) their times,
      bounds and yardsticks; (c) the Engine over INT8 pages, as phase 5, on
-     tools/serve_bench.py's INT8 command (128 requests, 64 slots); (d) the
+     tools/serve_bench.py's INT8 command (128 requests, 64 slots; the
+     first ENGINE_LAYERS layers); (d) the
      2-layer full-width check over INT8 pages, as phase 6's paged one,
      with the written codes and scale tiles held to the CPU scatter's;
  10. small-group W4A16: (a) K9 (small-group GEMM) against its plain version
      and timed at the g=32 Mistral-7B shapes and Qwen1.5-MoE's g=64
      attention and shared-expert shapes, K8 at G=64 at Qwen1.5-MoE's
-     routed shapes; (b) a Q4_K GGUF file at Mistral-7B width written under
-     build/ by the test writer (tests/_torch_port.py), loaded onto the card
+     routed shapes; (b) a Q4_K GGUF file at Mistral-7B width (GGUF_LAYERS
+     layers) written under build/ by the test writer (tests/_torch_port.py),
+     loaded onto the card
      with AutoQuickModel.from_gguf (tensors byte-equal to the CPU decode),
      generate() as phase 4 and the 128/128 protocol at B=1, then deleted;
      (c) Qwen1.5-MoE at full width with g=64 weights through generate();
      (d) 2-layer full-width checks of both models, as phases 6 and 8, with
-     K9's plain version on the CPU side. Launch counts exact throughout.
+     K9's plain version on the CPU side;
+ 11. DeepSeek-V2-Lite (MLA with DeepSeekMoE, g=64, the published widths,
+     27 layers): (a) K10 / K10q (paged MLA decode) at the Engine's decode,
+     K4 / K4q on the latent planes (byte-equal), K2 at q / k 192, v 128, K9
+     and K8 at its shapes, against their plain versions; (b) their times,
+     bounds and yardsticks; (c) generate() at full width and depth, as
+     phase 4 (random weights, seed 0; an untied bf16 head); (d) the Engine
+     over bf16, then INT8 latent pages at full depth on phase 5's trace,
+     one sync-checked, profiled, counted and timed run each, the INT8 pool
+     0.528x the bf16 pool; (e) a 2-layer checkpoint round trip, and the
+     2-layer kernel path against the plain path for generate() and for
+     the paged path over bf16 and INT8 pages, with phase 8's routing rule.
+     Launch counts exact throughout.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
@@ -100,7 +115,7 @@ L2_BYTES = 50 * 2**20
 # K7 is also held to tol * max|ref| of each query row (row_scaled_err).
 TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2,
        "paged_attention": 2e-2, "decode_attention": 2e-2, "grouped_matmul": 2e-2,
-       "quantized_matmul_dequant": 2e-2}
+       "quantized_matmul_dequant": 2e-2, "mla_paged_attention": 2e-2}
 TOL_CACHE = 1e-2   # K3's written k row: one bf16 step (f32 fma contraction)
 #: phase 6 logits, 2 layers at full width, bf16 activations: the paths differ
 #: by single bf16 steps of the logits, d / (1 + |ref|) <= 2^-7 per step
@@ -127,9 +142,15 @@ INT8_OPS = 1979e12  # H100 SXM dense int8 tensor rate (NVIDIA data sheet)
 #: head and p per (head, page) to int8 (K5q) where the CPU path attends
 #: over bf16-dequantized pages, on top of phase 6's bf16 steps
 TOL_INT8_MODEL = 2e-2
-#: the Mixtral Engine (phase 8) runs its first MOE_ENGINE_LAYERS layers of
-#: full width, so that phase 9's Engine fits the script's time budget
-MOE_ENGINE_LAYERS = 8
+#: the Mixtral Engine (phase 8) and the Mistral-7B-width Engines (phases 5
+#: and 9c) run their first MOE_ENGINE_LAYERS / ENGINE_LAYERS layers of full
+#: width, and the GGUF file of phase 10b holds GGUF_LAYERS layers, so that
+#: phase 11's DeepSeek-V2-Lite Engines run at full depth within the
+#: script's time budget (on one H100 80GB HBM3 at 700 W the three Engines
+#: took 100, 206 and ~150 s at 32 layers, 44, 80 and 72 s at 8)
+MOE_ENGINE_LAYERS = 4
+ENGINE_LAYERS = 4
+GGUF_LAYERS = 8
 #: the checkpoint phase: examples/benchmark.py's 128/128 protocol (:39-79,
 #: batches 1,8,32,64,... :87) at B=32 and B=64 (1 timed trial each), and
 #: one long-context stream: B=4, a 1,900-token prompt, 8 new tokens in a
@@ -384,21 +405,27 @@ def time_gemms(cfg, gen, dev, errs, gemms, path):
     return rows
 
 
-def attn_inputs(gen, dev, B, S, T, Hq, Hkv, D):
+def attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv=None):
     q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, T, Dv or D), generator=gen, device=dev).to(torch.bfloat16)
     return q, k, v
 
 
-def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate"):
+def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate", heads=None,
+              tag="2"):
+    """K2 against its plain version and timed at a prefill of B x S tokens
+    into a T-token cache; ``heads`` (Hq, Hkv, D, Dv) overrides cfg's (MLA's
+    expanded prefill: q / k 192, v 128)."""
     import torch.nn.functional as F
 
     from quick_tpu_torch.ops import flash_attention as fa
 
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    print(f"[2] K2 (flash attention) against its plain version, B={B} S={S} T={T}")
-    q, k, v = attn_inputs(gen, dev, B, S, T, Hq, Hkv, D)
+    Hq, Hkv, D, Dv = heads or (Hq, Hkv, D, D)
+    print(f"[{tag}] K2 (flash attention) against its plain version, B={B} S={S} T={T} "
+          f"D={D} Dv={Dv}")
+    q, k, v = attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv)
     qoff = torch.zeros(B, dtype=torch.int32, device=dev)
     klen = torch.full((B,), S, dtype=torch.int32, device=dev)  # prefill into the cache
     scale = D ** -0.5
@@ -415,7 +442,7 @@ def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate"):
                     TOL["flash_attention"], f"K2 {name}")
         err = max(err, e)
     copies = 8
-    kvs = [attn_inputs(gen, dev, B, S, T, Hq, Hkv, D) for _ in range(copies)]
+    kvs = [attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv) for _ in range(copies)]
     ms = device_ms(lambda i: fa.flash_attention_cuda(*kvs[i % copies], qoff, klen, scale), 50)
     plain_ms = device_ms(lambda i: fa.flash_attention_plain(*kvs[i % copies], qoff, klen, scale), 5)
     qb = [x[0].transpose(1, 2) for x in kvs]
@@ -425,11 +452,11 @@ def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate"):
         qb[i % copies], kb[i % copies], vb[i % copies], is_causal=True,
         enable_gqa=True), 50)
     pairs = S * (S + 1) / 2
-    nbytes = 2 * B * S * Hq * D * 2 + 2 * B * Hkv * S * D * 2
-    b_ms, b_by = bound(nbytes, 4.0 * B * Hq * pairs * D)
+    nbytes = B * S * Hq * (D + Dv) * 2 + B * Hkv * S * (D + Dv) * 2
+    b_ms, b_by = bound(nbytes, 2.0 * B * Hq * pairs * (D + Dv))
     print(f"  {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), plain "
           f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us")
-    key = f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}"
+    key = fa.launch_key(B, S, T, Hq, Hkv, D, Dv)
     return dict(
         name=f"flash_attention[{key}]", route="cuda",
         source="quick_tpu_torch/csrc/flash_attention.cu",
@@ -474,18 +501,25 @@ def fused_row(cfg, gen, dev):
         q, kn, vn, kc, vc, c, s, length, i % L, scale), 100)
     plain_ms = device_ms(lambda i: fs.fused_decode_attention_plain(
         q, kn, vn, kc, vc, c, s, length, i % L, scale), 5)
+    # no one PyTorch call does rope, the cache write and attention together:
+    # the yardstick is SDPA's attention alone over the same cache rows
+    q4 = q[:, :, None, :]
+    lib_ms = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        q4, kc[i % L][:, :, :length + 1], vc[i % L][:, :, :length + 1], scale=scale,
+        enable_gqa=True), 100)
     nbytes = ((B * Hq * D + 2 * B * Hkv * D) * 2 + 2 * B * Hkv * length * D * 2
               + 2 * B * Hkv * D * 2 + B * Hq * D * 2 + 2 * B * D * 4)
     b_ms, b_by = bound(nbytes, 4.0 * B * Hq * (length + 1) * D)
     print(f"  length {length}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by "
-          f"{b_by}), plain {plain_ms * 1e3:.1f} us, no one-call yardstick")
+          f"{b_by}), plain {plain_ms * 1e3:.1f} us, SDPA's attention alone over the same "
+          f"cache {lib_ms * 1e3:.1f} us")
     key = f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}"
     return dict(
         name=f"fused_decode_step[{key}]", route="cuda",
         source="quick_tpu_torch/csrc/fused_decode_step.cu",
         replaces="quick_tpu/ops/fused_decode_step.py:45",
         launches=("generate", "fused_decode_step", key), max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
     )
 
 
@@ -1087,18 +1121,23 @@ def sync_checked(eng, checked: dict) -> None:
         setattr(eng, name, wrapped)
 
 
-def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None):
+def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None,
+                 warmup: bool = True):
     """The Engine over a request trace (default: the 32-request trace with
     a shared prefix): a warm-up run whose every decode-window and prefill
     sub-batch dispatch is sync-checked and in which one scheduler turn of
     steady decode is profiled, then a timed run with every request at its
     exact length, the warm-up's greedy streams and launch counts equal to
-    those its recorded schedule implies."""
+    those its recorded schedule implies (``launches(cfg, stats, engine)``,
+    default engine_launches). ``warmup=False``: one run, sync-checked,
+    profiled for one turn, counted and timed (its wall time includes the
+    profiled turn)."""
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import Engine
 
     if trace is None:
         trace = serving_trace(cfg.vocab_size)
+    launches = launches or engine_launches
     n_prompt = sum(len(p) for p, _ in trace)
     n_out = sum(n for _, n in trace)
     shared = len(os.path.commonprefix([p for p, _ in trace]))
@@ -1108,75 +1147,81 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None):
     kernels = all_kernels()
     lengths = [n for _, n in trace]
 
-    # warm-up: no host sync allowed while a decode window or a prefill
-    # sub-batch is dispatched (torch raises on any synchronizing call); the
-    # host waits only on the drains' events
-    checked = {"_dispatch_window": 0, "_prefill_substep": 0}
-    eng = Engine(params, cfg, **engine)
-    sync_checked(eng, checked)
-    uids = [eng.submit(p, n) for p, n in trace]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    while eng.has_work and len(eng.ready_slots()) < engine["max_slots"] // 2:
-        eng.step()
-    before = dict(eng.stats)
-    steps = 1  # the trace's post-processing is slow: one turn (one window) is enough
-    profile = device_profile(lambda: [eng.step() for _ in range(steps)], steps)
-    grew = {k: eng.stats[k] - before[k] for k in before}
-    profile["decode_windows"] = grew["window_steps"]
-    profile["forwards"] = grew["window_forwards"] + grew["prefill_substeps"] + grew["mixed_steps"]
-    outs = eng.run()
-    torch.cuda.synchronize()
-    wall0 = time.perf_counter() - t0
-    ref = [outs[u] for u in uids]
-    if [len(st) for st in ref] != lengths:
-        fail(f"{cfg.model_type} Engine: a request did not finish with exactly its max_new_tokens")
-    if not all(checked.values()):
-        fail(f"the sync check saw no dispatch: {checked}")
-    print(f"  warm-up run {wall0:.2f} s (profiled); no host sync inside "
-          f"{checked['_dispatch_window']} decode-window and {checked['_prefill_substep']} "
-          "prefill sub-batch dispatches")
-    print(f"  profile of {steps} scheduler turns ({profile['decode_windows']} decode "
-          f"windows, {profile['forwards']} forwards): " + json.dumps(profile))
-    del eng
-    gc.collect()  # the sync-checked methods close a cycle around the engine and its pages
+    def run(checked):
+        """One run of the trace; with ``checked``, no host sync is allowed
+        while a decode window or a prefill sub-batch is dispatched (torch
+        raises on any synchronizing call; the host waits only on the
+        drains' events) and one scheduler turn of steady decode is
+        profiled."""
+        eng = Engine(params, cfg, **engine)
+        pool = [t.numel() * t.element_size() for t in
+                (eng.cache.k_pages, eng.cache.v_pages, eng.cache.kv_scales) if t is not None]
+        if checked is not None:
+            sync_checked(eng, checked)
+        uids = [eng.submit(p, n) for p, n in trace]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profile = None
+        if checked is not None:
+            while eng.has_work and len(eng.ready_slots()) < engine["max_slots"] // 2:
+                eng.step()
+            before = dict(eng.stats)
+            steps = 1  # the trace's post-processing is slow: one turn (one window) is enough
+            profile = device_profile(lambda: [eng.step() for _ in range(steps)], steps)
+            grew = {k: eng.stats[k] - before[k] for k in before}
+            profile["decode_windows"] = grew["window_steps"]
+            profile["forwards"] = (grew["window_forwards"] + grew["prefill_substeps"]
+                                   + grew["mixed_steps"])
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams = [outs[u] for u in uids]
+        if [len(st) for st in streams] != lengths:
+            fail(f"{cfg.model_type} Engine: a request did not finish with exactly its "
+                 "max_new_tokens")
+        stats = dict(eng.stats)
+        if checked is not None:
+            if not all(checked.values()):
+                fail(f"the sync check saw no dispatch: {checked}")
+            print(f"  no host sync inside {checked['_dispatch_window']} decode-window and "
+                  f"{checked['_prefill_substep']} prefill sub-batch dispatches")
+            print(f"  profile of 1 scheduler turn ({profile['decode_windows']} decode "
+                  f"windows, {profile['forwards']} forwards): " + json.dumps(profile))
+        del eng
+        gc.collect()  # the sync-checked methods close a cycle around the engine and its pages
+        return streams, wall, profile, stats, pool
 
+    checked = {"_dispatch_window": 0, "_prefill_substep": 0}
+    ref = wall0 = profile = None
+    if warmup:
+        ref, wall0, profile, _, _ = run(checked)
+        print(f"  warm-up run {wall0:.2f} s (profiled)")
     for k in kernels:
         k.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(params, cfg, **engine)
-    c = eng.cache
-    pool = [t.numel() * t.element_size() for t in (c.k_pages, c.v_pages, c.kv_scales)
-            if t is not None]
-    uids = [eng.submit(p, n) for p, n in trace]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    streams = [outs[u] for u in uids]
+    streams, wall, prof, stats, pool = run(None if warmup else checked)
+    profile = profile or prof
     counts = {k.name: dict(k.launches_by_key) for k in kernels}
     peak = torch.cuda.max_memory_allocated()
-    if [len(st) for st in streams] != lengths:
-        fail(f"{cfg.model_type} Engine: a request did not finish with exactly its max_new_tokens")
-    if streams != ref:
+    if warmup and streams != ref:
         fail(f"{cfg.model_type} Engine: the timed run gave other greedy streams than the warm-up")
-    want = engine_launches(cfg, eng.stats, engine)
+    want = launches(cfg, stats, engine)
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         fail(f"{cfg.model_type} Engine: launch counts {got} differ from the schedule's {want}")
-    run = dict(wall_s=wall, output_tok_s=n_out / wall, total_tok_s=(n_prompt + n_out) / wall,
-               peak_mem_gib=peak / 2**30, stats=dict(eng.stats), pool_bytes=pool)
-    print(f"  timed run: {wall:.3f} s, {n_out / wall:.1f} output tok/s, "
+    run_stats = dict(wall_s=wall, output_tok_s=n_out / wall, total_tok_s=(n_prompt + n_out) / wall,
+                     peak_mem_gib=peak / 2**30, stats=stats, pool_bytes=pool,
+                     includes_profiled_turn=not warmup)
+    print(f"  timed run{'' if warmup else ' (one turn profiled)'}: {wall:.3f} s, "
+          f"{n_out / wall:.1f} output tok/s, "
           f"{(n_prompt + n_out) / wall:.1f} total tok/s, peak {peak / 2**30:.2f} GiB; "
           f"page pool {sum(pool) / 1e9:.3f} GB ({' + '.join(f'{b / 1e9:.3f}' for b in pool)})")
-    print(f"    stats {json.dumps(eng.stats)}; launches equal to the schedule's:")
+    print(f"    stats {json.dumps(stats)}; launches equal to the schedule's:")
     for name, c in got.items():
         for key, v in sorted(c.items()):
             print(f"    {name} {key}: {v}")
-    del eng
     torch.cuda.empty_cache()
-    return counts, dict(runs=[run], warmup_s=wall0, sync_checked_dispatches=checked,
+    return counts, dict(runs=[run_stats], warmup_s=wall0, sync_checked_dispatches=checked,
                         profile=profile)
 
 
@@ -1575,9 +1620,10 @@ def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8"):
     return out_rows
 
 
-def phase8_checkpoint(params, cfg, dev):
-    """[8f] A 2-layer full-width slice of the MoE model saved with
-    save_quantized, loaded with from_quantized, compared byte for byte."""
+def phase8_checkpoint(params, cfg, dev, group=128, tag="8"):
+    """[8f] A 2-layer full-width slice of the MoE model (quant ``group``)
+    saved with save_quantized, loaded with from_quantized, compared byte for
+    byte."""
     from quick_tpu_torch import QuantConfig
     from quick_tpu_torch.models.auto import AutoQuickModel
     from quick_tpu_torch.models.convert import params_to_flat
@@ -1590,7 +1636,7 @@ def phase8_checkpoint(params, cfg, dev):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        save_quantized(p2, cfg2, QuantConfig(), str(MOE_CKPT_DIR))
+        save_quantized(p2, cfg2, QuantConfig(q_group_size=group), str(MOE_CKPT_DIR))
         t_save = time.perf_counter() - t0
         on_disk = sum(f.stat().st_size for f in MOE_CKPT_DIR.iterdir())
         t0 = time.perf_counter()
@@ -1600,17 +1646,61 @@ def phase8_checkpoint(params, cfg, dev):
         got, ref = params_to_flat(model.params, cpu=False), params_to_flat(p2, cpu=False)
         if list(got) != list(ref) or not all(same_bytes(got[k], ref[k]) for k in ref):
             fail("the loaded MoE checkpoint differs from the saved params")
-        if model.cfg != cfg2 or model.device.type != "cuda":
-            fail(f"loaded MoE config {model.cfg} / device {model.device}")
+        if model.cfg != cfg2 or model.device.type != "cuda" or model.qcfg.q_group_size != group:
+            fail(f"loaded MoE config {model.cfg} / device {model.device} / {model.qcfg}")
         n = len(ref)
         del got, ref, model
     finally:
         shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f"[8] MoE checkpoint: {layers} layers of {cfg.model_type} at full width, "
+    print(f"[{tag}] MoE checkpoint: {layers} layers of {cfg.model_type} at full width, "
           f"{on_disk / 1e9:.3f} GB: save {t_save:.2f} s, load {t_load:.2f} s, {n} tensors equal "
           "byte for byte")
     return dict(layers=layers, bytes_on_disk=on_disk, save_s=t_save, load_s=t_load, tensors=n)
+
+
+@contextlib.contextmanager
+def recorded_routes(k: int):
+    """Record, per device, each moe_forward call's top-``k`` expert set and
+    the gap between its k-th and (k+1)-th router logits."""
+    from quick_tpu_torch.modules import blocks
+
+    routes = {"cuda": [], "cpu": []}
+    orig = blocks.moe_forward
+
+    def recorded(p, c, x, token_mask=None):
+        v, i = blocks.top_k(p.router(x.to(torch.float32)), k + 1)
+        routes[x.device.type].append((torch.sort(i[..., :k], dim=-1).values.cpu(),
+                                      (v[..., k - 1] - v[..., k]).cpu()))
+        return orig(p, c, x, token_mask)
+
+    blocks.moe_forward = recorded
+    try:
+        yield routes
+    finally:
+        blocks.moe_forward = orig
+
+
+def fold_routes(routes, flipped_rows, name: str, step: int) -> int:
+    """One step's recorded routes of both paths: mark the rows [B] with a
+    token routed differently in ``flipped_rows``, fail where such a token's
+    router gap reaches ROUTE_GAP on both paths; clear the record. Returns
+    the tokens routed differently."""
+    flips = 0
+    for (sg, gg), (sc, gc) in zip(routes["cuda"], routes["cpu"]):
+        differ = (sg != sc).any(-1)  # [B, S]
+        if differ.any():
+            gap = torch.minimum(gg, gc)[differ]
+            flips += int(differ.sum())
+            print(f"  step {step}: {int(differ.sum())} tokens routed differently, "
+                  f"router gaps {[round(float(g), 5) for g in gap]}")
+            if float(gap.max()) >= ROUTE_GAP:
+                fail(f"{name}: a token's experts differ between the paths at a "
+                     f"router gap of {float(gap.max())}")
+        flipped_rows |= differ.any(-1)
+    routes["cuda"].clear()
+    routes["cpu"].clear()
+    return flips
 
 
 def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=64, group=128,
@@ -1621,7 +1711,6 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
     routing rule of ROUTE_GAP. ``group``: the quant group of every linear."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
-    from quick_tpu_torch.modules import blocks
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import make_cache
 
@@ -1638,58 +1727,35 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
     toks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen, device=dev)
     cg = make_cache(cfg2, B, max_seq, device=dev)
     cc = make_cache(cfg2, B, max_seq, device="cpu")
-    routes = {"cuda": [], "cpu": []}
-    orig = blocks.moe_forward
-
-    def recorded(p, c, x, token_mask=None):
-        v, i = blocks.top_k(p.router(x.to(torch.float32)), k + 1)
-        routes[x.device.type].append((torch.sort(i[..., :k], dim=-1).values.cpu(),
-                                      (v[..., k - 1] - v[..., k]).cpu()))
-        return orig(p, c, x, token_mask)
-
     kernels = all_kernels()
     for kern in kernels:
         kern.reset_counts()
     flipped_rows = torch.zeros(B, dtype=torch.bool)
     flips, worst, compared, t0 = 0, 0.0, 0, time.perf_counter()
-    blocks.moe_forward = recorded
-    try:
-        with torch.inference_mode():
-            for step in range(1 + steps):
-                routes["cuda"].clear()
-                routes["cpu"].clear()
-                lg, cg = model_forward(p_gpu, cfg2, toks, cg, last_token_only=True)
-                lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, last_token_only=True)
-                for (sg, gg), (sc, gc) in zip(routes["cuda"], routes["cpu"]):
-                    differ = (sg != sc).any(-1)  # [B, S]
-                    if differ.any():
-                        gap = torch.minimum(gg, gc)[differ]
-                        flips += int(differ.sum())
-                        print(f"  step {step}: {int(differ.sum())} tokens routed differently, "
-                              f"router gaps {[round(float(g), 5) for g in gap]}")
-                        if float(gap.max()) >= ROUTE_GAP:
-                            fail(f"{name}: a token's experts differ between the paths at a "
-                                 f"router gap of {float(gap.max())}")
-                    flipped_rows |= differ.any(-1)
-                keep = ~flipped_rows
-                if keep.any():
-                    compared += int(keep.sum())
-                    what = "prefill logits" if step == 0 else f"decode step {step}"
-                    worst = max(worst, max_err(lg[keep.to(dev), -1].cpu(), lc[keep, -1], TOL_MODEL,
-                                               f"{what} ({int(keep.sum())} of {B} rows)"))
-                toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
-    finally:
-        blocks.moe_forward = orig
+    with recorded_routes(k) as routes, torch.inference_mode():
+        for step in range(1 + steps):
+            lg, cg = model_forward(p_gpu, cfg2, toks, cg, last_token_only=True)
+            lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, last_token_only=True)
+            flips += fold_routes(routes, flipped_rows, name, step)
+            keep = ~flipped_rows
+            if keep.any():
+                compared += int(keep.sum())
+                what = "prefill logits" if step == 0 else f"decode step {step}"
+                worst = max(worst, max_err(lg[keep.to(dev), -1].cpu(), lc[keep, -1], TOL_MODEL,
+                                           f"{what} ({int(keep.sum())} of {B} rows)"))
+            toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     torch.cuda.synchronize()
     launched = {kern.name: kern.launches for kern in kernels if kern.launches}
-    if launched.get("grouped_matmul") != 2 * 2 * (1 + steps) or compared == 0:
-        fail(f"{name}: the 2-layer MoE path did not run K8 twice per layer per forward, or no "
-             f"row was compared: {launched}, {compared} rows")
+    n_moe = sum(cfg2.layer_is_moe(i) for i in range(2))
+    if launched.get("grouped_matmul") != 2 * n_moe * (1 + steps) or compared == 0:
+        fail(f"{name}: the 2-layer MoE path did not run K8 twice per MoE layer per forward, or "
+             f"no row was compared: {launched}, {compared} rows")
     print(f"  launches {launched}; {flips} tokens routed differently; "
           f"{time.perf_counter() - t0:.1f} s")
     del p_gpu, p_cpu, cg, cc
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, flipped_tokens=flips, rows_compared=compared)
+    return dict(max_abs_err=worst, flipped_tokens=flips, rows_compared=compared,
+                launches=launched)
 
 
 def phase8_moe(dev):
@@ -2092,7 +2158,7 @@ QWEN_K9_CASES = ((QWEN_G_PATH, BATCH * PROMPT), (QWEN_G_PATH, BATCH))
 QWEN_K8_CASES = [(None, 16), (QWEN_G_PATH, BATCH), (QWEN_G_PATH, BATCH * PROMPT)]
 
 
-def dequant_rows(name, shapes, cases, G, gen, dev):
+def dequant_rows(name, shapes, cases, G, gen, dev, tag="10"):
     """[10a] K9 against its plain version at ``shapes`` ({projection: (K,
     N)}) and ``cases`` ((path, M); path None: checked only), then timed
     with the weights rotated past L2: its bound from the codes, the f32
@@ -2101,7 +2167,7 @@ def dequant_rows(name, shapes, cases, G, gen, dev):
     beforehand."""
     from quick_tpu_torch.ops import quantized_matmul as qm
 
-    print(f"[10] K9 (small-group W4A16 GEMM) against its plain version, {name}, G={G}")
+    print(f"[{tag}] K9 (small-group W4A16 GEMM) against its plain version, {name}, G={G}")
     rows = []
     for proj, (K, N) in shapes.items():
         wbytes = K * N // 2 + 2 * (K // G) * N * 4
@@ -2189,7 +2255,7 @@ def check_gguf_model(model, path: Path, layers: int) -> None:
 
 def phase10_gguf(dev):
     """[10b] A GGUF file at Mistral-7B width (Q4_K block linears, F16
-    embedding and output, 32 layers; random valid blocks from seed 0),
+    embedding and output, GGUF_LAYERS layers; random valid blocks from seed 0),
     written under build/ by the test writer, loaded onto the card with
     AutoQuickModel.from_gguf, then generate() at B=4 (as phase 4) and the
     128/128 protocol at B=1, with exact launch counts; the file is deleted
@@ -2200,7 +2266,7 @@ def phase10_gguf(dev):
     from quick_tpu_torch.models.auto import AutoQuickModel
     from quick_tpu_torch.ops import all_kernels
 
-    layers = MISTRAL_7B["num_hidden_layers"]
+    layers = GGUF_LAYERS
     print(f"[10] GGUF path: Q4_K at Mistral-7B width, {layers} layers, g=32 through K9")
     GGUF_PATH.parent.mkdir(exist_ok=True)
     counts = {}
@@ -2345,6 +2411,509 @@ def phase10_plain_vs_kernel(dev):
     return err, forms
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: DeepSeek-V2-Lite, MLA attention with DeepSeekMoE at g=64
+# ---------------------------------------------------------------------------
+
+#: deepseek-ai/DeepSeek-V2-Lite config.json (the fields the port reads); the
+#: published vocab and yarn scaling kept
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
+    intermediate_size=10944, moe_intermediate_size=1408, num_hidden_layers=27,
+    num_attention_heads=16, num_key_value_heads=16, n_shared_experts=2,
+    n_routed_experts=64, num_experts_per_tok=6, routed_scaling_factor=1.0,
+    kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128, topk_method="greedy", n_group=1, topk_group=1,
+    scoring_func="softmax", norm_topk_prob=False, first_k_dense_replace=1,
+    moe_layer_freq=1, max_position_embeddings=163840, rope_theta=10000.0,
+    rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096,
+                      beta_fast=32, beta_slow=1, mscale=0.707, mscale_all_dim=0.707),
+    rms_norm_eps=1e-6, tie_word_embeddings=False,
+)
+#: its quant group: 10944 = 85.5 x 128 allows no larger one
+DS_G = 64
+DS_GEN, DS_ENGINE, DS_ENGINE_INT8 = "deepseek_generate", "deepseek_engine", "deepseek_int8_engine"
+#: the INT8 latent pool over the bf16 one: 576 code bytes plus an 8 x 64 f32
+#: scale tile per 64-token page (8 B a token), against 1152 bytes a token
+DS_INT8_POOL = 608 / 1152
+#: K9's (path, M): generate()'s prefill (4 x 128) and decode (4), the
+#: Engine's decode windows (16) and prefill sub-batches (8 x 16); K8's
+#: (path, T routed tokens) likewise
+DS_K9_CASES = ((DS_GEN, BATCH * PROMPT), (DS_GEN, BATCH), (DS_ENGINE, ENGINE["max_slots"]),
+               (DS_ENGINE, ENGINE["prefill_rows"] * ENGINE["chunk"]))
+DS_K8_CASES = [(DS_GEN, BATCH), (DS_GEN, BATCH * PROMPT), (DS_ENGINE, ENGINE["max_slots"]),
+               (DS_ENGINE, ENGINE["prefill_rows"] * ENGINE["chunk"])]
+
+
+def ds_widths(cfg):
+    return (cfg.num_attention_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+            cfg.qk_nope_head_dim, cfg.v_head_dim)
+
+
+def ds_k9_shapes(cfg):
+    """{projection: (K, N)} of the K9 launches: MLA's q, kv_a (N = 576,
+    4.5 of K9's 128-wide tiles) and o; the dense first layer's gate_up and
+    down; the MoE layers' two ungated shared experts (fused, 2 x 1408)."""
+    hq, R, dr, dn, dv = ds_widths(cfg)
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    Fs = cfg.moe_intermediate_size * cfg.n_shared_experts
+    return {"q": (D, hq * (dn + dr)), "kv_a": (D, R + dr), "o": (hq * dv, D),
+            "dense_gate_up": (D, 2 * F), "dense_down": (F, D),
+            "shared_gate_up": (D, 2 * Fs), "shared_down": (Fs, D)}
+
+
+def ds_forward_launches(cfg, rows: int, n: int, add) -> None:
+    """K9's and K8's launches of ``n`` forwards over ``rows`` tokens: q,
+    kv_a and o in every layer; the dense MLP in the first; the shared
+    expert and K8 twice in the MoE layers."""
+    from quick_tpu_torch.ops.quantized_matmul import dequant_launch_key
+
+    s = ds_k9_shapes(cfg)
+    for i in range(cfg.num_hidden_layers):
+        moe = cfg.layer_is_moe(i)
+        for proj in ("q", "kv_a", "o") + (("shared_gate_up", "shared_down") if moe
+                                          else ("dense_gate_up", "dense_down")):
+            add("quantized_matmul_dequant", dequant_launch_key(rows, *s[proj], DS_G), n)
+        if moe:
+            for key in k8_launch_keys(cfg, rows, DS_G):
+                add("grouped_matmul", key, n)
+
+
+def ds_counter():
+    want = {}
+
+    def add(kernel, key, n):
+        if n:
+            want.setdefault(kernel, {})
+            want[kernel][key] = want[kernel].get(key, 0) + n
+    return want, add
+
+
+def ds_generate_launches(cfg) -> dict:
+    """generate() at B=4, 128 + 64 tokens: the prefill's expanded MLA runs
+    K2 at q / k 192, v 128 in every layer; decode runs the absorbed einsums
+    over the dense latent cache (no attention kernel)."""
+    from quick_tpu_torch.ops.flash_attention import launch_key
+
+    hq, R, dr, dn, dv = ds_widths(cfg)
+    want, add = ds_counter()
+    ds_forward_launches(cfg, BATCH * PROMPT, 1, add)
+    ds_forward_launches(cfg, BATCH, NEW_TOKENS - 1, add)
+    add("flash_attention", launch_key(BATCH, PROMPT, MAX_SEQ, hq, hq, dn + dr, dv),
+        cfg.num_hidden_layers)
+    return want
+
+
+def ds_engine_launches(cfg, stats, engine) -> dict:
+    """What the Engine's schedule implies over the latent pages: per
+    forward and layer one K4 / K4q write (Hkv 1, k_pe 64, latent 512), and
+    at [B, 1] one K10 / K10q; chunks gather the pages and run the absorbed
+    einsums (no attention kernel); K9 and K8 as ds_forward_launches."""
+    from quick_tpu_torch.ops.mla_paged_attention import launch_key as mla_key
+    from quick_tpu_torch.ops.paged_write import launch_key as write_key
+
+    hq, R, dr, dn, dv = ds_widths(cfg)
+    L = cfg.num_hidden_layers
+    kv = engine.get("dtype", torch.bfloat16)
+    int8 = kv == torch.int8
+    page = engine["page_size"]
+    n_pt = engine["max_seq"] // page
+    B, Bp, S = engine["max_slots"], engine["prefill_rows"], engine["chunk"]
+    forwards = {
+        (B, 1): stats["window_forwards"] + stats["mixed_steps"] - stats["mixed_chunk_steps"],
+        (Bp, S): stats["prefill_substeps"],
+        (B, S): stats["mixed_chunk_steps"],
+    }
+    want, add = ds_counter()
+    for (rows, s), n in forwards.items():
+        if not n:
+            continue
+        ds_forward_launches(cfg, rows * s, n, add)
+        add("paged_write" + ("_int8" if int8 else ""),
+            write_key("decode" if s == 1 else "chunk", rows, s, 1, page, dr, kv, Dv=R), L * n)
+        if s == 1:
+            add("mla_paged_attention", mla_key(rows, hq, R, dr, page, n_pt, int8), L * n)
+    return want
+
+
+def mla_pool(gen, dev, layers, P, page, widths, int8: bool, std=1.0):
+    """[k_pe pages, latent pages, scale tiles or None]: [layers, P, 1, page,
+    w] for w in ``widths``, bf16, or INT8 codes (quantize_kv, one layer at
+    a time) with their [layers, P, 8, page] tiles."""
+    from quick_tpu_torch.ops.paged_write import quantize_kv
+
+    shapes = [(P, 1, page, w) for w in widths]
+    if not int8:
+        return [(std * torch.randn((layers,) + sh, generator=gen, device=dev)).to(torch.bfloat16)
+                for sh in shapes] + [None]
+    codes = [torch.empty((layers,) + sh, dtype=torch.int8, device=dev) for sh in shapes]
+    tiles = torch.zeros((layers, P, 8, page), device=dev)
+    for layer in range(layers):
+        for j, sh in enumerate(shapes):
+            c, sc = quantize_kv((std * torch.randn(sh, generator=gen, device=dev)).to(torch.bfloat16))
+            codes[j][layer] = c
+            tiles[layer, :, j] = sc.reshape(P, -1)
+    return codes + [tiles]
+
+
+def mla_attention_rows(cfg, gen, dev, trace):
+    """[11a / 11b] K10 and K10q against their plain version at the Engine's
+    decode (16 slots, lengths from the trace), within TOL and row-scaled,
+    and with an empty and a full slot; then timed over a 27-layer pool: the
+    bound from each valid token's latent row read once (bf16 1152 B, INT8
+    576 B + two f32 scales) or from the dots; the plain version; SDPA on
+    the gathered (dequantized) latent with q = [q_c | q_pe], k = [c | k_pe],
+    v = c."""
+    import torch.nn.functional as F
+
+    from quick_tpu_torch.modules.mla import mla_softmax_scale
+    from quick_tpu_torch.ops import mla_paged_attention as ml
+    from quick_tpu_torch.ops.paged_attention import gather_pages
+
+    g = paged_geometry(cfg)
+    B, page, n_pt, P = g["B"], g["page"], g["n_pt"], g["P"]
+    hq, R, dr, _, _ = ds_widths(cfg)
+    L = cfg.num_hidden_layers
+    dec, _ = trace_positions(trace, g)
+    lens = torch.tensor(dec, dtype=torch.int32, device=dev)
+    edge = lens.clone()
+    edge[0], edge[1] = 0, n_pt * page  # an empty slot, a full table
+    bt = block_table(gen, dev, g, B)
+    scale = mla_softmax_scale(cfg)
+    q_c = torch.randn((B, hq, R), generator=gen, device=dev).to(torch.bfloat16)
+    q_pe = torch.randn((B, hq, dr), generator=gen, device=dev).to(torch.bfloat16)
+    tol = TOL["mla_paged_attention"]
+    rows = []
+    for int8 in (False, True):
+        name = "K10q" if int8 else "K10"
+        print(f"[11a] {name} (paged MLA decode) against its plain version, "
+              f"{'INT8' if int8 else 'bf16'} latent pages, B={B} Hq={hq} R={R} dr={dr}, "
+              f"lengths {dec}")
+        small = mla_pool(gen, dev, 2, P, page, (dr, R), int8)
+        err = 0.0
+        for what, ln in (("trace lengths", lens), ("empty and full slots", edge)):
+            out = ml.mla_paged_decode_attention_cuda(q_c, q_pe, small[0], small[1], bt, ln, 1,
+                                                     scale, small[2])
+            ref = ml.mla_paged_decode_attention_plain(q_c, q_pe, small[0], small[1], bt, ln, 1,
+                                                      scale, small[2])
+            torch.cuda.synchronize()
+            err = max(err, max_err(out, ref, tol, f"{name} {what}"))
+            if what == "trace lengths":
+                row_scaled_err(out, ref, tol, f"{name} {what}")
+            elif out[0].any():
+                fail(f"{name}: an empty slot gave a non-zero context")
+        del small
+        big = mla_pool(gen, dev, L, P, page, (dr, R), int8)
+        T = max(dec)
+        ms = device_ms(lambda i: ml.mla_paged_decode_attention_cuda(
+            q_c, q_pe, big[0], big[1], bt, lens, i % L, scale, big[2]), 50)
+        plain_ms = device_ms(lambda i: ml.mla_paged_decode_attention_plain(
+            q_c, q_pe, big[0], big[1], bt, lens, i % L, scale, big[2]), 5, warmup=1)
+        copies = 4  # the yardstick's gathered latent, > 2 x L2 in all
+        dense = []
+        for layer in range(copies):
+            kpe, c = (gather_pages(big[j], bt, layer)[:, :, :T] for j in (0, 1))
+            if int8:
+                sc = big[2][layer][bt.long()]  # [B, n_pt, 8, page]
+                kpe = kpe.to(torch.bfloat16) * sc[:, :, 0].reshape(B, 1, -1, 1)[:, :, :T].to(torch.bfloat16)
+                c = c.to(torch.bfloat16) * sc[:, :, 1].reshape(B, 1, -1, 1)[:, :, :T].to(torch.bfloat16)
+            dense.append((torch.cat([c, kpe], -1).contiguous(), c.contiguous()))
+        q4 = torch.cat([q_c, q_pe], -1)[:, :, None, :]
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        try:
+            lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+                q4, *dense[i % copies], attn_mask=mask, scale=scale, enable_gqa=True), 50)
+        except RuntimeError as e:
+            print(f"  SDPA yardstick not run: {str(e)[:160]}")
+            lib_ms = None
+        del dense
+        tokens = sum(dec)
+        per_token = (R + dr) + 8 if int8 else (R + dr) * 2
+        nbytes = tokens * per_token + B * hq * (R + dr) * 2 + B * hq * R * 2 + B * (n_pt + 1) * 4
+        b_ms, b_by = bound(nbytes, 2.0 * hq * tokens * (R + dr + R))
+        key = ml.launch_key(B, hq, R, dr, page, n_pt, int8)
+        lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+        print(f"[11b] {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, sdpa on the gathered latent {lib}")
+        rows.append(dict(
+            name=f"mla_paged_attention[{key}]", route="cuda",
+            source="quick_tpu_torch/csrc/mla_paged_attention.cu",
+            replaces="quick_tpu/ops/mla_paged_attention.py:" + ("96" if int8 else "41"),
+            launches=(DS_ENGINE_INT8 if int8 else DS_ENGINE, "mla_paged_attention", key),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+        ))
+        del big
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mla_write_rows(cfg, gen, dev, trace):
+    """[11a / 11b] K4 and K4q on the latent planes (Hkv 1, k_pe 64, latent
+    512) at the Engine's decode and prefill sub-batch writes, plus chunks
+    that cross page boundaries: pages (codes) and scale tiles byte-equal to
+    the plain scatter (quantize_kv first for INT8) outside the trash page;
+    then timed over a 27-layer pool, with index_put_ as the yardstick."""
+    from quick_tpu_torch.ops import paged_write as pw
+
+    g = paged_geometry(cfg)
+    B, Bp, S, page, P = (g[k] for k in ("B", "Bp", "S", "page", "P"))
+    _, R, dr, _, _ = ds_widths(cfg)
+    L = cfg.num_hidden_layers
+    dec, chunk = trace_positions(trace, g)
+    bt = block_table(gen, dev, g, B).long()
+    cases = [("decode", 1, dec, None), ("chunk", S, chunk, [S] * Bp),
+             ("chunk", S, crossing_starts(g, dec), [S - i % 5 for i in range(Bp)])]
+
+    def rows_of(rows, n):
+        return [torch.randn((rows, n, 1, w), generator=gen, device=dev).to(torch.bfloat16)
+                for w in (dr, R)]
+
+    def plain(pages, kn, vn, pids, offs, vt, layer):
+        if pages[2] is None:
+            pw.paged_write_plain(pages[0], pages[1], kn, vn, pids, offs, vt, layer)
+            return
+        (kc, ks), (vc, vs) = pw.quantize_kv(kn), pw.quantize_kv(vn)
+        pw.paged_write_plain(pages[0], pages[1], kc, vc, pids, offs, vt, layer, pages[2], ks, vs)
+
+    out = []
+    for int8 in (False, True):
+        kv = torch.int8 if int8 else torch.bfloat16
+        name = "K4q" if int8 else "K4"
+        print(f"[11a] {name} on the MLA latent planes against the plain scatter: pages"
+              f"{' and scale tiles' if int8 else ''} byte-equal outside the trash page 0")
+        small = mla_pool(gen, dev, 2, P, page, (dr, R), int8)
+        for entry, n, pos, valid in cases:
+            rows = len(pos)
+            pids, offs = span_addresses(bt, g, pos, n)
+            if entry == "decode":
+                pids[-3:] = 0  # idle slots: colliding writes to the trash page
+            vt = torch.tensor(valid or [1] * rows, dtype=torch.int32, device=dev)
+            kn, vn = rows_of(rows, n)
+            got = [None if t is None else t.clone() for t in small]
+            ref = [None if t is None else t.clone() for t in small]
+            if entry == "decode":
+                pw.paged_write_decode(got[0], got[1], kn[:, 0], vn[:, 0], pids[:, 0], offs, 1,
+                                      kv_scales=got[2])
+                plain(ref, kn, vn, pids[:, :1].expand(rows, 2), offs, vt, 1)
+            else:
+                pw.paged_write_chunk(got[0], got[1], kn, vn, pids, offs, vt, 1, kv_scales=got[2])
+                plain(ref, kn, vn, pids, offs, vt, 1)
+            torch.cuda.synchronize()
+            key = pw.launch_key(entry, rows, n, 1, page, dr, kv, Dv=R)
+            pairs = [(a, b) for a, b in zip(got, ref) if a is not None]
+            if not all(same_bytes(a[:, 1:], b[:, 1:]) for a, b in pairs) or \
+                    torch.equal(got[1][:, 1:], small[1][:, 1:]):
+                fail(f"{name} {key}: pages differ from the plain scatter, or nothing written")
+            print(f"  {name} {key}, {'crossing' if pids[:, 1].any() else 'aligned'}: "
+                  f"byte-equal to the plain scatter")
+        del small
+        big = mla_pool(gen, dev, L, P, page, (dr, R), int8)
+        for entry, n, pos, _ in cases[:2]:
+            rows = len(pos)
+            pids, offs = span_addresses(bt, g, pos, n)
+            vt = torch.full((rows,), n, dtype=torch.int32, device=dev)
+            kn, vn = rows_of(rows, n)
+            r = offs.long()[:, None] + torch.arange(n, device=dev)
+            pg = torch.where(r >= page, pids[:, 1:2], pids[:, 0:1]).long()
+            row = torch.where(r >= page, r - page, r)
+            (kq, ks), (vq, vs) = pw.quantize_kv(kn), pw.quantize_kv(vn)
+            if entry == "decode":
+                def kern(i):
+                    pw.paged_write_decode(big[0], big[1], kn[:, 0], vn[:, 0], pids[:, 0], offs,
+                                          i % L, kv_scales=big[2])
+            else:
+                def kern(i):
+                    pw.paged_write_chunk(big[0], big[1], kn, vn, pids, offs, vt, i % L,
+                                         kv_scales=big[2])
+
+            def lib(i):  # yardstick: index_put_ of both planes' rows (and scales)
+                if not int8:
+                    big[0][i % L, pg, :, row] = kn
+                    big[1][i % L, pg, :, row] = vn
+                    return
+                big[0][i % L, pg, :, row] = kq
+                big[1][i % L, pg, :, row] = vq
+                big[2][i % L, pg, 0, row] = ks[..., 0]
+                big[2][i % L, pg, 1, row] = vs[..., 0]
+
+            ms = device_ms(kern, 200)
+            plain_ms = device_ms(lambda i: plain(big, kn, vn, pids, offs, vt, i % L), 20)
+            lib_ms = device_ms(lib, 200)
+            tok = rows * n
+            nbytes = (tok * (R + dr) * 2 + tok * ((R + dr) + 8 if int8 else (R + dr) * 2)
+                      + 3 * rows * 4)
+            b_ms, b_by = bound(nbytes, 0.0)
+            key = pw.launch_key(entry, rows, n, 1, page, dr, kv, Dv=R)
+            print(f"[11b] {name} {key}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us by {b_by}), "
+                  f"plain {plain_ms * 1e3:.1f} us, index_put_ {lib_ms * 1e3:.1f} us")
+            sfx = "_int8" if int8 else ""
+            line = {(False, "decode"): 76, (False, "chunk"): 211,
+                    (True, "decode"): 40, (True, "chunk"): 262}[(int8, entry)]
+            out.append(dict(
+                name=f"paged_write{sfx}[{key}]", route="cuda",
+                source=f"quick_tpu_torch/csrc/paged_write{sfx}.cu",
+                replaces=f"quick_tpu/ops/paged_write.py:{line}",
+                launches=(DS_ENGINE_INT8 if int8 else DS_ENGINE, "paged_write" + sfx, key),
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+            ))
+        del big
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase11_generate(cfg, dev):
+    """[11c] DeepSeek-V2-Lite at full width and depth, random g=64 QTPU
+    weights (seed 0) and an untied bf16 lm_head (seed 11), through
+    generate() as phase 4: the expanded prefill on K2, decode over the dense
+    latent cache."""
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.modules.linear import Linear
+
+    print(f"[11c] generate() path: DeepSeek-V2-Lite, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_local_experts} experts top-{cfg.num_experts_per_tok}, G={DS_G}, B={BATCH}, "
+          f"{PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_quant_params(cfg, seed=0, group_size=DS_G, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    D = cfg.hidden_size
+    params.lm_head = Linear((torch.randn((D, cfg.vocab_size), generator=gen, device=dev)
+                             / math.sqrt(D)).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    print(f"  random weights in {time.perf_counter() - t0:.1f} s: {weights / 1e9:.2f} GB on "
+          "the card")
+    model = AutoQuickModel(params, cfg)
+    counts, stats = run_generate(model, cfg, dev, f"DeepSeek-V2-Lite g={DS_G}",
+                                 ds_generate_launches(cfg))
+    stats["weights_gb"] = weights / 1e9
+    return counts, stats, params
+
+
+def phase11_paged_plain_vs_kernel(cfg, dev, int8: bool):
+    """[11e] 2 layers of DeepSeek-V2-Lite (a dense and an MoE layer) over
+    the paged latent cache, bf16 or INT8: one 16-token chunk for 4 slots at
+    different starts (one crossing a page boundary) over random context,
+    then PHASE6_DECODE decode steps; the card's kernel path (K4 / K4q, K10 /
+    K10q, K9, K8) against the plain path on the CPU, with the routing rule
+    of ROUTE_GAP."""
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.models.model import init_quant_params, model_forward
+    from quick_tpu_torch.modules.paged_cache import PagedKVCache
+    from quick_tpu_torch.ops import all_kernels
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    _, R, dr, _, _ = ds_widths(cfg)
+    B, S, page, max_seq = 4, 16, 64, 256
+    n_pt = max_seq // page
+    P = 1 + B * n_pt
+    starts = [0, 21, 56, 100]  # 56 + 16 crosses the page boundary at 64
+    tol = TOL_INT8_MODEL if int8 else TOL_MODEL
+    kv = torch.int8 if int8 else torch.bfloat16
+    print(f"[11e] 2 layers of DeepSeek-V2-Lite, {'INT8' if int8 else 'bf16'} latent pages "
+          f"(page {page}), chunk at starts {starts} + {PHASE6_DECODE} decode steps: kernel path "
+          f"(card) vs plain path (CPU), tol {tol} * (1 + |ref|) on rows whose routing agrees")
+    p_gpu = init_quant_params(cfg2, seed=12, group_size=DS_G, device=dev)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu", group_size=DS_G)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1).reshape(B, n_pt).to(torch.int32)
+    context = mla_pool(gen, dev, 2, P, page, (dr, R), int8, std=0.5)
+    caches = []
+    for d in (dev, torch.device("cpu")):
+        c = PagedKVCache.create(2, P, page, B, max_seq, 1, dr, kv, device=d, v_head_dim=R)
+        for t, src in zip((c.k_pages, c.v_pages, c.kv_scales), context):
+            if src is not None:
+                t.copy_(src)
+        c.block_table.copy_(bt)
+        caches.append(c.with_length(torch.tensor(starts, dtype=torch.int32, device=d)))
+    cg, cc = caches
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset_counts()
+    flipped_rows = torch.zeros(B, dtype=torch.bool)
+    flips, worst, compared = 0, 0.0, 0
+    with recorded_routes(cfg.num_experts_per_tok) as routes, torch.inference_mode():
+        for step in range(1 + PHASE6_DECODE):
+            n = S if step == 0 else 1
+            adv = [torch.full((B,), n, dtype=torch.int32, device=d) for d in (dev, "cpu")]
+            lg, cg = model_forward(p_gpu, cfg2, toks, cg, advance=adv[0], last_valid=adv[0])
+            lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, advance=adv[1], last_valid=adv[1])
+            flips += fold_routes(routes, flipped_rows, "DeepSeek-V2-Lite paged", step)
+            keep = ~flipped_rows
+            if keep.any():
+                compared += int(keep.sum())
+                what = "chunk logits" if step == 0 else f"decode step {step}"
+                worst = max(worst, max_err(lg[keep.to(dev), -1].cpu(), lc[keep, -1], tol,
+                                           f"{what} ({int(keep.sum())} of {B} rows)"))
+            toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
+    torch.cuda.synchronize()
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    write = "paged_write_int8" if int8 else "paged_write"
+    if launched.get(write) != 2 * (1 + PHASE6_DECODE) or \
+            launched.get("mla_paged_attention") != 2 * PHASE6_DECODE or compared == 0:
+        fail(f"the 2-layer latent paged path did not run {write} per layer per step and K10 "
+             f"per layer per decode step, or no row was compared: {launched}")
+    if cg.length.tolist() != cc.length.tolist():
+        fail(f"lengths {cg.length.tolist()} / {cc.length.tolist()}")
+    print(f"  launches {launched}; {flips} tokens routed differently")
+    del p_gpu, p_cpu, cg, cc
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, flipped_tokens=flips, rows_compared=compared)
+
+
+def phase11_deepseek(dev):
+    """Phase 11: DeepSeek-V2-Lite. (a, b) K10 / K10q, K4 / K4q on the latent
+    planes, K2 at q / k 192, v 128, K9 and K8 at its shapes, each against
+    its plain version, then timed; (c) generate() at full width and depth;
+    (d) the Engine over bf16, then INT8 latent pages (one counted, timed
+    run each, one turn profiled); (e) a 2-layer checkpoint round trip and
+    the 2-layer kernel path against the plain path for generate() and the
+    paged path over bf16 and INT8 pages (K9's plain version on the CPU)."""
+    from quick_tpu_torch import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    trace = serving_trace(cfg.vocab_size)
+    hq, R, dr, dn, dv = ds_widths(cfg)
+    rows = mla_attention_rows(cfg, gen, dev, trace)
+    rows += mla_write_rows(cfg, gen, dev, trace)
+    rows.append(flash_row(cfg, gen, dev, path=DS_GEN, heads=(hq, hq, dn + dr, dv), tag="11a"))
+    rows += dequant_rows("DeepSeek-V2-Lite", ds_k9_shapes(cfg), DS_K9_CASES, DS_G, gen, dev,
+                         tag="11a")
+    rows += grouped_rows("deepseek-v2-lite", cfg, gen, dev, group=DS_G, cases=DS_K8_CASES,
+                         tag="11a")
+    counts, report = {}, {}
+    counts[DS_GEN], report["generate"], params = phase11_generate(cfg, dev)
+    for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8))):
+        counts[path], report[path] = phase_engine(params, cfg, "11d", engine, trace,
+                                                  ds_engine_launches, warmup=False)
+    pools = [sum(report[p]["runs"][0]["pool_bytes"]) for p in (DS_ENGINE, DS_ENGINE_INT8)]
+    report["int8_pool_ratio"] = pools[1] / pools[0]
+    print(f"[11d] INT8 latent pool / bf16 latent pool: {pools[1] / pools[0]:.4f} "
+          f"(predicted {DS_INT8_POOL:.4f})")
+    if abs(pools[1] / pools[0] / DS_INT8_POOL - 1) > 0.01:
+        fail(f"the INT8 latent pool is {pools[1] / pools[0]:.4f} of the bf16 one")
+    report["checkpoint"] = phase8_checkpoint(params, cfg, dev, group=DS_G, tag="11e")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with k9_plain_on_cpu():
+        report["plain_vs_kernel"] = dict(
+            generate=phase8_plain_vs_kernel("deepseek-v2-lite", cfg, dev, prompt=PROMPT, steps=2,
+                                            max_seq=MAX_SEQ, group=DS_G, tag="11e"),
+            paged_bf16=phase11_paged_plain_vs_kernel(cfg, dev, False),
+            paged_int8=phase11_paged_plain_vs_kernel(cfg, dev, True))
+    if report["plain_vs_kernel"]["generate"]["launches"].get("flash_attention") != 2:
+        fail("the 2-layer DeepSeek generate() path did not run K2 once per layer at prefill")
+    return counts, report, rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2381,9 +2950,12 @@ def main() -> None:
     print(f"  phases 1-3 and 9a-b done at {time.perf_counter() - t_start:.0f} s")
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
-    counts["engine"], engine_stats = phase_engine(params, cfg, "5")
+    cut = (dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
+           dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS))
+    counts["engine"], engine_stats = phase_engine(*cut, "5")
     counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
-    counts["int8_engine"], int8_stats = phase_engine(params, cfg, "9c", ENGINE_INT8, int8_trace)
+    counts["int8_engine"], int8_stats = phase_engine(*cut, "9c", ENGINE_INT8, int8_trace)
+    del cut
     print(f"  phases 4, 5, 7 and 9c done at {time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
@@ -2405,6 +2977,10 @@ def main() -> None:
     counts.update(gguf_counts)
     counts[QWEN_G_PATH], qwen_g_stats = phase10_qwen(dev)
     print(f"  phase 10a-c done at {time.perf_counter() - t_start:.0f} s")
+    ds_counts, ds_report, ds_rows = phase11_deepseek(dev)
+    counts.update(ds_counts)
+    rows += ds_rows
+    print(f"  phase 11 done at {time.perf_counter() - t_start:.0f} s")
     for row in rows:  # (path, kernel, key) -> this shape's launches on that path
         path, kernel, key = row["launches"]
         row["launches"] = counts[path][kernel].get(key, 0)
@@ -2419,7 +2995,7 @@ def main() -> None:
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,
-                  gguf_cpu_forms_gap=small_g_forms,
+                  gguf_cpu_forms_gap=small_g_forms, deepseek=ds_report,
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,
                                           int8_paged=int8_err, **small_g_err),
                   seconds=time.perf_counter() - t_start)

@@ -9,6 +9,11 @@
 // read serves all R rows; each lane accumulates D/32 consecutive output
 // dims. Probabilities are rounded to bf16 before p @ v, as the Pallas
 // kernels do (p.astype(v.dtype)); the running sum l keeps the f32 p.
+//
+// V may be narrower than Q / K (DV != D: DeepSeek's MLA expanded prefill,
+// q / k 192 wide, v 128, through K2). DV defaults to D, and every
+// instantiation with DV == D compiles to the code it had before DV existed
+// (the DV != D branches are compile-time).
 #pragma once
 
 #include "common.cuh"
@@ -18,32 +23,51 @@ namespace attn {
 constexpr int kBK = 64;       // keys per tile
 constexpr int kKeysPerLane = kBK / 32;
 
-template <int D>
+template <int D, int DV = D>
 struct Tile {
   static constexpr int kStride = D / 2 + 1;  // padded K row, in bf16 pairs
   static constexpr size_t kKBytes = (size_t)kBK * kStride * 4;
-  static constexpr size_t kVBytes = (size_t)kBK * D * 2;
+  static constexpr size_t kVBytes = (size_t)kBK * DV * 2;
 };
 
-// Stage keys [t0, t0 + kBK) of one head's [T, D] K and V (row-major bf16)
-// into shared memory with all threads of the block; keys at or past
+// Stage keys [t0, t0 + kBK) of one head's [T, D] K and [T, DV] V (row-major
+// bf16) into shared memory with all threads of the block; keys at or past
 // `t_end` are zero-filled (they are masked by the caller's rules).
-template <int D>
+template <int D, int DV = D>
 __device__ __forceinline__ void stage_kv(const bf16* __restrict__ k,
                                          const bf16* __restrict__ v, int t0,
                                          int t_end, uint32_t* ks, bf16* vs) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBK * kChunks; c += blockDim.x) {
-    const int j = c / kChunks, d8 = (c % kChunks) * 8;
-    const int t = t0 + j;
-    uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-    if (t < t_end) {
-      kv4 = *reinterpret_cast<const uint4*>(k + (size_t)t * D + d8);
-      vv4 = *reinterpret_cast<const uint4*>(v + (size_t)t * D + d8);
+  if constexpr (D == DV) {
+    constexpr int kChunks = D / 8;  // 16-byte chunks per row
+    for (int c = threadIdx.x; c < kBK * kChunks; c += blockDim.x) {
+      const int j = c / kChunks, d8 = (c % kChunks) * 8;
+      const int t = t0 + j;
+      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+      if (t < t_end) {
+        kv4 = *reinterpret_cast<const uint4*>(k + (size_t)t * D + d8);
+        vv4 = *reinterpret_cast<const uint4*>(v + (size_t)t * D + d8);
+      }
+      uint32_t* kr = ks + j * Tile<D>::kStride + d8 / 2;
+      kr[0] = kv4.x; kr[1] = kv4.y; kr[2] = kv4.z; kr[3] = kv4.w;
+      *reinterpret_cast<uint4*>(vs + j * D + d8) = vv4;
     }
-    uint32_t* kr = ks + j * Tile<D>::kStride + d8 / 2;
-    kr[0] = kv4.x; kr[1] = kv4.y; kr[2] = kv4.z; kr[3] = kv4.w;
-    *reinterpret_cast<uint4*>(vs + j * D + d8) = vv4;
+  } else {
+    constexpr int kChunks = D / 8, kVChunks = DV / 8;
+    for (int c = threadIdx.x; c < kBK * kChunks; c += blockDim.x) {
+      const int j = c / kChunks, d8 = (c % kChunks) * 8;
+      const int t = t0 + j;
+      uint4 kv4 = make_uint4(0, 0, 0, 0);
+      if (t < t_end) kv4 = *reinterpret_cast<const uint4*>(k + (size_t)t * D + d8);
+      uint32_t* kr = ks + j * Tile<D, DV>::kStride + d8 / 2;
+      kr[0] = kv4.x; kr[1] = kv4.y; kr[2] = kv4.z; kr[3] = kv4.w;
+    }
+    for (int c = threadIdx.x; c < kBK * kVChunks; c += blockDim.x) {
+      const int j = c / kVChunks, d8 = (c % kVChunks) * 8;
+      const int t = t0 + j;
+      uint4 vv4 = make_uint4(0, 0, 0, 0);
+      if (t < t_end) vv4 = *reinterpret_cast<const uint4*>(v + (size_t)t * DV + d8);
+      *reinterpret_cast<uint4*>(vs + j * DV + d8) = vv4;
+    }
   }
 }
 
@@ -77,8 +101,9 @@ struct RowRule {
 // per-key scales kscale / vscale [kBK] in shared memory; the score is
 // multiplied by kscale after score_mul, and each probability by vscale
 // before it is rounded to bf16 (the running sum l keeps the unscaled p).
-template <int D, int R, bool kScaled = false>
-__device__ __forceinline__ void attend_tile(RowState<D, R>& st,
+// DV: the width of V and of the rows' state (D unless given).
+template <int D, int R, bool kScaled = false, int DV = D>
+__device__ __forceinline__ void attend_tile(RowState<DV, R>& st,
                                             const float* q,
                                             const RowRule (&rule)[R],
                                             const uint32_t* ks, const bf16* vs,
@@ -86,7 +111,7 @@ __device__ __forceinline__ void attend_tile(RowState<D, R>& st,
                                             float softcap, int lane,
                                             const float* kscale = nullptr,
                                             const float* vscale = nullptr) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = DV / 32;
   float s[R][kKeysPerLane];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -97,7 +122,7 @@ __device__ __forceinline__ void attend_tile(RowState<D, R>& st,
     float2 kf[kKeysPerLane];
 #pragma unroll
     for (int jj = 0; jj < kKeysPerLane; ++jj) {
-      const uint32_t w = ks[(lane + 32 * jj) * Tile<D>::kStride + d2];
+      const uint32_t w = ks[(lane + 32 * jj) * Tile<D, DV>::kStride + d2];
       kf[jj] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
     }
 #pragma unroll
@@ -145,7 +170,7 @@ __device__ __forceinline__ void attend_tile(RowState<D, R>& st,
     for (int src = 0; src < 32; ++src) {
       const int j = jj * 32 + src;
       const __nv_bfloat162* v2 =
-          reinterpret_cast<const __nv_bfloat162*>(vs + j * D + lane * kDPL);
+          reinterpret_cast<const __nv_bfloat162*>(vs + j * DV + lane * kDPL);
       float vf[kDPL];
 #pragma unroll
       for (int i = 0; i < kDPL / 2; ++i) {

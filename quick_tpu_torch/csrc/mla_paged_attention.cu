@@ -1,0 +1,418 @@
+// K10 / K10q: paged MLA decode attention (DeepSeek-V2 / V3) over the latent
+// pages, bf16 pages (K10) or INT8 codes with their scale tiles (K10q).
+//
+// Replaces the Pallas kernel quick_tpu/ops/mla_paged_attention.py::
+// _mla_paged_kernel (:41, launched by mla_paged_decode_attention through
+// pallas_call :199), both of its branches (float pages, and INT8 pages
+// :96-120). One source, two instantiations; the wrapper counts them apart.
+//
+// What it computes. MLA caches one latent stream per token, shared by every
+// query head (MQA): the rope'd k_pe [L, P, 1, page, DR] in the k plane and
+// the normed latent c [L, P, 1, page, R] in the v plane, read at `layer`
+// through block_table [B, n_pt]; lengths [B] count each slot's tokens, the
+// current one included. For every query head, with the absorbed queries
+// q_c [B, Hq, R] and q_pe [B, Hq, DR]:
+//   s_t = (q_c . c_t + q_pe . k_pe_t) * scale, for t < length;
+//   out = sum_t softmax(s)_t c_t, returned [B, Hq, R] in bf16.
+// Softmax in f32, online over the tokens; p is rounded to bf16 before the
+// p @ c product (the Pallas kernel's p.astype(c.dtype)); the running sum l
+// keeps the unrounded p; a slot of length 0 returns 0 (l == 0 -> 1).
+// INT8 pages: the codes convert exactly to bf16; with ks the page tile's
+// row 0 (k_pe scales) and cs its row 1 (latent scales) at column `row`,
+// s_t = (s_c * cs_t + s_pe * ks_t) * scale, and p_t is multiplied by cs_t
+// BEFORE its bf16 rounding (:100, :115-120). q is not quantized (unlike
+// K5q).
+//
+// What bounds it on the H100: bytes. Every valid token's latent and k_pe
+// row is read once for all heads: (R + DR) * 2 bytes a token in bf16 (1152
+// B), R + DR bytes plus two f32 scales in INT8 (584 B); q and out are small.
+// At the Engine's decode (16 slots, up to 1024 tokens) that is at most
+// 18.9 MB, 5.6 us at 3.35 TB/s.
+//
+// Design. All heads share each token (MQA), so a block stages each token's
+// latent once, for a group of 16 query heads (a grid over heads would read
+// the latent 16 times). Blocks run over (split, slot, head group): the key
+// range [0, n_pt * page) is cut into `splits` chunks of `chunk` tokens, a
+// multiple of the 64-token tile, chosen by the host from n_pt and B (never
+// from the lengths), so that 16 slots still fill the card; a block past its
+// slot's length stages nothing. Per tile of 64 tokens: the rows are gathered
+// through the block table into shared memory (INT8 codes converted to bf16
+// there; latent rows padded to an odd word stride so that 32 lanes reading
+// 32 tokens hit 32 banks), each thread scores one token against 4 heads on
+// the CUDA cores, one warp per head runs the online-softmax update, and each
+// thread accumulates two latent columns of all 16 heads (p @ c). The splits
+// of a (slot, head) are merged by a second kernel in split order
+// (O = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M)), so the result does
+// not depend on block scheduling; with one split the first kernel writes the
+// output. Not carried over from the TPU: the page-pair grid steps with
+// clamped index maps (a block walks its own tokens), and the MXU-shaped
+// [Hq, R] x [R, page] dots (CUDA-core FMAs here; mma / wgmma are later work).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHG = 16;                     // query heads per block
+constexpr int kBK = 64;                     // tokens per staged tile
+constexpr int kHPT = kHG * kBK / kThreads;  // heads per thread when scoring
+
+template <int R, int DR>
+struct Smem {
+  static constexpr int kCStride = R / 2 + 1;   // padded latent row, in words
+  static constexpr int kPStride = DR / 2 + 1;  // padded k_pe row, in words
+  static constexpr size_t kQc = 0;                                // f32 [kHG][R]
+  static constexpr size_t kQpe = kQc + (size_t)kHG * R * 4;       // f32 [kHG][DR]
+  static constexpr size_t kC = kQpe + (size_t)kHG * DR * 4;       // [kBK][kCStride]
+  static constexpr size_t kKpe = kC + (size_t)kBK * kCStride * 4;  // [kBK][kPStride]
+  static constexpr size_t kS = kKpe + (size_t)kBK * kPStride * 4;  // f32 [kHG][kBK]
+  static constexpr size_t kP = kS + (size_t)kHG * kBK * 4;        // f32 [kBK][kHG]
+  static constexpr size_t kRow = kP + (size_t)kBK * kHG * 4;      // i64 [kBK]
+  static constexpr size_t kScale = kRow + (size_t)kBK * 8;        // f32 [2][kBK]
+  static constexpr size_t kML = kScale + 2 * (size_t)kBK * 4;     // f32 [3][kHG]
+  static constexpr size_t kBytes = kML + 3 * (size_t)kHG * 4;
+};
+
+__device__ __forceinline__ float2 unpack_bf2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ uint32_t pack_codes(int8_t a, int8_t b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn((float)a, (float)b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stage `W` columns of kBK token rows (row index rows[j] into a plane of
+// rows of W values, -1 for none) into shared memory as bf16 pairs with a
+// row stride of `stride` words. bf16 planes move 16 bytes (8 values) per
+// load; INT8 planes move 16 codes per load and convert them exactly.
+template <int W, bool kInt8>
+__device__ __forceinline__ void stage_rows(const void* __restrict__ plane,
+                                           const long long* rows,
+                                           uint32_t* dst, int stride) {
+  constexpr int kPer = kInt8 ? 16 : 8;  // values per 16-byte load
+  constexpr int kChunks = W / kPer;
+  constexpr int kLoads = kBK * kChunks / kThreads;
+  static_assert(W % kPer == 0 && (kBK * kChunks) % kThreads == 0,
+                "row width must tile the block's 16-byte loads");
+  uint4 v[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const long long r = rows[c / kChunks];
+    v[i] = make_uint4(0, 0, 0, 0);
+    if (r >= 0) {
+      const size_t off = (size_t)r * W + (size_t)(c % kChunks) * kPer;
+      v[i] = kInt8 ? *reinterpret_cast<const uint4*>(
+                         static_cast<const int8_t*>(plane) + off)
+                   : *reinterpret_cast<const uint4*>(
+                         static_cast<const bf16*>(plane) + off);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    uint32_t* d = dst + (c / kChunks) * stride + (c % kChunks) * (kPer / 2);
+    if constexpr (kInt8) {
+      const int8_t* q = reinterpret_cast<const int8_t*>(&v[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = pack_codes(q[2 * e], q[2 * e + 1]);
+    } else {
+      d[0] = v[i].x; d[1] = v[i].y; d[2] = v[i].z; d[3] = v[i].w;
+    }
+  }
+}
+
+template <int R, int DR, bool kInt8, bool kFinal>
+__global__ void __launch_bounds__(kThreads)
+mla_decode_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_pe,
+                  const void* __restrict__ kpe_pages,
+                  const void* __restrict__ c_pages,
+                  const float* __restrict__ kv_scales,
+                  const int* __restrict__ block_table,
+                  const int* __restrict__ lengths, bf16* __restrict__ out,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int Hq, int P, int page, int n_pt, int layer, int chunk,
+                  float scale) {
+  using SM = Smem<R, DR>;
+  constexpr int kCols = R / (2 * kThreads);  // latent column pairs per thread
+  static_assert(R % (2 * kThreads) == 0, "R must be a multiple of 512");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qc_s = reinterpret_cast<float*>(smem + SM::kQc);
+  float* qpe_s = reinterpret_cast<float*>(smem + SM::kQpe);
+  uint32_t* c_s = reinterpret_cast<uint32_t*>(smem + SM::kC);
+  uint32_t* kpe_s = reinterpret_cast<uint32_t*>(smem + SM::kKpe);
+  float* s_s = reinterpret_cast<float*>(smem + SM::kS);
+  float* p_s = reinterpret_cast<float*>(smem + SM::kP);
+  long long* row_s = reinterpret_cast<long long*>(smem + SM::kRow);
+  float* ks_s = reinterpret_cast<float*>(smem + SM::kScale);  // k_pe scales
+  float* cs_s = ks_s + kBK;                                   // latent scales
+  float* m_s = reinterpret_cast<float*>(smem + SM::kML);
+  float* l_s = m_s + kHG;
+  float* alpha_s = l_s + kHG;
+
+  const int split = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * kHG;
+  const int splits = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < kHG * R; i += kThreads) {
+    const int h = h0 + i / R;
+    qc_s[i] = h < Hq ? bf2f(q_c[((size_t)b * Hq + h) * R + i % R]) : 0.f;
+  }
+  for (int i = tid; i < kHG * DR; i += kThreads) {
+    const int h = h0 + i / DR;
+    qpe_s[i] = h < Hq ? bf2f(q_pe[((size_t)b * Hq + h) * DR + i % DR]) : 0.f;
+  }
+  if (tid < kHG) {
+    m_s[tid] = QTT_NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  const int length = max(0, min(lengths[b], n_pt * page));
+  const int t_begin = split * chunk;
+  const int t_end = min(length, t_begin + chunk);
+  const size_t layer_pages = (size_t)layer * P;
+
+  float acc[kHG][kCols][2];
+#pragma unroll
+  for (int h = 0; h < kHG; ++h)
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[h][k][0] = acc[h][k][1] = 0.f;
+
+  for (int t0 = t_begin; t0 < t_end; t0 += kBK) {
+    __syncthreads();  // the previous tile is consumed (and q staged)
+    if (tid < kBK) {  // each token's page row (-1: past the length)
+      const int t = t0 + tid;
+      long long r = -1;
+      float ks = 0.f, cs = 0.f;
+      if (t < t_end) {
+        const int pg = block_table[(size_t)b * n_pt + t / page];
+        if (pg >= 0 && pg < P) {
+          const int row = t % page;
+          r = (long long)(layer_pages + pg) * page + row;  // one kv head
+          if constexpr (kInt8) {
+            const float* tile = kv_scales + (layer_pages + pg) * 8 * (size_t)page;
+            ks = tile[row];
+            cs = tile[page + row];
+          }
+        }
+      }
+      row_s[tid] = r;
+      ks_s[tid] = ks;
+      cs_s[tid] = cs;
+    }
+    __syncthreads();
+    stage_rows<R, kInt8>(c_pages, row_s, c_s, SM::kCStride);
+    stage_rows<DR, kInt8>(kpe_pages, row_s, kpe_s, SM::kPStride);
+    __syncthreads();
+
+    {  // scores: token j against heads hb .. hb + kHPT - 1
+      const int j = tid % kBK, hb = (tid / kBK) * kHPT;
+      float sc[kHPT], sp[kHPT];
+#pragma unroll
+      for (int u = 0; u < kHPT; ++u) sc[u] = sp[u] = 0.f;
+      const uint32_t* crow = c_s + j * SM::kCStride;
+#pragma unroll 4
+      for (int d2 = 0; d2 < R / 2; ++d2) {
+        const float2 cf = unpack_bf2(crow[d2]);
+#pragma unroll
+        for (int u = 0; u < kHPT; ++u) {
+          const float2 qv = *reinterpret_cast<const float2*>(qc_s + (hb + u) * R + 2 * d2);
+          sc[u] = fmaf(qv.y, cf.y, fmaf(qv.x, cf.x, sc[u]));
+        }
+      }
+      const uint32_t* prow = kpe_s + j * SM::kPStride;
+#pragma unroll 4
+      for (int d2 = 0; d2 < DR / 2; ++d2) {
+        const float2 kf = unpack_bf2(prow[d2]);
+#pragma unroll
+        for (int u = 0; u < kHPT; ++u) {
+          const float2 qv = *reinterpret_cast<const float2*>(qpe_s + (hb + u) * DR + 2 * d2);
+          sp[u] = fmaf(qv.y, kf.y, fmaf(qv.x, kf.x, sp[u]));
+        }
+      }
+      const bool ok = t0 + j < t_end;
+#pragma unroll
+      for (int u = 0; u < kHPT; ++u) {
+        const float s = kInt8 ? (sc[u] * cs_s[j] + sp[u] * ks_s[j]) * scale
+                              : (sc[u] + sp[u]) * scale;
+        s_s[(hb + u) * kBK + j] = ok ? s : QTT_NEG_INF;
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp per head; p (times the latent scale on INT8
+    // pages) rounded to bf16 into p_s [token][head]
+    for (int h = warp; h < kHG; h += kWarps) {
+      const bool ok0 = t0 + lane < t_end, ok1 = t0 + lane + 32 < t_end;
+      const float s0 = s_s[h * kBK + lane], s1 = s_s[h * kBK + lane + 32];
+      const float m_old = m_s[h];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(ok0 ? s0 : QTT_NEG_INF,
+                                                      ok1 ? s1 : QTT_NEG_INF)));
+      float p0 = ok0 ? expf(s0 - m_new) : 0.f;
+      float p1 = ok1 ? expf(s1 - m_new) : 0.f;
+      const float psum = warp_sum(p0 + p1);
+      if constexpr (kInt8) {
+        p0 *= cs_s[lane];
+        p1 *= cs_s[lane + 32];
+      }
+      p_s[lane * kHG + h] = round_bf16(p0);
+      p_s[(lane + 32) * kHG + h] = round_bf16(p1);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        alpha_s[h] = alpha;
+        l_s[h] = l_s[h] * alpha + psum;
+        m_s[h] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // p @ c: this thread's latent column pairs, all heads
+#pragma unroll
+    for (int h = 0; h < kHG; ++h) {
+      const float a = alpha_s[h];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        acc[h][k][0] *= a;
+        acc[h][k][1] *= a;
+      }
+    }
+    const int n = min(kBK, t_end - t0);
+    for (int j = 0; j < n; ++j) {
+      float pj[kHG];
+#pragma unroll
+      for (int h4 = 0; h4 < kHG / 4; ++h4) {
+        const float4 v = *reinterpret_cast<const float4*>(p_s + j * kHG + 4 * h4);
+        pj[4 * h4] = v.x; pj[4 * h4 + 1] = v.y; pj[4 * h4 + 2] = v.z; pj[4 * h4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const float2 cf = unpack_bf2(c_s[j * SM::kCStride + k * kThreads + tid]);
+#pragma unroll
+        for (int h = 0; h < kHG; ++h) {
+          acc[h][k][0] = fmaf(pj[h], cf.x, acc[h][k][0]);
+          acc[h][k][1] = fmaf(pj[h], cf.y, acc[h][k][1]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // m_s / l_s are final
+
+#pragma unroll
+  for (int h = 0; h < kHG; ++h) {
+    if (h0 + h >= Hq) break;
+    const size_t row = (size_t)b * Hq + h0 + h;
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int col = 2 * (k * kThreads + tid);
+      if constexpr (kFinal) {
+        const float l = l_s[h] == 0.f ? 1.f : l_s[h];
+        *reinterpret_cast<__nv_bfloat162*>(out + row * R + col) =
+            __floats2bfloat162_rn(acc[h][k][0] / l, acc[h][k][1] / l);
+      } else {
+        *reinterpret_cast<float2*>(part_acc + (row * splits + split) * R + col) =
+            make_float2(acc[h][k][0], acc[h][k][1]);
+      }
+    }
+  }
+  if constexpr (!kFinal) {
+    if (tid < kHG && h0 + tid < Hq) {
+      const size_t slot = ((size_t)b * Hq + h0 + tid) * splits + split;
+      part_ml[2 * slot] = m_s[tid];
+      part_ml[2 * slot + 1] = l_s[tid];
+    }
+  }
+}
+
+// Merge the splits of each (slot, head), one warp per pair, in split order.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+mla_merge_kernel(const float* __restrict__ part_acc,
+                 const float* __restrict__ part_ml, bf16* __restrict__ out,
+                 int rows, int splits) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* ml = part_ml + (size_t)row * splits * 2;
+  float M = QTT_NEG_INF;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[2 * s]);
+  float L = 0.f;
+  for (int s = 0; s < splits; ++s) L += ml[2 * s + 1] * expf(ml[2 * s] - M);
+  if (L == 0.f) L = 1.f;
+  const float* a = part_acc + (size_t)row * splits * R;
+  for (int d = lane; d < R; d += 32) {
+    float o = 0.f;
+    for (int s = 0; s < splits; ++s) o += a[(size_t)s * R + d] * expf(ml[2 * s] - M);
+    out[(size_t)row * R + d] = __float2bfloat16_rn(o / L);
+  }
+}
+
+template <int R, int DR, bool kInt8>
+cudaError_t launch(const void* q_c, const void* q_pe, const void* kpe_pages,
+                   const void* c_pages, const void* kv_scales,
+                   const void* block_table, const void* lengths, void* out,
+                   void* part_acc, void* part_ml, int B, int Hq, int P,
+                   int page, int n_pt, int layer, int splits, int chunk,
+                   float scale, cudaStream_t st) {
+  const size_t smem = Smem<R, DR>::kBytes;
+  dim3 grid(splits, B, (Hq + kHG - 1) / kHG);
+  const bf16* qc = static_cast<const bf16*>(q_c);
+  const bf16* qp = static_cast<const bf16*>(q_pe);
+  const float* sc = static_cast<const float*>(kv_scales);
+  const int* bt = static_cast<const int*>(block_table);
+  const int* ln = static_cast<const int*>(lengths);
+  bf16* o = static_cast<bf16*>(out);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  cudaError_t err;
+  if (splits == 1) {
+    auto k = mla_decode_kernel<R, DR, kInt8, true>;
+    if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
+    k<<<grid, kThreads, smem, st>>>(qc, qp, kpe_pages, c_pages, sc, bt, ln, o,
+                                    pa, pm, Hq, P, page, n_pt, layer, chunk,
+                                    scale);
+    return cudaGetLastError();
+  }
+  auto k = mla_decode_kernel<R, DR, kInt8, false>;
+  if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
+  k<<<grid, kThreads, smem, st>>>(qc, qp, kpe_pages, c_pages, sc, bt, ln, o, pa,
+                                  pm, Hq, P, page, n_pt, layer, chunk, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int rows = B * Hq;
+  mla_merge_kernel<R><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      pa, pm, o, rows, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q_c: bf16 [B, Hq, R]; q_pe: bf16 [B, Hq, DR]; kpe_pages: [L, P, 1, page,
+// DR] and c_pages: [L, P, 1, page, R], both bf16 (int8 = 0) or both int8
+// codes (int8 = 1, with kv_scales f32 [L, P, 8, page]; null otherwise);
+// block_table: int32 [B, n_pt]; lengths: int32 [B]; out: bf16 [B, Hq, R];
+// part_acc: f32 [B, Hq, splits, R] and part_ml: f32 [B, Hq, splits, 2]
+// (unused when splits == 1); chunk: tokens per split, a multiple of 64 with
+// splits * chunk >= n_pt * page. R = 512 and DR = 64.
+extern "C" int qtt_mla_paged_decode(
+    const void* q_c, const void* q_pe, const void* kpe_pages,
+    const void* c_pages, const void* kv_scales, const void* block_table,
+    const void* lengths, void* out, void* part_acc, void* part_ml, int B,
+    int Hq, int R, int DR, int L, int P, int page, int n_pt, int layer,
+    int splits, int chunk, float scale, int int8, void* stream) {
+  if (B <= 0 || Hq <= 0 || P <= 0 || page <= 0 || n_pt <= 0 || layer < 0 ||
+      layer >= L || splits <= 0 || chunk <= 0 || chunk % kBK != 0 ||
+      (long long)splits * chunk < (long long)n_pt * page ||
+      (int8 && kv_scales == nullptr) ||
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
+    return cudaErrorInvalidValue;
+  if (R != 512 || DR != 64) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8)
+    return launch<512, 64, true>(q_c, q_pe, kpe_pages, c_pages, kv_scales,
+                                 block_table, lengths, out, part_acc, part_ml,
+                                 B, Hq, P, page, n_pt, layer, splits, chunk,
+                                 scale, st);
+  return launch<512, 64, false>(q_c, q_pe, kpe_pages, c_pages, kv_scales,
+                                block_table, lengths, out, part_acc, part_ml, B,
+                                Hq, P, page, n_pt, layer, splits, chunk, scale,
+                                st);
+}

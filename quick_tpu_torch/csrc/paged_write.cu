@@ -9,14 +9,17 @@
 // What it computes: token i of slot b (i < S, and i < valid[b] when valid
 // is given) goes to in-page row r = offs[b] + i of page page_ids[b, 0]
 // while r < page, else to row r - page of page_ids[b, 1] — the Pallas
-// chunk kernel's span addressing. Each token's Hkv rows of D values are
-// copied for k and for v. The page dtype does not matter: a row is copied
-// as `row_bytes` bytes in 16-byte chunks.
+// chunk kernel's span addressing. Each token's Hkv rows are copied for k
+// (Dk values) and for v (Dv values; DeepSeek's MLA latent pages hold the
+// rope'd k_pe, Dk = 64, in the k plane and the latent, Dv = 512, in the v
+// plane, with Hkv = 1). The page dtype does not matter: a row is copied as
+// `k_row_bytes` / `v_row_bytes` bytes in 16-byte chunks.
 //
 // What bounds it on the H100: bytes — each written row is read once from
 // k_new / v_new and written once into the pages, 2 * 2 * B * S * Hkv * D * 2
-// bytes in bf16 (128 KB at the serving decode shape B=16, Hkv=8, D=128), so
-// the call is launch-bound.
+// bytes in bf16 (128 KB at the serving decode shape B=16, Hkv=8, D=128;
+// 18 KB at DeepSeek's latent pages, B=16, Dk + Dv = 576), so the call is
+// launch-bound.
 //
 // Design. One block per (token, slot); its threads copy the token's Hkv x D
 // row of k and of v with 16-byte loads and stores. Not carried over from
@@ -37,7 +40,8 @@ paged_write_kernel(uint8_t* __restrict__ k_pages, uint8_t* __restrict__ v_pages,
                    const uint8_t* __restrict__ v_new,
                    const int* __restrict__ page_ids, const int* __restrict__ offs,
                    const int* __restrict__ valid, int S, int Hkv, int page,
-                   int row_bytes, int P, int layer, int n_pg) {
+                   int k_row_bytes, int v_row_bytes, int P, int layer,
+                   int n_pg) {
   const int i = blockIdx.x, b = blockIdx.y;
   if (valid != nullptr && i >= valid[b]) return;
   const int r = offs[b] + i;
@@ -45,32 +49,37 @@ paged_write_kernel(uint8_t* __restrict__ k_pages, uint8_t* __restrict__ v_pages,
   const int pg = page_ids[b * n_pg + min(second, n_pg - 1)];
   const int row = r - second * page;
   if (pg < 0 || pg >= P || row < 0 || row >= page) return;  // bad input: no write
-  const int chunks = row_bytes / 16;
-  const size_t src = ((size_t)b * S + i) * Hkv * row_bytes;
-  for (int c = threadIdx.x; c < Hkv * chunks; c += blockDim.x) {
-    const int h = c / chunks, o = (c % chunks) * 16;
-    const size_t dst =
-        ((((size_t)layer * P + pg) * Hkv + h) * page + row) * row_bytes + o;
-    const size_t s = src + (size_t)h * row_bytes + o;
-    *reinterpret_cast<uint4*>(k_pages + dst) =
-        *reinterpret_cast<const uint4*>(k_new + s);
-    *reinterpret_cast<uint4*>(v_pages + dst) =
-        *reinterpret_cast<const uint4*>(v_new + s);
+  const size_t head_row = (((size_t)layer * P + pg) * Hkv) * page + row;
+  // k rows, then v rows: one 16-byte chunk per thread and step
+  const int kc = k_row_bytes / 16, vc = v_row_bytes / 16;
+  for (int c = threadIdx.x; c < Hkv * (kc + vc); c += blockDim.x) {
+    const bool is_k = c < Hkv * kc;
+    const int cc = is_k ? c : c - Hkv * kc;
+    const int chunks = is_k ? kc : vc;
+    const int row_bytes = is_k ? k_row_bytes : v_row_bytes;
+    const int h = cc / chunks, o = (cc % chunks) * 16;
+    const size_t dst = (head_row + (size_t)h * page) * row_bytes + o;
+    const size_t s = (((size_t)b * S + i) * Hkv + h) * row_bytes + o;
+    *reinterpret_cast<uint4*>((is_k ? k_pages : v_pages) + dst) =
+        *reinterpret_cast<const uint4*>((is_k ? k_new : v_new) + s);
   }
 }
 
 }  // namespace
 
-// k_pages, v_pages: [L, P, Hkv, page, D] (any 2- or 4-byte dtype, rows of
-// row_bytes = D * element size, a multiple of 16); k_new, v_new:
-// [B, S, Hkv, D] of the same dtype; page_ids: int32 [B, n_pg] (n_pg 1 or
+// k_pages: [L, P, Hkv, page, Dk], v_pages: [L, P, Hkv, page, Dv] (any 2-
+// or 4-byte dtype, rows of k_row_bytes = Dk * element size and v_row_bytes
+// = Dv * element size, multiples of 16); k_new: [B, S, Hkv, Dk], v_new:
+// [B, S, Hkv, Dv] of the same dtype; page_ids: int32 [B, n_pg] (n_pg 1 or
 // 2); offs: int32 [B]; valid: int32 [B] or null (all S tokens written).
 extern "C" int qtt_paged_write(void* k_pages, void* v_pages, const void* k_new,
                                const void* v_new, const void* page_ids,
                                const void* offs, const void* valid, int B,
-                               int S, int Hkv, int page, int row_bytes, int P,
-                               int layer, int n_pg, int L, void* stream) {
-  if (B <= 0 || S <= 0 || S > page || Hkv <= 0 || row_bytes % 16 != 0 ||
+                               int S, int Hkv, int page, int k_row_bytes,
+                               int v_row_bytes, int P, int layer, int n_pg,
+                               int L, void* stream) {
+  if (B <= 0 || S <= 0 || S > page || Hkv <= 0 || k_row_bytes <= 0 ||
+      v_row_bytes <= 0 || k_row_bytes % 16 != 0 || v_row_bytes % 16 != 0 ||
       layer < 0 || layer >= L || n_pg < 1 || n_pg > 2)
     return cudaErrorInvalidValue;
   dim3 grid(S, B);
@@ -78,6 +87,7 @@ extern "C" int qtt_paged_write(void* k_pages, void* v_pages, const void* k_new,
       static_cast<uint8_t*>(k_pages), static_cast<uint8_t*>(v_pages),
       static_cast<const uint8_t*>(k_new), static_cast<const uint8_t*>(v_new),
       static_cast<const int*>(page_ids), static_cast<const int*>(offs),
-      static_cast<const int*>(valid), S, Hkv, page, row_bytes, P, layer, n_pg);
+      static_cast<const int*>(valid), S, Hkv, page, k_row_bytes, v_row_bytes,
+      P, layer, n_pg);
   return cudaGetLastError();
 }

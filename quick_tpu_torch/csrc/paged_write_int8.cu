@@ -25,6 +25,10 @@
 // once: at the serving decode shape (64 slots, Hkv 8, D 128) 256 KB of bf16
 // in, 128 KB of codes and 4 KB of scales out, so a call is launch-bound.
 //
+// The k and v planes may differ in width (Dk, Dv): DeepSeek's MLA latent
+// pages hold the rope'd k_pe (Dk = 64) and the latent (Dv = 512) with
+// Hkv = 1; each row's scale goes to its own tile row as above.
+//
 // Design. One block per (token, slot); one warp per (head, k or v) row: the
 // lanes read the row's D values, take the absmax with a warp reduction and
 // write the codes (32 consecutive bytes per step) and the one scale. Not
@@ -51,7 +55,7 @@ paged_write_int8_kernel(int8_t* __restrict__ k_pages, int8_t* __restrict__ v_pag
                         const int* __restrict__ page_ids,
                         const int* __restrict__ offs,
                         const int* __restrict__ valid, int S, int Hkv,
-                        int page, int D, int P, int layer, int n_pg,
+                        int page, int Dk, int Dv, int P, int layer, int n_pg,
                         int in_kind) {
   const int i = blockIdx.x, b = blockIdx.y;
   if (valid != nullptr && i >= valid[b]) return;
@@ -64,6 +68,7 @@ paged_write_int8_kernel(int8_t* __restrict__ k_pages, int8_t* __restrict__ v_pag
   const size_t page_base = (size_t)layer * P + pg;
   for (int u = warp; u < 2 * Hkv; u += kWarps) {
     const int plane = u / Hkv, h = u % Hkv;  // plane 0: k, 1: v
+    const int D = plane == 0 ? Dk : Dv;
     const size_t src = (((size_t)b * S + i) * Hkv + h) * D;
     int8_t* dst = (plane == 0 ? k_pages : v_pages) +
                   ((page_base * Hkv + h) * page + row) * D;
@@ -95,20 +100,20 @@ paged_write_int8_kernel(int8_t* __restrict__ k_pages, int8_t* __restrict__ v_pag
 
 }  // namespace
 
-// k_pages, v_pages: int8 [L, P, Hkv, page, D]; kv_scales: f32
-// [L, P, 8, Hkv * page]; k_new, v_new: [B, S, Hkv, D] bf16 (in_kind 0), f32
-// (1) or int8 codes (2, with ks_new / vs_new f32 [B, S, Hkv]; null
-// otherwise); page_ids: int32 [B, n_pg] (n_pg 1 or 2); offs: int32 [B];
-// valid: int32 [B] or null (all S tokens written).
+// k_pages: int8 [L, P, Hkv, page, Dk], v_pages: int8 [L, P, Hkv, page, Dv];
+// kv_scales: f32 [L, P, 8, Hkv * page]; k_new: [B, S, Hkv, Dk], v_new:
+// [B, S, Hkv, Dv], bf16 (in_kind 0), f32 (1) or int8 codes (2, with ks_new /
+// vs_new f32 [B, S, Hkv]; null otherwise); page_ids: int32 [B, n_pg] (n_pg
+// 1 or 2); offs: int32 [B]; valid: int32 [B] or null (all S tokens written).
 extern "C" int qtt_paged_write_int8(void* k_pages, void* v_pages,
                                     void* kv_scales, const void* k_new,
                                     const void* v_new, const void* ks_new,
                                     const void* vs_new, const void* page_ids,
                                     const void* offs, const void* valid, int B,
-                                    int S, int Hkv, int page, int D, int P,
-                                    int layer, int n_pg, int L, int in_kind,
-                                    void* stream) {
-  if (B <= 0 || S <= 0 || S > page || Hkv <= 0 || D <= 0 || layer < 0 ||
+                                    int S, int Hkv, int page, int Dk, int Dv,
+                                    int P, int layer, int n_pg, int L,
+                                    int in_kind, void* stream) {
+  if (B <= 0 || S <= 0 || S > page || Hkv <= 0 || Dk <= 0 || Dv <= 0 || layer < 0 ||
       layer >= L || n_pg < 1 || n_pg > 2 || in_kind < 0 || in_kind > 2 ||
       (in_kind == 2 && (ks_new == nullptr || vs_new == nullptr)))
     return cudaErrorInvalidValue;
@@ -119,7 +124,7 @@ extern "C" int qtt_paged_write_int8(void* k_pages, void* v_pages,
       static_cast<float*>(kv_scales), k_new, v_new,
       static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
       static_cast<const int*>(page_ids), static_cast<const int*>(offs),
-      static_cast<const int*>(valid), S, Hkv, page, D, P, layer, n_pg,
+      static_cast<const int*>(valid), S, Hkv, page, Dk, Dv, P, layer, n_pg,
       in_kind);
   return cudaGetLastError();
 }

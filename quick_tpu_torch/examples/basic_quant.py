@@ -6,7 +6,9 @@ counterpart of ``examples/basic_quant.py``:
 
 ``--random <preset>`` builds a random-init float model from seed 0 instead
 of reading a checkpoint (``--q_group_size 32`` or ``64`` quantizes it for
-the card's small-group kernel; ``benchmark.py --random --group`` makes the
+the card's small-group kernel; the group defaults to 128, or to 64 where a
+linear's input width is no multiple of 128, as DeepSeek-V2-Lite's 10944-wide
+dense FFN; ``benchmark.py --random --group`` makes the
 packed weights directly, for the presets whose float model is too large); ``--awq_format`` writes an AutoAWQ-GEMM checkpoint
 instead of the native QTPU one. The AWQ scale / clip search is not ported
 (ROADMAP A9), so the calibration options of the JAX example are absent.
@@ -16,6 +18,21 @@ import argparse
 
 from quick_tpu_torch import ModelConfig, QuantConfig
 from quick_tpu_torch.models.auto import AutoQuickModel
+
+#: deepseek-ai/DeepSeek-V2-Lite config.json, the fields the port reads
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
+    intermediate_size=10944, moe_intermediate_size=1408, num_hidden_layers=27,
+    num_attention_heads=16, num_key_value_heads=16, n_shared_experts=2,
+    n_routed_experts=64, num_experts_per_tok=6, routed_scaling_factor=1.0,
+    kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128, topk_method="greedy", n_group=1, topk_group=1,
+    scoring_func="softmax", norm_topk_prob=False, first_k_dense_replace=1,
+    moe_layer_freq=1, max_position_embeddings=163840, rope_theta=10000.0,
+    rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096,
+                      beta_fast=32, beta_slow=1, mscale=0.707, mscale_all_dim=0.707),
+    rms_norm_eps=1e-6, tie_word_embeddings=False,
+)
 
 PRESETS = {
     "tinyllama": ModelConfig(
@@ -46,12 +63,25 @@ PRESETS = {
         moe_router="softmax_all", moe_freq_shifted=True, attention_bias=True,
         shared_expert_gate=True, n_shared_experts=1, norm_topk_prob=False,
     ),
+    # deepseek-ai/DeepSeek-V2-Lite config.json: MLA (kv_lora_rank 512, no
+    # q-LoRA, qk 128 + 64, v 128) and DeepSeekMoE (64 routed experts of 1408,
+    # top-6, 2 shared, a dense first layer), yarn rope x40; 15.7 B float
+    # parameters, about 10.5 GB at W4A16 g=64
+    "deepseek-v2-lite": ModelConfig.from_hf_config(DEEPSEEK_V2_LITE),
     "debug": ModelConfig(
         vocab_size=1024, hidden_size=256, intermediate_size=512,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
         max_position_embeddings=256,
     ),
 }
+
+
+def default_group(cfg: ModelConfig) -> int:
+    """128, or 64 where 128 does not divide a linear's input width (the
+    dense FFN, the MoE experts' or the shared experts')."""
+    widths = [cfg.hidden_size, cfg.intermediate_size, cfg.moe_intermediate_size or 0,
+              cfg.shared_intermediate_size or 0]
+    return 128 if all(w % 128 == 0 for w in widths) else 64
 
 
 def main(argv=None):
@@ -61,7 +91,8 @@ def main(argv=None):
                     help="random-init preset instead of a checkpoint")
     ap.add_argument("--quant_path", required=True)
     ap.add_argument("--zero_point", type=int, default=1)
-    ap.add_argument("--q_group_size", type=int, default=128)
+    ap.add_argument("--q_group_size", type=int, default=None,
+                    help="quant group (default 128, or 64 where 128 does not divide a width)")
     ap.add_argument("--w_bit", type=int, default=4)
     ap.add_argument("--awq_format", action="store_true",
                     help="write an AutoAWQ-GEMM checkpoint instead of QTPU")
@@ -74,8 +105,8 @@ def main(argv=None):
         model = AutoQuickModel.from_pretrained(args.model_path, device=args.device)
     else:
         ap.error("need --model_path or --random")
-    qcfg = QuantConfig(zero_point=bool(args.zero_point), q_group_size=args.q_group_size,
-                       w_bit=args.w_bit)
+    group = args.q_group_size or default_group(model.cfg)
+    qcfg = QuantConfig(zero_point=bool(args.zero_point), q_group_size=group, w_bit=args.w_bit)
     model.quantize(quant_config=qcfg, use_awq_search=False)
     model.save_quantized(args.quant_path, awq_format=args.awq_format)
     print(f"quantized model saved to {args.quant_path}")

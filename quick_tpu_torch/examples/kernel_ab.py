@@ -4,7 +4,11 @@ on one card, in one call:
     python -m quick_tpu_torch.examples.kernel_ab --other build/parent
 
 The other tree (e.g. the parent commit unpacked with ``git archive`` into
-a directory ``.gitignore`` lists) builds its own kernels. The script prints
+a directory ``.gitignore`` lists) builds its own kernels. The script first
+compiles every ``csrc/*.cu`` the two trees share to a cubin with ``nvcc``
+and prints, per source, how many of the other tree's functions have an
+instruction-for-instruction identical body here (``cuobjdump -sass``,
+addresses and names aside). It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``) and
 K8 (``grouped_matmul.cu``) kernels beside this build's same entries, then
 times K1 at M = 16, 64 and 512 on the
@@ -15,9 +19,13 @@ ends with this tree's mean over the other's.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
+
+from quick_tpu_torch.ops._cuda import NVCC_FLAGS, _nvcc
 
 _RUN = r'''
 import collections, contextlib, io, json, re, sys
@@ -49,6 +57,42 @@ print(json.dumps({"registers": regs, "ms": {r["name"]: r["ms"] for r in rows}}))
 '''
 
 
+def sass_bodies(tree: Path, source: str, out_dir: Path) -> dict:
+    """{function: its SASS instructions} of ``csrc/<source>`` in ``tree``,
+    built with the port's flags as a cubin."""
+    csrc = tree / "quick_tpu_torch" / "csrc"
+    cubin = out_dir / f"{tree.name}-{source}.cubin"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_nvcc(), *flags, "-cubin", "-I", str(csrc), "-o", str(cubin),
+                    str(csrc / source)], check=True, capture_output=True)
+    objdump = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(objdump), "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and name:
+            funcs[name].append(m.group(1).strip())
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def compare_sass(other: Path, this: Path) -> None:
+    shared = sorted(f.name for f in (this / "quick_tpu_torch" / "csrc").glob("*.cu")
+                    if (other / "quick_tpu_torch" / "csrc" / f.name).exists())
+    with tempfile.TemporaryDirectory() as tmp:
+        for source in shared:
+            old = sass_bodies(other, source, Path(tmp))
+            new = set(sass_bodies(this, source, Path(tmp)).values())
+            same = sum(body in new for body in old.values())
+            print(f"SASS {source}: {same} of the other tree's {len(old)} functions have an "
+                  f"identical body here")
+
+
 def run(tree: Path) -> dict:
     out = subprocess.run([sys.executable, "-c", _RUN], cwd=tree, capture_output=True, text=True)
     if out.returncode != 0:
@@ -62,6 +106,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     this = Path(__file__).resolve().parents[2]
     other = Path(args.other).resolve()
+    compare_sass(other, this)
     res = [run(t) for t in (other, this, this, other)]
     for entry, used in res[0]["registers"].items():
         mine = res[1]["registers"].get(entry)

@@ -1,5 +1,6 @@
 """High-level model API (port of ``quick_tpu/models/auto.py``, llama path
-with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe):
+with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe; and DeepSeek-V2
+/ V3, MLA with DeepSeekMoE):
 
     model = AutoQuickModel.from_pretrained(hf_dir)             # float import
     model.quantize(quant_config=QuantConfig())                 # RTN + pack
@@ -26,9 +27,9 @@ import torch
 from quick_tpu_torch.config import ModelConfig, QuantConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device
 
-#: the llama part of quick_tpu's MODEL_TYPE_MAP (:30-74): the llama
-#: architecture types, mixtral (MoE through ``num_local_experts``) and
-#: qwen2_moe with its config switch overrides.
+#: the ported part of quick_tpu's MODEL_TYPE_MAP (:30-88): the llama
+#: architecture types, mixtral (MoE through ``num_local_experts``),
+#: qwen2_moe and deepseek_v2 / v3 with their config switch overrides.
 MODEL_TYPE_MAP: Dict[str, dict] = {
     "llama": {},
     "mistral": {},
@@ -41,6 +42,8 @@ MODEL_TYPE_MAP: Dict[str, dict] = {
         "attention_bias": True, "shared_expert_gate": True,
         "n_shared_experts": 1, "norm_topk_prob": False,
     },
+    "deepseek_v2": {"moe_router": "deepseek"},
+    "deepseek_v3": {"moe_router": "deepseek", "scoring_func": "sigmoid"},
 }
 
 #: QuantConfig versions that name an AutoAWQ layout (converted at load)
@@ -88,7 +91,8 @@ class AutoQuickModel:
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype: torch.dtype = torch.bfloat16,
                         device: DeviceLike = None) -> "AutoQuickModel":
-        """Import an HF float checkpoint of the dense llama schema."""
+        """Import an HF float checkpoint of the llama schema (dense or MoE)
+        or of DeepSeek-V2 / V3."""
         from quick_tpu_torch.utils.checkpoint import load_hf_float
 
         device = resolve_device(device)  # refuse before reading anything

@@ -1,5 +1,6 @@
 """Flat parameter dicts <-> ModelParams (port of the llama part, dense and
-MoE, of ``quick_tpu/utils/checkpoint.py::params_to_flat`` (:60) and
+MoE, and of the DeepSeek MLA blocks, of
+``quick_tpu/utils/checkpoint.py::params_to_flat`` (:60) and
 ``flat_to_params`` (:143)).
 
 The names are the JAX package's (``embed``, ``blocks.{i}.attn.qkv.qweight``,
@@ -20,6 +21,7 @@ from quick_tpu_torch.device import DeviceLike, resolve_device
 from quick_tpu_torch.models.model import ModelParams, _tables, check_supported
 from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams, MoEParams
 from quick_tpu_torch.modules.linear import Linear, QuantLinear
+from quick_tpu_torch.modules.mla import MLAParams
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -55,8 +57,10 @@ def params_from_flat(
     group_size: int = 128,
 ) -> ModelParams:
     """The port's params from a flat dict named as the JAX package names
-    them; a block with ``mlp.router.weight`` is an MoE block. The rope
-    tables are rebuilt from ``cfg``."""
+    them; a block with ``mlp.router.weight`` is an MoE block, one with
+    ``attn.kv_a_norm`` an MLA block (``attn.q``, ``attn.q_b``,
+    ``attn.kv_a``, ``attn.kv_a_norm``, ``attn.kv_b``, ``attn.q_a_norm``,
+    ``attn.o``). The rope tables are rebuilt from ``cfg``."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -83,12 +87,22 @@ def params_from_flat(
             )
         else:
             mlp = MLPParams(gate_up_proj=lin(f"{p}.mlp.gate_up"), down_proj=lin(f"{p}.mlp.down"))
+        if f"{p}.attn.kv_a_norm" in flat:  # deepseek MLA
+            attn = MLAParams(
+                q_proj=lin(f"{p}.attn.q"),
+                kv_a_proj=lin(f"{p}.attn.kv_a"),
+                kv_a_norm=to_tensor(flat[f"{p}.attn.kv_a_norm"], dev),
+                kv_b_proj=lin(f"{p}.attn.kv_b"),
+                o_proj=lin(f"{p}.attn.o"),
+                q_b_proj=opt_lin(f"{p}.attn.q_b"),
+                q_a_norm=(to_tensor(flat[f"{p}.attn.q_a_norm"], dev)
+                          if f"{p}.attn.q_a_norm" in flat else None),
+            )
+        else:
+            attn = AttentionParams(qkv_proj=lin(f"{p}.attn.qkv"), o_proj=lin(f"{p}.attn.o"))
         blocks.append(BlockParams(
             attn_norm=to_tensor(flat[f"{p}.attn_norm"], dev),
-            attn=AttentionParams(
-                qkv_proj=_flat_to_lin(f"{p}.attn.qkv", flat, group_size, dev),
-                o_proj=_flat_to_lin(f"{p}.attn.o", flat, group_size, dev),
-            ),
+            attn=attn,
             mlp_norm=to_tensor(flat[f"{p}.mlp_norm"], dev),
             mlp=mlp,
         ))
@@ -115,7 +129,7 @@ def _lin_to_flat(prefix: str, lin, out: Dict[str, torch.Tensor], put) -> None:
 def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`params_from_flat`: the keys, dtypes and bytes of
     ``quick_tpu.utils.checkpoint.params_to_flat`` (:60) for the llama path
-    with dense or MoE blocks, in its order (which decides the shard
+    with dense or MoE blocks and for MLA blocks, in its order (which decides the shard
     boundaries on save), as contiguous tensors — on the CPU, or where they
     lie with ``cpu=False``.
     A tied ``lm_head.weight`` (a transposed view of the embedding) becomes
@@ -131,8 +145,19 @@ def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Ten
         p = f"blocks.{i}"
         out[f"{p}.attn_norm"] = put(blk.attn_norm)
         out[f"{p}.mlp_norm"] = put(blk.mlp_norm)
-        _lin_to_flat(f"{p}.attn.qkv", blk.attn.qkv_proj, out, put)
-        _lin_to_flat(f"{p}.attn.o", blk.attn.o_proj, out, put)
+        a = blk.attn
+        if isinstance(a, MLAParams):
+            _lin_to_flat(f"{p}.attn.q", a.q_proj, out, put)
+            _lin_to_flat(f"{p}.attn.kv_a", a.kv_a_proj, out, put)
+            _lin_to_flat(f"{p}.attn.kv_b", a.kv_b_proj, out, put)
+            _lin_to_flat(f"{p}.attn.o", a.o_proj, out, put)
+            out[f"{p}.attn.kv_a_norm"] = put(a.kv_a_norm)
+            if a.q_b_proj is not None:
+                _lin_to_flat(f"{p}.attn.q_b", a.q_b_proj, out, put)
+                out[f"{p}.attn.q_a_norm"] = put(a.q_a_norm)
+        else:
+            _lin_to_flat(f"{p}.attn.qkv", a.qkv_proj, out, put)
+            _lin_to_flat(f"{p}.attn.o", a.o_proj, out, put)
         mlp = blk.mlp
         if isinstance(mlp, MoEParams):
             _lin_to_flat(f"{p}.mlp.router", mlp.router, out, put)

@@ -30,6 +30,7 @@ from quick_tpu_torch.modules.blocks import (
 )
 from quick_tpu_torch.modules.cache import KVCache
 from quick_tpu_torch.modules.linear import Linear, QuantLinear
+from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.ops.rope import rope_table
 
@@ -56,16 +57,19 @@ _LLAMA_PATH = dict(
 )
 
 
+#: the MoE routers ``moe_forward`` runs
+PORTED_ROUTERS = ("mixtral", "softmax_all", "deepseek")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the llama path with dense or MoE ("mixtral" and
-    "softmax_all" routers) MLPs; MLA, the deepseek router and the other
-    families' switches raise until their slices land."""
-    if cfg.is_mla:
-        raise NotImplementedError(f"{cfg.model_type}: MLA models are not ported yet (ROADMAP A11)")
-    if cfg.is_moe and cfg.moe_router not in ("mixtral", "softmax_all"):
+    """The port runs the llama path with dense or MoE ("mixtral",
+    "softmax_all" and "deepseek" routers) MLPs, and DeepSeek's MLA
+    attention; the other families' switches raise until their slices
+    land."""
+    if cfg.is_moe and cfg.moe_router not in PORTED_ROUTERS:
         raise NotImplementedError(
-            f"{cfg.model_type}: the {cfg.moe_router!r} MoE router is not ported yet "
-            "(ROADMAP A11)"
+            f"{cfg.model_type}: the {cfg.moe_router!r} MoE router is not ported "
+            f"(the port runs {PORTED_ROUTERS})"
         )
     off = [k for k, v in _LLAMA_PATH.items() if getattr(cfg, k) != v]
     if off:
@@ -112,7 +116,7 @@ def model_forward(
                       < torch.as_tensor(advance, device=dev).reshape(-1, 1))
     x = params.embed[tokens].to(torch.bfloat16)
     decode_lengths = None
-    if S == 1 and isinstance(cache, KVCache) and any(
+    if S == 1 and isinstance(cache, KVCache) and not cfg.is_mla and any(
         dense_decode_route(cfg, cache, B, params.rope_cos, i, dev) == "dense_kernel"
         for i in range(len(params.blocks))
     ):
@@ -173,13 +177,36 @@ def _moe_params(cfg: ModelConfig, expert_lin, float_lin) -> MoEParams:
     D, E = cfg.hidden_size, cfg.num_local_experts
     Fe = cfg.moe_intermediate_size or cfg.intermediate_size
     Fs = cfg.shared_intermediate_size or Fe * cfg.n_shared_experts
+    router = float_lin(D, E)
     return MoEParams(
-        router=float_lin(D, E),
+        router=router,
         gate_up_proj=expert_lin(D, 2 * Fe, experts=E),
         down_proj=expert_lin(Fe, D, experts=E),
         shared_gate_up=expert_lin(D, 2 * Fs) if Fs else None,
         shared_down=expert_lin(Fs, D) if Fs else None,
+        # deepseek v3's selection bias (zeros, as the JAX initializers)
+        score_bias=(torch.zeros(E, dtype=torch.float32, device=router.weight.device)
+                    if cfg.scoring_func == "sigmoid" else None),
         shared_gate=float_lin(D, 1) if Fs and cfg.shared_expert_gate else None,
+    )
+
+
+def _init_mla(cfg: ModelConfig, make, float_make, dtype, device) -> MLAParams:
+    """Random MLAParams (``_init_mla`` :188): ``make(kin, kout)`` builds
+    the quantized or float linears; kv_b is always ``float_make``'s (it is
+    consumed as the absorbed W_UK / W_UV einsum operands)."""
+    D, hq = cfg.hidden_size, cfg.num_attention_heads
+    dn, dr, dv, R = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    if cfg.q_lora_rank:
+        q = make(D, cfg.q_lora_rank)
+        q_b = make(cfg.q_lora_rank, hq * (dn + dr))
+        q_a_norm = _ones(cfg.q_lora_rank, dtype, device)
+    else:
+        q, q_b, q_a_norm = make(D, hq * (dn + dr)), None, None
+    return MLAParams(
+        q_proj=q, kv_a_proj=make(D, R + dr), kv_a_norm=_ones(R, dtype, device),
+        kv_b_proj=float_make(R, hq * (dn + dv)), o_proj=make(hq * dv, D),
+        q_b_proj=q_b, q_a_norm=q_a_norm,
     )
 
 
@@ -200,10 +227,13 @@ def init_float_params(
 
     blocks = []
     for i in range(cfg.num_hidden_layers):
-        qkv = dense(D, (hq + 2 * hkv) * hd)
-        if cfg.attention_bias:
-            qkv = Linear(qkv.weight, torch.zeros((hq + 2 * hkv) * hd, dtype=dtype, device=dev))
-        attn = AttentionParams(qkv_proj=qkv, o_proj=dense(hq * hd, D))
+        if cfg.is_mla:
+            attn = _init_mla(cfg, dense, dense, dtype, dev)
+        else:
+            qkv = dense(D, (hq + 2 * hkv) * hd)
+            if cfg.attention_bias:
+                qkv = Linear(qkv.weight, torch.zeros((hq + 2 * hkv) * hd, dtype=dtype, device=dev))
+            attn = AttentionParams(qkv_proj=qkv, o_proj=dense(hq * hd, D))
         if cfg.layer_is_moe(i):
             mlp = _moe_params(cfg, dense, dense)
         else:
@@ -247,9 +277,12 @@ def init_quant_params(
 
     blocks = []
     for i in range(cfg.num_hidden_layers):
-        attn = AttentionParams(
-            qkv_proj=qlin(D, (hq + 2 * hkv) * hd), o_proj=qlin(hq * hd, D)
-        )
+        if cfg.is_mla:
+            attn = _init_mla(cfg, qlin, fdense, dtype, dev)
+        else:
+            attn = AttentionParams(
+                qkv_proj=qlin(D, (hq + 2 * hkv) * hd), o_proj=qlin(hq * hd, D)
+            )
         if cfg.layer_is_moe(i):
             mlp = _moe_params(cfg, qlin, fdense)
         else:
@@ -304,9 +337,10 @@ def quantize_params(
     modules_to_not_convert=None,
 ) -> ModelParams:
     """RTN-quantize every block linear to W4A16 (``quantize_params`` :498):
-    stacked MoE experts expert by expert; the embedding, lm_head, MoE router
-    and qwen2_moe shared-expert gate stay float. Linears named in
-    ``modules_to_not_convert`` stay float too."""
+    stacked MoE experts expert by expert; MLA's q (q_a, q_b), kv_a and o
+    (kv_b stays float: it is consumed as einsum operands, :551-567); the
+    embedding, lm_head, MoE router and qwen2_moe shared-expert gate stay
+    float. Linears named in ``modules_to_not_convert`` stay float too."""
     skip = canonical_skips(modules_to_not_convert)
 
     def q(lin, name):
@@ -341,14 +375,16 @@ def quantize_params(
             shared_down=None if mlp.shared_down is None else q(mlp.shared_down, "down"),
         )
 
-    blocks = [
-        dataclasses.replace(
-            blk,
-            attn=dataclasses.replace(
-                blk.attn, qkv_proj=q(blk.attn.qkv_proj, "qkv"), o_proj=q(blk.attn.o_proj, "o")
-            ),
-            mlp=q_mlp(blk.mlp),
-        )
-        for blk in params.blocks
-    ]
+    def q_attn(attn):
+        if isinstance(attn, MLAParams):
+            return dataclasses.replace(
+                attn, q_proj=q(attn.q_proj, "qkv"), kv_a_proj=q(attn.kv_a_proj, "qkv"),
+                o_proj=q(attn.o_proj, "o"),
+                q_b_proj=None if attn.q_b_proj is None else q(attn.q_b_proj, "qkv"),
+            )
+        return dataclasses.replace(attn, qkv_proj=q(attn.qkv_proj, "qkv"),
+                                   o_proj=q(attn.o_proj, "o"))
+
+    blocks = [dataclasses.replace(blk, attn=q_attn(blk.attn), mlp=q_mlp(blk.mlp))
+              for blk in params.blocks]
     return dataclasses.replace(params, blocks=blocks)

@@ -1,16 +1,17 @@
-"""Decoder blocks, llama path with dense or MoE MLPs (port of
-``quick_tpu/modules/blocks.py``).
+"""Decoder blocks, llama path with dense or MoE MLPs, and DeepSeek's MLA
+attention (port of ``quick_tpu/modules/blocks.py``).
 
 The port covers the llama-family block: pre-RMSNorm, fused QKV and
 gate_up linears, RoPE, the head-major dense KV cache or the paged cache,
 attention (with the sliding window and the attention-logit softcap the
 kernels take), the SwiGLU MLP and the sparse MoE MLP (``moe_forward``:
-the "mixtral" and "softmax_all" routers, a sigmoid-gated shared expert,
-quantized experts through the grouped kernel K8). The other families'
-switches (qk-norm, sandwich norms, ALiBi, parallel residual, LayerNorm,
-plain MLPs, ...), the deepseek router, MLA, expert and context parallelism
-and the layer-tail kernel are not ported yet: such configs are refused by
-``models/model.py::check_supported`` (ROADMAP.md).
+the "mixtral", "softmax_all" and "deepseek" routers, shared experts,
+ungated or gated by a sigmoid, quantized experts through the grouped kernel
+K8); and the DeepSeek-V2 / V3 block, MLA attention (``modules/mla.py``)
+with DeepSeekMoE. The other families' switches (qk-norm, sandwich norms,
+ALiBi, parallel residual, LayerNorm, plain MLPs, ...), expert and context
+parallelism and the layer-tail kernel are not ported yet: such configs are
+refused by ``models/model.py::check_supported`` (ROADMAP.md).
 
 The kernel gates mirror the JAX package's so that both take the same branch
 on the same inputs, with the card in place of the TPU: the decode prologue
@@ -24,6 +25,7 @@ thresholds are the TPU's; a later slice re-derives them for the card
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -31,6 +33,7 @@ import torch
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.modules.cache import KVCache
 from quick_tpu_torch.modules.linear import AnyLinear, Linear, QuantLinear
+from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.ops.attention import causal_attention
 from quick_tpu_torch.ops.norms import rms_norm
@@ -68,14 +71,15 @@ class MoEParams:
 @dataclasses.dataclass
 class BlockParams:
     attn_norm: torch.Tensor
-    attn: AttentionParams
+    attn: Union[AttentionParams, MLAParams]
     mlp_norm: torch.Tensor
     mlp: Union[MLPParams, MoEParams]
 
 
 def _use_paged_kernel(cache) -> bool:
     """Paged caches on the card read their pages with the paged-attention
-    kernels K5 / K6 (the JAX package: on the TPU)."""
+    kernels K5 / K6, and MLA's latent pages with K10 (the JAX package: on
+    the TPU)."""
     return isinstance(cache, PagedKVCache) and cache.k_pages.is_cuda
 
 
@@ -328,7 +332,9 @@ def moe_forward(
     B, S, D = x.shape
     topk = cfg.num_experts_per_tok
     logits = p.router(x.to(torch.float32))  # [B, S, E]
-    if cfg.moe_router == "softmax_all":
+    if cfg.moe_router == "deepseek":
+        weights, sel = _deepseek_route(p, cfg, logits)
+    elif cfg.moe_router == "softmax_all":
         # qwen2/3-MoE: softmax over all experts, then top-k of the scores;
         # renormalized only under norm_topk_prob
         weights, sel = top_k(torch.softmax(logits, dim=-1), topk)
@@ -338,9 +344,7 @@ def moe_forward(
         weights, sel = top_k(logits, topk)
         weights = torch.softmax(weights, dim=-1)
     else:
-        raise NotImplementedError(
-            f"moe_router={cfg.moe_router!r}: the deepseek router comes with MLA "
-            "and is not ported yet — ROADMAP A11")
+        raise NotImplementedError(f"moe_router={cfg.moe_router!r} is not ported")
 
     def expert_fn(gu_q, gu_s, gu_z, gu_b, dn_q, dn_s, dn_z, dn_b):
         gup = _rebuild_linear(p.gate_up_proj, gu_q, gu_s, gu_z, gu_b)
@@ -379,6 +383,36 @@ def moe_forward(
             sh = (sh.to(torch.float32) * g).to(sh.dtype)
         y = y + sh
     return y
+
+
+def _deepseek_route(p: MoEParams, cfg: ModelConfig, logits: torch.Tensor):
+    """DeepSeekMoE's gate (``moe_forward`` :606-636; HF modeling_deepseek
+    MoEGate): score every expert (softmax v2, sigmoid v3), add the v3
+    ``score_bias`` for the selection only, limit the selection to the
+    ``topk_group`` best of ``n_group`` expert groups (a group scores its
+    max, or with a bias the sum of its top two), take the top-k, gather the
+    ORIGINAL scores of the chosen experts, renormalize under
+    ``norm_topk_prob`` and scale by ``routed_scaling_factor``. Returns
+    (weights, sel) [B, S, k]."""
+    B, S, E = logits.shape
+    topk = cfg.num_experts_per_tok
+    scores = (torch.sigmoid(logits) if cfg.scoring_func == "sigmoid"
+              else torch.softmax(logits, dim=-1))
+    choice = scores if p.score_bias is None else scores + p.score_bias.to(scores.dtype)
+    ng, tg = cfg.n_group, cfg.topk_group
+    if ng and tg and tg < ng:
+        gsc = choice.reshape(B, S, ng, E // ng)
+        gscore = top_k(gsc, 2)[0].sum(-1) if p.score_bias is not None else gsc.amax(-1)
+        _, gsel = top_k(gscore, tg)  # [B, S, tg]
+        gmask = torch.zeros((B, S, ng), dtype=torch.bool, device=logits.device).scatter_(
+            -1, gsel, True)
+        choice = torch.where(gmask[..., None], gsc,
+                             torch.full_like(gsc, -math.inf)).reshape(B, S, E)
+    _, sel = top_k(choice, topk)
+    weights = torch.gather(scores, -1, sel)
+    if cfg.norm_topk_prob and topk > 1:
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+    return weights * cfg.routed_scaling_factor, sel
 
 
 def _n_local_experts(p: MoEParams) -> int:
@@ -423,7 +457,15 @@ def block_forward(
     token_mask: Optional[torch.Tensor] = None,  # [B, S] valid tokens (MoE)
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     eps = cfg.rms_norm_eps
-    if _fuse_decode_norm_ok(p.attn.qkv_proj, x):
+    if cfg.is_mla:
+        # MLA never takes the fused norm prologue (:791-806)
+        from quick_tpu_torch.modules.mla import mla_attention_forward
+
+        attn_out, cache = mla_attention_forward(
+            p.attn, cfg, rms_norm(x, p.attn_norm, eps), rope_cos, rope_sin, cache,
+            layer_idx, positions,
+        )
+    elif _fuse_decode_norm_ok(p.attn.qkv_proj, x):
         # the norm rides in the qkv GEMM's prologue
         attn_out, cache = attention_forward(
             p.attn, cfg, x, rope_cos, rope_sin, cache, layer_idx, positions,

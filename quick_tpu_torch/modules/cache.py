@@ -6,11 +6,14 @@ The JAX cache is immutable and returns updated copies; this one is written
 IN PLACE (``update``, and the fused decode kernel), and the methods return
 the cache object itself or a view sharing its storage. ``length`` is a
 host integer: every row of the batch has the same number of cached tokens.
+The v slot may be wider than the k slot (``v_head_dim``): DeepSeek's MLA
+latent cache holds the rope'd k_pe [L, B, 1, S_max, dr] in k and the latent
+[L, B, 1, S_max, R] in v (``modules/mla.py::make_mla_cache``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,13 +30,15 @@ class KVCache:
     def create(
         cls, n_layers: int, batch: int, max_seq: int, n_kv: int, head_dim: int,
         dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+        v_head_dim: Optional[int] = None,
     ) -> "KVCache":
-        """A zeroed cache on ``device`` (the card unless given "cpu")."""
+        """A zeroed cache on ``device`` (the card unless given "cpu"); the v
+        slot is ``v_head_dim`` wide when given, else ``head_dim``."""
         device = resolve_device(device)
         shape = (n_layers, batch, n_kv, max_seq, head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape[:-1] + (v_head_dim or head_dim,), dtype=dtype, device=device),
             length=0,
         )
 

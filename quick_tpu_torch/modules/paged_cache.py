@@ -21,6 +21,12 @@ codes; their f32 scales live in ``kv_scales`` [L, P, 8, Hkv*page], the JAX
 package's layout kept byte for byte: one tile per page, row 0 the k
 scales and row 1 the v scales at column ``head * page + token``, rows 2-7
 padding (a TPU tile; ROADMAP notes a leaner layout for the card).
+
+DeepSeek's MLA latent pages (``create(..., v_head_dim=)``, JAX :75-95) hold
+one kv head with planes of unequal width: the rope'd k_pe
+[L, P, 1, page, dr] in ``k_pages`` and the latent [L, P, 1, page, R] in
+``v_pages``; their INT8 tiles keep the same layout (row 0 the k_pe scales,
+row 1 the latent scales), and ``layer`` gathers each plane at its own width.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ TRASH_PAGE = 0
 class PagedKVCache:
     """Block-table KV cache for ``max_slots`` concurrent sequences.
 
-    k_pages / v_pages: [L, n_pages, H_kv, page_size, D]
+    k_pages / v_pages: [L, n_pages, H_kv, page_size, D] (v: D_v, which
+                       differs from D on MLA latent pages)
     block_table:       [max_slots, max_pages_per_seq] int32 page ids
     length:            [max_slots] int32 valid tokens per slot
     kv_scales:         [L, n_pages, 8, H_kv * page_size] f32 scale tiles of
@@ -63,17 +70,19 @@ class PagedKVCache:
         cls, n_layers: int, n_pages: int, page_size: int, max_slots: int,
         max_seq: int, n_kv: int, head_dim: int,
         dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+        v_head_dim: Optional[int] = None,
     ) -> "PagedKVCache":
         """A zeroed cache on ``device`` (the card unless given "cpu");
         every table entry points at the trash page. ``torch.int8`` makes
-        INT8 pages with their scale tiles."""
+        INT8 pages with their scale tiles. ``v_head_dim`` widens the v
+        plane (MLA: the k plane holds k_pe, the v plane the latent)."""
         dev = resolve_device(device)
         n_pt = (max_seq + page_size - 1) // page_size
         shape = (n_layers, n_pages, n_kv, page_size, head_dim)
         quant = dtype == torch.int8
         return cls(
             k_pages=torch.zeros(shape, dtype=dtype, device=dev),
-            v_pages=torch.zeros(shape, dtype=dtype, device=dev),
+            v_pages=torch.zeros(shape[:-1] + (v_head_dim or head_dim,), dtype=dtype, device=dev),
             block_table=torch.full((max_slots, n_pt), TRASH_PAGE, dtype=torch.int32, device=dev),
             length=torch.zeros((max_slots,), dtype=torch.int32, device=dev),
             kv_scales=(torch.zeros((n_layers, n_pages, 8, n_kv * page_size),

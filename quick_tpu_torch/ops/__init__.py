@@ -9,11 +9,13 @@ def all_kernels():
     K1, K2, K3, K4 (paged writes), K5 / K6 (paged attention, one
     library), K7 (dense-cache decode attention), K8 (grouped MoE GEMM),
     K4q (INT8 paged writes), K5q / K6q (INT8 paged attention, one
-    library) and K9 (small-group W4A16 GEMM)."""
+    library), K9 (small-group W4A16 GEMM) and K10 / K10q (paged MLA decode
+    attention over bf16 or INT8 latent pages, one library)."""
     from quick_tpu_torch.ops.decode_attention import KERNEL as K7
     from quick_tpu_torch.ops.flash_attention import KERNEL as K2
     from quick_tpu_torch.ops.fused_decode_step import KERNEL as K3
     from quick_tpu_torch.ops.grouped_matmul import KERNEL as K8
+    from quick_tpu_torch.ops.mla_paged_attention import KERNEL as K10
     from quick_tpu_torch.ops.paged_attention import KERNEL as K56
     from quick_tpu_torch.ops.paged_attention import KERNEL_INT8 as K56q
     from quick_tpu_torch.ops.paged_write import KERNEL as K4
@@ -21,4 +23,4 @@ def all_kernels():
     from quick_tpu_torch.ops.quantized_matmul import KERNEL as K1
     from quick_tpu_torch.ops.quantized_matmul import KERNEL_DEQUANT as K9
 
-    return [K1, K2, K3, K4, K56, K7, K8, K4q, K56q, K9]
+    return [K1, K2, K3, K4, K56, K7, K8, K4q, K56q, K9, K10]

@@ -2,7 +2,8 @@
 
 Port of ``quick_tpu/ops/flash_attention.py::flash_attention`` (:248) with
 the same contract as ``causal_attention``: per-batch query offset and kv
-length, GQA by head division, ALiBi, sliding window and tanh softcap. CUDA
+length, GQA by head division, ALiBi, sliding window and tanh softcap; v may
+be narrower than q / k (DeepSeek's MLA expanded prefill: 192 / 128). CUDA
 tensors go to ``csrc/flash_attention.cu``; CPU tensors to the plain
 version, which computes the same masked softmax without tiling and, like
 the kernel, rounds p to the value dtype before p @ v and returns 0 for a
@@ -23,10 +24,12 @@ KERNEL = CudaKernel(
     "flash_attention.cu",
     {"qtt_flash_attention": [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        f32, i32, f32, ptr,
+        i32, f32, i32, f32, ptr,
     ]},
 )
 KERNEL_HEAD_DIMS = (64, 128, 256)
+#: (q / k width, v width) pairs K2 takes besides the equal ones
+KERNEL_ASYMMETRIC_DIMS = ((192, 128),)
 
 
 def flash_attention_plain(
@@ -83,32 +86,39 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """Launch K2 on CUDA tensors; same arguments as the plain version."""
     B, S, Hq, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    if D not in KERNEL_HEAD_DIMS or v.shape[-1] != D:
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if not ((D in KERNEL_HEAD_DIMS and Dv == D) or (D, Dv) in KERNEL_ASYMMETRIC_DIMS):
         raise NotImplementedError(
             f"flash kernel takes head_dim in {KERNEL_HEAD_DIMS} with equal "
-            f"q/k and v widths, got {D} and {v.shape[-1]}"
+            f"q/k and v widths, or (q/k, v) in {KERNEL_ASYMMETRIC_DIMS}; got "
+            f"{D} and {Dv}"
         )
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     check(q, "q", torch.bfloat16, (B, S, Hq, D))
     check(k, "k", torch.bfloat16, (B, Hkv, T, D))
-    check(v, "v", torch.bfloat16, (B, Hkv, T, D))
+    check(v, "v", torch.bfloat16, (B, Hkv, T, Dv))
     check(qoff, "qoff", torch.int32, (B,))
     check(klen, "klen", torch.int32, (B,))
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(q.device, torch.float32).contiguous()
         check(slopes, "alibi_slopes", torch.float32, (Hq,))
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, Hq, Dv))
     KERNEL.launch(
-        "qtt_flash_attention", f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}",
+        "qtt_flash_attention", launch_key(B, S, T, Hq, Hkv, D, Dv),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qoff.data_ptr(),
         klen.data_ptr(), None if slopes is None else slopes.data_ptr(),
-        out.data_ptr(), B, S, T, Hq, Hkv, D, float(scale),
+        out.data_ptr(), B, S, T, Hq, Hkv, D, Dv, float(scale),
         int(window or 0), float(logit_softcap or 0.0), stream_ptr(q.device),
     )
     return out
+
+
+def launch_key(B: int, S: int, T: int, Hq: int, Hkv: int, D: int, Dv: int) -> str:
+    """The ``launches_by_key`` key of one K2 launch (v's width named only
+    where it differs from q / k's)."""
+    return f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}" + (f" Dv={Dv}" if Dv != D else "")
 
 
 def _per_batch_i32(v: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:

@@ -4,7 +4,9 @@ pages), each with a decode and a chunk entry, and their plain versions.
 Port of ``quick_tpu/ops/paged_write.py``: ``paged_write_decode`` (:92)
 writes one token per slot, ``paged_write_chunk`` (:304) a chunk of up to
 ``page_size`` tokens per slot that spans at most two pages. Pages are
-[L, P, Hkv, page, D]. The JAX functions return new page arrays; here the
+[L, P, Hkv, page, D]; the v plane may be wider than the k plane (DeepSeek's
+MLA latent pages: Hkv = 1, k_pe 64 wide, the latent 512, as the JAX
+kernels take them, :127, :326-327). The JAX functions return new page arrays; here the
 pages are written IN PLACE and the same tensors are returned, so the
 ``(k_pages, v_pages)`` contract holds.
 
@@ -41,7 +43,7 @@ KERNEL = CudaKernel(
     "paged_write.cu",
     {"qtt_paged_write": [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        i32, i32, i32, ptr,
+        i32, i32, i32, i32, ptr,
     ]},
 )
 
@@ -52,7 +54,7 @@ KERNEL_INT8 = CudaKernel(
     "paged_write_int8.cu",
     {"qtt_paged_write_int8": [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-        i32, i32, i32, i32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, i32, i32, ptr,
     ]},
 )
 #: K4q's input kinds: float rows it quantizes, or int8 codes it copies
@@ -60,10 +62,12 @@ _IN_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
 def launch_key(entry: str, B: int, S: int, Hkv: int, page: int, D: int,
-               dtype: torch.dtype) -> str:
+               dtype: torch.dtype, Dv: Optional[int] = None) -> str:
     """The ``launches_by_key`` key of one K4 launch (``entry``: "decode" or
-    "chunk")."""
-    return f"{entry} B={B} S={S} Hkv={Hkv} page={page} D={D} {dtype}"
+    "chunk"); the v plane's width ``Dv`` is named where it differs from
+    the k plane's ``D``."""
+    dv = f" Dv={Dv}" if Dv is not None and Dv != D else ""
+    return f"{entry} B={B} S={S} Hkv={Hkv} page={page} D={D}{dv} {dtype}"
 
 
 def group_for(dtype: torch.dtype) -> int:
@@ -115,8 +119,8 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def paged_write_plain(
     k_pages: torch.Tensor,   # [L, P, Hkv, page, D], written in place
     v_pages: torch.Tensor,
-    k_new: torch.Tensor,     # [B, S, Hkv, D] (int8 codes when kv_scales)
-    v_new: torch.Tensor,
+    k_new: torch.Tensor,     # [B, S, Hkv, Dk] (int8 codes when kv_scales)
+    v_new: torch.Tensor,     # [B, S, Hkv, Dv]
     page_ids: torch.Tensor,  # [B, 2] (first, second span page)
     offs: torch.Tensor,      # [B] in-page row of token 0
     valid: torch.Tensor,     # [B] tokens written
@@ -148,16 +152,18 @@ def paged_write_cuda(
     ``valid`` (every token written), the chunk entry two columns and
     ``valid``."""
     L, P, Hkv, page, D = k_pages.shape
+    Dv = v_pages.shape[-1]
     B, S = k_new.shape[:2]
     esize = k_pages.element_size()
-    if (D * esize) % 16:
-        raise NotImplementedError(f"K4 copies 16-byte chunks: D={D} x {esize} B")
+    if (D * esize) % 16 or (Dv * esize) % 16:
+        raise NotImplementedError(
+            f"K4 copies 16-byte chunks: D={D} / Dv={Dv} x {esize} B")
     if S > page or not 0 <= layer < L:
         raise ValueError(f"chunk S={S} > page {page} or layer {layer} outside {L}")
     check(k_pages, "k_pages", k_pages.dtype)
-    check(v_pages, "v_pages", k_pages.dtype, k_pages.shape)
+    check(v_pages, "v_pages", k_pages.dtype, (L, P, Hkv, page, Dv))
     check(k_new, "k_new", k_pages.dtype, (B, S, Hkv, D))
-    check(v_new, "v_new", k_pages.dtype, (B, S, Hkv, D))
+    check(v_new, "v_new", k_pages.dtype, (B, S, Hkv, Dv))
     n_pg = page_ids.shape[1]
     check(page_ids, "page_ids", torch.int32, (B, n_pg))
     check(offs, "offs", torch.int32, (B,))
@@ -165,11 +171,12 @@ def paged_write_cuda(
         check(valid, "valid", torch.int32, (B,))
     KERNEL.launch(
         "qtt_paged_write",
-        launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D, k_pages.dtype),
+        launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D,
+                   k_pages.dtype, Dv),
         k_pages.data_ptr(), v_pages.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), page_ids.data_ptr(), offs.data_ptr(),
         None if valid is None else valid.data_ptr(), B, S, Hkv, page,
-        D * esize, P, layer, n_pg, L, stream_ptr(k_new.device),
+        D * esize, Dv * esize, P, layer, n_pg, L, stream_ptr(k_new.device),
     )
 
 
@@ -182,6 +189,7 @@ def paged_write_int8_cuda(
     ``vs_new`` None) or int8 codes with f32 scales [B, S, Hkv]. Addressing
     and ``valid`` as ``paged_write_cuda``."""
     L, P, Hkv, page, D = k_pages.shape
+    Dv = v_pages.shape[-1]
     B, S = k_new.shape[:2]
     if S > page or not 0 <= layer < L:
         raise ValueError(f"chunk S={S} > page {page} or layer {layer} outside {L}")
@@ -192,10 +200,10 @@ def paged_write_int8_cuda(
             f"got {k_new.dtype}, scales {'given' if ks_new is not None else 'none'}"
         )
     check(k_pages, "k_pages", torch.int8)
-    check(v_pages, "v_pages", torch.int8, k_pages.shape)
+    check(v_pages, "v_pages", torch.int8, (L, P, Hkv, page, Dv))
     check(kv_scales, "kv_scales", torch.float32, (L, P, 8, Hkv * page))
     check(k_new, "k_new", k_new.dtype, (B, S, Hkv, D))
-    check(v_new, "v_new", k_new.dtype, (B, S, Hkv, D))
+    check(v_new, "v_new", k_new.dtype, (B, S, Hkv, Dv))
     if kind == 2:
         check(ks_new, "ks_new", torch.float32, (B, S, Hkv))
         check(vs_new, "vs_new", torch.float32, (B, S, Hkv))
@@ -206,13 +214,14 @@ def paged_write_int8_cuda(
         check(valid, "valid", torch.int32, (B,))
     KERNEL_INT8.launch(
         "qtt_paged_write_int8",
-        launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D, torch.int8),
+        launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D,
+                   torch.int8, Dv),
         k_pages.data_ptr(), v_pages.data_ptr(), kv_scales.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(),
         None if ks_new is None else ks_new.data_ptr(),
         None if vs_new is None else vs_new.data_ptr(), page_ids.data_ptr(),
         offs.data_ptr(), None if valid is None else valid.data_ptr(), B, S,
-        Hkv, page, D, P, layer, n_pg, L, kind, stream_ptr(k_new.device),
+        Hkv, page, D, Dv, P, layer, n_pg, L, kind, stream_ptr(k_new.device),
     )
 
 
@@ -223,8 +232,8 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
 def _write(k_pages, v_pages, k_new, v_new, page_ids, offs, valid, layer,
            kv_scales, ks_new, vs_new, n_pg: int):
     """Both entries: the plain version for CPU pages, else K4 or K4q.
-    ``k_new`` / ``v_new`` are [B, S, Hkv, D]; ``valid`` None writes every
-    token (the decode entry)."""
+    ``k_new`` / ``v_new`` are [B, S, Hkv, Dk] / [B, S, Hkv, Dv]; ``valid``
+    None writes every token (the decode entry)."""
     B, S = k_new.shape[:2]
     if kv_scales is None:
         kn, vn = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)

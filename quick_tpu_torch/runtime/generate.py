@@ -135,7 +135,12 @@ def make_cache(
     device: DeviceLike = None,
 ) -> KVCache:
     """An empty dense cache for ``cfg`` on ``device`` (the card unless
-    given "cpu"; raises without a card)."""
+    given "cpu"; raises without a card); for MLA models the latent cache
+    (``make_mla_cache``, as ``make_cache`` :152-156)."""
+    if cfg.is_mla:
+        from quick_tpu_torch.modules.mla import make_mla_cache
+
+        return make_mla_cache(cfg, batch, max_seq, dtype, device=device)
     return KVCache.create(
         cfg.num_hidden_layers, batch, max_seq, cfg.num_key_value_heads,
         cfg.head_dim, dtype, device=device,

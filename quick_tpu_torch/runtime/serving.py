@@ -33,10 +33,12 @@ What differs from the JAX package, which jits each program:
 ``dtype=torch.int8`` serves from INT8 KV pages (``PagedKVCache``: codes
 plus per-page scale tiles, written by K4q and read by K5q / K6q on the
 card); preemption and the prefix cache hand pages on whole, scale tiles
-with them. Not ported, each raising ``NotImplementedError``:
-tensor-parallel serving (``mesh``, ROADMAP A15), history penalties and
-``logit_bias`` (``enable_penalties``, ROADMAP A6) and MLA models (ROADMAP
-A11). The JAX package's ``QUICK_TPU_ENGINE_TIMING`` and
+with them. MLA models (DeepSeek-V2 / V3) serve from paged LATENT pages:
+one kv head, k_pe in the k plane, the latent in the v plane, bf16 or INT8,
+read at decode by K10 / K10q. Not ported, each raising
+``NotImplementedError``: tensor-parallel serving (``mesh``, ROADMAP A15),
+history penalties and ``logit_bias`` (``enable_penalties``, ROADMAP A6).
+The JAX package's ``QUICK_TPU_ENGINE_TIMING`` and
 ``QUICK_TPU_MIXED_COLD`` switches are not carried over.
 """
 from __future__ import annotations
@@ -202,7 +204,7 @@ class Engine:
                 "ported yet — ROADMAP A6"
             )
         refuse_penalties(sampling)
-        check_supported(cfg)  # MLA and other families raise (A11, A12)
+        check_supported(cfg)  # other families raise (A12)
         dev = resolve_device(device)
         if params.embed.device.type != dev.type:
             raise ValueError(
@@ -219,10 +221,18 @@ class Engine:
         pages_per_seq = (max_seq + page_size - 1) // page_size
         if n_pages is None:
             n_pages = max_slots * pages_per_seq + 1  # +1 trash page
-        self.cache = PagedKVCache.create(
-            cfg.num_hidden_layers, n_pages, page_size, max_slots, max_seq,
-            cfg.num_key_value_heads, cfg.head_dim, dtype, device=self.device,
-        )
+        if cfg.is_mla:
+            # the paged LATENT cache (serving.py:199-208): one kv head, the
+            # rope'd k_pe in the k plane and the latent in the v plane
+            self.cache = PagedKVCache.create(
+                cfg.num_hidden_layers, n_pages, page_size, max_slots, max_seq, 1,
+                cfg.qk_rope_head_dim, dtype, device=self.device, v_head_dim=cfg.kv_lora_rank,
+            )
+        else:
+            self.cache = PagedKVCache.create(
+                cfg.num_hidden_layers, n_pages, page_size, max_slots, max_seq,
+                cfg.num_key_value_heads, cfg.head_dim, dtype, device=self.device,
+            )
         if reserve not in ("full", "optimistic"):
             raise ValueError(f"reserve must be 'full'|'optimistic': {reserve}")
         self.optimistic = reserve == "optimistic"

@@ -1,5 +1,6 @@
 """Checkpoint IO: the native quantized format, HF float import and AutoAWQ
-interop (port of ``quick_tpu/utils/checkpoint.py``, llama path, dense and MoE).
+interop (port of ``quick_tpu/utils/checkpoint.py``, llama path, dense and MoE,
+and DeepSeek-V2 / V3).
 
 - **native save / load** (``save_quantized`` :270, ``_load_flat`` :432,
   ``load_quantized`` :555): safetensors shards of at most ``SHARD_BYTES``
@@ -13,10 +14,15 @@ interop (port of ``quick_tpu/utils/checkpoint.py``, llama path, dense and MoE).
   qwen2_moe's ``mlp.experts`` with the gated shared expert, experts
   stacked on a leading axis. The sandwich-norm, qk-norm and norm-bias
   branches and every other ``model_type`` raise, naming the ROADMAP item
-  that ports them (A12); no tensor is dropped silently.
+  that ports them (A12); no tensor is dropped silently. DeepSeek-V2 / V3
+  take ``_import_deepseek`` (:1731): MLA (the rope channels permuted from
+  HF's interleaved order to rotate-half) and DeepSeekMoE (shared experts,
+  v3's ``e_score_correction_bias``); like the JAX importer it reads the
+  first ``num_hidden_layers`` layers (V3's extra prediction layer stays
+  unread).
 - **AutoAWQ** (``load_autoawq`` :1924 with GEMM / GEMV / exllama dispatch on
-  ``QuantConfig.version``, ``export_autoawq`` :312), dense models only: the
-  JAX package maps no MoE keys there either.
+  ``QuantConfig.version``, ``export_autoawq`` :312), dense llama models
+  only: the JAX package maps no MoE or MLA keys there either.
 
 Everything streams one tensor at a time (``utils/safetensors_io.py``):
 each tensor is read from its file, converted and moved to the device
@@ -39,6 +45,7 @@ from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
 from quick_tpu_torch.models.model import ModelParams, _tables, check_supported
 from quick_tpu_torch.modules.blocks import AttentionParams, BlockParams, MLPParams, MoEParams
 from quick_tpu_torch.modules.linear import Linear, QuantLinear, concat_linears
+from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.utils.safetensors_io import SafeOpen, save_file
 
 SHARD_BYTES = 4 * 1024**3
@@ -167,8 +174,8 @@ def load_hf_float(
     model_dir: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
 ) -> Tuple[ModelParams, ModelConfig]:
     """Import an HF float checkpoint of the llama schema (dense, mixtral or
-    qwen2_moe) into ModelParams on ``device``, fusing q/k/v and gate/up
-    (``load_hf_float`` :673)."""
+    qwen2_moe) or of DeepSeek-V2 / V3 into ModelParams on ``device``,
+    fusing q/k/v and gate/up (``load_hf_float`` :673)."""
     dev = resolve_device(device)
     with open(os.path.join(model_dir, "config.json")) as f:
         hf_cfg = json.load(f)
@@ -176,7 +183,8 @@ def load_hf_float(
     _check_llama_schema(cfg.model_type, "HF import")
     check_supported(cfg)
     raw = _LazyRaw(model_dir)  # tensor at a time
-    return _import_llama_family(raw, cfg, dtype, dev), cfg
+    importer = _HF_IMPORTERS.get(cfg.model_type, _import_llama_family)
+    return importer(raw, cfg, dtype, dev), cfg
 
 
 def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelParams:
@@ -274,6 +282,89 @@ def _import_mlp(p: str, raw: _LazyRaw, cfg: ModelConfig, W) -> "MLPParams | MoEP
                      down_proj=Linear(W(f"{p}.mlp.down_proj.weight")))
 
 
+def _import_deepseek(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """DeepSeek-V2 / V3 (``_import_deepseek`` :1731; HF modeling_deepseek):
+    MLA attention, the query projection full (V2-Lite) or LoRA-factored
+    (q_a, q_a_layernorm, q_b), the latent through kv_a_proj_with_mqa, and
+    DeepSeekMoE (dense first layers; routed experts with gate | up fused
+    and stacked; ungated shared experts; v3's ``e_score_correction_bias``
+    as ``score_bias`` in f32). The rope channels of q and kv_a are stored
+    in HF's interleaved order and permuted here to rotate-half."""
+    hq = cfg.num_attention_heads
+    dn, dr, R = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    perm = torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)])
+
+    def W(key):  # HF stores [out, in]; the port uses [in, out]
+        return raw.pop(key).transpose(-1, -2).to(dtype).contiguous()
+
+    def V(key):
+        return raw.pop(key).to(dtype).to(dev)
+
+    def permute_q(w):  # [Din, hq*(dn+dr)]: each head's pe to rotate-half
+        wh = w.reshape(w.shape[0], hq, dn + dr)
+        return torch.cat([wh[:, :, :dn], wh[:, :, dn:][:, :, perm]], dim=2).reshape(w.shape[0], -1)
+
+    def lin(w):
+        return Linear(w.contiguous().to(dev))
+
+    def fused(g, u):
+        return torch.cat([W(g), W(u)], dim=1)
+
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        a = f"{p}.self_attn"
+        if f"{a}.q_a_proj.weight" in raw:
+            q = lin(W(f"{a}.q_a_proj.weight"))
+            q_b = lin(permute_q(W(f"{a}.q_b_proj.weight")))
+            q_a_norm = V(f"{a}.q_a_layernorm.weight")
+        else:  # V2-Lite: the full q projection
+            q, q_b, q_a_norm = lin(permute_q(W(f"{a}.q_proj.weight"))), None, None
+        kva = W(f"{a}.kv_a_proj_with_mqa.weight")  # [D, R + dr]
+        attn = MLAParams(
+            q_proj=q,
+            kv_a_proj=lin(torch.cat([kva[:, :R], kva[:, R:][:, perm]], dim=1)),
+            kv_a_norm=V(f"{a}.kv_a_layernorm.weight"),
+            kv_b_proj=lin(W(f"{a}.kv_b_proj.weight")),
+            o_proj=lin(W(f"{a}.o_proj.weight")),
+            q_b_proj=q_b, q_a_norm=q_a_norm,
+        )
+        if f"{p}.mlp.gate.weight" in raw:  # an MoE layer
+            n = range(cfg.num_local_experts)
+            ex = f"{p}.mlp.experts"
+            gu = torch.stack([fused(f"{ex}.{e}.gate_proj.weight", f"{ex}.{e}.up_proj.weight")
+                              for e in n])
+            dn_w = torch.stack([W(f"{ex}.{e}.down_proj.weight") for e in n])
+            sh = f"{p}.mlp.shared_experts"
+            shared = {}
+            if f"{sh}.gate_proj.weight" in raw:
+                shared = dict(
+                    shared_gate_up=lin(fused(f"{sh}.gate_proj.weight", f"{sh}.up_proj.weight")),
+                    shared_down=lin(W(f"{sh}.down_proj.weight")))
+            bias_key = f"{p}.mlp.gate.e_score_correction_bias"
+            mlp = MoEParams(
+                router=lin(W(f"{p}.mlp.gate.weight")), gate_up_proj=lin(gu), down_proj=lin(dn_w),
+                score_bias=(raw.pop(bias_key).to(torch.float32).to(dev)
+                            if bias_key in raw else None),
+                **shared,
+            )
+        else:
+            mlp = MLPParams(
+                gate_up_proj=lin(fused(f"{p}.mlp.gate_proj.weight", f"{p}.mlp.up_proj.weight")),
+                down_proj=lin(W(f"{p}.mlp.down_proj.weight")))
+        blocks.append(BlockParams(attn_norm=V(f"{p}.input_layernorm.weight"), attn=attn,
+                                  mlp_norm=V(f"{p}.post_attention_layernorm.weight"), mlp=mlp))
+    embed = V("model.embed_tokens.weight")
+    lm_head = lin(W("lm_head.weight")) if "lm_head.weight" in raw else Linear(embed.T)
+    return ModelParams(embed=embed, blocks=blocks, final_norm=V("model.norm.weight"),
+                       lm_head=lm_head, **_tables(cfg, dev))
+
+
+#: model types with an importer of their own (the JAX ``_HF_IMPORTERS``);
+#: every other mapped type takes ``_import_llama_family``
+_HF_IMPORTERS = {"deepseek_v2": _import_deepseek, "deepseek_v3": _import_deepseek}
+
+
 # ---------------------------------------------------------------------------
 # AutoAWQ interop
 # ---------------------------------------------------------------------------
@@ -293,10 +384,11 @@ def load_autoawq(
     cfg = ModelConfig.from_hf_config(hf_cfg)
     _check_llama_schema(cfg.model_type, "AutoAWQ import")
     check_supported(cfg)
-    if cfg.is_moe:
+    if cfg.is_moe or cfg.is_mla:
         raise NotImplementedError(
-            f"{cfg.model_type}: AutoAWQ MoE checkpoints are not mapped (the JAX "
-            "loader reads only dense mlp.*_proj keys, :2006-2010) — ROADMAP A10")
+            f"{cfg.model_type}: AutoAWQ MoE and MLA checkpoints are not mapped (the "
+            "JAX loader reads only the llama attention and dense mlp.*_proj keys, "
+            ":2006-2010) — ROADMAP A10")
     qcfg = QuantConfig.from_pretrained(model_dir)
     G = qcfg.q_group_size
     version = qcfg.version.lower()
@@ -357,10 +449,10 @@ def export_autoawq(params: ModelParams, cfg: ModelConfig, qcfg: QuantConfig, sav
     "gemm". Dense llama layout only."""
     from quick_tpu_torch.quantize.packing import export_awq_gemm, unpack_qtpu
 
-    if cfg.is_moe:
+    if cfg.is_moe or cfg.is_mla:
         raise NotImplementedError(
-            f"export_autoawq: MoE models are not exported, as in the JAX package "
-            f"(:332; model_type={cfg.model_type}) — ROADMAP A10")
+            f"export_autoawq: MoE and MLA models are not exported, as in the JAX "
+            f"package (:332; model_type={cfg.model_type}) — ROADMAP A10")
     if not cfg.gated_mlp or cfg.layernorm != "rmsnorm":
         raise NotImplementedError(
             f"export_autoawq supports the llama-family layout only (model_type={cfg.model_type})")

@@ -54,6 +54,41 @@ def assert_greedy_match(out, ref, ref_logits, prompt_len: int) -> int:
     return equal
 
 
+def least_route_gap(p, cfg, x, token_mask=None) -> float:
+    """The least margin of a discrete choice of an MoE router over the
+    routed tokens of ``x`` [B, S, D] (``token_mask`` [B, S] drops padding):
+    between the k-th and (k+1)-th score it ranks (the logits; for the
+    deepseek router its softmax or sigmoid scores plus the selection bias,
+    among the kept groups) and, with group-limited selection, between the
+    last kept group's score and the best dropped one. Both packages route on
+    router inputs a few f32 ulps apart, so a margin far above that makes
+    their expert choice the same."""
+    from quick_tpu_torch.modules.blocks import top_k
+
+    logits = p.router(x.to(torch.float32))
+    k = cfg.num_experts_per_tok
+    gaps = []
+    choice = logits
+    if cfg.moe_router == "deepseek":
+        s = torch.sigmoid(logits) if cfg.scoring_func == "sigmoid" else torch.softmax(logits, -1)
+        choice = s if p.score_bias is None else s + p.score_bias
+        B, S, E = choice.shape
+        ng, tg = cfg.n_group, cfg.topk_group
+        if ng and tg and tg < ng:
+            gsc = choice.reshape(B, S, ng, E // ng)
+            gscore = top_k(gsc, 2)[0].sum(-1) if p.score_bias is not None else gsc.amax(-1)
+            gv = torch.sort(gscore, dim=-1, descending=True).values
+            gaps.append(gv[..., tg - 1] - gv[..., tg])
+            keep = torch.zeros((B, S, ng), dtype=torch.bool).scatter_(-1, top_k(gscore, tg)[1], True)
+            choice = torch.where(keep[..., None], gsc, torch.full_like(gsc, -1e9)).reshape(B, S, E)
+    v = torch.sort(choice, dim=-1, descending=True).values
+    gaps.append(v[..., k - 1] - v[..., k])
+    if token_mask is not None:
+        gaps = [g[token_mask] for g in gaps]
+    gaps = [g for g in gaps if g.numel()]
+    return min(float(g.min()) for g in gaps) if gaps else float("inf")
+
+
 # ---------------------------------------------------------------------------
 # A minimal GGUF v3 writer (test and chip_smoke.py use only; not a package
 # feature): random but valid llama.cpp blocks from a numpy seed.

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
-K3 fused decode step, K4 paged writes, K5 / K6 paged attention, K7 dense
-decode attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8
-paged writes, K5q / K6q INT8 paged attention, K9 small-group GEMM) against
-their plain PyTorch versions, on a card. Skipped without one. Imports no
+also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
+also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
+attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
+K5q / K6q INT8 paged attention, K9 small-group GEMM, K10 / K10q paged MLA
+decode attention) against their plain PyTorch versions, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
 import numpy as np
@@ -13,6 +14,7 @@ from _torch_port import cuda_device, f32  # noqa: F401
 import quick_tpu_torch.ops.decode_attention as tdda
 import quick_tpu_torch.ops.flash_attention as tflash
 import quick_tpu_torch.ops.fused_decode_step as tfused
+import quick_tpu_torch.ops.mla_paged_attention as tmla
 import quick_tpu_torch.ops.paged_attention as tpa
 import quick_tpu_torch.ops.paged_write as tpw
 import quick_tpu_torch.ops.quantized_matmul as tqmm
@@ -77,7 +79,8 @@ def test_gemm_kernel_matches_plain(rng, cuda_device, M, K, N, prologue):
      (8, 160, 200, 32, None),  # a last chunk of one group, ragged columns
      (16, 4096, 4096, 32, None), (128, 512, 384, 64, None),
      (100, 192, 200, 64, None),  # tensor-core path, ragged rows, columns and chunk
-     (3, 2048, 2816, 64, None), (512, 2048, 6144, 64, None)],
+     (3, 2048, 2816, 64, None), (512, 2048, 6144, 64, None),
+     (4, 2048, 576, 64, None), (512, 2048, 576, 64, None)],  # N = 4.5 tiles (kv_a)
 )
 def test_dequant_gemm_kernel_matches_plain(rng, cuda_device, M, K, N, G, prologue):
     """K9 (G = 32, 64) through quantized_matmul, prologues applied first as
@@ -144,6 +147,28 @@ def test_flash_kernel_matches_plain(rng, cuda_device, case, D):
     torch.cuda.synchronize()
     assert tflash.KERNEL.launches == before + 1
     ref = tflash.flash_attention(q.cpu(), k.cpu(), v.cpu(), kv_heads_major=True, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "offset_kvlen"])
+def test_flash_kernel_qk192_v128_matches_plain(rng, cuda_device, case):
+    """K2 at DeepSeek's MLA expanded prefill widths: q / k 192, v 128."""
+    B, S, T, Hq, Hkv = 2, 96, 256, 4, 4
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+        for shape in ((B, S, Hq, 192), (B, Hkv, T, 192), (B, Hkv, T, 128))
+    )
+    kw = {key: torch.tensor(val, dtype=torch.int32)
+          for key, val in ATTN_CASES[case].items()}
+    before = tflash.KERNEL.launches
+    out = tflash.flash_attention(q, k, v, kv_heads_major=True, scale=0.11,
+                                 **{key: val.to(cuda_device) for key, val in kw.items()})
+    torch.cuda.synchronize()
+    assert tflash.KERNEL.launches == before + 1 and out.shape == (B, S, Hq, 128)
+    ref = tflash.flash_attention(q.cpu(), k.cpu(), v.cpu(), kv_heads_major=True, scale=0.11,
+                                 **kw)
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
 
 
@@ -546,3 +571,105 @@ def test_grouped_kernel_small_group_matches_plain(rng, cuda_device, G, case, K):
     ref = tgm.quantized_matmul_grouped(*args, bm, group_size=G)
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
     assert not f32(out)[np.repeat(np.asarray(live) == 0, bm)].any()
+
+
+# ---------------------------------------------------------- MLA latent pages
+
+def _randn(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_latent_page_writes_match_plain(rng, cuda_device, pages):
+    """K4 / K4q on MLA's latent planes (one kv head, k_pe 64 wide, the latent
+    512): decode and chunk writes leave pages (codes) and scale tiles
+    byte-equal to the plain scatter (page 0, the trash page, not compared)."""
+    L, P, page, B, S = 2, 9, 64, 3, 16
+    for entry in ("decode", "chunk"):
+        if pages == "int8":
+            kc, ks = tpw.quantize_kv(_randn(rng, L, P, 1, page, 64))
+            vc, vs = tpw.quantize_kv(_randn(rng, L, P, 1, page, 512))
+            tiles = torch.zeros((L, P, 8, page))
+            tiles[:, :, 0], tiles[:, :, 1] = ks.reshape(L, P, -1), vs.reshape(L, P, -1)
+            state = [kc, vc, tiles]
+        else:
+            state = [_randn(rng, L, P, 1, page, 64).to(torch.bfloat16),
+                     _randn(rng, L, P, 1, page, 512).to(torch.bfloat16)]
+        n = 1 if entry == "decode" else S
+        kn = torch.from_numpy((rng.standard_normal((B, n, 1, 64)) * 3).astype(np.float32))
+        vn = torch.from_numpy(rng.standard_normal((B, n, 1, 512)).astype(np.float32))
+        kn, vn = kn.to(torch.bfloat16), vn.to(torch.bfloat16)
+        pgs = torch.tensor([[3, 4], [5, 0], [0, 0]], dtype=torch.int32)
+        offs = torch.tensor([60, 2, 9], dtype=torch.int32)  # crossing, inside, trash
+        valid = torch.tensor([S, 5, S], dtype=torch.int32)
+        ref = [t.clone() for t in state]
+        got = [t.to(cuda_device) for t in state]
+        extra = lambda st: dict(kv_scales=st[2]) if pages == "int8" else {}  # noqa: E731
+        kern = tpw.KERNEL_INT8 if pages == "int8" else tpw.KERNEL
+        before = kern.launches
+        if entry == "decode":
+            tpw.paged_write_decode(*ref[:2], kn[:, 0], vn[:, 0], pgs[:, 0], offs, 1, **extra(ref))
+            tpw.paged_write_decode(*got[:2], kn[:, 0].to(cuda_device), vn[:, 0].to(cuda_device),
+                                   pgs[:, 0].to(cuda_device), offs.to(cuda_device), 1,
+                                   **extra(got))
+        else:
+            tpw.paged_write_chunk(*ref[:2], kn, vn, pgs, offs, valid, 1, **extra(ref))
+            tpw.paged_write_chunk(*got[:2], kn.to(cuda_device), vn.to(cuda_device),
+                                  pgs.to(cuda_device), offs.to(cuda_device),
+                                  valid.to(cuda_device), 1, **extra(got))
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        for r, g in zip(ref, got):
+            assert torch.equal(g[:, 1:].cpu(), r[:, 1:])
+
+
+#: (slots, n_pt, lengths): ragged lengths ending mid-page, a full table, an
+#: empty slot; one slot with one split; 16 slots as the Engine decodes
+MLA_CASES = {
+    "ragged": (4, 6, [1, 100, 384, 0]),
+    "one_slot": (1, 2, [77]),
+    "engine16": (16, 16, [1, 64, 65, 130, 200, 257, 300, 411, 512, 600, 700, 777, 850, 901,
+                          1000, 1024]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_paged_kernel_matches_plain(rng, cuda_device, case, pages):
+    """K10 (bf16 latent pages) and K10q (INT8 codes with scale tiles)
+    against their plain version: 16 heads, R 512, dr 64, page 64, within
+    2e-2 x (1 + |ref|) and 2e-2 of each row's max |ref|; an empty slot
+    returns 0."""
+    B, n_pt, lengths = MLA_CASES[case]
+    L, page, Hq = 2, 64, 16
+    P = 1 + B * n_pt
+    kpe = _randn(rng, L, P, 1, page, 64)
+    c = _randn(rng, L, P, 1, page, 512)
+    tiles = None
+    if pages == "int8":
+        (kpe, ks), (c, cs) = tpw.quantize_kv(kpe), tpw.quantize_kv(c)
+        tiles = torch.zeros((L, P, 8, page))
+        tiles[:, :, 0], tiles[:, :, 1] = ks.reshape(L, P, -1), cs.reshape(L, P, -1)
+    else:
+        kpe, c = kpe.to(torch.bfloat16), c.to(torch.bfloat16)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(B, n_pt).astype(np.int32))
+    q_c = _randn(rng, B, Hq, 512).to(torch.bfloat16)
+    q_pe = _randn(rng, B, Hq, 64).to(torch.bfloat16)
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    cpu = (q_c, q_pe, kpe, c, bt, ln)
+    before = tmla.KERNEL.launches
+    out = tmla.mla_paged_decode_attention(*(t.to(cuda_device) for t in cpu), layer=1,
+                                          scale=0.1147,
+                                          kv_scales=None if tiles is None else tiles.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tmla.KERNEL.launches == before + 1
+    ref = tmla.mla_paged_decode_attention(*cpu, layer=1, scale=0.1147, kv_scales=tiles)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    o, r = f32(out), f32(ref)
+    rmax = np.abs(r).max(-1, keepdims=True)
+    assert (np.abs(o - r) <= 2e-2 * np.where(rmax > 0, rmax, 1.0)).all()
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not o[b].any()

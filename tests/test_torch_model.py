@@ -103,7 +103,7 @@ def test_window_and_softcap_match(variant):
     dict(use_alibi=True, use_rope=False), dict(use_qk_norm=True),
     dict(use_post_norms=True), dict(parallel_residual=True),
     dict(layernorm="layernorm"), dict(gated_mlp=False, act_fn="gelu"),
-    dict(final_logit_softcap=30.0), dict(num_local_experts=4, moe_router="deepseek"),
+    dict(final_logit_softcap=30.0), dict(num_local_experts=4, moe_router="expert_choice"),
 ])
 def test_other_families_are_refused(switch):
     """Configs off the dense llama path raise instead of running a path the

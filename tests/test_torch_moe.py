@@ -278,11 +278,12 @@ def test_moe_forward_matches_jax(quant_models, float_models, case):
 
 
 def test_moe_router_and_model_type_refusals(tmp_path):
-    """The deepseek router (MLA models, A11) and qwen3_moe's qk-norm (A12)
-    raise; so do AutoAWQ import and export of MoE models (the JAX package
-    maps none either, A10)."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_init_quant(ModelConfig(**dict(MODELS["mixtral"], moe_router="deepseek")), device="cpu")
+    """A router the port does not run and qwen3_moe's qk-norm (A12) raise;
+    so do AutoAWQ import and export of MoE models (the JAX package maps
+    none either, A10)."""
+    with pytest.raises(NotImplementedError, match="router"):
+        t_init_quant(ModelConfig(**dict(MODELS["mixtral"], moe_router="expert_choice")),
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         t_init_quant(ModelConfig(**dict(MODELS["qwen2_moe"], model_type="qwen3_moe",
                                         use_qk_norm=True, norm_topk_prob=True)), device="cpu")
