@@ -5,9 +5,9 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K10, K4q,
-     K5q / K6q and K10q from csrc/ (one nvcc per source, in parallel) and
-     print ptxas' register summary;
+  1. the card's name and power limit; build the CUDA kernels K1-K13, K4q,
+     K5q / K6q, K10q and K11f from csrc/ (one nvcc per source, in parallel)
+     and print ptxas' register summary;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the main paths, in bf16, with the tolerance stated;
   3. each kernel's time (CUDA events over many launches queued behind a
@@ -73,12 +73,27 @@ Phases (any failure exits non-zero):
      and K8 at its shapes, against their plain versions; (b) their times,
      bounds and yardsticks; (c) generate() at full width and depth, as
      phase 4 (random weights, seed 0; an untied bf16 head); (d) the Engine
-     over bf16, then INT8 latent pages at full depth on phase 5's trace,
-     one sync-checked, profiled, counted and timed run each, the INT8 pool
-     0.528x the bf16 pool; (e) a 2-layer checkpoint round trip, and the
+     over bf16, then INT8 latent pages at DS_ENGINE_LAYERS layers on phase
+     5's trace, one sync-checked, profiled, counted and timed run each,
+     the INT8 pool 0.528x the bf16 pool; (e) a 2-layer checkpoint round
+     trip, and the
      2-layer kernel path against the plain path for generate() and for
-     the paged path over bf16 and INT8 pages, with phase 8's routing rule.
-     Launch counts exact throughout.
+     the paged path over bf16 and INT8 pages, with phase 8's routing rule;
+ 12. W4A8 and the standalone RMSNorm: (a) K11 and K11f (W4A8 GEMM) at the
+     Mistral-7B projections (M = 512, 128 and a ragged 200) and K11 at
+     DeepSeek-V2-Lite's g=64 shapes, K12 (grouped W4A8) at Mixtral-8x7B's
+     decode and prefill, K13 (RMSNorm) at the paths' shapes and on the
+     strided latent slice, each against its plain version; (b) their times,
+     bounds and yardsticks, and the aten calls per layer and busy share of
+     the norms as K13 and as plain torch ops in the same call (Mistral's
+     decode and Engine, DeepSeek-V2-Lite's decode and bf16 Engine); (c)
+     phase 4's model through generate() under QUICK_TPU_A8=1, then with
+     QUICK_TPU_A8_FUSED=1 added; (d) phase 8's Mixtral-8x7B through
+     generate() under QUICK_TPU_A8=1 QUICK_TPU_MOE_A8=1; (e) the INT8 Engine
+     of phase 9c under QUICK_TPU_A8=1 at A8_ENGINE_LAYERS layers; (f) the
+     2-layer full-width kernel path against the plain path under A8
+     (dense, and Mixtral with MOE_A8).
+     Launch counts exact throughout, K13's in every phase.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 """
@@ -115,7 +130,10 @@ L2_BYTES = 50 * 2**20
 # K7 is also held to tol * max|ref| of each query row (row_scaled_err).
 TOL = {"quantized_matmul": 2e-2, "flash_attention": 2e-2, "fused_decode_step": 2e-2,
        "paged_attention": 2e-2, "decode_attention": 2e-2, "grouped_matmul": 2e-2,
-       "quantized_matmul_dequant": 2e-2, "mla_paged_attention": 2e-2}
+       "quantized_matmul_dequant": 2e-2, "mla_paged_attention": 2e-2,
+       # W4A8: the same int8 codes and exact integer dots; the f32 sums in
+       # other orders, then one bf16 rounding
+       "quantized_matmul_a8": 1e-2, "grouped_matmul_a8": 1e-2}
 TOL_CACHE = 1e-2   # K3's written k row: one bf16 step (f32 fma contraction)
 #: phase 6 logits, 2 layers at full width, bf16 activations: the paths differ
 #: by single bf16 steps of the logits, d / (1 + |ref|) <= 2^-7 per step
@@ -144,13 +162,17 @@ INT8_OPS = 1979e12  # H100 SXM dense int8 tensor rate (NVIDIA data sheet)
 TOL_INT8_MODEL = 2e-2
 #: the Mixtral Engine (phase 8) and the Mistral-7B-width Engines (phases 5
 #: and 9c) run their first MOE_ENGINE_LAYERS / ENGINE_LAYERS layers of full
-#: width, and the GGUF file of phase 10b holds GGUF_LAYERS layers, so that
-#: phase 11's DeepSeek-V2-Lite Engines run at full depth within the
-#: script's time budget (on one H100 80GB HBM3 at 700 W the three Engines
-#: took 100, 206 and ~150 s at 32 layers, 44, 80 and 72 s at 8)
+#: width, the GGUF file of phase 10b holds GGUF_LAYERS layers, phase 11's
+#: DeepSeek-V2-Lite Engines run DS_ENGINE_LAYERS of its 27 and phase 12e's
+#: INT8 Engine under A8 A8_ENGINE_LAYERS, so that the script stays within
+#: its time budget on a slow host (on one H100 80GB HBM3 at 700 W the
+#: three Mistral-width and Mixtral Engines took 100, 206 and ~150 s at 32
+#: layers, 44, 80 and 72 s at 8; the DeepSeek Engines 91-178 s each at 27)
 MOE_ENGINE_LAYERS = 4
 ENGINE_LAYERS = 4
 GGUF_LAYERS = 8
+DS_ENGINE_LAYERS = 8
+A8_ENGINE_LAYERS = 2
 #: the checkpoint phase: examples/benchmark.py's 128/128 protocol (:39-79,
 #: batches 1,8,32,64,... :87) at B=32 and B=64 (1 timed trial each), and
 #: one long-context stream: B=4, a 1,900-token prompt, 8 new tokens in a
@@ -879,6 +901,9 @@ def generate_launches(cfg, B=BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS, T=MAX_
     for B, S, T, n_pre, n_dec in calls or [(B, prompt, T, 1, new_tokens - 1)]:
         for rows, n in ((B * S, n_pre), (B, n_dec)):
             add_forward_launches(cfg, rows, L * n, add, group)
+        # the final norm of each forward, over its last tokens (the bf16 head
+        # takes no prologue)
+        add("rms_norm", k13_key(B, cfg.hidden_size), n_pre + n_dec)
         add("flash_attention", f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}", L * n_pre)
         add("fused_decode_step", f"B={B} Hq={Hq} Hkv={Hkv} S={T} D={D}", L * n_dec)
     return want
@@ -1051,22 +1076,54 @@ def k8_launch_keys(cfg, T: int, group: int = 128):
     return [launch_key(Mp, K, N, E, bm, group) for K, N in ((D, 2 * Fe), (Fe, D))]
 
 
+def a8_switches():
+    """(QUICK_TPU_A8, QUICK_TPU_A8_FUSED, QUICK_TPU_MOE_A8) as the port
+    reads them at each call."""
+    from quick_tpu_torch.modules.linear import a8_enabled
+    from quick_tpu_torch.ops.quantized_matmul import a8_fused_quant
+
+    return a8_enabled(), a8_fused_quant(), os.environ.get("QUICK_TPU_MOE_A8", "0") == "1"
+
+
+def k13_key(rows: int, D: int) -> str:
+    from quick_tpu_torch.ops.norms import launch_key
+
+    return launch_key(rows, D)
+
+
 def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
-    """Add K1's (K9's at ``group`` 32 or 64) and K8's launches of ``n``
-    layer-forwards over ``rows`` tokens (every layer of these models is
-    dense, or every one MoE)."""
-    from quick_tpu_torch.ops.quantized_matmul import dequant_launch_key, launch_key as gemm_key
+    """Add K1's (K9's at ``group`` 32 or 64; K11 / K11f's above 96 rows under
+    QUICK_TPU_A8), K8's (K12's under QUICK_TPU_MOE_A8 at G = 128) and K13's
+    launches of ``n`` layer-forwards over ``rows`` tokens (every layer of
+    these models is dense, or every one MoE). K13 runs each norm that no K1
+    prologue takes: the attention norm and a dense MLP's at rows > 8, at
+    G != 128 or under A8 (which unfuses the prologues); an MoE layer's MLP
+    norm always."""
+    from quick_tpu_torch.ops.quantized_matmul import (
+        a8_launch_key,
+        dequant_launch_key,
+        launch_key as gemm_key,
+    )
 
     if any(cfg.layer_is_moe(i) != cfg.is_moe for i in range(cfg.num_hidden_layers)):
         fail(f"{cfg.model_type}: mixed dense and MoE layers are not counted here")
+    a8, fused, moe_a8 = a8_switches()
+    prologues = group == 128 and rows <= 8 and not a8
     for K, N, pro in k1_projections(cfg):
-        if group == 128:
-            add("quantized_matmul", gemm_key(pro if rows <= 8 else None, rows, K, N), n)
+        if a8 and rows > 96:
+            add("quantized_matmul_a8", a8_launch_key(rows, K, N, group, fused and group == 128), n)
+        elif group == 128:
+            add("quantized_matmul", gemm_key(pro if prologues else None, rows, K, N), n)
         else:  # the prologues run as torch ops before K9
             add("quantized_matmul_dequant", dequant_launch_key(rows, K, N, group), n)
     if cfg.is_moe:
         for key in k8_launch_keys(cfg, rows, group):
-            add("grouped_matmul", key, n)
+            if moe_a8 and group == 128:
+                add("grouped_matmul_a8", key, n)  # K12 keys as K8's at G = 128
+            else:
+                add("grouped_matmul", key, n)
+    add("rms_norm", k13_key(rows, cfg.hidden_size),
+        n * ((0 if prologues else 1) + (1 if cfg.is_moe or not prologues else 0)))
 
 
 def engine_launches(cfg, stats, engine=ENGINE) -> dict:
@@ -1074,7 +1131,8 @@ def engine_launches(cfg, stats, engine=ENGINE) -> dict:
     implies: each forward runs L launches of K4 (K4q over INT8 pages), L of
     K5 / K5q (S = 1) or K6 / K6q (S > 1), K1's per layer at the forward's
     [rows, S] (4 L for a dense model, 2 L + the shared expert's for an MoE
-    one) and 2 L of K8 (MoE). Decode windows and [B, 1] mixed steps run
+    one), 2 L of K8 (MoE) and K13's (add_forward_launches, and the final
+    norm over [rows, 1]). Decode windows and [B, 1] mixed steps run
     [max_slots, 1], prefill sub-batches [prefill_rows, chunk], [B, chunk]
     mixed steps [max_slots, chunk]."""
     from quick_tpu_torch.ops.paged_attention import launch_key as attn_key
@@ -1089,17 +1147,18 @@ def engine_launches(cfg, stats, engine=ENGINE) -> dict:
         (g["Bp"], g["S"]): stats["prefill_substeps"],
         (g["B"], g["S"]): stats["mixed_chunk_steps"],
     }
-    want = {"quantized_matmul": {}, "paged_write" + sfx: {}, "paged_attention" + sfx: {}}
-    if cfg.is_moe:
-        want["grouped_matmul"] = {}
+    want = {}
 
     def add(kernel, key, n):
-        want[kernel][key] = want[kernel].get(key, 0) + n
+        if n:
+            want.setdefault(kernel, {})
+            want[kernel][key] = want[kernel].get(key, 0) + n
 
     for (rows, S), n in forwards.items():
         if not n:
             continue
         add_forward_launches(cfg, rows * S, L * n, add)
+        add("rms_norm", k13_key(rows, cfg.hidden_size), n)  # the final norm
         add("paged_write" + sfx, write_key("decode" if S == 1 else "chunk", rows, S, g["Hkv"],
                                            g["page"], g["D"], kv), L * n)
         add("paged_attention" + sfx, attn_key(rows, None if S == 1 else S, g["Hq"], g["Hkv"],
@@ -1289,12 +1348,15 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
 
 
 def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROMPT,
-                                 decode_kernel="fused_decode_step", params=None, tag="6"):
+                                 decode_kernel="fused_decode_step", params=None, tag="6",
+                                 tol=TOL_MODEL, prefill_kernel=None):
     """model_forward over a dense cache: a prefill and PHASE6_DECODE decode
     steps, the card's kernel path against the plain path on the CPU. At B=4 and
     max_seq 256 decode takes K3; at B=16 and max_seq 512 (32 MiB of K+V per
     layer) the dense decode kernel K7. ``params``: the 2-layer model on the
-    card and on the CPU (default: random g=128 QTPU weights, seed 1)."""
+    card and on the CPU (default: random g=128 QTPU weights, seed 1).
+    ``prefill_kernel``: a GEMM kernel that must run the prefill's four
+    projections (phase 12f: K11 under QUICK_TPU_A8)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.ops import all_kernels
@@ -1304,7 +1366,7 @@ def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROM
     kv_mb = 2 * B * max_seq * cfg.num_key_value_heads * cfg.head_dim * 2 / 2**20
     print(f"[{tag}] 2 layers at full width, dense cache B={B} max_seq {max_seq} ({kv_mb:.0f} MiB "
           f"of K+V per layer), prompt {prompt}: kernel path (card) vs plain path (CPU), tol "
-          f"{TOL_MODEL} * (1 + |ref|)")
+          f"{tol} * (1 + |ref|)")
     if params is None:
         p_gpu = init_quant_params(cfg2, seed=1, device=dev)
         p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
@@ -1323,13 +1385,16 @@ def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROM
         for step in range(1 + PHASE6_DECODE):
             lg, cg = model_forward(p_gpu, cfg2, toks, cg, last_token_only=True)
             lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, last_token_only=True)
-            worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], TOL_MODEL,
+            worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], tol,
                                        "prefill logits" if step == 0 else f"decode step {step}"))
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     launched = {k.name: k.launches for k in kernels if k.launches}
     if launched.get(decode_kernel) != 2 * PHASE6_DECODE:
         fail(f"the dense 2-layer path did not run {decode_kernel} once per layer per decode "
              f"step: {launched}")
+    if prefill_kernel and launched.get(prefill_kernel) != 2 * 4:
+        fail(f"the dense 2-layer prefill did not run {prefill_kernel} for its four projections "
+             f"per layer: {launched}")
     print(f"  launches {launched}; {time.perf_counter() - t0:.1f} s")
     return worst
 
@@ -1358,13 +1423,19 @@ def checkpoint_launches(cfg, rounds) -> dict:
     L = cfg.num_hidden_layers
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     s = gemm_shapes(cfg)
-    want = {"quantized_matmul": {}, "flash_attention": {}, "decode_attention": {}}
+    want = {"quantized_matmul": {}, "flash_attention": {}, "decode_attention": {},
+            "rms_norm": {}}
 
     def add(kernel, key, n):
         if n:
             want[kernel][key] = want[kernel].get(key, 0) + n
 
     for B, S, T, n_pre, n_dec in rounds:
+        # K13: both norms of a layer at prefill and at decode rows > 8, and
+        # the final norm of each forward over its B last tokens
+        add("rms_norm", k13_key(B * S, cfg.hidden_size), 2 * L * n_pre)
+        add("rms_norm", k13_key(B, cfg.hidden_size),
+            (2 * L if B > 8 else 0) * n_dec + n_pre + n_dec)
         for K, N in s.values():
             add("quantized_matmul", k1_key(None, B * S, K, N), L * n_pre)
         pro = {"qkv": "rmsnorm", "o": None, "gate_up": "rmsnorm", "down": "glu"}
@@ -1547,20 +1618,24 @@ def grouped_mm_ms(x, sel, pos, wd, ref, n, experts):
     return ms
 
 
-def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8"):
+def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8", a8=False):
     """[8a, 8b] K8 against its plain version at ``name``'s routed shapes
     (random routing, full output: padding rows and dead tiles included),
     then timed with the expert weights rotated past L2: its bound from the
     bytes of the distinct experts this routing touches and of the routed
     rows, or from its routed FLOPs; the plain version; torch._grouped_mm.
     ``cases`` (path, T) default to MOE_K8_CASES[name]; ``group`` is the
-    experts' quant group."""
+    experts' quant group. ``a8`` (phase 12a-b): K12 on the rows' int8 codes
+    in K8's place, its bound from int8 rows and int8 operations, and K8 at
+    the same shape timed beside it."""
     from quick_tpu_torch.ops import grouped_matmul as gm
+    from quick_tpu_torch.ops.quantized_matmul import quantize_activations
 
     E, kk = cfg.num_local_experts, cfg.num_experts_per_tok
     D, Fe = cfg.hidden_size, cfg.moe_intermediate_size or cfg.intermediate_size
-    print(f"[{tag}] K8 (grouped MoE GEMM) against its plain version, {name}: E={E}, "
-          f"top-{kk}, G={group}")
+    kname, label = ("grouped_matmul_a8", "K12") if a8 else ("grouped_matmul", "K8")
+    print(f"[{tag}] {label} (grouped MoE GEMM{', W4A8' if a8 else ''}) against its plain "
+          f"version, {name}: E={E}, top-{kk}, G={group}")
     out_rows = []
     for proj, (K, N) in (("gate_up", (D, 2 * Fe)), ("down", (Fe, D))):
         per_expert = K * N // 2 + 2 * (K // group) * N * 4
@@ -1575,12 +1650,17 @@ def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8"):
             Mp = te.shape[0] * bm
             x = torch.randn((Mp, K), generator=gen, device=dev).to(torch.bfloat16)
             key = gm.launch_key(Mp, K, N, E, bm, group)
-            out = gm.quantized_matmul_grouped_cuda(x, qw, s, zs, te, live, bm, group)
-            ref = gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm, group)
+            if a8:
+                xq, sx = quantize_activations(x)
+                out = gm.launch_grouped_a8(xq, sx, qw, s, zs, te, live, bm)
+                ref = gm.quantized_matmul_grouped_a8_plain(x, qw, s, zs, te, live, bm)
+            else:
+                out = gm.quantized_matmul_grouped_cuda(x, qw, s, zs, te, live, bm, group)
+                ref = gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm, group)
             torch.cuda.synchronize()
             experts = int(torch.unique(te[live.bool()]).numel())
-            err = max_err(out, ref, TOL["grouped_matmul"],
-                          f"K8 {proj} T={T} {key}, {experts} experts, "
+            err = max_err(out, ref, TOL[kname],
+                          f"{label} {proj} T={T} {key}, {experts} experts, "
                           f"{int(live.sum())}/{te.shape[0]} live tiles")
             if path is None:
                 continue
@@ -1594,25 +1674,36 @@ def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8"):
             def kern(i):
                 gm.quantized_matmul_grouped_cuda(x, *stacks[i % copies], te, live, bm, group)
 
-            ms = device_ms(kern, n)
+            def kern_a8(i):
+                gm.launch_grouped_a8(xq, sx, *stacks[i % copies], te, live, bm)
+
+            ms = device_ms(kern_a8 if a8 else kern, n)
+            extra = {}
+            if a8:
+                extra["w4a16_ms"] = device_ms(kern, n)  # K8 at the same shape
             del stacks
-            plain_ms = device_ms(lambda i: gm.quantized_matmul_grouped_plain(
-                x, qw, s, zs, te, live, bm, group), 2, warmup=1)
+            plain = gm.quantized_matmul_grouped_a8_plain if a8 else (
+                lambda *a: gm.quantized_matmul_grouped_plain(*a, group))
+            plain_ms = device_ms(lambda i: plain(x, qw, s, zs, te, live, bm), 2, warmup=1)
             lib_ms = grouped_mm_ms(x, sel, pos, wd, ref, n, experts)
-            # the distinct experts' weights, x and out of the T * topk routed
-            # rows (not the padding rows or dead tiles), the tile layout
-            nbytes = experts * per_expert + T * kk * (K + N) * 2 + 2 * te.shape[0] * 4
-            b_ms, b_by = bound(nbytes, 2.0 * T * kk * K * N)
+            # the distinct experts' weights, x (int8 codes and row scales
+            # under a8) and out of the T * topk routed rows (not the padding
+            # rows or dead tiles), the tile layout
+            xbytes = K + 4 if a8 else 2 * K
+            nbytes = experts * per_expert + T * kk * (xbytes + 2 * N) + 2 * te.shape[0] * 4
+            b_ms, b_by = bound(nbytes, 2.0 * T * kk * K * N, INT8_OPS if a8 else BF16_FLOPS)
             lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+            k8 = f", K8 {extra['w4a16_ms'] * 1e3:.1f} us" if a8 else ""
             print(f"  {key}: {ms * 1e3:.1f} us ({copies} weight copies; bound "
                   f"{b_ms * 1e3:.1f} us by {b_by}), plain "
-                  f"{plain_ms * 1e3:.1f} us, torch._grouped_mm on bf16 weights {lib}")
+                  f"{plain_ms * 1e3:.1f} us, torch._grouped_mm on bf16 weights {lib}{k8}")
             out_rows.append(dict(
-                name=f"grouped_matmul[{key}]", route="cuda",
-                source="quick_tpu_torch/csrc/grouped_matmul.cu",
-                replaces="quick_tpu/ops/grouped_matmul.py:48",
-                launches=(path, "grouped_matmul", key), max_abs_err=err,
+                name=f"{kname}[{key}]", route="cuda",
+                source=f"quick_tpu_torch/csrc/{kname}.cu",
+                replaces="quick_tpu/ops/grouped_matmul.py:" + ("93" if a8 else "48"),
+                launches=(path, kname, key), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                **extra,
             ))
             del x, out, ref
         del qw, s, zs, wd
@@ -1704,11 +1795,13 @@ def fold_routes(routes, flipped_rows, name: str, step: int) -> int:
 
 
 def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=64, group=128,
-                           tag="8"):
+                           tag="8", tol=TOL_MODEL, expert_kernel="grouped_matmul"):
     """[8e] A 2-layer full-width MoE model over a dense cache: a prefill of
     B x prompt tokens and ``steps`` decode steps, the card's kernel path
-    against the plain path on the CPU, logits within TOL_MODEL, with the
-    routing rule of ROUTE_GAP. ``group``: the quant group of every linear."""
+    against the plain path on the CPU, logits within ``tol``, with the
+    routing rule of ROUTE_GAP. ``group``: the quant group of every linear;
+    ``expert_kernel``: the grouped kernel that runs the experts (K8, or K12
+    under QUICK_TPU_MOE_A8)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.ops import all_kernels
@@ -1719,7 +1812,7 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
     print(f"[{tag}] 2 layers of {name} at full width, G={group}, dense cache B={B} max_seq "
           f"{max_seq}, prompt {prompt} + {steps} decode steps: kernel path (card) vs plain path "
           f"(CPU), tol "
-          f"{TOL_MODEL} * (1 + |ref|) on rows whose routing agrees; a differing top-{k} set "
+          f"{tol} * (1 + |ref|) on rows whose routing agrees; a differing top-{k} set "
           f"needs a router gap < {ROUTE_GAP}")
     p_gpu = init_quant_params(cfg2, seed=1, group_size=group, device=dev)
     p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu", group_size=group)
@@ -1741,15 +1834,15 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
             if keep.any():
                 compared += int(keep.sum())
                 what = "prefill logits" if step == 0 else f"decode step {step}"
-                worst = max(worst, max_err(lg[keep.to(dev), -1].cpu(), lc[keep, -1], TOL_MODEL,
+                worst = max(worst, max_err(lg[keep.to(dev), -1].cpu(), lc[keep, -1], tol,
                                            f"{what} ({int(keep.sum())} of {B} rows)"))
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     torch.cuda.synchronize()
     launched = {kern.name: kern.launches for kern in kernels if kern.launches}
     n_moe = sum(cfg2.layer_is_moe(i) for i in range(2))
-    if launched.get("grouped_matmul") != 2 * n_moe * (1 + steps) or compared == 0:
-        fail(f"{name}: the 2-layer MoE path did not run K8 twice per MoE layer per forward, or "
-             f"no row was compared: {launched}, {compared} rows")
+    if launched.get(expert_kernel) != 2 * n_moe * (1 + steps) or compared == 0:
+        fail(f"{name}: the 2-layer MoE path did not run {expert_kernel} twice per MoE layer per "
+             f"forward, or no row was compared: {launched}, {compared} rows")
     print(f"  launches {launched}; {flips} tokens routed differently; "
           f"{time.perf_counter() - t0:.1f} s")
     del p_gpu, p_cpu, cg, cc
@@ -1771,6 +1864,8 @@ def phase8_moe(dev):
     rows = []
     for name in MOE_K8_CASES:
         rows += grouped_rows(name, PRESETS[name], gen, dev)
+    rows += grouped_rows("mixtral-8x7b", PRESETS["mixtral-8x7b"], gen, dev, cases=A8_K12_CASES,
+                         tag="12a", a8=True)
     counts, report = {}, {}
     for name, path in (("mixtral-8x7b", "moe_generate"), ("qwen1.5-moe-a2.7b", "qwen_generate")):
         cfg = PRESETS[name]
@@ -1793,11 +1888,18 @@ def phase8_moe(dev):
                 dataclasses.replace(model.params, blocks=model.params.blocks[:MOE_ENGINE_LAYERS]),
                 dataclasses.replace(cfg, num_hidden_layers=MOE_ENGINE_LAYERS), "8")
             report["mixtral_checkpoint"] = phase8_checkpoint(model.params, cfg, dev)
+            print(f"[12d] Mixtral-8x7B generate() under QUICK_TPU_A8=1 QUICK_TPU_MOE_A8=1")
+            with switches(QUICK_TPU_A8="1", QUICK_TPU_MOE_A8="1"):
+                counts[A8_MOE_GEN], report["a8_mixtral"] = run_generate(
+                    model, cfg, dev, A8_MOE_GEN, generate_launches(cfg))
         del model
         torch.cuda.empty_cache()
         if name == "mixtral-8x7b":  # the 2-layer comparisons between the two models
             report["plain_vs_kernel"] = {
                 n: phase8_plain_vs_kernel(n, PRESETS[n], dev) for n in MOE_K8_CASES}
+            with switches(QUICK_TPU_A8="1", QUICK_TPU_MOE_A8="1"):  # [12f]
+                report["plain_vs_kernel_a8"] = phase8_plain_vs_kernel(
+                    name, cfg, dev, tag="12f", tol=TOL_A8_MODEL, expert_kernel="grouped_matmul_a8")
     return counts, report, rows
 
 
@@ -2469,6 +2571,12 @@ def ds_forward_launches(cfg, rows: int, n: int, add) -> None:
     from quick_tpu_torch.ops.quantized_matmul import dequant_launch_key
 
     s = ds_k9_shapes(cfg)
+    # K13: the attention norm, kv_a's latent norm (on the strided slice
+    # ckv[..., :512]), q-LoRA's norm where there is one, the MLP norm
+    norms = [cfg.hidden_size, cfg.kv_lora_rank, cfg.hidden_size] + (
+        [cfg.q_lora_rank] if cfg.q_lora_rank else [])
+    for D in norms:
+        add("rms_norm", k13_key(rows, D), n * cfg.num_hidden_layers)
     for i in range(cfg.num_hidden_layers):
         moe = cfg.layer_is_moe(i)
         for proj in ("q", "kv_a", "o") + (("shared_gate_up", "shared_down") if moe
@@ -2499,6 +2607,7 @@ def ds_generate_launches(cfg) -> dict:
     want, add = ds_counter()
     ds_forward_launches(cfg, BATCH * PROMPT, 1, add)
     ds_forward_launches(cfg, BATCH, NEW_TOKENS - 1, add)
+    add("rms_norm", k13_key(BATCH, cfg.hidden_size), NEW_TOKENS)  # the final norms
     add("flash_attention", launch_key(BATCH, PROMPT, MAX_SEQ, hq, hq, dn + dr, dv),
         cfg.num_hidden_layers)
     return want
@@ -2529,6 +2638,7 @@ def ds_engine_launches(cfg, stats, engine) -> dict:
         if not n:
             continue
         ds_forward_launches(cfg, rows * s, n, add)
+        add("rms_norm", k13_key(rows, cfg.hidden_size), n)  # the final norm
         add("paged_write" + ("_int8" if int8 else ""),
             write_key("decode" if s == 1 else "chunk", rows, s, 1, page, dr, kv, Dv=R), L * n)
         if s == 1:
@@ -2792,6 +2902,7 @@ def phase11_generate(cfg, dev):
     counts, stats = run_generate(model, cfg, dev, f"DeepSeek-V2-Lite g={DS_G}",
                                  ds_generate_launches(cfg))
     stats["weights_gb"] = weights / 1e9
+    stats["k13_host_ab"] = decode_host_ab(model, cfg, dev, "12b")
     return counts, stats, params
 
 
@@ -2890,9 +3001,13 @@ def phase11_deepseek(dev):
                          tag="11a")
     counts, report = {}, {}
     counts[DS_GEN], report["generate"], params = phase11_generate(cfg, dev)
+    cut = (dataclasses.replace(params, blocks=params.blocks[:DS_ENGINE_LAYERS]),
+           dataclasses.replace(cfg, num_hidden_layers=DS_ENGINE_LAYERS))
     for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8))):
-        counts[path], report[path] = phase_engine(params, cfg, "11d", engine, trace,
+        counts[path], report[path] = phase_engine(*cut, "11d", engine, trace,
                                                   ds_engine_launches, warmup=False)
+    report["engine_k13_host_ab"] = engine_host_ab(*cut, "12b")
+    del cut
     pools = [sum(report[p]["runs"][0]["pool_bytes"]) for p in (DS_ENGINE, DS_ENGINE_INT8)]
     report["int8_pool_ratio"] = pools[1] / pools[0]
     print(f"[11d] INT8 latent pool / bf16 latent pool: {pools[1] / pools[0]:.4f} "
@@ -2914,6 +3029,290 @@ def phase11_deepseek(dev):
     return counts, report, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: W4A8 (K11, K11f, K12) and the standalone RMSNorm (K13)
+# ---------------------------------------------------------------------------
+
+#: phase 12's paths: generate() at Mistral-7B width under QUICK_TPU_A8, then
+#: with QUICK_TPU_A8_FUSED added; Mixtral-8x7B's generate() under A8 and
+#: QUICK_TPU_MOE_A8; the INT8 Engine of phase 9c under A8
+A8_GEN, A8_FUSED_GEN = "a8_generate", "a8_fused_generate"
+A8_MOE_GEN, A8_INT8_ENGINE = "a8_moe_generate", "a8_int8_engine"
+#: (path of K11's launches, path of K11f's, M): generate()'s prefill, the
+#: INT8 Engine's [8, 16] chunks, one ragged M (checked only)
+A8_CASES = ((A8_GEN, A8_FUSED_GEN, BATCH * PROMPT),
+            (A8_INT8_ENGINE, None, ENGINE_INT8["prefill_rows"] * ENGINE_INT8["chunk"]),
+            (None, None, 200))
+#: K12 at Mixtral-8x7B's routed shapes: decode (T = 4: Mp 256, bm 32) and
+#: prefill (T = 512: Mp 2048, bm 128)
+A8_K12_CASES = [(A8_MOE_GEN, BATCH), (A8_MOE_GEN, BATCH * PROMPT)]
+#: K13 (path, M, D, row stride or None): generate()'s final norms at decode
+#: and its prefill norms, the Engine's [16, 1] decode, the INT8 Engine's
+#: [64, 1] decode, DeepSeek-V2-Lite's latent norm on ckv[..., :512] at the
+#: Engine's decode
+K13_CASES = (("generate", BATCH, 4096, None), ("generate", BATCH * PROMPT, 4096, None),
+             ("engine", ENGINE["max_slots"], 4096, None),
+             ("int8_engine", ENGINE_INT8["max_slots"], 4096, None),
+             (DS_ENGINE, ENGINE["max_slots"], 512, 576))
+TOL_A8_FUSED = 1e-3  # K11f against K11: tol * max|K11| (tests/test_quantized_matmul.py:297)
+#: phase 12f logits, 2 layers under A8: an activation code may flip by one
+#: where the two paths' upstream bf16 rounding differs
+TOL_A8_MODEL = 2e-2
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """The JAX package's environment switches (QUICK_TPU_A8, ...), which the
+    port reads at each call, set for a block and restored after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def a8_rows(name, shapes, cases, G, gen, dev, tag="12a"):
+    """[12a, 12b] K11 (and K11f at G = 128) against their plain versions at
+    ``shapes`` {projection: (K, N)} and the rows M of ``cases``, K11f also
+    against K11; then timed where a case names a path, weights rotated past
+    L2: the bound from the packed weights, the int8 codes and row scales
+    (bf16 x for K11f) and the bf16 output, or from the int8 operations; the
+    plain version; one torch.matmul on dequantized bf16 weights (the
+    yardstick), torch._int_mm on int8 operands of the same size (the int8
+    tensor cores with no groups) and the W4A16 kernel (K1; K9 at G != 128)
+    at the same shape."""
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    print(f"[{tag}] K11{' / K11f' if G == 128 else ''} (W4A8 GEMM) against the plain version, "
+          f"{name}, G={G}, tol {TOL['quantized_matmul_a8']} * (1 + |ref|)")
+    rows = []
+    for proj, (K, N) in shapes.items():
+        wbytes = K * N // 2 + 2 * (K // G) * N * 4
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / wbytes)))
+        ws = rand_qlinear(gen, dev, K, N, copies, group=G)
+        wd = b8 = None
+        for p11, p11f, M in cases:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            xq, sx = qm.quantize_activations(x)
+            ref = qm.quantized_matmul_a8_plain(x, *ws[0], G)
+            out = qm.launch_a8(xq, sx, *ws[0], G)
+            torch.cuda.synchronize()
+            errs = {False: max_err(out, ref, TOL["quantized_matmul_a8"],
+                                   f"K11 {proj} {qm.a8_launch_key(M, K, N, G, False)}")}
+            if G == 128:
+                fused = qm.launch_a8(x, None, *ws[0], G)
+                torch.cuda.synchronize()
+                errs[True] = max_err(fused, ref, TOL["quantized_matmul_a8"],
+                                     f"K11f {proj} {qm.a8_launch_key(M, K, N, G, True)}")
+                d = float((fused.float() - out.float()).abs().max())
+                lim = TOL_A8_FUSED * float(out.float().abs().max())
+                print(f"    K11f against K11: max |d| {d:.3e} (limit {lim:.3e})")
+                if d > lim:
+                    fail(f"K11f {proj} M={M} disagrees with K11")
+            for is_fused, path in ((False, p11), (True, p11f)):
+                if path is None:
+                    continue
+                if wd is None:  # the yardsticks' operands, once per projection
+                    wd = []
+                    for qw, s, zs in ws[: max(1, min(copies, math.ceil(2 * L2_BYTES / (K * N * 2))))]:
+                        codes = qm.unpack_qtpu_tensor(qw, G).float().reshape(K // G, G, N)
+                        wd.append((codes * s[:, None] - zs[:, None]).reshape(K, N).to(torch.bfloat16))
+                    b8 = [torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                                        dtype=torch.int8).t()
+                          for _ in range(max(1, min(4, math.ceil(2 * L2_BYTES / (K * N)))))]
+                key = qm.a8_launch_key(M, K, N, G, is_fused)
+                arg = (x, None) if is_fused else (xq, sx)
+                n = 10
+                ms = device_ms(lambda i: qm.launch_a8(*arg, *ws[i % copies], G), n)
+                plain_ms = device_ms(lambda i: qm.quantized_matmul_a8_plain(
+                    x, *ws[i % copies], G), 2, warmup=1)
+                lib_ms = device_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), n)
+                try:
+                    int_mm_ms = device_ms(lambda i: torch._int_mm(xq, b8[i % len(b8)]), n)
+                except (AttributeError, RuntimeError) as e:
+                    print(f"    torch._int_mm yardstick not run: {type(e).__name__}: {str(e)[:160]}")
+                    int_mm_ms = None
+                if G == 128:
+                    w16_ms = device_ms(lambda i: qm.quantized_matmul_cuda(x, *ws[i % copies]), n)
+                else:
+                    w16_ms = device_ms(lambda i: qm.quantized_matmul_dequant_cuda(
+                        x, *ws[i % copies], G), n)
+                nbytes = wbytes + M * N * 2 + (M * K * 2 if is_fused else M * (K + 4))
+                b_ms, b_by = bound(nbytes, 2.0 * M * K * N, INT8_OPS)
+                imm = "n/a" if int_mm_ms is None else f"{int_mm_ms * 1e3:.1f} us"
+                print(f"  {'K11f' if is_fused else 'K11'} {proj} {key}: {ms * 1e3:.1f} us (bound "
+                      f"{b_ms * 1e3:.1f} us by {b_by}), plain {plain_ms * 1e3:.1f} us, "
+                      f"torch.matmul bf16 {lib_ms * 1e3:.1f} us, torch._int_mm {imm}, "
+                      f"W4A16 {w16_ms * 1e3:.1f} us")
+                rows.append(dict(
+                    name=f"quantized_matmul_a8[{key}]", route="cuda",
+                    source="quick_tpu_torch/csrc/quantized_matmul_a8.cu",
+                    replaces="quick_tpu/ops/quantized_matmul.py:" + ("324" if is_fused else "284"),
+                    launches=(path, "quantized_matmul_a8", key), max_abs_err=errs[is_fused],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    int_mm_ms=int_mm_ms, w4a16_ms=w16_ms,
+                ))
+        del ws, wd, b8
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rms_norm_rows(gen, dev):
+    """[12a, 12b] K13 against rms_norm_plain at K13_CASES (a strided
+    last-dim slice where the case gives a row stride): within one bf16 step
+    of the plain value; then timed (the rows stay in L2, as the path's
+    freshly written activations do): the bound from x read, the weight read
+    and y written; the plain version; torch.nn.functional.rms_norm."""
+    from quick_tpu_torch.ops import norms
+
+    print("[12a] K13 (RMSNorm) against rms_norm_plain, within one bf16 step")
+    rows = []
+    for path, M, D, ld in K13_CASES:
+        base = (3 * torch.randn((M, ld or D), generator=gen, device=dev)).to(torch.bfloat16)
+        x = base[:, :D]
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+        out = norms.rms_norm_cuda(x, w, 1e-5)
+        ref = norms.rms_norm_plain(x, w, 1e-5)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        steps = float((d / (2.0 ** -7 * ref.float().abs()).clamp_min(1e-30)).max())
+        key = norms.launch_key(M, D)
+        what = f"K13 {key}{f' (row stride {ld})' if ld else ''}"
+        print(f"  {what}: max_abs_err {float(d.max()):.3e}, max |err| / bf16 step {steps:.3f}")
+        if steps > 1 or out.shape != ref.shape:
+            fail(f"{what} disagrees with its plain version by more than one bf16 step")
+        ms = device_ms(lambda i: norms.rms_norm_cuda(x, w, 1e-5), 200)
+        plain_ms = device_ms(lambda i: norms.rms_norm_plain(x, w, 1e-5), 50)
+        try:
+            lib_ms = device_ms(lambda i: torch.nn.functional.rms_norm(x, (D,), w, 1e-5), 200)
+        except (AttributeError, RuntimeError) as e:
+            print(f"    torch.nn.functional.rms_norm not run: {type(e).__name__}: {str(e)[:160]}")
+            lib_ms = None
+        b_ms, b_by = bound(2 * M * D * 2 + D * 2, 4.0 * M * D, F32_FLOPS)
+        print(f"  {key}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us by {b_by}), plain "
+              f"{plain_ms * 1e3:.2f} us, F.rms_norm "
+              f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}")
+        rows.append(dict(
+            name=f"rms_norm[{key}{f' ld={ld}' if ld else ''}]", route="cuda",
+            source="quick_tpu_torch/csrc/rms_norm.cu", replaces="quick_tpu/ops/norms.py:38",
+            launches=(path, "rms_norm", key), max_abs_err=float(d.max()),
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        ))
+    return rows
+
+
+@contextlib.contextmanager
+def plain_norms():
+    """Measurement only: every standalone rms_norm of the port runs as the
+    plain torch ops (``rms_norm_plain``), as it did before K13, for a block;
+    the K13 side of phase 12b's host comparison is the path as it runs."""
+    from quick_tpu_torch.models import model
+    from quick_tpu_torch.modules import blocks, mla
+    from quick_tpu_torch.ops import norms, quantized_matmul as qm
+
+    mods = (norms, blocks, mla, model, qm)
+    orig = [m.rms_norm for m in mods]
+    for m in mods:
+        m.rms_norm = norms.rms_norm_plain
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, orig):
+            m.rms_norm = f
+
+
+def decode_host_ab(model, cfg, dev, tag: str, steps: int = 8) -> dict:
+    """[12b] ``steps`` decode steps of generate() at B=4 after a 128-token
+    prefill, profiled with K13 and with plain norms (host_ab)."""
+    from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
+
+    print(f"[{tag}] the decode step's host cost of the norms: {cfg.model_type}, B={BATCH}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    cache = make_cache(cfg, BATCH, MAX_SEQ, device=dev)
+    logits, cache = prefill(model.params, cfg, prompts, cache)
+    first = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    out = host_ab(lambda: decode_loop(model.params, cfg, first, cache, steps), steps,
+                  steps * cfg.num_hidden_layers)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_ab(run, steps: int, per: int) -> dict:
+    """[12b] ``run()`` (``steps`` steps) profiled twice, with K13 and then
+    with plain_norms: aten calls per ``per`` (layer-steps), the device busy
+    share and the wall time per step of each."""
+    out = {}
+    for mode in ("k13", "plain_norms"):
+        with plain_norms() if mode == "plain_norms" else contextlib.nullcontext():
+            prof = device_profile(run, steps)
+        out[mode] = dict(aten_calls_per_layer=prof["aten_calls_per_step"] * steps / per,
+                         device_busy_share=prof["device_busy_share"],
+                         wall_ms_per_step=prof["wall_ms_per_step"],
+                         device_busy_ms_per_step=prof["device_busy_ms_per_step"])
+    print("  K13 against plain norms: " + json.dumps(out))
+    return out
+
+
+def engine_host_ab(params, cfg, tag: str, engine=ENGINE) -> dict:
+    """[12b] One Engine with every slot given a 32-token prompt and 48 new
+    tokens, stepped until all its slots decode, then one scheduler turn (a
+    decode window of [max_slots, 1] forwards) profiled with K13 and the next
+    with plain norms (host_ab). The host's cost of a [B, 1] forward does not
+    depend on the lengths in the pages, so a short trace reaches it fast."""
+    from quick_tpu_torch.runtime import Engine
+
+    print(f"[{tag}] the Engine's host cost of the norms: {cfg.model_type}, "
+          f"{cfg.num_hidden_layers} layers, one decode turn with K13, the next with plain norms")
+    eng = Engine(params, cfg, **engine)
+    for i in range(engine["max_slots"]):
+        eng.submit([(i * 32 + j) % cfg.vocab_size for j in range(32)], 48)
+    while eng.has_work and len(eng.ready_slots()) < engine["max_slots"]:
+        eng.step()
+    out = {}
+    for mode in ("k13", "plain_norms"):
+        before = eng.stats["window_forwards"] + eng.stats["prefill_substeps"] + eng.stats["mixed_steps"]
+        with plain_norms() if mode == "plain_norms" else contextlib.nullcontext():
+            prof = device_profile(lambda: eng.step(), 1)
+        fw = eng.stats["window_forwards"] + eng.stats["prefill_substeps"] + eng.stats["mixed_steps"] - before
+        out[mode] = dict(forwards=fw, aten_calls_per_layer=prof["aten_calls_per_step"] / max(fw, 1)
+                         / cfg.num_hidden_layers, device_busy_share=prof["device_busy_share"],
+                         wall_ms=prof["wall_ms_per_step"],
+                         device_busy_ms=prof["device_busy_ms_per_step"])
+    print("  K13 against plain norms: " + json.dumps(out))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12_generate(params, cfg, dev):
+    """[12c] generate() at Mistral-7B width and full depth, as phase 4, on
+    phase 4's weights: under QUICK_TPU_A8 (K11 at the prefill's 512 rows, K1
+    without prologues at the decode's 4, K13 at every norm), then with
+    QUICK_TPU_A8_FUSED added (K11f); exact launch counts, the same greedy
+    tokens in every run of a mode."""
+    from quick_tpu_torch.models.auto import AutoQuickModel
+
+    model = AutoQuickModel(params, cfg)
+    counts, stats = {}, {}
+    for path, env in ((A8_GEN, dict(QUICK_TPU_A8="1")),
+                      (A8_FUSED_GEN, dict(QUICK_TPU_A8="1", QUICK_TPU_A8_FUSED="1"))):
+        print(f"[12c] generate() path under {' '.join(f'{k}={v}' for k, v in env.items())}: "
+              f"{cfg.num_hidden_layers} layers, B={BATCH}, {PROMPT} + {NEW_TOKENS} tokens")
+        with switches(**env):
+            counts[path], stats[path] = run_generate(model, cfg, dev, path, generate_launches(cfg))
+    return counts, stats
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2921,6 +3320,7 @@ def main() -> None:
         fail(f"quick_tpu_torch/ is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
     from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.models.auto import AutoQuickModel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2948,15 +3348,29 @@ def main() -> None:
     rows += int8_write_rows(cfg, gen, dev, int8_trace)
     rows += int8_attention_rows(cfg, gen, dev, int8_trace)
     print(f"  phases 1-3 and 9a-b done at {time.perf_counter() - t_start:.0f} s")
+    rows += a8_rows("Mistral-7B width", gemm_shapes(cfg), A8_CASES, 128, gen, dev)
+    a8_rows("DeepSeek-V2-Lite", ds_k9_shapes(ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)),
+            ((None, None, BATCH * PROMPT),), DS_G, gen, dev)  # checked only: no path runs it
+    rows += rms_norm_rows(gen, dev)
+    print(f"  phase 12a-b (K11, K11f, K13) done at {time.perf_counter() - t_start:.0f} s")
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
+    a8_counts, a8_gen_stats = phase12_generate(params, cfg, dev)
+    gen_stats["k13_host_ab"] = decode_host_ab(AutoQuickModel(params, cfg), cfg, dev, "12b")
+    counts.update(a8_counts)
     cut = (dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
            dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS))
     counts["engine"], engine_stats = phase_engine(*cut, "5")
+    engine_stats["k13_host_ab"] = engine_host_ab(*cut, "12b")
     counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
     counts["int8_engine"], int8_stats = phase_engine(*cut, "9c", ENGINE_INT8, int8_trace)
     del cut
-    print(f"  phases 4, 5, 7 and 9c done at {time.perf_counter() - t_start:.0f} s")
+    cut = (dataclasses.replace(params, blocks=params.blocks[:A8_ENGINE_LAYERS]),
+           dataclasses.replace(cfg, num_hidden_layers=A8_ENGINE_LAYERS))
+    with switches(QUICK_TPU_A8="1"):  # [12e]: K11 at the [8, 16] chunks
+        counts[A8_INT8_ENGINE], a8_int8_stats = phase_engine(*cut, "12e", ENGINE_INT8, int8_trace)
+    del cut
+    print(f"  phases 4, 5, 7, 9c, 12c and 12e done at {time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
     moe_counts, moe_report, moe_rows = phase8_moe(dev)
@@ -2992,10 +3406,16 @@ def main() -> None:
     paged_err = phase6_paged_plain_vs_kernel(cfg, dev)
     int8_err = phase9_int8_plain_vs_kernel(cfg, dev)
     small_g_err, small_g_forms = phase10_plain_vs_kernel(dev)
+    with switches(QUICK_TPU_A8="1"):  # [12f] K11 at the prefill's 512 rows
+        a8_err = phase6_dense_plain_vs_kernel(cfg, dev, tag="12f", tol=TOL_A8_MODEL,
+                                              prefill_kernel="quantized_matmul_a8")
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,
                   gguf_cpu_forms_gap=small_g_forms, deepseek=ds_report,
+                  a8=dict(generate=a8_gen_stats, int8_engine=a8_int8_stats,
+                          plain_vs_kernel_max_abs_err=dict(
+                              dense=a8_err, mixtral=moe_report["plain_vs_kernel_a8"]["max_abs_err"])),
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,
                                           int8_paged=int8_err, **small_g_err),
                   seconds=time.perf_counter() - t_start)

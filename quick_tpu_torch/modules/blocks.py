@@ -7,8 +7,8 @@ attention (with the sliding window and the attention-logit softcap the
 kernels take), the SwiGLU MLP and the sparse MoE MLP (``moe_forward``:
 the "mixtral", "softmax_all" and "deepseek" routers, shared experts,
 ungated or gated by a sigmoid, quantized experts through the grouped kernel
-K8); and the DeepSeek-V2 / V3 block, MLA attention (``modules/mla.py``)
-with DeepSeekMoE. The other families' switches (qk-norm, sandwich norms,
+K8, or K12 under ``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 / V3 block,
+MLA attention (``modules/mla.py``) with DeepSeekMoE. The other families' switches (qk-norm, sandwich norms,
 ALiBi, parallel residual, LayerNorm, plain MLPs, ...), expert and context
 parallelism and the layer-tail kernel are not ported yet: such configs are
 refused by ``models/model.py::check_supported`` (ROADMAP.md).
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -275,8 +276,8 @@ def _grouped_moe(p: MoEParams, x: torch.Tensor, sel: torch.Tensor, weights: torc
                  token_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Grouped ragged expert dispatch (``_grouped_moe`` :542): expert-sort
     the routed (token, expert) pairs, run both expert GEMMs as one K8
-    launch each, combine by gathering each token's kk rows. Returns f32
-    [B, S, D].
+    launch each (K12 under ``QUICK_TPU_MOE_A8=1``), combine by gathering
+    each token's kk rows. Returns f32 [B, S, D].
 
     The JAX package re-takes the top kk of the combine weights here; with
     every expert on one card that gives the router's own choice ``sel``
@@ -303,14 +304,17 @@ def _grouped_moe(p: MoEParams, x: torch.Tensor, sel: torch.Tensor, weights: torc
     tok_rows, pos, tile_e, tile_live, _ = build_routing(sel, E_local, bm)
     xs = x.reshape(T, D)[tok_rows]  # [Mp, D] expert-sorted tokens
     gup, dnp = p.gate_up_proj, p.down_proj
+    # QUICK_TPU_MOE_A8=1: int8 x int8 expert dots (K12), as the JAX package
+    # reads it (:576); it falls back to W4A16 at G != 128 or bm % 32
+    a8 = os.environ.get("QUICK_TPU_MOE_A8", "0") == "1"
     gu = quantized_matmul_grouped(
         xs, gup.qweight, gup.scales, gup.zeros_x_scales, tile_e, tile_live, bm,
-        group_size=gup.group_size,
+        group_size=gup.group_size, a8=a8,
     )
     gate, up = torch.chunk(gu, 2, dim=-1)
     yd = quantized_matmul_grouped(
         silu(gate) * up, dnp.qweight, dnp.scales, dnp.zeros_x_scales, tile_e, tile_live, bm,
-        group_size=dnp.group_size,
+        group_size=dnp.group_size, a8=a8,
     )
     yg = yd[pos.reshape(-1)].reshape(T, kk, D).to(torch.float32)
     return torch.sum(yg * w[..., None], dim=1).reshape(B, S, D)

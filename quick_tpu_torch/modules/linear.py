@@ -3,12 +3,14 @@
 
 Weights are stored [K(in), N(out)] as in the JAX package. ``QuantLinear``
 holds the QTPU-packed codes and calls ``ops.quantized_matmul``, which goes
-to the CUDA kernel on CUDA tensors. The JAX package's environment switches
-for W4A8 activations and bf16 scales are not ported.
+to the CUDA kernels on CUDA tensors, with W4A8 activations where
+``QUICK_TPU_A8=1`` (``a8_enabled``). The JAX package's bf16-scales switch
+is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -16,6 +18,14 @@ import torch
 from quick_tpu_torch.ops.quantized_matmul import quantized_matmul
 from quick_tpu_torch.quantize.numerics import quantize_tensor
 from quick_tpu_torch.quantize.packing import pack_qtpu_tensor
+
+
+def a8_enabled() -> bool:
+    """``QUICK_TPU_A8=1`` routes every quantized linear with more than 96
+    flattened rows through the W4A8 kernels (``_a8_enabled``,
+    quick_tpu/modules/linear.py:24); decode rows keep W4A16. Read at every
+    call."""
+    return os.environ.get("QUICK_TPU_A8", "0") == "1"
 
 
 @dataclasses.dataclass
@@ -61,7 +71,7 @@ class QuantLinear:
         # kernel's prologue; fuse_glu: x is the raw [., 2K] gate_up output
         return quantized_matmul(
             x, self.qweight, self.scales, self.zeros_x_scales,
-            group_size=self.group_size, bias=self.bias,
+            group_size=self.group_size, bias=self.bias, a8=a8_enabled(),
             fuse_norm=fuse_norm, fuse_glu=fuse_glu,
         )
 

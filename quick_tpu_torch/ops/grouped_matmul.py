@@ -1,5 +1,5 @@
-"""Grouped (ragged) W4A16 GEMM for MoE experts: CUDA kernel K8, its plain
-version and the expert-sorted routing layout.
+"""Grouped (ragged) W4A16 and W4A8 GEMMs for MoE experts: CUDA kernels K8
+and K12, their plain versions and the expert-sorted routing layout.
 
 Port of ``quick_tpu/ops/grouped_matmul.py``. The routed (token, expert)
 pairs are sorted by expert and each expert's segment is padded to a
@@ -21,7 +21,14 @@ cumulative sum over a [T * topk, E] one-hot (not ``bincount``, which reads
 its maximum back); that, ``searchsorted`` and the scatters stay on the
 device.
 
-Not ported: the grouped W4A8 kernel (``a8``, ROADMAP B12).
+W4A8 (``a8=True``, which ``_grouped_moe`` sets from ``QUICK_TPU_MOE_A8``):
+the rows are quantized per row to int8 (``quantize_activations``) and every
+tile's per-group dots run int8 x int8 -> int32, with the row scale applied
+to the f32 sum before the one bf16 rounding: ``csrc/grouped_matmul_a8.cu``
+(K12, ``_make_grouped_kernel_a8``) on CUDA tensors, the plain version of
+``_grouped_fallback(a8=True)`` (:146-200) on CPU tensors. As in the JAX
+package (:233), ``a8`` falls back to W4A16 without a word where G != 128 or
+bm % 32 != 0.
 """
 from __future__ import annotations
 
@@ -30,13 +37,23 @@ from typing import Tuple
 import torch
 
 from quick_tpu_torch.ops._cuda import CudaKernel, check, i32, ptr, stream_ptr
-from quick_tpu_torch.ops.quantized_matmul import KERNEL_GROUP, quantized_matmul_plain
-from quick_tpu_torch.quantize.packing import PACK
+from quick_tpu_torch.ops.quantized_matmul import (
+    KERNEL_GROUP,
+    quantize_activations,
+    quantized_matmul_plain,
+)
+from quick_tpu_torch.quantize.packing import PACK, unpack_qtpu_tensor
 
 #: K8. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
 KERNEL = CudaKernel(
     "grouped_matmul.cu",
     {"qtt_grouped_matmul": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr]},
+)
+#: K12, the grouped W4A8 GEMM (``_make_grouped_kernel_a8``).
+KERNEL_A8 = CudaKernel(
+    "grouped_matmul_a8.cu",
+    {"qtt_grouped_matmul_a8": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                               ptr, ptr]},
 )
 GROUPS = (128, 64, 32)  # the group sizes K8 is built for
 
@@ -130,6 +147,83 @@ def quantized_matmul_grouped_plain(
     return out.to(torch.bfloat16)
 
 
+def quantized_matmul_grouped_a8_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    tile_expert: torch.Tensor,
+    tile_live: torch.Tensor,
+    bm: int,
+) -> torch.Tensor:
+    """Plain version of K12 (``_grouped_fallback(a8=True)`` :146-200): the
+    rows' int8 codes and scales over the whole buffer, each live tile's
+    codes times its expert's codes in exact per-group dots (f32 products of
+    integers below 2^24), output-side scales, minus the zero-point term over
+    the codes' row sums, times the row scale, dead tiles zero. Reads the
+    tile layout back to the host: it serves the CPU and the comparisons on
+    the card, never the card's main path."""
+    Mp, K = x.shape
+    N = qweight.shape[-1]
+    G = KERNEL_GROUP
+    ng = K // G
+    xq, sx = quantize_activations(x)
+    out = torch.zeros((Mp, N), dtype=torch.float32, device=x.device)
+    tiles = torch.arange(Mp // bm, device=x.device)
+    te, live = tile_expert.tolist(), tile_live.tolist()
+    for e in sorted({int(t) for t, lv in zip(te, live) if lv}):
+        mine = tiles[(tile_expert == e) & (tile_live != 0)]
+        rows = (mine[:, None] * bm + torch.arange(bm, device=x.device)).reshape(-1)
+        codes = unpack_qtpu_tensor(qweight[e], G).to(torch.float32).reshape(ng, G, N)
+        xg = xq[rows].to(torch.float32).reshape(-1, ng, G).transpose(0, 1)  # [ng, R, G]
+        y = (torch.bmm(xg, codes) * scales[e].to(torch.float32)[:, None, :]).sum(0)
+        xsum = xg.sum(-1).transpose(0, 1)
+        out[rows] = y - xsum @ zeros_x_scales[e].to(torch.float32)
+    return (out * sx).to(torch.bfloat16)
+
+
+def launch_grouped_a8(
+    xq: torch.Tensor,
+    sx: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    tile_expert: torch.Tensor,
+    tile_live: torch.Tensor,
+    bm: int,
+) -> torch.Tensor:
+    """Launch K12: xq [Mp, K] int8 codes of the expert-sorted rows, sx
+    [Mp, 1] f32 row scales, qweight int32 [E, K // 8, N], scales /
+    zeros_x_scales f32 [E, K // 128, N], tile_expert / tile_live int32
+    [Mp // bm]; returns [Mp, N] bf16. G = 128, bm % 32 == 0."""
+    dev = xq.device
+    Mp, K = xq.shape
+    E, _, N = qweight.shape
+    G = KERNEL_GROUP
+    if bm % 32 or Mp % bm or K % G:
+        raise ValueError(f"K12 takes bm % 32 == 0, Mp % bm == 0, K % 128 == 0: "
+                         f"bm={bm} Mp={Mp} K={K}")
+    xq = xq.contiguous()
+    if xq.data_ptr() % 16:  # rows are read in 16-byte chunks
+        xq = xq.clone()
+    sx = sx.reshape(Mp).contiguous()
+    check(xq, "xq", torch.int8, (Mp, K))
+    check(sx, "sx", torch.float32, (Mp,))
+    check(qweight, "qweight", torch.int32, (E, K // PACK, N))
+    check(scales, "scales", torch.float32, (E, K // G, N))
+    check(zeros_x_scales, "zeros_x_scales", torch.float32, (E, K // G, N))
+    check(tile_expert, "tile_expert", torch.int32, (Mp // bm,))
+    check(tile_live, "tile_live", torch.int32, (Mp // bm,))
+    out = torch.empty((Mp, N), dtype=torch.bfloat16, device=dev)
+    KERNEL_A8.launch(
+        "qtt_grouped_matmul_a8", launch_key(Mp, K, N, E, bm),
+        xq.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+        zeros_x_scales.data_ptr(), tile_expert.data_ptr(), tile_live.data_ptr(),
+        Mp, K, N, E, bm, out.data_ptr(), stream_ptr(dev),
+    )
+    return out
+
+
 def launch_key(Mp: int, K: int, N: int, E: int, bm: int, G: int = KERNEL_GROUP) -> str:
     key = f"Mp={Mp} K={K} N={N} E={E} bm={bm}"
     return key if G == KERNEL_GROUP else f"{key} G={G}"
@@ -189,12 +283,18 @@ def quantized_matmul_grouped(
 ) -> torch.Tensor:
     """Ragged multi-expert ``x @ dequant(qweight[e])`` -> [Mp, N] bf16,
     rows ``i*bm:(i+1)*bm`` with expert ``tile_expert[i]``, zeros where
-    ``tile_live[i] == 0`` (``quantized_matmul_grouped`` :205): K8 on CUDA
-    tensors, the plain version on CPU tensors."""
+    ``tile_live[i] == 0`` (``quantized_matmul_grouped`` :205): K8 (K12
+    under ``a8``) on CUDA tensors, the plain versions on CPU tensors.
+    ``a8`` at G != 128 or bm % 32 != 0 falls back to W4A16 (:233)."""
+    if a8 and (group_size != KERNEL_GROUP or bm % 32):
+        a8 = False
     if a8:
-        raise NotImplementedError(
-            "the grouped W4A8 kernel (quick_tpu _make_grouped_kernel_a8) is "
-            "not ported yet — ROADMAP B12")
+        if x.device.type != "cuda":
+            return quantized_matmul_grouped_a8_plain(
+                x, qweight, scales, zeros_x_scales, tile_expert, tile_live, bm)
+        xq, sx = quantize_activations(x)
+        return launch_grouped_a8(xq, sx, qweight, scales, zeros_x_scales,
+                                 tile_expert.to(torch.int32), tile_live.to(torch.int32), bm)
     if x.device.type != "cuda":
         return quantized_matmul_grouped_plain(
             x, qweight, scales, zeros_x_scales, tile_expert, tile_live, bm, group_size)

@@ -1,30 +1,42 @@
-"""W4A16 GEMM over QTPU-packed weights: CUDA kernels K1 (G = 128) and K9
-(G = 32 or 64) and their plain versions.
+"""W4A16 and W4A8 GEMMs over QTPU-packed weights: CUDA kernels K1 (G = 128),
+K9 (G = 32 or 64), K11 / K11f (W4A8) and their plain versions.
 
 Port of ``quick_tpu/ops/quantized_matmul.py``. ``quantized_matmul`` keeps the
 JAX entry point's contract and dispatch: ``fuse_norm`` / ``fuse_glu`` ride
-in K1's prologue when the flattened rows are <= 8 and G = 128, and are
-applied first otherwise (:721-730, :996-1004). On CUDA tensors the work goes
-to the hand-written kernels: ``csrc/quantized_matmul.cu`` (K1) at G = 128,
-``csrc/quantized_matmul_dequant.cu`` (K9, ``_make_kernel_dequant``) at
-G = 32 and 64. On CPU tensors every G takes the plain PyTorch version of
-``_quantized_matmul_jnp`` (:88), which is what the JAX package computes on
-the CPU by default: bf16 activations times the integer codes summed in f32
-per group, scaled on the output side, minus ``xsum @ (z * s)`` with xsum
-over the bf16-rounded activations.
+in K1's prologue when the flattened rows are <= 8, G = 128 and ``a8`` is
+off, and are applied first otherwise (:721-730, :996-1004). On CUDA tensors
+the work goes to the hand-written kernels: ``csrc/quantized_matmul.cu`` (K1)
+at G = 128, ``csrc/quantized_matmul_dequant.cu`` (K9,
+``_make_kernel_dequant``) at G = 32 and 64. On CPU tensors every G takes the
+plain PyTorch version of ``_quantized_matmul_jnp`` (:88), which is what the
+JAX package computes on the CPU by default: bf16 activations times the
+integer codes summed in f32 per group, scaled on the output side, minus
+``xsum @ (z * s)`` with xsum over the bf16-rounded activations.
 
-The W4A8 kernels and the dense-dequant route of the JAX package are not
+W4A8 (``a8=True``, which ``QuantLinear`` sets from ``QUICK_TPU_A8``): above
+96 flattened rows the activations are quantized per row to int8
+(``quantize_activations``) and the per-group dots run int8 x int8 -> int32
+against the same int4 codes, with the row scale in the epilogue
+(``_quantized_matmul_a8_jnp`` :258). On CUDA tensors that is
+``csrc/quantized_matmul_a8.cu``: K11 (``_make_kernel_a8``) over the codes
+the wrapper computed, or, with ``QUICK_TPU_A8_FUSED=1`` at G = 128, K11f
+(``_make_kernel_a8_fused``), which quantizes inside the kernel. Rows <= 96
+stay on K1 / K9.
+
+The dense-dequant route of the JAX package (``QUICK_TPU_DENSE_M``) is not
 ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, sm_count, stream_ptr
 from quick_tpu_torch.ops.norms import rms_norm
+from quick_tpu_torch.ops.paged_write import div127
 from quick_tpu_torch.quantize.packing import PACK, unpack_qtpu_tensor
 
 #: K1. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by prologue and shape.
@@ -44,11 +56,21 @@ KERNEL_DEQUANT = CudaKernel(
     ]},
 )
 
+#: K11 and K11f (``_make_kernel_a8``, ``_make_kernel_a8_fused``), one library.
+KERNEL_A8 = CudaKernel(
+    "quantized_matmul_a8.cu",
+    {"qtt_quantized_matmul_a8": [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+    ]},
+)
+
 _PROLOGUE = {None: 0, "rmsnorm": 1, "glu": 2}
 _BN = 128  # output columns per block (csrc/quantized_matmul.cu kBN)
 KERNEL_GROUP = 128  # the only group size K1 takes
 DEQUANT_GROUPS = (32, 64)  # the group sizes K9 is built for
-_KC = 128  # k per chunk of K9 (csrc/quantized_matmul_dequant.cu kKC)
+A8_GROUPS = (128, 64, 32)  # the group sizes K11 is built for (K11f: 128 only)
+A8_MIN_ROWS = 97  # a8 takes rows > 96 (:1023); fewer stay on the W4A16 kernels
+_KC = 128  # k per chunk of K9 and K11 (kKC, kChunk in their sources)
 
 
 def glu_plain(x: torch.Tensor) -> torch.Tensor:
@@ -109,6 +131,53 @@ def quantized_matmul_dequant_plain(
     w = (w - zeros_x_scales.to(torch.float32)[:, None, :]).to(torch.bfloat16)
     y = x.to(torch.bfloat16).to(torch.float32) @ w.reshape(K, N).to(torch.float32)
     return y.to(out_dtype)
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric INT8 activations (``quantize_activations`` :246):
+    x [M, K] -> (codes int8 [M, K], scales f32 [M, 1]); f32 absmax,
+    ``max(amax / 127, 1e-8)`` with a true division (``div127``), round half
+    to even, clip to +-127. Torch glue on every device, as the JAX package
+    computes it outside Pallas."""
+    xf = x.to(torch.float32)
+    sx = torch.clamp(div127(xf.abs().amax(dim=-1, keepdim=True)), min=1e-8)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def quantized_matmul_a8_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int = 128,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain version of K11 / K11f (``_quantized_matmul_a8_jnp`` :258):
+    x [M, K] -> [M, N]. Each group's integer dot is at most
+    128 * 127 * 15 = 243,840 < 2^24 in magnitude, so the f32 product of the
+    converted codes computes it exactly in any order (with TF32 off, as
+    PyTorch's default leaves it); then f32 output-side scaling, the
+    zero-point term over the codes' row sums, and the row scale."""
+    K = x.shape[-1]
+    ng = K // group_size
+    N = qweight.shape[1]
+    codes = unpack_qtpu_tensor(qweight, group_size).to(torch.float32)
+    codes = codes.reshape(ng, group_size, N)
+    xq, sx = quantize_activations(x)
+    xg = xq.to(torch.float32).reshape(-1, ng, group_size).transpose(0, 1)  # [ng, M, G]
+    y = torch.bmm(xg, codes)  # [ng, M, N] exact per-group integer dots
+    y = (y * scales.to(torch.float32)[:, None, :]).sum(0)
+    xsum = xg.sum(-1).transpose(0, 1)  # [M, ng], exact
+    y = y - xsum @ zeros_x_scales.to(torch.float32)
+    return (y * sx).to(out_dtype)
+
+
+def a8_fused_quant() -> bool:
+    """``QUICK_TPU_A8_FUSED=1`` routes W4A8 at G = 128 through K11f, which
+    quantizes the activations inside the kernel (``_a8_fused_quant`` :383).
+    Read at every call."""
+    return os.environ.get("QUICK_TPU_A8_FUSED", "0") == "1"
 
 
 def launch_key(prologue: Optional[str], M: int, K: int, N: int) -> str:
@@ -237,6 +306,84 @@ def quantized_matmul_dequant_cuda(
     return out
 
 
+def a8_launch_key(M: int, K: int, N: int, G: int, fused: bool) -> str:
+    key = f"{'fused ' if fused else ''}M={M} K={K} N={N}"
+    return key if G == KERNEL_GROUP else f"{key} G={G}"
+
+
+def launch_a8(
+    x: torch.Tensor,
+    sx: Optional[torch.Tensor],
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int = KERNEL_GROUP,
+) -> torch.Tensor:
+    """Launch K11 on int8 codes x [M, K] with row scales sx [M, 1], or K11f
+    on bf16 x [M, K] with ``sx=None`` (G = 128 only); returns [M, N] bf16.
+    The launch plan is K1's tensor-core one: 64-row blocks of 128 columns,
+    K split over blocks in chunks of 128 channels when the tiles cannot fill
+    the card."""
+    dev = x.device
+    G = group_size
+    fused = sx is None
+    M, K = x.shape
+    N = qweight.shape[1]
+    if G not in A8_GROUPS or K % G or (fused and G != KERNEL_GROUP):
+        raise ValueError(f"K11 takes G in {A8_GROUPS} with K % G == 0, K11f G = 128: "
+                         f"G={G} K={K} fused={fused}")
+    x = x.contiguous()
+    check(x, "x", torch.bfloat16 if fused else torch.int8, (M, K))
+    if x.data_ptr() % 16:  # rows are read in 16-byte chunks
+        x = x.clone()
+    if fused:
+        sx = torch.empty(M, dtype=torch.float32, device=dev)  # K11f writes it
+    sx = sx.reshape(M).contiguous()
+    check(sx, "sx", torch.float32, (M,))
+    check(qweight, "qweight", torch.int32, (K // PACK, N))
+    check(scales, "scales", torch.float32, (K // G, N))
+    check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
+    _, splits, cps = launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    KERNEL_A8.launch(
+        "qtt_quantized_matmul_a8", a8_launch_key(M, K, N, G, fused),
+        x.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+        zeros_x_scales.data_ptr(), int(fused), M, K, N, G, splits, cps,
+        None if partial is None else partial.data_ptr(), out.data_ptr(), stream_ptr(dev),
+    )
+    return out
+
+
+def _quantized_matmul_2d_a8(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """W4A8 x [M, K] -> [M, N] (``_quantized_matmul_2d_a8`` :394): K11, or
+    K11f under ``QUICK_TPU_A8_FUSED=1`` at G = 128, on CUDA tensors; the
+    plain version on CPU tensors. At G = 64 / 32 the JAX package takes its
+    jnp form with external quantization even with the fused switch set
+    (:415), and so K11 takes them here."""
+    if x.device.type != "cuda":
+        return quantized_matmul_a8_plain(
+            x, qweight, scales, zeros_x_scales, group_size, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise NotImplementedError(f"K11 writes bf16, not {out_dtype}")
+    if group_size not in A8_GROUPS:
+        raise NotImplementedError(
+            f"group_size={group_size}: the card's W4A8 kernel takes G in {A8_GROUPS}; "
+            "other groups — ROADMAP B11")
+    if group_size == KERNEL_GROUP and a8_fused_quant():  # K11f quantizes in the kernel
+        return launch_a8(x.to(torch.bfloat16), None, qweight, scales, zeros_x_scales)
+    xq, sx = quantize_activations(x)
+    return launch_a8(xq, sx, qweight, scales, zeros_x_scales, group_size)
+
+
 def _quantized_matmul_2d(
     x: torch.Tensor,
     qweight: torch.Tensor,
@@ -285,32 +432,39 @@ def quantized_matmul(
     group_size: int = 128,
     bias: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
+    a8: bool = False,
     fuse_norm: Optional[tuple] = None,
     fuse_glu: bool = False,
 ) -> torch.Tensor:
-    """Public W4A16 matmul over arbitrary leading dims (``quantized_matmul``
-    :966). x: [..., K] ([..., 2K] raw gate_up with ``fuse_glu``); qweight:
-    QTPU int32 [K // 8, N]; scales / zeros_x_scales: f32 [K // G, N].
+    """Public W4A16 (or W4A8 with ``a8``) matmul over arbitrary leading dims
+    (``quantized_matmul`` :966). x: [..., K] ([..., 2K] raw gate_up with
+    ``fuse_glu``); qweight: QTPU int32 [K // 8, N]; scales / zeros_x_scales:
+    f32 [K // G, N].
 
     ``fuse_norm = (rms_weight [K], eps)``: x is the raw residual and the
     RMSNorm runs in the kernel's prologue; ``fuse_glu``: silu(gate) * up
-    runs there. Rows > 8 or G != 128 apply them first."""
+    runs there. Rows > 8, G != 128 or ``a8`` apply them first. ``a8`` takes
+    the W4A8 route above 96 flattened rows; fewer rows stay W4A16."""
     if out_dtype is None:
         out_dtype = x.dtype if x.dtype != torch.float32 else torch.bfloat16
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if fuse_glu and (x2.shape[0] > 8 or group_size != 128):
+    if fuse_glu and (x2.shape[0] > 8 or a8 or group_size != 128):
         x2 = glu_plain(x2)
         fuse_glu = False
-    if fuse_norm is not None and x2.shape[0] > 8:
+    if fuse_norm is not None and (x2.shape[0] > 8 or a8):
         x2 = rms_norm(x2, fuse_norm[0], fuse_norm[1])
         fuse_norm = None
-    y = _quantized_matmul_2d(
-        x2, qweight, scales, zeros_x_scales, group_size, out_dtype,
-        norm_weight=None if fuse_norm is None else fuse_norm[0],
-        norm_eps=1e-6 if fuse_norm is None else float(fuse_norm[1]),
-        glu=fuse_glu,
-    )
+    if a8 and x2.shape[0] >= A8_MIN_ROWS:
+        y = _quantized_matmul_2d_a8(
+            x2, qweight, scales, zeros_x_scales, group_size, out_dtype)
+    else:
+        y = _quantized_matmul_2d(
+            x2, qweight, scales, zeros_x_scales, group_size, out_dtype,
+            norm_weight=None if fuse_norm is None else fuse_norm[0],
+            norm_eps=1e-6 if fuse_norm is None else float(fuse_norm[1]),
+            glu=fuse_glu,
+        )
     y = y.reshape(*lead, y.shape[-1])
     if bias is not None:
         y = y + bias.to(y.dtype)

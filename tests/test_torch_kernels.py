@@ -3,7 +3,8 @@ also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
 also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
 K5q / K6q INT8 paged attention, K9 small-group GEMM, K10 / K10q paged MLA
-decode attention) against their plain PyTorch versions, on a card. Skipped without one. Imports no
+decode attention, K11 / K11f W4A8 GEMM, K12 grouped W4A8 MoE GEMM, K13
+RMSNorm) against their plain PyTorch versions, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
 import numpy as np
@@ -673,3 +674,132 @@ def test_mla_paged_kernel_matches_plain(rng, cuda_device, case, pages):
     for b, n in enumerate(lengths):
         if n == 0:
             assert not o[b].any()
+
+
+# ------------------------------------------------------- W4A8 and RMSNorm
+
+def _a8_case(rng, M, K, N, G):
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = rng.integers(0, 16, size=(K, N), dtype=np.uint8)
+    s = (rng.uniform(size=(K // G, N)) * 0.01 + 0.001).astype(np.float32)
+    z = np.round(rng.uniform(size=(K // G, N)) * 15).astype(np.float32)
+    return (torch.from_numpy(x).to(torch.bfloat16),
+            *(torch.from_numpy(a) for a in (pack_qtpu(q, G), s, z * s)))
+
+
+def _within(out, ref, tol):
+    """|out - ref| <= tol * (1 + |ref|), as chip_smoke.py holds kernels."""
+    o, r = f32(out), f32(ref)
+    assert o.shape == r.shape and np.isfinite(o).all()
+    assert (np.abs(o - r) <= tol * (1 + np.abs(r))).all(), np.abs(o - r).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "M,K,N,G",
+    [(97, 512, 384, 128),     # split-K, ragged rows
+     (128, 4096, 4096, 128),  # the Engine chunk's rows, split-K
+     (200, 1024, 8192, 128),
+     (512, 512, 16384, 128),  # no split
+     (128, 512, 384, 64), (130, 320, 256, 64),  # a part-filled last chunk
+     (100, 512, 200, 32)],    # ragged columns
+)
+def test_a8_gemm_kernels_match_plain(rng, cuda_device, monkeypatch, M, K, N, G):
+    """K11 (and K11f at G = 128) through quantized_matmul(a8=True) against
+    quantized_matmul_a8_plain on the same card tensors: the codes on the
+    card equal the CPU's byte for byte; the outputs within 1e-2 x
+    (1 + |ref|); K11f within 1e-3 x max|K11| of K11. Rows <= 96 stay on K1."""
+    x, qw, s, zs = (t.to(cuda_device) for t in _a8_case(rng, M, K, N, G))
+    xq, sx = tqmm.quantize_activations(x)
+    xq_c, sx_c = tqmm.quantize_activations(x.cpu())
+    assert torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c)
+    monkeypatch.delenv("QUICK_TPU_A8_FUSED", raising=False)
+    before = tqmm.KERNEL_A8.launches_by_key.copy()
+    out = tqmm.quantized_matmul(x, qw, s, zs, group_size=G, a8=True)
+    torch.cuda.synchronize()
+    key = tqmm.a8_launch_key(M, K, N, G, False)
+    assert tqmm.KERNEL_A8.launches_by_key[key] == before[key] + 1
+    ref = tqmm.quantized_matmul_a8_plain(x, qw, s, zs, G)
+    _within(out, ref, 1e-2)
+    if G == 128:
+        monkeypatch.setenv("QUICK_TPU_A8_FUSED", "1")
+        fused = tqmm.quantized_matmul(x, qw, s, zs, group_size=G, a8=True)
+        torch.cuda.synchronize()
+        assert tqmm.KERNEL_A8.launches_by_key[tqmm.a8_launch_key(M, K, N, G, True)] >= 1
+        _within(fused, ref, 1e-2)
+        assert np.abs(f32(fused) - f32(out)).max() <= 1e-3 * np.abs(f32(out)).max()
+    x96 = x[:96]
+    k1 = tqmm.KERNEL.launches + tqmm.KERNEL_DEQUANT.launches
+    a8n = tqmm.KERNEL_A8.launches
+    small = tqmm.quantized_matmul(x96, qw, s, zs, group_size=G, a8=True)
+    assert tqmm.KERNEL_A8.launches == a8n
+    assert tqmm.KERNEL.launches + tqmm.KERNEL_DEQUANT.launches == k1 + 1
+    assert torch.equal(small, tqmm.quantized_matmul(x96, qw, s, zs, group_size=G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_a8_kernel_matches_plain(rng, cuda_device, case):
+    """K12 against its plain version on the card and on the CPU within
+    1e-2 x (1 + |ref|), dead tiles all zeros; at G = 64 the a8 switch falls
+    back to K8 (W4A16)."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    bm, te, live, N = GROUPED_CASES[case]
+    E, K = 4, 512
+    q = rng.integers(0, 16, size=(E, K, N), dtype=np.uint8)
+    qw = np.stack([pack_qtpu(q[e]) for e in range(E)])
+    s = (rng.uniform(size=(E, K // 128, N)) * 0.01 + 0.001).astype(np.float32)
+    zs = (np.round(rng.uniform(size=(E, K // 128, N)) * 15) * s).astype(np.float32)
+    x = rng.standard_normal((len(te) * bm, K)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, qw, s, zs, np.asarray(te, np.int32),
+                                          np.asarray(live, np.int32))]
+    args[0] = args[0].to(torch.bfloat16)
+    dev_args = [a.to(cuda_device) for a in args]
+    before = tgm.KERNEL_A8.launches
+    out = tgm.quantized_matmul_grouped(*dev_args, bm, a8=True)
+    torch.cuda.synchronize()
+    assert tgm.KERNEL_A8.launches == before + 1
+    ref = tgm.quantized_matmul_grouped_a8_plain(*dev_args, bm)
+    _within(out, ref, 1e-2)
+    _within(out, tgm.quantized_matmul_grouped(*args, bm, a8=True), 1e-2)
+    assert not f32(out)[np.repeat(np.asarray(live) == 0, bm)].any()
+    k8 = tgm.KERNEL.launches
+    qw64 = torch.from_numpy(np.stack([pack_qtpu(q[e], 64) for e in range(E)])).to(cuda_device)
+    s64 = dev_args[2].repeat_interleave(2, dim=1)
+    tgm.quantized_matmul_grouped(dev_args[0], qw64, s64, s64, *dev_args[4:], bm, group_size=64,
+                                 a8=True)
+    assert tgm.KERNEL.launches == k8 + 1 and tgm.KERNEL_A8.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,xdt,wdt,sliced",
+    [((4, 4096), torch.bfloat16, torch.bfloat16, None),
+     ((512, 4096), torch.bfloat16, torch.bfloat16, None),
+     ((2, 8, 128), torch.float32, torch.bfloat16, None),
+     ((16, 5000), torch.bfloat16, torch.float32, None),  # past the registers' 4096
+     ((16, 576), torch.bfloat16, torch.bfloat16, 512),   # ckv[..., :512]
+     ((2, 8, 576), torch.bfloat16, torch.float32, 512)],
+)
+def test_rms_norm_kernel_matches_plain(rng, cuda_device, shape, xdt, wdt, sliced):
+    """K13 through rms_norm on CUDA tensors against rms_norm_plain on the
+    same tensors: within one step of x's type (bf16 or f32 rounding of the
+    same f32 value, summed in another order), contiguous or a strided
+    last-dim slice, one launch each."""
+    from quick_tpu_torch.ops import norms
+
+    x = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(cuda_device, xdt)
+    if sliced:
+        x = x[..., :sliced]
+    D = x.shape[-1]
+    w = torch.from_numpy((1 + 0.1 * rng.standard_normal(D)).astype(np.float32)).to(cuda_device, wdt)
+    before = norms.KERNEL.launches
+    out = rms_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert norms.KERNEL.launches == before + 1
+    ref = norms.rms_norm_plain(x, w, 1e-5)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == xdt
+    step = 2.0 ** -7 if xdt == torch.bfloat16 else 2.0 ** -20
+    o, r = f32(out), f32(ref)
+    assert (np.abs(o - r) <= step * np.abs(r) + 1e-30).all(), np.abs(o - r).max()

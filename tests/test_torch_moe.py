@@ -232,12 +232,18 @@ def test_grouped_plain_matches_jax(monkeypatch, bm, ref):
 
 
 def test_grouped_a8_is_refused():
+    """``a8`` was refused until the grouped W4A8 kernel (K12) was ported;
+    now it is taken: on CPU tensors the plain version of K12 matches
+    quick_tpu's ``_grouped_fallback(a8=True)`` within one bf16 step."""
     x, qw, s, zs, te, live = _grouped_inputs(32)
-    with pytest.raises(NotImplementedError, match="B12"):
-        tgm.quantized_matmul_grouped(torch.from_numpy(x), torch.from_numpy(qw),
-                                     torch.from_numpy(s), torch.from_numpy(zs),
-                                     torch.from_numpy(te), torch.from_numpy(live), 32,
-                                     a8=True)
+    xj, xt = _bf16(x)
+    got = tgm.quantized_matmul_grouped(xt, torch.from_numpy(qw), torch.from_numpy(s),
+                                       torch.from_numpy(zs), torch.from_numpy(te),
+                                       torch.from_numpy(live), 32, a8=True)
+    want = jgm._grouped_fallback(xj, jnp.asarray(qw), jnp.asarray(s), jnp.asarray(zs),
+                                 jnp.asarray(te), jnp.asarray(live), 32, 128, jnp.bfloat16,
+                                 a8=True)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL_BF16)
 
 
 # ------------------------------------------------------------ moe_forward
