@@ -73,7 +73,7 @@ Phases (any failure exits non-zero):
      and K8 at its shapes, against their plain versions; (b) their times,
      bounds and yardsticks; (c) generate() at full width and depth, as
      phase 4 (random weights, seed 0; an untied bf16 head); (d) the Engine
-     over bf16, then INT8 latent pages at DS_ENGINE_LAYERS layers on phase
+     over bf16, then INT8 latent pages at full depth on phase
      5's trace, one sync-checked, profiled, counted and timed run each,
      the INT8 pool 0.528x the bf16 pool; (e) a 2-layer checkpoint round
      trip, and the
@@ -86,7 +86,7 @@ Phases (any failure exits non-zero):
      strided latent slice, each against its plain version; (b) their times,
      bounds and yardsticks, and the aten calls per layer and busy share of
      the norms as K13 and as plain torch ops in the same call (Mistral's
-     decode and Engine, DeepSeek-V2-Lite's decode and bf16 Engine); (c)
+     Engine, DeepSeek-V2-Lite's decode and bf16 Engine); (c)
      phase 4's model through generate() under QUICK_TPU_A8=1, then with
      QUICK_TPU_A8_FUSED=1 added; (d) phase 8's Mixtral-8x7B through
      generate() under QUICK_TPU_A8=1 QUICK_TPU_MOE_A8=1; (e) the INT8 Engine
@@ -162,16 +162,15 @@ INT8_OPS = 1979e12  # H100 SXM dense int8 tensor rate (NVIDIA data sheet)
 TOL_INT8_MODEL = 2e-2
 #: the Mixtral Engine (phase 8) and the Mistral-7B-width Engines (phases 5
 #: and 9c) run their first MOE_ENGINE_LAYERS / ENGINE_LAYERS layers of full
-#: width, the GGUF file of phase 10b holds GGUF_LAYERS layers, phase 11's
-#: DeepSeek-V2-Lite Engines run DS_ENGINE_LAYERS of its 27 and phase 12e's
-#: INT8 Engine under A8 A8_ENGINE_LAYERS, so that the script stays within
-#: its time budget on a slow host (on one H100 80GB HBM3 at 700 W the
-#: three Mistral-width and Mixtral Engines took 100, 206 and ~150 s at 32
-#: layers, 44, 80 and 72 s at 8; the DeepSeek Engines 91-178 s each at 27)
+#: width, the GGUF file of phase 10b holds GGUF_LAYERS layers and phase
+#: 12e's INT8 Engine under A8 runs A8_ENGINE_LAYERS, so that phase 11's
+#: DeepSeek-V2-Lite Engines run at full depth within the script's time
+#: budget (on one H100 80GB HBM3 at 700 W the three Mistral-width and
+#: Mixtral Engines took 100, 206 and ~150 s at 32 layers, 44, 80 and 72 s
+#: at 8; the DeepSeek Engines 91-178 s each at 27)
 MOE_ENGINE_LAYERS = 4
 ENGINE_LAYERS = 4
 GGUF_LAYERS = 8
-DS_ENGINE_LAYERS = 8
 A8_ENGINE_LAYERS = 2
 #: the checkpoint phase: examples/benchmark.py's 128/128 protocol (:39-79,
 #: batches 1,8,32,64,... :87) at B=32 and B=64 (1 timed trial each), and
@@ -343,7 +342,7 @@ def rand_qlinear(gen, dev, K, N, copies=1, group=128):
 
 def check_gemms(cfg, gen, dev):
     from quick_tpu_torch.ops import quantized_matmul as qm
-    from quick_tpu_torch.ops.norms import rms_norm
+    from quick_tpu_torch.ops.norms import rms_norm_plain
 
     print("[2] K1 (W4A16 GEMM) against its plain version, bf16")
     errs = {}
@@ -361,7 +360,7 @@ def check_gemms(cfg, gen, dev):
             x, qw, s, zs, norm_weight=nw if prologue == "rmsnorm" else None,
             norm_eps=1e-5, glu=prologue == "glu")
         xp = qm.glu_plain(x) if prologue == "glu" else (
-            rms_norm(x, nw, 1e-5) if prologue == "rmsnorm" else x)
+            rms_norm_plain(x, nw, 1e-5) if prologue == "rmsnorm" else x)
         ref = qm.quantized_matmul_plain(xp, qw, s, zs)
         torch.cuda.synchronize()
         key = qm.launch_key(prologue, M, K, N)
@@ -373,7 +372,7 @@ def time_gemms(cfg, gen, dev, errs, gemms, path):
     """K1's rows at ``gemms``; their launches are read from ``path``'s run
     ("generate" or "engine")."""
     from quick_tpu_torch.ops import quantized_matmul as qm
-    from quick_tpu_torch.ops.norms import rms_norm
+    from quick_tpu_torch.ops.norms import rms_norm_plain
 
     print(f"[3] K1 timing at the {path} path's shapes (weights rotated past L2)")
     rows = []
@@ -393,7 +392,7 @@ def time_gemms(cfg, gen, dev, errs, gemms, path):
 
         def plain(i):
             xp = qm.glu_plain(x) if prologue == "glu" else (
-                rms_norm(x, nw, 1e-5) if prologue == "rmsnorm" else x)
+                rms_norm_plain(x, nw, 1e-5) if prologue == "rmsnorm" else x)
             qm.quantized_matmul_plain(xp, *ws[i % copies])
 
         # yardstick: one torch.matmul on a pre-dequantized bf16 weight
@@ -1079,10 +1078,10 @@ def k8_launch_keys(cfg, T: int, group: int = 128):
 def a8_switches():
     """(QUICK_TPU_A8, QUICK_TPU_A8_FUSED, QUICK_TPU_MOE_A8) as the port
     reads them at each call."""
-    from quick_tpu_torch.modules.linear import a8_enabled
+    from quick_tpu_torch.modules.linear import a8_enabled, moe_a8_enabled
     from quick_tpu_torch.ops.quantized_matmul import a8_fused_quant
 
-    return a8_enabled(), a8_fused_quant(), os.environ.get("QUICK_TPU_MOE_A8", "0") == "1"
+    return a8_enabled(), a8_fused_quant(), moe_a8_enabled()
 
 
 def k13_key(rows: int, D: int) -> str:
@@ -3001,13 +3000,14 @@ def phase11_deepseek(dev):
                          tag="11a")
     counts, report = {}, {}
     counts[DS_GEN], report["generate"], params = phase11_generate(cfg, dev)
-    cut = (dataclasses.replace(params, blocks=params.blocks[:DS_ENGINE_LAYERS]),
-           dataclasses.replace(cfg, num_hidden_layers=DS_ENGINE_LAYERS))
     for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8))):
-        counts[path], report[path] = phase_engine(*cut, "11d", engine, trace,
+        counts[path], report[path] = phase_engine(params, cfg, "11d", engine, trace,
                                                   ds_engine_launches, warmup=False)
-    report["engine_k13_host_ab"] = engine_host_ab(*cut, "12b")
-    del cut
+    # measurement only, at phase 5's depth: the host's calls a layer do not
+    # depend on it, and a full-depth Engine's set-up costs the script ~20 s
+    report["engine_k13_host_ab"] = engine_host_ab(
+        dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
+        dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS), "12b")
     pools = [sum(report[p]["runs"][0]["pool_bytes"]) for p in (DS_ENGINE, DS_ENGINE_INT8)]
     report["int8_pool_ratio"] = pools[1] / pools[0]
     print(f"[11d] INT8 latent pool / bf16 latent pool: {pools[1] / pools[0]:.4f} "
@@ -3320,7 +3320,6 @@ def main() -> None:
         fail(f"quick_tpu_torch/ is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
     from quick_tpu_torch import ModelConfig
-    from quick_tpu_torch.models.auto import AutoQuickModel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3356,7 +3355,6 @@ def main() -> None:
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
     a8_counts, a8_gen_stats = phase12_generate(params, cfg, dev)
-    gen_stats["k13_host_ab"] = decode_host_ab(AutoQuickModel(params, cfg), cfg, dev, "12b")
     counts.update(a8_counts)
     cut = (dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
            dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS))

@@ -8,8 +8,8 @@ kernels take), the SwiGLU MLP and the sparse MoE MLP (``moe_forward``:
 the "mixtral", "softmax_all" and "deepseek" routers, shared experts,
 ungated or gated by a sigmoid, quantized experts through the grouped kernel
 K8, or K12 under ``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 / V3 block,
-MLA attention (``modules/mla.py``) with DeepSeekMoE. The other families' switches (qk-norm, sandwich norms,
-ALiBi, parallel residual, LayerNorm, plain MLPs, ...), expert and context
+MLA attention (``modules/mla.py``) with DeepSeekMoE. The other families'
+switches (qk-norm, sandwich norms, ALiBi, parallel residual, LayerNorm, plain MLPs, ...), expert and context
 parallelism and the layer-tail kernel are not ported yet: such configs are
 refused by ``models/model.py::check_supported`` (ROADMAP.md).
 
@@ -26,14 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Optional, Tuple, Union
 
 import torch
 
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.modules.cache import KVCache
-from quick_tpu_torch.modules.linear import AnyLinear, Linear, QuantLinear
+from quick_tpu_torch.modules.linear import AnyLinear, Linear, QuantLinear, moe_a8_enabled
 from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.ops.attention import causal_attention
@@ -304,9 +303,7 @@ def _grouped_moe(p: MoEParams, x: torch.Tensor, sel: torch.Tensor, weights: torc
     tok_rows, pos, tile_e, tile_live, _ = build_routing(sel, E_local, bm)
     xs = x.reshape(T, D)[tok_rows]  # [Mp, D] expert-sorted tokens
     gup, dnp = p.gate_up_proj, p.down_proj
-    # QUICK_TPU_MOE_A8=1: int8 x int8 expert dots (K12), as the JAX package
-    # reads it (:576); it falls back to W4A16 at G != 128 or bm % 32
-    a8 = os.environ.get("QUICK_TPU_MOE_A8", "0") == "1"
+    a8 = moe_a8_enabled()  # int8 x int8 expert dots (K12)
     gu = quantized_matmul_grouped(
         xs, gup.qweight, gup.scales, gup.zeros_x_scales, tile_e, tile_live, bm,
         group_size=gup.group_size, a8=a8,

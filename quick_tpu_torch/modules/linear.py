@@ -28,6 +28,13 @@ def a8_enabled() -> bool:
     return os.environ.get("QUICK_TPU_A8", "0") == "1"
 
 
+def moe_a8_enabled() -> bool:
+    """``QUICK_TPU_MOE_A8=1`` runs the grouped expert GEMMs on int8
+    activations (quick_tpu/modules/blocks.py:576); they fall back to W4A16
+    at G != 128 or bm % 32. Read at every call."""
+    return os.environ.get("QUICK_TPU_MOE_A8", "0") == "1"
+
+
 @dataclasses.dataclass
 class Linear:
     """Plain (non-quantized) linear, weight [K, N]."""

@@ -40,9 +40,10 @@ from quick_tpu_torch.ops._cuda import CudaKernel, check, i32, ptr, stream_ptr
 from quick_tpu_torch.ops.quantized_matmul import (
     KERNEL_GROUP,
     quantize_activations,
+    quantized_matmul_a8_plain,
     quantized_matmul_plain,
 )
-from quick_tpu_torch.quantize.packing import PACK, unpack_qtpu_tensor
+from quick_tpu_torch.quantize.packing import PACK
 
 #: K8. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
 KERNEL = CudaKernel(
@@ -156,30 +157,22 @@ def quantized_matmul_grouped_a8_plain(
     tile_live: torch.Tensor,
     bm: int,
 ) -> torch.Tensor:
-    """Plain version of K12 (``_grouped_fallback(a8=True)`` :146-200): the
-    rows' int8 codes and scales over the whole buffer, each live tile's
-    codes times its expert's codes in exact per-group dots (f32 products of
-    integers below 2^24), output-side scales, minus the zero-point term over
-    the codes' row sums, times the row scale, dead tiles zero. Reads the
-    tile layout back to the host: it serves the CPU and the comparisons on
-    the card, never the card's main path."""
-    Mp, K = x.shape
-    N = qweight.shape[-1]
-    G = KERNEL_GROUP
-    ng = K // G
-    xq, sx = quantize_activations(x)
-    out = torch.zeros((Mp, N), dtype=torch.float32, device=x.device)
+    """Plain version of K12 (``_grouped_fallback(a8=True)`` :146-200): each
+    expert's live rows through K11's plain version (the rows are quantized
+    one by one, so its codes and scales are the whole buffer's), kept in
+    f32 until the one bf16 rounding; dead tiles zero. Reads the tile layout
+    back to the host: it serves the CPU and the comparisons on the card,
+    never the card's main path."""
+    Mp = x.shape[0]
+    out = torch.zeros((Mp, qweight.shape[-1]), dtype=torch.float32, device=x.device)
     tiles = torch.arange(Mp // bm, device=x.device)
     te, live = tile_expert.tolist(), tile_live.tolist()
     for e in sorted({int(t) for t, lv in zip(te, live) if lv}):
         mine = tiles[(tile_expert == e) & (tile_live != 0)]
         rows = (mine[:, None] * bm + torch.arange(bm, device=x.device)).reshape(-1)
-        codes = unpack_qtpu_tensor(qweight[e], G).to(torch.float32).reshape(ng, G, N)
-        xg = xq[rows].to(torch.float32).reshape(-1, ng, G).transpose(0, 1)  # [ng, R, G]
-        y = (torch.bmm(xg, codes) * scales[e].to(torch.float32)[:, None, :]).sum(0)
-        xsum = xg.sum(-1).transpose(0, 1)
-        out[rows] = y - xsum @ zeros_x_scales[e].to(torch.float32)
-    return (out * sx).to(torch.bfloat16)
+        out[rows] = quantized_matmul_a8_plain(x[rows], qweight[e], scales[e],
+                                              zeros_x_scales[e], KERNEL_GROUP, torch.float32)
+    return out.to(torch.bfloat16)
 
 
 def launch_grouped_a8(
