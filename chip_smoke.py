@@ -5,7 +5,7 @@ card. Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels K1-K13, K4q,
+  1. the card's name and power limit; build the CUDA kernels K1-K14, K4q,
      K5q / K6q, K10q and K11f from csrc/ (one nvcc per source, in parallel)
      and print ptxas' register summary;
   2. every kernel against its plain PyTorch version on the card, at the
@@ -92,10 +92,27 @@ Phases (any failure exits non-zero):
      generate() under QUICK_TPU_A8=1 QUICK_TPU_MOE_A8=1; (e) the INT8 Engine
      of phase 9c under QUICK_TPU_A8=1 at A8_ENGINE_LAYERS layers; (f) the
      2-layer full-width kernel path against the plain path under A8
-     (dense, and Mixtral with MOE_A8).
+     (dense, and Mixtral with MOE_A8);
+ 13. the decode layer tail and the decode step as one CUDA graph: (a) K14
+     at Mistral-7B width and M = 1, 4, 8 against its plain version, timed
+     beside the unfused K1 chain and three torch.matmul on bf16 weights;
+     (b) phase 4's generate() under QUICK_TPU_LAYER_TAIL=1; (c) phase 6's
+     dense (K3) and paged checks under the switch; (d) graphed against
+     eager decode: every generate() path compares its eager loop's tokens
+     with the graphed one's (phases 4, 8, 10, 11, 12c, 13b), B=32 decode
+     through K7, and the Engines (Mistral width over bf16 and INT8 pages,
+     Mixtral, DeepSeek-V2-Lite over bf16 and INT8 latent pages) at
+     ENGINE_AB_LAYERS layers with graphed and with eager windows: the same
+     streams and launch counts; (e) penalised greedy generate() at 2
+     layers, graphed against eager, then against the plain path.
+     On the card generate()'s decode loop and the Engine's greedy windows
+     replay a captured step; a replay adds the launches counted at capture.
      Launch counts exact throughout, K13's in every phase.
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --depth-costs`` runs, after phase 1, only the
+depth-cut phases at full depth and prints their seconds (``depth_costs``).
 """
 import contextlib
 import dataclasses
@@ -163,11 +180,12 @@ TOL_INT8_MODEL = 2e-2
 #: the Mixtral Engine (phase 8) and the Mistral-7B-width Engines (phases 5
 #: and 9c) run their first MOE_ENGINE_LAYERS / ENGINE_LAYERS layers of full
 #: width, the GGUF file of phase 10b holds GGUF_LAYERS layers and phase
-#: 12e's INT8 Engine under A8 runs A8_ENGINE_LAYERS, so that phase 11's
-#: DeepSeek-V2-Lite Engines run at full depth within the script's time
-#: budget (on one H100 80GB HBM3 at 700 W the three Mistral-width and
-#: Mixtral Engines took 100, 206 and ~150 s at 32 layers, 44, 80 and 72 s
-#: at 8; the DeepSeek Engines 91-178 s each at 27)
+#: 12e's INT8 Engine under A8 runs A8_ENGINE_LAYERS, so that the script
+#: keeps room for a slower host within its time limit (on one H100 80GB
+#: HBM3 at 700 W, with graphed decode windows, the bf16, INT8 and Mixtral
+#: Engines took 38, 72 and 88 s at 32 layers and the 32-layer GGUF phase
+#: 51 s, against a 621 s script at these depths; --depth-costs measures
+#: them)
 MOE_ENGINE_LAYERS = 4
 ENGINE_LAYERS = 4
 GGUF_LAYERS = 8
@@ -509,7 +527,8 @@ def fused_row(cfg, gen, dev):
     for length in (PROMPT, PROMPT + NEW_TOKENS - 1):
         q, kn, vn, c, s = inputs()
         k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-        out = fs.fused_decode_attention_cuda(q, kn, vn, k1, v1, c, s, length, 3, scale)
+        ln = torch.full((1,), length, dtype=torch.int32, device=dev)  # as the path's length_dev
+        out = fs.fused_decode_attention_cuda(q, kn, vn, k1, v1, c, s, ln, 3, scale)
         ref = fs.fused_decode_attention_plain(q, kn, vn, k2, v2, c, s, length, 3, scale)
         torch.cuda.synchronize()
         err = max(err, max_err(out, ref, TOL["fused_decode_step"], f"K3 length={length}"))
@@ -518,8 +537,9 @@ def fused_row(cfg, gen, dev):
             fail("K3 changed the cache outside the new row")
     length = PROMPT + NEW_TOKENS - 1
     q, kn, vn, c, s = inputs()
+    ln = torch.full((1,), length, dtype=torch.int32, device=dev)  # as the path's length_dev
     ms = device_ms(lambda i: fs.fused_decode_attention_cuda(
-        q, kn, vn, kc, vc, c, s, length, i % L, scale), 100)
+        q, kn, vn, kc, vc, c, s, ln, i % L, scale), 100)
     plain_ms = device_ms(lambda i: fs.fused_decode_attention_plain(
         q, kn, vn, kc, vc, c, s, length, i % L, scale), 5)
     # no one PyTorch call does rope, the cache write and attention together:
@@ -911,10 +931,13 @@ def generate_launches(cfg, B=BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS, T=MAX_
 def run_generate(model, cfg, dev, label: str, want: dict):
     """generate() of B=4 x (128 + 64) tokens: a warm-up, one counted call
     whose launches must equal ``want``, then prefill and decode timed apart
-    three times with the same greedy tokens, and a profile of 8 decode
-    steps. Returns (launch counts by kernel and key, stats)."""
+    three times with the same greedy tokens, the eager decode loop once
+    beside the graphed one (the same tokens and the same k/v cache bit for
+    bit), and profiles of 32 graphed and 8 eager decode steps. Returns
+    (launch counts by kernel and key, stats)."""
     from quick_tpu_torch.ops import all_kernels
-    from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
+    from quick_tpu_torch.runtime import SamplingParams, decode_loop, make_cache, prefill
+    from quick_tpu_torch.runtime.generate import graphable
 
     gen = torch.Generator(device=dev).manual_seed(0)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
@@ -961,19 +984,41 @@ def run_generate(model, cfg, dev, label: str, want: dict):
         again = torch.cat([first[:, None], rest], dim=1)
         if not torch.equal(again, out[:, PROMPT:]):
             fail("a second greedy run gave other tokens (kernels not deterministic)")
+    graphed_cache = cache
+    # the eager loop beside the graph: the same tokens and cache, its own time
+    cache = make_cache(cfg, BATCH, MAX_SEQ, device=dev)
+    logits, cache = prefill(model.params, cfg, prompts, cache)
+    first = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest, cache = decode_loop(model.params, cfg, first, cache, NEW_TOKENS - 1, _graph=False)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    if not torch.equal(torch.cat([first[:, None], rest], dim=1), out[:, PROMPT:]):
+        fail(f"{label}: the eager decode loop gave other greedy tokens than the graphed one")
+    same_planes(f"{label}: the graphed and the eager decode loop's caches",
+                dense_planes(graphed_cache), dense_planes(cache))
+    del graphed_cache
     stats = dict(
         generate_s=t_gen,
         prefill_ms=[t * 1e3 for t in t_prefill],
         prefill_tok_s=[BATCH * PROMPT / t for t in t_prefill],
+        decode_graphed=graphable(model.params, cfg, cache, SamplingParams()),
         decode_ms_per_step=[t * 1e3 / (NEW_TOKENS - 1) for t in t_decode],
         decode_tok_s=[BATCH * (NEW_TOKENS - 1) / t for t in t_decode],
+        decode_ms_per_step_eager=t_eager * 1e3 / (NEW_TOKENS - 1),
         peak_mem_gib=peak / 2**30,
     )
-    print("  " + json.dumps(stats))
+    print("  " + json.dumps(stats) + "; eager and graphed greedy tokens and caches equal")
     del cache
-    stats["decode_profile"] = profile_decode(model, cfg, prompts, dev)
+    # the graphed loop's profile spans 32 steps, its capture included; the
+    # eager one 8 (the profiler's own cost grows with the host's calls)
+    stats["decode_profile"] = profile_decode(model, cfg, prompts, dev, steps=32)
+    stats["decode_profile_eager"] = profile_decode(model, cfg, prompts, dev, graph=False)
     stats["aten_calls_per_layer"] = (stats["decode_profile"]["aten_calls_per_step"]
                                      / cfg.num_hidden_layers)
+    stats["aten_calls_per_layer_eager"] = (stats["decode_profile_eager"]["aten_calls_per_step"]
+                                           / cfg.num_hidden_layers)
     torch.cuda.empty_cache()
     return counts, stats
 
@@ -992,16 +1037,18 @@ def phase4_main_path(cfg, dev):
     return counts, stats, model.params
 
 
-def profile_decode(model, cfg, prompts, dev, steps: int = 8) -> dict:
-    """Device busy share of decode steps and where their time goes."""
+def profile_decode(model, cfg, prompts, dev, steps: int = 8, graph=None) -> dict:
+    """Device busy share of decode steps and where their time goes; the
+    graphed loop (its capture included) unless ``graph`` is False."""
     from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
 
     cache = make_cache(cfg, BATCH, MAX_SEQ, device=dev)
     logits, cache = prefill(model.params, cfg, prompts, cache)
     first = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
-    out = device_profile(lambda: decode_loop(model.params, cfg, first, cache, steps), steps)
-    print("  decode profile: " + json.dumps(out))
+    out = device_profile(lambda: decode_loop(model.params, cfg, first, cache, steps,
+                                             _graph=graph), steps)
+    print(f"  decode profile{' (eager)' if graph is False else ''}: " + json.dumps(out))
     return out
 
 
@@ -1090,14 +1137,21 @@ def k13_key(rows: int, D: int) -> str:
     return launch_key(rows, D)
 
 
+def layer_tail_on() -> bool:
+    """``QUICK_TPU_LAYER_TAIL`` as the port reads it at each call."""
+    return os.environ.get("QUICK_TPU_LAYER_TAIL", "") == "1"
+
+
 def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
     """Add K1's (K9's at ``group`` 32 or 64; K11 / K11f's above 96 rows under
-    QUICK_TPU_A8), K8's (K12's under QUICK_TPU_MOE_A8 at G = 128) and K13's
-    launches of ``n`` layer-forwards over ``rows`` tokens (every layer of
-    these models is dense, or every one MoE). K13 runs each norm that no K1
-    prologue takes: the attention norm and a dense MLP's at rows > 8, at
-    G != 128 or under A8 (which unfuses the prologues); an MoE layer's MLP
-    norm always."""
+    QUICK_TPU_A8), K8's (K12's under QUICK_TPU_MOE_A8 at G = 128), K13's and
+    K14's launches of ``n`` layer-forwards over ``rows`` tokens (every layer
+    of these models is dense, or every one MoE). K13 runs each norm that no
+    K1 prologue or K14 takes: the attention norm and a dense MLP's at rows >
+    8, at G != 128 or under A8 (which unfuses the prologues); an MoE layer's
+    MLP norm always. Under QUICK_TPU_LAYER_TAIL a dense layer of <= 8 rows
+    at G = 128 runs o, the MLP norm, gate_up and down in K14."""
+    from quick_tpu_torch.ops.fused_layer_tail import launch_key as tail_key
     from quick_tpu_torch.ops.quantized_matmul import (
         a8_launch_key,
         dequant_launch_key,
@@ -1108,7 +1162,13 @@ def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
         fail(f"{cfg.model_type}: mixed dense and MoE layers are not counted here")
     a8, fused, moe_a8 = a8_switches()
     prologues = group == 128 and rows <= 8 and not a8
-    for K, N, pro in k1_projections(cfg):
+    tail = layer_tail_on() and rows <= 8 and group == 128 and not cfg.is_moe
+    projections = k1_projections(cfg)
+    if tail:
+        (K1, D), (I, _) = gemm_shapes(cfg)["o"], gemm_shapes(cfg)["down"]
+        add("fused_layer_tail", tail_key(rows, K1, D, I), n)
+        projections = projections[:1]  # qkv
+    for K, N, pro in projections:
         if a8 and rows > 96:
             add("quantized_matmul_a8", a8_launch_key(rows, K, N, group, fused and group == 128), n)
         elif group == 128:
@@ -1122,7 +1182,7 @@ def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
             else:
                 add("grouped_matmul", key, n)
     add("rms_norm", k13_key(rows, cfg.hidden_size),
-        n * ((0 if prologues else 1) + (1 if cfg.is_moe or not prologues else 0)))
+        n * ((0 if prologues else 1) + (0 if tail else 1 if cfg.is_moe or not prologues else 0)))
 
 
 def engine_launches(cfg, stats, engine=ENGINE) -> dict:
@@ -1287,11 +1347,12 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
 # Phase 6: kernel path against the plain path on a 2-layer full-width model
 # ---------------------------------------------------------------------------
 
-def phase6_paged_plain_vs_kernel(cfg, dev):
+def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None):
     """model_forward over a PagedKVCache: one 16-token chunk for 4 slots at
     different starts (one crossing a page boundary) over random earlier
     context, then PHASE6_DECODE decode steps; the card's kernel path
-    (K4-K6) against the plain path on the CPU."""
+    (K4-K6) against the plain path on the CPU. ``require``: {kernel:
+    launches} the run must also make (phase 13c: K14 under the switch)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.modules.paged_cache import PagedKVCache
@@ -1302,7 +1363,7 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
     n_pt = max_seq // page
     P = 1 + B * n_pt
     starts = [0, 21, 56, 100]  # 56 + 16 crosses the page boundary at 64
-    print(f"[6] 2 layers at full width, paged cache (page {page}), chunk at starts "
+    print(f"[{tag}] 2 layers at full width, paged cache (page {page}), chunk at starts "
           f"{starts} + {PHASE6_DECODE} decode steps: kernel path (card) vs plain path (CPU), "
           f"tol {TOL_MODEL} * (1 + |ref|)")
     p_gpu = init_quant_params(cfg2, seed=2, device=dev)
@@ -1340,6 +1401,9 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
     if launched.get("paged_write") != 2 * (1 + PHASE6_DECODE) or \
             launched.get("paged_attention") != 2 * (1 + PHASE6_DECODE):
         fail(f"the paged 2-layer path did not run K4-K6 once per layer per step: {launched}")
+    for name, n in (require or {}).items():
+        if launched.get(name) != n:
+            fail(f"the paged 2-layer path did not run {name} {n} times: {launched}")
     if cg.length.tolist() != cc.length.tolist() or cc.length.tolist() != [s + S + PHASE6_DECODE for s in starts]:
         fail(f"lengths {cg.length.tolist()} / {cc.length.tolist()}")
     print(f"  launches {launched}")
@@ -1348,14 +1412,15 @@ def phase6_paged_plain_vs_kernel(cfg, dev):
 
 def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROMPT,
                                  decode_kernel="fused_decode_step", params=None, tag="6",
-                                 tol=TOL_MODEL, prefill_kernel=None):
+                                 tol=TOL_MODEL, prefill_kernel=None, require=None):
     """model_forward over a dense cache: a prefill and PHASE6_DECODE decode
     steps, the card's kernel path against the plain path on the CPU. At B=4 and
     max_seq 256 decode takes K3; at B=16 and max_seq 512 (32 MiB of K+V per
     layer) the dense decode kernel K7. ``params``: the 2-layer model on the
     card and on the CPU (default: random g=128 QTPU weights, seed 1).
     ``prefill_kernel``: a GEMM kernel that must run the prefill's four
-    projections (phase 12f: K11 under QUICK_TPU_A8)."""
+    projections (phase 12f: K11 under QUICK_TPU_A8). ``require``: {kernel:
+    launches} the run must also make (phase 13c: K14 under the switch)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.ops import all_kernels
@@ -1394,6 +1459,9 @@ def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROM
     if prefill_kernel and launched.get(prefill_kernel) != 2 * 4:
         fail(f"the dense 2-layer prefill did not run {prefill_kernel} for its four projections "
              f"per layer: {launched}")
+    for name, n in (require or {}).items():
+        if launched.get(name) != n:
+            fail(f"the dense 2-layer path did not run {name} {n} times: {launched}")
     print(f"  launches {launched}; {time.perf_counter() - t0:.1f} s")
     return worst
 
@@ -1886,6 +1954,7 @@ def phase8_moe(dev):
             counts["moe_engine"], report["mixtral_engine"] = phase_engine(
                 dataclasses.replace(model.params, blocks=model.params.blocks[:MOE_ENGINE_LAYERS]),
                 dataclasses.replace(cfg, num_hidden_layers=MOE_ENGINE_LAYERS), "8")
+            report["mixtral_engine_graph_ab"] = engine_graph_ab(model.params, cfg, "13d")
             report["mixtral_checkpoint"] = phase8_checkpoint(model.params, cfg, dev)
             print(f"[12d] Mixtral-8x7B generate() under QUICK_TPU_A8=1 QUICK_TPU_MOE_A8=1")
             with switches(QUICK_TPU_A8="1", QUICK_TPU_MOE_A8="1"):
@@ -3003,6 +3072,9 @@ def phase11_deepseek(dev):
     for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8))):
         counts[path], report[path] = phase_engine(params, cfg, "11d", engine, trace,
                                                   ds_engine_launches, warmup=False)
+    report["engine_graph_ab"] = {
+        path: engine_graph_ab(params, cfg, "13d", engine, trace)
+        for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8)))}
     # measurement only, at phase 5's depth: the host's calls a layer do not
     # depend on it, and a full-depth Engine's set-up costs the script ~20 s
     report["engine_k13_host_ab"] = engine_host_ab(
@@ -3239,8 +3311,8 @@ def decode_host_ab(model, cfg, dev, tag: str, steps: int = 8) -> dict:
     logits, cache = prefill(model.params, cfg, prompts, cache)
     first = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
-    out = host_ab(lambda: decode_loop(model.params, cfg, first, cache, steps), steps,
-                  steps * cfg.num_hidden_layers)
+    out = host_ab(lambda: decode_loop(model.params, cfg, first, cache, steps, _graph=False),
+                  steps, steps * cfg.num_hidden_layers)
     del cache
     torch.cuda.empty_cache()
     return out
@@ -3271,8 +3343,9 @@ def engine_host_ab(params, cfg, tag: str, engine=ENGINE) -> dict:
     from quick_tpu_torch.runtime import Engine
 
     print(f"[{tag}] the Engine's host cost of the norms: {cfg.model_type}, "
-          f"{cfg.num_hidden_layers} layers, one decode turn with K13, the next with plain norms")
-    eng = Engine(params, cfg, **engine)
+          f"{cfg.num_hidden_layers} layers, one decode turn with K13, the next with plain norms "
+          "(eager windows: a graph replays its capture's norms)")
+    eng = Engine(params, cfg, **engine, _graphs=False)
     for i in range(engine["max_slots"]):
         eng.submit([(i * 32 + j) % cfg.vocab_size for j in range(32)], 48)
     while eng.has_work and len(eng.ready_slots()) < engine["max_slots"]:
@@ -3312,6 +3385,334 @@ def phase12_generate(params, cfg, dev):
             counts[path], stats[path] = run_generate(model, cfg, dev, path, generate_launches(cfg))
     return counts, stats
 
+# ---------------------------------------------------------------------------
+# Phase 13: the decode layer tail (K14); the decode step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+#: phase 13b's path: phase 4's generate() under QUICK_TPU_LAYER_TAIL=1
+TAIL_GEN = "generate_layer_tail"
+TAIL_ROWS = (1, BATCH, 8)  # K14 checked and timed at M = 1, 4 (the path's) and 8
+#: K14 against its plain version, of max|ref|: tests/test_layer_tail.py's
+#: bound between two orders of the f32 group sums (about two bf16 steps)
+TOL_TAIL = 8e-3
+#: phase 13e: penalised greedy generate() at 2 layers, PENALTY_TOKENS tokens.
+#: A random model's greedy stream repeats one token with a lead of more
+#: than 16 logits (on an H100 80GB HBM3 at 700 W, 3.0 / 2.0 / 2.0 moved no
+#: token, logits up to 27), so the frequency penalty forbids a repeat and
+#: every later token moves
+PENALTIES = dict(repetition_penalty=1.3, frequency_penalty=100.0, presence_penalty=0.5)
+PENALTY_TOKENS = 8
+#: phase 13d: the Engines' graphed and eager streams, at this depth
+ENGINE_AB_LAYERS = 2
+
+
+def tail_rows(cfg, gen, dev):
+    """[13a] K14 at Mistral-7B width (o 4096x4096, gate_up 4096x28672, down
+    14336x4096) and M = 1, 4, 8 against its plain version, twice (the same
+    bits: split sums in a fixed order), then timed beside its plain version,
+    the unfused K1 chain the path runs without the switch (o; residual;
+    gate_up with the RMSNorm prologue; down with the SiLU-GLU prologue;
+    residual) and, as a yardstick, the three torch.matmul on bf16 weights;
+    two weight copies rotated (217 MB: past L2). No one PyTorch call
+    computes the tail (library_ms null). Returns (the M = 4 row, the
+    numbers of every M)."""
+    from quick_tpu_torch.ops import fused_layer_tail as ft
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    sh = gemm_shapes(cfg)
+    (K1, D), (_, N2), (I, _) = sh["o"], sh["gate_up"], sh["down"]
+    eps = cfg.rms_norm_eps
+    print(f"[13a] K14 (the decode layer tail) against its plain version, K1={K1} D={D} I={I}, "
+          f"tol {TOL_TAIL} * max|ref|")
+    projections = (sh["o"], sh["gate_up"], sh["down"])
+    ws = [rand_qlinear(gen, dev, K, N, copies=2) for K, N in projections]
+    wd = []
+    for (K, N), ((qw, sc, zs), _) in zip(projections, ws):
+        codes = qm.unpack_qtpu_tensor(qw).float().reshape(K // 128, 128, N)
+        wd.append((codes * sc[:, None] - zs[:, None]).reshape(K, N).to(torch.bfloat16))
+        del codes
+    nw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    wbytes = sum(K * N // 2 + 2 * (K // 128) * N * 4 for K, N in projections)
+    row, every = None, {}
+    for M in TAIL_ROWS:
+        ao, xr, xn = (torch.randn((M, n), generator=gen, device=dev).to(torch.bfloat16)
+                      for n in (K1, D, D))
+        x2 = torch.randn((M, I), generator=gen, device=dev).to(torch.bfloat16)
+
+        def args(c):
+            return (ao, xr, nw, *ws[0][c], *ws[1][c], *ws[2][c])
+
+        out = ft.fused_layer_tail_cuda(*args(0), eps=eps)
+        again = ft.fused_layer_tail_cuda(*args(0), eps=eps)
+        ref = ft.fused_layer_tail_plain(*args(0), eps=eps)
+        torch.cuda.synchronize()
+        key = ft.launch_key(M, K1, D, I)
+        d = (out.float() - ref.float()).abs()
+        err, rmax = float(d.max()), float(ref.float().abs().max())
+        print(f"  K14 {key}: max_abs_err {err:.3e}, max|ref| {rmax:.3e}, "
+              f"err / max|ref| {err / rmax:.3e} (tol {TOL_TAIL})")
+        if not torch.isfinite(out.float()).all() or err > TOL_TAIL * rmax:
+            fail(f"K14 {key} disagrees with its plain version")
+        if not torch.equal(out, again):
+            fail(f"K14 {key} gave other bits on a second launch")
+
+        def chain(i):
+            c = i % 2
+            h = xr + qm.quantized_matmul_cuda(ao, *ws[0][c])
+            gu = qm.quantized_matmul_cuda(h, *ws[1][c], norm_weight=nw, norm_eps=eps)
+            return h + qm.quantized_matmul_cuda(gu, *ws[2][c], glu=True)
+
+        def matmuls(i):
+            torch.matmul(ao, wd[0])
+            torch.matmul(xn, wd[1])
+            torch.matmul(x2, wd[2])
+
+        ms = device_ms(lambda i: ft.fused_layer_tail_cuda(*args(i % 2), eps=eps), 50)
+        chain_ms = device_ms(chain, 50)
+        mm_ms = device_ms(matmuls, 50)
+        plain_ms = device_ms(lambda i: ft.fused_layer_tail_plain(*args(i % 2), eps=eps), 3,
+                             warmup=1)
+        b_ms, b_by = bound(wbytes + (M * K1 + 2 * M * D + D) * 2,
+                           2.0 * M * (K1 * D + D * N2 + I * D))
+        every[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                          k1_chain_ms=chain_ms, matmul_sum_ms=mm_ms, max_abs_err=err)
+        print(f"  {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, the unfused K1 chain {chain_ms * 1e3:.1f} us, three "
+              f"torch.matmul on bf16 weights {mm_ms * 1e3:.1f} us")
+        if M == BATCH:
+            row = dict(
+                name=f"fused_layer_tail[{key}]", route="cuda",
+                source="quick_tpu_torch/csrc/fused_layer_tail.cu",
+                replaces="quick_tpu/ops/fused_layer_tail.py:70",
+                launches=(TAIL_GEN, "fused_layer_tail", key), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                k1_chain_ms=chain_ms, matmul_sum_ms=mm_ms,
+            )
+    del ws, wd
+    torch.cuda.empty_cache()
+    return row, every
+
+
+def phase13_generate(params, cfg, dev):
+    """[13b] generate() at Mistral-7B width and full depth on phase 4's
+    weights under QUICK_TPU_LAYER_TAIL=1 (B=4, 128 + 64 tokens): K14 at
+    every decode layer, K1 at M = 4 for qkv only; exact launch counts, the
+    eager loop's tokens equal to the graphed one's, ms per step and busy
+    share of both (phase 4 has them without the switch)."""
+    from quick_tpu_torch.models.auto import AutoQuickModel
+
+    print(f"[13b] generate() path under QUICK_TPU_LAYER_TAIL=1: {cfg.num_hidden_layers} "
+          f"layers, B={BATCH}, {PROMPT} + {NEW_TOKENS} tokens")
+    with switches(QUICK_TPU_LAYER_TAIL="1"):
+        return run_generate(AutoQuickModel(params, cfg), cfg, dev, TAIL_GEN,
+                            generate_launches(cfg))
+
+
+def counted(fn):
+    """fn()'s result and the launches it counted, by kernel and key."""
+    from quick_tpu_torch.ops import all_kernels
+
+    for k in all_kernels():
+        k.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: dict(k.launches_by_key) for k in all_kernels() if k.launches}
+
+
+def same_planes(what: str, a: dict, b: dict) -> None:
+    """Fail unless the cache tensors ``a`` and ``b`` (by name) are bit-equal:
+    a graphed and an eager run launch the same kernels in the same order,
+    and the greedy tokens of a random model repeat one token, so equal
+    tokens alone would not show a graph that reads or writes the wrong
+    rows."""
+    for name, x in a.items():
+        y = b[name]
+        if not torch.equal(x, y):
+            fail(f"{what} differ in {name}: max |diff| {float((x.float() - y.float()).abs().max())}")
+
+
+def dense_planes(cache) -> dict:
+    return dict(k=cache.k, v=cache.v)
+
+
+def page_planes(cache) -> dict:
+    """The paged cache's pages and scale tiles without the trash page, which
+    the rows of idle slots write in no fixed order."""
+    from quick_tpu_torch.modules.paged_cache import TRASH_PAGE
+
+    assert TRASH_PAGE == 0
+    return {name: t[:, 1:] for name, t in (("k_pages", cache.k_pages), ("v_pages", cache.v_pages),
+                                           ("kv_scales", cache.kv_scales)) if t is not None}
+
+
+def graph_vs_eager_k7(params, cfg, dev, B=32, new_tokens=16):
+    """[13d] generate() at B=32 (decode on K7) with the decode step graphed
+    and eager: the same greedy tokens, k/v cache (bit for bit) and launch
+    counts, and each one's decode time."""
+    from quick_tpu_torch.modules.blocks import dense_decode_route
+    from quick_tpu_torch.runtime import SamplingParams, decode_loop, make_cache, prefill
+    from quick_tpu_torch.runtime.generate import graphable
+
+    print(f"[13d] generate() at B={B} (decode on K7), graphed against eager")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device=dev)
+    out = {}
+    for graph in (False, True):
+        cache = make_cache(cfg, B, MAX_SEQ, device=dev)
+        if dense_decode_route(cfg, cache, B, params.rope_cos, 0, dev) != "dense_kernel" or \
+                not graphable(params, cfg, cache, SamplingParams()):
+            fail(f"B={B} decode does not take K7 in a graph")
+        logits, cache = prefill(params, cfg, prompts, cache)
+        first = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (toks, cache), n = counted(lambda: decode_loop(params, cfg, first, cache,
+                                                       new_tokens - 1, _graph=graph))
+        out[graph] = (toks, n, (time.perf_counter() - t0) * 1e3 / (new_tokens - 1), cache)
+        del cache
+    if not torch.equal(out[False][0], out[True][0]) or out[False][1] != out[True][1]:
+        fail(f"B={B}: graphed and eager decode differ in tokens or launches")
+    same_planes(f"B={B}: the graphed and the eager decode loop's caches",
+                dense_planes(out[True][3]), dense_planes(out[False][3]))
+    res = dict(decode_ms_per_step_eager=out[False][2], decode_ms_per_step_graphed=out[True][2])
+    print("  equal tokens, caches and launches; " + json.dumps(res))
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_graph_ab(params, cfg, tag, engine=ENGINE, trace=None, layers=ENGINE_AB_LAYERS):
+    """[13d] The Engine over ``trace`` at ``layers`` layers with its greedy
+    windows replayed from a captured step and with eager windows: the same
+    streams, stats, pages (bit for bit) and launch counts; each run's wall
+    time."""
+    from quick_tpu_torch.runtime import Engine
+
+    p = dataclasses.replace(params, blocks=params.blocks[:layers])
+    c = dataclasses.replace(cfg, num_hidden_layers=layers)
+    trace = trace or serving_trace(cfg.vocab_size)
+    print(f"[{tag}] {cfg.model_type} Engine at {layers} layers "
+          f"({engine.get('dtype', torch.bfloat16)} pages), graphed against eager windows")
+    runs = {}
+    for graphs in (True, False):
+        def run():
+            eng = Engine(p, c, **engine, _graphs=graphs)
+            uids = [eng.submit(q, n) for q, n in trace]
+            outs = eng.run()
+            return [outs[u] for u in uids], dict(eng.stats), eng.cache
+
+        t0 = time.perf_counter()
+        (streams, stats, pages), n = counted(run)
+        runs[graphs] = (streams, stats, n, time.perf_counter() - t0, pages)
+    if runs[True][:3] != runs[False][:3]:
+        fail(f"{cfg.model_type} Engine: graphed and eager windows differ in streams, stats or "
+             "launches")
+    same_planes(f"{cfg.model_type} Engine: the graphed and the eager windows' pages",
+                page_planes(runs[True][4]), page_planes(runs[False][4]))
+    res = dict(layers=layers, graphed_s=runs[True][3], eager_s=runs[False][3])
+    print("  equal streams, stats, pages and launches; " + json.dumps(res))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase13_penalties(cfg, dev):
+    """[13e] Penalised greedy generate() (repetition, frequency and presence
+    penalties) at 2 layers of full width: the graphed and the eager decode
+    loop give the same tokens; along them, the card's penalised logits at
+    every step against the plain path's on the CPU (both fed the card's
+    tokens, counts and prompt marks), within phase 6's tolerance, and the
+    card's argmax is its token."""
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.models.model import init_quant_params, model_forward
+    from quick_tpu_torch.runtime import SamplingParams, generate, make_cache
+    from quick_tpu_torch.runtime.generate import apply_penalties
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    sp = SamplingParams(**PENALTIES)
+    print(f"[13e] penalised greedy generate() {PENALTIES}, 2 layers at full width, B={BATCH}, "
+          f"{PROMPT} + {PENALTY_TOKENS} tokens: graphed vs eager, then the kernel path (card) "
+          f"vs the plain path (CPU), tol {TOL_MODEL} * (1 + |ref|)")
+    p_gpu = init_quant_params(cfg2, seed=5, device=dev)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    graphed = generate(p_gpu, cfg2, prompts, PENALTY_TOKENS, sampling=sp, max_seq=MAX_SEQ)
+    eager = generate(p_gpu, cfg2, prompts, PENALTY_TOKENS, sampling=sp, max_seq=MAX_SEQ,
+                     _graph=False)
+    if not torch.equal(graphed, eager):
+        fail("penalised generate(): graphed and eager decode differ")
+    plain = generate(p_gpu, cfg2, prompts, PENALTY_TOKENS, max_seq=MAX_SEQ)
+    toks = graphed[:, PROMPT:].cpu()
+    V = cfg.vocab_size
+    seen = torch.zeros((BATCH, V), dtype=torch.bool).scatter_(1, prompts.cpu(), True)
+    counts = torch.zeros((BATCH, V), dtype=torch.int32)
+    worst = 0.0
+    caches = [make_cache(cfg2, BATCH, MAX_SEQ, device=d) for d in (dev, "cpu")]
+    feed = prompts.cpu()
+    with torch.inference_mode():
+        for t in range(PENALTY_TOKENS):
+            rows = []
+            for i, (pp, d) in enumerate(((p_gpu, dev), (p_cpu, "cpu"))):
+                lg, caches[i] = model_forward(pp, cfg2, feed.to(d), caches[i], last_token_only=True)
+                rows.append(apply_penalties(lg[:, -1], counts.to(d), seen.to(d), *(
+                    PENALTIES[k] for k in ("repetition_penalty", "frequency_penalty",
+                                           "presence_penalty"))).cpu())
+            worst = max(worst, max_err(rows[0], rows[1], TOL_MODEL, f"penalised step {t}"))
+            if not torch.equal(torch.argmax(rows[0], dim=-1), toks[:, t]):
+                fail(f"penalised step {t}: the card's argmax is not generate()'s token")
+            counts[torch.arange(BATCH), toks[:, t]] += 1
+            feed = toks[:, t:t + 1]
+    moved = int((plain[:, PROMPT:] != graphed[:, PROMPT:]).sum())
+    print(f"  graphed and eager tokens equal; {moved} of {BATCH * PENALTY_TOKENS} tokens differ "
+          "from the unpenalised stream")
+    if not moved:
+        fail("the penalties moved no token: the check cannot see them act")
+    del p_gpu, p_cpu, caches
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, tokens_moved_by_penalties=moved)
+
+
+def depth_costs(dev) -> dict:
+    """``python3 chip_smoke.py --depth-costs``: the seconds of the phases
+    that the time limit runs at a cut depth, run at full depth instead
+    (phase 5's Engine and phase 12b's Engine host A/B, phase 9c's INT8
+    Engine and phase 8's Mixtral Engine at 32 layers, phase 10b's GGUF file
+    at 32), for PERF.md section 4. A measurement only: it checks what those
+    phases check and ends without the kernels line."""
+    from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+    from quick_tpu_torch.models.model import init_quant_params
+
+    global GGUF_LAYERS
+    out = {}
+
+    def timed(tag, fn):
+        t0 = time.perf_counter()
+        fn()
+        out[tag] = time.perf_counter() - t0
+        print(f"[depth] {tag}: {out[tag]:.1f} s", flush=True)
+
+    cfg = ModelConfig(**MISTRAL_7B)
+    params = init_quant_params(cfg, seed=0, device=dev)
+    timed("5 bf16 Engine, 32 layers", lambda: phase_engine(params, cfg, "5"))
+    timed("12b Engine host A/B, 32 layers", lambda: engine_host_ab(params, cfg, "12b"))
+    timed("9c INT8 Engine, 32 layers", lambda: phase_engine(
+        params, cfg, "9c", ENGINE_INT8, serve_bench_trace(cfg.vocab_size)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = PRESETS["mixtral-8x7b"]
+    mparams = init_quant_params(mcfg, seed=0, device=dev)
+    timed("8 Mixtral Engine, 32 layers", lambda: phase_engine(mparams, mcfg, "8"))
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    GGUF_LAYERS = 32
+    timed("10b GGUF file, 32 layers", lambda: phase10_gguf(dev))
+    return out
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3329,6 +3730,9 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_start = time.perf_counter()
     phase1_build()
+    if "--depth-costs" in sys.argv[1:]:
+        print("depth costs: " + json.dumps(depth_costs(dev)))
+        return
     cfg = ModelConfig(**MISTRAL_7B)
     gen = torch.Generator(device=dev).manual_seed(0)
     trace = serving_trace(cfg.vocab_size)
@@ -3352,10 +3756,18 @@ def main() -> None:
             ((None, None, BATCH * PROMPT),), DS_G, gen, dev)  # checked only: no path runs it
     rows += rms_norm_rows(gen, dev)
     print(f"  phase 12a-b (K11, K11f, K13) done at {time.perf_counter() - t_start:.0f} s")
+    tail_row, tail_every = tail_rows(cfg, gen, dev)
+    rows.append(tail_row)
+    print(f"  phase 13a (K14) done at {time.perf_counter() - t_start:.0f} s")
     counts = {}
     counts["generate"], gen_stats, params = phase4_main_path(cfg, dev)
     a8_counts, a8_gen_stats = phase12_generate(params, cfg, dev)
     counts.update(a8_counts)
+    counts[TAIL_GEN], tail_gen_stats = phase13_generate(params, cfg, dev)
+    graph_ab = dict(k7_b32=graph_vs_eager_k7(params, cfg, dev),
+                    engine_bf16=engine_graph_ab(params, cfg, "13d"),
+                    engine_int8=engine_graph_ab(params, cfg, "13d", ENGINE_INT8, int8_trace))
+    print(f"  phases 13b and 13d (Mistral width) done at {time.perf_counter() - t_start:.0f} s")
     cut = (dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
            dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS))
     counts["engine"], engine_stats = phase_engine(*cut, "5")
@@ -3407,6 +3819,13 @@ def main() -> None:
     with switches(QUICK_TPU_A8="1"):  # [12f] K11 at the prefill's 512 rows
         a8_err = phase6_dense_plain_vs_kernel(cfg, dev, tag="12f", tol=TOL_A8_MODEL,
                                               prefill_kernel="quantized_matmul_a8")
+    with switches(QUICK_TPU_LAYER_TAIL="1"):  # [13c] K14 at every decode layer
+        tail_err = dict(
+            dense=phase6_dense_plain_vs_kernel(
+                cfg, dev, tag="13c", require={"fused_layer_tail": 2 * PHASE6_DECODE}),
+            paged=phase6_paged_plain_vs_kernel(
+                cfg, dev, tag="13c", require={"fused_layer_tail": 2 * PHASE6_DECODE}))
+    penalties = phase13_penalties(cfg, dev)
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,
@@ -3416,6 +3835,11 @@ def main() -> None:
                               dense=a8_err, mixtral=moe_report["plain_vs_kernel_a8"]["max_abs_err"])),
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,
                                           int8_paged=int8_err, **small_g_err),
+                  layer_tail=dict(kernel=tail_every, generate=tail_gen_stats,
+                                  plain_vs_kernel_max_abs_err=tail_err),
+                  graphs=dict(graph_ab, mixtral_engine=moe_report["mixtral_engine_graph_ab"],
+                              deepseek_engines=ds_report["engine_graph_ab"]),
+                  penalties=penalties,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

@@ -46,8 +46,17 @@ fused_step_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
                   bf16* __restrict__ v_cache, const float* __restrict__ cos_row,
                   const float* __restrict__ sin_row,
                   const float* __restrict__ slopes, bf16* __restrict__ out,
-                  int B, int Hq, int Hkv, int S, int layer, int length,
-                  float scale, int window, float softcap, int use_rope) {
+                  int B, int Hq, int Hkv, int S, int layer,
+                  const int* __restrict__ length_ptr, float scale, int window,
+                  float softcap, int use_rope) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int gq = Hq / Hkv;
+  const int length = *length_ptr;
+  if (length < 0 || length >= S) {  // outside the cache: no write, NaN out
+    for (int i = threadIdx.x; i < gq * D; i += blockDim.x)
+      out[((size_t)b * Hq + h * gq) * D + i] = __float2bfloat16_rn(__int_as_float(0x7fc00000));
+    return;
+  }
   constexpr int kDPL = D / 32;
   constexpr int kRows = kWarps * R;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -58,8 +67,6 @@ fused_step_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   uint32_t* ks = reinterpret_cast<uint32_t*>(vn + D);
   bf16* vs = reinterpret_cast<bf16*>(smem + (size_t)2 * kRows * D * 4 +
                                      2 * (size_t)D * 4 + attn::Tile<D>::kKBytes);
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int gq = Hq / Hkv;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t head = (((size_t)layer * B + b) * Hkv + h) * S * D;
   const float* cr = cos_row + (size_t)b * D;
@@ -143,7 +150,7 @@ template <int D, int R>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* k_cache, void* v_cache, const void* cos_row,
                    const void* sin_row, const void* slopes, void* out, int B,
-                   int Hq, int Hkv, int S, int layer, int length, float scale,
+                   int Hq, int Hkv, int S, int layer, const int* length, float scale,
                    int window, float softcap, int use_rope, cudaStream_t st) {
   const size_t smem = smem_bytes<D, R>();
   cudaError_t err = allow_smem(fused_step_kernel<D, R>, smem);
@@ -164,7 +171,7 @@ cudaError_t dispatch_r(int R, const void* q, const void* k_new,
                        const void* v_new, void* k_cache, void* v_cache,
                        const void* cos_row, const void* sin_row,
                        const void* slopes, void* out, int B, int Hq, int Hkv,
-                       int S, int layer, int length, float scale, int window,
+                       int S, int layer, const int* length, float scale, int window,
                        float softcap, int use_rope, cudaStream_t st) {
 #define QTT_LAUNCH(RR)                                                       \
   launch<D, RR>(q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, \
@@ -185,22 +192,26 @@ cudaError_t dispatch_r(int R, const void* q, const void* k_new,
 // q, out: [B, Hq, D] bf16 (q pre-rope); k_new, v_new: [B, Hkv, D] bf16;
 // k_cache, v_cache: [L, B, Hkv, S, D] bf16, written at [layer, :, :, length];
 // cos_row, sin_row: f32 [B, D]; slopes: f32 [Hq] or null; window <= 0 and
-// softcap <= 0 disable; use_rope = 0 passes q/k through unrotated.
+// softcap <= 0 disable; use_rope = 0 passes q/k through unrotated. length:
+// int32 [1] on the card, read by the kernel (a captured launch stays right
+// as the length moves); for a length outside [0, S) it writes no cache row
+// and NaN to out (the callers check the length on the host).
 extern "C" int qtt_fused_decode_step(
     const void* q, const void* k_new, const void* v_new, void* k_cache,
     void* v_cache, const void* cos_row, const void* sin_row,
     const void* slopes, void* out, int B, int Hq, int Hkv, int S, int D,
-    int layer, int length, float scale, int window, float softcap,
+    int layer, const void* length, float scale, int window, float softcap,
     int use_rope, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || length < 0 || length >= S)
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || length == nullptr)
     return cudaErrorInvalidValue;
   const int gq = Hq / Hkv;
   const int R = gq <= 4 ? 1 : gq <= 8 ? 2 : gq <= 16 ? 4 : gq <= 32 ? 8 : 0;
+  const int* len = static_cast<const int*>(length);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return dispatch_r<64>(R, q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, out, B, Hq, Hkv, S, layer, length, scale, window, softcap, use_rope, st);
-    case 128: return dispatch_r<128>(R, q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, out, B, Hq, Hkv, S, layer, length, scale, window, softcap, use_rope, st);
-    case 256: return dispatch_r<256>(R, q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, out, B, Hq, Hkv, S, layer, length, scale, window, softcap, use_rope, st);
+    case 64: return dispatch_r<64>(R, q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, out, B, Hq, Hkv, S, layer, len, scale, window, softcap, use_rope, st);
+    case 128: return dispatch_r<128>(R, q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, out, B, Hq, Hkv, S, layer, len, scale, window, softcap, use_rope, st);
+    case 256: return dispatch_r<256>(R, q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, slopes, out, B, Hq, Hkv, S, layer, len, scale, window, softcap, use_rope, st);
     default: return cudaErrorInvalidValue;
   }
 }

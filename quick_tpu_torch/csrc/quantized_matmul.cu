@@ -17,7 +17,8 @@
 // the work per byte is tiny. At prefill (M = 512) the multiply-adds, here
 // against the bf16 tensor-core rate (989 TFLOP/s dense).
 //
-// Design, decode (M <= 8): one thread owns one output column n, so a
+// Design, decode (M <= 8; the body is qmm_decode.cuh, which K14 shares):
+// one thread owns one output column n, so a
 // warp's loads of a packed row are 128 contiguous bytes; the 16 words of a
 // group are issued together before the activations are staged, so they are
 // in flight while the block stages the group's activations (prologue
@@ -41,11 +42,9 @@
 // Not carried over from the TPU: the 8-row padding, the (8, K) broadcast
 // of the norm weight, the VMEM tile pickers. wgmma, TMA and a pipelined
 // prefill kernel are later work.
-#include "qmm_mma.cuh"
+#include "qmm_decode.cuh"
 
 namespace {
-
-enum Prologue { kNone = 0, kRmsNorm = 1, kSiluGlu = 2 };
 
 __global__ void rms_stats_kernel(const bf16* __restrict__ x, int ldx, int K,
                                  float eps, float* __restrict__ rstd) {
@@ -74,8 +73,6 @@ qmm_kernel(const bf16* __restrict__ x, int ldx,
            const bf16* __restrict__ nw, const float* __restrict__ rstd,
            int M, int K, int N, int groups_per_split,
            float* __restrict__ partial, bf16* __restrict__ out) {
-  __shared__ __align__(16) float xs[kG * ROWS];
-  __shared__ float red[kBN / 32][ROWS];
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int n = blockIdx.x * kBN + t;
@@ -86,71 +83,8 @@ qmm_kernel(const bf16* __restrict__ x, int ldx,
   const int g1 = min(ng, g0 + groups_per_split);
 
   float acc[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) acc[i] = 0.f;
-
-  for (int g = g0; g < g1; ++g) {
-    uint32_t w[kSlab];
-#pragma unroll
-    for (int r = 0; r < kSlab; ++r)
-      w[r] = col_ok ? __ldg(qw + (size_t)(g * kSlab + r) * N + n) : 0u;
-    const float s = col_ok ? __ldg(scales + (size_t)g * N + n) : 0.f;
-    const float z = col_ok ? __ldg(zs + (size_t)g * N + n) : 0.f;
-
-    // stage the group's activations: thread t owns k = g*128 + t
-    const int k = g * kG + t;
-    float v[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int m = m0 + i;
-      float a = 0.f;
-      if (m < M) {
-        const bf16* row = x + (size_t)m * ldx;
-        if (PRO == kRmsNorm) {
-          a = round_bf16(bf2f(row[k]) * rstd[m] * bf2f(nw[k]));
-        } else if (PRO == kSiluGlu) {
-          const float gt = bf2f(row[k]), up = bf2f(row[K + k]);
-          a = round_bf16(gt * (1.f / (1.f + expf(-gt))) * up);
-        } else {
-          a = bf2f(row[k]);
-        }
-      }
-      v[i] = a;
-      xs[t * ROWS + i] = a;
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float p = warp_sum(v[i]);
-      if (lane == 0) red[warp][i] = p;
-    }
-    __syncthreads();
-    float xsum[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      float tot = 0.f;
-#pragma unroll
-      for (int q = 0; q < kBN / 32; ++q) tot += red[q][i];
-      xsum[i] = tot;
-    }
-
-    // per-group integer dot: nibble j of packed row r is k = j*16 + r
-    float dot[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) dot[i] = 0.f;
-#pragma unroll
-    for (int r = 0; r < kSlab; ++r) {
-#pragma unroll
-      for (int j = 0; j < kPack; ++j) {
-        const float c = code_f32(w[r], j);
-        const float* xk = xs + (j * kSlab + r) * ROWS;
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) dot[i] = fmaf(xk[i], c, dot[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) acc[i] += dot[i] * s - xsum[i] * z;
-    __syncthreads();  // xs and red are restaged by the next group
-  }
+  qmm_decode_groups<ROWS, PRO>(x, ldx, qw, scales, zs, nw, rstd, M, K, N, t,
+                               lane, warp, n, col_ok, m0, g0, g1, acc);
 
   if (!col_ok) return;
 #pragma unroll

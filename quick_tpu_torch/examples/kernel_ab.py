@@ -11,7 +11,8 @@ instruction-for-instruction identical body here (``cuobjdump -sass``,
 addresses and names aside). It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``) and
 K8 (``grouped_matmul.cu``) kernels beside this build's same entries, then
-times K1 at M = 16, 64 and 512 on the
+times K1 at M = 16, 64 and 512 and at the decode's M = 4 with its
+prologues on the
 Mistral-7B-width projections and K8 at G=128 on Qwen1.5-MoE's routed
 shapes with ``chip_smoke.py``'s timing (CUDA events behind a device sleep,
 weights rotated past L2), in turns: other, this, this, other. Each row
@@ -50,6 +51,7 @@ dev = torch.device("cuda", 0)
 cfg = ModelConfig(**cs.MISTRAL_7B)
 gen = torch.Generator(device=dev).manual_seed(0)
 gemms = [(None, M, K, N) for M in (16, 64, 512) for K, N in cs.gemm_shapes(cfg).values()]
+gemms += [g for g in cs.main_path_gemms(cfg) if g[1] == cs.BATCH]  # decode, with prologues
 with contextlib.redirect_stdout(io.StringIO()):
     rows = cs.time_gemms(cfg, gen, dev, collections.defaultdict(float), gemms, "")
     rows += cs.grouped_rows("qwen1.5-moe-a2.7b", PRESETS["qwen1.5-moe-a2.7b"], gen, dev)

@@ -100,9 +100,14 @@ def model_forward(
     gather all stay on the device."""
     B, S = tokens.shape
     dev = tokens.device
+    # a one-token step over the dense cache reads its length on the device
+    # (a captured decode step stays right on replay)
+    dense_step = S == 1 and isinstance(cache, KVCache)
     if positions is None:
         start = cache.length if cache is not None else 0
-        if isinstance(start, torch.Tensor):
+        if dense_step:
+            start = cache.length_dev.reshape(1, 1)
+        elif isinstance(start, torch.Tensor):
             start = start.reshape(-1, 1)  # [B, 1] per-slot starts
         positions = torch.arange(S, device=dev)[None, :] + start
         # clamp: padded chunk positions must not overrun the rope table
@@ -116,19 +121,21 @@ def model_forward(
                       < torch.as_tensor(advance, device=dev).reshape(-1, 1))
     x = params.embed[tokens].to(torch.bfloat16)
     decode_lengths = None
-    if S == 1 and isinstance(cache, KVCache) and not cfg.is_mla and any(
+    if dense_step and not cfg.is_mla and any(
         dense_decode_route(cfg, cache, B, params.rope_cos, i, dev) == "dense_kernel"
         for i in range(len(params.blocks))
     ):
         # the dense decode kernel reads per-row lengths from the card: one
         # [B] tensor per forward, shared by every layer
-        decode_lengths = torch.full((B,), cache.length + 1, dtype=torch.int32, device=dev)
+        decode_lengths = (cache.length_dev + 1).expand(B).contiguous()
     for i, blk in enumerate(params.blocks):
         x, cache = block_forward(
             blk, cfg, x, params.rope_cos, params.rope_sin, cache, i, positions,
             decode_lengths=decode_lengths, token_mask=token_mask,
         )
-    if cache is not None:
+    if isinstance(cache, KVCache) and advance is None:
+        cache = cache.advance(S)
+    elif cache is not None:
         cache = cache.with_length(cache.length + (S if advance is None else advance))
     if last_token_only:
         x = x[:, -1:]

@@ -10,8 +10,12 @@ ungated or gated by a sigmoid, quantized experts through the grouped kernel
 K8, or K12 under ``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 / V3 block,
 MLA attention (``modules/mla.py``) with DeepSeekMoE. The other families'
 switches (qk-norm, sandwich norms, ALiBi, parallel residual, LayerNorm, plain MLPs, ...), expert and context
-parallelism and the layer-tail kernel are not ported yet: such configs are
-refused by ``models/model.py::check_supported`` (ROADMAP.md).
+parallelism are not ported yet: such configs are refused by
+``models/model.py::check_supported`` (ROADMAP.md). Under
+``QUICK_TPU_LAYER_TAIL=1`` a decode layer's post-attention tail (o-proj,
+residual, MLP norm, SwiGLU MLP, residual) runs as one call of
+``ops/fused_layer_tail.py`` (K14 on the card), gated by ``_use_layer_tail``
+(:185) as in the JAX package.
 
 The kernel gates mirror the JAX package's so that both take the same branch
 on the same inputs, with the card in place of the TPU: the decode prologue
@@ -26,12 +30,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
 
 from quick_tpu_torch.config import ModelConfig
-from quick_tpu_torch.modules.cache import KVCache
+from quick_tpu_torch.modules.cache import KVCache, write_start
 from quick_tpu_torch.modules.linear import AnyLinear, Linear, QuantLinear, moe_a8_enabled
 from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.modules.paged_cache import PagedKVCache
@@ -108,6 +113,32 @@ def _fuse_decode_norm_ok(lin, x) -> bool:
     return rows <= 8
 
 
+def _use_layer_tail(p: "BlockParams", cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """Gate of the decode layer tail (``_use_layer_tail`` :185): opt-in by
+    ``QUICK_TPU_LAYER_TAIL=1`` (read at every call), at most 8 rows, the
+    llama-family pre-RMSNorm block with a gated SiLU MLP, G = 128 bias-free
+    quantized o / gate_up / down linears, no MoE and no MLA (the port has no
+    tensor or sequence parallelism to refuse)."""
+    if os.environ.get("QUICK_TPU_LAYER_TAIL", "") != "1":
+        return False
+    rows = 1
+    for d in x.shape[:-1]:
+        rows *= d
+    mlp = p.mlp
+    return (
+        rows <= 8
+        and cfg.pre_norms and not cfg.parallel_residual
+        and cfg.residual_multiplier is None and cfg.layernorm == "rmsnorm"
+        and not cfg.is_mla and isinstance(p.attn, AttentionParams)
+        and isinstance(mlp, MLPParams)
+        and cfg.gated_mlp and cfg.act_fn == "silu"
+        and all(
+            isinstance(lin, QuantLinear) and lin.group_size == 128 and lin.bias is None
+            for lin in (p.attn.o_proj, mlp.gate_up_proj, mlp.down_proj)
+        )
+    )
+
+
 def _use_fused_decode_step(cache: KVCache, B: int, hd: int, rope_cos, device) -> bool:
     """Gate for the fused rope + cache-write + attention kernel: B <= 8,
     full rotary, and a cache layer small enough for the TPU kernel's
@@ -161,11 +192,18 @@ def attention_forward(
     # residual and the norm runs in the qkv GEMM's prologue
     decode_lengths: Optional[torch.Tensor] = None,  # [B] int32 on x's
     # device: the dense cache's length + 1, for the dense decode kernel
+    return_pre_o: bool = False,  # return the raw [B, S, hq*hd] attention
+    # output WITHOUT the o projection: the layer tail runs o itself
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     from quick_tpu_torch.ops.rope import apply_rope
 
     B, S, _ = x.shape
     hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def project(out):  # the attention output -> o_proj(out), or out itself
+        out = out.reshape(B, S, hq * hd)
+        return out if return_pre_o else p.o_proj(out)
+
     qkv = p.qkv_proj(x, fuse_norm=pre_norm) if pre_norm is not None else p.qkv_proj(x)
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(B, S, hq, hd)
@@ -177,6 +215,7 @@ def attention_forward(
     if S == 1 and isinstance(cache, KVCache):
         route = dense_decode_route(cfg, cache, B, rope_cos, layer_idx, x.device)
     if route == "fused":
+        cache.check_room(1)  # K3 reads length_dev and cannot raise
         from quick_tpu_torch.ops.fused_decode_step import fused_decode_attention
 
         pos0 = positions[:, 0]
@@ -185,14 +224,15 @@ def attention_forward(
         out, _, _ = fused_decode_attention(
             q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v,
             torch.cat([c, c], dim=-1), torch.cat([s_r, s_r], dim=-1),
-            cache.length, layer_idx, window=window, logit_softcap=softcap,
+            cache.length_dev, layer_idx,
+            window=window, logit_softcap=softcap,
         )  # writes the new k/v row into cache.k / cache.v in place
-        return p.o_proj(out.reshape(B, S, hq * hd)), cache
+        return project(out), cache
     q = apply_rope(q, positions, rope_cos, rope_sin)
     k = apply_rope(k, positions, rope_cos, rope_sin)
     if cache is not None:
         start = cache.length  # host int (dense) or [B] device tensor (paged)
-        cache = cache.update(layer_idx, k, v, start)  # in place
+        cache = cache.update(layer_idx, k, v, write_start(cache, S))  # in place
         if S == 1 and _use_paged_kernel(cache):
             from quick_tpu_torch.ops.paged_attention import paged_decode_attention
 
@@ -203,7 +243,7 @@ def attention_forward(
                 start + 1, layer=layer_idx, kv_scales=cache.kv_scales,
                 window=window, logit_softcap=softcap,
             )[:, None]
-            return p.o_proj(out.reshape(B, S, hq * hd)), cache
+            return project(out), cache
         if route == "dense_kernel":
             from quick_tpu_torch.ops.decode_attention import dense_decode_attention
 
@@ -217,7 +257,7 @@ def attention_forward(
                 q, cache.k, cache.v, decode_lengths, layer=layer_idx,
                 logit_softcap=softcap,
             )
-            return p.o_proj(out.reshape(B, S, hq * hd)), cache
+            return project(out), cache
         if S > 1 and _use_paged_kernel(cache):
             from quick_tpu_torch.ops.paged_attention import (
                 paged_chunk_attention,
@@ -230,7 +270,7 @@ def attention_forward(
                     layer=layer_idx, kv_scales=cache.kv_scales, window=window,
                     logit_softcap=softcap,
                 )
-                return p.o_proj(out.reshape(B, S, hq * hd)), cache
+                return project(out), cache
         # [B, Hkv, T, D] head-major; INT8 pages come back dequantized
         k_all, v_all = cache.layer(layer_idx)
         out = causal_attention(
@@ -239,7 +279,7 @@ def attention_forward(
         )
     else:
         out = causal_attention(q, k, v, window=window, logit_softcap=softcap)
-    return p.o_proj(out.reshape(B, S, hq * hd)), cache
+    return project(out), cache
 
 
 def mlp_forward(
@@ -458,6 +498,7 @@ def block_forward(
     token_mask: Optional[torch.Tensor] = None,  # [B, S] valid tokens (MoE)
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
     eps = cfg.rms_norm_eps
+    tail = _use_layer_tail(p, cfg, x)
     if cfg.is_mla:
         # MLA never takes the fused norm prologue (:791-806)
         from quick_tpu_torch.modules.mla import mla_attention_forward
@@ -471,12 +512,28 @@ def block_forward(
         attn_out, cache = attention_forward(
             p.attn, cfg, x, rope_cos, rope_sin, cache, layer_idx, positions,
             pre_norm=(p.attn_norm, eps), decode_lengths=decode_lengths,
+            return_pre_o=tail,
         )
     else:
         attn_out, cache = attention_forward(
             p.attn, cfg, rms_norm(x, p.attn_norm, eps), rope_cos, rope_sin,
             cache, layer_idx, positions, decode_lengths=decode_lengths,
+            return_pre_o=tail,
         )
+    if tail:
+        # o-proj + residual + MLP norm + SwiGLU MLP + residual in one call
+        # (:816-833): K14 on the card, its plain version on the CPU
+        from quick_tpu_torch.ops.fused_layer_tail import fused_layer_tail
+
+        B, S, D = x.shape
+        o, gup, dn = p.attn.o_proj, p.mlp.gate_up_proj, p.mlp.down_proj
+        y = fused_layer_tail(
+            attn_out.reshape(B * S, -1), x.reshape(B * S, D), p.mlp_norm,
+            o.qweight, o.scales, o.zeros_x_scales,
+            gup.qweight, gup.scales, gup.zeros_x_scales,
+            dn.qweight, dn.scales, dn.zeros_x_scales, eps=float(eps),
+        )
+        return y.reshape(B, S, D).to(x.dtype), cache
     x = x + attn_out
     if isinstance(p.mlp, MoEParams):
         # the MLP norm is never fused into an MoE layer (:851-857)

@@ -4,8 +4,16 @@ Storage is head-major [L, B, H_kv, S_max, D], as in the JAX package, so an
 attention call reads one layer's [B, H_kv, S, D] view without a transpose.
 The JAX cache is immutable and returns updated copies; this one is written
 IN PLACE (``update``, and the fused decode kernel), and the methods return
-the cache object itself or a view sharing its storage. ``length`` is a
-host integer: every row of the batch has the same number of cached tokens.
+the cache object itself or a view sharing its storage. Every row of the
+batch has the same number of cached tokens: ``length`` holds it as a host
+integer (shapes, routing, the overrun check) and ``length_dev`` as an int32
+[1] on the cache's device, which a one-token step reads (positions, the
+decode kernels' lengths, the write index: ``write_start``), so a captured
+step moves on replay. Like ``length``, ``length_dev`` belongs to the cache
+object: ``advance``, the only way a forward moves the length, returns a new
+one, so an older cache object keeps its length. A decode loop that replays
+a captured step keeps its own ``length_dev`` and copies each step's into it
+(``runtime/generate.py``).
 The v slot may be wider than the k slot (``v_head_dim``): DeepSeek's MLA
 latent cache holds the rope'd k_pe [L, B, 1, S_max, dr] in k and the latent
 [L, B, 1, S_max, R] in v (``modules/mla.py::make_mla_cache``).
@@ -25,6 +33,13 @@ class KVCache:
     k: torch.Tensor  # [L, B, H_kv, S_max, D]
     v: torch.Tensor
     length: int = 0
+    length_dev: Optional[torch.Tensor] = None  # int32 [1]: ``length`` on the
+    # device (made from ``length`` when not given)
+
+    def __post_init__(self):
+        if self.length_dev is None:
+            self.length_dev = torch.full(
+                (1,), int(self.length), dtype=torch.int32, device=self.k.device)
 
     @classmethod
     def create(
@@ -39,25 +54,38 @@ class KVCache:
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape[:-1] + (v_head_dim or head_dim,), dtype=dtype, device=device),
-            length=0,
         )
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[3]
 
+    def check_room(self, S: int, start: Optional[int] = None) -> None:
+        """Raise unless ``S`` tokens fit at ``start`` (default: the host
+        length, which mirrors ``length_dev``: the kernels that read the
+        device length cannot raise)."""
+        start = self.length if start is None else start
+        if start + S > self.max_seq:
+            raise ValueError(f"writing {S} tokens at {start} overruns max_seq {self.max_seq}")
+
     def update(
-        self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor, start: int
+        self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
+        start: "int | torch.Tensor",
     ) -> "KVCache":
         """Write k_new / v_new [B, S, H_kv, D] at ``start`` of ``layer``, in
-        place. Only the incoming tokens transpose to head-major."""
+        place: ``length`` or ``length_dev`` (``write_start``). Only the
+        incoming tokens transpose to head-major."""
         S = k_new.shape[1]
-        if start + S > self.max_seq:
-            raise ValueError(
-                f"writing {S} tokens at {start} overruns max_seq {self.max_seq}"
-            )
-        self.k[layer, :, :, start:start + S] = k_new.transpose(1, 2).to(self.k.dtype)
-        self.v[layer, :, :, start:start + S] = v_new.transpose(1, 2).to(self.v.dtype)
+        self.check_room(S, None if isinstance(start, torch.Tensor) else start)
+        k_new = k_new.transpose(1, 2).to(self.k.dtype)
+        v_new = v_new.transpose(1, 2).to(self.v.dtype)
+        if isinstance(start, torch.Tensor):
+            idx = start.to(torch.int64) + torch.arange(S, device=start.device)
+            self.k[layer].index_copy_(2, idx, k_new)
+            self.v[layer].index_copy_(2, idx, v_new)
+        else:
+            self.k[layer, :, :, start:start + S] = k_new
+            self.v[layer, :, :, start:start + S] = v_new
         return self
 
     def layer(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,4 +93,21 @@ class KVCache:
         return self.k[i], self.v[i]
 
     def with_length(self, length: int) -> "KVCache":
-        return dataclasses.replace(self, length=int(length))
+        """Both lengths set to ``length`` (a forward moves them with
+        ``advance``)."""
+        return dataclasses.replace(self, length=int(length), length_dev=None)
+
+    def advance(self, n: int) -> "KVCache":
+        """The cache ``n`` tokens longer, both lengths (the device one
+        computed on the device, no host sync)."""
+        return dataclasses.replace(self, length=self.length + n, length_dev=self.length_dev + n)
+
+
+def write_start(cache, S: int):
+    """Where a forward of ``S`` tokens writes its k/v: a one-token step over
+    the dense cache at ``length_dev`` (a captured step writes at the length
+    of its replay), otherwise at ``cache.length`` (the dense cache's host
+    int, or the paged cache's [B] device tensor)."""
+    if S == 1 and isinstance(cache, KVCache):
+        return cache.length_dev
+    return cache.length

@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from quick_tpu_torch.config import ModelConfig
-from quick_tpu_torch.modules.cache import KVCache
+from quick_tpu_torch.modules.cache import KVCache, write_start
 from quick_tpu_torch.modules.linear import AnyLinear, Linear
 from quick_tpu_torch.ops.norms import rms_norm
 
@@ -123,7 +123,7 @@ def mla_attention_forward(
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
 
     if cache is not None:
-        start = cache.length  # host int (dense) or [B] device tensor (paged)
+        start = write_start(cache, S)  # a dense step's on the device; the paged [B]
         cache = cache.update(layer_idx, k_pe, c[:, :, None, :], start)  # in place
         if S == 1 and _use_paged_kernel(cache):
             from quick_tpu_torch.ops.mla_paged_attention import mla_paged_decode_attention

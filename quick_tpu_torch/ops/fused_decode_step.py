@@ -5,7 +5,9 @@ Port of ``quick_tpu/ops/fused_decode_step.py::fused_decode_attention``
 into the dense [L, B, Hkv, S, D] cache at ``length``, and attention over
 the cache plus the new token. The JAX function returns new cache arrays;
 the port writes the caches IN PLACE and returns the same tensors, so the
-``(out, k_cache, v_cache)`` contract holds.
+``(out, k_cache, v_cache)`` contract holds. ``length`` is an int32 tensor
+of one element; K3 reads it on the card (the dense cache's ``length_dev``),
+so a captured decode step needs no new launch arguments.
 
 The rounding follows the Pallas kernel (:71-77, :102-154): roped q and k
 rounded to the activation dtype, ``scale`` applied to q in f32; cached
@@ -27,7 +29,7 @@ KERNEL = CudaKernel(
     "fused_decode_step.cu",
     {"qtt_fused_decode_step": [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-        i32, i32, f32, i32, f32, i32, ptr,
+        i32, ptr, f32, i32, f32, i32, ptr,
     ]},
 )
 KERNEL_HEAD_DIMS = (64, 128, 256)
@@ -55,7 +57,7 @@ def fused_decode_attention_plain(
     v_cache: torch.Tensor,
     cos_row: torch.Tensor,   # [B, D] f32
     sin_row: torch.Tensor,
-    length: int,
+    length: torch.Tensor,    # int32 [1] (read on the host here)
     layer: int,
     scale: float,
     window: Optional[int] = None,
@@ -64,6 +66,7 @@ def fused_decode_attention_plain(
     use_rope: bool = True,
 ) -> torch.Tensor:
     """Plain version of K3; returns the attention output [B, hq, D]."""
+    length = int(length)
     B, hq, D = q.shape
     hkv = k_new.shape[1]
     gq = hq // hkv
@@ -107,19 +110,25 @@ def fused_decode_attention_plain(
 
 
 def fused_decode_attention_cuda(
-    q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, length: int,
+    q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, length: torch.Tensor,
     layer: int, scale: float, window=None, logit_softcap=None,
     alibi_slopes=None, use_rope: bool = True,
 ) -> torch.Tensor:
-    """Launch K3 on CUDA tensors; same arguments as the plain version."""
+    """Launch K3 on CUDA tensors; same arguments as the plain version, with
+    ``length`` an int32 tensor of one element on the card, which K3 reads
+    there (the caller checks it on the host: ``KVCache.check_room``). For a
+    length outside [0, S) K3 writes no cache row and returns NaN."""
     B, hq, D = q.shape
     L, Bc, hkv, S, Dc = k_cache.shape
     if D not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"fused step takes head_dim in {KERNEL_HEAD_DIMS}, got {D}")
     if Bc != B or Dc != D or hq % hkv or hq // hkv > 32:
         raise ValueError(f"shapes q {tuple(q.shape)} vs cache {tuple(k_cache.shape)}")
-    if not 0 <= length < S or not 0 <= layer < L:
-        raise ValueError(f"length {length} / layer {layer} outside cache {S} / {L}")
+    if not isinstance(length, torch.Tensor):
+        raise TypeError("K3 reads its length on the card: pass an int32 tensor of one element")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside cache {L}")
+    check(length, "length", torch.int32, (1,))
     check(q, "q", torch.bfloat16, (B, hq, D))
     check(k_new, "k_new", torch.bfloat16, (B, hkv, D))
     check(v_new, "v_new", torch.bfloat16, (B, hkv, D))
@@ -137,7 +146,7 @@ def fused_decode_attention_cuda(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, hq, hkv, S, D, layer, length, float(scale), int(window or 0),
+        B, hq, hkv, S, D, layer, length.data_ptr(), float(scale), int(window or 0),
         float(logit_softcap or 0.0), int(bool(use_rope)), stream_ptr(q.device),
     )
     return out
@@ -151,7 +160,7 @@ def fused_decode_attention(
     v_cache: torch.Tensor,
     cos_row: torch.Tensor,
     sin_row: torch.Tensor,
-    length: int,
+    length: torch.Tensor,  # int32 [1] on the caches' device
     layer: int,
     scale: Optional[float] = None,
     window: Optional[int] = None,
@@ -167,7 +176,7 @@ def fused_decode_attention(
     group = group_for(k_cache.dtype)
     if S % group:
         raise ValueError(f"max_seq {S} must be a multiple of group {group}")
-    args = (q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, int(length),
+    args = (q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, length,
             int(layer), scale, window, logit_softcap, alibi_slopes, use_rope)
     if q.device.type != "cuda":
         out = fused_decode_attention_plain(*args)

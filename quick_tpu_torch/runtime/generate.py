@@ -1,16 +1,24 @@
-"""Generation: prefill, a Python decode loop and sampling (port of
-``quick_tpu/runtime/generate.py``).
+"""Generation: prefill, the decode loop, sampling and history penalties
+(port of ``quick_tpu/runtime/generate.py``).
 
-The JAX package runs the decode loop as one ``lax.scan``; here it is a
-Python loop over ``decode_step`` whose tokens stay on the device, so the
-host never waits for the card inside the loop. Random draws take a
-``torch.Generator``. ``sample_token_rows`` serves the continuous-batching
-engine. History penalties and ``beam_generate`` are not ported yet
-(ROADMAP A6): ``SamplingParams`` carries the JAX package's penalty fields,
-and ``generate`` / ``decode_loop`` (and the Engine) refuse them.
+The JAX package runs the decode loop as one ``lax.scan``. Here each decode
+step writes its token into a static buffer on the device and reads the
+dense cache's length there, so on the card the loop runs its first step
+eagerly and then replays that step captured as one CUDA graph
+(``runtime/graphs.py``); the host never waits for the card inside the
+loop. A step takes the eager loop instead where it cannot be captured: on
+the CPU, for sampled (temperature > 0) decoding (its draws take a
+``torch.Generator``), and where a layer attends over the dense cache with
+the plain einsum route, which slices the cache by the host length.
+History penalties (repetition / frequency / presence, ``apply_penalties``)
+carry a [B, V] count of generated tokens through the steps, inside the
+graph. ``sample_token_rows`` serves the continuous-batching engine.
+``beam_generate`` and the Engine's penalties are not ported yet (ROADMAP
+A6): the Engine refuses penalised ``SamplingParams``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -20,6 +28,7 @@ import torch
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.device import DeviceLike, to_device
 from quick_tpu_torch.models.model import ModelParams, model_forward
+from quick_tpu_torch.modules.blocks import dense_decode_route
 from quick_tpu_torch.modules.cache import KVCache
 
 
@@ -29,8 +38,8 @@ class SamplingParams(NamedTuple):
     top_p: float = 1.0
     min_p: float = 0.0        # keep tokens with prob >= min_p * max_prob
     # history-dependent penalties (vLLM/OpenAI semantics), as in the JAX
-    # package; not applied by the port yet (ROADMAP A6), so any non-neutral
-    # value is refused by generate(), decode_loop() and the Engine
+    # package: applied by generate() and decode_loop(); refused by the
+    # Engine (ROADMAP A6)
     repetition_penalty: float = 1.0
     frequency_penalty: float = 0.0
     presence_penalty: float = 0.0
@@ -45,12 +54,38 @@ class SamplingParams(NamedTuple):
 
 
 def refuse_penalties(sampling: Optional[SamplingParams]) -> None:
-    """Raise for sampling parameters that need history penalties."""
+    """Raise for sampling parameters that need history penalties (the
+    Engine's)."""
     if sampling is not None and sampling.has_penalties:
         raise NotImplementedError(
-            "history penalties (repetition / frequency / presence) are not "
-            "ported yet — ROADMAP A6"
+            "history penalties (repetition / frequency / presence) in the "
+            "Engine are not ported yet — ROADMAP A6"
         )
+
+
+def apply_penalties(
+    logits: torch.Tensor,       # [B, V] raw logits
+    out_counts: torch.Tensor,   # [B, V] int32 generated-token counts
+    prompt_seen: torch.Tensor,  # [B, V] bool-ish: the token is in the prompt
+    rep,                        # [B] or scalar, 1.0 => off
+    freq,                       # [B] or scalar, 0.0 => off
+    pres,                       # [B] or scalar, 0.0 => off
+) -> torch.Tensor:
+    """vLLM-semantics penalties (``apply_penalties`` :45), f32: a seen
+    token's logit divided by ``rep`` when positive, multiplied when not;
+    minus ``freq`` per generated occurrence and ``pres`` once if generated.
+    Pass ``rep`` / ``freq`` / ``pres`` as tensors on the logits' device
+    inside a captured step."""
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=logits.device).reshape(-1, 1)
+
+    rep, freq, pres = col(rep), col(freq), col(pres)
+    logits = logits.to(torch.float32)
+    seen = (out_counts > 0) | (prompt_seen != 0)
+    scaled = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen, scaled, logits)
+    logits = logits - out_counts.to(torch.float32) * freq
+    return logits - (out_counts > 0).to(torch.float32) * pres
 
 
 def filter_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor:
@@ -165,6 +200,18 @@ def decode_step(
     return logits[:, -1], cache
 
 
+def graphable(params: ModelParams, cfg: ModelConfig, cache: KVCache, sampling: SamplingParams) -> bool:
+    """Whether ``decode_loop`` captures its step: a greedy loop over a dense
+    cache on the card whose every layer reads the length on the device (K3,
+    K7 or MLA's latent attention; not the einsum route)."""
+    if not cache.k.is_cuda or sampling.temperature != 0.0:
+        return False
+    B = cache.k.shape[1]
+    return cfg.is_mla or all(
+        dense_decode_route(cfg, cache, B, params.rope_cos, i, cache.k.device) != "einsum"
+        for i in range(len(params.blocks)))
+
+
 @torch.inference_mode()
 def decode_loop(
     params: ModelParams,
@@ -174,18 +221,68 @@ def decode_loop(
     n_tokens: int,
     sampling: SamplingParams = SamplingParams(),
     generator: Optional[torch.Generator] = None,
+    prompt_seen: Optional[torch.Tensor] = None,  # [B, V] repetition-penalty mask
+    _graph: Optional[bool] = None,  # None: capture where ``graphable``;
+    # False: the eager loop (a measurement's or a test's comparison)
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Generate ``n_tokens`` autoregressively. Returns (tokens [B, n], cache)."""
-    refuse_penalties(sampling)
-    token = first_token
-    out = []
-    for _ in range(n_tokens):
-        logits, cache = decode_step(params, cfg, token, cache)
-        token = sample_token(logits, sampling, generator)
-        out.append(token)
-    if not out:
-        return first_token.new_zeros((first_token.shape[0], 0)), cache
-    return torch.stack(out, dim=1), cache
+    """Generate ``n_tokens`` autoregressively. With history penalties a
+    [B, V] generated-token count rides along (``first_token`` counts as
+    generated) and ``prompt_seen`` marks the prompt's tokens. Returns
+    (tokens [B, n], cache)."""
+    B = first_token.shape[0]
+    dev = first_token.device
+    out = torch.empty((B, n_tokens), dtype=torch.int64, device=dev)
+    if n_tokens == 0:
+        return out, cache
+    rows = torch.arange(B, device=dev)
+    token = first_token.to(torch.int64).clone()  # the step's static input
+    pos = torch.zeros((1,), dtype=torch.int64, device=dev)  # next column of out
+    pen = None
+    if sampling.has_penalties:
+        counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32, device=dev)
+        counts.index_put_((rows, token), torch.ones(B, dtype=torch.int32, device=dev),
+                          accumulate=True)
+        if prompt_seen is None:
+            prompt_seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device=dev)
+        coef = [torch.full((1,), v, dtype=torch.float32, device=dev) for v in (
+            sampling.repetition_penalty, sampling.frequency_penalty, sampling.presence_penalty)]
+        pen = (counts, prompt_seen, coef)
+
+    # the n_tokens steps write one k/v row each: checked here, on the host,
+    # since a replayed step cannot raise
+    cache.check_room(n_tokens)
+    # the loop's own device length, advanced in place
+    cache = dataclasses.replace(cache, length_dev=cache.length_dev.clone())
+
+    def step(cache):
+        logits, nxt = decode_step(params, cfg, token, cache)
+        cache.length_dev.copy_(nxt.length_dev)
+        nxt = dataclasses.replace(nxt, length_dev=cache.length_dev)
+        if pen is not None:
+            logits = apply_penalties(logits, pen[0], pen[1], *pen[2])
+        tok = sample_token(logits, sampling, generator)
+        if pen is not None:
+            pen[0].index_put_((rows, tok), torch.ones(B, dtype=torch.int32, device=dev),
+                              accumulate=True)
+        token.copy_(tok)
+        out.index_copy_(1, pos, tok[:, None])
+        pos.add_(1)
+        return nxt
+
+    use_graph = graphable(params, cfg, cache, sampling) if _graph is None else _graph
+    cache = step(cache)  # eager: builds and allocates what a capture needs
+    if use_graph and n_tokens > 1:
+        from quick_tpu_torch.runtime.graphs import StepGraph
+
+        graph = StepGraph(lambda: step(cache))  # its host length is dropped
+        for _ in range(n_tokens - 1):
+            graph.replay()
+        # the replays moved length_dev; the host mirror follows
+        cache = dataclasses.replace(cache, length=cache.length + n_tokens - 1)
+    else:
+        for _ in range(n_tokens - 1):
+            cache = step(cache)
+    return out, cache
 
 
 @torch.inference_mode()
@@ -198,10 +295,12 @@ def generate(
     max_seq: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     eos_token_id: Optional[int] = None,
+    _graph: Optional[bool] = None,  # decode_loop's
 ) -> torch.Tensor:
     """Prefill + decode loop. Returns [B, S + max_new_tokens] tokens (prompt
-    included); with ``eos_token_id``, tokens after the first EOS become EOS."""
-    refuse_penalties(sampling)
+    included); with ``eos_token_id``, tokens after the first EOS become EOS.
+    History penalties mark the prompt's tokens as seen and apply to the
+    first token too (:376-383)."""
     B, S = prompt_tokens.shape
     if max_seq is None:
         max_seq = S + max_new_tokens
@@ -209,9 +308,17 @@ def generate(
     prompt_tokens = prompt_tokens.to(dev)
     cache = make_cache(cfg, B, max_seq, device=dev)
     logits, cache = prefill(params, cfg, prompt_tokens, cache)
+    prompt_seen = None
+    if sampling.has_penalties:
+        prompt_seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device=dev).scatter_(
+            1, prompt_tokens.to(torch.int64), True)
+        logits = apply_penalties(
+            logits, torch.zeros(prompt_seen.shape, dtype=torch.int32, device=dev), prompt_seen,
+            sampling.repetition_penalty, sampling.frequency_penalty, sampling.presence_penalty)
     first = sample_token(logits, sampling, generator)
     rest, cache = decode_loop(
-        params, cfg, first, cache, max_new_tokens - 1, sampling, generator
+        params, cfg, first, cache, max_new_tokens - 1, sampling, generator,
+        prompt_seen=prompt_seen, _graph=_graph,
     )
     out = torch.cat([prompt_tokens.to(torch.int64), first[:, None], rest], dim=1)
     if eos_token_id is not None:

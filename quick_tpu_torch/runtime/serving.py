@@ -17,7 +17,13 @@ token mask), and their routing stays on the device.
 
 What differs from the JAX package, which jits each program:
 - The W steps of a window are a Python loop (the JAX ``fori_loop``,
-  :445-481). Everything a dispatch sends to the card goes through pinned
+  :445-481). On the card a greedy window replays one [max_slots, 1] step
+  captured as a CUDA graph (``runtime/graphs.py``; tokens, valid rows and
+  lengths are copied into its static buffers before the first replay, the
+  block table and pages are read in place); the first greedy window runs
+  its first step eagerly and captures the step, which synchronizes once.
+  Sampled windows and the [prefill_rows, chunk] sub-steps stay eager.
+  Everything a dispatch sends to the card goes through pinned
   memory without blocking (``device.to_device``), and each window's and
   each completed prefill's sampled tokens are copied back behind an event;
   the host waits on that event when it drains them, one wait per window,
@@ -193,6 +199,8 @@ class Engine:
         # grow as they decode and the youngest is preempted (recomputed)
         # when the pool runs out
         device: DeviceLike = None,
+        _graphs: bool = True,  # False: every window eager (a measurement's
+        # or a test's comparison on the card)
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -250,6 +258,11 @@ class Engine:
         self.prefill_rows = max(1, min(prefill_rows, max_slots))
         # the dispatched, not yet drained decode window (see _dispatch_window)
         self._inflight = None
+        # the captured [max_slots, 1] decode step and its static buffers
+        # (token, valid, lengths); keyed by the page and table tensors it reads
+        self._graphs = _graphs and self.device.type == "cuda"
+        self._graph = self._graph_key = None
+        self._g_tok = self._g_valid = self._g_len = None
         # completed prefills' first-token samples not yet fetched:
         # (_Fetch, [(row, slot, request)]) — see _drain_pending
         self._pending = []
@@ -304,6 +317,8 @@ class Engine:
         tl_all = torch.empty((B, W, 2), dtype=torch.int32, device=self.device)
         tk_all = (torch.empty((B, W, self.topk, 2), dtype=torch.int32, device=self.device)
                   if self.topk else None)
+        if self._graphs and not (np.asarray(samp[0]) > 0).any():
+            return self._window_graphed(tokens, valid, samp, W, tl_all, tk_all)
         cache = self.cache
         for i in range(W):
             row, cache = self._forward_rows(cache, tokens, valid)
@@ -313,6 +328,50 @@ class Engine:
                 tk_all[:, i] = tk
             tokens = tl[:, :1].to(torch.int64)
         self.cache = cache
+        return tl_all, tk_all
+
+    def _graph_step(self, samp):
+        """One greedy [max_slots, 1] step over the static buffers: the
+        sampled token feeds the next step, the lengths advance in place."""
+        cache = dataclasses.replace(self.cache, length=self._g_len)
+        row, cache = self._forward_rows(cache, self._g_tok, self._g_valid)
+        tl, tk = self._draw(row, samp)
+        self._g_len.copy_(cache.length)
+        self._g_tok.copy_(tl[:, :1].to(torch.int64))
+        return tl, tk
+
+    def _window_graphed(self, tokens, valid, samp, W, tl_all, tk_all):
+        """``_window`` for an all-greedy window on the card: replays of the
+        captured step (captured at the first such window, after an eager
+        first step, and again if the page or table tensors change)."""
+        from quick_tpu_torch.runtime.graphs import StepGraph
+
+        c = self.cache
+        key = tuple(None if t is None else t.data_ptr()
+                    for t in (c.k_pages, c.v_pages, c.kv_scales, c.block_table))
+        if self._g_tok is None:
+            B = self.max_slots
+            self._g_tok = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
+            self._g_valid = torch.zeros((B,), dtype=torch.int32, device=self.device)
+            self._g_len = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        self._g_tok.copy_(tokens)
+        self._g_valid.copy_(valid)
+        self._g_len.copy_(c.length)
+        first = 0
+        if self._graph is None or self._graph_key != key:
+            tl, tk = self._graph_step(samp)  # eager: the window's first step
+            tl_all[:, 0] = tl
+            if tk_all is not None:
+                tk_all[:, 0] = tk
+            self._graph = StepGraph(lambda: self._graph_step(samp))
+            self._graph_key, first = key, 1
+        tl, tk = self._graph.out
+        for i in range(first, W):
+            self._graph.replay()
+            tl_all[:, i] = tl
+            if tk_all is not None:
+                tk_all[:, i] = tk
+        self.cache = dataclasses.replace(c, length=self._g_len.clone())
         return tl_all, tk_all
 
     # -- submission -------------------------------------------------------------

@@ -110,7 +110,8 @@ def test_fused_step_plain_matches_pallas_interpret(rng, case):
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
     out, k2, v2 = tfused.fused_decode_attention(
         *(torch.from_numpy(a) for a in (q, kn, vn)), tk, tv,
-        torch.from_numpy(cos), torch.from_numpy(sin), length, 1, **tkw,
+        torch.from_numpy(cos), torch.from_numpy(sin),
+        torch.tensor([length], dtype=torch.int32), 1, **tkw,
     )
     assert k2 is tk and v2 is tv  # written in place
     tol = dict(atol=2e-4, rtol=2e-4)

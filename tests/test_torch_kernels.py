@@ -4,7 +4,9 @@ also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
 K5q / K6q INT8 paged attention, K9 small-group GEMM, K10 / K10q paged MLA
 decode attention, K11 / K11f W4A8 GEMM, K12 grouped W4A8 MoE GEMM, K13
-RMSNorm) against their plain PyTorch versions, on a card. Skipped without one. Imports no
+RMSNorm, K14 the decode layer tail) against their plain PyTorch versions,
+and the decode step replayed from a CUDA graph (generate() and the Engine)
+against the eager step, on a card. Skipped without one. Imports no
 JAX; on the card run:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``."""
 import numpy as np
@@ -19,7 +21,7 @@ import quick_tpu_torch.ops.mla_paged_attention as tmla
 import quick_tpu_torch.ops.paged_attention as tpa
 import quick_tpu_torch.ops.paged_write as tpw
 import quick_tpu_torch.ops.quantized_matmul as tqmm
-from quick_tpu_torch.modules.paged_cache import PagedKVCache
+from quick_tpu_torch.modules.paged_cache import TRASH_PAGE, PagedKVCache
 from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.quantize.packing import pack_qtpu
 
@@ -198,12 +200,13 @@ def test_fused_step_kernel_matches_plain(rng, cuda_device, case, hq, hkv, D):
     kw = dict(FUSED_CASES[case])
     if kw.pop("alibi", False):
         kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(hq))
+    ln = torch.tensor([length], dtype=torch.int32)
     ref, kref, vref = tfused.fused_decode_attention(
-        *bf[:3], bf[3].clone(), bf[4].clone(), *cs, length, 1, **kw)
+        *bf[:3], bf[3].clone(), bf[4].clone(), *cs, ln, 1, **kw)
     dev = cuda_device
     kc, vc = bf[3].to(dev), bf[4].to(dev)
     out, _, _ = tfused.fused_decode_attention(
-        *(a.to(dev) for a in bf[:3]), kc, vc, *(a.to(dev) for a in cs), length, 1,
+        *(a.to(dev) for a in bf[:3]), kc, vc, *(a.to(dev) for a in cs), ln.to(dev), 1,
         **{k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in kw.items()})
     torch.cuda.synchronize()
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
@@ -803,3 +806,160 @@ def test_rms_norm_kernel_matches_plain(rng, cuda_device, shape, xdt, wdt, sliced
     step = 2.0 ** -7 if xdt == torch.bfloat16 else 2.0 ** -20
     o, r = f32(out), f32(ref)
     assert (np.abs(o - r) <= step * np.abs(r) + 1e-30).all(), np.abs(o - r).max()
+
+
+def _tail_case(rng, dev, M, K1, D, I):
+    """K14's operands: test_layer_tail.py's weights (codes 0..15, scales
+    0..0.02, zero terms half that) and activations (0.1 N(0, 1) in bf16)."""
+    ws = []
+    for K, N in ((K1, D), (D, 2 * I), (I, D)):
+        q = rng.integers(0, 16, (K, N), dtype=np.uint8)
+        s = rng.random((K // 128, N), dtype=np.float32) * 0.02
+        ws += [pack_qtpu(q), s, rng.random((K // 128, N), dtype=np.float32) * 0.01]
+    nw = (rng.standard_normal(D) * 0.1 + 1.0).astype(np.float32)
+    ao = (rng.standard_normal((M, K1)) * 0.1).astype(np.float32)
+    xr = (rng.standard_normal((M, D)) * 0.1).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in [ao, xr, nw] + ws]
+    return [t[0].to(torch.bfloat16), t[1].to(torch.bfloat16)] + t[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K1,D,I", [(1, 4096, 4096, 14336), (4, 4096, 4096, 14336),
+                                      (8, 4096, 4096, 14336), (3, 512, 384, 768)])
+def test_layer_tail_kernel_matches_plain(rng, cuda_device, M, K1, D, I):
+    """K14 against its plain version on the same tensors, at Mistral-7B
+    width and tests/test_layer_tail.py's shapes: within 8e-3 of max|ref|
+    (that test's bound between two orders of the f32 group sums), one launch
+    a call, the same bits on a second launch (split sums in a fixed order;
+    the barrier and tile counters left at zero)."""
+    from quick_tpu_torch.ops import fused_layer_tail as tft
+
+    args = _tail_case(rng, cuda_device, M, K1, D, I)
+    before = tft.KERNEL.launches
+    out = tft.fused_layer_tail(*args)
+    again = tft.fused_layer_tail(*args)
+    torch.cuda.synchronize()
+    assert tft.KERNEL.launches == before + 2
+    ref = tft.fused_layer_tail_plain(*args)
+    assert out.shape == ref.shape == (M, D) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    o, r = f32(out), f32(ref)
+    assert np.abs(o - r).max() <= 8e-3 * np.abs(r).max(), (np.abs(o - r).max(), np.abs(r).max())
+
+
+#: tiny models for the decode graphs: (config, group, batch, max_seq, new
+#: tokens); the llama at B=4 takes K3, at B=16 K7 over 1024 tokens (a replay
+#: that wrote at the capture's position would leave most of the cache zero)
+_LLAMA = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=1024)
+#: DeepSeek's latent widths (K10 is built for R 512, dr 64), narrow elsewhere
+_DS = dict(vocab_size=256, hidden_size=128, intermediate_size=192, num_hidden_layers=3,
+           num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=128,
+           kv_lora_rank=512, qk_nope_head_dim=32, qk_rope_head_dim=64, v_head_dim=32,
+           head_dim=96, rotary_dim=64, num_local_experts=8, num_experts_per_tok=2,
+           moe_router="deepseek", moe_intermediate_size=64, first_k_dense_replace=1,
+           rms_norm_eps=1e-6, model_type="deepseek_v2", n_shared_experts=2)
+GRAPH_MODELS = {
+    "llama_k3": (_LLAMA, 128, 4, 64, 12),
+    "llama_k7": (_LLAMA, 128, 16, 1024, 1008),
+    "llama_tail": (_LLAMA, 128, 4, 64, 12),
+    "mixtral": (dict(_LLAMA, num_local_experts=4, num_experts_per_tok=2, model_type="mixtral"),
+                128, 4, 64, 12),
+    "deepseek_v2": (_DS, 64, 4, 64, 12),
+}
+
+
+def _counted(fn):
+    """fn()'s result and the launches it counted, by kernel and key."""
+    from quick_tpu_torch.ops import all_kernels
+
+    for k in all_kernels():
+        k.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: dict(k.launches_by_key) for k in all_kernels() if k.launches}
+
+
+def _assert_planes_equal(a, b, names, first_page=0):
+    """The named cache tensors of ``a`` and ``b`` bit-equal from index
+    ``first_page`` of dim 1 on: the graphed and the eager run launch the same
+    kernels in the same order (greedy tokens of a random model repeat, so
+    equal tokens alone would not show a graph that attends over the wrong
+    rows)."""
+    for name in names:
+        x, y = getattr(a, name)[:, first_page:], getattr(b, name)[:, first_page:]
+        assert torch.equal(x, y), (name, float((x.float() - y.float()).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRAPH_MODELS))
+def test_graphed_decode_matches_eager(cuda_device, monkeypatch, name):
+    """The decode loop with its step replayed from a CUDA graph against the
+    eager loop on the card: the same greedy tokens, the same k/v cache bit
+    for bit, and the same launch counts (a replay adds the launches recorded
+    at capture). The llama_tail case runs under QUICK_TPU_LAYER_TAIL=1 (K14
+    in the graph)."""
+    from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.runtime import SamplingParams, decode_loop, make_cache, prefill
+    from quick_tpu_torch.runtime.generate import graphable
+
+    kw, G, B, max_seq, new = GRAPH_MODELS[name]
+    monkeypatch.setenv("QUICK_TPU_LAYER_TAIL", "1" if name == "llama_tail" else "0")
+    cfg = ModelConfig(**kw)
+    params = init_quant_params(cfg, seed=0, group_size=G, device=cuda_device)
+    assert graphable(params, cfg, make_cache(cfg, B, max_seq, device=cuda_device),
+                     SamplingParams())
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, 16), generator=gen, device=cuda_device)
+
+    def run(graph):
+        cache = make_cache(cfg, B, max_seq, device=cuda_device)
+        logits, cache = prefill(params, cfg, prompt, cache)
+        return decode_loop(params, cfg, torch.argmax(logits, dim=-1), cache, new,
+                           _graph=graph)
+
+    (eager, c_eager), n_eager = _counted(lambda: run(False))
+    (graphed, c_graphed), n_graphed = _counted(lambda: run(None))
+    assert torch.equal(eager, graphed)
+    assert c_eager.length == c_graphed.length == 16 + new
+    assert int(c_graphed.length_dev) == c_graphed.length
+    _assert_planes_equal(c_eager, c_graphed, ("k", "v"))
+    assert n_eager == n_graphed
+    if name == "llama_tail":
+        assert sum(n_graphed["fused_layer_tail"].values()) == new * cfg.num_hidden_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama_k3", "llama_tail", "deepseek_v2"])
+def test_graphed_engine_matches_eager(cuda_device, monkeypatch, name):
+    """The Engine's greedy windows replayed from a captured [4, 1] step
+    against eager windows: the same streams, the same pages bit for bit and
+    the same launch counts."""
+    from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.runtime import Engine
+
+    kw, G, _, _, _ = GRAPH_MODELS[name]
+    monkeypatch.setenv("QUICK_TPU_LAYER_TAIL", "1" if name == "llama_tail" else "0")
+    cfg = ModelConfig(**kw)
+    params = init_quant_params(cfg, seed=0, group_size=G, device=cuda_device)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(n)).tolist(), int(m))
+            for n, m in zip(rng.integers(3, 30, 6), rng.integers(4, 20, 6))]
+
+    def run(graphs):
+        eng = Engine(params, cfg, max_slots=4, max_seq=64, page_size=16, chunk=8,
+                     decode_window=4, device=cuda_device, _graphs=graphs)
+        uids = [eng.submit(p, m) for p, m in reqs]
+        out = eng.run()
+        return [out[u] for u in uids], eng.stats, eng.cache
+
+    (eager, st_e, c_e), n_eager = _counted(lambda: run(False))
+    (graphed, st_g, c_g), n_graphed = _counted(lambda: run(True))
+    assert eager == graphed
+    assert st_e == st_g
+    assert [len(o) for o in graphed] == [m for _, m in reqs]
+    # without the trash page, which idle slots' rows write in no fixed order
+    _assert_planes_equal(c_e, c_g, ("k_pages", "v_pages"), first_page=TRASH_PAGE + 1)
+    assert n_eager == n_graphed

@@ -164,3 +164,27 @@ def test_decode_gates_match_the_accelerator_branch(monkeypatch, B, Smax, Hkv, D)
 
     assert tdda.supports(B, 4 * Hkv, Hkv, Smax, D) == jdda.supports(B, 4 * Hkv, Hkv, Smax, D)
     assert tdda._pick_tiles(B, Hkv, Smax, D) == jdda._pick_tiles(B, Hkv, Smax, D)
+
+
+@pytest.mark.parametrize("where", ["decode_loop", "update_at_length_dev"])
+def test_dense_cache_refuses_overrun(pair, where):
+    """A one-token step writes at the cache's device length, which no kernel
+    can check, and a replayed step cannot raise: the host length is checked
+    before any write (``KVCache.check_room``), in the decode loop for all
+    of its steps at once."""
+    from quick_tpu_torch.runtime import decode_loop, prefill
+
+    _, _, tcfg, tparams = pair
+    cache = make_cache(tcfg, 2, 24, device="cpu")
+    logits, cache = prefill(tparams, tcfg, torch.from_numpy(_tokens(2, 16)).long(), cache)
+    assert int(cache.length_dev) == cache.length == 16
+    if where == "decode_loop":
+        first = torch.argmax(logits, dim=-1)
+        decode_loop(tparams, tcfg, first, cache, 24 - 16)  # fills the cache exactly
+        with pytest.raises(ValueError, match="overruns max_seq"):
+            decode_loop(tparams, tcfg, first, cache, 24 - 16 + 1)
+    else:
+        full = cache.with_length(24)
+        kv = torch.zeros((2, 1, tcfg.num_key_value_heads, tcfg.head_dim), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="overruns max_seq"):
+            full.update(0, kv, kv, full.length_dev)

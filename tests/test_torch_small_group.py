@@ -2,8 +2,8 @@
 K9's plain version against the Pallas ``_make_kernel_dequant`` (interpret
 mode) and the JAX package's jnp route, K8's plain version at small G
 against ``_grouped_fallback``, tiny g=32 llama and g=64 qwen2_moe models
-through greedy generate(), and the refusal of history penalties (ROADMAP
-A6) by the port's SamplingParams users."""
+through greedy generate(), and the Engine's refusal of history penalties
+(ROADMAP A6)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,8 +198,9 @@ PENALTIES = [dict(repetition_penalty=1.1), dict(frequency_penalty=0.5),
 @pytest.mark.parametrize("kw", PENALTIES)
 def test_penalty_fields_construct_and_every_entry_point_refuses_them(kw):
     """The JAX package's three penalty fields construct (no TypeError), carry
-    the same defaults and ``has_penalties``, and generate(), decode_loop(),
-    the Engine and Engine.submit raise NotImplementedError naming A6."""
+    the same defaults and ``has_penalties``; generate() and decode_loop()
+    apply them (tests/test_torch_penalties.py holds their values), the
+    Engine and Engine.submit raise NotImplementedError naming A6."""
     sp = SamplingParams(**kw)
     assert sp.has_penalties == JaxSamplingParams(**kw).has_penalties is True
     assert SamplingParams()._asdict() == JaxSamplingParams()._asdict()
@@ -207,10 +208,9 @@ def test_penalty_fields_construct_and_every_entry_point_refuses_them(kw):
     cfg = ModelConfig(**TINY)
     params = t_init_quant(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A6"):
-        generate(params, cfg, toks, 2, sampling=sp)
-    with pytest.raises(NotImplementedError, match="A6"):
-        decode_loop(params, cfg, toks[:, 0], make_cache(cfg, 1, 8, device="cpu"), 2, sp)
+    assert tuple(generate(params, cfg, toks, 2, sampling=sp).shape) == (1, 6)
+    cache = make_cache(cfg, 1, 8, device="cpu")
+    assert tuple(decode_loop(params, cfg, toks[:, 0], cache, 2, sp)[0].shape) == (1, 2)
     with pytest.raises(NotImplementedError, match="A6"):
         Engine(params, cfg, max_slots=2, max_seq=16, page_size=16, sampling=sp, device="cpu")
     eng = Engine(params, cfg, max_slots=2, max_seq=16, page_size=16, chunk=4, device="cpu")
