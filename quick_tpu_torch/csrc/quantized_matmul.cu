@@ -15,7 +15,11 @@
 // What bounds it on the H100: at decode (M <= 8) the packed weight stream,
 // K*N/2 bytes of codes plus K*N/16 bytes of f32 scales, against 3.35 TB/s;
 // the work per byte is tiny. At prefill (M = 512) the multiply-adds, here
-// against the bf16 tensor-core rate (989 TFLOP/s dense).
+// against the bf16 tensor-core rate (989 TFLOP/s dense). The wgmma body
+// falls short of that: at M = 4096 its tile copies (128 x 128 tiles move
+// ~9.5 GB from L2 for a 4096 x 28672 x 4096 product, x four times the
+// weights' bytes) take ~2/3 of its time alone, and each group's fold waits
+// for that group's MMAs.
 //
 // Design, decode (M <= 8; the body is qmm_decode.cuh, which K14 shares):
 // one thread owns one output column n, so a
@@ -32,17 +36,19 @@
 // kernel computes rsqrt(mean(x^2) + eps) per row; the main kernel applies
 // it per element.
 //
-// Design, prefill (M > 8): a 64 x 128 output tile per block of 8 warps
-// (2 x 4, 32 x 32 each) on the tensor cores with mma.sync m16n8k16 (bf16
-// in, f32 accumulate), the body K8 shares (qmm_mma.cuh): per group the
-// block stages the activations and the group's codes, converted to bf16
-// (exact for 0..15), and scales the group's f32 dot on the output side
-// before the next group, as in the decode path.
+// Design, more than 8 rows (qmm_wgmma.cuh): the output tile computed
+// transposed on wgmma (m64nBTk16, bf16 in, f32 accumulate) with the weight
+// as the register operand, dequantized straight from the QTPU words (whose
+// j-major order is already k16 fragment order), the activations as the
+// shared-memory operand, a 4-stage ring filled by the Tensor Memory
+// Accelerator, BT = 16, 32, 64 or 128 tokens a block from the wrapper's
+// plan; each group's dot scaled on the output side before the next, as in
+// the decode path.
 //
 // Not carried over from the TPU: the 8-row padding, the (8, K) broadcast
-// of the norm weight, the VMEM tile pickers. wgmma, TMA and a pipelined
-// prefill kernel are later work.
+// of the norm weight, the VMEM tile pickers.
 #include "qmm_decode.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -110,25 +116,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
   out[i] = __float2bfloat16_rn(s);
 }
 
-constexpr int kMmaBM = 64;  // rows per block (prefill path): MT = 2
-
-__global__ void __launch_bounds__(kMmaThreads)
-qmm_mma_kernel(const bf16* __restrict__ x, int ldx,
-               const uint32_t* __restrict__ qw,
-               const float* __restrict__ scales, const float* __restrict__ zs,
-               int M, int K, int N, int groups_per_split,
-               float* __restrict__ partial, bf16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kBN;
-  const int ng = K / kG;
-  const int g0 = blockIdx.z * groups_per_split;
-  const int g1 = min(ng, g0 + groups_per_split);
-  float acc[2][4][4];
-  mma_groups<2>(x, ldx, M, qw, scales, zs, N, m0, n0, g0, g1, smem, acc);
-  mma_store<2>(acc, M, N, m0, n0,
-               partial != nullptr ? partial + (size_t)blockIdx.z * M * N : nullptr, out);
-}
-
 struct Args {
   const bf16* x; int ldx; const uint32_t* qw; const float* scales;
   const float* zs; const bf16* nw; float* rstd; int M, K, N;
@@ -140,17 +127,6 @@ cudaError_t launch_main(const Args& a, cudaStream_t st) {
   dim3 grid((a.N + kBN - 1) / kBN, (a.M + ROWS - 1) / ROWS, a.splits);
   qmm_kernel<ROWS, PRO><<<grid, kBN, 0, st>>>(
       a.x, a.ldx, a.qw, a.scales, a.zs, a.nw, a.rstd, a.M, a.K, a.N, a.gps,
-      a.splits > 1 ? a.partial : nullptr, a.out);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_mma(const Args& a, cudaStream_t st) {
-  constexpr size_t smem = mma_smem_bytes<kMmaBM>();
-  cudaError_t err = allow_smem(qmm_mma_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.N + kBN - 1) / kBN, (a.M + kMmaBM - 1) / kMmaBM, a.splits);
-  qmm_mma_kernel<<<grid, kMmaThreads, smem, st>>>(
-      a.x, a.ldx, a.qw, a.scales, a.zs, a.M, a.K, a.N, a.gps,
       a.splits > 1 ? a.partial : nullptr, a.out);
   return cudaGetLastError();
 }
@@ -172,18 +148,22 @@ cudaError_t dispatch_rows(int rows, const Args& a, cudaStream_t st) {
 // qweight: int32 [K/8, N]; scales, zeros_x_scales: f32 [K/128, N];
 // norm_weight: bf16 [K] (RMSNorm prologue only); rstd: f32 [M] scratch
 // (RMSNorm only); partial: f32 [splits, M, N] scratch (splits > 1 only);
-// out: [M, N] bf16. rows (1, 2, 4, 8: decode path;
-// 64: tensor-core prefill path, no prologue, x 16-byte aligned), splits and
-// groups_per_split come from the wrapper's launch plan.
+// xsum: f32 [K/128, (M + 3) & ~3] scratch, 16-byte aligned (rows > 8 only);
+// out: [M, N] bf16. rows (1, 2, 4, 8: decode path; 16, 32, 64, 128: the
+// wgmma body's tokens per block, no prologue, N % 4 == 0, x, qweight,
+// scales and zeros_x_scales 16-byte aligned), splits and groups_per_split
+// come from the wrapper's launch plan.
 extern "C" int qtt_quantized_matmul(
     const void* x, int ldx, const void* qweight, const void* scales,
     const void* zeros_x_scales, const void* norm_weight, float eps,
     int prologue, int M, int K, int N, int rows, int splits,
-    int groups_per_split, void* rstd, void* partial, void* out, void* stream) {
+    int groups_per_split, void* rstd, void* partial, void* xsum, void* out,
+    void* stream) {
   if (M <= 0 || K % kG != 0 || N <= 0 || splits <= 0 || groups_per_split <= 0)
     return cudaErrorInvalidValue;
   if (prologue != kNone && rows > 8) return cudaErrorInvalidValue;
   if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  if (rows > 8 && xsum == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{static_cast<const bf16*>(x), ldx,
          static_cast<const uint32_t*>(qweight),
@@ -201,7 +181,10 @@ extern "C" int qtt_quantized_matmul(
   } else if (prologue == kSiluGlu) {
     err = dispatch_rows<kSiluGlu>(rows, a, st);
   } else if (prologue == kNone) {
-    err = rows == kMmaBM ? launch_mma(a, st) : dispatch_rows<kNone>(rows, a, st);
+    err = rows > 8 ? qwg::launch(rows, a.x, ldx, a.qw, a.scales, a.zs,
+                                 static_cast<float*>(xsum), M, K, N, splits,
+                                 groups_per_split, a.partial, a.out, st)
+                   : dispatch_rows<kNone>(rows, a, st);
   } else {
     return cudaErrorInvalidValue;
   }

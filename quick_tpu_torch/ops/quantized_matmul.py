@@ -44,7 +44,7 @@ KERNEL = CudaKernel(
     "quantized_matmul.cu",
     {"qtt_quantized_matmul": [
         ptr, i32, ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
-        ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr,
     ]},
 )
 
@@ -184,11 +184,12 @@ def launch_key(prologue: Optional[str], M: int, K: int, N: int) -> str:
     return f"{prologue or 'none'} M={M} K={K} N={N}"
 
 
-def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, groups per split) for K1.
+def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(rows per block, K splits, groups per split) for K9 and K11, whose
+    tensor-core bodies take 64-row blocks (``csrc/qmm_mma.cuh``).
 
     One block covers 128 columns and ``rows`` rows: 1, 2, 4 or 8 on the
-    decode path, 64 on the tensor-core path for M > 8. When those tiles
+    CUDA-core path, 64 on the tensor-core path for M > 8. When those tiles
     cannot fill the card (two blocks per SM), K is split over blocks so
     about four blocks per SM stream weights; a second pass sums the
     splits."""
@@ -200,6 +201,47 @@ def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
         splits = min(ng, math.ceil(4 * sm_count / tiles))
     gps = math.ceil(ng / splits)
     return rows, math.ceil(ng / gps), gps
+
+
+#: K1's wgmma body (``csrc/qmm_wgmma.cuh``): tokens per block, and the
+#: blocks one SM holds at each width (``__launch_bounds__``)
+WGMMA_TOKENS = (16, 32, 64, 128)
+WGMMA_STAGES = 4
+
+
+def wgmma_blocks_per_sm(bt: int) -> int:
+    return 2 if bt <= 32 else 1
+
+
+def wgmma_smem_bytes(bt: int) -> int:
+    """Dynamic shared memory of one K1 wgmma block of ``bt`` tokens: a ring
+    of 4 stages, each the activations, the packed words, scales and
+    zeros_x_scales and the xsum, rounded up to 1 KiB, the ring's 8 mbarriers
+    and 1 KiB to align the ring (``Layout`` in ``csrc/qmm_wgmma.cuh``)."""
+    stage = bt * KERNEL_GROUP * 2 + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4
+    return WGMMA_STAGES * (-(-stage // 1024) * 1024) + 16 * WGMMA_STAGES + 1024
+
+
+def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(rows per block, K splits, groups per split) for K1.
+
+    Up to 8 rows, the CUDA-core decode body: one block covers 128 columns
+    and 1, 2, 4 or 8 rows, and K is split over blocks so about four blocks
+    per SM stream weights when the tiles cannot fill the card (two blocks
+    per SM). Above 8 rows, the wgmma body: 128 channels by BT tokens, BT the
+    least of 16, 32, 64, 128 that holds M (128 past it); K is split only
+    where the output tiles fill at most half the blocks the card holds at
+    once, into as many slices as fill it. A second pass sums the splits in
+    a fixed order."""
+    if M <= 8:
+        return mma_launch_plan(M, K, N, sm_count)
+    ng = K // KERNEL_GROUP
+    bt = next((b for b in WGMMA_TOKENS if M <= b), WGMMA_TOKENS[-1])
+    tiles = math.ceil(N / _BN) * math.ceil(M / bt)
+    slots = sm_count * wgmma_blocks_per_sm(bt)
+    splits = 1 if 2 * tiles > slots else min(ng, slots // tiles)
+    gps = math.ceil(ng / splits)
+    return bt, math.ceil(ng / gps), gps
 
 
 def quantized_matmul_cuda(
@@ -215,7 +257,8 @@ def quantized_matmul_cuda(
     returns [M, N] bf16.
 
     ``norm_weight`` selects the RMSNorm prologue, ``glu`` the SiLU-GLU one;
-    both take M <= 8 (the decode shapes the gates allow)."""
+    both take M <= 8 (the decode shapes the gates allow). Above 8 rows the
+    wgmma body's tensor copies need N % 4 == 0."""
     if norm_weight is not None and glu:
         raise ValueError("one prologue at a time")
     prologue = "rmsnorm" if norm_weight is not None else "glu" if glu else None
@@ -238,14 +281,20 @@ def quantized_matmul_cuda(
         # the Pallas prologue reads the norm weight as bf16 (:801-803)
         nw = norm_weight.to(torch.bfloat16).contiguous()
         check(nw, "norm_weight", torch.bfloat16, (K,))
+    if M > 8 and N % 4:
+        raise ValueError(f"K1 above 8 rows takes N % 4 == 0 (16-byte rows), got N={N}")
     rows, splits, gps = launch_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    # one f32 scratch: [M] RMSNorm statistics, then [splits, M, N] partials
+    # one f32 scratch: the wgmma body's [K / 128, M rounded up to 4] group
+    # sums of x (16-byte rows, first so that they stay aligned), [M] RMSNorm
+    # statistics, [splits, M, N] partials
+    n_xsum = ng * (-(-M // 4) * 4) if M > 8 else 0
     n_rstd = M if nw is not None else 0
     n_part = splits * M * N if splits > 1 else 0
-    scratch = torch.empty(n_rstd + n_part, dtype=torch.float32, device=dev)
-    rstd = scratch[:n_rstd] if n_rstd else None
-    partial = scratch[n_rstd:] if n_part else None
+    scratch = torch.empty(n_xsum + n_rstd + n_part, dtype=torch.float32, device=dev)
+    xsum = scratch[:n_xsum] if n_xsum else None
+    rstd = scratch[n_xsum:n_xsum + n_rstd] if n_rstd else None
+    partial = scratch[n_xsum + n_rstd:] if n_part else None
     KERNEL.launch(
         "qtt_quantized_matmul", launch_key(prologue, M, K, N),
         x.data_ptr(), x.shape[1], qweight.data_ptr(), scales.data_ptr(),
@@ -253,6 +302,7 @@ def quantized_matmul_cuda(
         float(norm_eps), _PROLOGUE[prologue], M, K, N, rows, splits, gps,
         None if rstd is None else rstd.data_ptr(),
         None if partial is None else partial.data_ptr(),
+        None if xsum is None else xsum.data_ptr(),
         out.data_ptr(), stream_ptr(dev),
     )
     return out
@@ -274,10 +324,10 @@ def quantized_matmul_dequant_cuda(
     Takes every shape with K % G == 0. The JAX package falls back to its
     jnp route where ``(K / G * G / 8) % 8 != 0`` or no K-step depth keeps
     the TPU's 8-sublane alignment (:731, :761-768): those are limits of
-    the TPU's tiles, not of this kernel. The launch plan is K1's: 1, 2, 4
-    or 8 rows per block on CUDA cores up to 8 rows, 64 on the tensor cores
-    above, and K split over blocks in chunks of 128 when the output tiles
-    cannot fill the card."""
+    the TPU's tiles, not of this kernel. The launch plan is
+    ``mma_launch_plan``'s: 1, 2, 4 or 8 rows per block on CUDA cores up to
+    8 rows, 64 on the tensor cores above, and K split over blocks in chunks
+    of 128 when the output tiles cannot fill the card."""
     dev = x.device
     G = group_size
     if G not in DEQUANT_GROUPS:
@@ -292,8 +342,8 @@ def quantized_matmul_dequant_cuda(
     check(qweight, "qweight", torch.int32, (K // PACK, N))
     check(scales, "scales", torch.float32, (K // G, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
-    # K1's plan over chunks of 128 k (a last partial chunk counts as one)
-    rows, splits, cps = launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    # the 64-row plan over chunks of 128 k (a last partial chunk counts as one)
+    rows, splits, cps = mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
@@ -321,7 +371,7 @@ def launch_a8(
 ) -> torch.Tensor:
     """Launch K11 on int8 codes x [M, K] with row scales sx [M, 1], or K11f
     on bf16 x [M, K] with ``sx=None`` (G = 128 only); returns [M, N] bf16.
-    The launch plan is K1's tensor-core one: 64-row blocks of 128 columns,
+    The launch plan is ``mma_launch_plan``'s: 64-row blocks of 128 columns,
     K split over blocks in chunks of 128 channels when the tiles cannot fill
     the card."""
     dev = x.device
@@ -343,7 +393,7 @@ def launch_a8(
     check(qweight, "qweight", torch.int32, (K // PACK, N))
     check(scales, "scales", torch.float32, (K // G, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
-    _, splits, cps = launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    _, splits, cps = mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
                if splits > 1 else None)

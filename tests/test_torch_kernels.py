@@ -175,6 +175,108 @@ def test_flash_kernel_qk192_v128_matches_plain(rng, cuda_device, case):
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
 
 
+def _wgmma_case(dev, M, K, N, seed):
+    """Random QTPU weights (full-range words: every code 0..15) and x on
+    the card, from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qw = torch.randint(-2**31, 2**31, (K // 8, N), generator=gen, device=dev,
+                       dtype=torch.int32)
+    s = torch.rand((K // 128, N), generator=gen, device=dev) * 0.01 + 0.001
+    z = torch.round(torch.rand((K // 128, N), generator=gen, device=dev) * 15)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    return x, qw, s, z * s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [512, 4096, 14336])
+@pytest.mark.parametrize("N", [200, 6144])
+@pytest.mark.parametrize("M", [9, 16, 17, 63, 64, 65, 127, 128, 129, 4096])
+def test_gemm_wgmma_body_matches_plain(cuda_device, M, K, N):
+    """K1 above 8 rows (the wgmma body, every token width and split-K
+    plan, ragged rows and columns) against its plain version on the card;
+    a second launch is bit-equal to the first."""
+    x, *args = _wgmma_case(cuda_device, M, K, N, seed=M * 7 + K + N)
+    before = tqmm.KERNEL.launches
+    out = tqmm.quantized_matmul(x, *args)
+    again = tqmm.quantized_matmul(x, *args)
+    ref = tqmm.quantized_matmul_plain(x, *args)
+    torch.cuda.synchronize()
+    assert tqmm.KERNEL.launches == before + 2
+    assert torch.equal(out, again)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+FLASH_SHAPES = [64, 128, 256, (192, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", FLASH_SHAPES, ids=lambda d: "x".join(map(str, d)) if
+                         isinstance(d, tuple) else str(d))
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+@pytest.mark.parametrize("S", [1, 15, 17, 128, 1900])
+def test_flash_tensor_core_matches_plain(rng, cuda_device, S, case, group, dims):
+    """K2 (tensor-core body, GQA-packed rows) at every query length and
+    mask case, Hq / Hkv in {1, 4, 8} and each head width, against its plain
+    version on the card, within TOL and within TOL x the row's max|ref|; a
+    second launch is bit-equal to the first."""
+    D, Dv = dims if isinstance(dims, tuple) else (dims, dims)
+    B, Hkv = 2, 2
+    Hq, T = Hkv * group, 2048 if S > 256 else 256
+    dev = cuda_device
+    q = torch.from_numpy(rng.standard_normal((B, S, Hq, D)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((B, Hkv, T, Dv)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    kw = dict(ATTN_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq)).to(dev)
+    for key in ("q_offset", "kv_len"):
+        if key in kw:
+            kw[key] = torch.tensor(kw[key], dtype=torch.int32, device=dev)
+    before = tflash.KERNEL.launches
+    out = tflash.flash_attention(q, k, v, kv_heads_major=True, **kw)
+    again = tflash.flash_attention(q, k, v, kv_heads_major=True, **kw)
+    qoff = tflash._per_batch_i32(kw.get("q_offset", 0), B, dev)
+    klen = torch.clamp(tflash._per_batch_i32(kw.get("kv_len", T), B, dev), max=T)
+    ref = tflash.flash_attention_plain(
+        q, k, v, qoff, klen, D ** -0.5, kw.get("alibi_slopes"), kw.get("window"),
+        kw.get("logit_softcap"))
+    torch.cuda.synchronize()
+    assert tflash.KERNEL.launches == before + 2 and out.shape == (B, S, Hq, Dv)
+    assert torch.equal(out, again)
+    o, r = f32(out), f32(ref)
+    np.testing.assert_allclose(o, r, **TOL)
+    row_max = np.abs(r).max(axis=-1, keepdims=True)
+    assert (np.abs(o - r) <= TOL["rtol"] * row_max).all()
+
+
+@pytest.mark.cuda
+def test_redesigned_wrappers_refuse(cuda_device):
+    """K1 above 8 rows and K2 refuse CPU operands and shapes they do not
+    take; nothing falls back."""
+    x = torch.zeros((16, 256), dtype=torch.bfloat16)
+    w = torch.zeros((32, 128), dtype=torch.int32)
+    s = torch.zeros((2, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        tqmm.quantized_matmul_cuda(x, w, s, s)
+    w6 = torch.zeros((32, 130), dtype=torch.int32, device=cuda_device)
+    s6 = torch.zeros((2, 130), device=cuda_device)
+    with pytest.raises(ValueError, match="N % 4"):  # 16-byte rows for the tensor copies
+        tqmm.quantized_matmul_cuda(x.to(cuda_device), w6, s6, s6)
+    q = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16)
+    i = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention_cuda(q, kv, kv, i, i + 4, 0.1)
+    q96 = torch.zeros((1, 4, 2, 96), dtype=torch.bfloat16, device=cuda_device)
+    kv96 = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        tflash.flash_attention(q96, kv96, kv96, kv_heads_major=True)
+
+
 FUSED_CASES = {
     "rope": {},
     "no_rope_alibi": dict(use_rope=False, alibi=True),
