@@ -79,7 +79,11 @@ class AutoQuickModel:
     """Stateful convenience wrapper over the functional core."""
 
     def __init__(self, params, cfg: ModelConfig, qcfg: Optional[QuantConfig] = None):
-        self.params = params
+        from quick_tpu_torch.modules.linear import cast_scales_env
+
+        # every load path passes here: QUICK_TPU_BF16_SCALES=1 rounds the
+        # scales through bf16, as the JAX package's __init__ (:136-146)
+        self.params = cast_scales_env(params)
         self.cfg = cfg
         self.qcfg = qcfg
 

@@ -29,7 +29,7 @@ from quick_tpu_torch.modules.blocks import (
     dense_decode_route,
 )
 from quick_tpu_torch.modules.cache import KVCache
-from quick_tpu_torch.modules.linear import Linear, QuantLinear
+from quick_tpu_torch.modules.linear import Linear, QuantLinear, cast_scales_env
 from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.ops.rope import rope_table
@@ -260,7 +260,8 @@ def init_quant_params(
 ) -> ModelParams:
     """Random-init an already-quantized model (packed int32 qweights, f32
     scales and z*s, tied float lm_head) — ``init_quant_params`` (:330) with
-    the same distributions, drawn on ``device``."""
+    the same distributions, drawn on ``device``; under
+    ``QUICK_TPU_BF16_SCALES=1`` the scales are rounded through bf16."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -296,10 +297,11 @@ def init_quant_params(
             mlp = MLPParams(gate_up_proj=qlin(D, 2 * F), down_proj=qlin(F, D))
         blocks.append(_block(attn, mlp, D, dtype, dev))
     embed = _randn(gen, (cfg.vocab_size, D), dtype, dev, 0.02)
-    return ModelParams(
+    # QUICK_TPU_BF16_SCALES=1: scales rounded through bf16 (:437-455)
+    return cast_scales_env(ModelParams(
         embed=embed, blocks=blocks, final_norm=_ones(D, dtype, dev),
         lm_head=Linear(embed.T), **_tables(cfg, dev),
-    )
+    ))
 
 
 #: user-facing / HF-style layer names -> fused linears (the JAX package's

@@ -4,8 +4,9 @@
 Weights are stored [K(in), N(out)] as in the JAX package. ``QuantLinear``
 holds the QTPU-packed codes and calls ``ops.quantized_matmul``, which goes
 to the CUDA kernels on CUDA tensors, with W4A8 activations where
-``QUICK_TPU_A8=1`` (``a8_enabled``). The JAX package's bf16-scales switch
-is not ported.
+``QUICK_TPU_A8=1`` (``a8_enabled``). Under ``QUICK_TPU_BF16_SCALES=1`` the
+model constructors round every QuantLinear's scales through bf16
+(``round_scales_bf16``).
 """
 from __future__ import annotations
 
@@ -114,6 +115,45 @@ class QuantLinear:
 
 
 AnyLinear = QuantLinear | Linear
+
+
+def bf16_scales_enabled() -> bool:
+    """``QUICK_TPU_BF16_SCALES=1`` (``scales_dtype_env``,
+    quick_tpu/modules/linear.py:123): the model constructors keep every
+    QuantLinear's scales and zeros_x_scales at bf16 precision."""
+    return os.environ.get("QUICK_TPU_BF16_SCALES") == "1"
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def round_scales_bf16(tree):
+    """Every QuantLinear in ``tree`` (dataclasses, lists, tuples, dicts)
+    with its scales and zeros_x_scales rounded through bf16, the JAX
+    package's ``cast_scales`` (:135) under ``QUICK_TPU_BF16_SCALES=1``;
+    codes and biases untouched. The values stay in their f32 tensors:
+    ``_quantized_matmul_jnp`` promotes bf16 scales to f32 (:109-111), so the
+    plain paths and the kernels, which read f32, compute the JAX package's
+    numbers."""
+    if isinstance(tree, QuantLinear):
+        return dataclasses.replace(tree, scales=_round_bf16(tree.scales),
+                                   zeros_x_scales=_round_bf16(tree.zeros_x_scales))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: round_scales_bf16(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(round_scales_bf16(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: round_scales_bf16(v) for k, v in tree.items()}
+    return tree
+
+
+def cast_scales_env(tree):
+    """``round_scales_bf16(tree)`` under ``QUICK_TPU_BF16_SCALES=1``, else
+    ``tree``: the switch as the JAX package's choke points read it."""
+    return round_scales_bf16(tree) if bf16_scales_enabled() else tree
 
 
 def _concat_bias(lins) -> Optional[torch.Tensor]:
