@@ -366,8 +366,9 @@ def moe_forward(
     parallelism is ROADMAP A15). The router runs on f32 x against its bf16
     weight cast to f32 (a full-f32 product under PyTorch's default
     ``allow_tf32=False``). Quantized bias-free experts ride the grouped
-    kernel at every batch size; float or biased experts (left so by
-    ``modules_to_not_convert``) take the per-expert path at B*S <= 32 (every
+    kernel at every batch size unless ``QUICK_TPU_MOE_GROUPED=0``; float or
+    biased experts (left so by ``modules_to_not_convert``), and every expert
+    under that switch, take the per-expert path at B*S <= 32 (every
     expert is computed: an unrouted one adds exact zeros, and nothing is
     read back to the host) or the einsum over all experts."""
     B, S, D = x.shape
@@ -394,7 +395,8 @@ def moe_forward(
         return dnp(silu(gate) * up)  # [B, S, D]
 
     grouped_ok = (
-        isinstance(p.gate_up_proj, QuantLinear) and isinstance(p.down_proj, QuantLinear)
+        os.environ.get("QUICK_TPU_MOE_GROUPED", "1") != "0"  # read at every call (:669)
+        and isinstance(p.gate_up_proj, QuantLinear) and isinstance(p.down_proj, QuantLinear)
         and p.gate_up_proj.bias is None and p.down_proj.bias is None
     )
     if grouped_ok:
