@@ -369,6 +369,8 @@ def check_gemms(cfg, gen, dev):
              for K, N in shapes]
     cases += [(None, BATCH * PROMPT, K, N) for K, N in shapes] + engine_gemms(cfg)
     cases += checkpoint_gemms(cfg)
+    # N % 4 == 2 above 8 rows: the wrapper pads the weight for the tensor copies
+    cases += [(None, M, 4096, N) for M in (16, BATCH * PROMPT) for N in (130, 4098)]
     for prologue, M, K, N in cases:
         (qw, s, zs), = rand_qlinear(gen, dev, K, N)
         x = torch.randn((M, 2 * K if prologue == "glu" else K), generator=gen,

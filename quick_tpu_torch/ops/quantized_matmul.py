@@ -244,6 +244,18 @@ def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
     return bt, math.ceil(ng / gps), gps
 
 
+def pad_columns(
+    qweight: torch.Tensor, scales: torch.Tensor, zeros_x_scales: torch.Tensor, multiple: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weight's N padded up to a multiple of ``multiple`` with zero
+    words, scales and zeros_x_scales: the tensor copies of the wgmma bodies
+    read 16-byte rows. A padded column's output is 0 and is sliced off."""
+    pad = -qweight.shape[-1] % multiple
+    if pad == 0:
+        return qweight, scales, zeros_x_scales
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (qweight, scales, zeros_x_scales))
+
+
 def quantized_matmul_cuda(
     x: torch.Tensor,
     qweight: torch.Tensor,
@@ -258,7 +270,9 @@ def quantized_matmul_cuda(
 
     ``norm_weight`` selects the RMSNorm prologue, ``glu`` the SiLU-GLU one;
     both take M <= 8 (the decode shapes the gates allow). Above 8 rows the
-    wgmma body's tensor copies need N % 4 == 0."""
+    wgmma body's tensor copies read 16-byte rows, so an N that is not a
+    multiple of 4 is padded at the call (``pad_columns``; no shape the
+    repo's models run has one) and the output sliced back."""
     if norm_weight is not None and glu:
         raise ValueError("one prologue at a time")
     prologue = "rmsnorm" if norm_weight is not None else "glu" if glu else None
@@ -281,8 +295,10 @@ def quantized_matmul_cuda(
         # the Pallas prologue reads the norm weight as bf16 (:801-803)
         nw = norm_weight.to(torch.bfloat16).contiguous()
         check(nw, "norm_weight", torch.bfloat16, (K,))
+    N_out = N
     if M > 8 and N % 4:
-        raise ValueError(f"K1 above 8 rows takes N % 4 == 0 (16-byte rows), got N={N}")
+        qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
+        N = qweight.shape[1]
     rows, splits, gps = launch_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     # one f32 scratch: the wgmma body's [K / 128, M rounded up to 4] group
@@ -296,7 +312,7 @@ def quantized_matmul_cuda(
     rstd = scratch[n_xsum:n_xsum + n_rstd] if n_rstd else None
     partial = scratch[n_xsum + n_rstd:] if n_part else None
     KERNEL.launch(
-        "qtt_quantized_matmul", launch_key(prologue, M, K, N),
+        "qtt_quantized_matmul", launch_key(prologue, M, K, N_out),
         x.data_ptr(), x.shape[1], qweight.data_ptr(), scales.data_ptr(),
         zeros_x_scales.data_ptr(), None if nw is None else nw.data_ptr(),
         float(norm_eps), _PROLOGUE[prologue], M, K, N, rows, splits, gps,
@@ -305,7 +321,7 @@ def quantized_matmul_cuda(
         None if xsum is None else xsum.data_ptr(),
         out.data_ptr(), stream_ptr(dev),
     )
-    return out
+    return out if N == N_out else out[:, :N_out].contiguous()
 
 
 def dequant_launch_key(M: int, K: int, N: int, G: int) -> str:

@@ -206,6 +206,22 @@ def test_gemm_wgmma_body_matches_plain(cuda_device, M, K, N):
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [130, 4098])
+@pytest.mark.parametrize("M", [16, 512])
+def test_gemm_wgmma_body_odd_n_matches_plain(cuda_device, M, N):
+    """K1 above 8 rows at N % 4 == 2: the wrapper pads the weight to a
+    multiple of 4 for the tensor copies and slices the output back; against
+    the plain version on the unpadded weight."""
+    x, *args = _wgmma_case(cuda_device, M, 4096, N, seed=M + N)
+    before = tqmm.KERNEL.launches
+    out = tqmm.quantized_matmul(x, *args)
+    ref = tqmm.quantized_matmul_plain(x, *args)
+    torch.cuda.synchronize()
+    assert tqmm.KERNEL.launches == before + 1 and out.shape == (M, N) and out.is_contiguous()
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
 FLASH_SHAPES = [64, 128, 256, (192, 128)]
 
 
@@ -256,16 +272,18 @@ def test_flash_tensor_core_matches_plain(rng, cuda_device, S, case, group, dims)
 @pytest.mark.cuda
 def test_redesigned_wrappers_refuse(cuda_device):
     """K1 above 8 rows and K2 refuse CPU operands and shapes they do not
-    take; nothing falls back."""
+    take (a prologue above 8 rows, an unsupported head width); nothing
+    falls back."""
     x = torch.zeros((16, 256), dtype=torch.bfloat16)
     w = torch.zeros((32, 128), dtype=torch.int32)
     s = torch.zeros((2, 128))
     with pytest.raises(ValueError, match="CUDA"):
         tqmm.quantized_matmul_cuda(x, w, s, s)
-    w6 = torch.zeros((32, 130), dtype=torch.int32, device=cuda_device)
-    s6 = torch.zeros((2, 130), device=cuda_device)
-    with pytest.raises(ValueError, match="N % 4"):  # 16-byte rows for the tensor copies
-        tqmm.quantized_matmul_cuda(x.to(cuda_device), w6, s6, s6)
+    wd = torch.zeros((32, 128), dtype=torch.int32, device=cuda_device)
+    sd = torch.zeros((2, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="prologue takes at most 8 rows"):
+        tqmm.quantized_matmul_cuda(x.to(cuda_device), wd, sd, sd,
+                                   norm_weight=torch.ones(256, device=cuda_device))
     q = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16)
     kv = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16)
     i = torch.zeros(1, dtype=torch.int32)

@@ -194,3 +194,26 @@ def test_decode_rows_keep_their_plan(M):
     for K, N in PLAN_SHAPES:
         assert tqmm.launch_plan(M, K, N, H100_SMS) == tqmm.mma_launch_plan(
             M, K, N, H100_SMS)
+
+
+@pytest.mark.parametrize("group", [128, 64, 32])
+@pytest.mark.parametrize("N", [130, 202, 7])
+def test_pad_columns_gives_the_plain_result(group, N):
+    """An N that is no multiple of 4, padded by ``pad_columns`` as the
+    wgmma wrappers pad it on the card: zero columns, multiple of 4, and the
+    plain GEMMs over the padded weight, sliced back to N, equal the plain
+    GEMMs over the weight as given."""
+    import torch
+
+    rng = np.random.default_rng(N + group)
+    K, M = 2 * G, 5
+    q = rng.integers(0, 16, size=(K, N), dtype=np.uint8)
+    s = (rng.uniform(size=(K // group, N)) * 0.01 + 0.001).astype(np.float32)
+    zs = np.round(rng.uniform(size=(K // group, N)) * 15).astype(np.float32) * s
+    w = [torch.from_numpy(a) for a in (pack_qtpu(q, group), s, zs)]
+    padded = tqmm.pad_columns(*w)
+    assert all(p.shape[-1] % 4 == 0 and p.shape[-1] - N < 4 for p in padded)
+    assert all(torch.equal(p[..., :N], a) and not p[..., N:].any() for p, a in zip(padded, w))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    plain = tqmm.quantized_matmul_plain if group == G else tqmm.quantized_matmul_dequant_plain
+    assert torch.equal(plain(x, *padded, group)[:, :N], plain(x, *w, group))
