@@ -292,6 +292,8 @@ def phase1_build():
                 entry = m.group(1)[:72]
             elif "Used" in line or "spill" in line:
                 print(f"  {k.source} {entry}: {line.split(':', 1)[-1].strip()}")
+            elif "warning" in line:  # e.g. ptxas serializing wgmma instructions
+                print(f"  {k.source}: {line.strip()[:300]}")
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +387,12 @@ def check_gemms(cfg, gen, dev):
         torch.cuda.synchronize()
         key = qm.launch_key(prologue, M, K, N)
         errs[key] = max_err(out, ref, TOL["quantized_matmul"], f"K1 {key}")
+        if M > 8 and N % 4:  # what the padding costs: beside the width 2 narrower
+            w4 = (qw[:, :N - 2].contiguous(), s[:, :N - 2].contiguous(),
+                  zs[:, :N - 2].contiguous())
+            t = [device_ms(lambda i, w=w: qm.quantized_matmul_cuda(x, *w), 10)
+                 for w in ((qw, s, zs), w4)]
+            print(f"    N={N} (padded) {t[0] * 1e3:.1f} us; N={N - 2} {t[1] * 1e3:.1f} us")
     return errs
 
 

@@ -1,5 +1,5 @@
-// The W4A8 tensor-core block body shared by K11 / K11f
-// (quantized_matmul_a8.cu) and K12 (grouped_matmul_a8.cu).
+// The W4A8 tensor-core block body shared by K11 (quantized_matmul_a8.cu)
+// and K12 (grouped_matmul_a8.cu).
 //
 // A block of 8 warps (2 row groups x 4 column groups) owns a BM x 128
 // output tile, BM = 32 * MT. Per chunk of 128 input channels (one quant
@@ -16,10 +16,13 @@
 // one thread loads the four words and writes one 32-bit word per nibble.
 //
 // The activations come in one of two forms: int8 codes [M, ldx] (K11, K12),
-// or bf16 x [M, ldx] (K11f) quantized while they are staged, against row
-// scales the block computed first (a8_row_scales), with the arithmetic of
+// or bf16 x [M, ldx] quantized while they are staged, against row scales
+// the block computed first (a8_row_scales), with the arithmetic of
 // quantize_activations: q = clamp(rint(x / sx), -127, 127), true division,
-// round half to even.
+// round half to even. The bf16 form was K11f's first body; no route
+// instantiates it since K11f runs qmm_wgmma_a8.cuh (whose quantization
+// kernel uses quant_code and row_scale), and it goes when K11 moves there:
+// removing it now changes K11's compiled code.
 #pragma once
 
 #include "common.cuh"

@@ -8,32 +8,38 @@
 // per-row int8 activation codes xq and row scales sx (quantize_activations,
 // :246), out = bf16(sx * [sum_g f32(xq_g . q_g) * s_g - rowsum(xq_g) * zs_g]),
 // the per-group dot exact in int32. K11 reads the codes and sx that the
-// wrapper computed; K11f reads bf16 x and quantizes inside the kernel: each
-// block first takes its rows' absmax over the whole K row (the rows are
-// L2-resident at these sizes), then quantizes each chunk as it stages it, so
-// the codes never reach device memory. Its codes and sx equal
-// quantize_activations' (true divisions, round half to even, clamp +-127).
+// wrapper computed; K11f reads bf16 x and quantizes each row once in a
+// first small kernel (codes, sx and the groups' row sums, equal to
+// quantize_activations': true divisions, round half to even, clamp +-127).
 //
 // What bounds it on the H100: at the prefill and Engine-chunk rows it takes
 // (M > 96) the multiply-adds against the int8 tensor-core rate (1,979 TOP/s
 // dense), or at M ~ 128 the packed weight stream (K*N/2 bytes of codes plus
 // 8*(K/G)*N of f32 scales) against 3.35 TB/s.
 //
-// Design: the body of qmm_mma_a8.cuh (mma.sync m16n8k32 s8 x s8 -> s32,
-// 64 x 128 tiles of 8 warps), the group G a compile-time parameter (128,
-// 64, 32: the JAX package leaves G != 128 to its jnp route, :415, whose
-// arithmetic this kernel computes). Ragged M needs no padding: rows >= M
-// read as zeros and are not written. When the output tiles cannot fill the
-// card, K is split over blocks in chunks of 128 channels, as K1 splits it;
-// the unscaled f32 partials are summed in a fixed order by a second kernel,
-// which multiplies by sx and rounds once (K11f writes its row scales for it).
+// Design, K11: the body of qmm_mma_a8.cuh (mma.sync m16n8k32 s8 x s8 ->
+// s32, 64 x 128 tiles of 8 warps), the group G a compile-time parameter
+// (128, 64, 32: the JAX package leaves G != 128 to its jnp route, :415,
+// whose arithmetic this kernel computes). Ragged M needs no padding: rows
+// >= M read as zeros and are not written. When the output tiles cannot fill
+// the card, K is split over blocks in chunks of 128 channels, as K1 splits
+// it. Later work: K11 onto K11f's body.
+//
+// Design, K11f (G = 128; qmm_wgmma_a8.cuh): the output tile computed
+// transposed on int8 wgmma (m64nBTk32) with the QTPU words' codes as the
+// register operand and the row-quantized activations as the shared
+// operand, a 6-stage ring of one group a stage filled by the Tensor Memory
+// Accelerator, BT = 16, 32, 64 or 128 tokens a block from the wrapper's
+// plan, each group's exact dot folded on the output side.
+//
+// Both write unscaled f32 partials when K is split; a second kernel sums
+// them in a fixed order, multiplies by sx and rounds once.
 //
 // Not carried over from the TPU: the 32-row padding, the VMEM-sized
 // (bm, bn, gpb) pickers, the sequential grid that lets the TPU quantize a
-// row block once for all its column tiles. Later work: wgmma, TMA and a
-// pipelined body, and quantizing each row once (every column block of K11f
-// recomputes its rows' absmax).
+// row block once for all its column tiles (K11f's first kernel does that).
 #include "qmm_mma_a8.cuh"
+#include "qmm_wgmma_a8.cuh"
 
 using namespace a8;
 
@@ -99,20 +105,23 @@ cudaError_t launch(const void* x, const float* sx, const uint32_t* qw, const flo
 }  // namespace
 
 // fused = 0 (K11): x int8 codes [M, K], sx f32 [M] (quantize_activations);
-// fused = 1 (K11f, G = 128 only): x bf16 [M, K], sx f32 [M] scratch that the
-// kernel fills with its row scales (read by the split-K pass).
+// splits and chunks_per_split (chunks of 128 channels; a last partial chunk
+// counts as one) from the 64-row plan; rows and scratch unused.
+// fused = 1 (K11f, G = 128 only): x bf16 [M, K]; sx f32 [M] scratch that
+// the first kernel fills with the row scales; scratch: the int8 codes [M, K]
+// then f32 row sums [K/128, (M + 3) & ~3], 16-byte aligned; rows (16, 32,
+// 64, 128 tokens a block), splits and chunks_per_split (groups) from the
+// wgmma plan; N % 4 == 0.
 // Rows 16-byte aligned. qweight int32 [K/8, N]; scales, zeros_x_scales f32
 // [K/G, N]; G = 128, 64 or 32, K % G == 0; partial: f32 [splits, M, N]
-// scratch (splits > 1 only); out: [M, N] bf16. splits and chunks_per_split
-// (chunks of 128 channels; a last partial chunk counts as one) come from the
-// wrapper's launch plan.
+// scratch (splits > 1 only); out: [M, N] bf16.
 extern "C" int qtt_quantized_matmul_a8(const void* x, void* sx, const void* qweight,
                                        const void* scales, const void* zeros_x_scales,
-                                       int fused, int M, int K, int N, int G, int splits,
-                                       int chunks_per_split, void* partial, void* out,
-                                       void* stream) {
+                                       int fused, int M, int K, int N, int G, int rows,
+                                       int splits, int chunks_per_split, void* scratch,
+                                       void* partial, void* out, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || chunks_per_split <= 0 || sx == nullptr ||
-      (G != 128 && G != 64 && G != 32) || K % G != 0 || (fused && G != 128))
+      (G != 128 && G != 64 && G != 32) || K % G != 0 || (fused && (G != 128 || !scratch)))
     return cudaErrorInvalidValue;
   if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -124,13 +133,17 @@ extern "C" int qtt_quantized_matmul_a8(const void* x, void* sx, const void* qwei
   auto o = static_cast<bf16*>(out);
   cudaError_t err;
   if (fused) {
-    err = launch<128, true>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split, sxf, part, o, st);
-  } else if (G == 64) {
-    err = launch<64, false>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split, nullptr, part, o, st);
-  } else if (G == 32) {
-    err = launch<32, false>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split, nullptr, part, o, st);
+    auto codes = static_cast<int8_t*>(scratch);
+    auto rowsum = reinterpret_cast<float*>(codes + (size_t)M * K);
+    err = qwa::launch(rows, static_cast<const bf16*>(x), qw, s, zs, codes, rowsum, sxf, M, K, N,
+                      splits, chunks_per_split, part, o, st);
   } else {
-    err = launch<128, false>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split, nullptr, part, o, st);
+    err = G == 64   ? launch<64, false>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split,
+                                         nullptr, part, o, st)
+          : G == 32 ? launch<32, false>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split,
+                                         nullptr, part, o, st)
+                    : launch<128, false>(x, sxf, qw, s, zs, M, K, N, splits, chunks_per_split,
+                                          nullptr, part, o, st);
   }
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = (size_t)M * N;

@@ -10,16 +10,21 @@ and prints, per source, how many of the other tree's functions have an
 instruction-for-instruction identical body here (``cuobjdump -sass``,
 addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
-(``flash_attention.cu``) and K8 (``grouped_matmul.cu``) kernels beside
-this build's same entries, and this build's entries the other lacks (with
-their spill lines), then times, in turns (other, this, this, other), with
-``chip_smoke.py``'s timing (CUDA events behind a device sleep, weights
-rotated past L2): K1 at M = 16, 32, 64, 128, 512 and 4096 on the
-Mistral-7B-width projections and at the decode's M = 4 with its
-prologues, K2 at the shapes of ``PERF.md`` §6 (B = 4, 32, 64 at S = 128,
-T = 256; B = 4 at S = 1,900, T = 2,048; DeepSeek-V2-Lite's q / k 192, v
-128 at B = 4, S = 128), and K8 at G=128 on Qwen1.5-MoE's routed shapes.
-Each row ends with this tree's mean over the other's.
+(``flash_attention.cu``), K8 (``grouped_matmul.cu``), K9
+(``quantized_matmul_dequant.cu``) and K11 / K11f
+(``quantized_matmul_a8.cu``) kernels beside this build's same entries,
+and this build's entries the other lacks (with their spill lines), then
+times, in turns (other, this, this, other), with ``chip_smoke.py``'s
+timing (CUDA events behind a device sleep, weights rotated past L2): K1 at
+M = 16, 32, 64, 128, 512 and 4096 on the Mistral-7B-width projections and
+at the decode's M = 4 with its prologues, K2 at the shapes of ``PERF.md``
+§6 (B = 4, 32, 64 at S = 128, T = 256; B = 4 at S = 1,900, T = 2,048;
+DeepSeek-V2-Lite's q / k 192, v 128 at B = 4, S = 128), K8 at G=128 on
+Qwen1.5-MoE's routed shapes, K9 at M = 16, 128, 512 on the Mistral-7B
+projections at G = 32 and on DeepSeek-V2-Lite's seven at M = 512, G = 64,
+and K11 and K11f at M = 128 and 512 on the Mistral-7B projections. Each
+row ends with this tree's mean over the other's. ``--sass-only`` stops
+after the SASS comparison.
 """
 import argparse
 import json
@@ -42,7 +47,8 @@ from quick_tpu_torch.ops._cuda import build_all
 build_all(all_kernels())
 regs = {}  # entry (build hash cut; K8's G=128 instantiation named as before G was a parameter)
 for k in all_kernels():
-    if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention"):
+    if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention",
+                  "quantized_matmul_dequant", "quantized_matmul_a8"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -60,10 +66,16 @@ gemms = [(None, M, K, N) for M in (16, 32, 64, 128, 512, 4096)
 gemms += [g for g in cs.main_path_gemms(cfg) if g[1] == cs.BATCH]  # decode, with prologues
 flash = [dict(B=B, S=128, T=256) for B in (4, 32, 64)] + [dict(B=4, S=1900, T=2048),
          dict(B=4, S=128, T=256, heads=(16, 16, 192, 128))]
+ds = ModelConfig.from_hf_config(cs.DEEPSEEK_V2_LITE)
 with contextlib.redirect_stdout(io.StringIO()):
     rows = cs.time_gemms(cfg, gen, dev, collections.defaultdict(float), gemms, "")
     rows += [cs.flash_row(cfg, gen, dev, **kw) for kw in flash]
     rows += cs.grouped_rows("qwen1.5-moe-a2.7b", PRESETS["qwen1.5-moe-a2.7b"], gen, dev)
+    rows += cs.dequant_rows("", cs.gemm_shapes(cfg), [("ab", M) for M in (16, 128, 512)], 32,
+                            gen, dev)
+    rows += cs.dequant_rows("", cs.ds_k9_shapes(ds), [("ab", 512)], cs.DS_G, gen, dev)
+    rows += cs.a8_rows("", cs.gemm_shapes(cfg), [("ab", "ab", M) for M in (128, 512)], 128,
+                       gen, dev)
 print(json.dumps({"registers": regs, "ms": {r["name"]: r["ms"] for r in rows}}))
 '''
 
@@ -127,10 +139,13 @@ def run(tree: Path) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--sass-only", action="store_true", help="compare the SASS and stop")
     args = ap.parse_args(argv)
     this = Path(__file__).resolve().parents[2]
     other = Path(args.other).resolve()
     compare_sass(other, this)
+    if args.sass_only:
+        return
     res = [run(t) for t in (other, this, this, other)]
     for entry, used in res[0]["registers"].items():
         mine = res[1]["registers"].get(entry)

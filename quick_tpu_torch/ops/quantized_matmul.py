@@ -20,8 +20,8 @@ against the same int4 codes, with the row scale in the epilogue
 (``_quantized_matmul_a8_jnp`` :258). On CUDA tensors that is
 ``csrc/quantized_matmul_a8.cu``: K11 (``_make_kernel_a8``) over the codes
 the wrapper computed, or, with ``QUICK_TPU_A8_FUSED=1`` at G = 128, K11f
-(``_make_kernel_a8_fused``), which quantizes inside the kernel. Rows <= 96
-stay on K1 / K9.
+(``_make_kernel_a8_fused``), which quantizes each row once in its first
+kernel. Rows <= 96 stay on K1 / K9.
 
 The dense-dequant route of the JAX package (``QUICK_TPU_DENSE_M``) is not
 ported yet (ROADMAP.md).
@@ -60,7 +60,7 @@ KERNEL_DEQUANT = CudaKernel(
 KERNEL_A8 = CudaKernel(
     "quantized_matmul_a8.cu",
     {"qtt_quantized_matmul_a8": [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
     ]},
 )
 
@@ -145,6 +145,19 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
+def a8_row_quant_plain(
+    x: torch.Tensor, group_size: int = KERNEL_GROUP,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K11f's first kernel: ``quantize_activations``' int8
+    codes [M, K] and row scales [M, 1], and the integer sum of each group's
+    codes as f32 [K / G, M] (exact: at most 128 * 127 in magnitude), the
+    row sums of the zero-point term."""
+    xq, sx = quantize_activations(x)
+    M, K = xq.shape
+    rowsum = xq.to(torch.int32).reshape(M, K // group_size, group_size).sum(-1)
+    return xq, sx, rowsum.t().to(torch.float32)
+
+
 def quantized_matmul_a8_plain(
     x: torch.Tensor,
     qweight: torch.Tensor,
@@ -185,8 +198,9 @@ def launch_key(prologue: Optional[str], M: int, K: int, N: int) -> str:
 
 
 def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, groups per split) for K9 and K11, whose
-    tensor-core bodies take 64-row blocks (``csrc/qmm_mma.cuh``).
+    """(rows per block, K splits, groups per split) of the CUDA-core decode
+    bodies (K1 and K9 up to 8 rows) and of K11, whose mma.sync body takes
+    64-row blocks (``csrc/qmm_mma_a8.cuh``).
 
     One block covers 128 columns and ``rows`` rows: 1, 2, 4 or 8 on the
     CUDA-core path, 64 on the tensor-core path for M > 8. When those tiles
@@ -203,23 +217,64 @@ def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, in
     return rows, math.ceil(ng / gps), gps
 
 
-#: K1's wgmma body (``csrc/qmm_wgmma.cuh``): tokens per block, and the
-#: blocks one SM holds at each width (``__launch_bounds__``)
+#: The wgmma bodies above 8 rows (K1 ``csrc/qmm_wgmma.cuh``, K9
+#: ``qmm_wgmma_dq.cuh``, K11f ``qmm_wgmma_a8.cuh``): tokens per block, and
+#: the blocks one SM holds at each width (``__launch_bounds__``)
 WGMMA_TOKENS = (16, 32, 64, 128)
-WGMMA_STAGES = 4
+WGMMA_STAGES = 4  # K1's and K9's rings
+A8F_STAGES = 6    # K11f's ring
 
 
 def wgmma_blocks_per_sm(bt: int) -> int:
     return 2 if bt <= 32 else 1
 
 
+def _ring_bytes(stage: int, stages: int) -> int:
+    """A ring of ``stages`` stages of ``stage`` bytes rounded up to 1 KiB,
+    its 2 x ``stages`` mbarriers and 1 KiB to align it (``Layout`` in the
+    wgmma bodies)."""
+    return stages * (-(-stage // 1024) * 1024) + 16 * stages + 1024
+
+
 def wgmma_smem_bytes(bt: int) -> int:
     """Dynamic shared memory of one K1 wgmma block of ``bt`` tokens: a ring
     of 4 stages, each the activations, the packed words, scales and
-    zeros_x_scales and the xsum, rounded up to 1 KiB, the ring's 8 mbarriers
-    and 1 KiB to align the ring (``Layout`` in ``csrc/qmm_wgmma.cuh``)."""
-    stage = bt * KERNEL_GROUP * 2 + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4
-    return WGMMA_STAGES * (-(-stage // 1024) * 1024) + 16 * WGMMA_STAGES + 1024
+    zeros_x_scales and the xsum (``csrc/qmm_wgmma.cuh``)."""
+    return _ring_bytes(bt * KERNEL_GROUP * 2 + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4, WGMMA_STAGES)
+
+
+def dequant_smem_bytes(bt: int, G: int) -> int:
+    """Dynamic shared memory of one K9 wgmma block (``qmm_wgmma_dq.cuh``): a
+    ring of 4 stages of 128 depths, each the bf16 activations, 16 rows of
+    packed words and the 128 / G groups' scales and zeros_x_scales."""
+    return _ring_bytes(bt * _KC * 2 + 16 * _BN * 4 + 2 * (_KC // G) * _BN * 4, WGMMA_STAGES)
+
+
+def a8_fused_smem_bytes(bt: int) -> int:
+    """Dynamic shared memory of one K11f block (``qmm_wgmma_a8.cuh``): a
+    ring of 6 stages of one group, each the int8 codes, the packed words,
+    scales, zeros_x_scales and the group's row sums."""
+    return _ring_bytes(bt * KERNEL_GROUP + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4, A8F_STAGES)
+
+
+def wgmma_tokens(M: int) -> int:
+    """Tokens per block of a wgmma body: the least of 16, 32, 64, 128 that
+    holds M, 128 past it."""
+    return next((b for b in WGMMA_TOKENS if M <= b), WGMMA_TOKENS[-1])
+
+
+def wgmma_plan(M: int, chunks: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(tokens per block, K splits, chunks per split) of a wgmma body over
+    ``chunks`` stages of K: 128 channels by ``wgmma_tokens(M)`` tokens; K is
+    split only where the output tiles fill at most half the blocks the card
+    holds at once, into as many slices as fill it. A second pass sums the
+    splits in a fixed order."""
+    bt = wgmma_tokens(M)
+    tiles = math.ceil(N / _BN) * math.ceil(M / bt)
+    slots = sm_count * wgmma_blocks_per_sm(bt)
+    splits = 1 if 2 * tiles > slots else min(chunks, slots // tiles)
+    per = math.ceil(chunks / splits)
+    return bt, math.ceil(chunks / per), per
 
 
 def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
@@ -228,20 +283,28 @@ def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
     Up to 8 rows, the CUDA-core decode body: one block covers 128 columns
     and 1, 2, 4 or 8 rows, and K is split over blocks so about four blocks
     per SM stream weights when the tiles cannot fill the card (two blocks
-    per SM). Above 8 rows, the wgmma body: 128 channels by BT tokens, BT the
-    least of 16, 32, 64, 128 that holds M (128 past it); K is split only
-    where the output tiles fill at most half the blocks the card holds at
-    once, into as many slices as fill it. A second pass sums the splits in
-    a fixed order."""
+    per SM). Above 8 rows, the wgmma body's plan (``wgmma_plan``) over the
+    K / 128 groups."""
     if M <= 8:
         return mma_launch_plan(M, K, N, sm_count)
-    ng = K // KERNEL_GROUP
-    bt = next((b for b in WGMMA_TOKENS if M <= b), WGMMA_TOKENS[-1])
-    tiles = math.ceil(N / _BN) * math.ceil(M / bt)
-    slots = sm_count * wgmma_blocks_per_sm(bt)
-    splits = 1 if 2 * tiles > slots else min(ng, slots // tiles)
-    gps = math.ceil(ng / splits)
-    return bt, math.ceil(ng / gps), gps
+    return wgmma_plan(M, K // KERNEL_GROUP, N, sm_count)
+
+
+def dequant_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(rows per block, K splits, chunks of 128 k per split) for K9: up to 8
+    rows the CUDA-core decode body's ``mma_launch_plan``, above 8 the wgmma
+    body's plan (a last partial chunk counts as one)."""
+    chunks = math.ceil(K / _KC)
+    if M <= 8:
+        return mma_launch_plan(M, chunks * _KC, N, sm_count)
+    return wgmma_plan(M, chunks, N, sm_count)
+
+
+def a8_fused_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(tokens per block, K splits, groups per split) for K11f: its wgmma
+    body's token width, and K11's split of K (``mma_launch_plan``), so that
+    K11f sums every output in K11's order and equals it bit for bit."""
+    return (wgmma_tokens(M), *mma_launch_plan(M, K, N, sm_count)[1:])
 
 
 def pad_columns(
@@ -341,9 +404,11 @@ def quantized_matmul_dequant_cuda(
     jnp route where ``(K / G * G / 8) % 8 != 0`` or no K-step depth keeps
     the TPU's 8-sublane alignment (:731, :761-768): those are limits of
     the TPU's tiles, not of this kernel. The launch plan is
-    ``mma_launch_plan``'s: 1, 2, 4 or 8 rows per block on CUDA cores up to
-    8 rows, 64 on the tensor cores above, and K split over blocks in chunks
-    of 128 when the output tiles cannot fill the card."""
+    ``dequant_launch_plan``'s: 1, 2, 4 or 8 rows per block on CUDA cores up
+    to 8 rows, the wgmma body's 16-128 tokens above, and K split over
+    blocks in chunks of 128 when the output tiles cannot fill the card.
+    Above 8 rows an N that is no multiple of 4 is padded at the call
+    (``pad_columns``) for the tensor copies."""
     dev = x.device
     G = group_size
     if G not in DEQUANT_GROUPS:
@@ -358,18 +423,21 @@ def quantized_matmul_dequant_cuda(
     check(qweight, "qweight", torch.int32, (K // PACK, N))
     check(scales, "scales", torch.float32, (K // G, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
-    # the 64-row plan over chunks of 128 k (a last partial chunk counts as one)
-    rows, splits, cps = mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    N_out = N
+    if M > 8 and N % 4:
+        qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
+        N = qweight.shape[1]
+    rows, splits, cps = dequant_launch_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
     KERNEL_DEQUANT.launch(
-        "qtt_quantized_matmul_dequant", dequant_launch_key(M, K, N, G),
+        "qtt_quantized_matmul_dequant", dequant_launch_key(M, K, N_out, G),
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros_x_scales.data_ptr(),
         M, K, N, G, rows, splits, cps,
         None if partial is None else partial.data_ptr(), out.data_ptr(), stream_ptr(dev),
     )
-    return out
+    return out if N == N_out else out[:, :N_out].contiguous()
 
 
 def a8_launch_key(M: int, K: int, N: int, G: int, fused: bool) -> str:
@@ -387,9 +455,12 @@ def launch_a8(
 ) -> torch.Tensor:
     """Launch K11 on int8 codes x [M, K] with row scales sx [M, 1], or K11f
     on bf16 x [M, K] with ``sx=None`` (G = 128 only); returns [M, N] bf16.
-    The launch plan is ``mma_launch_plan``'s: 64-row blocks of 128 columns,
-    K split over blocks in chunks of 128 channels when the tiles cannot fill
-    the card."""
+    K11's plan is ``mma_launch_plan``'s: 64-row blocks of 128 columns, K
+    split over blocks in chunks of 128 channels when the tiles cannot fill
+    the card. K11f's is ``a8_fused_plan``'s (K11's split of K); it
+    quantizes each row once into scratch (the int8 codes and the groups'
+    row sums) and writes the row scales into ``sx`` for the split-K pass;
+    an N that is no multiple of 4 is padded at the call."""
     dev = x.device
     G = group_size
     fused = sx is None
@@ -409,17 +480,29 @@ def launch_a8(
     check(qweight, "qweight", torch.int32, (K // PACK, N))
     check(scales, "scales", torch.float32, (K // G, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
-    _, splits, cps = mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    N_out = N
+    scratch = None
+    if fused:
+        if N % 4:
+            qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
+            N = qweight.shape[1]
+        rows, splits, cps = a8_fused_plan(M, K, N, sm_count(dev.index))
+        # the int8 codes [M, K], then the f32 row sums [K / 128, M rounded up to 4]
+        scratch = torch.empty(M * K + (K // G) * (-(-M // 4) * 4) * 4, dtype=torch.uint8,
+                              device=dev)
+    else:
+        rows, splits, cps = mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
     KERNEL_A8.launch(
-        "qtt_quantized_matmul_a8", a8_launch_key(M, K, N, G, fused),
+        "qtt_quantized_matmul_a8", a8_launch_key(M, K, N_out, G, fused),
         x.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-        zeros_x_scales.data_ptr(), int(fused), M, K, N, G, splits, cps,
+        zeros_x_scales.data_ptr(), int(fused), M, K, N, G, rows, splits, cps,
+        None if scratch is None else scratch.data_ptr(),
         None if partial is None else partial.data_ptr(), out.data_ptr(), stream_ptr(dev),
     )
-    return out
+    return out if N == N_out else out[:, :N_out].contiguous()
 
 
 def _quantized_matmul_2d_a8(

@@ -3,8 +3,9 @@ also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
 also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
 K5q / K6q INT8 paged attention, K9 small-group GEMM, K10 / K10q paged MLA
-decode attention, K11 / K11f W4A8 GEMM, K12 grouped W4A8 MoE GEMM, K13
-RMSNorm, K14 the decode layer tail) against their plain PyTorch versions,
+decode attention, K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
+grouped W4A8 MoE GEMM, K13 RMSNorm, K14 the decode layer tail) against
+their plain PyTorch versions,
 and the decode step replayed from a CUDA graph (generate() and the Engine)
 against the eager step, on a card. Skipped without one. Imports no
 JAX; on the card run:
@@ -858,6 +859,96 @@ def test_a8_gemm_kernels_match_plain(rng, cuda_device, monkeypatch, M, K, N, G):
     assert tqmm.KERNEL_A8.launches == a8n
     assert tqmm.KERNEL.launches + tqmm.KERNEL_DEQUANT.launches == k1 + 1
     assert torch.equal(small, tqmm.quantized_matmul(x96, qw, s, zs, group_size=G))
+
+
+#: K11f on its wgmma body: ragged M, N % 4 == 2, one and several stages
+#: per split, the Mistral-7B widths
+A8F_SHAPES = [(512, 130), (4096, 576), (4096, 4096), (14336, 4096), (1024, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", A8F_SHAPES)
+@pytest.mark.parametrize("M", [9, 16, 97, 128, 200, 512])
+def test_a8_fused_wgmma_body_matches_plain(cuda_device, M, K, N):
+    """K11f (int8 wgmma over the QTPU words, rows quantized once) at every
+    token width and split-K plan: within 1e-2 x (1 + |ref|) of its plain
+    version, and equal to K11 on the same codes (K11's expression, group
+    order and split of K; chip_smoke.py holds it within 1e-3 x max|K11|);
+    a second launch bit-equal to the first."""
+    x, qw, s, zs = _wgmma_case(cuda_device, M, K, N, seed=3 * M + K + N)
+    before = tqmm.KERNEL_A8.launches
+    out = tqmm.launch_a8(x, None, qw, s, zs)
+    again = tqmm.launch_a8(x, None, qw, s, zs)
+    k11 = tqmm.launch_a8(*tqmm.quantize_activations(x), qw, s, zs)
+    ref = tqmm.quantized_matmul_a8_plain(x, qw, s, zs)
+    torch.cuda.synchronize()
+    assert tqmm.KERNEL_A8.launches == before + 3 and out.shape == (M, N)
+    assert torch.equal(out, again)
+    _within(out, ref, 1e-2)
+    assert np.abs(f32(out) - f32(k11)).max() <= 1e-3 * np.abs(f32(k11)).max()
+    assert torch.equal(out, k11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(97, 512), (512, 4096), (200, 14336)])
+def test_a8_fused_first_kernel_equals_plain(cuda_device, M, K):
+    """K11f's first kernel, read back from the scratch it writes: the int8
+    codes and row scales byte-equal to quantize_activations', the groups'
+    row sums equal to a8_row_quant_plain's."""
+    import ctypes
+
+    from quick_tpu_torch.ops._cuda import sm_count, stream_ptr
+
+    x, qw, s, zs = _wgmma_case(cuda_device, M, K, 256, seed=M + K)
+    N, ldrs = 256, -(-M // 4) * 4
+    dev = x.device
+    bt, splits, cps = tqmm.a8_fused_plan(M, K, N, sm_count(dev.index))
+    sx = torch.empty(M, device=cuda_device)
+    scratch = torch.empty(M * K + (K // 128) * ldrs * 4, dtype=torch.uint8, device=cuda_device)
+    partial = torch.empty(splits * M * N, device=cuda_device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=cuda_device)
+    err = tqmm.KERNEL_A8.lib().qtt_quantized_matmul_a8(
+        x.data_ptr(), sx.data_ptr(), qw.data_ptr(), s.data_ptr(), zs.data_ptr(), 1, M, K, N,
+        128, bt, splits, cps, scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        ctypes.c_void_p(stream_ptr(dev)))
+    torch.cuda.synchronize()
+    assert err == 0
+    xq, sxr, rowsum = tqmm.a8_row_quant_plain(x)
+    assert torch.equal(scratch[:M * K].view(torch.int8).reshape(M, K), xq)
+    assert torch.equal(sx, sxr.reshape(M))
+    got = scratch[M * K:].view(torch.float32).reshape(K // 128, ldrs)[:, :M]
+    assert torch.equal(got, rowsum)
+
+
+#: K9 on its wgmma body: K not a multiple of the 128-deep stage (160, 192,
+#: 1408 = 11 stages, 10944 = 85.5), N % 4 == 2 and DeepSeek's kv_a 576, the
+#: Mistral-7B and DeepSeek widths
+DQ_SHAPES = [(K, N, G) for G, Ks in ((32, (160, 4096, 10944)), (64, (192, 1408, 2048)))
+             for K in Ks for N in (130, 576)] + [(4096, 4096, 32), (2048, 6144, 64),
+                                                 (10944, 2048, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,G", DQ_SHAPES)
+@pytest.mark.parametrize("M", [9, 16, 33, 100, 128, 129, 512])
+def test_dequant_wgmma_body_matches_plain(cuda_device, M, K, N, G):
+    """K9 above 8 rows (bf16 wgmma, each weight dequantized in registers)
+    at G = 32 and 64, every token width and split-K plan, against its plain
+    version; a second launch bit-equal to the first."""
+    gen = torch.Generator(device=cuda_device).manual_seed(M * 5 + K + N + G)
+    qw = torch.randint(-2**31, 2**31, (K // 8, N), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    s = torch.rand((K // G, N), generator=gen, device=cuda_device) * 0.01 + 0.001
+    zs = torch.round(torch.rand((K // G, N), generator=gen, device=cuda_device) * 15) * s
+    x = torch.randn((M, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = tqmm.KERNEL_DEQUANT.launches
+    out = tqmm.quantized_matmul_dequant_cuda(x, qw, s, zs, G)
+    again = tqmm.quantized_matmul_dequant_cuda(x, qw, s, zs, G)
+    ref = tqmm.quantized_matmul_dequant_plain(x, qw, s, zs, G)
+    torch.cuda.synchronize()
+    assert tqmm.KERNEL_DEQUANT.launches == before + 2 and out.shape == (M, N)
+    assert torch.equal(out, again)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
 
 
 @pytest.mark.cuda
