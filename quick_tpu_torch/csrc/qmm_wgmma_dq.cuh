@@ -38,9 +38,11 @@
 // 16 rows of packed words, and the groups' scales and zeros_x_scales, all
 // brought by the Tensor Memory Accelerator: thread 0 issues 5 tensor
 // copies a stage, 3 stages ahead, completing on the stage's "full"
-// mbarrier. Each warpgroup waits on "full", dequantizes its 8 steps'
-// fragments, issues 8 wgmma, waits and arrives on "empty"; the two are
-// coupled only through those barriers. K need only be a multiple of G: the
+// mbarrier. Each warpgroup keeps two fragment buffers: it issues a stage's
+// 8 wgmma, then waits on the next stage's "full" and dequantizes its
+// fragments while those MMAs run, waits for them and arrives on the
+// stage's "empty"; the two warpgroups are coupled only through those
+// barriers. K need only be a multiple of G: the
 // copies zero-fill past K (zero activations, words, scales, zeros), as they
 // do ragged M and N, which the store masks. Split-K (the wrapper's plan,
 // only where the output tiles cannot fill the card) writes f32 partials
@@ -146,15 +148,15 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
 #pragma unroll
   for (int i = 0; i < kNR; ++i) acc[i] = 0.f;
 
-  for (int it = 0; it < nit; ++it) {
-    if (tid == 0 && it + kStages - 1 < nit) load(it + kStages - 1);
+  // stage `it`'s 8 fragments, dequantized once its copies have landed:
+  // step q * (8 / kCG) + st, registers {c0, c0 + 8} x {2t.., 2t+8..}
+  auto build = [&](int it, uint32_t (&a)[8][4]) {
     const int sl = it % kStages;
     mbar_wait(full + 8 * sl, (it / kStages) & 1);
     const unsigned char* sp = smem + sl * L::kStage;
     const uint32_t* wsm = reinterpret_cast<const uint32_t*>(sp + L::kX);
     const float* ssm = reinterpret_cast<const float*>(sp + L::kX + L::kW);
     const float* zsm = ssm + kCG * kBN;
-    uint32_t a[8][4];  // step q * (8 / kCG) + st: registers {c0, c0+8} x {2t.., 2t+8..}
 #pragma unroll
     for (int q = 0; q < kCG; ++q)
 #pragma unroll
@@ -181,17 +183,37 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
           }
         }
       }
+  };
+  // stage `it`'s 8 MMAs on fragments a, one commit group
+  auto issue = [&](int it, const uint32_t (&a)[8][4]) {
+    if (tid == 0 && it + kStages - 1 < nit) load(it + kStages - 1);
+    const uint32_t xb = sbase + (it % kStages) * L::kStage;
     hold(acc);
     wgmma_fence();
-    const uint32_t xb = sbase + sl * L::kStage;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       Wgmma<BT>::mma(acc, a[j], desc_b(xb + (j >> 2) * (BT * 128) + (j & 3) * 32), 1);
     wgmma_commit();
+  };
+  // wait for stage `it`'s MMAs (a is theirs until then) and release its slot
+  auto retire = [&](int it, uint32_t (&a)[8][4]) {
     wgmma_wait0();
     hold(acc);
     hold(a);
-    mbar_arrive(empty + 8 * sl);
+    mbar_arrive(empty + 8 * (it % kStages));
+  };
+  // two fragment buffers: the next stage is dequantized while this one's
+  // MMAs run
+  uint32_t a0[8][4], a1[8][4];
+  if (nit > 0) build(0, a0);
+  for (int it = 0; it < nit; it += 2) {
+    issue(it, a0);
+    if (it + 1 < nit) build(it + 1, a1);
+    retire(it, a0);
+    if (it + 1 == nit) break;
+    issue(it + 1, a1);
+    if (it + 2 < nit) build(it + 2, a0);
+    retire(it + 1, a1);
   }
 
   // accumulator register 4i + e: channel c0 + 8 * (e >= 2), token 8i + 2t + (e & 1)
