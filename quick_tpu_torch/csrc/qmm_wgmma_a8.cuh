@@ -320,7 +320,7 @@ inline cudaError_t launch(int BT, const bf16* x, const uint32_t* qw, const float
                           const float* zs, int8_t* codes, float* rowsumT, float* sx, int M,
                           int K, int N, int splits, int gps, float* partial, bf16* out,
                           cudaStream_t st) {
-  if (N % 4 != 0 || K % kG != 0) return cudaErrorInvalidValue;  // 16-byte rows
+  if (N % 4 != 0) return cudaErrorInvalidValue;  // 16-byte rows for the tensor copies
   switch (BT) {
     case 16: return launch_bt<16>(x, qw, scales, zs, codes, rowsumT, sx, M, K, N, splits, gps, partial, out, st);
     case 32: return launch_bt<32>(x, qw, scales, zs, codes, rowsumT, sx, M, K, N, splits, gps, partial, out, st);

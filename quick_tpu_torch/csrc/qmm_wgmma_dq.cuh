@@ -280,7 +280,7 @@ template <int G>
 cudaError_t launch(int BT, const bf16* x, const uint32_t* qw, const float* scales,
                    const float* zs, int M, int K, int N, int splits, int cps, float* partial,
                    bf16* out, cudaStream_t st) {
-  if (N % 4 != 0 || K % 8 != 0) return cudaErrorInvalidValue;  // 16-byte rows
+  if (N % 4 != 0) return cudaErrorInvalidValue;  // 16-byte rows for the tensor copies
   switch (BT) {
     case 16: return launch_bt<16, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, st);
     case 32: return launch_bt<32, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, st);

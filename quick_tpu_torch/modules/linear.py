@@ -117,17 +117,6 @@ class QuantLinear:
 AnyLinear = QuantLinear | Linear
 
 
-def bf16_scales_enabled() -> bool:
-    """``QUICK_TPU_BF16_SCALES=1`` (``scales_dtype_env``,
-    quick_tpu/modules/linear.py:123): the model constructors keep every
-    QuantLinear's scales and zeros_x_scales at bf16 precision."""
-    return os.environ.get("QUICK_TPU_BF16_SCALES") == "1"
-
-
-def _round_bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
 def round_scales_bf16(tree):
     """Every QuantLinear in ``tree`` (dataclasses, lists, tuples, dicts)
     with its scales and zeros_x_scales rounded through bf16, the JAX
@@ -137,8 +126,9 @@ def round_scales_bf16(tree):
     plain paths and the kernels, which read f32, compute the JAX package's
     numbers."""
     if isinstance(tree, QuantLinear):
-        return dataclasses.replace(tree, scales=_round_bf16(tree.scales),
-                                   zeros_x_scales=_round_bf16(tree.zeros_x_scales))
+        return dataclasses.replace(
+            tree, scales=tree.scales.to(torch.bfloat16).to(tree.scales.dtype),
+            zeros_x_scales=tree.zeros_x_scales.to(torch.bfloat16).to(tree.zeros_x_scales.dtype))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: round_scales_bf16(getattr(tree, f.name))
@@ -151,9 +141,10 @@ def round_scales_bf16(tree):
 
 
 def cast_scales_env(tree):
-    """``round_scales_bf16(tree)`` under ``QUICK_TPU_BF16_SCALES=1``, else
-    ``tree``: the switch as the JAX package's choke points read it."""
-    return round_scales_bf16(tree) if bf16_scales_enabled() else tree
+    """``round_scales_bf16(tree)`` under ``QUICK_TPU_BF16_SCALES=1``
+    (``scales_dtype_env``, quick_tpu/modules/linear.py:123), else ``tree``:
+    the switch as the JAX package's choke points read it."""
+    return round_scales_bf16(tree) if os.environ.get("QUICK_TPU_BF16_SCALES") == "1" else tree
 
 
 def _concat_bias(lins) -> Optional[torch.Tensor]:
