@@ -7,9 +7,10 @@ card. Run from the repository root on a machine with one H100:
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels K1-K14, K4q,
      K5q / K6q, K10q and K11f from csrc/ (one nvcc per source, in parallel)
-     and print ptxas' register summary;
+     and print ptxas' register summary and warnings;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes of the main paths, in bf16, with the tolerance stated;
+     shapes of the main paths, in bf16, with the tolerance stated (and K1
+     at N % 4 == 2, timed beside N - 2: the cost of padding N);
   3. each kernel's time (CUDA events over many launches queued behind a
      device sleep, weights and KV pages rotated past the 50 MB L2), its
      bound from bytes and operations, its plain version's time and a
