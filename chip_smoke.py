@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
      and print ptxas' register summary and warnings;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the main paths, in bf16, with the tolerance stated (and K1
-     at N % 4 == 2, timed beside N - 2: the cost of padding N);
+     at N % 4 == 2, timed beside N - 2: the cost of padding N; K3 at B=4,
+     1 and 8 and at S = 1,536, lengths 0 to S - 1);
   3. each kernel's time (CUDA events over many launches queued behind a
      device sleep, weights and KV pages rotated past the 50 MB L2), its
      bound from bytes and operations, its plain version's time and a
@@ -18,7 +19,10 @@ Phases (any failure exits non-zero):
   4. the generate() path: AutoQuickModel at Mistral-7B width, 32 layers,
      random QTPU weights from a seed, 4 prompts of 128 tokens plus 64
      greedy tokens; the kernels' launch counts must be exactly those of
-     the path;
+     the path; (4b) generate() at K3's other timed shapes (B=8; B=4 with
+     1,496-token prompts in a 1,536-token cache), counted, and the graphed
+     B=4 decode with K3 beside the same decode under
+     QUICK_TPU_FUSED_STEP=0 (K7), in turns;
   5. the serving path: the continuous-batching Engine over the paged KV
      cache, the same model's first ENGINE_LAYERS layers, 32 ShareGPT-like
      requests that share a one-page
@@ -81,10 +85,11 @@ Phases (any failure exits non-zero):
      2-layer kernel path against the plain path for generate() and for
      the paged path over bf16 and INT8 pages, with phase 8's routing rule;
  12. W4A8 and the standalone RMSNorm: (a) K11 and K11f (W4A8 GEMM) at the
-     Mistral-7B projections (M = 512, 128 and a ragged 200) and K11 at
-     DeepSeek-V2-Lite's g=64 shapes, K12 (grouped W4A8) at Mixtral-8x7B's
-     decode and prefill, K13 (RMSNorm) at the paths' shapes and on the
-     strided latent slice, each against its plain version; (b) their times,
+     Mistral-7B projections (M = 512, 128 and a ragged 200; K11f equal to
+     K11 bit for bit) and K11 at DeepSeek-V2-Lite's g=64 shapes, K12
+     (grouped W4A8) at Mixtral-8x7B's decode and prefill, K13 (RMSNorm) at
+     the paths' shapes and on the strided latent slice, each against its
+     plain version; (b) their times,
      bounds and yardsticks, and the aten calls per layer and busy share of
      the norms as K13 and as plain torch ops in the same call (Mistral's
      Engine, DeepSeek-V2-Lite's decode and bf16 Engine); (c)
@@ -393,7 +398,10 @@ def check_gemms(cfg, gen, dev):
                   zs[:, :N - 2].contiguous())
             t = [device_ms(lambda i, w=w: qm.quantized_matmul_cuda(x, *w), 10)
                  for w in ((qw, s, zs), w4)]
-            print(f"    N={N} (padded) {t[0] * 1e3:.1f} us; N={N - 2} {t[1] * 1e3:.1f} us")
+            b_ms, b_by = bound(K * N // 2 + 2 * (K // 128) * N * 4 + M * K * 2 + M * N * 2,
+                               2.0 * M * K * N)
+            print(f"    N={N} (padded) {t[0] * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}); "
+                  f"N={N - 2} {t[1] * 1e3:.1f} us")
     return errs
 
 
@@ -516,10 +524,24 @@ def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate", head
     )
 
 
-def fused_row(cfg, gen, dev):
+FUSED_SHAPES_PATH = "fused_shapes"  # phase 4b's generate() calls
+#: K3's timed shapes (B, S, length, path): generate()'s decode (B=4, the
+#: last step's length), the GGUF 128/128 protocol at B=1, and phase 4b's
+#: generate() calls at B=8 and at S = 1,536 (3 MiB a row, the gate's edge)
+FUSED_SHAPES = ((BATCH, MAX_SEQ, PROMPT + NEW_TOKENS - 1, "generate"),
+                (1, MAX_SEQ, PROMPT + NEW_TOKENS - 1, "gguf_protocol"),
+                (8, MAX_SEQ, PROMPT + NEW_TOKENS - 1, FUSED_SHAPES_PATH),
+                (BATCH, 1536, 1500, FUSED_SHAPES_PATH))
+
+
+def fused_row(cfg, gen, dev, B=BATCH, S=MAX_SEQ, length=PROMPT + NEW_TOKENS - 1,
+              path="generate"):
+    """[2, 3] K3 against its plain version at lengths 0, 1, 63, 64, 65, the
+    timed length and S - 1, then timed at ``length`` beside SDPA's attention
+    alone over the same cache rows; the bound from the bytes (the cache rows
+    read, the new rows written, q, k/v_new, cos/sin and the output)."""
     from quick_tpu_torch.ops import fused_decode_step as fs
 
-    B, S = BATCH, MAX_SEQ
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     L = cfg.num_hidden_layers
     print(f"[2] K3 (fused decode step) against its plain version, B={B} S={S}")
@@ -535,18 +557,19 @@ def fused_row(cfg, gen, dev):
     vc = torch.randn((L, B, Hkv, S, D), generator=gen, device=dev).to(torch.bfloat16)
     scale = D ** -0.5
     err = 0.0
-    for length in (PROMPT, PROMPT + NEW_TOKENS - 1):
+    for ln in sorted({0, 1, 63, 64, 65, PROMPT, length, S - 1}):
         q, kn, vn, c, s = inputs()
-        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-        ln = torch.full((1,), length, dtype=torch.int32, device=dev)  # as the path's length_dev
-        out = fs.fused_decode_attention_cuda(q, kn, vn, k1, v1, c, s, ln, 3, scale)
-        ref = fs.fused_decode_attention_plain(q, kn, vn, k2, v2, c, s, length, 3, scale)
+        k1, v1 = kc[3:4].clone(), vc[3:4].clone()  # one layer: the check reads layer 0 of it
+        k2, v2 = k1.clone(), v1.clone()
+        lt = torch.full((1,), ln, dtype=torch.int32, device=dev)  # as the path's length_dev
+        out = fs.fused_decode_attention_cuda(q, kn, vn, k1, v1, c, s, lt, 0, scale)
+        ref = fs.fused_decode_attention_plain(q, kn, vn, k2, v2, c, s, ln, 0, scale)
         torch.cuda.synchronize()
-        err = max(err, max_err(out, ref, TOL["fused_decode_step"], f"K3 length={length}"))
-        max_err(k1[3, :, :, length], k2[3, :, :, length], TOL_CACHE, "K3 written k row")
-        if not torch.equal(v1, v2) or not torch.equal(k1[:, :, :, :length], k2[:, :, :, :length]):
+        err = max(err, max_err(out, ref, TOL["fused_decode_step"], f"K3 B={B} S={S} length={ln}"))
+        max_err(k1[0, :, :, ln], k2[0, :, :, ln], TOL_CACHE, "K3 written k row")
+        k1[0, :, :, ln] = k2[0, :, :, ln]
+        if not torch.equal(v1, v2) or not torch.equal(k1, k2):
             fail("K3 changed the cache outside the new row")
-    length = PROMPT + NEW_TOKENS - 1
     q, kn, vn, c, s = inputs()
     ln = torch.full((1,), length, dtype=torch.int32, device=dev)  # as the path's length_dev
     ms = device_ms(lambda i: fs.fused_decode_attention_cuda(
@@ -562,15 +585,17 @@ def fused_row(cfg, gen, dev):
     nbytes = ((B * Hq * D + 2 * B * Hkv * D) * 2 + 2 * B * Hkv * length * D * 2
               + 2 * B * Hkv * D * 2 + B * Hq * D * 2 + 2 * B * D * 4)
     b_ms, b_by = bound(nbytes, 4.0 * B * Hq * (length + 1) * D)
+    chunk, splits = fs.split_plan(B, Hkv, Hq // Hkv, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     print(f"  length {length}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by "
-          f"{b_by}), plain {plain_ms * 1e3:.1f} us, SDPA's attention alone over the same "
-          f"cache {lib_ms * 1e3:.1f} us")
+          f"{b_by}; {splits} splits of {chunk} keys), plain {plain_ms * 1e3:.1f} us, SDPA's "
+          f"attention alone over the same cache {lib_ms * 1e3:.1f} us")
     key = f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}"
     return dict(
-        name=f"fused_decode_step[{key}]", route="cuda",
+        name=f"fused_decode_step[{key} length={length}]", route="cuda",
         source="quick_tpu_torch/csrc/fused_decode_step.cu",
         replaces="quick_tpu/ops/fused_decode_step.py:45",
-        launches=("generate", "fused_decode_step", key), max_abs_err=err,
+        launches=(path, "fused_decode_step", key), max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
     )
 
@@ -1046,6 +1071,83 @@ def phase4_main_path(cfg, dev):
     print(f"  random QTPU weights (seed 0) in {time.perf_counter() - t0:.1f} s")
     counts, stats = run_generate(model, cfg, dev, cfg.model_type, generate_launches(cfg))
     return counts, stats, model.params
+
+
+#: [4b] the switch's graphed decode: phase 4's prompts in a 512-token
+#: cache, where QUICK_TPU_FUSED_STEP=0 routes the step to K7 (the dense
+#: gate's 8 MB of K+V a layer) rather than to the einsum, so both runs replay
+#: a captured step
+SWITCH_SEQ = 512
+
+
+def phase4b_fused_step(params, cfg, dev):
+    """[4b] generate() at K3's other timed shapes (FUSED_SHAPES: B=8 at
+    max_seq 256, B=4 with 1,496-token prompts at max_seq 1,536), with
+    exact launch counts; then the graphed B=4 decode with K3 beside the same
+    decode under QUICK_TPU_FUSED_STEP=0 (K7), in turns."""
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.ops import all_kernels
+    from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
+
+    model = AutoQuickModel(params, cfg)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    calls = [(8, PROMPT, MAX_SEQ, NEW_TOKENS), (BATCH, 1496, 1536, 8)]
+    print("[4b] generate() at K3's other shapes: " + ", ".join(
+        f"B={B} prompt {P} max_seq {T} (+{n})" for B, P, T, n in calls))
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset_counts()
+    for B, P, T, n in calls:
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+        out = model.generate(prompts, n, max_seq=T)
+        if tuple(out.shape) != (B, P + n) or not torch.equal(out[:, :P], prompts) \
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+            fail(f"[4b] generate at B={B} max_seq {T}: shape {tuple(out.shape)} or tokens")
+    torch.cuda.synchronize()
+    counts = {k.name: dict(k.launches_by_key) for k in kernels}
+    got = {k: v for k, v in counts.items() if v}
+    want = generate_launches(cfg, calls=[(B, P, T, 1, n - 1) for B, P, T, n in calls])
+    if got != want:
+        fail(f"[4b] launch counts {got} differ from the calls' {want}")
+    print(f"  launches as the calls imply; K3: {json.dumps(counts['fused_decode_step'])}")
+
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    steps = NEW_TOKENS - 1
+
+    def decode(off: bool):
+        with switches(QUICK_TPU_FUSED_STEP="0" if off else "1"):
+            cache = make_cache(cfg, BATCH, SWITCH_SEQ, device=dev)
+            logits, cache = prefill(params, cfg, prompts, cache)
+            first = torch.argmax(logits, dim=-1)
+            for k in kernels:
+                k.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rest, cache = decode_loop(params, cfg, first, cache, steps)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+        launched = {k.name: k.launches for k in kernels if k.launches}
+        return ms, rest, launched
+
+    runs = {False: [], True: []}
+    tokens = {}
+    for off in (False, True, True, False):
+        ms, rest, launched = decode(off)
+        runs[off].append(ms)
+        tokens[off] = rest
+        route = "decode_attention" if off else "fused_decode_step"
+        if launched.get(route, 0) != steps * cfg.num_hidden_layers:
+            fail(f"[4b] QUICK_TPU_FUSED_STEP={'0' if off else '1'}: {launched} lacks "
+                 f"{route} at every layer of every step")
+        if off and "fused_decode_step" in launched:
+            fail("[4b] QUICK_TPU_FUSED_STEP=0 still launched K3")
+    stats = dict(max_seq=SWITCH_SEQ, steps=steps, decode_ms_per_step_k3=runs[False],
+                 decode_ms_per_step_switch_off_k7=runs[True],
+                 same_greedy_tokens=bool(torch.equal(tokens[False], tokens[True])))
+    print(f"  graphed B={BATCH} decode at max_seq {SWITCH_SEQ}, ms per step: K3 "
+          f"{runs[False]}, QUICK_TPU_FUSED_STEP=0 (K7) {runs[True]}; same greedy tokens: "
+          f"{stats['same_greedy_tokens']}")
+    return counts, stats
 
 
 def profile_decode(model, cfg, prompts, dev, steps: int = 8, graph=None) -> dict:
@@ -3137,7 +3239,6 @@ K13_CASES = (("generate", BATCH, 4096, None), ("generate", BATCH * PROMPT, 4096,
              ("engine", ENGINE["max_slots"], 4096, None),
              ("int8_engine", ENGINE_INT8["max_slots"], 4096, None),
              (DS_ENGINE, ENGINE["max_slots"], 512, 576))
-TOL_A8_FUSED = 1e-3  # K11f against K11: tol * max|K11| (tests/test_quantized_matmul.py:297)
 #: phase 12f logits, 2 layers under A8: an activation code may flip by one
 #: where the two paths' upstream bf16 rounding differs
 TOL_A8_MODEL = 2e-2
@@ -3163,8 +3264,8 @@ def switches(**env):
 def a8_rows(name, shapes, cases, G, gen, dev, tag="12a"):
     """[12a, 12b] K11 (and K11f at G = 128) against their plain versions at
     ``shapes`` {projection: (K, N)} and the rows M of ``cases``, K11f also
-    against K11; then timed where a case names a path, weights rotated past
-    L2: the bound from the packed weights, the int8 codes and row scales
+    equal to K11 bit for bit; then timed where a case names a path, weights
+    rotated past L2: the bound from the packed weights, the int8 codes and row scales
     (bf16 x for K11f) and the bf16 output, or from the int8 operations; the
     plain version; one torch.matmul on dequantized bf16 weights (the
     yardstick), torch._int_mm on int8 operands of the same size (the int8
@@ -3193,11 +3294,10 @@ def a8_rows(name, shapes, cases, G, gen, dev, tag="12a"):
                 torch.cuda.synchronize()
                 errs[True] = max_err(fused, ref, TOL["quantized_matmul_a8"],
                                      f"K11f {proj} {qm.a8_launch_key(M, K, N, G, True)}")
-                d = float((fused.float() - out.float()).abs().max())
-                lim = TOL_A8_FUSED * float(out.float().abs().max())
-                print(f"    K11f against K11: max |d| {d:.3e} (limit {lim:.3e})")
-                if d > lim:
-                    fail(f"K11f {proj} M={M} disagrees with K11")
+                same = torch.equal(fused, out)
+                print(f"    K11f against K11: {'bit-equal' if same else 'NOT bit-equal'}")
+                if not same:  # one body, one plan, the same codes: the same bits
+                    fail(f"K11f {proj} M={M} differs from K11")
             for is_fused, path in ((False, p11), (True, p11f)):
                 if path is None:
                     continue
@@ -3751,7 +3851,7 @@ def main() -> None:
     rows = time_gemms(cfg, gen, dev, gemm_errs, main_path_gemms(cfg), "generate")
     rows += time_gemms(cfg, gen, dev, gemm_errs, engine_gemms(cfg), "engine")
     rows.append(flash_row(cfg, gen, dev))
-    rows.append(fused_row(cfg, gen, dev))
+    rows += [fused_row(cfg, gen, dev, *shape) for shape in FUSED_SHAPES]
     rows += paged_write_rows(cfg, gen, dev, trace)
     rows += paged_attention_rows(cfg, gen, dev, trace)
     rows += time_gemms(cfg, gen, dev, gemm_errs, checkpoint_gemms(cfg), "checkpoint")
@@ -3775,6 +3875,7 @@ def main() -> None:
     a8_counts, a8_gen_stats = phase12_generate(params, cfg, dev)
     counts.update(a8_counts)
     counts[TAIL_GEN], tail_gen_stats = phase13_generate(params, cfg, dev)
+    counts[FUSED_SHAPES_PATH], fused_shape_stats = phase4b_fused_step(params, cfg, dev)
     graph_ab = dict(k7_b32=graph_vs_eager_k7(params, cfg, dev),
                     engine_bf16=engine_graph_ab(params, cfg, "13d"),
                     engine_int8=engine_graph_ab(params, cfg, "13d", ENGINE_INT8, int8_trace))
@@ -3838,6 +3939,7 @@ def main() -> None:
                 cfg, dev, tag="13c", require={"fused_layer_tail": 2 * PHASE6_DECODE}))
     penalties = phase13_penalties(cfg, dev)
     report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
+                  fused_step_shapes=fused_shape_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,
                   gguf_cpu_forms_gap=small_g_forms, deepseek=ds_report,

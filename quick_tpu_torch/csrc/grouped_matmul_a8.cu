@@ -23,7 +23,7 @@
 // prefill the routed multiply-adds against the int8 tensor-core rate (1,979
 // TOP/s dense), half K8's bf16 bound.
 //
-// Design: K11's int8 body (qmm_mma_a8.cuh: mma.sync m16n8k32 s8 x s8 -> s32)
+// Design: K11's first int8 body (qmm_mma_a8.cuh: mma.sync m16n8k32 s8 x s8 -> s32)
 // with a per-block expert base pointer, as K8 uses K1's. A block covers
 // BM = 32 or 64 rows and 128 columns with 8 warps; BM divides bm, so a
 // block never spans two tiles. Only G = 128 (the JAX package falls back to
@@ -62,9 +62,9 @@ grouped_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int ng = K / kChunk;
   const size_t e = (size_t)tile_expert[tile];
   float acc[MT][4][4];
-  mma_groups_a8<MT, kChunk, false>(xq, K, Mp, qw_all + e * (size_t)(K / kPack) * N,
-                                   scales_all + e * (size_t)ng * N, zs_all + e * (size_t)ng * N,
-                                   N, m0, n0, 0, ng, nullptr, smem, acc);
+  mma_groups_a8<MT, kChunk>(xq, K, Mp, qw_all + e * (size_t)(K / kPack) * N,
+                            scales_all + e * (size_t)ng * N, zs_all + e * (size_t)ng * N,
+                            N, m0, n0, 0, ng, smem, acc);
   store_a8<MT>(acc, Mp, N, m0, n0, sx + m0, nullptr, out);
 }
 

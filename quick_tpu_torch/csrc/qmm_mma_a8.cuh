@@ -1,5 +1,4 @@
-// The W4A8 tensor-core block body shared by K11 (quantized_matmul_a8.cu)
-// and K12 (grouped_matmul_a8.cu).
+// The W4A8 tensor-core block body of K12 (grouped_matmul_a8.cu).
 //
 // A block of 8 warps (2 row groups x 4 column groups) owns a BM x 128
 // output tile, BM = 32 * MT. Per chunk of 128 input channels (one quant
@@ -15,14 +14,9 @@
 // neighbouring k (G / 8 is a multiple of 4, so all four are of one group):
 // one thread loads the four words and writes one 32-bit word per nibble.
 //
-// The activations come in one of two forms: int8 codes [M, ldx] (K11, K12),
-// or bf16 x [M, ldx] quantized while they are staged, against row scales
-// the block computed first (a8_row_scales), with the arithmetic of
-// quantize_activations: q = clamp(rint(x / sx), -127, 127), true division,
-// round half to even. The bf16 form was K11f's first body; no route
-// instantiates it since K11f runs qmm_wgmma_a8.cuh (whose quantization
-// kernel uses quant_code and row_scale), and it goes when K11 moves there:
-// removing it now changes K11's compiled code.
+// The activations are int8 codes [M, ldx] with their row scales
+// (quantize_activations' arithmetic). K11 ran this body until it moved to
+// the int8 wgmma body (qmm_wgmma_a8.cuh); K12 is its one user.
 #pragma once
 
 #include "common.cuh"
@@ -50,63 +44,26 @@ __device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// int8 code of x against row scale sx: quantize_activations' arithmetic
-__device__ __forceinline__ int quant_code(float x, float sx) {
-  const int q = __float2int_rn(__fdiv_rn(x, sx));
-  return max(-127, min(127, q));
-}
-
-// row scale from the row's absmax: max(amax / 127, 1e-8), true division
-__device__ __forceinline__ float row_scale(float amax) {
-  return fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-}
-
 // dynamic shared memory of a BM-row block at group G
 template <int BM, int G>
 __host__ __device__ constexpr size_t smem_bytes() {
   return (size_t)(BM + kBN) * kLd + (size_t)(kChunk / G) * (BM + 2 * kBN) * 4 + BM * 4;
 }
 
-// sx_s[r] = row scale of x row m0 + r over its K channels (bf16 x [M, ldx],
-// 16-byte aligned rows; rows >= M get 1). One warp per row at a time.
-template <int BM>
-__device__ __forceinline__ void a8_row_scales(const bf16* __restrict__ x, int ldx,
-                                              int M, int K, int m0, float* sx_s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    float amax = 0.f;
-    if (m0 + r < M) {
-      const bf16* row = x + (size_t)(m0 + r) * ldx;
-      for (int k = lane * 8; k < K; k += 32 * 8) {
-        const uint4 v = *reinterpret_cast<const uint4*>(row + k);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h[i]);
-          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-        }
-      }
-      amax = warp_max(amax);
-    }
-    if (lane == 0) sx_s[r] = m0 + r < M ? row_scale(amax) : 1.f;
-  }
-}
-
 // acc[MT][4][4] = sum over groups g0 .. g1 - 1 (of G channels) of
 // f32(xq_g @ q_g) * scales[g, n] - rowsum(xq_g) * zs[g, n] for the block's
-// tile; the row scale is left to the caller. FUSED: x is bf16 [M, ldx] and
-// sx_s holds the block's row scales; else x is int8 codes [M, ldx]. Rows
-// are 16-byte aligned; rows >= M read as zeros. qw int32 [K/8, N]; scales,
+// tile; the row scale is left to the caller. x: int8 codes [M, ldx], rows
+// 16-byte aligned; rows >= M read as zeros. qw int32 [K/8, N]; scales,
 // zs f32 [K/G, N]; g0 is a multiple of 128 / G, and a last chunk of fewer
 // than 128 / G groups reads zeros past g1. Fragment (mt, nt, q) of warp
 // (wm, wn) holds row wm*16*MT + mt*16 + g + 8*(q >= 2) and column
 // wn*32 + nt*8 + 2*tq + (q & 1), with g = lane / 4, tq = lane % 4.
-template <int MT, int G, bool FUSED>
+template <int MT, int G>
 __device__ __forceinline__ void mma_groups_a8(
-    const void* __restrict__ xv, int ldx, int M,
+    const int8_t* __restrict__ x, int ldx, int M,
     const uint32_t* __restrict__ qw, const float* __restrict__ scales,
     const float* __restrict__ zs, int N, int m0, int n0, int g0, int g1,
-    const float* sx_s, unsigned char* smem, float (&acc)[MT][4][4]) {
+    unsigned char* smem, float (&acc)[MT][4][4]) {
   constexpr int BM = 32 * MT;
   constexpr int CG = kChunk / G;     // groups per chunk
   constexpr int SLAB = G / kPack;    // packed rows per group
@@ -128,41 +85,13 @@ __device__ __forceinline__ void mma_groups_a8(
 
   for (int grp = g0; grp < g1; grp += CG) {
     const int kend = (g1 - grp) * G;  // valid channels of this chunk (>= 128 when full)
-    if (FUSED) {
-      // bf16 x, 8 channels a thread, quantized on the way into shared memory
-      const bf16* x = static_cast<const bf16*>(xv);
-      for (int c = tid; c < BM * (kChunk / 8); c += kThreads) {
-        const int r = c / (kChunk / 8), k8 = (c % (kChunk / 8)) * 8;
-        uint2 q = make_uint2(0u, 0u);
-        if (m0 + r < M && (CG == 1 || k8 < kend)) {
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              x + (size_t)(m0 + r) * ldx + (size_t)grp * G + k8);
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-          const float sx = sx_s[r];
-          uint32_t w[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float2 f0 = __bfloat1622float2(h[2 * i]);
-            const float2 f1 = __bfloat1622float2(h[2 * i + 1]);
-            w[i] = (uint32_t)(quant_code(f0.x, sx) & 0xFF) |
-                   ((uint32_t)(quant_code(f0.y, sx) & 0xFF) << 8) |
-                   ((uint32_t)(quant_code(f1.x, sx) & 0xFF) << 16) |
-                   ((uint32_t)(quant_code(f1.y, sx) & 0xFF) << 24);
-          }
-          q = make_uint2(w[0], w[1]);
-        }
-        *reinterpret_cast<uint2*>(As + r * kLd + k8) = q;
-      }
-    } else {
-      // int8 codes, 16 channels a thread
-      const int8_t* x = static_cast<const int8_t*>(xv);
-      for (int c = tid; c < BM * (kChunk / 16); c += kThreads) {
-        const int r = c / (kChunk / 16), k16 = (c % (kChunk / 16)) * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M && (CG == 1 || k16 < kend))
-          v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * ldx + (size_t)grp * G + k16);
-        *reinterpret_cast<uint4*>(As + r * kLd + k16) = v;
-      }
+    // int8 codes, 16 channels a thread
+    for (int c = tid; c < BM * (kChunk / 16); c += kThreads) {
+      const int r = c / (kChunk / 16), k16 = (c % (kChunk / 16)) * 16;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M && (CG == 1 || k16 < kend))
+        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * ldx + (size_t)grp * G + k16);
+      *reinterpret_cast<uint4*>(As + r * kLd + k16) = v;
     }
     // codes: lane -> (8 columns) x (4 quads of packed rows); per quad four
     // words in, one 32-bit store per nibble j (k = j * SLAB + kr .. + 3)

@@ -10,9 +10,9 @@ and prints, per source, how many of the other tree's functions have an
 instruction-for-instruction identical body here (``cuobjdump -sass``,
 addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
-(``flash_attention.cu``), K8 (``grouped_matmul.cu``), K9
-(``quantized_matmul_dequant.cu``) and K11 / K11f
-(``quantized_matmul_a8.cu``) kernels beside this build's same entries,
+(``flash_attention.cu``), K3 (``fused_decode_step.cu``), K8
+(``grouped_matmul.cu``), K9 (``quantized_matmul_dequant.cu``) and K11 /
+K11f (``quantized_matmul_a8.cu``) kernels beside this build's same entries,
 and this build's entries the other lacks (with their spill lines), then
 times, in turns (other, this, this, other), with ``chip_smoke.py``'s
 timing (CUDA events behind a device sleep, weights rotated past L2): K1 at
@@ -22,8 +22,10 @@ at the decode's M = 4 with its prologues, K2 at the shapes of ``PERF.md``
 DeepSeek-V2-Lite's q / k 192, v 128 at B = 4, S = 128), K8 at G=128 on
 Qwen1.5-MoE's routed shapes, K9 at M = 16, 128, 512 on the Mistral-7B
 projections at G = 32 and on DeepSeek-V2-Lite's seven at M = 512, G = 64,
-and K11 and K11f at M = 128 and 512 on the Mistral-7B projections. Each
-row ends with this tree's mean over the other's. ``--sass-only`` stops
+K11 and K11f at M = 128 and 512 on the Mistral-7B projections, and K3
+through its wrapper at B = 4, 1 and 8 with S = 256 (length 191) and at
+B = 4, S = 1,536 (length 1,500), Mistral-7B's heads. Each row ends with
+this tree's mean over the other's. ``--sass-only`` stops
 after the SASS comparison.
 """
 import argparse
@@ -48,7 +50,7 @@ build_all(all_kernels())
 regs = {}  # entry (build hash cut; K8's G=128 instantiation named as before G was a parameter)
 for k in all_kernels():
     if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention",
-                  "quantized_matmul_dequant", "quantized_matmul_a8"):
+                  "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -76,6 +78,23 @@ with contextlib.redirect_stdout(io.StringIO()):
     rows += cs.dequant_rows("", cs.ds_k9_shapes(ds), [("ab", 512)], cs.DS_G, gen, dev)
     rows += cs.a8_rows("", cs.gemm_shapes(cfg), [("ab", "ab", M) for M in (128, 512)], 128,
                        gen, dev)
+# K3 through its wrapper (the same arguments in both trees) at PERF.md's shape
+# and B = 1, 8 and S = 1,536: 32 layers of cache, one layer a launch
+from quick_tpu_torch.ops import fused_decode_step as fs
+Hq, Hkv, D, L = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, 32
+for B, S, length in ((4, 256, 191), (1, 256, 191), (8, 256, 191), (4, 1536, 1500)):
+    g = torch.Generator(device=dev).manual_seed(B * S)
+    q, kn, vn = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
+                 for sh in ((B, Hq, D), (B, Hkv, D), (B, Hkv, D)))
+    kc, vc = (torch.randn((L, B, Hkv, S, D), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    ang = torch.rand((B, D // 2), generator=g, device=dev) * 6.28
+    c, sn = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    ln = torch.full((1,), length, dtype=torch.int32, device=dev)
+    ms = cs.device_ms(lambda i: fs.fused_decode_attention_cuda(
+        q, kn, vn, kc, vc, c, sn, ln, i % L, D ** -0.5), 100)
+    rows.append(dict(name=f"fused_decode_step[B={B} S={S} length={length}]", ms=ms))
+    del kc, vc
 print(json.dumps({"registers": regs, "ms": {r["name"]: r["ms"] for r in rows}}))
 '''
 

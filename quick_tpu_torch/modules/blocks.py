@@ -142,8 +142,12 @@ def _use_layer_tail(p: "BlockParams", cfg: ModelConfig, x: torch.Tensor) -> bool
 def _use_fused_decode_step(cache: KVCache, B: int, hd: int, rope_cos, device) -> bool:
     """Gate for the fused rope + cache-write + attention kernel: B <= 8,
     full rotary, and a cache layer small enough for the TPU kernel's
-    VMEM-resident blocks (3 MiB per batch row)."""
+    VMEM-resident blocks (3 MiB per batch row). ``QUICK_TPU_FUSED_STEP=0``
+    turns it off, as in the JAX package (read at every call)."""
     from quick_tpu_torch.ops.fused_decode_step import group_for
+
+    if os.environ.get("QUICK_TPU_FUSED_STEP", "") == "0":
+        return False
 
     L, _, Hkv, Smax, D = cache.k.shape
     ok = (

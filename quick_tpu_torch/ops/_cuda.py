@@ -150,6 +150,27 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
         k._load(path)
 
 
+class ZeroedWords:
+    """Per-device int32 words that a kernel leaves at zero after every
+    launch (K14's grid barriers and tile counters, K3's merge counters):
+    zeroed once when made, and made or grown only outside a graph capture
+    (the decode graphs capture after an eager step has made them)."""
+
+    def __init__(self, owner: str):
+        self.owner = owner
+        self._bufs: Dict[int, torch.Tensor] = {}
+
+    def get(self, dev: torch.device, n: int) -> torch.Tensor:
+        buf = self._bufs.get(dev.index)
+        if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{self.owner}'s counters are allocated by an eager launch before capture")
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+            self._bufs[dev.index] = buf
+        return buf
+
+
 def stream_ptr(device: torch.device) -> int:
     """PyTorch's current stream on ``device`` as a raw handle (the fast
     accessor Triton uses; ``torch.cuda.current_stream`` costs ~10 us)."""

@@ -13,6 +13,12 @@ The rounding follows the Pallas kernel (:71-77, :102-154): roped q and k
 rounded to the activation dtype, ``scale`` applied to q in f32; cached
 scores use q rounded again to the cache dtype, the new token's score the
 f32 q; cached p is rounded to the cache dtype before p @ v.
+
+K3 splits the cache's key range over blocks (``split_plan``, from the
+shapes alone) and merges the splits' f32 partials in split order;
+``fused_decode_attention_split_plain`` is the plain model of that
+arithmetic (p rounded against each block's running max), which the tests
+hold against the JAX kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +26,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, stream_ptr
+from quick_tpu_torch.ops import decode_attention
+from quick_tpu_torch.ops._cuda import (
+    CudaKernel, ZeroedWords, check, f32, i32, ptr, sm_count, stream_ptr,
+)
 
 NEG_INF = -1e30
 
@@ -28,11 +37,14 @@ NEG_INF = -1e30
 KERNEL = CudaKernel(
     "fused_decode_step.cu",
     {"qtt_fused_decode_step": [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-        i32, ptr, f32, i32, f32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        i32, ptr, i32, i32, f32, i32, f32, i32, ptr,
     ]},
 )
 KERNEL_HEAD_DIMS = (64, 128, 256)
+TILE = decode_attention.TILE  # keys per tile of K3's blocks
+ROWS = 16  # query heads a K3 block (one m16 tile): gq = 32 takes two blocks a kv head
+_COUNTERS = ZeroedWords("K3")  # its merge counters, zero between launches
 
 
 def group_for(dtype: torch.dtype) -> int:
@@ -109,6 +121,99 @@ def fused_decode_attention_plain(
     return (ctx / denom).reshape(B, hq, D).to(q.dtype)
 
 
+def split_plan(B: int, Hkv: int, gq: int, S: int, sms: int) -> Tuple[int, int]:
+    """(chunk, splits) of K3's key range: K7's plan (``decode_attention.
+    split_plan``: about two blocks an SM, whole 64-key tiles) over the
+    B x Hkv x ceil(gq / 16) blocks of one split. From the shapes only,
+    never from the length on the card: a captured step replays it."""
+    return decode_attention.split_plan(B, Hkv * -(-gq // ROWS), S, sms)
+
+
+def split_range(split: int, chunk: int, length: int, window: Optional[int]) -> Tuple[int, int]:
+    """The keys [lo, hi) of ``split``: its chunk inside [window start,
+    length), as K3 computes it; empty when lo >= hi. A block runs the
+    64-key tiles from lo rounded down to a tile through hi, masking keys
+    outside [lo, hi)."""
+    wlo = max(0, length - window + 1) if window and window > 0 else 0
+    return max(split * chunk, wlo), min(length, split * chunk + chunk)
+
+
+def fused_decode_attention_split_plain(
+    q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, length, layer: int, scale: float,
+    window=None, logit_softcap=None, alibi_slopes=None, use_rope: bool = True,
+    chunk: int = TILE, splits: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain model of K3's split-and-merge arithmetic (the same arguments
+    as ``fused_decode_attention_plain``, whose cache write it repeats):
+    per split, its 64-key tiles in an online softmax in f32, p rounded to
+    the cache dtype against the running max before p @ v; then the
+    non-empty splits' (m, l, acc) merged in split order with the new
+    token's f32 score. Returns [B, hq, D]."""
+    length = int(length)
+    B, hq, D = q.shape
+    hkv = k_new.shape[1]
+    gq = hq // hkv
+    S = k_cache.shape[3]
+    splits = -(-S // chunk) if splits is None else splits
+    cs, sn_row = cos_row.to(torch.float32), sin_row.to(torch.float32)
+    if use_rope:
+        qr = _rope_rows(q.to(torch.float32), cs, sn_row).to(q.dtype).to(torch.float32)
+        kr = _rope_rows(k_new.to(torch.float32), cs, sn_row).to(q.dtype).to(torch.float32)
+    else:
+        qr, kr = q.to(torch.float32), k_new.to(torch.float32)
+    qs = (qr * scale).reshape(B, hkv, gq, D)  # f32
+    qb = qs.to(k_cache.dtype).to(torch.float32)
+    vn = v_new.to(torch.float32).reshape(B, hkv, 1, D)
+    k_cache[layer, :, :, length] = kr.to(k_cache.dtype)
+    v_cache[layer, :, :, length] = v_new.to(v_cache.dtype)
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(q.device, torch.float32).reshape(1, hkv, gq, 1)
+    parts = []
+    for sp in range(splits):
+        lo, hi = split_range(sp, chunk, length, window)
+        if lo >= hi:
+            continue
+        m = torch.full((B, hkv, gq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, hkv, gq, D), dtype=torch.float32, device=q.device)
+        for t0 in range(lo // TILE * TILE, hi, TILE):
+            t1 = min(t0 + TILE, hi)
+            kc = k_cache[layer, :, :, t0:t1].to(torch.float32)
+            vc = v_cache[layer, :, :, t0:t1].to(torch.float32)
+            s = torch.einsum("bkgd,bktd->bkgt", qb, kc)
+            if logit_softcap:
+                s = logit_softcap * torch.tanh(s / logit_softcap)
+            pos = torch.arange(t0, t1, device=q.device)
+            if slopes is not None:
+                s = s + slopes * (pos - length).to(torch.float32)
+            ok = pos >= lo
+            s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(ok, torch.exp(s - m_new), torch.zeros_like(s))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bkgt,bktd->bkgd", p.to(v_cache.dtype).to(torch.float32), vc)
+            m = m_new
+        parts.append((m, l, acc))
+    s_new = (qs * kr.reshape(B, hkv, 1, D)).sum(-1, keepdim=True)
+    if logit_softcap:
+        s_new = logit_softcap * torch.tanh(s_new / logit_softcap)
+    big = s_new
+    for m, _, _ in parts:
+        big = torch.maximum(big, m)
+    lt = torch.zeros_like(big)
+    acc = torch.zeros((B, hkv, gq, D), dtype=torch.float32, device=q.device)
+    for m, l, a in parts:
+        w = torch.exp(m - big)
+        lt = lt + l * w
+        acc = acc + w * a
+    pn = torch.exp(s_new - big)
+    out = (acc + pn * vn) / (lt + pn)
+    return out.reshape(B, hq, D).to(q.dtype)
+
+
 def fused_decode_attention_cuda(
     q, k_new, v_new, k_cache, v_cache, cos_row, sin_row, length: torch.Tensor,
     layer: int, scale: float, window=None, logit_softcap=None,
@@ -117,7 +222,10 @@ def fused_decode_attention_cuda(
     """Launch K3 on CUDA tensors; same arguments as the plain version, with
     ``length`` an int32 tensor of one element on the card, which K3 reads
     there (the caller checks it on the host: ``KVCache.check_room``). For a
-    length outside [0, S) K3 writes no cache row and returns NaN."""
+    length outside [0, S) K3 writes no cache row and returns NaN. The key
+    range is split over blocks by ``split_plan``; the partials are
+    allocated here, as K7's are, and the merge counters live on the device
+    (``_COUNTERS``): one K3 launch at a time on a device."""
     B, hq, D = q.shape
     L, Bc, hkv, S, Dc = k_cache.shape
     if D not in KERNEL_HEAD_DIMS:
@@ -140,14 +248,19 @@ def fused_decode_attention_cuda(
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(q.device, torch.float32).contiguous()
         check(slopes, "alibi_slopes", torch.float32, (hq,))
+    chunk, splits = split_plan(B, hkv, hq // hkv, S, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    part_acc = torch.empty((B, hq, splits, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, hq, splits, 2), dtype=torch.float32, device=q.device)
+    counters = _COUNTERS.get(q.device, B * hkv * -(-(hq // hkv) // ROWS))
     KERNEL.launch(
         "qtt_fused_decode_step", f"B={B} Hq={hq} Hkv={hkv} S={S} D={D}",
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
-        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, hq, hkv, S, D, layer, length.data_ptr(), float(scale), int(window or 0),
-        float(logit_softcap or 0.0), int(bool(use_rope)), stream_ptr(q.device),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), counters.data_ptr(), B, hq, hkv, S, D, layer, length.data_ptr(),
+        chunk, splits, float(scale), int(window or 0), float(logit_softcap or 0.0),
+        int(bool(use_rope)), stream_ptr(q.device),
     )
     return out
 

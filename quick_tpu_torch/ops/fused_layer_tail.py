@@ -21,7 +21,9 @@ from typing import Tuple
 
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, sm_count, stream_ptr
+from quick_tpu_torch.ops._cuda import (
+    CudaKernel, ZeroedWords, check, f32, i32, ptr, sm_count, stream_ptr,
+)
 from quick_tpu_torch.quantize.packing import PACK, unpack_qtpu_tensor
 
 #: K14. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
@@ -37,7 +39,7 @@ G = 128
 MAX_ROWS = 8
 BLOCKS_PER_SM = 4  # K14's resident blocks per SM (the launcher checks the occupancy)
 _BN = 128  # output columns per item (csrc/qmm_decode.cuh kBN)
-_sync = {}  # device index -> K14's barrier and tile counters, zero between launches
+_SYNC = ZeroedWords("K14")  # its barrier and tile counters, zero between launches
 
 
 def _tail_tiles(N: int, ng: int, max_lanes: int) -> Tuple[int, int]:
@@ -123,19 +125,6 @@ def split_plan(tiles: int, ng: int, grid: int) -> Tuple[int, int]:
     return best[1], best[2]
 
 
-def _sync_buffer(dev: torch.device, n: int) -> torch.Tensor:
-    """The per-device barrier words and tile counters. K14 leaves them at
-    zero, so they are zeroed once; allocated outside a graph capture (the
-    decode graphs capture after an eager step)."""
-    buf = _sync.get(dev.index)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("K14's counters are allocated by an eager launch before capture")
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _sync[dev.index] = buf
-    return buf
-
-
 def fused_layer_tail_cuda(
     attn_out, x_resid, norm_w, o_qw, o_s, o_zs, gu_qw, gu_s, gu_zs, dn_qw, dn_s, dn_zs,
     eps: float = 1e-6,
@@ -169,7 +158,7 @@ def fused_layer_tail_cuda(
     parts = torch.split(scratch, sizes + [(D // _BN) * MAX_ROWS])
     hb = torch.empty(M * (D + N2), dtype=torch.bfloat16, device=dev)
     h, gu = hb[:M * D], hb[M * D:]
-    sync = _sync_buffer(dev, 2 + 2 * (D // _BN) + N2 // _BN)
+    sync = _SYNC.get(dev, 2 + 2 * (D // _BN) + N2 // _BN)
     out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
     KERNEL.launch(
         "qtt_fused_layer_tail", launch_key(M, K1, D, I),

@@ -145,17 +145,23 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
+def a8_rowsum_plain(xq: torch.Tensor, group_size: int = KERNEL_GROUP) -> torch.Tensor:
+    """Plain version of K11's first kernel (``a8_rowsum_kernel``): the
+    integer sum of each group's codes of xq [M, K] as f32 [K / G, M] (exact:
+    at most 128 * 127 in magnitude), the row sums of the zero-point term."""
+    M, K = xq.shape
+    rowsum = xq.to(torch.int32).reshape(M, K // group_size, group_size).sum(-1)
+    return rowsum.t().to(torch.float32)
+
+
 def a8_row_quant_plain(
     x: torch.Tensor, group_size: int = KERNEL_GROUP,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K11f's first kernel: ``quantize_activations``' int8
-    codes [M, K] and row scales [M, 1], and the integer sum of each group's
-    codes as f32 [K / G, M] (exact: at most 128 * 127 in magnitude), the
-    row sums of the zero-point term."""
+    codes [M, K] and row scales [M, 1], and the groups' row sums
+    (``a8_rowsum_plain``)."""
     xq, sx = quantize_activations(x)
-    M, K = xq.shape
-    rowsum = xq.to(torch.int32).reshape(M, K // group_size, group_size).sum(-1)
-    return xq, sx, rowsum.t().to(torch.float32)
+    return xq, sx, a8_rowsum_plain(xq, group_size)
 
 
 def quantized_matmul_a8_plain(
@@ -199,14 +205,13 @@ def launch_key(prologue: Optional[str], M: int, K: int, N: int) -> str:
 
 def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
     """(rows per block, K splits, groups per split) of the CUDA-core decode
-    bodies (K1 and K9 up to 8 rows) and of K11, whose mma.sync body takes
-    64-row blocks (``csrc/qmm_mma_a8.cuh``).
+    bodies (K1 and K9 up to 8 rows); its split of K is also K11's
+    (``a8_plan``), which took it with the 64-row blocks of its first body.
 
     One block covers 128 columns and ``rows`` rows: 1, 2, 4 or 8 on the
-    CUDA-core path, 64 on the tensor-core path for M > 8. When those tiles
-    cannot fill the card (two blocks per SM), K is split over blocks so
-    about four blocks per SM stream weights; a second pass sums the
-    splits."""
+    CUDA-core path, 64 for M > 8. When those tiles cannot fill the card
+    (two blocks per SM), K is split over blocks so about four blocks per SM
+    stream weights; a second pass sums the splits."""
     rows = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8 if M <= 8 else 64
     tiles = math.ceil(N / _BN) * math.ceil(M / rows)
     ng = K // KERNEL_GROUP
@@ -218,11 +223,11 @@ def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, in
 
 
 #: The wgmma bodies above 8 rows (K1 ``csrc/qmm_wgmma.cuh``, K9
-#: ``qmm_wgmma_dq.cuh``, K11f ``qmm_wgmma_a8.cuh``): tokens per block, and
-#: the blocks one SM holds at each width (``__launch_bounds__``)
+#: ``qmm_wgmma_dq.cuh``, K11 / K11f ``qmm_wgmma_a8.cuh``): tokens per block,
+#: and the blocks one SM holds at each width (``__launch_bounds__``)
 WGMMA_TOKENS = (16, 32, 64, 128)
 WGMMA_STAGES = 4  # K1's and K9's rings
-A8F_STAGES = 6    # K11f's ring
+A8_STAGES = 6     # K11's ring
 
 
 def wgmma_blocks_per_sm(bt: int) -> int:
@@ -250,11 +255,12 @@ def dequant_smem_bytes(bt: int, G: int) -> int:
     return _ring_bytes(bt * _KC * 2 + 16 * _BN * 4 + 2 * (_KC // G) * _BN * 4, WGMMA_STAGES)
 
 
-def a8_fused_smem_bytes(bt: int) -> int:
-    """Dynamic shared memory of one K11f block (``qmm_wgmma_a8.cuh``): a
-    ring of 6 stages of one group, each the int8 codes, the packed words,
-    scales, zeros_x_scales and the group's row sums."""
-    return _ring_bytes(bt * KERNEL_GROUP + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4, A8F_STAGES)
+def a8_smem_bytes(bt: int, G: int = KERNEL_GROUP) -> int:
+    """Dynamic shared memory of one K11 / K11f block (``qmm_wgmma_a8.cuh``):
+    a ring of 6 stages of 128 depths, each the int8 codes, 16 rows of packed
+    words and the 128 / G groups' scales, zeros_x_scales and row sums."""
+    cg = _KC // G
+    return _ring_bytes(bt * _KC + 16 * _BN * 4 + 2 * cg * _BN * 4 + cg * bt * 4, A8_STAGES)
 
 
 def wgmma_tokens(M: int) -> int:
@@ -300,11 +306,12 @@ def dequant_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int
     return wgmma_plan(M, chunks, N, sm_count)
 
 
-def a8_fused_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(tokens per block, K splits, groups per split) for K11f: its wgmma
-    body's token width, and K11's split of K (``mma_launch_plan``), so that
-    K11f sums every output in K11's order and equals it bit for bit."""
-    return (wgmma_tokens(M), *mma_launch_plan(M, K, N, sm_count)[1:])
+def a8_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(tokens per block, K splits, chunks of 128 channels per split) for K11
+    and K11f, one plan for both so that they sum every output in one order
+    and agree bit for bit: the wgmma body's token width, and the split of K
+    of ``mma_launch_plan`` at 64-row tiles (a last partial chunk counts)."""
+    return (wgmma_tokens(M), *mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count)[1:])
 
 
 def pad_columns(
@@ -455,12 +462,11 @@ def launch_a8(
 ) -> torch.Tensor:
     """Launch K11 on int8 codes x [M, K] with row scales sx [M, 1], or K11f
     on bf16 x [M, K] with ``sx=None`` (G = 128 only); returns [M, N] bf16.
-    K11's plan is ``mma_launch_plan``'s: 64-row blocks of 128 columns, K
-    split over blocks in chunks of 128 channels when the tiles cannot fill
-    the card. K11f's is ``a8_fused_plan``'s (K11's split of K); it
-    quantizes each row once into scratch (the int8 codes and the groups'
-    row sums) and writes the row scales into ``sx`` for the split-K pass;
-    an N that is no multiple of 4 is padded at the call."""
+    Both run the int8 wgmma body with ``a8_plan``'s plan after a first
+    kernel: K11's sums each group's codes into scratch, K11f's quantizes
+    each row once into scratch (the int8 codes and the groups' row sums)
+    and writes the row scales into ``sx`` for the split-K pass. An N that
+    is no multiple of 4 is padded at the call (``pad_columns``)."""
     dev = x.device
     G = group_size
     fused = sx is None
@@ -471,7 +477,7 @@ def launch_a8(
                          f"G={G} K={K} fused={fused}")
     x = x.contiguous()
     check(x, "x", torch.bfloat16 if fused else torch.int8, (M, K))
-    if x.data_ptr() % 16:  # rows are read in 16-byte chunks
+    if x.data_ptr() % 16:  # rows are read in 16-byte chunks and tensor copies
         x = x.clone()
     if fused:
         sx = torch.empty(M, dtype=torch.float32, device=dev)  # K11f writes it
@@ -481,17 +487,14 @@ def launch_a8(
     check(scales, "scales", torch.float32, (K // G, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
     N_out = N
-    scratch = None
-    if fused:
-        if N % 4:
-            qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
-            N = qweight.shape[1]
-        rows, splits, cps = a8_fused_plan(M, K, N, sm_count(dev.index))
-        # the int8 codes [M, K], then the f32 row sums [K / 128, M rounded up to 4]
-        scratch = torch.empty(M * K + (K // G) * (-(-M // 4) * 4) * 4, dtype=torch.uint8,
-                              device=dev)
-    else:
-        rows, splits, cps = mma_launch_plan(M, math.ceil(K / _KC) * _KC, N, sm_count(dev.index))
+    if N % 4:
+        qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
+        N = qweight.shape[1]
+    rows, splits, cps = a8_plan(M, K, N, sm_count(dev.index))
+    # K11f: the int8 codes [M, K] first; both: the f32 row sums [K / G, M
+    # rounded up to 4], 16-byte aligned
+    scratch = torch.empty((M * K if fused else 0) + (K // G) * (-(-M // 4) * 4) * 4,
+                          dtype=torch.uint8, device=dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
@@ -499,8 +502,8 @@ def launch_a8(
         "qtt_quantized_matmul_a8", a8_launch_key(M, K, N_out, G, fused),
         x.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
         zeros_x_scales.data_ptr(), int(fused), M, K, N, G, rows, splits, cps,
-        None if scratch is None else scratch.data_ptr(),
-        None if partial is None else partial.data_ptr(), out.data_ptr(), stream_ptr(dev),
+        scratch.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
+        stream_ptr(dev),
     )
     return out if N == N_out else out[:, :N_out].contiguous()
 

@@ -1,4 +1,4 @@
-"""K9's and K11f's wgmma bodies above 8 rows (``csrc/qmm_wgmma_dq.cuh``,
+"""K9's and K11 / K11f's wgmma bodies above 8 rows (``csrc/qmm_wgmma_dq.cuh``,
 ``csrc/qmm_wgmma_a8.cuh``), modelled in numpy on the CPU: the per-lane word
 -> register-operand fragment maps over the QTPU words as they are, the
 kernels' exact arithmetic tricks, the plain version of K11f's quantization
@@ -219,6 +219,72 @@ def test_a8_register_fragments_equal_codes(grp, c0):
         assert np.array_equal(tiles[s], ref[k0:k0 + 32, c0:c0 + 64].T), f"step {s}"
 
 
+def a8_a_tiles_small(qw, G: int, stage: int, c0: int) -> np.ndarray:
+    """The s8 A operands [4 steps, 64 channels, 32 depths] of 128-deep
+    stage ``stage`` at G = 64 or 32 for channels c0 .. c0 + 63, each lane's
+    registers built as ``qwa::a_fragments`` builds them (group c of the
+    stage: G / 32 steps, global step c * G / 32 + s)."""
+    steps = G // 32
+    tiles = np.full((4, 64, 32), -1, np.int64)
+    mask = np.uint32(0x0F0F0F0F)
+    for c in range(128 // G):
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for h in range(2):
+                    ch = c0 + 16 * w + g + 8 * h
+                    base = stage * 16 + c * (G // 8)
+                    if G == 64:
+                        words = [np.uint32(qw[base + 4 * (t & 1) + i, ch]) >> np.uint32(4 * (t >> 1))
+                                 for i in range(4)]
+                    else:
+                        words = [np.uint32(qw[base + i, ch]) >> np.uint32(4 * t) for i in range(4)]
+                    b = byte_transpose(words)
+                    for s in range(steps):
+                        lo = np.uint32(b[2 * s]) & mask
+                        hi = np.uint32(b[2 * s + 1 + (G == 32)]) & mask
+                        row = 16 * w + g + 8 * h
+                        tiles[c * steps + s, row, 4 * t:4 * t + 4] = s8_bytes(lo)
+                        tiles[c * steps + s, row, 16 + 4 * t:16 + 4 * t + 4] = s8_bytes(hi)
+    return tiles
+
+
+@pytest.mark.parametrize("G", [64, 32])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("c0", [0, 64])
+def test_a8_small_group_fragments_equal_codes(G, stage, c0):
+    """At G = 64 and 32, s8 step j of a 128-deep stage is codes
+    [stage*128 + 32j + k, c] (each group's steps in order), read from the
+    words as packed by the JAX package."""
+    rng = np.random.default_rng(G + stage)
+    K, N = 256, 128
+    q = rng.integers(0, 16, size=(K, N), dtype=np.uint8)
+    qw = pack_qtpu(q, G)
+    ref = unpack_qtpu(qw, G).astype(np.int64)
+    tiles = a8_a_tiles_small(qw.view(np.uint32), G, stage, c0)
+    for j in range(4):
+        k0 = stage * 128 + 32 * j
+        assert np.array_equal(tiles[j], ref[k0:k0 + 32, c0:c0 + 64].T), f"step {j}"
+
+
+@pytest.mark.parametrize("G", [128, 64, 32])
+@pytest.mark.parametrize("M", [1, 97, 200])
+def test_a8_rowsum_plain_equals_jax_group_sums(M, G):
+    """K11's first kernel, plain: the row sums [K / G, M] of the codes that
+    quantize_activations gives equal the integer group sums of the JAX
+    package's codes."""
+    rng = np.random.default_rng(M + G)
+    K = 640 if G < 128 else 512
+    x = (rng.standard_normal((M, K)) * rng.uniform(0.01, 10, size=(M, 1))).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xq, _ = tqmm.quantize_activations(xt)
+    rowsum = tqmm.a8_rowsum_plain(xq, G)
+    qj, _ = jqm.quantize_activations(jnp.asarray(np.asarray(xt.float()), jnp.bfloat16))
+    want = np.asarray(qj).astype(np.int64).reshape(M, K // G, G).sum(-1).T
+    assert rowsum.shape == (K // G, M) and rowsum.dtype == torch.float32
+    assert np.array_equal(rowsum.numpy(), want.astype(np.float32))
+
+
 def test_small_int_to_float_is_exact():
     """``qwa::small_i2f``: an int32 below 2^22 in magnitude (a group's dot
     is at most 128 * 127 * 15) under the exponent of 1.5 * 2^23, minus
@@ -298,16 +364,47 @@ def test_dequant_launch_plan(K, N):
 @pytest.mark.parametrize("K,N", [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
                                  (512, 130)])
 def test_a8_fused_launch_plan(K, N):
-    """K11f for M in 97..8192 (the a8 gate): the wgmma body's token width,
-    K11's split of K (so that it sums as K11 does), and each block's
-    6-stage ring within the H100's shared memory."""
+    """K11 / K11f for M in 97..8192 (the a8 gate): the wgmma body's token
+    width, the split of K of the 64-row tiles (one plan for both, so that
+    they sum alike), and each block's 6-stage ring within the H100's shared
+    memory at every group."""
     for M in range(tqmm.A8_MIN_ROWS, 8193):
-        bt, splits, gps = tqmm.a8_fused_plan(M, K, N, H100_SMS)
+        bt, splits, gps = tqmm.a8_plan(M, K, N, H100_SMS)
         assert bt == tqmm.wgmma_plan(M, K // 128, N, H100_SMS)[0]
         assert (splits, gps) == tqmm.mma_launch_plan(M, K, N, H100_SMS)[1:]
         assert splits * gps >= K // 128 and (splits - 1) * gps < K // 128
-        smem = tqmm.a8_fused_smem_bytes(bt)
-        assert smem <= SMEM_LIMIT and bt * (128 + 8) * 2 <= smem - 1024
-        assert tqmm.wgmma_blocks_per_sm(bt) * smem <= SM_SMEM
+        for G in tqmm.A8_GROUPS:
+            smem = tqmm.a8_smem_bytes(bt, G)
+            assert smem <= SMEM_LIMIT and bt * (128 + 8) * 2 <= smem - 1024
+            assert tqmm.wgmma_blocks_per_sm(bt) * smem <= SM_SMEM
     for bt in tqmm.WGMMA_TOKENS:  # every width fits, for direct calls with fewer rows
-        assert tqmm.wgmma_blocks_per_sm(bt) * tqmm.a8_fused_smem_bytes(bt) <= SM_SMEM
+        for G in tqmm.A8_GROUPS:
+            assert tqmm.wgmma_blocks_per_sm(bt) * tqmm.a8_smem_bytes(bt, G) <= SM_SMEM
+
+
+#: (K, G) of K11's shapes: Mistral-7B width at G = 128 and DeepSeek-V2-Lite's
+#: at G = 64 (its dense down K = 10944 is 85.5 stages), and ragged last
+#: stages at G = 32 and 64
+A8_PLAN_SHAPES = [(4096, 128), (14336, 128), (2048, 64), (10944, 64), (1408, 64), (320, 64),
+                  (160, 32), (4096, 32)]
+
+
+@pytest.mark.parametrize("K,G", A8_PLAN_SHAPES)
+@pytest.mark.parametrize("N", [130, 2048, 4096])
+def test_a8_plan_covers_k_at_every_group(K, G, N):
+    """K11's splits of the 128-deep stages cover every group of K exactly
+    once at every row count the gate passes: stage j of split z holds
+    groups (z * cps + j) * 128 / G .. + 128 / G - 1, those past K / G
+    skipped (the kernel's ``ngs``)."""
+    ng, cg = K // G, 128 // G
+    for M in (97, 128, 200, 512, 4096):
+        _, splits, cps = tqmm.a8_plan(M, K, N, H100_SMS)
+        nst = -(-K // 128)
+        seen = np.zeros(ng, np.int64)
+        for z in range(splits):
+            for it in range(min(nst, z * cps + cps) - z * cps):
+                st = z * cps + it
+                ngs = min(cg, ng - st * cg)
+                assert ngs > 0
+                seen[st * cg:st * cg + ngs] += 1
+        assert np.array_equal(seen, np.ones(ng, np.int64)), (M, K, G)
