@@ -400,8 +400,15 @@ def check_gemms(cfg, gen, dev):
                  for w in ((qw, s, zs), w4)]
             b_ms, b_by = bound(K * N // 2 + 2 * (K // 128) * N * 4 + M * K * 2 + M * N * 2,
                                2.0 * M * K * N)
+            # the plain version, and torch.matmul on the bf16 weight (the yardstick)
+            plain_ms = device_ms(lambda i: qm.quantized_matmul_plain(x, qw, s, zs), 3, warmup=1)
+            codes = qm.unpack_qtpu_tensor(qw).float().reshape(K // 128, 128, N)
+            wd = (codes * s[:, None] - zs[:, None]).reshape(K, N).to(torch.bfloat16)
+            lib_ms = device_ms(lambda i: torch.matmul(x, wd), 10)
             print(f"    N={N} (padded) {t[0] * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}); "
-                  f"N={N - 2} {t[1] * 1e3:.1f} us")
+                  f"N={N - 2} {t[1] * 1e3:.1f} us; plain {plain_ms * 1e3:.1f} us, "
+                  f"torch.matmul bf16 {lib_ms * 1e3:.1f} us")
+            del wd
     return errs
 
 
@@ -1823,6 +1830,21 @@ def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8", a8=False):
         qw, s, zs = (torch.stack([w[j] for w in ws]) for j in range(3))
         del ws
         wd = dequant_experts(qw, s, zs, group)
+        if not a8:  # the decode branch, tokens 0 / 1 and 2 / 3 on the same kk experts
+            sel = torch.tensor([[(t // 2 * kk + j) % E for j in range(kk)] for t in range(BATCH)],
+                               device=dev)
+            bm = gm.pick_grouped_bm(BATCH * kk, E)
+            _, _, te, live, _ = gm.build_routing(sel, E, bm)
+            if int(torch.bincount(te, minlength=E).max()) < 2:
+                fail(f"{label} duplicate-expert case: no expert holds two tiles")
+            # its own generator: the timed cases draw as before
+            g1 = torch.Generator(device=dev).manual_seed(1)
+            x = torch.randn((te.shape[0] * bm, K), generator=g1, device=dev).to(torch.bfloat16)
+            max_err(gm.quantized_matmul_grouped_cuda(x, qw, s, zs, te, live, bm, group),
+                    gm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm, group),
+                    TOL[kname], f"{label} {proj} T={BATCH} decode, two tokens on each expert "
+                    f"{gm.launch_key(te.shape[0] * bm, K, N, E, bm, group)}")
+            del x
         for path, T in cases or MOE_K8_CASES[name]:
             sel = torch.argsort(torch.rand((T, E), generator=gen, device=dev), dim=1)[:, :kk]
             bm = gm.pick_grouped_bm(T * kk, E)
@@ -3863,8 +3885,9 @@ def main() -> None:
     rows += int8_attention_rows(cfg, gen, dev, int8_trace)
     print(f"  phases 1-3 and 9a-b done at {time.perf_counter() - t_start:.0f} s")
     rows += a8_rows("Mistral-7B width", gemm_shapes(cfg), A8_CASES, 128, gen, dev)
-    a8_rows("DeepSeek-V2-Lite", ds_k9_shapes(ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)),
-            ((None, None, BATCH * PROMPT),), DS_G, gen, dev)  # checked only: no path runs it
+    # checked and timed; no path runs it, so its rows stay out of the kernel line
+    ds_a8 = a8_rows("DeepSeek-V2-Lite", ds_k9_shapes(ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)),
+                    (("no path", None, BATCH * PROMPT),), DS_G, gen, dev)
     rows += rms_norm_rows(gen, dev)
     print(f"  phase 12a-b (K11, K11f, K13) done at {time.perf_counter() - t_start:.0f} s")
     tail_row, tail_every = tail_rows(cfg, gen, dev)
@@ -3943,7 +3966,7 @@ def main() -> None:
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,
                   gguf_cpu_forms_gap=small_g_forms, deepseek=ds_report,
-                  a8=dict(generate=a8_gen_stats, int8_engine=a8_int8_stats,
+                  a8=dict(generate=a8_gen_stats, int8_engine=a8_int8_stats, deepseek_k11=ds_a8,
                           plain_vs_kernel_max_abs_err=dict(
                               dense=a8_err, mixtral=moe_report["plain_vs_kernel_a8"]["max_abs_err"])),
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,

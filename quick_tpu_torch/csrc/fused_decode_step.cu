@@ -51,7 +51,7 @@
 // of the cache (a plain store of one row), the masked-column overlay (the
 // key range stops before the new position) and the sequential walk of
 // one block over the whole cache.
-#include "common.cuh"
+#include "split_attention.cuh"
 
 namespace {
 
@@ -59,64 +59,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBK = 64;    // keys per tile; warp w takes keys 16w .. 16w + 15
 constexpr int kRows = 16;  // query heads a block (one m16 tile)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !ok (src must still be valid)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// D += A (16 x 16, row) * B (16 x 8, col): bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// byte offset of 16-byte chunk c of row r in a swizzled tile of D-wide bf16 rows
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * D * 2 + ((c ^ (r & 7)) << 4));
-}
-
-// the keys of split sp: [max(sp * chunk, window start), min(length, sp *
-// chunk + chunk)), empty when lo >= hi (ops/fused_decode_step.py::split_range)
-struct Range {
-  int lo, hi;
-};
-__device__ __forceinline__ Range split_range(int sp, int chunk, int length, int wlo) {
-  return Range{max(sp * chunk, wlo), min(length, sp * chunk + chunk)};
-}
 
 template <int D>
 struct Smem {

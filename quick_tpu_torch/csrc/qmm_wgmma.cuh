@@ -84,18 +84,6 @@ struct Maps {
   CUtensorMap x, w, s, z, xs;
 };
 
-// bf16x2 {code of nibble j of lo, code of nibble j of hi}, exact
-__device__ __forceinline__ uint32_t code_pair(uint32_t lo, uint32_t hi, int j) {
-  const uint32_t b = j >> 1;
-  uint32_t v = __byte_perm(lo, hi, b | (b << 4) | ((b + 4) << 8) | ((b + 4) << 12));
-  if (j & 1) v >>= 4;
-  v = (v & 0x000F000Fu) | 0x43004300u;  // 128 + code in each half
-  const uint32_t k128 = 0x43004300u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-                             *reinterpret_cast<const __nv_bfloat162*>(&k128));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
 // xsumT[g, m] = f32 sum of x[m, g*128 .. g*128 + 127] (bf16), row stride
 // ldxs: one warp a (row, group), lanes 4 channels each, a fixed shuffle tree.
 __global__ void __launch_bounds__(256)

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the wgmma GEMM bodies: K1's above 8
-// rows (qmm_wgmma.cuh), K9's (qmm_wgmma_dq.cuh) and K11f's
-// (qmm_wgmma_a8.cuh). mbarriers (a lost arrival traps instead of hanging),
-// tensor copies into shared memory, the warpgroup MMA fences, the K-major
-// 128-byte-swizzled B descriptor, the bf16 m64nBTk16 and s8 m64nBTk32
+// rows (qmm_wgmma.cuh), K9's (qmm_wgmma_dq.cuh), K11f's
+// (qmm_wgmma_a8.cuh) and K8's (grouped_matmul.cu). mbarriers (a lost
+// arrival traps instead of hanging), tensor copies into shared memory, the
+// warpgroup MMA fences, the exact bf16x2 codes of two QTPU words' nibbles
+// (K1's and K8's register operand), the K-major 128-byte-swizzled B
+// descriptor, the bf16 m64nBTk16 and s8 m64nBTk32
 // instructions with A from registers, and the host-side tensor-map encoding
 // (cuTensorMapEncodeTiled through the runtime's driver entry point; no link
 // against libcuda).
@@ -84,6 +86,18 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// bf16x2 {code of nibble j of lo, code of nibble j of hi}, exact
+__device__ __forceinline__ uint32_t code_pair(uint32_t lo, uint32_t hi, int j) {
+  const uint32_t b = j >> 1;
+  uint32_t v = __byte_perm(lo, hi, b | (b << 4) | ((b + 4) << 8) | ((b + 4) << 12));
+  if (j & 1) v >>= 4;
+  v = (v & 0x000F000Fu) | 0x43004300u;  // 128 + code in each half
+  const uint32_t k128 = 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&k128));
+  return *reinterpret_cast<uint32_t*>(&r);
 }
 
 // K-major B operand in 128-byte swizzled rows: 8-row groups 1024 bytes apart

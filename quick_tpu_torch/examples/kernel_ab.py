@@ -10,9 +10,10 @@ and prints, per source, how many of the other tree's functions have an
 instruction-for-instruction identical body here (``cuobjdump -sass``,
 addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
-(``flash_attention.cu``), K3 (``fused_decode_step.cu``), K8
-(``grouped_matmul.cu``), K9 (``quantized_matmul_dequant.cu``) and K11 /
-K11f (``quantized_matmul_a8.cu``) kernels beside this build's same entries,
+(``flash_attention.cu``), K3 (``fused_decode_step.cu``), K5 / K6
+(``paged_attention.cu``), K8 (``grouped_matmul.cu``), K9
+(``quantized_matmul_dequant.cu``) and K11 / K11f
+(``quantized_matmul_a8.cu``) kernels beside this build's same entries,
 and this build's entries the other lacks (with their spill lines), then
 times, in turns (other, this, this, other), with ``chip_smoke.py``'s
 timing (CUDA events behind a device sleep, weights rotated past L2): K1 at
@@ -20,13 +21,15 @@ M = 16, 32, 64, 128, 512 and 4096 on the Mistral-7B-width projections and
 at the decode's M = 4 with its prologues, K2 at the shapes of ``PERF.md``
 §6 (B = 4, 32, 64 at S = 128, T = 256; B = 4 at S = 1,900, T = 2,048;
 DeepSeek-V2-Lite's q / k 192, v 128 at B = 4, S = 128), K8 at G=128 on
-Qwen1.5-MoE's routed shapes, K9 at M = 16, 128, 512 on the Mistral-7B
+Qwen1.5-MoE's and Mixtral-8x7B's routed shapes (Mp = 256, 288, 512, 2048)
+and at G=64 on DeepSeek-V2-Lite's (Mp = 768, 5056), K5 / K6 at the
+Mistral-7B-width Engine's shapes, K9 at M = 16, 128, 512 on the Mistral-7B
 projections at G = 32 and on DeepSeek-V2-Lite's seven at M = 512, G = 64,
 K11 and K11f at M = 128 and 512 on the Mistral-7B projections, and K3
 through its wrapper at B = 4, 1 and 8 with S = 256 (length 191) and at
 B = 4, S = 1,536 (length 1,500), Mistral-7B's heads. Each row ends with
-this tree's mean over the other's. ``--sass-only`` stops
-after the SASS comparison.
+this tree's mean over the other's; a row only one tree times is
+named apart. ``--sass-only`` stops after the SASS comparison.
 """
 import argparse
 import json
@@ -49,7 +52,7 @@ from quick_tpu_torch.ops._cuda import build_all
 build_all(all_kernels())
 regs = {}  # entry (build hash cut; K8's G=128 instantiation named as before G was a parameter)
 for k in all_kernels():
-    if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention",
+    if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention", "paged_attention",
                   "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step"):
         entry = "?"
         for l in k.build_log.splitlines():
@@ -73,6 +76,10 @@ with contextlib.redirect_stdout(io.StringIO()):
     rows = cs.time_gemms(cfg, gen, dev, collections.defaultdict(float), gemms, "")
     rows += [cs.flash_row(cfg, gen, dev, **kw) for kw in flash]
     rows += cs.grouped_rows("qwen1.5-moe-a2.7b", PRESETS["qwen1.5-moe-a2.7b"], gen, dev)
+    rows += cs.grouped_rows("mixtral-8x7b", PRESETS["mixtral-8x7b"], gen, dev)
+    rows += cs.grouped_rows("deepseek-v2-lite", ds, gen, dev, group=cs.DS_G,
+                            cases=[(cs.DS_GEN, cs.BATCH), (cs.DS_GEN, cs.BATCH * cs.PROMPT)])
+    rows += cs.paged_attention_rows(cfg, gen, dev, cs.serving_trace(cfg.vocab_size))
     rows += cs.dequant_rows("", cs.gemm_shapes(cfg), [("ab", M) for M in (16, 128, 512)], 32,
                             gen, dev)
     rows += cs.dequant_rows("", cs.ds_k9_shapes(ds), [("ab", 512)], cs.DS_G, gen, dev)
@@ -174,8 +181,14 @@ def main(argv=None):
             print(f"new here: {entry[:90]}: {used}")
     print("kernel | other | this | this | other | this / other")
     for n in res[0]["ms"]:
+        if n not in res[1]["ms"]:
+            print(f"only the other tree times: {n}")
+            continue
         v = [r["ms"][n] for r in res]
         print(f"{n} | " + " | ".join(f"{x:.4f}" for x in v) + f" | {(v[1] + v[2]) / (v[0] + v[3]):.4f}")
+    for n in res[1]["ms"]:
+        if n not in res[0]["ms"]:
+            print(f"only this tree times: {n}")
 
 
 if __name__ == "__main__":

@@ -84,15 +84,22 @@ class BlockParams:
 def _use_paged_kernel(cache) -> bool:
     """Paged caches on the card read their pages with the paged-attention
     kernels K5 / K6, and MLA's latent pages with K10 (the JAX package: on
-    the TPU)."""
+    the TPU). ``QUICK_TPU_PAGED=0`` (read at every call) turns them off, as
+    in the JAX package (:107-110): the gather + einsum route instead."""
+    if os.environ.get("QUICK_TPU_PAGED", "") == "0":
+        return False
     return isinstance(cache, PagedKVCache) and cache.k_pages.is_cuda
 
 
 def _use_dense_decode_kernel(B, Hq, Hkv, cache: KVCache, D, device) -> bool:
     """Dense-cache decode through K7 where the JAX package takes its dense
-    decode kernel: caches of >= 8 MB of K+V per layer on the accelerator."""
+    decode kernel: caches of >= 8 MB of K+V per layer on the accelerator.
+    ``QUICK_TPU_DENSE_KERNEL=0`` (read at every call) turns it off, as in
+    the JAX package (:123-125)."""
     from quick_tpu_torch.ops.decode_attention import supports
 
+    if os.environ.get("QUICK_TPU_DENSE_KERNEL", "") == "0":
+        return False
     if isinstance(cache, PagedKVCache):
         return False
     if not supports(B, Hq, Hkv, cache.max_seq, D):
@@ -104,7 +111,10 @@ def _use_dense_decode_kernel(B, Hq, Hkv, cache: KVCache, D, device) -> bool:
 
 def _fuse_decode_norm_ok(lin, x) -> bool:
     """Fold the pre-GEMM RMSNorm into the GEMM kernel's prologue? Decode
-    rows (<= 8) of a G=128 quantized linear only."""
+    rows (<= 8) of a G=128 quantized linear only. ``QUICK_TPU_FUSED_NORM=0``
+    (read at every call) turns it off, as in the JAX package (:149)."""
+    if os.environ.get("QUICK_TPU_FUSED_NORM", "1") == "0":
+        return False
     if not isinstance(lin, QuantLinear) or lin.group_size != 128:
         return False
     rows = 1

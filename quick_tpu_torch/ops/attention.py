@@ -9,6 +9,8 @@ tensors; CPU tensors always take the einsum path, as JAX on the CPU does.
 """
 from __future__ import annotations
 
+import os
+
 from typing import Optional, Union
 
 import torch
@@ -20,7 +22,11 @@ IntOrTensor = Union[int, torch.Tensor]
 
 def _use_flash(S: int, T: int, D: int, device: torch.device) -> bool:
     """The flash kernel for score matrices big enough to matter — the JAX
-    gate's shape rule, taken on the card instead of the TPU."""
+    gate's shape rule, taken on the card instead of the TPU.
+    ``QUICK_TPU_FLASH=0`` (read at every call) turns it off, as in the JAX
+    package (:25): the einsum path instead."""
+    if os.environ.get("QUICK_TPU_FLASH", "") == "0":
+        return False
     return device.type == "cuda" and S >= 64 and T >= 128 and D % 8 == 0
 
 

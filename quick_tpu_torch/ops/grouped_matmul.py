@@ -15,6 +15,12 @@ side, minus ``xsum @ (z * s)``. The JAX package runs G = 128 on its Pallas
 kernel and smaller groups on that fallback; K8 computes the same
 output-side form at every G.
 
+K8's blocks are (column tile, expert, K slice): each finds its expert's
+live tiles on the card and streams the expert's weights once per pass of
+up to ``GROUPED_PASS_ROWS[bm]`` rows (``grouped_passes`` models the scan);
+``grouped_plan`` splits K, from the shapes alone, where the blocks cannot
+fill the card.
+
 Routing never reads a device value back to the host: the row budget ``Mp``
 is static from (T, topk, E, bm), and expert counts and ranks come from a
 cumulative sum over a [T * topk, E] one-hot (not ``bincount``, which reads
@@ -27,18 +33,26 @@ tile's per-group dots run int8 x int8 -> int32, with the row scale applied
 to the f32 sum before the one bf16 rounding: ``csrc/grouped_matmul_a8.cu``
 (K12, ``_make_grouped_kernel_a8``) on CUDA tensors, the plain version of
 ``_grouped_fallback(a8=True)`` (:146-200) on CPU tensors. As in the JAX
-package (:233), ``a8`` falls back to W4A16 without a word where G != 128 or
-bm % 32 != 0.
+package (:233), ``a8`` falls back to W4A16 where G != 128 or bm % 32 != 0
+(on the card that bm is then refused by K8 too).
+
+``QUICK_TPU_MOE_BM`` (read at every call) overrides ``pick_grouped_bm`` as
+in the JAX package (:307-309); on the card a bm that K8 (32, 64 or 128) or
+K12 (a multiple of 32) cannot take raises an error naming the switch.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import math
+import os
+
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, i32, ptr, stream_ptr
+from quick_tpu_torch.ops._cuda import CudaKernel, check, i32, ptr, sm_count, stream_ptr
 from quick_tpu_torch.ops.quantized_matmul import (
     KERNEL_GROUP,
+    pad_columns,
     quantize_activations,
     quantized_matmul_a8_plain,
     quantized_matmul_plain,
@@ -48,7 +62,8 @@ from quick_tpu_torch.quantize.packing import PACK
 #: K8. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
 KERNEL = CudaKernel(
     "grouped_matmul.cu",
-    {"qtt_grouped_matmul": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr]},
+    {"qtt_grouped_matmul": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                            i32, i32, ptr, ptr]},
 )
 #: K12, the grouped W4A8 GEMM (``_make_grouped_kernel_a8``).
 KERNEL_A8 = CudaKernel(
@@ -57,11 +72,24 @@ KERNEL_A8 = CudaKernel(
                                ptr, ptr]},
 )
 GROUPS = (128, 64, 32)  # the group sizes K8 is built for
+#: K8's pass of one block, by tile height: the rows whose activations share
+#: one stream of the expert's weights (two blocks an SM at 64, one at 128)
+GROUPED_PASS_ROWS = {32: 64, 64: 64, 128: 128}
+#: K8's shortest K split, in stages of 128: shorter slices lose more to
+#: their partials and the reduce than they gain in blocks (Qwen1.5-MoE's
+#: decode down, K = 1408, is faster whole; PERF.md §6, kernel_ablate.py's
+#: ``short_splits``)
+MIN_SPLIT_STAGES = 16
+BM_SWITCH = "QUICK_TPU_MOE_BM"
 
 
 def pick_grouped_bm(tk: int, n_experts: int) -> int:
     """m-tile height from the average routed rows per expert
-    (``pick_grouped_bm`` :301, without its environment override)."""
+    (``pick_grouped_bm`` :301); ``QUICK_TPU_MOE_BM`` overrides it, as in
+    the JAX package (:307-309)."""
+    v = os.environ.get(BM_SWITCH, "")
+    if v:
+        return int(v)
     avg = tk / max(n_experts, 1)
     if avg <= 48:
         return 32
@@ -76,6 +104,53 @@ def grouped_row_budget(tk: int, n_experts: int, bm: int) -> int:
     (``grouped_row_budget`` :322)."""
     worst = min(tk + n_experts * (bm - 1), tk * bm)
     return max((worst + bm - 1) // bm * bm, bm)
+
+
+def grouped_plan(E: int, n_tiles: int, K: int, N: int, bm: int, sms: int) -> Tuple[int, int]:
+    """(splits, stages per split) of K8's K, in stages of 128 channels. A
+    block is (128-channel column tile, expert, split); at most min(E,
+    n_tiles) experts have a live tile. Where those blocks fill fewer than
+    twice the blocks the card holds at once (two an SM at 64-row passes,
+    one at 128), K is split into as many slices as reach that, each of at
+    least MIN_SPLIT_STAGES stages. From the shapes alone, never from the
+    routing; a last kernel sums the splits' f32 partials in split order."""
+    nst = math.ceil(K / 128)
+    blocks = math.ceil(N / 128) * min(E, n_tiles)
+    slots = 2 * sms * (2 if GROUPED_PASS_ROWS[bm] == 64 else 1)
+    splits = 1
+    if blocks < slots:
+        splits = max(1, min(nst // MIN_SPLIT_STAGES, math.ceil(slots / blocks)))
+    per = math.ceil(nst / splits)
+    return math.ceil(nst / per), per
+
+
+def grouped_passes(tile_expert, tile_live, E: int, bm: int) -> dict:
+    """Plain model of K8's tile scan: {expert: [pass, ...]}, each pass the
+    expert's next live tiles in tile order, at most GROUPED_PASS_ROWS[bm] //
+    bm of them; and under key -1 {expert: [dead tile, ...]}, the dead tiles
+    i that the blocks of expert i % E write as zeros."""
+    te, live = [int(v) for v in tile_expert], [int(v) for v in tile_live]
+    per = GROUPED_PASS_ROWS[bm] // bm
+    out: dict = {-1: {}}
+    for e in range(E):
+        mine = [i for i, (x, lv) in enumerate(zip(te, live)) if lv and x == e]
+        if mine:
+            out[e] = [mine[j:j + per] for j in range(0, len(mine), per)]
+        dead = [i for i in range(e, len(te), E) if not live[i]]
+        if dead:
+            out[-1][e] = dead
+    return out
+
+
+def check_grouped_bm(bm: int, a8: bool = False) -> None:
+    """Refuse, on the card, a bm the kernel cannot take: K8 takes 32, 64 or
+    128, K12 a multiple of 32. The error names QUICK_TPU_MOE_BM, the only
+    way to reach such a bm."""
+    ok = bm % 32 == 0 and bm > 0 if a8 else bm in GROUPED_PASS_ROWS
+    if not ok:
+        takes = "a multiple of 32" if a8 else "32, 64 or 128"
+        raise ValueError(f"{'K12' if a8 else 'K8'} takes bm {takes}, got bm={bm} "
+                         f"({BM_SWITCH}={os.environ.get(BM_SWITCH, '')!r})")
 
 
 def build_routing(
@@ -193,9 +268,9 @@ def launch_grouped_a8(
     Mp, K = xq.shape
     E, _, N = qweight.shape
     G = KERNEL_GROUP
-    if bm % 32 or Mp % bm or K % G:
-        raise ValueError(f"K12 takes bm % 32 == 0, Mp % bm == 0, K % 128 == 0: "
-                         f"bm={bm} Mp={Mp} K={K}")
+    check_grouped_bm(bm, a8=True)
+    if Mp % bm or K % G:
+        raise ValueError(f"K12 takes Mp % bm == 0, K % 128 == 0: bm={bm} Mp={Mp} K={K}")
     xq = xq.contiguous()
     if xq.data_ptr() % 16:  # rows are read in 16-byte chunks
         xq = xq.clone()
@@ -235,32 +310,47 @@ def quantized_matmul_grouped_cuda(
     """Launch K8 on CUDA tensors: x [Mp, K] bf16 expert-sorted rows,
     qweight int32 [E, K // 8, N], scales / zeros_x_scales f32
     [E, K // G, N], tile_expert / tile_live int32 [Mp // bm]; returns
-    [Mp, N] bf16. G is 128, 64 or 32; bm must be a multiple of 32
-    (``pick_grouped_bm`` gives 32, 64 or 128)."""
+    [Mp, N] bf16. G is 128, 64 or 32; bm 32, 64 or 128 (``pick_grouped_bm``'s
+    choices). An N that is no multiple of 4 is padded at the call
+    (``pad_columns``) for the tensor copies and the output sliced back."""
     dev = x.device
     G = group_size
+    check_grouped_bm(bm)
     x = x.to(torch.bfloat16).contiguous()
-    if x.data_ptr() % 16:  # x is read in 16-byte chunks
+    if x.data_ptr() % 16:  # the tensor copies read 16-byte aligned rows
         x = x.clone()
     Mp, K = x.shape
     E, _, N = qweight.shape
     ng = K // G
-    if G not in GROUPS or bm % 32 or Mp % bm or K % G:
-        raise ValueError(f"K8 takes G in {GROUPS}, bm % 32 == 0, Mp % bm == 0, K % G == 0: "
+    if G not in GROUPS or Mp % bm or K % G:
+        raise ValueError(f"K8 takes G in {GROUPS}, Mp % bm == 0, K % G == 0: "
                          f"G={G} bm={bm} Mp={Mp} K={K}")
     check(qweight, "qweight", torch.int32, (E, K // PACK, N))
     check(scales, "scales", torch.float32, (E, ng, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (E, ng, N))
     check(tile_expert, "tile_expert", torch.int32, (Mp // bm,))
     check(tile_live, "tile_live", torch.int32, (Mp // bm,))
+    N_out = N
+    if N % 4:
+        qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
+        N = qweight.shape[-1]
+    if any(t.data_ptr() % 16 for t in (qweight, scales, zeros_x_scales)):
+        qweight, scales, zeros_x_scales = (t.clone() for t in (qweight, scales, zeros_x_scales))
+    splits, cps = grouped_plan(E, Mp // bm, K, N, bm, sm_count(dev.index))
+    # one f32 scratch: the [K / G, Mp rounded up to 4] group sums of x
+    # (16-byte rows, first), then the [splits, Mp, N] partials
+    n_xsum = ng * (-(-Mp // 4) * 4)
+    n_part = splits * Mp * N if splits > 1 else 0
+    scratch = torch.empty(n_xsum + n_part, dtype=torch.float32, device=dev)
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=dev)
     KERNEL.launch(
-        "qtt_grouped_matmul", launch_key(Mp, K, N, E, bm, G),
+        "qtt_grouped_matmul", launch_key(Mp, K, N_out, E, bm, G),
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros_x_scales.data_ptr(),
-        tile_expert.data_ptr(), tile_live.data_ptr(), Mp, K, N, E, bm, G,
+        tile_expert.data_ptr(), tile_live.data_ptr(), scratch.data_ptr(),
+        scratch[n_xsum:].data_ptr() if n_part else None, Mp, K, N, E, bm, G, splits, cps,
         out.data_ptr(), stream_ptr(dev),
     )
-    return out
+    return out if N == N_out else out[:, :N_out].contiguous()
 
 
 def quantized_matmul_grouped(
@@ -278,7 +368,8 @@ def quantized_matmul_grouped(
     rows ``i*bm:(i+1)*bm`` with expert ``tile_expert[i]``, zeros where
     ``tile_live[i] == 0`` (``quantized_matmul_grouped`` :205): K8 (K12
     under ``a8``) on CUDA tensors, the plain versions on CPU tensors.
-    ``a8`` at G != 128 or bm % 32 != 0 falls back to W4A16 (:233)."""
+    ``a8`` at G != 128 or bm % 32 != 0 falls back to W4A16 (:233); on the
+    card a bm K8 cannot take raises (``check_grouped_bm``)."""
     if a8 and (group_size != KERNEL_GROUP or bm % 32):
         a8 = False
     if a8:

@@ -12,6 +12,12 @@ the plain version, which is the dense gather of the slot's pages
 (``PagedKVCache.layer``) followed by the einsum attention, as the JAX
 package's fallback does (blocks.py:440-452).
 
+K5 splits each slot's key range over blocks (``split_plan``, from the
+shapes alone) and merges the splits' f32 partials in split order, as K3
+does; ``paged_decode_attention_split_plain`` is the plain model of that
+arithmetic (p rounded against each block's running max), which the tests
+hold against the Pallas kernel.
+
 INT8 pages (``kv_scales``, the [L, P, 8, Hkv*page] f32 tiles of
 ``PagedKVCache``) go to ``csrc/paged_attention_int8.cu`` on the card. Their
 plain versions repeat the Pallas kernels' INT8 arithmetic page by page, not
@@ -25,11 +31,14 @@ the k scales and the probability columns by the v scales, with bf16 dots.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, stream_ptr
+from quick_tpu_torch.ops import decode_attention
+from quick_tpu_torch.ops._cuda import (
+    CudaKernel, ZeroedWords, check, f32, i32, ptr, sm_count, stream_ptr,
+)
 from quick_tpu_torch.ops.attention import einsum_attention
 from quick_tpu_torch.ops.paged_write import div127
 
@@ -39,8 +48,8 @@ KERNEL = CudaKernel(
     "paged_attention.cu",
     {
         "qtt_paged_decode_attention": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-            i32, i32, f32, i32, f32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            i32, i32, i32, i32, f32, i32, f32, ptr,
         ],
         "qtt_paged_chunk_attention": [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
@@ -64,6 +73,9 @@ KERNEL_INT8 = CudaKernel(
 )
 KERNEL_HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30  # the Pallas kernels' mask value
+TILE = decode_attention.TILE  # keys per tile of K5's blocks
+ROWS = 16  # query heads a K5 block (one m16 tile): gq = 32 takes two blocks a kv head
+_COUNTERS = ZeroedWords("K5")  # its merge counters, zero between launches
 
 
 def launch_key(B: int, S: Optional[int], Hq: int, Hkv: int, page: int, D: int,
@@ -109,6 +121,90 @@ def paged_decode_attention_plain(
         alibi_slopes=alibi_slopes, kv_heads_major=True, window=window,
         logit_softcap=logit_softcap,
     )[:, 0]
+
+
+def split_plan(B: int, Hkv: int, gq: int, T: int, sms: int) -> Tuple[int, int]:
+    """(chunk, splits) of K5's key range [0, T = n_pt * page): K7's plan
+    (``decode_attention.split_plan``: about two blocks an SM, whole 64-key
+    tiles) over the B x Hkv x ceil(gq / 16) blocks of one split, as K3's.
+    From the shapes only, never from the lengths on the card: a captured
+    step replays it."""
+    return decode_attention.split_plan(B, Hkv * -(-gq // ROWS), T, sms)
+
+
+def split_range(split: int, chunk: int, length: int, window: Optional[int],
+                n_keys: int) -> Tuple[int, int]:
+    """The keys [lo, hi) of ``split`` for the query at ``length - 1``: its
+    chunk inside [window start, min(length, n_keys)), as K5 computes it;
+    empty when lo >= hi. A block runs the 64-key tiles from lo rounded down
+    to a tile through hi, masking keys outside [lo, hi)."""
+    wlo = max(0, length - window) if window and window > 0 else 0
+    end = max(0, min(length, n_keys))
+    return max(split * chunk, wlo), min(end, split * chunk + chunk)
+
+
+def paged_decode_attention_split_plain(
+    q, k_pages, v_pages, block_table, lengths, layer, scale, alibi_slopes=None,
+    window=None, logit_softcap=None, chunk: int = TILE, splits: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain model of K5's split-and-merge arithmetic (the arguments of
+    ``paged_decode_attention_plain``): per slot and split, its 64-key tiles
+    of the gathered pages in an online softmax in f32, q . k in the pages'
+    dtype times ``scale``, p rounded to the pages' dtype against the running
+    max before p @ v; then the non-empty splits' (m, l, acc) merged in split
+    order, 0 where none has a key. Returns [B, Hq, D]."""
+    k = gather_pages(k_pages, block_table, layer).to(torch.float32)  # [B, Hkv, T, D]
+    v = gather_pages(v_pages, block_table, layer)
+    B, Hq, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    gq = Hq // Hkv
+    splits = -(-T // chunk) if splits is None else splits
+    qb = q.to(k_pages.dtype).to(torch.float32).reshape(B, Hkv, gq, D)
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(q.device, torch.float32).reshape(Hkv, gq, 1)
+    out = torch.zeros((B, Hkv, gq, D), dtype=torch.float32, device=q.device)
+    for b, length in enumerate(int(n) for n in lengths):
+        parts = []
+        for sp in range(splits):
+            lo, hi = split_range(sp, chunk, length, window, T)
+            if lo >= hi:
+                continue
+            m = torch.full((Hkv, gq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((Hkv, gq, D), dtype=torch.float32, device=q.device)
+            for t0 in range(lo // TILE * TILE, hi, TILE):
+                t1 = min(t0 + TILE, hi)
+                s = torch.einsum("kgd,ktd->kgt", qb[b], k[b, :, t0:t1]) * scale
+                if logit_softcap:
+                    s = logit_softcap * torch.tanh(s / logit_softcap)
+                pos = torch.arange(t0, t1, device=q.device)
+                if slopes is not None:
+                    s = s + slopes * (pos - (length - 1)).to(torch.float32)
+                ok = pos >= lo
+                s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.where(ok, torch.exp(s - m_new), torch.zeros_like(s))
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + torch.einsum(
+                    "kgt,ktd->kgd", p.to(v.dtype).to(torch.float32),
+                    v[b, :, t0:t1].to(torch.float32))
+                m = m_new
+            parts.append((m, l, acc))
+        if not parts:
+            continue
+        big = parts[0][0]
+        for m, _, _ in parts[1:]:
+            big = torch.maximum(big, m)
+        lt = torch.zeros_like(big)
+        acc = torch.zeros((Hkv, gq, D), dtype=torch.float32, device=q.device)
+        for m, l, a in parts:
+            w = torch.exp(m - big)
+            lt = lt + l * w
+            acc = acc + w * a
+        out[b] = acc / torch.where(lt == 0.0, torch.ones_like(lt), lt)
+    return out.reshape(B, Hq, D).to(q.dtype)
 
 
 def paged_chunk_attention_plain(
@@ -278,16 +374,25 @@ def paged_decode_attention_cuda(
     q, k_pages, v_pages, block_table, lengths, layer, scale, alibi_slopes=None,
     window=None, logit_softcap=None,
 ) -> torch.Tensor:
-    """Launch K5 on CUDA tensors; same arguments as the plain version."""
+    """Launch K5 on CUDA tensors; same arguments as the plain version. The
+    key range is split over blocks by ``split_plan``; the partials are
+    allocated here, and the merge counters live on the device
+    (``_COUNTERS``, made by an eager launch before any capture): one K5
+    launch at a time on a device."""
     B, Hq, Hkv, page, D, P, n_pt, slopes = _check_common(
         q, k_pages, v_pages, block_table, lengths, layer, alibi_slopes)
+    gq = Hq // Hkv
+    chunk, splits = split_plan(B, Hkv, gq, n_pt * page, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
+    counters = _COUNTERS.get(q.device, B * Hkv * -(-gq // ROWS))
     KERNEL.launch(
         "qtt_paged_decode_attention", launch_key(B, None, Hq, Hkv, page, D, n_pt),
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, page, D, P, n_pt, layer, float(scale), int(window or 0),
+        part.data_ptr(), part[B * Hq * splits * D:].data_ptr(), counters.data_ptr(),
+        B, Hq, Hkv, page, D, P, n_pt, layer, chunk, splits, float(scale), int(window or 0),
         float(logit_softcap or 0.0), stream_ptr(q.device),
     )
     return out

@@ -31,6 +31,8 @@ page write is one launch).
 """
 from __future__ import annotations
 
+import os
+
 from typing import Optional, Tuple
 
 import torch
@@ -89,13 +91,14 @@ def _check_group(k_pages: torch.Tensor) -> None:
 
 def _token_addresses(page_ids, offs, valid, S: int, page: int):
     """(page [B, S], row [B, S], written [B, S]) of every chunk token, as
-    the Pallas chunk kernel addresses them."""
+    the Pallas chunk kernel addresses them; written is None where ``valid``
+    is (every token)."""
     i = torch.arange(S, device=offs.device)[None, :]
     r = offs.to(torch.int64)[:, None] + i
     second = r >= page
     pg = torch.where(second, page_ids[:, 1:2], page_ids[:, 0:1]).to(torch.int64)
     row = torch.where(second, r - page, r)
-    return pg, row, i < valid.to(torch.int64)[:, None]
+    return pg, row, None if valid is None else i < valid.to(torch.int64)[:, None]
 
 
 def div127(x: torch.Tensor) -> torch.Tensor:
@@ -123,7 +126,7 @@ def paged_write_plain(
     v_new: torch.Tensor,     # [B, S, Hkv, Dv]
     page_ids: torch.Tensor,  # [B, 2] (first, second span page)
     offs: torch.Tensor,      # [B] in-page row of token 0
-    valid: torch.Tensor,     # [B] tokens written
+    valid: Optional[torch.Tensor],  # [B] tokens written; None: all S
     layer: int,
     kv_scales: Optional[torch.Tensor] = None,  # [L, P, 8, Hkv*page] f32
     ks_new: Optional[torch.Tensor] = None,     # [B, S, Hkv] f32
@@ -131,17 +134,22 @@ def paged_write_plain(
 ) -> None:
     """Plain version of K4 and K4q (both entries): an ``index_put_``
     scatter of the written tokens' [Hkv, D] rows and, for INT8 pages, of
-    their scales into the tiles' rows 0 (k) and 1 (v)."""
+    their scales into the tiles' rows 0 (k) and 1 (v). With ``valid`` None
+    no mask is taken, so nothing is read back (a captured step can hold
+    it)."""
     B, S, Hkv = k_new.shape[:3]
     page = k_pages.shape[3]
     pg, row, ok = _token_addresses(page_ids, offs, valid, S, page)
-    pg, row = pg[ok], row[ok]
-    k_pages[layer, pg, :, row] = k_new[ok].to(k_pages.dtype)
-    v_pages[layer, pg, :, row] = v_new[ok].to(v_pages.dtype)
+    if ok is not None:  # the written tokens only
+        pg, row, k_new, v_new = pg[ok], row[ok], k_new[ok], v_new[ok]
+        if kv_scales is not None:
+            ks_new, vs_new = ks_new[ok], vs_new[ok]
+    k_pages[layer, pg, :, row] = k_new.to(k_pages.dtype)
+    v_pages[layer, pg, :, row] = v_new.to(v_pages.dtype)
     if kv_scales is not None:
-        col = torch.arange(Hkv, device=row.device)[None, :] * page + row[:, None]
-        kv_scales[layer, pg[:, None], 0, col] = ks_new[ok].to(torch.float32)
-        kv_scales[layer, pg[:, None], 1, col] = vs_new[ok].to(torch.float32)
+        col = torch.arange(Hkv, device=row.device) * page + row[..., None]
+        kv_scales[layer, pg[..., None], 0, col] = ks_new.to(torch.float32)
+        kv_scales[layer, pg[..., None], 1, col] = vs_new.to(torch.float32)
 
 
 def paged_write_cuda(
@@ -229,9 +237,19 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
+def _use_write_kernel(device: torch.device) -> bool:
+    """Page writes on the card go to K4 / K4q (the JAX package: on the TPU);
+    ``QUICK_TPU_PAGED_WRITE=0`` (read at every call) turns them off, as in
+    the JAX package (modules/paged_cache.py:309): torch scatters instead."""
+    if os.environ.get("QUICK_TPU_PAGED_WRITE", "") == "0":
+        return False
+    return device.type == "cuda"
+
+
 def _write(k_pages, v_pages, k_new, v_new, page_ids, offs, valid, layer,
            kv_scales, ks_new, vs_new, n_pg: int):
-    """Both entries: the plain version for CPU pages, else K4 or K4q.
+    """Both entries: K4 or K4q for pages on the card (``_use_write_kernel``),
+    else the plain version, the torch scatters.
     ``k_new`` / ``v_new`` are [B, S, Hkv, Dk] / [B, S, Hkv, Dv]; ``valid``
     None writes every token (the decode entry)."""
     B, S = k_new.shape[:2]
@@ -242,11 +260,9 @@ def _write(k_pages, v_pages, k_new, v_new, page_ids, offs, valid, layer,
     else:
         kn, vn = k_new.to(torch.int8), v_new.to(torch.int8)
         ks_new, vs_new = ks_new.to(torch.float32), vs_new.to(torch.float32)
-    if k_pages.device.type != "cuda":
+    if not _use_write_kernel(k_pages.device):
         if kv_scales is not None and ks_new is None:
             (kn, ks_new), (vn, vs_new) = quantize_kv(kn), quantize_kv(vn)
-        if valid is None:
-            valid = torch.full((B,), S, dtype=torch.int32)
         paged_write_plain(k_pages, v_pages, kn, vn, page_ids.reshape(B, -1).expand(B, 2),
                           offs, valid, layer, kv_scales, ks_new, vs_new)
         return

@@ -771,6 +771,166 @@ def test_grouped_kernel_small_group_matches_plain(rng, cuda_device, G, case, K):
     assert not f32(out)[np.repeat(np.asarray(live) == 0, bm)].any()
 
 
+def _grouped_weights(rng, E, K, N, G):
+    q = rng.integers(0, 16, size=(E, K, N), dtype=np.uint8)
+    qw = np.stack([pack_qtpu(q[e], G) for e in range(E)])
+    s = (rng.uniform(size=(E, K // G, N)) * 0.01 + 0.001).astype(np.float32)
+    zs = (np.round(rng.uniform(size=(E, K // G, N)) * 15) * s).astype(np.float32)
+    return [torch.from_numpy(a) for a in (qw, s, zs)]
+
+
+#: (token expert choices, E, bm, K, N): build_routing's layouts. The decode
+#: branch with expert 0 chosen by three tokens and expert 1 by two (one
+#: pass of two tiles, then one more), the sorted branch with dead tiles at
+#: bm 32, 64 and 128, an odd N (padded at the call), and a width whose
+#: (column tile, expert) blocks fill the card (no split of K: the block
+#: body writes bf16 and zeros its dead tiles itself)
+GROUPED_ROUTES = {
+    "decode_duplicates": ([[0, 1], [0, 2], [3, 1], [0, 5]], 8, 32, 512, 384),
+    "sorted_bm32_dead": (None, 8, 32, 384, 256),
+    "sorted_bm64_dead": (None, 8, 64, 256, 200),
+    "sorted_bm128_dead": (None, 4, 128, 256, 256),
+    "odd_n": ([[0, 1], [0, 2], [1, 3]], 4, 32, 256, 203),
+    "unsplit_wide": (None, 8, 32, 256, 8448),
+}
+
+
+def _grouped_route_case(rng, name, G):
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    sel, E, bm, K, N = GROUPED_ROUTES[name]
+    if sel is None:
+        T = {32: 24, 64: 100, 128: 200}[bm]
+        sel = np.argsort(rng.uniform(size=(T, E)), axis=1)[:, :2]
+    sel = torch.as_tensor(np.asarray(sel), dtype=torch.int64)
+    _, _, te, live, _ = tgm.build_routing(sel, E, bm)
+    x = torch.from_numpy(rng.standard_normal((te.shape[0] * bm, K)).astype(np.float32))
+    return [x.to(torch.bfloat16), *_grouped_weights(rng, E, K, N, G), te, live], bm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [128, 64, 32])
+@pytest.mark.parametrize("name", list(GROUPED_ROUTES))
+def test_grouped_routes_match_plain(rng, cuda_device, name, G):
+    """K8 against its plain version on build_routing's layouts, the whole
+    output compared (padding rows and dead tiles included), one launch a
+    call; a bm K8 cannot take raises, naming QUICK_TPU_MOE_BM."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    args, bm = _grouped_route_case(rng, name, G)
+    te, live = args[4], args[5]
+    if name.startswith("decode"):
+        assert int(torch.bincount(te).max()) >= 2  # an expert chosen by several tokens
+    if "dead" in name:
+        assert not bool(live.all())
+    before = tgm.KERNEL.launches
+    out = tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args), bm, group_size=G)
+    torch.cuda.synchronize()
+    assert tgm.KERNEL.launches == before + 1
+    ref = tgm.quantized_matmul_grouped(*args, bm, group_size=G)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    assert not f32(out)[np.repeat(live.numpy() == 0, bm)].any()
+    with pytest.raises(ValueError, match="QUICK_TPU_MOE_BM"):
+        tgm.quantized_matmul_grouped(*(a.to(cuda_device) for a in args[:4]),
+                                     torch.zeros(args[0].shape[0] // 16, dtype=torch.int32,
+                                                 device=cuda_device),
+                                     torch.ones(args[0].shape[0] // 16, dtype=torch.int32,
+                                                device=cuda_device), 16, group_size=G)
+
+
+@pytest.mark.cuda
+def test_grouped_graph_replays_after_routing_moves(rng, cuda_device):
+    """K8 captured in a CUDA graph, then replayed after the routing (tile
+    experts, live flags) and the rows changed in place: equal to an eager
+    launch on the new routing, bit for bit."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    E, bm, K, N = 8, 32, 512, 256
+    w = [t.to(cuda_device) for t in _grouped_weights(rng, E, K, N, 128)]
+
+    def layout(seed):
+        g = torch.Generator().manual_seed(seed)
+        sel = torch.argsort(torch.rand((4, E), generator=g), dim=1)[:, :2]
+        _, _, te, live, _ = tgm.build_routing(sel, E, bm)
+        x = torch.randn((te.shape[0] * bm, K), generator=g).to(torch.bfloat16)
+        return x.to(cuda_device), te.to(cuda_device), live.to(cuda_device)
+
+    x, te, live = layout(0)
+    out = tgm.quantized_matmul_grouped(x, *w, te, live, bm)  # eager first: builds, allocates
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tgm.quantized_matmul_grouped(x, *w, te, live, bm)
+    for seed in (1, 2):
+        x2, te2, live2 = layout(seed)
+        x.copy_(x2)
+        te.copy_(te2)
+        live.copy_(live2)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tgm.quantized_matmul_grouped(x2, *w, te2, live2, bm)
+        np.testing.assert_array_equal(f32(out), f32(want))
+
+
+#: (window, softcap, ALiBi) cases of K5 at the lengths the split walks:
+#: none, one key, a page but one, a page, the whole table
+K5_EDGE_CASES = {
+    "plain": {}, "window": dict(window=20), "softcap": dict(logit_softcap=30.0),
+    "alibi": dict(alibi=True), "all": dict(window=40, logit_softcap=30.0, alibi=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_EDGE_CASES))
+@pytest.mark.parametrize("Hq,Hkv,D,page,n_pt", [(32, 8, 128, 64, 16), (8, 2, 64, 16, 6),
+                                                (32, 1, 256, 16, 8)])
+def test_paged_decode_split_kernel_edges(rng, cuda_device, case, Hq, Hkv, D, page, n_pt):
+    """K5 split over blocks against its plain version (gather + einsum) and
+    its split model, at lengths 0, 1, page - 1, page and n_pt * page."""
+    lengths = [0, 1, page - 1, page, n_pt * page]
+    cpu, gpu = _paged_attention_case(rng, cuda_device, len(lengths), Hq, Hkv, D, page, n_pt,
+                                     lengths)
+    kw = dict(K5_EDGE_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL.launches
+    out = tpa.paged_decode_attention(*gpu, layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL.launches == before + 1
+    ref = tpa.paged_decode_attention(*cpu, layer=1, **kw)
+    np.testing.assert_allclose(f32(out)[1:], f32(ref)[1:], **TOL)
+    assert not f32(out)[0].any()  # length 0: no visible key
+    chunk, splits = tpa.split_plan(len(lengths), Hkv, Hq // Hkv, n_pt * page,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    model = tpa.paged_decode_attention_split_plain(
+        *(t.to(cuda_device) for t in cpu), 1, D ** -0.5, chunk=chunk, splits=splits,
+        **{k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+    np.testing.assert_allclose(f32(out), f32(model), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_decode_graph_replays_at_moving_lengths(rng, cuda_device):
+    """K5 captured in a CUDA graph and replayed after the lengths moved in
+    place: equal to eager launches at those lengths, bit for bit (the
+    merge counters are left at zero by every launch)."""
+    Hq, Hkv, D, page, n_pt = 32, 8, 128, 64, 16
+    cpu, gpu = _paged_attention_case(rng, cuda_device, 16, Hq, Hkv, D, page, n_pt,
+                                     [1 + 37 * i for i in range(16)])
+    q, kp, vp, bt, ln = gpu
+    out = tpa.paged_decode_attention(q, kp, vp, bt, ln, layer=1)  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_decode_attention(q, kp, vp, bt, ln, layer=1)
+    for shift in (5, 300, 0):
+        new = torch.tensor([min(n_pt * page, 1 + 37 * i + shift) for i in range(16)],
+                           dtype=torch.int32, device=cuda_device)
+        ln.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpa.paged_decode_attention(q, kp, vp, bt, new.clone(), layer=1)
+        np.testing.assert_array_equal(f32(out), f32(want))
+
+
 # ---------------------------------------------------------- MLA latent pages
 
 def _randn(rng, *shape):
