@@ -87,7 +87,8 @@ Phases (any failure exits non-zero):
  12. W4A8 and the standalone RMSNorm: (a) K11 and K11f (W4A8 GEMM) at the
      Mistral-7B projections (M = 512, 128 and a ragged 200; K11f equal to
      K11 bit for bit) and K11 at DeepSeek-V2-Lite's g=64 shapes, K12
-     (grouped W4A8) at Mixtral-8x7B's decode and prefill, K13 (RMSNorm) at
+     (grouped W4A8) at Mixtral-8x7B's decode and prefill and at bm = 96
+     (QUICK_TPU_MOE_BM's 32-row sub-tiles), K13 (RMSNorm) at
      the paths' shapes and on the strided latent slice, each against its
      plain version; (b) their times,
      bounds and yardsticks, and the aten calls per layer and busy share of
@@ -296,7 +297,7 @@ def phase1_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = m.group(1)[:72]
-            elif "Used" in line or "spill" in line:
+            elif "Used" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {k.source} {entry}: {line.split(':', 1)[-1].strip()}")
             elif "warning" in line:  # e.g. ptxas serializing wgmma instructions
                 print(f"  {k.source}: {line.strip()[:300]}")
@@ -784,8 +785,10 @@ def paged_attention_rows(cfg, gen, dev, trace):
     qc = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
     small = page_pool(gen, dev, g, 2)
     err = {"decode": 0.0, "chunk": 0.0}
+    slopes = 2.0 ** (-8.0 * torch.arange(1, Hq + 1, device=dev, dtype=torch.float32) / Hq)
     for name, kw in (("", {}), (", window 100", dict(window=100)),
-                     (", softcap 30", dict(logit_softcap=30.0))):
+                     (", softcap 30", dict(logit_softcap=30.0)),
+                     (", ALiBi", dict(alibi_slopes=slopes))):
         err["decode"] = max(err["decode"], max_err(
             pa.paged_decode_attention_cuda(qd, *small, bt, lens, 1, scale, **kw),
             pa.paged_decode_attention_plain(qd, *small, bt, lens, 1, scale, **kw),
@@ -1908,6 +1911,20 @@ def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8", a8=False):
                 **extra,
             ))
             del x, out, ref
+        if a8:  # bm = 96 (QUICK_TPU_MOE_BM): the skeleton's 32-row sub-tiles
+            for T in (BATCH, BATCH * PROMPT):
+                sel = torch.argsort(torch.rand((T, E), generator=gen, device=dev), dim=1)[:, :kk]
+                _, _, te, live, _ = gm.build_routing(sel, E, 96)
+                x = torch.randn((te.shape[0] * 96, K), generator=gen, device=dev).to(torch.bfloat16)
+                xq, sx = quantize_activations(x)
+                out = gm.launch_grouped_a8(xq, sx, qw, s, zs, te, live, 96)
+                max_err(out, gm.quantized_matmul_grouped_a8_plain(x, qw, s, zs, te, live, 96),
+                        TOL[kname], f"{label} {proj} T={T} "
+                        f"{gm.launch_key(te.shape[0] * 96, K, N, E, 96)}, "
+                        f"{int(live.sum())}/{te.shape[0]} live tiles")
+                if bool((out[(live == 0).repeat_interleave(96)] != 0).any()):
+                    fail(f"{label} bm=96: a dead tile is not all zeros")
+                del x, xq, out
         del qw, s, zs, wd
         torch.cuda.empty_cache()
     return out_rows

@@ -1,6 +1,7 @@
 // Online-softmax attention over one staged K/V tile, for the rows a warp
-// owns. Shared by the flash prefill kernel (K2), the fused decode step (K3)
-// and the paged chunk kernels (K6, and K6q with per-key scales).
+// owns, on the CUDA cores. Used by the dense-cache decode kernel (K7) and
+// the INT8 paged chunk kernel (K6q, with per-key scales); K2, K3, K5 and
+// K6 run their tiles on the tensor cores instead.
 //
 // A tile holds BK = 64 keys in shared memory: K as bf16 pairs with a padded
 // row stride (D/2 + 1 words) so that 32 lanes reading 32 different keys hit

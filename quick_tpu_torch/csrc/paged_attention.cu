@@ -39,58 +39,38 @@
 // the next launch) merges the non-empty splits in split order. The output
 // does not depend on block scheduling.
 //
-// K6: one block per (16 query rows, kv head, slot), the rows being (chunk
-// position, query head) pairs of that kv head, so the chunk's queries of
-// one kv head share every staged tile; the dots run on the CUDA cores with
-// the online-softmax tile of attention_tile.cuh. It reads its slot's start
-// from device memory, walks the block-table row in tiles of 64 keys from
-// the window's first key to the last visible key, and gathers each key's
-// row from its page while staging.
+// K6 is the same design over a chunk of S queries. Its rows are the S x gq
+// (chunk position, query head) pairs of one kv head; grid (kv head x row
+// block of 64 rows, slot, split), so each page row is staged once per kv
+// head and row block, not once per 16 rows. The key range is split as
+// K5's (the wrapper's plan over the blocks of one split); a block reads
+// its slot's start on the card and clips its chunk to [window start of its
+// first row, its last row's position + 1), so a captured launch stays
+// right as the starts move. Its key tiles go through K5's two-stage ring
+// of gathered, swizzled page rows. Eight warps: two an m16 tile of rows,
+// one a 32-key half of each tile, each running both products for its rows
+// and keys on mma.sync m16n8k16 with its own running max (a row's keys of
+// the half lie in the lane's quad), p rounded against it; the two halves'
+// (m, l, o) are combined once, after the last tile (a single warp a row
+// tile left the SM's schedulers idle on the softmax's dependent chains).
+// Rows in one tile see different keys (the causal diagonal, the window),
+// so the mask is each row's own [lo, hi) in registers. Only the splits
+// holding a key of the row block's rows have work (a block finds that from
+// the start it reads); where one does, its block writes the rows' outputs
+// from registers; otherwise those blocks write partials, and the last of
+// them to finish merges, row by row, the splits in which the row sees a
+// key, in split order: a thread a row for the maxima and the denominators,
+// then all threads on 4 dims of D / 16 rows each, split after split.
 //
 // Not carried over from the TPU: scalar prefetch and clamped index maps (a
 // block reads its own block table), the static block-diagonal head mask (a
 // block holds one kv head), and the pages-per-step and slots-per-step
 // tuning.
-#include "attention_tile.cuh"
 #include "split_attention.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kChunkRowsPerWarp = 4;
-constexpr int kBQ = kWarps * kChunkRowsPerWarp;  // K6 query rows per block
-
-// Stage keys [t0, t0 + kBK) of kv head h of one slot (block-table row bt)
-// into shared memory, as attn::stage_kv does for a dense head; keys at or
-// past t_end are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_paged(const bf16* __restrict__ k_pages,
-                                            const bf16* __restrict__ v_pages,
-                                            const int* __restrict__ bt,
-                                            size_t layer_pages, int Hkv, int h,
-                                            int page, int t0, int t_end,
-                                            uint32_t* ks, bf16* vs) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < attn::kBK * kChunks; c += blockDim.x) {
-    const int j = c / kChunks, d8 = (c % kChunks) * 8;
-    const int t = t0 + j;
-    uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-    if (t < t_end) {
-      const size_t pg = layer_pages + bt[t / page];
-      const size_t off = ((pg * Hkv + h) * page + t % page) * D + d8;
-      kv4 = *reinterpret_cast<const uint4*>(k_pages + off);
-      vv4 = *reinterpret_cast<const uint4*>(v_pages + off);
-    }
-    uint32_t* kr = ks + j * attn::Tile<D>::kStride + d8 / 2;
-    kr[0] = kv4.x; kr[1] = kv4.y; kr[2] = kv4.z; kr[3] = kv4.w;
-    *reinterpret_cast<uint4*>(vs + j * D + d8) = vv4;
-  }
-}
-
-template <int D>
-constexpr size_t tile_bytes() {
-  return attn::Tile<D>::kKBytes + attn::Tile<D>::kVBytes;
-}
 
 // ---------------------------------------------------------------- K5 decode
 namespace k5 {
@@ -412,94 +392,406 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace k5
 
 // ----------------------------------------------------------------- K6 chunk
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-                   const bf16* __restrict__ v_pages,
-                   const int* __restrict__ block_table,
-                   const int* __restrict__ starts,
-                   const float* __restrict__ slopes, bf16* __restrict__ out,
-                   int S, int Hq, int Hkv, int page, int P, int n_pt, int layer,
-                   float scale, int window, float softcap) {
-  constexpr int R = kChunkRowsPerWarp;
-  constexpr int kDPL = D / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [kBQ][D]
-  uint32_t* ks = reinterpret_cast<uint32_t*>(smem + (size_t)kBQ * D * 4);
-  bf16* vs = reinterpret_cast<bf16*>(smem + (size_t)kBQ * D * 4 +
-                                     attn::Tile<D>::kKBytes);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int gq = Hq / Hkv;
-  const int n_rows = S * gq;  // row = chunk position * gq + head in group
-  const int r0 = blockIdx.x * kBQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = threadIdx.x; c < kBQ * D; c += blockDim.x) {
-    const int row = r0 + c / D, d = c % D;
-    float v = 0.f;
-    if (row < n_rows) {
-      const int i = row / gq, g = row % gq;
-      v = bf2f(q[(((size_t)b * S + i) * Hq + h * gq + g) * D + d]);
-    }
-    qs[c] = v;
-  }
-  const int start = starts[b];
-  const int i_first = r0 / gq;
-  const int i_last = (min(r0 + kBQ, n_rows) - 1) / gq;
-  const int t_end = min(start + i_last + 1, n_pt * page);
-  int t_begin = window > 0 ? max(0, start + i_first - window + 1) : 0;
-  t_begin = (t_begin / attn::kBK) * attn::kBK;
+namespace k6 {
 
-  attn::RowRule rule[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = min(r0 + warp * R + r, n_rows - 1);
-    const int hq = h * gq + row % gq;
-    rule[r] = attn::RowRule{start + row / gq, t_end, window,
-                            slopes != nullptr ? slopes[hq] : 0.f};
-  }
-  attn::RowState<D, R> st;
-  st.init();
+constexpr int kRowTiles = 4;                 // m16 row tiles a block
+constexpr int kThreads = 2 * kRowTiles * 32; // two warps a row tile, one a key half
+constexpr int kBK = 64;                      // keys per tile
+constexpr int kRows = kRowTiles * 16;        // (position, head) rows a block
+
+template <int D>
+struct Smem {
+  static constexpr int kQ = kRows * D * 2;   // the bf16 q rows, swizzled
+  static constexpr int kK = kBK * D * 2;     // a K tile, swizzled
+  static constexpr int kV = kBK * D * 2;     // a V tile, swizzled
+  static constexpr int oRing = kQ;
+  static constexpr int oPid = oRing + 2 * (kK + kV);  // [3][kBK] page ids of three tiles
+  static constexpr int oFlag = oPid + 3 * kBK * 4;
+  static constexpr size_t kBytes = oFlag + 16;
+  // after the tiles, the second key half's (o, m, l) [kRows][D + 2] f32 reuse the ring
+  static_assert(kRows * (D + 2) * 4 <= 2 * (kK + kV), "the key halves' states fit the ring");
+};
+
+// Rows of one kv head h are the S x gq (chunk position i, head in group)
+// pairs, row R = i * gq + head; block (h * n_rb + rb, b, sp) owns rows
+// 64 rb .. 64 rb + 63 of slot b and the keys of split sp. Warp w takes rows
+// 16 (w % 4) .. + 15 and keys 32 (w / 4) .. + 31 of each 64-key tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_chunk_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
+                         const bf16* __restrict__ v_pages, const int* __restrict__ block_table,
+                         const int* __restrict__ starts, const float* __restrict__ slopes,
+                         bf16* __restrict__ out, float* __restrict__ part_acc,
+                         float* __restrict__ part_ml, int* __restrict__ counters, int S, int Hq,
+                         int Hkv, int gq, int n_rb, int page, int P, int n_pt, int layer,
+                         int chunk, float scale, int window, float softcap) {
+  using L = Smem<D>;
+  constexpr int kNT = D / 8;  // n8 tiles of the output
+  const int h = blockIdx.x / n_rb, rb = blockIdx.x % n_rb;
+  const int b = blockIdx.y, sp = blockIdx.z;
+  const int splits = gridDim.z;
+  const int n_rows = S * gq, r0 = rb * kRows;
+  const int nrows = min(kRows, n_rows - r0);  // rows of this block
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t qs = smem_u32(smem);
+  int* pid = reinterpret_cast<int*>(smem + L::oPid);
+  const uint32_t ks0 = qs + L::oRing, vs0 = ks0 + 2 * L::kK;
+  int* flag = reinterpret_cast<int*>(smem + L::oFlag);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rt = warp % kRowTiles, kh = warp / kRowTiles;  // row tile, key half
+  const int g = lane >> 2, tq = lane & 3;
+  const int n_keys = n_pt * page;
+
+  // the block's keys: from its first row's window start to its last row's
+  // position, clipped to the table and to this split
+  const int start = starts[b];
+  const int end = max(0, min(start + (r0 + nrows - 1) / gq + 1, n_keys));
+  const int wlo = window > 0 ? max(0, start + r0 / gq - window + 1) : 0;
+  // the splits holding a key of any row of the block: first .. first +
+  // nlive - 1 (one, split 0, where none does; it writes the zeros). The
+  // others' blocks have nothing to do; with one live split its block
+  // writes the rows' outputs itself, with more the live blocks write
+  // partials and the last of them merges
+  const int first = wlo < end ? wlo / chunk : 0;
+  const int nlive = wlo < end ? (end - 1) / chunk - first + 1 : 1;
+  if (sp < first || sp >= first + nlive) return;
+  const bool direct = nlive == 1;
+  const Range rg = split_range(sp, chunk, end, wlo);
+  const int t_begin = (rg.lo / kBK) * kBK;
+  const int n_tiles = rg.lo < rg.hi ? (rg.hi - t_begin + kBK - 1) / kBK : 0;
   const int* bt = block_table + (size_t)b * n_pt;
-  for (int t0 = t_begin; t0 < t_end; t0 += attn::kBK) {
-    __syncthreads();  // the previous tile is consumed (and q staged)
-    stage_paged<D>(k_pages, v_pages, bt, (size_t)layer * P, Hkv, h, page, t0,
-                   t_end, ks, vs);
-    __syncthreads();
-    attn::attend_tile<D, R>(st, qs + warp * R * D, rule, ks, vs, t0, scale,
-                            softcap, lane);
+  const size_t lp = (size_t)layer * P;
+
+  // the lane's rows g and g + 8 of the warp's row tile: position, ALiBi
+  // slope and visible keys [lo, hi) of this split (empty past the rows)
+  int qpos[2];
+  float slope[2];
+  Range vis[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rt * 16 + g + 8 * hh, R = r0 + r;
+    qpos[hh] = start + R / gq;
+    slope[hh] = slopes != nullptr && r < nrows ? slopes[h * gq + R % gq] : 0.f;
+    const int wr = window > 0 ? max(0, qpos[hh] - window + 1) : 0;
+    vis[hh] = r < nrows ? split_range(sp, chunk, max(0, min(qpos[hh] + 1, n_keys)), wr)
+                        : Range{0, 0};
+  }
+  float o[kNT][4];
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {QTT_NEG_INF, QTT_NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    // the page id of key tid of tile i (0 past the range: never read)
+    auto page_of = [&](int i) {
+      const int t = t_begin + i * kBK + tid;
+      return t < rg.hi ? bt[t / page] : 0;
+    };
+    // copy tile i's keys [t0, t0 + kBK) of kv head h from their pages into
+    // a stage; keys at or past rg.hi are zero-filled (never read from memory)
+    auto load_kv = [&](int i, uint32_t ks, uint32_t vs) {
+      const int t0 = t_begin + i * kBK;
+      const int* ids = pid + (i % 3) * kBK;
+      for (int c = tid; c < kBK * (D / 8); c += kThreads) {
+        const int j = c / (D / 8), ch = c % (D / 8);
+        const bool ok = t0 + j < rg.hi;
+        const size_t off =
+            ok ? (((lp + ids[j]) * Hkv + h) * page + (t0 + j) % page) * D + ch * 8 : 0;
+        cp_async16(ks + swz<D>(j, ch), k_pages + off, ok);
+        cp_async16(vs + swz<D>(j, ch), v_pages + off, ok);
+      }
+    };
+    if (tid < kBK) {
+      pid[tid] = page_of(0);
+      if (n_tiles > 1) pid[kBK + tid] = page_of(1);
+    }
+    // the block's q rows in bf16; rows past nrows are zeros
+    for (int c = tid; c < kRows * (D / 8); c += kThreads) {
+      const int r = c / (D / 8), ch = c % (D / 8), R = r0 + r;
+      const bool ok = r < nrows;
+      const size_t off = ok ? (((size_t)b * S + R / gq) * Hq + h * gq + R % gq) * D + ch * 8 : 0;
+      cp_async16(qs + swz<D>(r, ch), q + off, ok);
+    }
+    __syncthreads();  // the page ids of tiles 0 and 1
+    load_kv(0, ks0, vs0);
+    cp_async_commit();
+
+    const int qrow = rt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);  // ldmatrix rows of q
+    const int qchunk = lane >> 4;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int t0 = t_begin + it * kBK + 32 * kh;  // the warp's first key
+      const int st = it & 1;
+      cp_async_wait_all();
+      __syncthreads();  // tile it landed; tile it - 1 is consumed (its stage is free)
+      // tile it + 2's page ids: loaded now, stored after this tile's products
+      const int pid_next = tid < kBK && it + 2 < n_tiles ? page_of(it + 2) : 0;
+      if (it + 1 < n_tiles) load_kv(it + 1, ks0 + (st ^ 1) * L::kK, vs0 + (st ^ 1) * L::kV);
+      cp_async_commit();
+      const uint32_t ks = ks0 + st * L::kK, vs = vs0 + st * L::kV;
+      // q k^T for the warp's 16 rows and its 32 keys: four n8 tiles
+      float s[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + swz<D>(qrow, 2 * kk + qchunk));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + swz<D>(32 * kh + 16 * j + (lane >> 4) * 8 + (lane & 7),
+                                  2 * kk + ((lane >> 3) & 1)));
+          mma16816(s[2 * j], a, kb[0], kb[1]);
+          mma16816(s[2 * j + 1], a, kb[2], kb[3]);
+        }
+      }
+      // scale, softcap, then ALiBi, then the row's mask; register e of tile
+      // nt: row g + 8 * (e >> 1), key t0 + 8 * nt + 2 * tq + (e & 1)
+      float mx[2] = {QTT_NEG_INF, QTT_NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + nt * 8 + 2 * tq + (e & 1), hh = e >> 1;
+          float sc = s[nt][e] * scale;
+          if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
+          sc += slope[hh] * (float)(t - qpos[hh]);
+          sc = t >= vis[hh].lo && t < vis[hh].hi ? sc : QTT_NEG_INF;
+          s[nt][e] = sc;
+          mx[hh] = fmaxf(mx[hh], sc);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // the row's maximum over the warp's keys: they lie in the lane's quad
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float mn = fmaxf(m[hh], mx[hh]);
+        const float alpha = expf(m[hh] - mn);
+        m[hh] = mn;
+        float ps = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+            const float p = s[nt][e] == QTT_NEG_INF ? 0.f : expf(s[nt][e] - mn);
+            s[nt][e] = p;
+            ps += p;
+          }
+        l[hh] = l[hh] * alpha + ps;  // the lane's part; the quad adds them at the end
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          o[i][2 * hh] *= alpha;
+          o[i][2 * hh + 1] *= alpha;
+        }
+      }
+      // p v: score tiles 2j and 2j + 1 are the A fragment of k16 step j
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+        a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+        a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+        a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, vs + swz<D>(32 * kh + 16 * j + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                    2 * np + (lane >> 4)));
+          mma16816(o[2 * np], a, vb[0], vb[1]);
+          mma16816(o[2 * np + 1], a, vb[2], vb[3]);
+        }
+      }
+      if (tid < kBK && it + 2 < n_tiles) pid[((it + 2) % 3) * kBK + tid] = pid_next;
+    }
+    cp_async_wait_all();
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + warp * R + r;
-    if (row >= n_rows) break;
-    const int i = row / gq, g = row % gq;
-    const float l = st.l[r] == 0.f ? 1.f : st.l[r];
-    bf16* o = out + (((size_t)b * S + i) * Hq + h * gq + g) * D + lane * kDPL;
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+
+  // the two key halves of each row combined: M = max(m0, m1), o = o0 e^(m0 - M)
+  // + o1 e^(m1 - M), l likewise; the second half hands its state over
+  // through the ring. Register e of o[i]: row g + 8 * (e >> 1), dim
+  // 8i + 2tq + (e & 1)
+  float* half = reinterpret_cast<float*>(smem + L::oRing);  // [kRows][D] o, then [kRows][2]
+  __syncthreads();  // the ring is free
+  if (n_tiles > 0 && kh == 1) {
 #pragma unroll
-    for (int e = 0; e < kDPL; ++e) o[e] = __float2bfloat16_rn(st.acc[r][e] / l);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = rt * 16 + g + 8 * hh;
+#pragma unroll
+      for (int i = 0; i < kNT; ++i)
+        *reinterpret_cast<float2*>(half + r * D + 8 * i + 2 * tq) =
+            make_float2(o[i][2 * hh], o[i][2 * hh + 1]);
+      if (tq == 0) *reinterpret_cast<float2*>(half + kRows * D + 2 * r) = make_float2(m[hh], l[hh]);
+    }
+  }
+  __syncthreads();
+  if (kh == 0) {
+    if (n_tiles > 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = rt * 16 + g + 8 * hh;
+        const float2 ml1 = *reinterpret_cast<const float2*>(half + kRows * D + 2 * r);
+        const float mn = fmaxf(m[hh], ml1.x);
+        const float a0 = expf(m[hh] - mn), a1 = expf(ml1.x - mn);
+        m[hh] = mn;
+        l[hh] = fmaf(ml1.y, a1, l[hh] * a0);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          const float2 o1 = *reinterpret_cast<const float2*>(half + r * D + 8 * i + 2 * tq);
+          o[i][2 * hh] = fmaf(o1.x, a1, o[i][2 * hh] * a0);
+          o[i][2 * hh + 1] = fmaf(o1.y, a1, o[i][2 * hh + 1] * a0);
+        }
+      }
+    }
+    if (direct) {  // the one live split: the rows' outputs straight from registers
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = rt * 16 + g + 8 * hh, R = r0 + r;
+        if (r >= nrows) continue;
+        const float inv = l[hh] == 0.f ? 1.f : l[hh];
+        bf16* o_row = out + (((size_t)b * S + R / gq) * Hq + h * gq + R % gq) * D;
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * i + 2 * tq) =
+              __floats2bfloat162_rn(o[i][2 * hh] / inv, o[i][2 * hh + 1] / inv);
+      }
+    }
+  }
+  if (direct) return;
+  // this split's partial (m, l, acc) of each row
+  const size_t row0 = ((size_t)b * Hkv + h) * n_rows + r0;  // partial row of local row 0
+  if (n_tiles > 0 && kh == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = rt * 16 + g + 8 * hh;
+      if (r >= nrows) continue;
+      const size_t pr = (row0 + r) * splits + sp;
+      float* pa = part_acc + pr * D;
+#pragma unroll
+      for (int i = 0; i < kNT; ++i)
+        *reinterpret_cast<float2*>(pa + 8 * i + 2 * tq) = make_float2(o[i][2 * hh], o[i][2 * hh + 1]);
+      if (tq == 0) *reinterpret_cast<float2*>(part_ml + pr * 2) = make_float2(m[hh], l[hh]);
+    }
+  }
+
+  // the last live block of this (slot, kv head, row block) to finish merges
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const int done = atomicAdd(cnt, 1);
+    *flag = done == nlive - 1;
+    if (*flag) *cnt = 0;  // every live block has counted: ready for the next launch
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // O = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s m_s,
+  // over the splits in which the row sees a key, in order; 0 where none.
+  // First a thread a row: M and the denominator; then every thread on 4
+  // dims of D / 16 rows, split after split, the rows' loads in flight
+  auto live = [&](int r, int s2) {  // row r sees a key of split s2
+    const int qp = start + (r0 + r) / gq;
+    const int wlo_r = window > 0 ? max(0, qp - window + 1) : 0;
+    const Range r2 = split_range(s2, chunk, max(0, min(qp + 1, n_keys)), wlo_r);
+    return r2.lo < r2.hi;
+  };
+  float* mrow = reinterpret_cast<float*>(smem + L::oRing);  // [kRows] M, then [kRows] sums
+  const float2* ml0 = reinterpret_cast<const float2*>(part_ml);
+  if (tid < nrows) {  // four splits' loads in flight at a time
+    const float2* ml = ml0 + (row0 + tid) * splits;
+    float M = QTT_NEG_INF, lt = 0.f;
+    for (int s0 = first; s0 < first + nlive; s0 += 4) {
+      float m4[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        m4[k] = s0 + k < first + nlive && live(tid, s0 + k) ? __ldcg(ml + s0 + k).x : QTT_NEG_INF;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) M = fmaxf(M, m4[k]);
+    }
+    for (int s0 = first; s0 < first + nlive; s0 += 4) {
+      bool lv[4];
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        lv[k] = s0 + k < first + nlive && live(tid, s0 + k);
+        if (lv[k]) v[k] = __ldcg(ml + s0 + k);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // in split order
+        if (lv[k]) lt += v[k].y * expf(v[k].x - M);
+    }
+    mrow[tid] = M;
+    mrow[kRows + tid] = lt == 0.f ? 1.f : lt;
+  }
+  __syncthreads();
+  constexpr int kQ = D / 4;                   // threads a row, 4 dims each
+  constexpr int kRS = kThreads / kQ;          // rows apart
+  constexpr int kRPT = kRows / kRS;           // rows a thread
+  const int d = (tid % kQ) * 4, rq = tid / kQ;
+  float4 acc[kRPT];
+#pragma unroll
+  for (int k = 0; k < kRPT; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s2 = first; s2 < first + nlive; ++s2) {  // in split order, the rows' loads in flight
+    bool lv[kRPT];
+    float mk[kRPT];
+    float4 pa[kRPT];
+#pragma unroll
+    for (int k = 0; k < kRPT; ++k) {
+      const int r = rq + k * kRS;
+      lv[k] = r < nrows && live(r, s2);
+      if (lv[k]) {
+        const size_t pr = (row0 + r) * splits + s2;
+        mk[k] = __ldcg(ml0 + pr).x;
+        pa[k] = __ldcg(reinterpret_cast<const float4*>(part_acc + pr * D + d));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRPT; ++k) {
+      if (!lv[k]) continue;
+      const float w = expf(mk[k] - mrow[rq + k * kRS]);
+      acc[k] = make_float4(fmaf(w, pa[k].x, acc[k].x), fmaf(w, pa[k].y, acc[k].y),
+                           fmaf(w, pa[k].z, acc[k].z), fmaf(w, pa[k].w, acc[k].w));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRPT; ++k) {
+    const int r = rq + k * kRS, R = r0 + r;
+    if (r >= nrows) break;
+    const float inv = mrow[kRows + r];
+    __nv_bfloat162* o_row = reinterpret_cast<__nv_bfloat162*>(
+        out + (((size_t)b * S + R / gq) * Hq + h * gq + R % gq) * D + d);
+    o_row[0] = __floats2bfloat162_rn(acc[k].x / inv, acc[k].y / inv);
+    o_row[1] = __floats2bfloat162_rn(acc[k].z / inv, acc[k].w / inv);
   }
 }
 
 template <int D>
-cudaError_t launch_chunk(const void* q, const void* k_pages,
-                         const void* v_pages, const void* block_table,
-                         const void* starts, const void* slopes, void* out,
-                         int B, int S, int Hq, int Hkv, int page, int P,
-                         int n_pt, int layer, float scale, int window,
-                         float softcap, cudaStream_t st) {
-  const size_t smem = (size_t)kBQ * D * 4 + tile_bytes<D>();
-  cudaError_t err = allow_smem(paged_chunk_kernel<D>, smem);
+cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const void* block_table, const void* starts, const void* slopes, void* out,
+                   void* part_acc, void* part_ml, void* counters, int B, int S, int Hq, int Hkv,
+                   int page, int P, int n_pt, int layer, int chunk, int splits, float scale,
+                   int window, float softcap, cudaStream_t st) {
+  const size_t smem = Smem<D>::kBytes;
+  cudaError_t err = allow_smem(paged_chunk_split_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const int n_rows = S * (Hq / Hkv);
-  dim3 grid((n_rows + kBQ - 1) / kBQ, Hkv, B);
-  paged_chunk_kernel<D><<<grid, kWarps * 32, smem, st>>>(
+  const int gq = Hq / Hkv, n_rb = (S * gq + kRows - 1) / kRows;
+  dim3 grid(Hkv * n_rb, B, splits);
+  paged_chunk_split_kernel<D><<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
       static_cast<const bf16*>(v_pages), static_cast<const int*>(block_table),
       static_cast<const int*>(starts), static_cast<const float*>(slopes),
-      static_cast<bf16*>(out), S, Hq, Hkv, page, P, n_pt, layer, scale,
+      static_cast<bf16*>(out), static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      static_cast<int*>(counters), S, Hq, Hkv, gq, n_rb, page, P, n_pt, layer, chunk, scale,
       window, softcap);
   return cudaGetLastError();
 }
+
+}  // namespace k6
 
 bool shapes_ok(int B, int Hq, int Hkv, int page, int P, int n_pt, int layer) {
   return B > 0 && Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= 32 && page > 0 &&
@@ -543,19 +835,34 @@ extern "C" int qtt_paged_decode_attention(
 }
 
 // q, out: [B, S, Hq, D] bf16; starts: int32 [B] (keys cached before the
-// chunk; the chunk's own keys must already be written); the rest as above.
+// chunk; the chunk's own keys must already be written), read on the card;
+// the key range [0, n_pt * page) is cut into `splits` chunks of `chunk`
+// keys as for K5; part_acc f32 [B, Hq * S, splits, D] and part_ml f32
+// [B, Hq * S, splits, 2] are scratch; counters: int32 [B * Hkv *
+// ceil(S * Hq / Hkv / 64)], zero before the launch and left at zero by it
+// (one launch at a time); the rest as above.
 extern "C" int qtt_paged_chunk_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_table, const void* starts, const void* slopes,
-    void* out, int B, int S, int Hq, int Hkv, int page, int D, int P, int n_pt,
-    int layer, float scale, int window, float softcap, void* stream) {
-  if (S <= 0 || !shapes_ok(B, Hq, Hkv, page, P, n_pt, layer))
+    void* out, void* part_acc, void* part_ml, void* counters, int B, int S, int Hq, int Hkv,
+    int page, int D, int P, int n_pt, int layer, int chunk, int splits, float scale,
+    int window, float softcap, void* stream) {
+  if (S <= 0 || !shapes_ok(B, Hq, Hkv, page, P, n_pt, layer) || B > 65535 || chunk <= 0 ||
+      chunk % k6::kBK != 0 || splits <= 0 || splits > 65535 ||
+      (long long)splits * chunk < (long long)n_pt * page || part_acc == nullptr ||
+      part_ml == nullptr || counters == nullptr ||
+      (long long)Hkv * ((S * (Hq / Hkv) + k6::kRows - 1) / k6::kRows) > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define QTT_LAUNCH(DD)                                                                      \
+  k6::launch<DD>(q, k_pages, v_pages, block_table, starts, slopes, out, part_acc, part_ml,  \
+                 counters, B, S, Hq, Hkv, page, P, n_pt, layer, chunk, splits, scale, window, \
+                 softcap, st)
   switch (D) {
-    case 64: return launch_chunk<64>(q, k_pages, v_pages, block_table, starts, slopes, out, B, S, Hq, Hkv, page, P, n_pt, layer, scale, window, softcap, st);
-    case 128: return launch_chunk<128>(q, k_pages, v_pages, block_table, starts, slopes, out, B, S, Hq, Hkv, page, P, n_pt, layer, scale, window, softcap, st);
-    case 256: return launch_chunk<256>(q, k_pages, v_pages, block_table, starts, slopes, out, B, S, Hq, Hkv, page, P, n_pt, layer, scale, window, softcap, st);
+    case 64: return QTT_LAUNCH(64);
+    case 128: return QTT_LAUNCH(128);
+    case 256: return QTT_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
+#undef QTT_LAUNCH
 }

@@ -1,5 +1,5 @@
-// The mma.sync attention building blocks shared by K3's and K5's key-split
-// kernels (fused_decode_step.cu, paged_attention.cu): cp.async copies into
+// The mma.sync attention building blocks shared by K3's, K5's and K6's
+// key-split kernels (fused_decode_step.cu, paged_attention.cu): cp.async copies into
 // 128-byte swizzled K / V rows, ldmatrix loads, the bf16 m16n8k16 product,
 // and the key range of one split, clipped to [window start, end).
 #pragma once

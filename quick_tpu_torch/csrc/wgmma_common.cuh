@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the wgmma GEMM bodies: K1's above 8
 // rows (qmm_wgmma.cuh), K9's (qmm_wgmma_dq.cuh), K11f's
-// (qmm_wgmma_a8.cuh) and K8's (grouped_matmul.cu). mbarriers (a lost
+// (qmm_wgmma_a8.cuh), K8's and K12's (grouped_wgmma.cuh). mbarriers (a lost
 // arrival traps instead of hanging), tensor copies into shared memory, the
 // warpgroup MMA fences, the exact bf16x2 codes of two QTPU words' nibbles
 // (K1's and K8's register operand), the K-major 128-byte-swizzled B

@@ -12,8 +12,9 @@ addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
 (``flash_attention.cu``), K3 (``fused_decode_step.cu``), K5 / K6
 (``paged_attention.cu``), K8 (``grouped_matmul.cu``), K9
-(``quantized_matmul_dequant.cu``) and K11 / K11f
-(``quantized_matmul_a8.cu``) kernels beside this build's same entries,
+(``quantized_matmul_dequant.cu``), K11 / K11f
+(``quantized_matmul_a8.cu``) and K12 (``grouped_matmul_a8.cu``) kernels
+beside this build's same entries,
 and this build's entries the other lacks (with their spill lines), then
 times, in turns (other, this, this, other), with ``chip_smoke.py``'s
 timing (CUDA events behind a device sleep, weights rotated past L2): K1 at
@@ -22,7 +23,9 @@ at the decode's M = 4 with its prologues, K2 at the shapes of ``PERF.md``
 §6 (B = 4, 32, 64 at S = 128, T = 256; B = 4 at S = 1,900, T = 2,048;
 DeepSeek-V2-Lite's q / k 192, v 128 at B = 4, S = 128), K8 at G=128 on
 Qwen1.5-MoE's and Mixtral-8x7B's routed shapes (Mp = 256, 288, 512, 2048)
-and at G=64 on DeepSeek-V2-Lite's (Mp = 768, 5056), K5 / K6 at the
+and at G=64 on DeepSeek-V2-Lite's (Mp = 768, 5056), K12 on Mixtral-8x7B's
+routed A8 shapes (Mp = 256 and 2048, its first kernel and split reduce
+included, and checked at bm = 96), K5 / K6 at the
 Mistral-7B-width Engine's shapes, K9 at M = 16, 128, 512 on the Mistral-7B
 projections at G = 32 and on DeepSeek-V2-Lite's seven at M = 512, G = 64,
 K11 and K11f at M = 128 and 512 on the Mistral-7B projections, and K3
@@ -53,7 +56,8 @@ build_all(all_kernels())
 regs = {}  # entry (build hash cut; K8's G=128 instantiation named as before G was a parameter)
 for k in all_kernels():
     if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention", "paged_attention",
-                  "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step"):
+                  "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step",
+                  "grouped_matmul_a8"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -77,6 +81,8 @@ with contextlib.redirect_stdout(io.StringIO()):
     rows += [cs.flash_row(cfg, gen, dev, **kw) for kw in flash]
     rows += cs.grouped_rows("qwen1.5-moe-a2.7b", PRESETS["qwen1.5-moe-a2.7b"], gen, dev)
     rows += cs.grouped_rows("mixtral-8x7b", PRESETS["mixtral-8x7b"], gen, dev)
+    rows += cs.grouped_rows("mixtral-8x7b", PRESETS["mixtral-8x7b"], gen, dev,
+                            cases=cs.A8_K12_CASES, tag="12a", a8=True)
     rows += cs.grouped_rows("deepseek-v2-lite", ds, gen, dev, group=cs.DS_G,
                             cases=[(cs.DS_GEN, cs.BATCH), (cs.DS_GEN, cs.BATCH * cs.PROMPT)])
     rows += cs.paged_attention_rows(cfg, gen, dev, cs.serving_trace(cfg.vocab_size))

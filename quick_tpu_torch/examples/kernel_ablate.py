@@ -1,4 +1,4 @@
-"""Time the wgmma bodies above 8 rows (K1, K9, K11f), K8 and K2 with parts
+"""Time the wgmma bodies above 8 rows (K1, K9, K11f), K8, K12 and K2 with parts
 of their bodies removed or their launch changed, on one card, to see where
 their time goes:
 
@@ -19,6 +19,8 @@ into a scratch directory and swapped into the wrapper for its timing:
   blocks with 4), ``pass_rows_32`` (32-row passes at bm = 32, three blocks
   an SM: an expert with two tiles is streamed twice), ``short_splits`` (no
   floor under a K split's length: ``MIN_SPLIT_STAGES`` = 1);
+- K12: ``no_mma``, ``no_x`` (no int8 rows copied; the cut is in the
+  skeleton it shares with K8, ``grouped_wgmma.cuh``);
 - K2: ``no_softmax`` (the scores go to p v as they are), ``one_row_tile``
   (16 rows a warp at every length).
 
@@ -27,8 +29,9 @@ turns with the unchanged source, at the Mistral-7B gate_up (K 4096, N
 28672): K1 at M = 128, 512, 4096, K9 (G = 32) and K11f at M = 128, 512; K2
 at B = 4, S = 1,900 and B = 32, S = 128 (Hq 32, Hkv 8, D 128); K8 at
 Mixtral-8x7B's decode (B = 4, Mp = 256) and Engine step (16 rows, Mp = 288),
-gate_up and down, and Qwen1.5-MoE's decode down (E = 60, K = 1408), on one
-random routing each.
+gate_up and down, and Qwen1.5-MoE's decode down (E = 60, K = 1408); K12 at
+Mixtral-8x7B's decode (Mp = 256) and B = 4 prefill (Mp = 2048), gate_up
+and down; on one random routing each.
 """
 import argparse
 import ctypes
@@ -67,14 +70,19 @@ _K2_SOFTMAX = """        if (masked) softmax_tile<true, kNT, kBK>(s[mt], o[mt], 
         else softmax_tile<false, kNT, kBK>(s[mt], o[mt], m[mt], l[mt], t0, tq, pos0, rw);"""
 _K2_MT = "      if ((long)((S + 31) / 32) * (Hq / 4) * B >= 2L * sms)"
 
-_K8_MMA = ["          mma_group<32, PR, G>(dot, a, xb, c);",
-           "          mma_group<PR, PR, G>(dot, a, xb, c);"]
-_K8_X = ("""        tma_load(xs + p * bm * 128, &maps.x, st * kKC, row, bar);
-        tma_load(xs + PR * 128 + p * bm * 128, &maps.x, st * kKC + 64, row, bar);""",
-         "mbar_arrive_expect_tx(bar, np * bm * (kKC * 2 + kCG * 4) + L::kW + 2 * L::kS);")
-_K8_STAGES = "  static constexpr int kStages = PR == 128 || 4 * kStage + 1088 <= 113 * 1024 ? 4 : 3;"
+_K8_MMA = ["      mma_group<32, PR, G>(dot, a, xb, C);",
+           "      mma_group<PR, PR, G>(dot, a, xb, C);"]
+# the skeleton K8 and K12 share (grouped_wgmma.cuh): the rows' copies, the
+# ring's stages, the blocks an SM, the pass height
+_GROUPED_X = [("""        tma_load(xs + p * bm * 128, &maps.x, st * kKC, row, bar);
+        if constexpr (B::kXBytes == 2)  // bf16 rows: depths 64 .. 127 in a second slice
+          tma_load(xs + PR * 128 + p * bm * 128, &maps.x, st * kKC + 64, row, bar);""", ""),
+              ("mbar_arrive_expect_tx(bar, np * bm * (kKC * B::kXBytes + kCG * 4) + L::kW + 2 * L::kS);",
+               "mbar_arrive_expect_tx(bar, np * bm * kCG * 4 + L::kW + 2 * L::kS);")]
+_K8_STAGES = "  static constexpr int kStages = PR == 128 ? 4 : ring_stages(kStage, B::kMaxStages);"
 _K8_BOUNDS = "__launch_bounds__(kThreads, PR == 64 ? 2 : 1)"
-_K8_PASS = "  if (bm == 128)\n    return launch_pg<128, G>"
+_K8_PASS = "  if (bm == 128)\n    return launch_pg<B, 128, G>"
+_K12_MMA = "  for (int s = 0; s < 4; ++s) WgmmaS8<W>::mma(d, a[s], desc_b(xb + s * 32), s > 0);"
 
 #: name -> (kernel, file, [(text, replacement)], {(module, attribute): value}
 #: set while the cut version runs)
@@ -99,18 +107,21 @@ VARIANTS = {
     "K2 no_softmax": (fa.KERNEL, "flash_attention.cu", [(_K2_SOFTMAX, "        l[mt][0] += 1.f;")]),
     "K2 one_row_tile": (fa.KERNEL, "flash_attention.cu", [(_K2_MT, "      if (B < 0)")]),
     "K8 no_mma": (gm.KERNEL, "grouped_matmul.cu", [
-        (m, "          dot[c] += __uint_as_float(a[c][0] ^ a[c][3]);") for m in _K8_MMA]),
-    "K8 no_x": (gm.KERNEL, "grouped_matmul.cu", [
-        (_K8_X[0], ""), (_K8_X[1], "mbar_arrive_expect_tx(bar, np * bm * kCG * 4 + L::kW + 2 * L::kS);")]),
-    "K8 one_block_6_stages": (gm.KERNEL, "grouped_matmul.cu", [
+        (m, "      dot[C] += __uint_as_float(a[0][0] ^ a[0][3]);") for m in _K8_MMA]),
+    "K8 no_x": (gm.KERNEL, "grouped_wgmma.cuh", _GROUPED_X),
+    "K8 one_block_6_stages": (gm.KERNEL, "grouped_wgmma.cuh", [
         (_K8_STAGES, "  static constexpr int kStages = PR == 128 ? 4 : 6;"),
         (_K8_BOUNDS, "__launch_bounds__(kThreads, 1)")]),
-    "K8 pass_rows_32": (gm.KERNEL, "grouped_matmul.cu", [
-        (_K8_STAGES, "  static constexpr int kStages = PR == 64 ? (4 * kStage + 1088 <= 113 * 1024 ? 4 : 3) : 4;"),
+    "K8 pass_rows_32": (gm.KERNEL, "grouped_wgmma.cuh", [
+        (_K8_STAGES, "  static constexpr int kStages = PR == 128 ? 4 : ring_stages(kStage, 4);"),
         (_K8_BOUNDS, "__launch_bounds__(kThreads, PR == 64 ? 2 : PR == 32 ? 3 : 1)"),
-        (_K8_PASS, "  if (bm == 32)\n    return launch_pg<32, G>(x, qw, s, zs, te, live, xsumT, partial, "
-                   "Mp, K, N, E, bm, splits, cps, out, st);\n  if (bm == 128)\n    return launch_pg<128, G>")]),
+        (_K8_PASS, "  if (bm == 32)\n    return launch_pg<B, 32, G>(x, qw, s, zs, te, live, sx, xsumT, "
+                   "partial, Mp, K, N, E, bm, splits, cps, out, st);\n  if (bm == 128)\n"
+                   "    return launch_pg<B, 128, G>")]),
     "K8 short_splits": (gm.KERNEL, "grouped_matmul.cu", [], {(gm, "MIN_SPLIT_STAGES"): 1}),
+    "K12 no_mma": (gm.KERNEL_A8, "grouped_matmul_a8.cu", [
+        (_K12_MMA, "  for (int s = 0; s < 4; ++s) d[s] += (int)(a[s][0] ^ a[s][3]);")]),
+    "K12 no_x": (gm.KERNEL_A8, "grouped_wgmma.cuh", _GROUPED_X),
 }
 
 
@@ -139,7 +150,7 @@ def build(name: str, kernel, file: str, edits, root: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", nargs="*", help="kernels to cut (K1, K9, K11f, K2); all by default")
+    ap.add_argument("--only", nargs="*", help="kernels to cut (K1, K9, K11f, K8, K12, K2); all by default")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke as cs
@@ -157,10 +168,11 @@ def main(argv=None):
 
     dq = cs.rand_qlinear(gen, dev, 4096, 28672, 2, group=32)
     moe = {}  # K8: "<model> <projection> Mp=..." -> (x, [weight stacks], te, live, bm)
-    if not args.only or "K8" in args.only:
+    moe_a8 = {}  # K12: the same, x as its int8 codes and row scales
+    if not args.only or "K8" in args.only or "K12" in args.only:
         from quick_tpu_torch.examples.basic_quant import PRESETS
 
-        for model, Ts, projs in (("mixtral-8x7b", (4, 16), ("gate_up", "down")),
+        for model, Ts, projs in (("mixtral-8x7b", (4, 16, 512), ("gate_up", "down")),
                                  ("qwen1.5-moe-a2.7b", (4,), ("down",))):
             cfg = PRESETS[model]
             E, kk, D = cfg.num_local_experts, cfg.num_experts_per_tok, cfg.hidden_size
@@ -176,8 +188,11 @@ def main(argv=None):
                     bm = gm.pick_grouped_bm(T * kk, E)
                     _, _, te, live, _ = gm.build_routing(sel, E, bm)
                     x = torch.randn((te.shape[0] * bm, K), generator=gen, device=dev)
-                    moe[f"{model} {proj} Mp={te.shape[0] * bm}"] = (
-                        x.to(torch.bfloat16), stacks, te, live, bm)
+                    name = f"{model} {proj} Mp={te.shape[0] * bm}"
+                    if T in (4, 16):
+                        moe[name] = (x.to(torch.bfloat16), stacks, te, live, bm)
+                    if T in (4, 512) and model == "mixtral-8x7b":
+                        moe_a8[name] = (qm.quantize_activations(x), stacks, te, live, bm)
 
     def times(kernel):
         if kernel is qm.KERNEL:
@@ -191,6 +206,9 @@ def main(argv=None):
         if kernel is gm.KERNEL:
             return {name: cs.device_ms(lambda i, c=c: gm.quantized_matmul_grouped_cuda(
                 c[0], *c[1][i % 2], c[2], c[3], c[4]), 20) for name, c in moe.items()}
+        if kernel is gm.KERNEL_A8:
+            return {name: cs.device_ms(lambda i, c=c: gm.launch_grouped_a8(
+                *c[0], *c[1][i % 2], c[2], c[3], c[4]), 20) for name, c in moe_a8.items()}
         if kernel is qm.KERNEL_A8:
             return {f"fused gate_up M={M}": cs.device_ms(
                 lambda i, x=x, ws=ws: qm.launch_a8(x, None, *ws[i % 2]), 10)

@@ -32,9 +32,13 @@ the rows are quantized per row to int8 (``quantize_activations``) and every
 tile's per-group dots run int8 x int8 -> int32, with the row scale applied
 to the f32 sum before the one bf16 rounding: ``csrc/grouped_matmul_a8.cu``
 (K12, ``_make_grouped_kernel_a8``) on CUDA tensors, the plain version of
-``_grouped_fallback(a8=True)`` (:146-200) on CPU tensors. As in the JAX
-package (:233), ``a8`` falls back to W4A16 where G != 128 or bm % 32 != 0
-(on the card that bm is then refused by K8 too).
+``_grouped_fallback(a8=True)`` (:146-200) on CPU tensors. K12 runs K8's
+skeleton (``csrc/grouped_wgmma.cuh``: the same blocks, tile scan, passes
+and ``grouped_plan``) with K11's int8 body; a tile height other than 32,
+64 or 128 goes to it as sub-tiles (``grouped_a8_tiles``), and
+``quantized_matmul_grouped_a8_split_plain`` models its arithmetic on its
+split plan. As in the JAX package (:233), ``a8`` falls back to W4A16 where
+G != 128 or bm % 32 != 0 (on the card that bm is then refused by K8 too).
 
 ``QUICK_TPU_MOE_BM`` (read at every call) overrides ``pick_grouped_bm`` as
 in the JAX package (:307-309); on the card a bm that K8 (32, 64 or 128) or
@@ -57,7 +61,7 @@ from quick_tpu_torch.ops.quantized_matmul import (
     quantized_matmul_a8_plain,
     quantized_matmul_plain,
 )
-from quick_tpu_torch.quantize.packing import PACK
+from quick_tpu_torch.quantize.packing import PACK, unpack_qtpu_tensor
 
 #: K8. ``KERNEL.launches`` counts its launches, ``launches_by_key`` by shape.
 KERNEL = CudaKernel(
@@ -68,8 +72,8 @@ KERNEL = CudaKernel(
 #: K12, the grouped W4A8 GEMM (``_make_grouped_kernel_a8``).
 KERNEL_A8 = CudaKernel(
     "grouped_matmul_a8.cu",
-    {"qtt_grouped_matmul_a8": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                               ptr, ptr]},
+    {"qtt_grouped_matmul_a8": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                               i32, i32, i32, ptr, ptr]},
 )
 GROUPS = (128, 64, 32)  # the group sizes K8 is built for
 #: K8's pass of one block, by tile height: the rows whose activations share
@@ -250,6 +254,65 @@ def quantized_matmul_grouped_a8_plain(
     return out.to(torch.bfloat16)
 
 
+def grouped_a8_tiles(
+    tile_expert: torch.Tensor, tile_live: torch.Tensor, bm: int,
+) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """K12's tile height and tile layout: bm's own where K8's skeleton
+    takes it (32, 64 or 128 rows), else each bm-row tile cut into u-row
+    sub-tiles (u = 128, 64 or 32, the largest that divides bm), each
+    carrying its tile's expert and live flag, so that any multiple of 32
+    (``QUICK_TPU_MOE_BM``) runs in the skeleton's passes. Device ops only
+    (no read-back), capturable."""
+    if bm in GROUPED_PASS_ROWS:
+        return bm, tile_expert, tile_live
+    u = next(h for h in (128, 64, 32) if bm % h == 0)
+    r = bm // u
+    return (u, tile_expert[:, None].expand(-1, r).reshape(-1),
+            tile_live[:, None].expand(-1, r).reshape(-1))
+
+
+def quantized_matmul_grouped_a8_split_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    tile_expert: torch.Tensor,
+    tile_live: torch.Tensor,
+    bm: int,
+    splits: int,
+    cps: int,
+) -> torch.Tensor:
+    """Plain model of K12's arithmetic on its split plan (``grouped_plan``:
+    ``splits`` slices of ``cps`` groups of 128): the rows quantized by
+    ``quantize_activations``; per live tile and split, each group's exact
+    integer dot folded in order as acc += f32(dot) * s - rowsum * zs in
+    f32; the splits' partials summed in split order, times the row scale,
+    rounded once to bf16; dead tiles zero. Reads the tile layout back to
+    the host: it serves the tests, never the card's main path."""
+    Mp, K = x.shape
+    G = KERNEL_GROUP
+    ng = K // G
+    xq, sx = quantize_activations(x)
+    xg = xq.to(torch.float32).reshape(Mp, ng, G)
+    rowsum = xg.sum(-1)  # [Mp, ng], exact
+    out = torch.zeros((Mp, qweight.shape[-1]), dtype=torch.float32, device=x.device)
+    te, live = tile_expert.tolist(), tile_live.tolist()
+    for i, (e, lv) in enumerate(zip(te, live)):
+        if not lv:
+            continue
+        rows = slice(i * bm, (i + 1) * bm)
+        codes = unpack_qtpu_tensor(qweight[e], G).to(torch.float32).reshape(ng, G, -1)
+        total = torch.zeros_like(out[rows])
+        for z in range(splits):
+            acc = torch.zeros_like(total)
+            for g in range(z * cps, min(ng, (z + 1) * cps)):
+                dot = xg[rows, g] @ codes[g]  # exact: below 2^24
+                acc = acc + (dot * scales[e, g] - rowsum[rows, g, None] * zeros_x_scales[e, g])
+            total = total + acc
+        out[rows] = total * sx[rows]
+    return out.to(torch.bfloat16)
+
+
 def launch_grouped_a8(
     xq: torch.Tensor,
     sx: torch.Tensor,
@@ -263,7 +326,11 @@ def launch_grouped_a8(
     """Launch K12: xq [Mp, K] int8 codes of the expert-sorted rows, sx
     [Mp, 1] f32 row scales, qweight int32 [E, K // 8, N], scales /
     zeros_x_scales f32 [E, K // 128, N], tile_expert / tile_live int32
-    [Mp // bm]; returns [Mp, N] bf16. G = 128, bm % 32 == 0."""
+    [Mp // bm]; returns [Mp, N] bf16. G = 128, bm % 32 == 0 (heights other
+    than 32, 64 and 128 as sub-tiles, ``grouped_a8_tiles``); K split by
+    ``grouped_plan``. One launch counts the row-sum kernel, the body and
+    the split reduce. An N that is no multiple of 4 is padded at the call
+    (``pad_columns``)."""
     dev = xq.device
     Mp, K = xq.shape
     E, _, N = qweight.shape
@@ -272,7 +339,7 @@ def launch_grouped_a8(
     if Mp % bm or K % G:
         raise ValueError(f"K12 takes Mp % bm == 0, K % 128 == 0: bm={bm} Mp={Mp} K={K}")
     xq = xq.contiguous()
-    if xq.data_ptr() % 16:  # rows are read in 16-byte chunks
+    if xq.data_ptr() % 16:  # rows are read in 16-byte chunks and tensor copies
         xq = xq.clone()
     sx = sx.reshape(Mp).contiguous()
     check(xq, "xq", torch.int8, (Mp, K))
@@ -282,14 +349,28 @@ def launch_grouped_a8(
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (E, K // G, N))
     check(tile_expert, "tile_expert", torch.int32, (Mp // bm,))
     check(tile_live, "tile_live", torch.int32, (Mp // bm,))
+    N_out = N
+    if N % 4:
+        qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
+        N = qweight.shape[-1]
+    if any(t.data_ptr() % 16 for t in (qweight, scales, zeros_x_scales)):
+        qweight, scales, zeros_x_scales = (t.clone() for t in (qweight, scales, zeros_x_scales))
+    u, te, live = grouped_a8_tiles(tile_expert, tile_live, bm)
+    splits, cps = grouped_plan(E, Mp // u, K, N, u, sm_count(dev.index))
+    # one f32 scratch: the [K / 128, Mp rounded up to 4] row sums of the
+    # codes (16-byte rows, first), then the [splits, Mp, N] partials
+    n_rs = K // G * (-(-Mp // 4) * 4)
+    n_part = splits * Mp * N if splits > 1 else 0
+    scratch = torch.empty(n_rs + n_part, dtype=torch.float32, device=dev)
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=dev)
     KERNEL_A8.launch(
-        "qtt_grouped_matmul_a8", launch_key(Mp, K, N, E, bm),
+        "qtt_grouped_matmul_a8", launch_key(Mp, K, N_out, E, bm),
         xq.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-        zeros_x_scales.data_ptr(), tile_expert.data_ptr(), tile_live.data_ptr(),
-        Mp, K, N, E, bm, out.data_ptr(), stream_ptr(dev),
+        zeros_x_scales.data_ptr(), te.data_ptr(), live.data_ptr(), scratch.data_ptr(),
+        scratch[n_rs:].data_ptr() if n_part else None, Mp, K, N, E, u, splits, cps,
+        out.data_ptr(), stream_ptr(dev),
     )
-    return out
+    return out if N == N_out else out[:, :N_out].contiguous()
 
 
 def launch_key(Mp: int, K: int, N: int, E: int, bm: int, G: int = KERNEL_GROUP) -> str:

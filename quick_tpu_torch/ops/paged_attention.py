@@ -16,7 +16,9 @@ K5 splits each slot's key range over blocks (``split_plan``, from the
 shapes alone) and merges the splits' f32 partials in split order, as K3
 does; ``paged_decode_attention_split_plain`` is the plain model of that
 arithmetic (p rounded against each block's running max), which the tests
-hold against the Pallas kernel.
+hold against the Pallas kernel. K6 does the same over a chunk's (position,
+head) rows, 64 rows a block (``chunk_split_plan``, ``chunk_block_range``),
+merging row by row; ``paged_chunk_attention_split_plain`` models it.
 
 INT8 pages (``kv_scales``, the [L, P, 8, Hkv*page] f32 tiles of
 ``PagedKVCache``) go to ``csrc/paged_attention_int8.cu`` on the card. Their
@@ -52,8 +54,8 @@ KERNEL = CudaKernel(
             i32, i32, i32, i32, f32, i32, f32, ptr,
         ],
         "qtt_paged_chunk_attention": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-            i32, i32, i32, f32, i32, f32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            i32, i32, i32, i32, i32, f32, i32, f32, ptr,
         ],
     },
 )
@@ -75,7 +77,9 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30  # the Pallas kernels' mask value
 TILE = decode_attention.TILE  # keys per tile of K5's blocks
 ROWS = 16  # query heads a K5 block (one m16 tile): gq = 32 takes two blocks a kv head
+CHUNK_ROWS = 64  # (position, head) rows a K6 block: four m16 tiles, two warps each
 _COUNTERS = ZeroedWords("K5")  # its merge counters, zero between launches
+_CHUNK_COUNTERS = ZeroedWords("K6")
 
 
 def launch_key(B: int, S: Optional[int], Hq: int, Hkv: int, page: int, D: int,
@@ -205,6 +209,108 @@ def paged_decode_attention_split_plain(
             acc = acc + w * a
         out[b] = acc / torch.where(lt == 0.0, torch.ones_like(lt), lt)
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def chunk_split_plan(B: int, Hkv: int, S: int, gq: int, T: int, sms: int) -> Tuple[int, int]:
+    """(chunk, splits) of K6's key range [0, T = n_pt * page): K7's plan
+    over the B x Hkv x ceil(S * gq / CHUNK_ROWS) blocks of one split, as
+    K5's over its head groups. From the shapes only, never from the starts
+    on the card: a captured launch replays it."""
+    return decode_attention.split_plan(B, Hkv * -(-S * gq // CHUNK_ROWS), T, sms)
+
+
+def chunk_block_range(split: int, chunk: int, start: int, rows: Tuple[int, int], gq: int,
+                      window: Optional[int], n_keys: int) -> Tuple[int, int]:
+    """The keys [lo, hi) that K6's block of (position, head) rows
+    [rows[0], rows[1]) walks in ``split``: from its first row's window
+    start to its last row's position, inside the split's chunk and the
+    table; empty when lo >= hi."""
+    first, last = start + rows[0] // gq, start + (rows[1] - 1) // gq
+    lo, _ = split_range(split, chunk, first + 1, window, n_keys)
+    _, hi = split_range(split, chunk, last + 1, None, n_keys)
+    return lo, hi
+
+
+def paged_chunk_attention_split_plain(
+    q, k_pages, v_pages, block_table, starts, layer, scale, alibi_slopes=None,
+    window=None, logit_softcap=None, chunk: int = TILE, splits: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain model of K6's split-and-merge arithmetic (the arguments of
+    ``paged_chunk_attention_plain``): per slot, split and (position, head)
+    row, the row's visible keys in the split (``split_range`` at the row's
+    position) in 64-key tiles whose two 32-key halves run apart (the
+    kernel's two warps a row tile), each an online softmax in f32, q . k in
+    the pages' dtype times ``scale``, p rounded to the pages' dtype against
+    the half's running max before p @ v, the halves combined at the end;
+    then, row by row, the splits in which the row sees a key merged in
+    split order, 0 where none does. Returns [B, S, Hq, D]."""
+    k = gather_pages(k_pages, block_table, layer).to(torch.float32)  # [B, Hkv, T, D]
+    v = gather_pages(v_pages, block_table, layer)
+    B, S, Hq, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    gq = Hq // Hkv
+    splits = -(-T // chunk) if splits is None else splits
+    # rows of kv head h: (position i, head j) -> [B, Hkv, S * gq, D]
+    qb = q.to(k_pages.dtype).to(torch.float32).reshape(B, S, Hkv, gq, D)
+    qb = qb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * gq, D)
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(q.device, torch.float32).reshape(Hkv, 1, gq).expand(
+            Hkv, S, gq).reshape(Hkv, S * gq, 1)
+    out = torch.zeros((B, Hkv, S * gq, D), dtype=torch.float32, device=q.device)
+    rows = torch.arange(S * gq, device=q.device)
+    half = TILE // 2
+    for b, start in enumerate(int(n) for n in starts):
+        qpos = start + rows // gq  # [S * gq]
+        parts = []
+        for sp in range(splits):
+            rng = [split_range(sp, chunk, int(p) + 1, window, T) for p in qpos.tolist()]
+            lo = torch.tensor([r[0] for r in rng], device=q.device)
+            hi = torch.tensor([r[1] for r in rng], device=q.device)
+            live = lo < hi
+            if not bool(live.any()):
+                continue
+            states = []
+            for kh in range(2):  # each tile's two 32-key halves, apart until the end
+                m = torch.full((Hkv, S * gq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((Hkv, S * gq, D), dtype=torch.float32, device=q.device)
+                for t0 in range(int(lo[live].min()) // TILE * TILE + kh * half, int(hi[live].max()),
+                                TILE):
+                    t1 = min(t0 + half, T)
+                    s = torch.einsum("krd,ktd->krt", qb[b], k[b, :, t0:t1]) * scale
+                    if logit_softcap:
+                        s = logit_softcap * torch.tanh(s / logit_softcap)
+                    pos = torch.arange(t0, t1, device=q.device)
+                    if slopes is not None:
+                        s = s + slopes * (pos[None, :] - qpos[:, None]).to(torch.float32)
+                    ok = (pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None])
+                    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                    p = torch.where(ok, torch.exp(s - m_new), torch.zeros_like(s))
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    acc = acc * alpha + torch.einsum(
+                        "krt,ktd->krd", p.to(v.dtype).to(torch.float32),
+                        v[b, :, t0:t1].to(torch.float32))
+                    m = m_new
+                states.append((m, l, acc))
+            (m0, l0, a0), (m1, l1, a1) = states
+            m = torch.maximum(m0, m1)
+            w0, w1 = torch.exp(m0 - m), torch.exp(m1 - m)
+            parts.append((live[None, :, None], m, l1 * w1 + l0 * w0, a1 * w1 + a0 * w0))
+        big = torch.full((Hkv, S * gq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        for live, m, _, _ in parts:
+            big = torch.where(live, torch.maximum(big, m), big)
+        lt = torch.zeros_like(big)
+        acc = torch.zeros((Hkv, S * gq, D), dtype=torch.float32, device=q.device)
+        for live, m, l, a in parts:
+            w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+            lt = lt + l * w
+            acc = acc + w * a
+        out[b] = acc / torch.where(lt == 0.0, torch.ones_like(lt), lt)
+    out = out.reshape(B, Hkv, S, gq, D).permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+    return out.to(q.dtype)
 
 
 def paged_chunk_attention_plain(
@@ -402,17 +508,30 @@ def paged_chunk_attention_cuda(
     q, k_pages, v_pages, block_table, starts, layer, scale, alibi_slopes=None,
     window=None, logit_softcap=None,
 ) -> torch.Tensor:
-    """Launch K6 on CUDA tensors; same arguments as the plain version."""
+    """Launch K6 on CUDA tensors; same arguments as the plain version. The
+    key range is split over blocks by ``chunk_split_plan``; the partials
+    are allocated here, and the merge counters live on the device
+    (``_CHUNK_COUNTERS``, made by an eager launch before any capture): one
+    K6 launch at a time on a device."""
     B, Hq, Hkv, page, D, P, n_pt, slopes = _check_common(
         q, k_pages, v_pages, block_table, starts, layer, alibi_slopes)
     S = q.shape[1]
+    gq = Hq // Hkv
+    if q.data_ptr() % 16:  # the q rows are copied in 16-byte chunks
+        q = q.clone()
+    chunk, splits = chunk_split_plan(B, Hkv, S, gq, n_pt * page, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    rows = B * Hq * S * splits  # partial rows, [B, Hkv, S * gq, splits]
+    part = torch.empty(rows * (D + 2) if splits > 1 else 2, dtype=torch.float32,
+                       device=q.device)
+    counters = _CHUNK_COUNTERS.get(q.device, B * Hkv * -(-S * gq // CHUNK_ROWS))
     KERNEL.launch(
         "qtt_paged_chunk_attention", launch_key(B, S, Hq, Hkv, page, D, n_pt),
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), starts.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, S, Hq, Hkv, page, D, P, n_pt, layer, float(scale), int(window or 0),
+        part.data_ptr(), part[rows * D if splits > 1 else 0:].data_ptr(), counters.data_ptr(),
+        B, S, Hq, Hkv, page, D, P, n_pt, layer, chunk, splits, float(scale), int(window or 0),
         float(logit_softcap or 0.0), stream_ptr(q.device),
     )
     return out

@@ -4,7 +4,8 @@ also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
 K5q / K6q INT8 paged attention, K9 small-group GEMM, K10 / K10q paged MLA
 decode attention, K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
-grouped W4A8 MoE GEMM, K13 RMSNorm, K14 the decode layer tail) against
+grouped W4A8 MoE GEMM (on build_routing's layouts, at bm = 96, split,
+graphed), K13 RMSNorm, K14 the decode layer tail) against
 their plain PyTorch versions,
 and the decode step replayed from a CUDA graph (generate() and the Engine)
 against the eager step, on a card. Skipped without one. Imports no
@@ -931,6 +932,59 @@ def test_paged_decode_graph_replays_at_moving_lengths(rng, cuda_device):
         np.testing.assert_array_equal(f32(out), f32(want))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_EDGE_CASES))
+@pytest.mark.parametrize("Hq,Hkv,D,page,n_pt", [(32, 1, 256, 16, 8), (32, 8, 128, 64, 16),
+                                                (8, 2, 64, 16, 6)])
+def test_paged_chunk_split_kernel_edges(rng, cuda_device, case, Hq, Hkv, D, page, n_pt):
+    """K6 split over blocks against its plain version (gather + einsum) and
+    its split model, with 16-query chunks starting fresh, crossing a page,
+    on a page boundary, and ending at the table; gq = 32 at D = 256 (eight
+    64-row blocks a kv head)."""
+    S, T = 16, n_pt * page
+    starts = [0, page - 5, page, T - S]
+    cpu, gpu = _paged_attention_case(rng, cuda_device, len(starts), Hq, Hkv, D, page, n_pt,
+                                     starts, S=S)
+    kw = dict(K5_EDGE_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL.launches
+    out = tpa.paged_chunk_attention(*gpu, layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL.launches == before + 1
+    ref = tpa.paged_chunk_attention(*cpu, layer=1, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    chunk, splits = tpa.chunk_split_plan(len(starts), Hkv, S, Hq // Hkv, T,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+    model = tpa.paged_chunk_attention_split_plain(
+        *(t.to(cuda_device) for t in cpu), 1, D ** -0.5, chunk=chunk, splits=splits,
+        **{k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+    np.testing.assert_allclose(f32(out), f32(model), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_chunk_graph_replays_at_moving_starts(rng, cuda_device):
+    """K6 captured in a CUDA graph and replayed after the starts moved in
+    place: equal to eager launches at those starts, bit for bit (the merge
+    counters are left at zero by every launch)."""
+    Hq, Hkv, D, page, n_pt, S = 32, 8, 128, 64, 16, 16
+    cpu, gpu = _paged_attention_case(rng, cuda_device, 8, Hq, Hkv, D, page, n_pt,
+                                     [37 * i for i in range(8)], S=S)
+    q, kp, vp, bt, st = gpu
+    out = tpa.paged_chunk_attention(q, kp, vp, bt, st, layer=1)  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_chunk_attention(q, kp, vp, bt, st, layer=1)
+    for shift in (5, 300, 0):
+        new = torch.tensor([min(n_pt * page - S, 37 * i + shift) for i in range(8)],
+                           dtype=torch.int32, device=cuda_device)
+        st.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpa.paged_chunk_attention(q, kp, vp, bt, new.clone(), layer=1)
+        np.testing.assert_array_equal(f32(out), f32(want))
+
+
 # ---------------------------------------------------------- MLA latent pages
 
 def _randn(rng, *shape):
@@ -1243,6 +1297,86 @@ def test_grouped_a8_kernel_matches_plain(rng, cuda_device, case):
     tgm.quantized_matmul_grouped(dev_args[0], qw64, s64, s64, *dev_args[4:], bm, group_size=64,
                                  a8=True)
     assert tgm.KERNEL.launches == k8 + 1 and tgm.KERNEL_A8.launches == before + 1
+
+
+#: (token expert choices or (tile experts, live flags), E, bm, K, N): K12
+#: on K8's skeleton. bm = 96 (QUICK_TPU_MOE_BM) as 32-row sub-tiles, with
+#: and without a K split; an expert chosen by several decode tokens with a
+#: K split; 128-row passes with a split; every tile dead
+K12_ROUTES = {
+    "bm96": (([0, 0, 2, 3, 3, 1], [1, 1, 1, 1, 1, 0]), 4, 96, 512, 256),
+    "bm96_split": (([0, 0, 2, 3, 3, 1], [1, 1, 1, 1, 1, 0]), 4, 96, 4096, 256),
+    "decode_duplicates_split": ([[0, 1], [0, 2], [3, 1], [0, 5]], 8, 32, 4096, 512),
+    "bm128_split": (([1, 1, 3], [1, 1, 0]), 4, 128, 4096, 200),
+    "all_dead": (([0, 0, 0], [0, 0, 0]), 4, 64, 512, 256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K12_ROUTES))
+def test_grouped_a8_kernel_routes(rng, cuda_device, name):
+    """K12 against its plain version and against the plain model of its
+    split fold on the wrapper's plan, within 1e-2 x (1 + |ref|), the whole
+    output compared, dead tiles all zeros, one launch a call, two launches
+    equal bit for bit."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    layout, E, bm, K, N = K12_ROUTES[name]
+    if isinstance(layout, tuple):
+        te, live = (torch.tensor(a, dtype=torch.int32) for a in layout)
+    else:
+        _, _, te, live, _ = tgm.build_routing(torch.tensor(layout), E, bm)
+        assert int(torch.bincount(te).max()) >= 2  # an expert chosen by several tokens
+    x = torch.from_numpy(rng.standard_normal((te.shape[0] * bm, K)).astype(np.float32))
+    args = [x.to(torch.bfloat16), *_grouped_weights(rng, E, K, N, 128), te, live]
+    dev_args = [a.to(cuda_device) for a in args]
+    u, te_u, _ = tgm.grouped_a8_tiles(te, live, bm)
+    splits, cps = tgm.grouped_plan(E, te_u.numel(), K, -(-N // 4) * 4, u,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (splits > 1) == name.endswith("split")
+    before = tgm.KERNEL_A8.launches
+    out = tgm.quantized_matmul_grouped(*dev_args, bm, a8=True)
+    again = tgm.quantized_matmul_grouped(*dev_args, bm, a8=True)
+    torch.cuda.synchronize()
+    assert tgm.KERNEL_A8.launches == before + 2
+    assert torch.equal(out, again)
+    _within(out, tgm.quantized_matmul_grouped_a8_plain(*dev_args, bm), 1e-2)
+    _within(out, tgm.quantized_matmul_grouped_a8_split_plain(*dev_args, bm, splits, cps), 1e-2)
+    assert not f32(out)[np.repeat(live.numpy() == 0, bm)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [32, 96])
+def test_grouped_a8_graph_replays_after_routing_moves(rng, cuda_device, bm):
+    """K12 captured in a CUDA graph, then replayed after the tile layout
+    (tile experts, live flags) and the rows changed in place: equal to an
+    eager launch on the new layout, bit for bit."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    E, K, N = 8, 512, 256
+    w = [t.to(cuda_device) for t in _grouped_weights(rng, E, K, N, 128)]
+
+    def layout(seed):
+        g = torch.Generator().manual_seed(seed)
+        sel = torch.argsort(torch.rand((4, E), generator=g), dim=1)[:, :2]
+        _, _, te, live, _ = tgm.build_routing(sel, E, bm)
+        x = torch.randn((te.shape[0] * bm, K), generator=g).to(torch.bfloat16)
+        return x.to(cuda_device), te.to(cuda_device), live.to(cuda_device)
+
+    x, te, live = layout(0)
+    out = tgm.quantized_matmul_grouped(x, *w, te, live, bm, a8=True)  # eager: builds
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tgm.quantized_matmul_grouped(x, *w, te, live, bm, a8=True)
+    for seed in (1, 2):
+        x2, te2, live2 = layout(seed)
+        x.copy_(x2)
+        te.copy_(te2)
+        live.copy_(live2)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tgm.quantized_matmul_grouped(x2, *w, te2, live2, bm, a8=True)
+        np.testing.assert_array_equal(f32(out), f32(want))
 
 
 @pytest.mark.cuda
