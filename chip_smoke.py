@@ -62,7 +62,9 @@ Phases (any failure exits non-zero):
      2-layer full-width check over INT8 pages, as phase 6's paged one,
      with the written codes and scale tiles held to the CPU scatter's;
  10. small-group W4A16: (a) K9 (small-group GEMM) against its plain version
-     and timed at the g=32 Mistral-7B shapes and Qwen1.5-MoE's g=64
+     (at the g=32 shapes at every decode row count, M = 1-8, one 8-token
+     wgmma tile) and timed at the g=32 Mistral-7B shapes (M = 1 and 4 the
+     decode rows) and Qwen1.5-MoE's g=64
      attention and shared-expert shapes, K8 at G=64 at Qwen1.5-MoE's
      routed shapes; (b) a Q4_K GGUF file at Mistral-7B width (GGUF_LAYERS
      layers) written under build/ by the test writer (tests/_torch_port.py),
@@ -88,7 +90,8 @@ Phases (any failure exits non-zero):
      Mistral-7B projections (M = 512, 128 and a ragged 200; K11f equal to
      K11 bit for bit) and K11 at DeepSeek-V2-Lite's g=64 shapes, K12
      (grouped W4A8) at Mixtral-8x7B's decode and prefill and at bm = 96
-     (QUICK_TPU_MOE_BM's 32-row sub-tiles), K13 (RMSNorm) at
+     (QUICK_TPU_MOE_BM's 32-row sub-tiles; also timed, with its bound and
+     torch._grouped_mm), K13 (RMSNorm) at
      the paths' shapes and on the strided latent slice, each against its
      plain version; (b) their times,
      bounds and yardsticks, and the aten calls per layer and busy share of
@@ -1911,20 +1914,35 @@ def grouped_rows(name, cfg, gen, dev, group=128, cases=None, tag="8", a8=False):
                 **extra,
             ))
             del x, out, ref
-        if a8:  # bm = 96 (QUICK_TPU_MOE_BM): the skeleton's 32-row sub-tiles
+        if a8:  # bm = 96 (QUICK_TPU_MOE_BM): the skeleton's 32-row sub-tiles, held and
+            # timed as above (no path of the script runs it)
             for T in (BATCH, BATCH * PROMPT):
                 sel = torch.argsort(torch.rand((T, E), generator=gen, device=dev), dim=1)[:, :kk]
-                _, _, te, live, _ = gm.build_routing(sel, E, 96)
+                _, pos, te, live, _ = gm.build_routing(sel, E, 96)
                 x = torch.randn((te.shape[0] * 96, K), generator=gen, device=dev).to(torch.bfloat16)
                 xq, sx = quantize_activations(x)
                 out = gm.launch_grouped_a8(xq, sx, qw, s, zs, te, live, 96)
-                max_err(out, gm.quantized_matmul_grouped_a8_plain(x, qw, s, zs, te, live, 96),
-                        TOL[kname], f"{label} {proj} T={T} "
-                        f"{gm.launch_key(te.shape[0] * 96, K, N, E, 96)}, "
-                        f"{int(live.sum())}/{te.shape[0]} live tiles")
+                ref = gm.quantized_matmul_grouped_a8_plain(x, qw, s, zs, te, live, 96)
+                key = gm.launch_key(te.shape[0] * 96, K, N, E, 96)
+                max_err(out, ref, TOL[kname],
+                        f"{label} {proj} T={T} {key}, {int(live.sum())}/{te.shape[0]} live tiles")
                 if bool((out[(live == 0).repeat_interleave(96)] != 0).any()):
                     fail(f"{label} bm=96: a dead tile is not all zeros")
-                del x, xq, out
+                experts = int(torch.unique(te[live.bool()]).numel())
+                copies = max(1, min(8, math.ceil(2 * L2_BYTES / (experts * per_expert))))
+                stacks = [(qw, s, zs)] + [(qw.clone(), s.clone(), zs.clone())
+                                          for _ in range(copies - 1)]
+                n = 20 if T <= 16 else 5
+                ms = device_ms(lambda i: gm.launch_grouped_a8(
+                    xq, sx, *stacks[i % copies], te, live, 96), n)
+                del stacks
+                lib_ms = grouped_mm_ms(x, sel, pos, wd, ref, n, experts)
+                nbytes = experts * per_expert + T * kk * (K + 4 + 2 * N) + 2 * te.shape[0] * 4
+                b_ms, b_by = bound(nbytes, 2.0 * T * kk * K * N, INT8_OPS)
+                lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+                print(f"  {key}: {ms * 1e3:.1f} us ({copies} weight copies; bound "
+                      f"{b_ms * 1e3:.1f} us by {b_by}), torch._grouped_mm on bf16 weights {lib}")
+                del x, xq, out, ref
         del qw, s, zs, wd
         torch.cuda.empty_cache()
     return out_rows
@@ -2467,10 +2485,12 @@ GGUF_PATH = ROOT / "build" / "chip_smoke_mistral_q4_k.gguf"
 GGUF_SPREAD = 0.02
 #: K9's (path, M) at the g=32 model's four projections: generate() at B=4
 #: (prefill 4 x 128, decode 4) and the 128/128 protocol at B=1 (prefill
-#: 128, decode 1); M=16 (the Engine's decode rows, not run at g=32) is
-#: checked only
+#: 128, decode 1); the other decode row counts (M = 2, 3, 5-8, one 8-token
+#: tile) and M=16 (the Engine's decode rows, not run at g=32) are checked
+#: only
 GGUF_K9_CASES = (("gguf_generate", BATCH * PROMPT), ("gguf_generate", BATCH),
-                 ("gguf_protocol", PROTOCOL_CTX), ("gguf_protocol", 1), (None, 16))
+                 ("gguf_protocol", PROTOCOL_CTX), ("gguf_protocol", 1),
+                 *((None, M) for M in (2, 3, 5, 6, 7, 8)), (None, 16))
 #: Qwen1.5-MoE at g=64: K9 runs attention and the shared expert, K8 the
 #: routed experts, at generate()'s decode (B=4) and prefill (4 x 128) rows;
 #: K8 at T=16 (60 experts, most without a token) is checked only

@@ -1,7 +1,6 @@
 // Online-softmax attention over one staged K/V tile, for the rows a warp
-// owns, on the CUDA cores. Used by the dense-cache decode kernel (K7) and
-// the INT8 paged chunk kernel (K6q, with per-key scales); K2, K3, K5 and
-// K6 run their tiles on the tensor cores instead.
+// owns, on the CUDA cores. Used by the dense-cache decode kernel (K7); K2,
+// K3, K5, K6 and K6q run their tiles on the tensor cores instead.
 //
 // A tile holds BK = 64 keys in shared memory: K as bf16 pairs with a padded
 // row stride (D/2 + 1 words) so that 32 lanes reading 32 different keys hit
@@ -98,20 +97,14 @@ struct RowRule {
 // q: the warp's R rows in shared memory, f32, row stride D; the score is
 // dot(q, k) * score_mul, then softcap (cap * tanh(s / cap) when softcap > 0),
 // then the ALiBi bias, then the causal / length / window mask.
-// kScaled (INT8 pages, K6q): the tile holds codes converted to bf16 and
-// per-key scales kscale / vscale [kBK] in shared memory; the score is
-// multiplied by kscale after score_mul, and each probability by vscale
-// before it is rounded to bf16 (the running sum l keeps the unscaled p).
 // DV: the width of V and of the rows' state (D unless given).
-template <int D, int R, bool kScaled = false, int DV = D>
+template <int D, int R, int DV = D>
 __device__ __forceinline__ void attend_tile(RowState<DV, R>& st,
                                             const float* q,
                                             const RowRule (&rule)[R],
                                             const uint32_t* ks, const bf16* vs,
                                             int t0, float score_mul,
-                                            float softcap, int lane,
-                                            const float* kscale = nullptr,
-                                            const float* vscale = nullptr) {
+                                            float softcap, int lane) {
   constexpr int kDPL = DV / 32;
   float s[R][kKeysPerLane];
 #pragma unroll
@@ -143,7 +136,6 @@ __device__ __forceinline__ void attend_tile(RowState<DV, R>& st,
     for (int jj = 0; jj < kKeysPerLane; ++jj) {
       const int t = t0 + lane + 32 * jj;
       float sc = s[r][jj] * score_mul;
-      if constexpr (kScaled) sc *= kscale[lane + 32 * jj];
       if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
       sc += rule[r].slope * (float)(t - rule[r].qpos);
       ok[jj] = t <= rule[r].qpos && t < rule[r].klen &&
@@ -182,7 +174,6 @@ __device__ __forceinline__ void attend_tile(RowState<DV, R>& st,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float pj = __shfl_sync(0xffffffffu, p[r][jj], src);
-        if constexpr (kScaled) pj *= vscale[j];
         pj = round_bf16(pj);
 #pragma unroll
         for (int i = 0; i < kDPL; ++i) st.acc[r][i] = fmaf(pj, vf[i], st.acc[r][i]);

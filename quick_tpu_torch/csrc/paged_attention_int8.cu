@@ -27,7 +27,7 @@
 // What K6q computes (the Pallas INT8 chunk arithmetic): codes convert
 // exactly to bf16; s = (q_bf16 . k) * scale * k_scale[t]; probabilities are
 // multiplied by v_scale[t] before they are rounded to bf16 for p @ v; the
-// rest is K6 (attention_tile.cuh's online softmax over 64-key tiles).
+// rest is K6.
 //
 // What bounds them on the H100: bytes — the codes up to each slot's length
 // (2 * length * Hkv * D bytes per slot), rows 0-1 of each read page's scale
@@ -43,18 +43,20 @@
 // page] (so the context dot also runs along dp4a's four bytes), scores
 // every (query head, key) pair with dp4a, lets one warp per query head run
 // the softmax and the p quantization, then accumulates (query head, dim)
-// outputs with dp4a. K6q: K6's kernel with int8 staging and per-key scales.
+// outputs with dp4a. K6q: K6's key-split tensor-core kernel, its int8
+// instantiation (paged_chunk.cuh): the same plan, rows, splits and merge
+// as K6 over the codes, staged with 16-byte cp.async at half of K6's
+// bytes and converted exactly to bf16 in shared memory, with each tile's
+// k and v scales beside its page ids.
 // Not carried over from the TPU: the static block-diagonal head mask (a
 // block holds one kv head), the clamped index maps and the pages-per-step
 // tuning; each block reads its own length / start and block-table row.
-#include "attention_tile.cuh"
+#include "paged_chunk.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunkRowsPerWarp = 4;
-constexpr int kBQ = kWarps * kChunkRowsPerWarp;  // K6q query rows per block
 constexpr int kMaxPage = 256;                     // K5q: page / 32 <= 8 per lane
 
 __device__ __forceinline__ int8_t quantize_i8(float x, float s) {
@@ -239,132 +241,6 @@ paged_decode_int8_kernel(const bf16* __restrict__ q,
   }
 }
 
-// ----------------------------------------------------------------- K6q chunk
-// Stage keys [t0, t0 + kBK) of kv head h of one slot as attn::stage_kv does,
-// codes converted to bf16, and their k / v scales; keys at or past t_end are
-// zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_paged_int8(
-    const int8_t* __restrict__ k_pages, const int8_t* __restrict__ v_pages,
-    const float* __restrict__ kv_scales, const int* __restrict__ bt,
-    size_t layer_pages, int Hkv, int h, int page, int t0, int t_end,
-    uint32_t* ks, bf16* vs, float* ksc, float* vsc) {
-  constexpr int kChunks = D / 16;  // 16-byte chunks of codes per row
-  for (int c = threadIdx.x; c < attn::kBK * kChunks; c += blockDim.x) {
-    const int j = c / kChunks, d16 = (c % kChunks) * 16;
-    const int t = t0 + j;
-    uint4 k4 = make_uint4(0, 0, 0, 0), v4 = make_uint4(0, 0, 0, 0);
-    if (t < t_end) {
-      const size_t pg = layer_pages + bt[t / page];
-      const size_t off = ((pg * Hkv + h) * page + t % page) * D + d16;
-      k4 = *reinterpret_cast<const uint4*>(k_pages + off);
-      v4 = *reinterpret_cast<const uint4*>(v_pages + off);
-    }
-    const int8_t* kb = reinterpret_cast<const int8_t*>(&k4);
-    const int8_t* vb = reinterpret_cast<const int8_t*>(&v4);
-    uint32_t* kr = ks + j * attn::Tile<D>::kStride + d16 / 2;
-    __nv_bfloat162* vr = reinterpret_cast<__nv_bfloat162*>(vs + j * D + d16);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const __nv_bfloat162 kk = __floats2bfloat162_rn((float)kb[2 * e], (float)kb[2 * e + 1]);
-      kr[e] = *reinterpret_cast<const uint32_t*>(&kk);
-      vr[e] = __floats2bfloat162_rn((float)vb[2 * e], (float)vb[2 * e + 1]);
-    }
-  }
-  const int T = Hkv * page;
-  for (int j = threadIdx.x; j < attn::kBK; j += blockDim.x) {
-    const int t = t0 + j;
-    float kscale = 0.f, vscale = 0.f;
-    if (t < t_end) {
-      const float* tile = kv_scales + (layer_pages + bt[t / page]) * 8 * T +
-                          (size_t)h * page + t % page;
-      kscale = tile[0];
-      vscale = tile[T];
-    }
-    ksc[j] = kscale;
-    vsc[j] = vscale;
-  }
-}
-
-template <int D>
-constexpr size_t chunk_smem() {
-  return (size_t)kBQ * D * 4 + attn::Tile<D>::kKBytes + attn::Tile<D>::kVBytes +
-         2 * attn::kBK * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_chunk_int8_kernel(const bf16* __restrict__ q,
-                        const int8_t* __restrict__ k_pages,
-                        const int8_t* __restrict__ v_pages,
-                        const float* __restrict__ kv_scales,
-                        const int* __restrict__ block_table,
-                        const int* __restrict__ starts,
-                        const float* __restrict__ slopes,
-                        bf16* __restrict__ out, int S, int Hq, int Hkv,
-                        int page, int P, int n_pt, int layer, float scale,
-                        int window, float softcap) {
-  constexpr int R = kChunkRowsPerWarp;
-  constexpr int kDPL = D / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [kBQ][D]
-  uint32_t* ks = reinterpret_cast<uint32_t*>(smem + (size_t)kBQ * D * 4);
-  bf16* vs = reinterpret_cast<bf16*>(smem + (size_t)kBQ * D * 4 + attn::Tile<D>::kKBytes);
-  float* ksc = reinterpret_cast<float*>(smem + (size_t)kBQ * D * 4 +
-                                        attn::Tile<D>::kKBytes + attn::Tile<D>::kVBytes);
-  float* vsc = ksc + attn::kBK;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int gq = Hq / Hkv;
-  const int n_rows = S * gq;  // row = chunk position * gq + head in group
-  const int r0 = blockIdx.x * kBQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = threadIdx.x; c < kBQ * D; c += blockDim.x) {
-    const int row = r0 + c / D, d = c % D;
-    float v = 0.f;
-    if (row < n_rows) {
-      const int i = row / gq, g = row % gq;
-      v = bf2f(q[(((size_t)b * S + i) * Hq + h * gq + g) * D + d]);
-    }
-    qs[c] = v;
-  }
-  const int start = starts[b];
-  const int i_first = r0 / gq;
-  const int i_last = (min(r0 + kBQ, n_rows) - 1) / gq;
-  const int t_end = min(start + i_last + 1, n_pt * page);
-  int t_begin = window > 0 ? max(0, start + i_first - window + 1) : 0;
-  t_begin = (t_begin / attn::kBK) * attn::kBK;
-
-  attn::RowRule rule[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = min(r0 + warp * R + r, n_rows - 1);
-    const int hq = h * gq + row % gq;
-    rule[r] = attn::RowRule{start + row / gq, t_end, window,
-                            slopes != nullptr ? slopes[hq] : 0.f};
-  }
-  attn::RowState<D, R> st;
-  st.init();
-  const int* bt = block_table + (size_t)b * n_pt;
-  for (int t0 = t_begin; t0 < t_end; t0 += attn::kBK) {
-    __syncthreads();  // the previous tile is consumed (and q staged)
-    stage_paged_int8<D>(k_pages, v_pages, kv_scales, bt, (size_t)layer * P, Hkv, h,
-                        page, t0, t_end, ks, vs, ksc, vsc);
-    __syncthreads();
-    attn::attend_tile<D, R, true>(st, qs + warp * R * D, rule, ks, vs, t0, scale,
-                                  softcap, lane, ksc, vsc);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = r0 + warp * R + r;
-    if (row >= n_rows) break;
-    const int i = row / gq, g = row % gq;
-    const float l = st.l[r] == 0.f ? 1.f : st.l[r];
-    bf16* o = out + (((size_t)b * S + i) * Hq + h * gq + g) * D + lane * kDPL;
-#pragma unroll
-    for (int e = 0; e < kDPL; ++e) o[e] = __float2bfloat16_rn(st.acc[r][e] / l);
-  }
-}
-
 template <int D>
 cudaError_t launch_decode(const void* q, const void* k_pages, const void* v_pages,
                           const void* kv_scales, const void* block_table,
@@ -382,26 +258,6 @@ cudaError_t launch_decode(const void* q, const void* k_pages, const void* v_page
       static_cast<const int*>(block_table), static_cast<const int*>(lengths),
       static_cast<const float*>(slopes), static_cast<bf16*>(out), Hq, Hkv, page, P,
       n_pt, layer, scale, window, softcap);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_chunk(const void* q, const void* k_pages, const void* v_pages,
-                         const void* kv_scales, const void* block_table,
-                         const void* starts, const void* slopes, void* out, int B,
-                         int S, int Hq, int Hkv, int page, int P, int n_pt, int layer,
-                         float scale, int window, float softcap, cudaStream_t st) {
-  const size_t smem = chunk_smem<D>();
-  cudaError_t err = allow_smem(paged_chunk_int8_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const int n_rows = S * (Hq / Hkv);
-  dim3 grid((n_rows + kBQ - 1) / kBQ, Hkv, B);
-  paged_chunk_int8_kernel<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(k_pages),
-      static_cast<const int8_t*>(v_pages), static_cast<const float*>(kv_scales),
-      static_cast<const int*>(block_table), static_cast<const int*>(starts),
-      static_cast<const float*>(slopes), static_cast<bf16*>(out), S, Hq, Hkv, page,
-      P, n_pt, layer, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -433,19 +289,30 @@ extern "C" int qtt_paged_decode_attention_int8(
 }
 
 // q, out: [B, S, Hq, D] bf16; starts: int32 [B] (keys cached before the
-// chunk; the chunk's own keys must already be written); the rest as above.
+// chunk; the chunk's own keys must already be written), read on the card;
+// the key range [0, n_pt * page) is cut into `splits` chunks of `chunk`
+// keys, part_acc / part_ml are scratch and counters int32 [B * Hkv *
+// ceil(S * Hq / Hkv / 64)] zero before the launch and left at zero by it,
+// as for K6 (qtt_paged_chunk_attention); the rest as above.
 extern "C" int qtt_paged_chunk_attention_int8(
     const void* q, const void* k_pages, const void* v_pages, const void* kv_scales,
     const void* block_table, const void* starts, const void* slopes, void* out,
-    int B, int S, int Hq, int Hkv, int page, int D, int P, int n_pt, int layer,
-    float scale, int window, float softcap, void* stream) {
-  if (S <= 0 || !shapes_ok(B, Hq, Hkv, page, P, n_pt, layer))
+    void* part_acc, void* part_ml, void* counters, int B, int S, int Hq, int Hkv, int page,
+    int D, int P, int n_pt, int layer, int chunk, int splits, float scale, int window,
+    float softcap, void* stream) {
+  if (!shapes_ok(B, Hq, Hkv, page, P, n_pt, layer) || kv_scales == nullptr ||
+      !k6::plan_ok(B, S, Hq, Hkv, chunk, splits, page, n_pt, part_acc, part_ml, counters))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define QTT_LAUNCH(DD)                                                                       \
+  k6::launch<DD, true>(q, k_pages, v_pages, kv_scales, block_table, starts, slopes, out,     \
+                       part_acc, part_ml, counters, B, S, Hq, Hkv, page, P, n_pt, layer,     \
+                       chunk, splits, scale, window, softcap, st)
   switch (D) {
-    case 64: return launch_chunk<64>(q, k_pages, v_pages, kv_scales, block_table, starts, slopes, out, B, S, Hq, Hkv, page, P, n_pt, layer, scale, window, softcap, st);
-    case 128: return launch_chunk<128>(q, k_pages, v_pages, kv_scales, block_table, starts, slopes, out, B, S, Hq, Hkv, page, P, n_pt, layer, scale, window, softcap, st);
-    case 256: return launch_chunk<256>(q, k_pages, v_pages, kv_scales, block_table, starts, slopes, out, B, S, Hq, Hkv, page, P, n_pt, layer, scale, window, softcap, st);
+    case 64: return QTT_LAUNCH(64);
+    case 128: return QTT_LAUNCH(128);
+    case 256: return QTT_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
+#undef QTT_LAUNCH
 }

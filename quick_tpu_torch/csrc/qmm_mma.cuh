@@ -1,8 +1,8 @@
-// The W4A16 constants and the code-to-float helper shared by K1's
-// CUDA-core decode body (qmm_decode.cuh, with K14) and K9's decode body
-// (quantized_matmul_dequant.cu): the quant group and its 16 packed rows of
-// 8 nibbles, 128 output columns a block, and code_f32, which turns nibble
-// j of a QTPU word into its code as an exact f32 (the 2^23 exponent trick).
+// The W4A16 constants and the code-to-float helper of K1's CUDA-core
+// decode body (qmm_decode.cuh, shared with K14): the quant group and its
+// 16 packed rows of 8 nibbles, 128 output columns a block, and code_f32,
+// which turns nibble j of a QTPU word into its code as an exact f32 (the
+// 2^23 exponent trick).
 #pragma once
 
 #include "common.cuh"

@@ -1,8 +1,9 @@
-// K9's body for more than 8 rows (quantized_matmul_dequant.cu): the
-// small-group (G = 32 or 64) W4A16 GEMM on Hopper's warpgroup tensor-core
-// instruction, each weight dequantized to bf16 straight from the QTPU
-// words into wgmma's register operand. It follows K1's body
-// (qmm_wgmma.cuh) and shares its building blocks (wgmma_common.cuh).
+// K9's body (quantized_matmul_dequant.cu): the small-group (G = 32 or 64)
+// W4A16 GEMM on Hopper's warpgroup tensor-core instruction, each weight
+// dequantized to bf16 straight from the QTPU words into wgmma's register
+// operand, at every row count (BT = 8 for the decode rows, 16-128 above).
+// It follows K1's body (qmm_wgmma.cuh) and shares its building blocks
+// (wgmma_common.cuh).
 //
 // The output tile is computed transposed, out^T[channels, tokens] =
 // W^T x^T, so that the weight is the A operand, which may come from
@@ -33,22 +34,41 @@
 // them (tests/test_torch_wgmma_fragments.py models both maps).
 //
 // Block: 2 consumer warpgroups (256 threads), 64 channels each, BT tokens
-// (16, 32, 64 or 128). A ring of 4 stages, each 128 depths (128 / G whole
-// groups): the activations (two 64-wide halves in 128-byte swizzled rows),
-// 16 rows of packed words, and the groups' scales and zeros_x_scales, all
-// brought by the Tensor Memory Accelerator: thread 0 issues 5 tensor
-// copies a stage, 3 stages ahead, completing on the stage's "full"
-// mbarrier. Each warpgroup keeps two fragment buffers: it issues a stage's
-// 8 wgmma, then waits on the next stage's "full" and dequantizes its
-// fragments while those MMAs run, waits for them and arrives on the
-// stage's "empty"; the two warpgroups are coupled only through those
-// barriers. K need only be a multiple of G: the
-// copies zero-fill past K (zero activations, words, scales, zeros), as they
-// do ragged M and N, which the store masks. Split-K (the wrapper's plan,
-// only where the output tiles cannot fill the card) writes f32 partials
-// that quantized_matmul_dequant.cu's reduce kernel sums in a fixed order.
-// N must be a multiple of 4 (16-byte rows of words and scales; the wrapper
-// pads other widths).
+// (8, 16, 32, 64 or 128). A ring of 4 stages (6 at BT = 8), each 128
+// depths (128 / G whole groups): the activations (two 64-wide halves in
+// 128-byte swizzled rows), 16 rows of packed words, and the groups'
+// scales and zeros_x_scales, all brought by the Tensor Memory
+// Accelerator: thread 0 issues 5 tensor copies a stage, a ring less one
+// stages ahead, completing on the stage's "full" mbarrier. Each warpgroup
+// keeps two fragment buffers: it issues a stage's 8 wgmma, then waits on
+// the next stage's "full" and dequantizes its fragments while those MMAs
+// run, waits for them and arrives on the stage's "empty"; the two
+// warpgroups are coupled only through those barriers. K need only be a
+// multiple of G: the copies zero-fill past K (zero activations, words,
+// scales, zeros), as they do ragged M and N, which the store masks.
+// Split-K (the wrapper's plan, only where the output tiles cannot fill the
+// card) writes f32 partials that quantized_matmul_dequant.cu's reduce
+// kernel sums in a fixed order. N must be a multiple of 4 (16-byte rows of
+// words and scales; the wrapper pads other widths).
+//
+// The decode rows (M <= 8, BT = 8: m64n8k16; the 8-row B tile of a 64-wide
+// half is one 1024-byte swizzle atom, rows >= M zero-filled by the copy):
+// the weight stream is all the work; the tensor core takes the multiply-
+// adds the CUDA-core body did per weight and row. A stage is 2 KB of
+// activations and 12 or 14 KB of words, scales and zeros, so the ring is 6
+// stages deep (5 ahead) at two blocks an SM: 80 KB of words in flight an
+// SM. The plan splits K over blocks until the card is full (DeepSeek's
+// kv_a has 5 column tiles), at most 16 splits. The last block of an output
+// tile to finish (one acq_rel atomic on a counter, which it resets for the
+// next launch, so a captured launch replays) copies every split's f32
+// partials of the tile into its shared memory at once and sums them in
+// split order into the bf16 tile: no second launch. At DeepSeek's widths a
+// launch is a few microseconds, so its fixed costs count: it is launched as
+// a programmatic dependent of the kernel before it (its blocks set up
+// their barriers and prefetch the four tensor maps while that kernel
+// finishes, then wait on it before the first copy), and the merge is one
+// atomic and one batch of copies (the splits of a tile as one thread block
+// cluster, merged through distributed shared memory, ran slower).
 #pragma once
 
 #include "wgmma_common.cuh"
@@ -62,10 +82,22 @@ constexpr int kKC = 128;      // depths per stage
 constexpr int kWRows = 16;    // packed rows per stage
 constexpr int kBN = 128;      // output channels per block: 2 warpgroups x 64
 constexpr int kThreads = 256;
-constexpr int kStages = 4;
+constexpr int kMaxSplits = 16;  // K splits of the 8-token tile (its merge stages them all)
+
+// 16 bytes global (L2) -> shared, zero-filled when !ok (src must still be
+// valid); then wait for all of this thread's copies
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
 
 template <int BT, int G>
 struct Layout {
+  static constexpr int kStages = BT == 8 ? 6 : 4;
   static constexpr int kCG = kKC / G;         // groups per stage
   static constexpr int kX = BT * kKC * 2;     // activations
   static constexpr int kW = kWRows * kBN * 4; // packed words
@@ -75,6 +107,8 @@ struct Layout {
   static constexpr int kOutLd = kBN + 8;      // epilogue tile row (bf16)
   static constexpr size_t kBytes = (size_t)kStages * kStage + 16 * kStages + 1024;
   static_assert(BT * kOutLd * 2 <= kStages * kStage, "the epilogue tile fits the ring");
+  static_assert(BT != 8 || 16 + kMaxSplits * BT * kBN * 4 <= kStages * kStage,
+                "the decode rows' merge stages every split's partials in the ring");
 };
 
 // x [M, K] bf16 in 64 x BT boxes, 128-byte swizzled; qweight [K/8, N] int32
@@ -96,12 +130,16 @@ __device__ __forceinline__ uint32_t dq_pair(uint32_t lo, uint32_t hi, int sh, fl
 
 // out[m0:m0+BT, n0:n0+128] of x @ dequant(qw) over the stages (128 depths)
 // c0 .. c0 + cps - 1 (a split-K slice into partial [splits, M, N] f32 where
-// partial is given, else the whole K into out [M, N] bf16)
+// partial is given, else the whole K into out [M, N] bf16; at BT = 8 the
+// last split of a tile to finish sums the partials into out, counting on
+// counters[tile], which it leaves at zero)
 template <int BT, int G>
 __global__ void __launch_bounds__(kThreads, BT <= 32 ? 2 : 1)
 dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
-                float* __restrict__ partial, bf16* __restrict__ out) {
+                float* __restrict__ partial, bf16* __restrict__ out,
+                int* __restrict__ counters) {
   using L = Layout<BT, G>;
+  constexpr int kStages = L::kStages;
   constexpr int kNR = BT / 2;  // accumulator registers a lane
   constexpr int kCG = L::kCG;
   constexpr int kSlabG = G / 8;
@@ -133,6 +171,14 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
     tma_load(xs + L::kX + L::kW, &maps.s, n0, ck * kCG, bar);
     tma_load(xs + L::kX + L::kW + L::kS, &maps.z, n0, ck * kCG, bar);
   };
+  if constexpr (BT == 8) {  // the decode rows' launches are short: fetch the maps at once
+    if (tid == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.x) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.w) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.s) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.z) : "memory");
+    }
+  }
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -141,6 +187,8 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (BT == 8)  // a programmatic dependent launch: wait for the kernel before
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
   if (tid == 0)
     for (int j = 0; j < kStages - 1 && j < nit; ++j) load(j);
 
@@ -226,6 +274,44 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
         const int m = m0 + 8 * i + 2 * t + (e & 1), n = n0 + c0 + (e >> 1) * 8;
         if (m < M && n < N) p[(size_t)m * N + n] = acc[4 * i + e];
       }
+    if constexpr (BT == 8) {
+      // the last split of this output tile to finish sums the splits' partials
+      // in split order (the reduce kernel's order) and resets the counter
+      int* flag = reinterpret_cast<int*>(smem);
+      __syncthreads();  // every partial of this block is written; the ring is free
+      if (tid == 0) {
+        // one acq_rel atomic releases the block's partials (the barrier
+        // orders every thread's stores before it) and acquires the others'
+        int* cnt = counters + (size_t)blockIdx.x * gridDim.y + blockIdx.y;
+        int done;
+        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                     : "=r"(done) : "l"(cnt) : "memory");
+        *flag = done == (int)gridDim.z - 1;
+        if (*flag) *cnt = 0;
+      }
+      __syncthreads();
+      if (!*flag) return;
+      // every split's partials of the tile into shared memory at once
+      // (16-byte copies from L2, after the flag), then each output summed in
+      // split order
+      float* sums = reinterpret_cast<float*>(smem + 16);  // [splits][BT][kBN]
+      const int nz = gridDim.z, rows = min(BT, M - m0);
+      for (int c = tid; c < nz * rows * (kBN / 4); c += kThreads) {
+        const int z = c / (rows * (kBN / 4)), r = c / (kBN / 4) % rows, c4 = 4 * (c % (kBN / 4));
+        const bool ok = n0 + c4 < N;  // N % 4 == 0: a 16-byte chunk is whole or past N
+        const float* src = partial + ((size_t)z * M + m0 + r) * N + (ok ? n0 + c4 : 0);
+        cp_async16(smem_u32(sums + (z * BT + r) * kBN + c4), src, ok);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int idx = tid; idx < rows * kBN; idx += kThreads) {
+        const int m = m0 + idx / kBN, n = n0 + idx % kBN;
+        if (n >= N) continue;
+        float sum = 0.f;
+        for (int z = 0; z < nz; ++z) sum += sums[z * BT * kBN + idx];
+        out[(size_t)m * N + n] = __float2bfloat16_rn(sum);
+      }
+    }
     return;
   }
   __syncthreads();  // the ring is free: every copy landed and was consumed
@@ -256,7 +342,7 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
 template <int BT, int G>
 cudaError_t launch_bt(const bf16* x, const uint32_t* qw, const float* scales, const float* zs,
                       int M, int K, int N, int splits, int cps, float* partial, bf16* out,
-                      cudaStream_t st) {
+                      int* counters, cudaStream_t st) {
   using L = Layout<BT, G>;
   Maps maps;
   if (!encode(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, K, 64, BT,
@@ -271,23 +357,45 @@ cudaError_t launch_bt(const bf16* x, const uint32_t* qw, const float* scales, co
   cudaError_t err = allow_smem(dq_wgmma_kernel<BT, G>, L::kBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((M + BT - 1) / BT, (N + kBN - 1) / kBN, splits);
-  dq_wgmma_kernel<BT, G><<<grid, kThreads, L::kBytes, st>>>(maps, M, K, N, cps,
-                                                            splits > 1 ? partial : nullptr, out);
+  if constexpr (BT == 8) {
+    // programmatic stream serialization: the blocks may start, and set up
+    // their barriers and maps, while the kernel before finishes; they wait
+    // for it before the first copy (griddepcontrol.wait)
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = L::kBytes;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, dq_wgmma_kernel<BT, G>, maps, M, K, N, cps,
+                             splits > 1 ? partial : nullptr, out, counters);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+  dq_wgmma_kernel<BT, G><<<grid, kThreads, L::kBytes, st>>>(
+      maps, M, K, N, cps, splits > 1 ? partial : nullptr, out, counters);
   return cudaGetLastError();
 }
 
 template <int G>
 cudaError_t launch(int BT, const bf16* x, const uint32_t* qw, const float* scales,
                    const float* zs, int M, int K, int N, int splits, int cps, float* partial,
-                   bf16* out, cudaStream_t st) {
+                   bf16* out, int* counters, cudaStream_t st) {
   if (N % 4 != 0) return cudaErrorInvalidValue;  // 16-byte rows for the tensor copies
+#define QWD_LAUNCH(B) \
+  launch_bt<B, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, counters, st)
   switch (BT) {
-    case 16: return launch_bt<16, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, st);
-    case 32: return launch_bt<32, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, st);
-    case 64: return launch_bt<64, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, st);
-    case 128: return launch_bt<128, G>(x, qw, scales, zs, M, K, N, splits, cps, partial, out, st);
+    case 8: return M <= 8 && splits <= kMaxSplits ? QWD_LAUNCH(8) : cudaErrorInvalidValue;
+    case 16: return QWD_LAUNCH(16);
+    case 32: return QWD_LAUNCH(32);
+    case 64: return QWD_LAUNCH(64);
+    case 128: return QWD_LAUNCH(128);
     default: return cudaErrorInvalidValue;
   }
+#undef QWD_LAUNCH
 }
 
 }  // namespace qwd

@@ -4,8 +4,8 @@
 // arrival traps instead of hanging), tensor copies into shared memory, the
 // warpgroup MMA fences, the exact bf16x2 codes of two QTPU words' nibbles
 // (K1's and K8's register operand), the K-major 128-byte-swizzled B
-// descriptor, the bf16 m64nBTk16 and s8 m64nBTk32
-// instructions with A from registers, and the host-side tensor-map encoding
+// descriptor, the bf16 m64nBTk16 (BT = 8 for K9's decode rows, 16-128)
+// and s8 m64nBTk32 instructions with A from registers, and the host-side tensor-map encoding
 // (cuTensorMapEncodeTiled through the runtime's driver entry point; no link
 // against libcuda).
 #pragma once
@@ -109,6 +109,22 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
 // D (64 channels x BT tokens, f32) (+)= A (registers) * B (descriptor)
 template <int BT>
 struct Wgmma;
+
+// m64n8k16: K9's decode rows (at most 8 tokens); an 8-row B tile of 64
+// depths is one 128-byte swizzle atom
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3 }, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<16> {

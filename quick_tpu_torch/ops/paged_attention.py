@@ -19,6 +19,8 @@ arithmetic (p rounded against each block's running max), which the tests
 hold against the Pallas kernel. K6 does the same over a chunk's (position,
 head) rows, 64 rows a block (``chunk_split_plan``, ``chunk_block_range``),
 merging row by row; ``paged_chunk_attention_split_plain`` models it.
+K6q is K6's kernel over INT8 pages, with K6's plan and merge; the same
+model with ``kv_scales`` models its arithmetic.
 
 INT8 pages (``kv_scales``, the [L, P, 8, Hkv*page] f32 tiles of
 ``PagedKVCache``) go to ``csrc/paged_attention_int8.cu`` on the card. Their
@@ -68,8 +70,8 @@ KERNEL_INT8 = CudaKernel(
             i32, i32, i32, f32, i32, f32, ptr,
         ],
         "qtt_paged_chunk_attention_int8": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-            i32, i32, i32, i32, f32, i32, f32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            i32, i32, i32, i32, i32, i32, f32, i32, f32, ptr,
         ],
     },
 )
@@ -77,9 +79,9 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30  # the Pallas kernels' mask value
 TILE = decode_attention.TILE  # keys per tile of K5's blocks
 ROWS = 16  # query heads a K5 block (one m16 tile): gq = 32 takes two blocks a kv head
-CHUNK_ROWS = 64  # (position, head) rows a K6 block: four m16 tiles, two warps each
+CHUNK_ROWS = 64  # (position, head) rows a K6 / K6q block: four m16 tiles, two warps each
 _COUNTERS = ZeroedWords("K5")  # its merge counters, zero between launches
-_CHUNK_COUNTERS = ZeroedWords("K6")
+_CHUNK_COUNTERS = ZeroedWords("K6 / K6q")
 
 
 def launch_key(B: int, S: Optional[int], Hq: int, Hkv: int, page: int, D: int,
@@ -231,9 +233,19 @@ def chunk_block_range(split: int, chunk: int, start: int, rows: Tuple[int, int],
     return lo, hi
 
 
+def _gather_scales(kv_scales, block_table, layer, Hkv: int, page: int):
+    """The k and v scales of every key of each slot's table, [B, Hkv, 1,
+    n_pt * page] each (rows 0 and 1 of the pages' scale tiles)."""
+    sc = kv_scales[layer][block_table.long()]  # [B, n_pt, 8, Hkv * page]
+    B, n_pt = sc.shape[:2]
+    return tuple(sc[:, :, r].reshape(B, n_pt, Hkv, page).transpose(1, 2).reshape(
+        B, Hkv, 1, n_pt * page).to(torch.float32) for r in (0, 1))
+
+
 def paged_chunk_attention_split_plain(
     q, k_pages, v_pages, block_table, starts, layer, scale, alibi_slopes=None,
     window=None, logit_softcap=None, chunk: int = TILE, splits: Optional[int] = None,
+    kv_scales=None,
 ) -> torch.Tensor:
     """Plain model of K6's split-and-merge arithmetic (the arguments of
     ``paged_chunk_attention_plain``): per slot, split and (position, head)
@@ -243,15 +255,24 @@ def paged_chunk_attention_split_plain(
     the pages' dtype times ``scale``, p rounded to the pages' dtype against
     the half's running max before p @ v, the halves combined at the end;
     then, row by row, the splits in which the row sees a key merged in
-    split order, 0 where none does. Returns [B, S, Hq, D]."""
+    split order, 0 where none does. Returns [B, S, Hq, D].
+
+    With ``kv_scales`` (INT8 pages, K6q): q and the codes in bf16 (codes
+    exactly), the score times the key's k scale after ``scale``, and p
+    times the key's v scale before its bf16 rounding (l sums the unscaled
+    p), the Pallas INT8 chunk kernel's order."""
     k = gather_pages(k_pages, block_table, layer).to(torch.float32)  # [B, Hkv, T, D]
     v = gather_pages(v_pages, block_table, layer)
     B, S, Hq, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     gq = Hq // Hkv
     splits = -(-T // chunk) if splits is None else splits
+    pdt = k_pages.dtype  # the type p is rounded to, and q
+    if kv_scales is not None:
+        pdt = torch.bfloat16
+        ksc, vsc = _gather_scales(kv_scales, block_table, layer, Hkv, k_pages.shape[3])
     # rows of kv head h: (position i, head j) -> [B, Hkv, S * gq, D]
-    qb = q.to(k_pages.dtype).to(torch.float32).reshape(B, S, Hkv, gq, D)
+    qb = q.to(pdt).to(torch.float32).reshape(B, S, Hkv, gq, D)
     qb = qb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * gq, D)
     slopes = None
     if alibi_slopes is not None:
@@ -279,6 +300,8 @@ def paged_chunk_attention_split_plain(
                                 TILE):
                     t1 = min(t0 + half, T)
                     s = torch.einsum("krd,ktd->krt", qb[b], k[b, :, t0:t1]) * scale
+                    if kv_scales is not None:
+                        s = s * ksc[b, :, :, t0:t1]
                     if logit_softcap:
                         s = logit_softcap * torch.tanh(s / logit_softcap)
                     pos = torch.arange(t0, t1, device=q.device)
@@ -290,8 +313,10 @@ def paged_chunk_attention_split_plain(
                     p = torch.where(ok, torch.exp(s - m_new), torch.zeros_like(s))
                     alpha = torch.exp(m - m_new)
                     l = l * alpha + p.sum(-1, keepdim=True)
+                    if kv_scales is not None:
+                        p = p * vsc[b, :, :, t0:t1]
                     acc = acc * alpha + torch.einsum(
-                        "krt,ktd->krd", p.to(v.dtype).to(torch.float32),
+                        "krt,ktd->krd", p.to(pdt).to(torch.float32),
                         v[b, :, t0:t1].to(torch.float32))
                     m = m_new
                 states.append((m, l, acc))
@@ -571,17 +596,29 @@ def paged_chunk_attention_int8_cuda(
     q, k_pages, v_pages, kv_scales, block_table, starts, layer, scale,
     alibi_slopes=None, window=None, logit_softcap=None,
 ) -> torch.Tensor:
-    """Launch K6q on CUDA tensors; same arguments as its plain version."""
+    """Launch K6q on CUDA tensors; same arguments as its plain version. K6's
+    kernel over the codes: its plan (``chunk_split_plan``), partials and
+    merge counters (``_CHUNK_COUNTERS``, shared with K6: each launch leaves
+    them at zero)."""
     B, Hq, Hkv, page, D, P, n_pt, slopes = _check_int8(
         q, k_pages, v_pages, kv_scales, block_table, starts, layer, alibi_slopes)
     S = q.shape[1]
+    gq = Hq // Hkv
+    if q.data_ptr() % 16:  # the q rows are copied in 16-byte chunks
+        q = q.clone()
+    chunk, splits = chunk_split_plan(B, Hkv, S, gq, n_pt * page, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    rows = B * Hq * S * splits  # partial rows, [B, Hkv, S * gq, splits]
+    part = torch.empty(rows * (D + 2) if splits > 1 else 2, dtype=torch.float32,
+                       device=q.device)
+    counters = _CHUNK_COUNTERS.get(q.device, B * Hkv * -(-S * gq // CHUNK_ROWS))
     KERNEL_INT8.launch(
         "qtt_paged_chunk_attention_int8", launch_key(B, S, Hq, Hkv, page, D, n_pt),
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), kv_scales.data_ptr(),
         block_table.data_ptr(), starts.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, S, Hq, Hkv, page, D, P, n_pt, layer, float(scale), int(window or 0),
+        part.data_ptr(), part[rows * D if splits > 1 else 0:].data_ptr(), counters.data_ptr(),
+        B, S, Hq, Hkv, page, D, P, n_pt, layer, chunk, splits, float(scale), int(window or 0),
         float(logit_softcap or 0.0), stream_ptr(q.device),
     )
     return out

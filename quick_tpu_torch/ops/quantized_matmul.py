@@ -34,7 +34,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, sm_count, stream_ptr
+from quick_tpu_torch.ops._cuda import (
+    CudaKernel, ZeroedWords, check, f32, i32, ptr, sm_count, stream_ptr,
+)
 from quick_tpu_torch.ops.norms import rms_norm
 from quick_tpu_torch.ops.paged_write import div127
 from quick_tpu_torch.quantize.packing import PACK, unpack_qtpu_tensor
@@ -52,9 +54,10 @@ KERNEL = CudaKernel(
 KERNEL_DEQUANT = CudaKernel(
     "quantized_matmul_dequant.cu",
     {"qtt_quantized_matmul_dequant": [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
     ]},
 )
+_DQ_COUNTERS = ZeroedWords("K9")  # its decode rows' merge counters, zero between launches
 
 #: K11 and K11f (``_make_kernel_a8``, ``_make_kernel_a8_fused``), one library.
 KERNEL_A8 = CudaKernel(
@@ -204,9 +207,9 @@ def launch_key(prologue: Optional[str], M: int, K: int, N: int) -> str:
 
 
 def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, groups per split) of the CUDA-core decode
-    bodies (K1 and K9 up to 8 rows); its split of K is also K11's
-    (``a8_plan``), which took it with the 64-row blocks of its first body.
+    """(rows per block, K splits, groups per split) of K1's CUDA-core decode
+    body (up to 8 rows); its split of K is also K11's (``a8_plan``), which
+    took it with the 64-row blocks of its first body.
 
     One block covers 128 columns and ``rows`` rows: 1, 2, 4 or 8 on the
     CUDA-core path, 64 for M > 8. When those tiles cannot fill the card
@@ -228,6 +231,11 @@ def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, in
 WGMMA_TOKENS = (16, 32, 64, 128)
 WGMMA_STAGES = 4  # K1's and K9's rings
 A8_STAGES = 6     # K11's ring
+#: K9's decode rows (M <= 8): one 8-token tile (m64n8k16) in a deeper ring
+DQ_DECODE_TOKENS = 8
+DQ_DECODE_STAGES = 6
+DQ_MAX_SPLITS = 16  # the decode rows' K splits (their merge loads every split's partial at once)
+DQ_FILL_STAGES = 1  # the plan's cost of a block beyond its stages: its ring's fill
 
 
 def wgmma_blocks_per_sm(bt: int) -> int:
@@ -248,11 +256,18 @@ def wgmma_smem_bytes(bt: int) -> int:
     return _ring_bytes(bt * KERNEL_GROUP * 2 + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4, WGMMA_STAGES)
 
 
+def dequant_stages(bt: int) -> int:
+    """Stages of K9's ring: 6 at the decode rows' 8 tokens, 4 above."""
+    return DQ_DECODE_STAGES if bt == DQ_DECODE_TOKENS else WGMMA_STAGES
+
+
 def dequant_smem_bytes(bt: int, G: int) -> int:
     """Dynamic shared memory of one K9 wgmma block (``qmm_wgmma_dq.cuh``): a
-    ring of 4 stages of 128 depths, each the bf16 activations, 16 rows of
-    packed words and the 128 / G groups' scales and zeros_x_scales."""
-    return _ring_bytes(bt * _KC * 2 + 16 * _BN * 4 + 2 * (_KC // G) * _BN * 4, WGMMA_STAGES)
+    ring of ``dequant_stages(bt)`` stages of 128 depths, each the bf16
+    activations, 16 rows of packed words and the 128 / G groups' scales and
+    zeros_x_scales."""
+    return _ring_bytes(bt * _KC * 2 + 16 * _BN * 4 + 2 * (_KC // G) * _BN * 4,
+                       dequant_stages(bt))
 
 
 def a8_smem_bytes(bt: int, G: int = KERNEL_GROUP) -> int:
@@ -296,13 +311,34 @@ def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
     return wgmma_plan(M, K // KERNEL_GROUP, N, sm_count)
 
 
+def dequant_decode_plan(chunks: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """(8, K splits, chunks per split) of K9's decode rows (M <= 8): one
+    8-token tile over ``chunks`` stages of K, the weight stream all the
+    work. K is split over blocks so that the card fills: of the splits into
+    whole slices of stages (at most ``DQ_MAX_SPLITS``), the one with the
+    least waves (two blocks an SM) times stages a block, plus
+    ``DQ_FILL_STAGES`` a block for its ring's fill; the fewest splits at a
+    tie. The last block of a column tile to finish sums the splits in
+    split order."""
+    tiles = math.ceil(N / _BN)
+    slots = sm_count * wgmma_blocks_per_sm(DQ_DECODE_TOKENS)
+    best = None
+    for want in range(1, min(chunks, DQ_MAX_SPLITS) + 1):
+        per = math.ceil(chunks / want)
+        splits = math.ceil(chunks / per)
+        cost = math.ceil(tiles * splits / slots) * (per + DQ_FILL_STAGES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return DQ_DECODE_TOKENS, best[1], best[2]
+
+
 def dequant_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, chunks of 128 k per split) for K9: up to 8
-    rows the CUDA-core decode body's ``mma_launch_plan``, above 8 the wgmma
-    body's plan (a last partial chunk counts as one)."""
+    """(tokens per block, K splits, chunks of 128 k per split) for K9's
+    wgmma body: up to 8 rows ``dequant_decode_plan``, above 8
+    ``wgmma_plan`` (a last partial chunk counts as one)."""
     chunks = math.ceil(K / _KC)
-    if M <= 8:
-        return mma_launch_plan(M, chunks * _KC, N, sm_count)
+    if M <= DQ_DECODE_TOKENS:
+        return dequant_decode_plan(chunks, N, sm_count)
     return wgmma_plan(M, chunks, N, sm_count)
 
 
@@ -411,11 +447,13 @@ def quantized_matmul_dequant_cuda(
     jnp route where ``(K / G * G / 8) % 8 != 0`` or no K-step depth keeps
     the TPU's 8-sublane alignment (:731, :761-768): those are limits of
     the TPU's tiles, not of this kernel. The launch plan is
-    ``dequant_launch_plan``'s: 1, 2, 4 or 8 rows per block on CUDA cores up
-    to 8 rows, the wgmma body's 16-128 tokens above, and K split over
-    blocks in chunks of 128 when the output tiles cannot fill the card.
-    Above 8 rows an N that is no multiple of 4 is padded at the call
-    (``pad_columns``) for the tensor copies."""
+    ``dequant_launch_plan``'s: the wgmma body's 8 tokens a block up to 8
+    rows, 16-128 above, and K split over blocks in chunks of 128 when the
+    output tiles cannot fill the card (at 8 tokens the last block of a
+    tile merges, counting on ``_DQ_COUNTERS``, made by an eager launch
+    before any capture; one such launch at a time on a device). An N that
+    is no multiple of 4 is padded at the call (``pad_columns``) for the
+    tensor copies."""
     dev = x.device
     G = group_size
     if G not in DEQUANT_GROUPS:
@@ -431,18 +469,21 @@ def quantized_matmul_dequant_cuda(
     check(scales, "scales", torch.float32, (K // G, N))
     check(zeros_x_scales, "zeros_x_scales", torch.float32, (K // G, N))
     N_out = N
-    if M > 8 and N % 4:
+    if N % 4:
         qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
         N = qweight.shape[1]
     rows, splits, cps = dequant_launch_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     partial = (torch.empty(splits * M * N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
+    counters = (_DQ_COUNTERS.get(dev, math.ceil(N / _BN))
+                if splits > 1 and rows == DQ_DECODE_TOKENS else None)
     KERNEL_DEQUANT.launch(
         "qtt_quantized_matmul_dequant", dequant_launch_key(M, K, N_out, G),
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros_x_scales.data_ptr(),
         M, K, N, G, rows, splits, cps,
-        None if partial is None else partial.data_ptr(), out.data_ptr(), stream_ptr(dev),
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(), stream_ptr(dev),
     )
     return out if N == N_out else out[:, :N_out].contiguous()
 

@@ -2,7 +2,8 @@
 also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
 also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
-K5q / K6q INT8 paged attention, K9 small-group GEMM, K10 / K10q paged MLA
+K5q / K6q INT8 paged attention (K6q split, graphed), K9 small-group GEMM
+(every decode row count, graphed), K10 / K10q paged MLA
 decode attention, K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
 grouped W4A8 MoE GEMM (on build_routing's layouts, at bm = 96, split,
 graphed), K13 RMSNorm, K14 the decode layer tail) against
@@ -985,6 +986,60 @@ def test_paged_chunk_graph_replays_at_moving_starts(rng, cuda_device):
         np.testing.assert_array_equal(f32(out), f32(want))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_EDGE_CASES))
+@pytest.mark.parametrize("Hq,Hkv,D,page,n_pt", [(32, 1, 256, 16, 8), (32, 8, 128, 64, 16),
+                                                (8, 2, 64, 16, 6), (8, 8, 64, 16, 6)])
+def test_paged_chunk_int8_split_kernel_edges(rng, cuda_device, case, Hq, Hkv, D, page, n_pt):
+    """K6q (K6's key-split kernel over INT8 pages) against its plain version
+    (the Pallas INT8 arithmetic page by page) and K6's split model with the
+    scale tiles, with 16-query chunks starting fresh, crossing a page, on a
+    page boundary and ending at the table; gq = 32 at D = 256, gq 4 and 1."""
+    S, T = 16, n_pt * page
+    starts = [0, page - 5, page, T - S]
+    cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, len(starts), Hq, Hkv, D, page,
+                                           n_pt, starts, S=S)
+    kw = dict(K5_EDGE_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL_INT8.launches
+    out = tpa.paged_chunk_attention(*gpu, layer=1, kv_scales=tiles.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL_INT8.launches == before + 1
+    ref = tpa.paged_chunk_attention(*cpu, layer=1, kv_scales=tiles, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    chunk, splits = tpa.chunk_split_plan(len(starts), Hkv, S, Hq // Hkv, T,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+    model = tpa.paged_chunk_attention_split_plain(
+        *(t.to(cuda_device) for t in cpu), 1, D ** -0.5, chunk=chunk, splits=splits,
+        kv_scales=tiles.to(cuda_device),
+        **{k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+    np.testing.assert_allclose(f32(out), f32(model), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_chunk_int8_graph_replays_at_moving_starts(rng, cuda_device):
+    """K6q captured in a CUDA graph and replayed after the starts moved in
+    place: equal to eager launches at those starts, bit for bit."""
+    Hq, Hkv, D, page, n_pt, S = 32, 8, 128, 64, 16, 16
+    cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, 8, Hq, Hkv, D, page, n_pt,
+                                           [37 * i for i in range(8)], S=S)
+    q, kp, vp, bt, st = gpu
+    tiles = tiles.to(cuda_device)
+    out = tpa.paged_chunk_attention(q, kp, vp, bt, st, layer=1, kv_scales=tiles)  # eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_chunk_attention(q, kp, vp, bt, st, layer=1, kv_scales=tiles)
+    for shift in (5, 300, 0):
+        new = torch.tensor([min(n_pt * page - S, 37 * i + shift) for i in range(8)],
+                           dtype=torch.int32, device=cuda_device)
+        st.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpa.paged_chunk_attention(q, kp, vp, bt, new.clone(), layer=1, kv_scales=tiles)
+        np.testing.assert_array_equal(f32(out), f32(want))
+
+
 # ---------------------------------------------------------- MLA latent pages
 
 def _randn(rng, *shape):
@@ -1262,6 +1317,68 @@ def test_dequant_wgmma_body_matches_plain(cuda_device, M, K, N, G):
     assert tqmm.KERNEL_DEQUANT.launches == before + 2 and out.shape == (M, N)
     assert torch.equal(out, again)
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+#: K9's decode rows (the 8-token wgmma body): K not a multiple of the
+#: 128-deep stage (160 at G = 32, 192 at G = 64: one split; 10944 = 85.5
+#: stages), N % 4 == 2 (padded at the call), N not a multiple of 128
+#: (DeepSeek's kv_a 576), and widths whose plan splits K over many blocks
+#: (the last block of a tile merging) or none
+DQ_DECODE_SHAPES = [(160, 130, 32), (4096, 576, 32), (4096, 4098, 32), (192, 200, 64),
+                    (2048, 576, 64), (10944, 2048, 64), (2048, 21888, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,G", DQ_DECODE_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_dequant_decode_rows_match_plain(cuda_device, M, K, N, G):
+    """K9 at every decode row count (one 8-token tile, rows >= M
+    zero-filled by the copy) against its plain version; a second launch
+    bit-equal to the first (the splits merged in split order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(M * 7 + K + N + G)
+    qw = torch.randint(-2**31, 2**31, (K // 8, N), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    s = torch.rand((K // G, N), generator=gen, device=cuda_device) * 0.01 + 0.001
+    zs = torch.round(torch.rand((K // G, N), generator=gen, device=cuda_device) * 15) * s
+    x = torch.randn((M, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = tqmm.KERNEL_DEQUANT.launches
+    out = tqmm.quantized_matmul_dequant_cuda(x, qw, s, zs, G)
+    again = tqmm.quantized_matmul_dequant_cuda(x, qw, s, zs, G)
+    ref = tqmm.quantized_matmul_dequant_plain(x, qw, s, zs, G)
+    torch.cuda.synchronize()
+    assert tqmm.KERNEL_DEQUANT.launches == before + 2 and out.shape == (M, N)
+    assert tqmm.dequant_launch_plan(M, K, N + (-N % 4), 132)[0] == 8
+    assert torch.equal(out, again)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,G", [(2048, 576, 64), (4096, 4096, 32)])
+def test_dequant_decode_graph_replays(cuda_device, K, N, G):
+    """K9 at M = 4 with K split over blocks, captured in a CUDA graph and
+    replayed twice after x moved in place: each replay equal to an eager
+    launch bit for bit (the last block of each tile resets its counter)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(K + N)
+    qw = torch.randint(-2**31, 2**31, (K // 8, N), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    s = torch.rand((K // G, N), generator=gen, device=cuda_device) * 0.01 + 0.001
+    zs = torch.round(torch.rand((K // G, N), generator=gen, device=cuda_device) * 15) * s
+    x = torch.randn((4, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tqmm.dequant_launch_plan(4, K, N, sms)[1] > 1
+    out = tqmm.quantized_matmul_dequant_cuda(x, qw, s, zs, G)  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tqmm.quantized_matmul_dequant_cuda(x, qw, s, zs, G)
+    for _ in range(2):
+        x.copy_(torch.randn((4, K), generator=gen, device=cuda_device).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tqmm.quantized_matmul_dequant_cuda(x.clone(), qw, s, zs, G)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(f32(out), f32(want))
+    np.testing.assert_allclose(f32(out), f32(tqmm.quantized_matmul_dequant_plain(x, qw, s, zs, G)),
+                               **TOL)
 
 
 @pytest.mark.cuda

@@ -93,3 +93,57 @@ def test_chunk_split_model_matches_pallas_interpret(rng, case):
     np.testing.assert_allclose(f32(out), f32(ref), atol=2e-4, rtol=2e-4)
     plain = tpa.paged_chunk_attention_plain(*targs, 1, D ** -0.5, **tkw)
     np.testing.assert_allclose(f32(plain), f32(out), atol=2e-4, rtol=2e-4)
+
+
+#: K6q's split model (INT8 pages): (D, gq, n_pt, splits of 64 keys or one of
+#: the whole table, kwargs); pages of 16 keys
+INT8_SPLIT_CASES = {
+    "one_split": (64, 4, 8, 1, {}),
+    "alibi_softcap_window": (64, 4, 8, 2, dict(alibi=True, logit_softcap=30.0, window=40)),
+    "window_d128_three_splits": (128, 2, 12, 3, dict(window=24)),
+    "alibi_gq8_three_splits": (32, 8, 12, 3, dict(alibi=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_SPLIT_CASES))
+def test_chunk_split_model_int8_matches_pallas_interpret(rng, case):
+    """K6q's split-and-merge arithmetic (``paged_chunk_attention_split_plain``
+    with the scale tiles: K6's tiles, halves and merge over the codes, the
+    score times its key's k scale, p times its key's v scale before the
+    bf16 rounding) against the Pallas INT8 chunk kernel in interpret mode:
+    starts 0, mid-page, crossing a page, a tile less one and ending at the
+    table, over one split and several. Both round p to bf16, the kernel's
+    model against a 32-key half's running max and Pallas against a page's,
+    so a p may sit one bf16 step (2^-8 relative) apart: 5e-3. The plain
+    INT8 version (page by page, as Pallas, its exp and sums in another
+    order, which can flip one bf16 rounding of a p) agrees within it too."""
+    from quick_tpu_torch.ops.paged_write import quantize_kv
+
+    D, gq, n_pt, splits, kw = INT8_SPLIT_CASES[case]
+    B, S, Hkv, page, L = 5, 16, 2, 16, 2
+    Hq, T = gq * Hkv, n_pt * page
+    P = 1 + B * n_pt
+    kc, ks = quantize_kv(torch.from_numpy(rng.standard_normal((L, P, Hkv, page, D)).astype(np.float32)))
+    vc, vs = quantize_kv(torch.from_numpy(rng.standard_normal((L, P, Hkv, page, D)).astype(np.float32)))
+    tiles = torch.zeros((L, P, 8, Hkv * page))
+    tiles[:, :, 0] = ks.reshape(L, P, -1)
+    tiles[:, :, 1] = vs.reshape(L, P, -1)
+    bt = rng.permutation(np.arange(1, P))[: B * n_pt].reshape(B, n_pt).astype(np.int32)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    starts = np.asarray([0, 5, 24, 63, T - S], np.int32)
+    kw = dict(kw)
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = alibi_slopes(Hq)
+    ref = jax_chunk(*(jnp.asarray(a) for a in (q, kc.numpy(), vc.numpy(), bt, starts)), layer=1,
+                    kv_scales=jnp.asarray(tiles.numpy()), interpret=True,
+                    **{k: jnp.asarray(v) if k == "alibi_slopes" else v for k, v in kw.items()})
+    chunk = T if splits == 1 else 64
+    assert -(-T // chunk) == splits
+    targs = [torch.from_numpy(q), kc, vc, torch.from_numpy(bt), torch.from_numpy(starts)]
+    tkw = {k: torch.from_numpy(v) if k == "alibi_slopes" else v for k, v in kw.items()}
+    out = tpa.paged_chunk_attention_split_plain(*targs, 1, D ** -0.5, chunk=chunk,
+                                                splits=splits, kv_scales=tiles, **tkw)
+    np.testing.assert_allclose(f32(out), f32(ref), atol=5e-3, rtol=5e-3)
+    plain = tpa.paged_chunk_attention_int8_plain(targs[0], kc, vc, tiles, *targs[3:], 1,
+                                                 D ** -0.5, **tkw)
+    np.testing.assert_allclose(f32(plain), f32(ref), atol=5e-3, rtol=5e-3)

@@ -145,6 +145,56 @@ def test_dequant_register_fragments_equal_plain_weights(small_group, stage, c0):
         assert np.array_equal(ones[j], codes[k0:k0 + 16, c0:c0 + 64].T), f"codes, step {j}"
 
 
+def swizzle128(addr: np.ndarray) -> np.ndarray:
+    """The 128-byte swizzle of a shared-memory byte address, as the tensor
+    copy writes and the wgmma descriptor reads it: 16-byte chunk bits [4:6]
+    XOR the 128-byte row bits [7:9] (within a 1024-byte aligned atom)."""
+    addr = np.asarray(addr, np.int64)
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("G", [32, 64])
+@pytest.mark.parametrize("BT", [8, 16, 32])
+def test_dequant_b_tile_through_the_descriptor(G, BT):
+    """K9's shared operand at BT tokens: the tensor copies write each
+    stage's x [BT tokens, 128 depths] as two 64-deep boxes of BT 128-byte
+    swizzled rows, box h at stage + h * BT * 128; step j's descriptor starts
+    at stage + (j >> 2) * BT * 128 + (j & 3) * 32 with 8-row groups 1024
+    bytes apart. Read back through the swizzle, every (token, depth) of
+    every k16 step is x's, at every stage of the ring: at BT = 8 a box is
+    one 1024-byte atom, so each stage (a multiple of 1024 bytes) and its
+    second box stay aligned. The m64n8 accumulators (BT = 8: four a lane)
+    cover the 64 channels x 8 tokens once."""
+    rng = np.random.default_rng(BT + G)
+    stage = -(-(BT * 128 * 2 + 16 * 128 * 4 + 2 * (128 // G) * 128 * 4) // 1024) * 1024
+    stages = tqmm.dequant_stages(BT)
+    assert stages == (6 if BT == 8 else 4)
+    assert tqmm.dequant_smem_bytes(BT, G) == stages * stage + 16 * stages + 1024
+    for sl in range(stages):
+        x = rng.integers(0, 2**16, size=(BT, 128), dtype=np.uint16)
+        smem = np.zeros(stages * stage // 2, np.uint16)  # bf16 words
+        base = sl * stage
+        for h in range(2):  # the two 64-deep boxes, as the copy lays them
+            box = base + h * BT * 128
+            assert box % 1024 == 0
+            r, d = np.meshgrid(np.arange(BT), np.arange(64), indexing="ij")
+            smem[swizzle128(box + r * 128 + d * 2) // 2] = x[:, 64 * h:64 * h + 64]
+        for j in range(8):  # wgmma B of step j: element (token n, depth k)
+            start = base + (j >> 2) * BT * 128 + (j & 3) * 32
+            n, k = np.meshgrid(np.arange(BT), np.arange(16), indexing="ij")
+            logical = start + (n // 8) * 1024 + (n % 8) * 128 + k * 2
+            got = smem[swizzle128(logical) // 2]
+            assert np.array_equal(got, x[:, 16 * j:16 * j + 16]), (sl, j)
+    if BT == 8:  # accumulator register e of lane (g, t), warp w
+        seen = np.zeros((64, 8), np.int64)
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for e in range(4):
+                    seen[16 * w + g + 8 * (e >> 1), 2 * t + (e & 1)] += 1
+        assert np.array_equal(seen, np.ones((64, 8), np.int64))
+
+
 def test_fma_product_equals_the_rounded_product():
     """fma(2^23 + q, s, -2^23 * s) rounds the exact q * s once, so it is
     the f32 product q * s for every code and scales across the f32 range
@@ -344,17 +394,26 @@ def _check_wgmma_plan(plan, M, chunks, N):
 
 @pytest.mark.parametrize("K,N", DQ_PLAN_SHAPES)
 def test_dequant_launch_plan(K, N):
-    """K9 for M in 1..4096: the decode rows keep the CUDA-core plan; above
-    8 rows the wgmma plan over the 128-deep stages (a partial last one
-    counts), and each block's shared memory (with its epilogue tile) fits
-    the H100 at both groups."""
+    """K9 for M in 1..4096: the decode rows (M <= 8) take one 8-token tile
+    whose K splits (at most 16, the partials its merge loads at once)
+    cover every stage once and fill the card (a block a column tile and
+    split, at least as many as the SMs where the stages and that cap
+    allow); above 8 rows the
+    wgmma plan over the 128-deep stages (a partial last one counts). Each
+    block's shared memory (with its epilogue tile) fits the H100 at both
+    groups, two blocks an SM at 8 to 32 tokens."""
     chunks = math.ceil(K / 128)
+    tiles = math.ceil(N / 128)
     for M in range(1, 4097):
         plan = tqmm.dequant_launch_plan(M, K, N, H100_SMS)
         if M <= 8:
-            assert plan == tqmm.mma_launch_plan(M, chunks * 128, N, H100_SMS)
-            continue
-        bt = _check_wgmma_plan(plan, M, chunks, N)
+            bt, splits, per = plan
+            assert bt == 8 and plan == tqmm.dequant_launch_plan(1, K, N, H100_SMS)
+            assert splits * per >= chunks and (splits - 1) * per < chunks
+            assert splits <= tqmm.DQ_MAX_SPLITS == 16
+            assert tiles * splits >= min(H100_SMS, tiles * min(chunks, 16))
+        else:
+            bt = _check_wgmma_plan(plan, M, chunks, N)
         for G in (32, 64):
             smem = tqmm.dequant_smem_bytes(bt, G)
             assert smem <= SMEM_LIMIT and bt * (128 + 8) * 2 <= smem - 1024
