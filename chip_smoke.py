@@ -9,9 +9,12 @@ Phases (any failure exits non-zero):
      K5q / K6q, K10q and K11f from csrc/ (one nvcc per source, in parallel)
      and print ptxas' register summary and warnings;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes of the main paths, in bf16, with the tolerance stated (and K1
-     at N % 4 == 2, timed beside N - 2: the cost of padding N; K3 at B=4,
-     1 and 8 and at S = 1,536, lengths 0 to S - 1);
+     shapes of the main paths, in bf16, with the tolerance stated (K1 at
+     every decode row count, M = 1-8, with each prologue, and at N % 4 ==
+     2, timed beside N - 2: the cost of padding N; K3 at B=4, 1 and 8 and
+     at S = 1,536, lengths 0 to S - 1); (2c) the dense-dequant route of
+     QUICK_TPU_DENSE_M (torch ops, no kernel of its own) against its plain
+     version, and timed beside K1 at M = 128, 512, 4096: the crossover;
   3. each kernel's time (CUDA events over many launches queued behind a
      device sleep, weights and KV pages rotated past the 50 MB L2), its
      bound from bytes and operations, its plain version's time and a
@@ -22,7 +25,7 @@ Phases (any failure exits non-zero):
      the path; (4b) generate() at K3's other timed shapes (B=8; B=4 with
      1,496-token prompts in a 1,536-token cache), counted, and the graphed
      B=4 decode with K3 beside the same decode under
-     QUICK_TPU_FUSED_STEP=0 (K7), in turns;
+     QUICK_TPU_FUSED_STEP=0 (K7), in turns, each run's greedy tokens equal;
   5. the serving path: the continuous-batching Engine over the paged KV
      cache, the same model's first ENGINE_LAYERS layers, 32 ShareGPT-like
      requests that share a one-page
@@ -30,7 +33,9 @@ Phases (any failure exits non-zero):
      window or prefill sub-batch is dispatched; a few decode windows
      profiled) and a timed run; every request at its exact length, the
      same greedy streams in both runs, launch counts exactly those the
-     Engine's recorded schedule implies;
+     Engine's recorded schedule implies; then one more run, untimed and
+     uncounted, under QUICK_TPU_ENGINE_TIMING=1: the host seconds of each
+     phase of the Engine's turns (Engine.timing);
   6. the kernel path against the plain path (on the CPU) for a 2-layer
      model at full width: dense cache (prefill logits, 4 decode steps), at
      B=4 through K3 and at B=16 with max_seq 512 through K7, and paged
@@ -377,7 +382,7 @@ def check_gemms(cfg, gen, dev):
     print("[2] K1 (W4A16 GEMM) against its plain version, bf16")
     errs = {}
     shapes = list(gemm_shapes(cfg).values())
-    cases = [(p, M, K, N) for p in (None, "rmsnorm", "glu") for M in (1, 4)
+    cases = [(p, M, K, N) for p in (None, "rmsnorm", "glu") for M in range(1, 9)
              for K, N in shapes]
     cases += [(None, BATCH * PROMPT, K, N) for K, N in shapes] + engine_gemms(cfg)
     cases += checkpoint_gemms(cfg)
@@ -472,6 +477,48 @@ def time_gemms(cfg, gen, dev, errs, gemms, path):
               f"plain {plain_ms * 1e3:.1f} us, torch.matmul bf16 {lib_ms * 1e3:.1f} us")
         del ws, wd
     return rows
+
+
+#: rows at which the dense-dequant route (QUICK_TPU_DENSE_M) is timed beside K1
+DENSE_ROUTE_ROWS = (128, 512, 4096)
+
+
+def dense_route_rows(cfg, gen, dev) -> dict:
+    """[2c] The dense-dequant route (QUICK_TPU_DENSE_M, off by default):
+    torch ops that dequantize the weight to bf16, then one bf16
+    torch.matmul; no kernel of the port, so no row in the kernels line. On
+    the four projections: the route against its plain version (the f32
+    product of the same bf16 values) at M = 128, within TOL; then the route,
+    its dequantization alone and K1, each timed at M = 128, 512 and 4096
+    (weights rotated past L2), in turns: the measured crossover."""
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    print("[2c] the dense-dequant route (QUICK_TPU_DENSE_M) against its plain version, "
+          "then timed beside K1 (weights rotated past L2)")
+    out = {}
+    for name, (K, N) in gemm_shapes(cfg).items():
+        wbytes = K * N // 2 + 2 * (K // 128) * N * 4
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / wbytes)))
+        ws = rand_qlinear(gen, dev, K, N, copies)
+        x = torch.randn((DENSE_ROUTE_ROWS[0], K), generator=gen, device=dev).to(torch.bfloat16)
+        got = qm.quantized_matmul_dense(x, *ws[0])
+        ref = qm.quantized_matmul_dense_plain(x, *ws[0])
+        torch.cuda.synchronize()
+        err = max_err(got, ref, TOL["quantized_matmul"], f"dense route {name} M={x.shape[0]}")
+        dq_ms = device_ms(lambda i: qm.dense_weight(*ws[i % copies], 128), 10)
+        for M in DENSE_ROUTE_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            t = {"route": [], "k1": []}
+            for which in ("route", "k1", "k1", "route"):
+                fn = qm.quantized_matmul_dense if which == "route" else qm.quantized_matmul_cuda
+                t[which].append(device_ms(lambda i: fn(x, *ws[i % copies]), 10))
+            route, k1 = sum(t["route"]) / 2, sum(t["k1"]) / 2
+            out[f"{name} M={M} K={K} N={N}"] = dict(route_ms=route, k1_ms=k1,
+                                                    dequant_ms=dq_ms, max_abs_err=err)
+            print(f"  {name} M={M} K={K} N={N}: route {route * 1e3:.1f} us (its dequantization "
+                  f"{dq_ms * 1e3:.1f} us), K1 {k1 * 1e3:.1f} us, route / K1 {route / k1:.3f}")
+        del ws
+    return out
 
 
 def attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv=None):
@@ -1147,6 +1194,9 @@ def phase4b_fused_step(params, cfg, dev):
     for off in (False, True, True, False):
         ms, rest, launched = decode(off)
         runs[off].append(ms)
+        if not torch.equal(tokens.setdefault(False, rest), rest):
+            fail(f"[4b] QUICK_TPU_FUSED_STEP={'0' if off else '1'}: the graphed decode gave other "
+                 "greedy tokens than the first run's (K3)")
         tokens[off] = rest
         route = "decode_attention" if off else "fused_decode_step"
         if launched.get(route, 0) != steps * cfg.num_hidden_layers:
@@ -1155,8 +1205,7 @@ def phase4b_fused_step(params, cfg, dev):
         if off and "fused_decode_step" in launched:
             fail("[4b] QUICK_TPU_FUSED_STEP=0 still launched K3")
     stats = dict(max_seq=SWITCH_SEQ, steps=steps, decode_ms_per_step_k3=runs[False],
-                 decode_ms_per_step_switch_off_k7=runs[True],
-                 same_greedy_tokens=bool(torch.equal(tokens[False], tokens[True])))
+                 decode_ms_per_step_switch_off_k7=runs[True], same_greedy_tokens=True)
     print(f"  graphed B={BATCH} decode at max_seq {SWITCH_SEQ}, ms per step: K3 "
           f"{runs[False]}, QUICK_TPU_FUSED_STEP=0 (K7) {runs[True]}; same greedy tokens: "
           f"{stats['same_greedy_tokens']}")
@@ -1363,6 +1412,32 @@ def sync_checked(eng, checked: dict) -> None:
                 torch.cuda.set_sync_debug_mode("default")
                 checked[_name] += 1
         setattr(eng, name, wrapped)
+
+
+def engine_timing(params, cfg, tag: str, engine=ENGINE, trace=None) -> dict:
+    """One more run of the trace, untimed and uncounted, under
+    QUICK_TPU_ENGINE_TIMING=1: the host seconds of each phase of the
+    Engine's turns (``Engine.timing``: admission, window dispatch, blocked
+    window fetches and those with nothing queued behind them, prefill
+    dispatch, pending fetches, mixed steps) beside the run's wall time."""
+    from quick_tpu_torch.runtime import Engine
+
+    trace = trace or serving_trace(cfg.vocab_size)
+    with switches(QUICK_TPU_ENGINE_TIMING="1"):
+        eng = Engine(params, cfg, **engine)
+    for p, n in trace:
+        eng.submit(p, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    split = dict(eng.timing, wall_s=time.perf_counter() - t0, steps=eng.stats["steps"])
+    print(f"  [{tag}] Engine.timing under QUICK_TPU_ENGINE_TIMING=1 (one more run, untimed), "
+          "host seconds: " + json.dumps(split))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return split
 
 
 def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None,
@@ -3907,6 +3982,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     trace = serving_trace(cfg.vocab_size)
     gemm_errs = check_gemms(cfg, gen, dev)
+    dense_route = dense_route_rows(cfg, gen, dev)
     rows = time_gemms(cfg, gen, dev, gemm_errs, main_path_gemms(cfg), "generate")
     rows += time_gemms(cfg, gen, dev, gemm_errs, engine_gemms(cfg), "engine")
     rows.append(flash_row(cfg, gen, dev))
@@ -3943,6 +4019,7 @@ def main() -> None:
     cut = (dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
            dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS))
     counts["engine"], engine_stats = phase_engine(*cut, "5")
+    engine_stats["timing"] = engine_timing(*cut, "5")
     engine_stats["k13_host_ab"] = engine_host_ab(*cut, "12b")
     counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
     counts["int8_engine"], int8_stats = phase_engine(*cut, "9c", ENGINE_INT8, int8_trace)
@@ -3998,7 +4075,8 @@ def main() -> None:
             paged=phase6_paged_plain_vs_kernel(
                 cfg, dev, tag="13c", require={"fused_layer_tail": 2 * PHASE6_DECODE}))
     penalties = phase13_penalties(cfg, dev)
-    report = dict(card=card, kernels=rows, generate_path=gen_stats, engine_path=engine_stats,
+    report = dict(card=card, kernels=rows, dense_route=dense_route, generate_path=gen_stats,
+                  engine_path=engine_stats,
                   fused_step_shapes=fused_shape_stats,
                   launch_counts=counts, checkpoint_path=ckpt_stats, moe=moe_report,
                   int8_engine_path=int8_stats, gguf_path=gguf_stats, qwen_g64_path=qwen_g_stats,

@@ -30,7 +30,7 @@
 // A plain launch, unlike a cooperative one, is captured into CUDA graphs
 // with the rest of the decode step.
 // Each GEMM phase is a list of (128-column tile, K split) items taken
-// round-robin by the blocks; an item runs K1's decode body
+// round-robin by the blocks; an item runs the CUDA-core decode body
 // (qmm_decode.cuh: the o projection plain, gate_up with K1's RMSNorm
 // prologue over h, down with K1's SiLU-GLU prologue over gu) and writes its
 // f32 partial. The block that completes a tile (a per-tile arrival counter,

@@ -1,6 +1,6 @@
-// The W4A16 CUDA-core decode body (M <= 8 rows) shared by K1's decode path
-// (quantized_matmul.cu) and K14, the decode layer tail
-// (fused_layer_tail.cu).
+// The W4A16 CUDA-core decode body (M <= 8 rows) of K14, the decode layer
+// tail (fused_layer_tail.cu); K1's decode rows ran it until they moved onto
+// the wgmma body (quantized_matmul.cu).
 //
 // A block of 128 threads owns 128 output columns (thread t: column n) and
 // ROWS rows from m0. Per quant group of 128 input channels it issues the
@@ -13,14 +13,24 @@
 // numerics of quick_tpu/ops/quantized_matmul.py::_quantized_matmul_jnp).
 #pragma once
 
-#include "qmm_mma.cuh"
+#include "common.cuh"
 
 namespace {
 
+constexpr int kG = 128;       // quant group: 16 packed rows x 8 nibbles
+constexpr int kSlab = 16;     // packed rows per group
+constexpr int kPack = 8;      // nibbles per word
+constexpr int kBN = 128;      // columns per block
+
+// nibble j of a QTPU word as its code, an exact f32 (the 2^23 exponent trick)
+__device__ __forceinline__ float code_f32(uint32_t w, int j) {
+  return __uint_as_float(((w >> (4 * j)) & 0xFu) | 0x4B000000u) - 8388608.f;
+}
+
 enum Prologue { kNone = 0, kRmsNorm = 1, kSiluGlu = 2 };
 
-// An activation load: plain where x is read-only for the whole launch (K1:
-// the compiler may take the non-coherent path), through L2 (ld.global.cg)
+// An activation load: plain where x is read-only for the whole launch (the
+// compiler may take the non-coherent path), through L2 (ld.global.cg)
 // where other blocks of the same launch wrote x (K14's h and gu).
 template <bool COHERENT>
 __device__ __forceinline__ float load_act(const bf16* p) {

@@ -128,6 +128,85 @@ __device__ __forceinline__ uint32_t dq_pair(uint32_t lo, uint32_t hi, int sh, fl
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
+// The end of an 8-token tile (the decode rows, one token tile; grid (1,
+// column tiles, splits)), shared with K1's decode rows (quantized_matmul.cu):
+// acc register e holds channel c0 + 8 * (e >> 1), token 2t + (e & 1). With
+// K split (partial given: f32 [splits, M, N]), the block writes its
+// partials, and the last block of the column tile to finish sums every
+// split's partials in split order into out and resets counters[tile] for
+// the next launch; unsplit, the bf16 tile goes out through shared memory
+// in 16-byte rows. smem: the block's ring, 1024-aligned, every copy landed
+// and consumed, at least 16 + splits * 8 * 128 * 4 bytes.
+__device__ __forceinline__ void decode_store(const float (&acc)[4], unsigned char* smem, int M,
+                                             int N, int n0, int c0, int t, int tid,
+                                             float* __restrict__ partial, bf16* __restrict__ out,
+                                             int* __restrict__ counters) {
+  constexpr int BT = 8, kOutLd = kBN + 8;
+  if (partial != nullptr) {
+    float* p = partial + (size_t)blockIdx.z * M * N;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * t + (e & 1), n = n0 + c0 + (e >> 1) * 8;
+      if (m < M && n < N) p[(size_t)m * N + n] = acc[e];
+    }
+    // the last split of this output tile to finish sums the splits' partials
+    // in split order (the reduce kernel's order) and resets the counter
+    int* flag = reinterpret_cast<int*>(smem);
+    __syncthreads();  // every partial of this block is written; the ring is free
+    if (tid == 0) {
+      // one acq_rel atomic releases the block's partials (the barrier
+      // orders every thread's stores before it) and acquires the others'
+      int* cnt = counters + blockIdx.y;
+      int done;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                   : "=r"(done) : "l"(cnt) : "memory");
+      *flag = done == (int)gridDim.z - 1;
+      if (*flag) *cnt = 0;
+    }
+    __syncthreads();
+    if (!*flag) return;
+    // every split's partials of the tile into shared memory at once
+    // (16-byte copies from L2, after the flag), then each output summed in
+    // split order
+    float* sums = reinterpret_cast<float*>(smem + 16);  // [splits][BT][kBN]
+    const int nz = gridDim.z, rows = min(BT, M);
+    for (int c = tid; c < nz * rows * (kBN / 4); c += kThreads) {
+      const int z = c / (rows * (kBN / 4)), r = c / (kBN / 4) % rows, c4 = 4 * (c % (kBN / 4));
+      const bool ok = n0 + c4 < N;  // N % 4 == 0: a 16-byte chunk is whole or past N
+      const float* src = partial + ((size_t)z * M + r) * N + (ok ? n0 + c4 : 0);
+      cp_async16(smem_u32(sums + (z * BT + r) * kBN + c4), src, ok);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    for (int idx = tid; idx < rows * kBN; idx += kThreads) {
+      const int m = idx / kBN, n = n0 + idx % kBN;
+      if (n >= N) continue;
+      float sum = 0.f;
+      for (int z = 0; z < nz; ++z) sum += sums[z * BT * kBN + idx];
+      out[(size_t)m * N + n] = __float2bfloat16_rn(sum);
+    }
+    return;
+  }
+  __syncthreads();  // the ring is free: every copy landed and was consumed
+  bf16* tile = reinterpret_cast<bf16*>(smem);  // [BT][kOutLd]
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    tile[(2 * t + (e & 1)) * kOutLd + c0 + (e >> 1) * 8] = __float2bfloat16_rn(acc[e]);
+  __syncthreads();
+  for (int idx = tid; idx < BT * (kBN / 8); idx += kThreads) {
+    const int r = idx / (kBN / 8), c = (idx % (kBN / 8)) * 8;
+    const int n = n0 + c;
+    if (r >= M || n >= N) continue;
+    const bf16* src = tile + r * kOutLd + c;
+    bf16* dst = out + (size_t)r * N + n;
+    if ((N & 7) == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = src[e];
+    }
+  }
+}
+
 // out[m0:m0+BT, n0:n0+128] of x @ dequant(qw) over the stages (128 depths)
 // c0 .. c0 + cps - 1 (a split-K slice into partial [splits, M, N] f32 where
 // partial is given, else the whole K into out [M, N] bf16; at BT = 8 the
@@ -264,6 +343,10 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
     retire(it + 1, a1);
   }
 
+  if constexpr (BT == 8) {
+    decode_store(acc, smem, M, N, n0, c0, t, tid, partial, out, counters);
+    return;
+  }
   // accumulator register 4i + e: channel c0 + 8 * (e >= 2), token 8i + 2t + (e & 1)
   if (partial != nullptr) {
     float* p = partial + (size_t)blockIdx.z * M * N;
@@ -274,44 +357,6 @@ dq_wgmma_kernel(const __grid_constant__ Maps maps, int M, int K, int N, int cps,
         const int m = m0 + 8 * i + 2 * t + (e & 1), n = n0 + c0 + (e >> 1) * 8;
         if (m < M && n < N) p[(size_t)m * N + n] = acc[4 * i + e];
       }
-    if constexpr (BT == 8) {
-      // the last split of this output tile to finish sums the splits' partials
-      // in split order (the reduce kernel's order) and resets the counter
-      int* flag = reinterpret_cast<int*>(smem);
-      __syncthreads();  // every partial of this block is written; the ring is free
-      if (tid == 0) {
-        // one acq_rel atomic releases the block's partials (the barrier
-        // orders every thread's stores before it) and acquires the others'
-        int* cnt = counters + (size_t)blockIdx.x * gridDim.y + blockIdx.y;
-        int done;
-        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                     : "=r"(done) : "l"(cnt) : "memory");
-        *flag = done == (int)gridDim.z - 1;
-        if (*flag) *cnt = 0;
-      }
-      __syncthreads();
-      if (!*flag) return;
-      // every split's partials of the tile into shared memory at once
-      // (16-byte copies from L2, after the flag), then each output summed in
-      // split order
-      float* sums = reinterpret_cast<float*>(smem + 16);  // [splits][BT][kBN]
-      const int nz = gridDim.z, rows = min(BT, M - m0);
-      for (int c = tid; c < nz * rows * (kBN / 4); c += kThreads) {
-        const int z = c / (rows * (kBN / 4)), r = c / (kBN / 4) % rows, c4 = 4 * (c % (kBN / 4));
-        const bool ok = n0 + c4 < N;  // N % 4 == 0: a 16-byte chunk is whole or past N
-        const float* src = partial + ((size_t)z * M + m0 + r) * N + (ok ? n0 + c4 : 0);
-        cp_async16(smem_u32(sums + (z * BT + r) * kBN + c4), src, ok);
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      for (int idx = tid; idx < rows * kBN; idx += kThreads) {
-        const int m = m0 + idx / kBN, n = n0 + idx % kBN;
-        if (n >= N) continue;
-        float sum = 0.f;
-        for (int z = 0; z < nz; ++z) sum += sums[z * BT * kBN + idx];
-        out[(size_t)m * N + n] = __float2bfloat16_rn(sum);
-      }
-    }
     return;
   }
   __syncthreads();  // the ring is free: every copy landed and was consumed

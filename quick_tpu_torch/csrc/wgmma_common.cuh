@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the wgmma GEMM bodies: K1's above 8
-// rows (qmm_wgmma.cuh), K9's (qmm_wgmma_dq.cuh), K11f's
-// (qmm_wgmma_a8.cuh), K8's and K12's (grouped_wgmma.cuh). mbarriers (a lost
+// rows (qmm_wgmma.cuh) and at its decode rows (quantized_matmul.cu), K9's
+// (qmm_wgmma_dq.cuh), K11f's (qmm_wgmma_a8.cuh), K8's and K12's
+// (grouped_wgmma.cuh). mbarriers (a lost
 // arrival traps instead of hanging), tensor copies into shared memory, the
 // warpgroup MMA fences, the exact bf16x2 codes of two QTPU words' nibbles
 // (K1's and K8's register operand), the K-major 128-byte-swizzled B
-// descriptor, the bf16 m64nBTk16 (BT = 8 for K9's decode rows, 16-128)
+// descriptor, the bf16 m64nBTk16 (BT = 8 for the decode rows, 16-128)
 // and s8 m64nBTk32 instructions with A from registers, and the host-side tensor-map encoding
 // (cuTensorMapEncodeTiled through the runtime's driver entry point; no link
 // against libcuda).
@@ -67,6 +68,16 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// all but the newest commit group done (K1's decode rows fold a stage's
+// dot while the next stage's MMAs run)
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// order this thread's shared-memory stores before later reads by the async
+// proxy (wgmma's descriptor operand), across the barrier that follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // keep the compiler from moving register reads or writes across a wgmma
 // wait: the registers wgmma reads (A) or writes (D) are its until then

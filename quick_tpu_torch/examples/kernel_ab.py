@@ -11,7 +11,8 @@ instruction-for-instruction identical body here (``cuobjdump -sass``,
 addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
 (``flash_attention.cu``), K3 (``fused_decode_step.cu``), K5 / K6
-(``paged_attention.cu``), K5q / K6q (``paged_attention_int8.cu``), K8
+(``paged_attention.cu``), K5q / K6q (``paged_attention_int8.cu``), K7
+(``decode_attention.cu``), K8
 (``grouped_matmul.cu``), K9
 (``quantized_matmul_dequant.cu``), K11 / K11f
 (``quantized_matmul_a8.cu``) and K12 (``grouped_matmul_a8.cu``) kernels
@@ -32,11 +33,13 @@ M = 1, 4, 8, 16, 128, 512 on the Mistral-7B projections at G = 32 and on
 DeepSeek-V2-Lite's seven at M = 1, 4, 8, 512, G = 64,
 K11 and K11f at M = 128 and 512 on the Mistral-7B projections, and K3
 through its wrapper at B = 4, 1 and 8 with S = 256 (length 191) and at
-B = 4, S = 1,536 (length 1,500), Mistral-7B's heads. Each row ends with
+B = 4, S = 1,536 (length 1,500), Mistral-7B's heads, and K7 through its
+wrapper at ``chip_smoke.py``'s three shapes (B = 32 and 64 at T = 256, B
+= 4 at T = 2,048). Each row ends with
 this tree's mean over the other's; a row only one tree times is
 named apart. ``--sass-only`` stops after the SASS comparison; ``--only``
-times only the named groups (k1 k2 k3 k5 k5q k8 k9 k11 k12; k5 is K5 / K6,
-k5q K5q / K6q), e.g. ``--only k9 k5q``.
+times only the named groups (k1 k2 k3 k5 k5q k7 k8 k9 k11 k12; k5 is K5 /
+K6, k5q K5q / K6q), e.g. ``--only k9 k5q``.
 """
 import argparse
 import json
@@ -63,7 +66,7 @@ regs = {}  # entry (build hash cut; K8's G=128 instantiation named as before G w
 for k in all_kernels():
     if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention", "paged_attention",
                   "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step",
-                  "grouped_matmul_a8", "paged_attention_int8"):
+                  "grouped_matmul_a8", "paged_attention_int8", "decode_attention"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -126,6 +129,19 @@ if want("k3"):
             q, kn, vn, kc, vc, c, sn, ln, i % L, D ** -0.5), 100)
         rows.append(dict(name=f"fused_decode_step[B={B} S={S} length={length}]", ms=ms))
         del kc, vc
+# K7 through its wrapper at chip_smoke's three shapes (DENSE_B_T), a 4-layer stack
+from quick_tpu_torch.ops import decode_attention as dda
+if want("k7"):
+    for name, (B, T) in cs.DENSE_B_T.items():
+        g = torch.Generator(device=dev).manual_seed(B + T)
+        ln = cs.dense_lengths(g, dev, name, B, T).to(torch.int32)
+        q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((4, B, Hkv, T, D), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        ms = cs.device_ms(lambda i: dda.dense_decode_attention_cuda(q, kc, vc, ln, i % 4,
+                                                                    D ** -0.5), 100)
+        rows.append(dict(name=f"decode_attention[{name} B={B} T={T}]", ms=ms))
+        del kc, vc
 print(json.dumps({"registers": regs, "ms": {r["name"]: r["ms"] for r in rows}}))
 '''
 
@@ -173,7 +189,9 @@ def compare_sass(other: Path, this: Path) -> None:
             old = sass_bodies(other, source, Path(tmp))
             here = sass_bodies(this, source, Path(tmp))
             new = set(here.values())
-            by_name = {short_name(n): b for n, b in here.items()}
+            # a function that gained a bool template parameter (K5's kernel,
+            # instantiated for K7 too) is matched by its name without it
+            by_name = {re.sub(r", \(bool\)[01]>", ">", short_name(n)): b for n, b in here.items()}
             differ = [name for name, body in old.items() if body not in new]
             print(f"SASS {source}: {len(old) - len(differ)} of the other tree's {len(old)} "
                   f"functions have an identical body here")

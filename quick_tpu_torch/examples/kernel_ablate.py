@@ -8,6 +8,11 @@ Each variant is this checkout's source with one part cut (the results are
 wrong; only the time means anything), built with the port's ``nvcc`` flags
 into a scratch directory and swapped into the wrapper for its timing:
 
+- K1's decode rows (``K1d``): ``pingpong`` (two group accumulators in turn,
+  each stage's fold under the next stage's MMAs after ``wgmma.wait_group
+  1``, three B tiles: the design the body tried first, which ptxas
+  serializes), at M = 4 on the Mistral-7B projections with the path's
+  prologues;
 - K1: ``no_mma`` (no wgmma: the fragments are built and folded, the MMAs
   never run), ``no_fold`` (the group's dot added unscaled), ``no_build`` (the
   raw words as fragments, no dequantization);
@@ -71,18 +76,86 @@ _K1_BUILD = """      a[j][0] = code_pair(w[0][0], w[1][0], j);  // channel c0, d
       a[j][1] = code_pair(w[0][1], w[1][1], j);  // channel c0 + 8
       a[j][2] = code_pair(w[2][0], w[3][0], j);  // channel c0, depths 2t + 8, 2t + 9
       a[j][3] = code_pair(w[2][1], w[3][1], j);"""
+# K1's decode rows: from the group dot's MMAs to the end of the loop, and
+# the ping-pong that replaces them (two accumulators in turn, each stage's
+# fold under the next stage's MMAs after wgmma.wait_group 1, three B tiles)
+_K1D_LOOP = ("  // stage `it`'s group dot into dot: 8 MMAs, one commit group\n",
+             "  qwd::decode_store(")
+_K1D_PINGPONG = """  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  auto issue = [&](int it, const uint32_t (&a)[8][4], float (&d)[4]) {
+    const uint32_t xb = sbase + L::oX + (it % kXStages) * L::kX;
+    qwg::hold(d);
+    qwg::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      qwg::Wgmma<8>::mma(d, a[j], qwg::desc_b(xb + (j >> 2) * 1024 + (j & 3) * 32), j > 0);
+    qwg::wgmma_commit();
+  };
+  auto fold = [&](int it, uint32_t (&a)[8][4], float (&d)[4]) {
+    qwg::hold(d);
+    qwg::hold(a);
+    const float* ssm = reinterpret_cast<const float*>(smem + (it % kStages) * L::kStage + L::kW);
+    const float s0 = ssm[c0], s1 = ssm[c0 + 8];
+    const float z0 = -ssm[kBN + c0], z1 = -ssm[kBN + c0 + 8];
+    const float2 xv = *reinterpret_cast<const float2*>(xsums + (it % kXStages) * 8 + 2 * t);
+    acc[0] = fmaf(xv.x, z0, fmaf(d[0], s0, acc[0]));
+    acc[1] = fmaf(xv.y, z0, fmaf(d[1], s0, acc[1]));
+    acc[2] = fmaf(xv.x, z1, fmaf(d[2], s1, acc[2]));
+    acc[3] = fmaf(xv.y, z1, fmaf(d[3], s1, acc[3]));
+    qwg::mbar_arrive(empty + 8 * (it % kStages));
+  };
+  auto head = [&](int it) {
+    __syncthreads();
+    if (tid == 0 && it + kStages - 2 < nit) load(it + kStages - 2);
+  };
+  uint2 raw[2];
+  if (nit > 0) {
+    load_raw(0, raw);
+    stage_x(0, raw);
+    if (nit > 1) load_raw(1, raw);
+  }
+  uint32_t a0[8][4], a1[8][4];
+  float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int it = 0; it < nit; it += 2) {
+    head(it);
+    build(it, a0);
+    issue(it, a0, d0);
+    if (it > 0) {
+      qwg::wgmma_wait1();
+      fold(it - 1, a1, d1);
+    }
+    if (it + 1 == nit) {
+      qwg::wgmma_wait0();
+      fold(it, a0, d0);
+      break;
+    }
+    stage_x(it + 1, raw);
+    if (it + 2 < nit) load_raw(it + 2, raw);
+    head(it + 1);
+    build(it + 1, a1);
+    issue(it + 1, a1, d1);
+    qwg::wgmma_wait1();
+    fold(it, a0, d0);
+    if (it + 2 == nit) {
+      qwg::wgmma_wait0();
+      fold(it + 1, a1, d1);
+      break;
+    }
+    stage_x(it + 2, raw);
+    if (it + 3 < nit) load_raw(it + 3, raw);
+  }
+"""
 _K9_MMA = "      Wgmma<BT>::mma(acc, a[j], desc_b(xb + (j >> 2) * (BT * 128) + (j & 3) * 32), 1);"
-_K9_MERGE = """    if constexpr (BT == 8) {
-      // the last split"""
-_K9_ATOM = """        int done;
-        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\\n"
-                     : "=r"(done) : "l"(cnt) : "memory");"""
+_K9_MERGE = "    // the last split of this output tile to finish sums the splits' partials"
+_K9_ATOM = """      int done;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\\n"
+                   : "=r"(done) : "l"(cnt) : "memory");"""
 _K9_PDL = "    attr[0].val.programmaticStreamSerializationAllowed = 1;"
-_K9_FENCES = [("""      __syncthreads();  // every partial of this block is written; the ring is free
-      if (tid == 0) {""", """      __threadfence();
-      __syncthreads();
-      if (tid == 0) {"""), (_K9_ATOM, "        const int done = atomicAdd(cnt, 1);"),
-              ("      if (!*flag) return;\n", "      if (!*flag) return;\n      __threadfence();\n")]
+_K9_FENCES = [("""    __syncthreads();  // every partial of this block is written; the ring is free
+    if (tid == 0) {""", """    __threadfence();
+    __syncthreads();
+    if (tid == 0) {"""), (_K9_ATOM, "      const int done = atomicAdd(cnt, 1);"),
+              ("    if (!*flag) return;\n", "    if (!*flag) return;\n    __threadfence();\n")]
 _K9_DEQUANT = """  const float flo = __uint_as_float(((lo >> sh) & 0xFu) | 0x4B000000u);
   const float fhi = __uint_as_float(((hi >> sh) & 0xFu) | 0x4B000000u);
   __nv_bfloat162 r = __floats2bfloat162_rn(__fsub_rn(fmaf(flo, s, c), zs),
@@ -115,6 +188,12 @@ _K12_MMA = "  for (int s = 0; s < 4; ++s) WgmmaS8<W>::mma(d, a[s], desc_b(xb + s
 #: name -> (kernel, file, [(text, replacement)], {(module, attribute): value}
 #: set while the cut version runs)
 VARIANTS = {
+    "K1d pingpong": (qm.KERNEL, "quantized_matmul.cu", [
+        (_K1D_LOOP, _K1D_PINGPONG),
+        ("constexpr int kXStages = 2;", "constexpr int kXStages = 3;"),
+        # a stage is released a turn later: the copies run one stage less ahead
+        ("    for (int j = 0; j < kStages - 1 && j < nit; ++j) load(j);",
+         "    for (int j = 0; j < kStages - 2 && j < nit; ++j) load(j);")]),
     "K1 no_mma": (qm.KERNEL, "qmm_wgmma.cuh",
                   [(_K1_MMA, "      dot[j] += __uint_as_float(a[j][0] ^ a[j][3]);")]),
     "K1 no_fold": (qm.KERNEL, "qmm_wgmma.cuh", [(_K1_FOLD, """      acc[4 * i + 0] += dot[4 * i + 0];
@@ -128,7 +207,7 @@ VARIANTS = {
         (_K9_MMA, "      acc[j % kNR] += __uint_as_float(a[j][0] ^ a[j][3]);")]),
     "K9 no_dequant": (qm.KERNEL_DEQUANT, "qmm_wgmma_dq.cuh", [(_K9_DEQUANT, "  return (lo >> sh) ^ hi;")]),
     "K9 no_merge": (qm.KERNEL_DEQUANT, "qmm_wgmma_dq.cuh",
-                    [(_K9_MERGE, _K9_MERGE.replace("BT == 8", "BT == 0"))]),
+                    [(_K9_MERGE, "    return;\n" + _K9_MERGE)]),
     "K9 fence_all": (qm.KERNEL_DEQUANT, "qmm_wgmma_dq.cuh", _K9_FENCES),
     "K9 no_pdl": (qm.KERNEL_DEQUANT, "qmm_wgmma_dq.cuh", [(_K9_PDL, _K9_PDL.replace("= 1", "= 0"))]),
     "K9 fill_0": (qm.KERNEL_DEQUANT, "qmm_wgmma_dq.cuh", [], {(qm, "DQ_FILL_STAGES"): 0}),
@@ -163,12 +242,19 @@ VARIANTS = {
 
 
 def build(name: str, kernel, file: str, edits, root: Path):
-    """Copy csrc/ into root/<name>, apply the edits, build the kernel's
-    source; returns the loaded library."""
+    """Copy csrc/ into root/<name>, apply the edits (text -> replacement;
+    a (start, end) pair of texts replaces what lies from start up to end),
+    build the kernel's source; returns the loaded library."""
     d = root / name.replace(" ", "_")
     shutil.copytree(CSRC, d)
     text = (d / file).read_text()
     for old, new in edits:
+        if isinstance(old, tuple):
+            i, j = text.find(old[0]), text.find(old[1])
+            if i < 0 or j < i:
+                raise SystemExit(f"{name}: the span to cut is not in {file} any more")
+            text = text[:i] + new + text[j:]
+            continue
         if old not in text:
             raise SystemExit(f"{name}: the text to cut is not in {file} any more")
         text = text.replace(old, new)
@@ -187,7 +273,8 @@ def build(name: str, kernel, file: str, edits, root: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", nargs="*", help="kernels to cut (K1, K9, K11f, K8, K12, K2); all by default")
+    ap.add_argument("--only", nargs="*",
+                    help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q); all by default")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke as cs
@@ -203,6 +290,14 @@ def main(argv=None):
         attn[(B, S)] = (q, k, v, torch.zeros(B, dtype=torch.int32, device=dev),
                         torch.full((B,), S, dtype=torch.int32, device=dev))
 
+    # K1's decode rows at M = 4 on the Mistral-7B projections, with the path's prologues
+    nw = torch.ones(4096, device=dev, dtype=torch.bfloat16)
+    decode1 = {}
+    for name, K, N, kw in (("qkv norm", 4096, 6144, dict(norm_weight=nw)), ("o", 4096, 4096, {}),
+                           ("gate_up norm", 4096, 28672, dict(norm_weight=nw)),
+                           ("down glu", 14336, 4096, dict(glu=True))):
+        x = torch.randn((4, 2 * K if kw.get("glu") else K), generator=gen, device=dev)
+        decode1[name] = (x.to(torch.bfloat16), cs.rand_qlinear(gen, dev, K, N, 2), kw)
     dq = cs.rand_qlinear(gen, dev, 4096, 28672, 2, group=32)
     x4 = torch.randn((4, 4096), generator=gen, device=dev).to(torch.bfloat16)
     dq4 = {f"{name} M=4": (x4[:, :K].contiguous(), cs.rand_qlinear(gen, dev, K, N, 2, group=G), G)
@@ -246,7 +341,11 @@ def main(argv=None):
                     if T in (4, 512) and model == "mixtral-8x7b":
                         moe_a8[name] = (qm.quantize_activations(x), stacks, te, live, bm)
 
-    def times(kernel):
+    def times(kernel, group):
+        if group == "K1d":
+            return {f"{name} M=4": cs.device_ms(
+                lambda i, c=c: qm.quantized_matmul_cuda(c[0], *c[1][i % 2], **c[2]), 100)
+                for name, c in decode1.items()}
         if kernel is qm.KERNEL:
             return {f"gate_up M={M}": cs.device_ms(
                 lambda i, x=x, ws=ws: qm.quantized_matmul_cuda(x, *ws[i % 2]), 10)
@@ -291,7 +390,7 @@ def main(argv=None):
                 kernel._lib = cut if is_cut else base
                 for (mod, attr), value in (attrs if is_cut else saved).items():
                     setattr(mod, attr, value)
-                res.append(times(kernel))
+                res.append(times(kernel, name.split()[0]))
             for (mod, attr), value in saved.items():
                 setattr(mod, attr, value)
             kernel._lib = base

@@ -6,10 +6,12 @@ Port of ``quick_tpu/ops/decode_attention.py``: ``dense_decode_attention``
 a layer first would copy it), per-row lengths, scale, ALiBi slopes and the
 tanh softcap, and ``supports`` (:278) with the tile picker's feasibility
 rule (:197), kept so both packages take the same branch. CUDA tensors go to
-``csrc/decode_attention.cu`` (bf16 cache); CPU tensors to the plain
-version, which runs the Pallas kernel's algorithm: chunks of ``c`` keys
-(the chunk ``_pick_tiles`` picks), an online softmax in f32, and p rounded
-to the cache dtype before p @ v (:98-105).
+``csrc/decode_attention.cu`` (bf16 cache), the dense instantiation of K5's
+key-split kernel (``csrc/paged_decode.cuh``: the cache is B pages of T
+keys); CPU tensors to the plain version, which runs the Pallas kernel's
+algorithm: chunks of ``c`` keys (the chunk ``_pick_tiles`` picks), an
+online softmax in f32, and p rounded to the cache dtype before p @ v
+(:98-105).
 """
 from __future__ import annotations
 
@@ -17,23 +19,26 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, sm_count, stream_ptr
+from quick_tpu_torch.ops._cuda import (
+    CudaKernel, ZeroedWords, check, f32, i32, ptr, sm_count, stream_ptr,
+)
 
 NEG_INF = -1e30
 
-#: K7 (one C entry point; it launches the merge pass itself when the key
-#: range is split). ``launches_by_key`` names the shape and the split.
+#: K7 (one launch; its last block of a (row, head group) merges the key
+#: splits). ``launches_by_key`` names the shape and the split.
 KERNEL = CudaKernel(
     "decode_attention.cu",
     {
         "qtt_dense_decode_attention": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
             i32, i32, i32, i32, f32, f32, ptr,
         ],
     },
 )
+_COUNTERS = ZeroedWords("K7")  # the merge counters, zero between launches
 KERNEL_HEAD_DIMS = (64, 128, 256)
-TILE = 64  # keys per staged tile in the kernel (attention_tile.cuh kBK)
+TILE = 64  # keys per staged tile in the kernel (paged_decode.cuh k5::kBK)
 
 
 def _pick_tiles(B: int, Hkv: int, T: int, D: int, itemsize: int = 2) -> Optional[Tuple[int, int]]:
@@ -120,7 +125,9 @@ def dense_decode_attention_cuda(
     q, k, v, lengths, layer, scale, alibi_slopes=None, logit_softcap=None,
 ) -> torch.Tensor:
     """Launch K7 on CUDA tensors; same arguments as the plain version
-    (lengths an int32 [B] tensor on the card)."""
+    (lengths an int32 [B] tensor on the card). Its merge counters
+    (``_COUNTERS``) are made by an eager launch before any capture; one
+    launch at a time on a device."""
     L, B, Hkv, T, D = k.shape
     Hq = q.shape[1]
     if D not in KERNEL_HEAD_DIMS or q.shape[-1] != D or v.shape[-1] != D:
@@ -139,16 +146,14 @@ def dense_decode_attention_cuda(
         check(slopes, "alibi_slopes", torch.float32, (Hq,))
     chunk, splits = split_plan(B, Hkv, T, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc = torch.empty((B, Hq, splits, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32, device=q.device)
+    # the split partials: acc [B, Hq, splits, D], then (m, l) [B, Hq, splits, 2]
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
+    counters = _COUNTERS.get(q.device, B * Hkv * -(-(Hq // Hkv) // 16))
     KERNEL.launch(
         "qtt_dense_decode_attention", launch_key(B, Hq, Hkv, T, D, splits),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
+        part.data_ptr(), part[B * Hq * splits * D:].data_ptr(), counters.data_ptr(),
         B, Hq, Hkv, T, D, L, int(layer), chunk, splits, float(scale),
         float(logit_softcap or 0.0), stream_ptr(q.device),
     )

@@ -23,8 +23,10 @@ the wrapper computed, or, with ``QUICK_TPU_A8_FUSED=1`` at G = 128, K11f
 (``_make_kernel_a8_fused``), which quantizes each row once in its first
 kernel. Rows <= 96 stay on K1 / K9.
 
-The dense-dequant route of the JAX package (``QUICK_TPU_DENSE_M``) is not
-ported yet (ROADMAP.md).
+The dense-dequant route (``QUICK_TPU_DENSE_M=<m>``, off by default, as in
+the JAX package): at m or more flattened rows, ``quantized_matmul_dense``
+dequantizes the weight to bf16 once and multiplies densely, before the
+``a8`` branch (:1009-1027); prologues are applied first.
 """
 from __future__ import annotations
 
@@ -46,9 +48,10 @@ KERNEL = CudaKernel(
     "quantized_matmul.cu",
     {"qtt_quantized_matmul": [
         ptr, i32, ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
-        ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr,
     ]},
 )
+_COUNTERS = ZeroedWords("K1")  # its decode rows' merge counters, zero between launches
 
 #: K9, the small-group GEMM (``_make_kernel_dequant``).
 KERNEL_DEQUANT = CudaKernel(
@@ -202,20 +205,79 @@ def a8_fused_quant() -> bool:
     return os.environ.get("QUICK_TPU_A8_FUSED", "0") == "1"
 
 
+def dense_m_threshold() -> int:
+    """Rows at or above which ``quantized_matmul`` takes the dense-dequant
+    route (``_dense_m_threshold`` :919): ``QUICK_TPU_DENSE_M=<m>`` with m >
+    0, read at every call; never by default, as in the JAX package (the
+    card's crossover against K1 is measured by ``chip_smoke.py``, not
+    chosen here)."""
+    v = os.environ.get("QUICK_TPU_DENSE_M", "")
+    if v and int(v) > 0:
+        return int(v)
+    return 1 << 62
+
+
+def dense_weight(
+    qweight: torch.Tensor, scales: torch.Tensor, zeros_x_scales: torch.Tensor, group_size: int,
+) -> torch.Tensor:
+    """The dense-dequant route's weight [K, N] bf16: ``bf16(f32(code) * s -
+    zs)``, the product and the difference in f32, then one rounding."""
+    K, N = qweight.shape[0] * PACK, qweight.shape[1]
+    ng = K // group_size
+    codes = unpack_qtpu_tensor(qweight, group_size).to(torch.float32).reshape(ng, group_size, N)
+    w = codes * scales.to(torch.float32)[:, None, :] - zeros_x_scales.to(torch.float32)[:, None, :]
+    return w.to(torch.bfloat16).reshape(K, N)
+
+
+def quantized_matmul_dense_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int = 128,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain version of the dense-dequant route: ``bf16(x) @ dense_weight``
+    as an f32 product of the bf16 values (each product exact, the sums in
+    f32), rounded to ``out_dtype``."""
+    w = dense_weight(qweight, scales, zeros_x_scales, group_size)
+    return (x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
+
+
+def quantized_matmul_dense(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros_x_scales: torch.Tensor,
+    group_size: int = 128,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The dense-dequant route (``_quantized_matmul_dense`` :939): x [M, K]
+    -> [M, N], the weight dequantized once (``dense_weight``), then
+    ``bf16(x) @ w`` summed in f32 and rounded to ``out_dtype``. The JAX
+    package leaves this to XLA (no Pallas body), and so torch ops compute
+    it here: on CUDA tensors one bf16 ``torch.matmul`` (f32 accumulation),
+    on CPU tensors the plain version."""
+    if x.device.type != "cuda":
+        return quantized_matmul_dense_plain(
+            x, qweight, scales, zeros_x_scales, group_size, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise NotImplementedError(f"the dense route writes bf16 on the card, not {out_dtype}")
+    return torch.matmul(x.to(torch.bfloat16),
+                        dense_weight(qweight, scales, zeros_x_scales, group_size))
+
+
 def launch_key(prologue: Optional[str], M: int, K: int, N: int) -> str:
     return f"{prologue or 'none'} M={M} K={K} N={N}"
 
 
 def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, groups per split) of K1's CUDA-core decode
-    body (up to 8 rows); its split of K is also K11's (``a8_plan``), which
-    took it with the 64-row blocks of its first body.
-
-    One block covers 128 columns and ``rows`` rows: 1, 2, 4 or 8 on the
-    CUDA-core path, 64 for M > 8. When those tiles cannot fill the card
-    (two blocks per SM), K is split over blocks so about four blocks per SM
-    stream weights; a second pass sums the splits."""
-    rows = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8 if M <= 8 else 64
+    """(64, K splits, groups per split): the split of K that K11 keeps
+    (``a8_plan``) from the 64-row tiles of its first body. When the tiles
+    of 128 columns and 64 rows cannot fill the card (two blocks per SM), K
+    is split over blocks so about four blocks per SM stream weights; a
+    second pass sums the splits."""
+    rows = 64
     tiles = math.ceil(N / _BN) * math.ceil(M / rows)
     ng = K // KERNEL_GROUP
     splits = 1
@@ -231,10 +293,11 @@ def mma_launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, in
 WGMMA_TOKENS = (16, 32, 64, 128)
 WGMMA_STAGES = 4  # K1's and K9's rings
 A8_STAGES = 6     # K11's ring
-#: K9's decode rows (M <= 8): one 8-token tile (m64n8k16) in a deeper ring
+#: the decode rows of K1 and K9 (M <= 8): one 8-token tile (m64n8k16) in a deeper ring
 DQ_DECODE_TOKENS = 8
 DQ_DECODE_STAGES = 6
 DQ_MAX_SPLITS = 16  # the decode rows' K splits (their merge loads every split's partial at once)
+DECODE_STAGES = 8  # K1's decode ring (csrc/quantized_matmul.cu qwk::kStages)
 DQ_FILL_STAGES = 1  # the plan's cost of a block beyond its stages: its ring's fill
 
 
@@ -254,6 +317,16 @@ def wgmma_smem_bytes(bt: int) -> int:
     of 4 stages, each the activations, the packed words, scales and
     zeros_x_scales and the xsum (``csrc/qmm_wgmma.cuh``)."""
     return _ring_bytes(bt * KERNEL_GROUP * 2 + 16 * _BN * 4 + 2 * _BN * 4 + bt * 4, WGMMA_STAGES)
+
+
+def decode_smem_bytes() -> int:
+    """Dynamic shared memory of one block of K1's decode rows
+    (``qwk::Layout``): an 8-stage ring of a group's packed words, scales
+    and zeros_x_scales (9 KB), two 8-row bf16 B tiles of 128 depths, their
+    xsums, and the ring's mbarriers and alignment slack."""
+    stage = 16 * _BN * 4 + 2 * _BN * 4
+    return DECODE_STAGES * stage + 2 * (DQ_DECODE_TOKENS * KERNEL_GROUP * 2 + 32) \
+        + 16 * DECODE_STAGES + 1024
 
 
 def dequant_stages(bt: int) -> int:
@@ -299,15 +372,11 @@ def wgmma_plan(M: int, chunks: int, N: int, sm_count: int) -> Tuple[int, int, in
 
 
 def launch_plan(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, groups per split) for K1.
-
-    Up to 8 rows, the CUDA-core decode body: one block covers 128 columns
-    and 1, 2, 4 or 8 rows, and K is split over blocks so about four blocks
-    per SM stream weights when the tiles cannot fill the card (two blocks
-    per SM). Above 8 rows, the wgmma body's plan (``wgmma_plan``) over the
-    K / 128 groups."""
-    if M <= 8:
-        return mma_launch_plan(M, K, N, sm_count)
+    """(tokens per block, K splits, groups per split) for K1's wgmma body
+    over its K / 128 groups: up to 8 rows K9's ``dequant_decode_plan`` (one
+    8-token tile, one 128-deep stage a group), above 8 ``wgmma_plan``."""
+    if M <= DQ_DECODE_TOKENS:
+        return dequant_decode_plan(K // KERNEL_GROUP, N, sm_count)
     return wgmma_plan(M, K // KERNEL_GROUP, N, sm_count)
 
 
@@ -375,8 +444,11 @@ def quantized_matmul_cuda(
     returns [M, N] bf16.
 
     ``norm_weight`` selects the RMSNorm prologue, ``glu`` the SiLU-GLU one;
-    both take M <= 8 (the decode shapes the gates allow). Above 8 rows the
-    wgmma body's tensor copies read 16-byte rows, so an N that is not a
+    both take M <= 8 (the decode shapes the gates allow). The plan is
+    ``launch_plan``'s: up to 8 rows one 8-token tile whose K splits the last
+    block of a column tile merges, counting on ``_COUNTERS`` (made by an
+    eager launch before any capture; one such launch at a time on a
+    device). The tensor copies read 16-byte rows, so an N that is not a
     multiple of 4 is padded at the call (``pad_columns``; no shape the
     repo's models run has one) and the output sliced back."""
     if norm_weight is not None and glu:
@@ -402,21 +474,23 @@ def quantized_matmul_cuda(
         nw = norm_weight.to(torch.bfloat16).contiguous()
         check(nw, "norm_weight", torch.bfloat16, (K,))
     N_out = N
-    if M > 8 and N % 4:
+    if N % 4:
         qweight, scales, zeros_x_scales = pad_columns(qweight, scales, zeros_x_scales)
         N = qweight.shape[1]
     rows, splits, gps = launch_plan(M, K, N, sm_count(dev.index))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    # one f32 scratch: the wgmma body's [K / 128, M rounded up to 4] group
-    # sums of x (16-byte rows, first so that they stay aligned), [M] RMSNorm
-    # statistics, [splits, M, N] partials
+    # one f32 scratch: above 8 rows the [K / 128, M rounded up to 4] group
+    # sums of x, then the [splits, M, N] partials (both read in 16-byte
+    # rows, so first), then the [M] RMSNorm statistics
     n_xsum = ng * (-(-M // 4) * 4) if M > 8 else 0
-    n_rstd = M if nw is not None else 0
     n_part = splits * M * N if splits > 1 else 0
-    scratch = torch.empty(n_xsum + n_rstd + n_part, dtype=torch.float32, device=dev)
+    n_rstd = M if nw is not None else 0
+    scratch = torch.empty(n_xsum + n_part + n_rstd, dtype=torch.float32, device=dev)
     xsum = scratch[:n_xsum] if n_xsum else None
-    rstd = scratch[n_xsum:n_xsum + n_rstd] if n_rstd else None
-    partial = scratch[n_xsum + n_rstd:] if n_part else None
+    partial = scratch[n_xsum:n_xsum + n_part] if n_part else None
+    rstd = scratch[n_xsum + n_part:] if n_rstd else None
+    counters = (_COUNTERS.get(dev, math.ceil(N / _BN))
+                if splits > 1 and rows == DQ_DECODE_TOKENS else None)
     KERNEL.launch(
         "qtt_quantized_matmul", launch_key(prologue, M, K, N_out),
         x.data_ptr(), x.shape[1], qweight.data_ptr(), scales.data_ptr(),
@@ -425,6 +499,7 @@ def quantized_matmul_cuda(
         None if rstd is None else rstd.data_ptr(),
         None if partial is None else partial.data_ptr(),
         None if xsum is None else xsum.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         out.data_ptr(), stream_ptr(dev),
     )
     return out if N == N_out else out[:, :N_out].contiguous()
@@ -636,8 +711,10 @@ def quantized_matmul(
 
     ``fuse_norm = (rms_weight [K], eps)``: x is the raw residual and the
     RMSNorm runs in the kernel's prologue; ``fuse_glu``: silu(gate) * up
-    runs there. Rows > 8, G != 128 or ``a8`` apply them first. ``a8`` takes
-    the W4A8 route above 96 flattened rows; fewer rows stay W4A16."""
+    runs there. Rows > 8, G != 128 or ``a8`` apply them first. Rows at or
+    above ``dense_m_threshold()`` take the dense-dequant route, ahead of
+    ``a8``, which takes the W4A8 route above 96 flattened rows; fewer rows
+    stay W4A16."""
     if out_dtype is None:
         out_dtype = x.dtype if x.dtype != torch.float32 else torch.bfloat16
     lead = x.shape[:-1]
@@ -648,7 +725,16 @@ def quantized_matmul(
     if fuse_norm is not None and (x2.shape[0] > 8 or a8):
         x2 = rms_norm(x2, fuse_norm[0], fuse_norm[1])
         fuse_norm = None
-    if a8 and x2.shape[0] >= A8_MIN_ROWS:
+    if x2.shape[0] >= dense_m_threshold():
+        # the dense route fuses nothing: the GLU goes first (:1009-1011), and
+        # so does the norm, which the JAX package skips here at <= 8 rows
+        # (ROADMAP.md §C, known divergences)
+        if fuse_glu:
+            x2 = glu_plain(x2)
+        if fuse_norm is not None:
+            x2 = rms_norm(x2, fuse_norm[0], fuse_norm[1])
+        y = quantized_matmul_dense(x2, qweight, scales, zeros_x_scales, group_size, out_dtype)
+    elif a8 and x2.shape[0] >= A8_MIN_ROWS:
         y = _quantized_matmul_2d_a8(
             x2, qweight, scales, zeros_x_scales, group_size, out_dtype)
     else:

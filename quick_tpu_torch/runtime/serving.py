@@ -44,12 +44,18 @@ one kv head, k_pe in the k plane, the latent in the v plane, bf16 or INT8,
 read at decode by K10 / K10q. Not ported, each raising
 ``NotImplementedError``: tensor-parallel serving (``mesh``, ROADMAP A15),
 history penalties and ``logit_bias`` (``enable_penalties``, ROADMAP A6).
-The JAX package's ``QUICK_TPU_ENGINE_TIMING`` and
-``QUICK_TPU_MIXED_COLD`` switches are not carried over.
+
+The JAX package's two switches: ``QUICK_TPU_ENGINE_TIMING=1`` (read when the
+Engine is made) fills ``timing`` with the host seconds of each phase of a
+turn (``time.perf_counter``, no synchronization of its own);
+``QUICK_TPU_MIXED_COLD=1`` (read at every turn) takes the padded mixed step
+while more slots prefill than decode, as the JAX Engine's round-3 schedule.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
 
@@ -264,8 +270,17 @@ class Engine:
         self._graph = self._graph_key = None
         self._g_tok = self._g_valid = self._g_len = None
         # completed prefills' first-token samples not yet fetched:
-        # (_Fetch, [(row, slot, request)]) — see _drain_pending
+        # (_Fetch, [(row, slot, request)], dispatch seq) — see _drain_pending
         self._pending = []
+        # host seconds per phase of a turn under QUICK_TPU_ENGINE_TIMING=1
+        # (the JAX Engine's keys, :270-279); a fetch is "serial" when nothing
+        # was dispatched after the fetched work (the card idles while the
+        # host waits): every dispatch bumps _dispatch_seq
+        self._timed = os.environ.get("QUICK_TPU_ENGINE_TIMING") == "1"
+        self._dispatch_seq = 0
+        self.timing = dict.fromkeys(
+            ("admit", "window_dispatch", "window_fetch", "window_fetch_serial",
+             "prefill_dispatch", "pending_fetch", "pending_fetch_serial", "mixed"), 0.0)
         self.stats = {
             "steps": 0,            # scheduler turns
             "window_steps": 0,     # decode-window dispatches
@@ -667,7 +682,10 @@ class Engine:
     def step(self) -> None:
         """Admit, dispatch, drain, retire — one scheduler turn (the JAX
         ``Engine.step``, :874)."""
+        t0 = time.perf_counter() if self._timed else 0.0
         self._admit()
+        if self._timed:
+            self.timing["admit"] += time.perf_counter() - t0
         self.stats["steps"] += 1
         if self.optimistic:
             # top up every decoding slot BEFORE any dispatch this step: the
@@ -682,7 +700,11 @@ class Engine:
             if r is not None and not r.prefill_done
         ]
         ready = self.ready_slots()
-        if W > 1 and (ready or prefilling or self._pending):
+        # QUICK_TPU_MIXED_COLD=1: the padded mixed step while prefilling
+        # slots outnumber decoding ones (:922-928)
+        decoupled = (os.environ.get("QUICK_TPU_MIXED_COLD") != "1"
+                     or len(ready) >= len(prefilling))
+        if W > 1 and decoupled and (ready or prefilling or self._pending):
             # capacity-tight tails SHRINK the window: a slot near max_seq
             # needs 2 * W_eff of junk-overrun slack (two undrained windows)
             W_eff = W
@@ -715,6 +737,7 @@ class Engine:
     def _mixed_step(self) -> None:
         """The padded [B, chunk] (any slot prefilling) or [B, 1] step; it
         fetches its samples at once."""
+        t0 = time.perf_counter() if self._timed else 0.0
         self._drain_pending()
         self._flush_window()
         if all(r is None for r in self.slots):
@@ -737,6 +760,9 @@ class Engine:
         row, self.cache = self._forward_rows(self.cache, self._dev(tokens), self._dev(valid))
         tl, tk = self._draw(row, self._samp_rows(self.slots))
         arr, tk = _Fetch(tl, tk).get()
+        if self._timed:
+            self.timing["mixed"] += time.perf_counter() - t0
+        self._dispatch_seq += 1
         sampled, lps = self._unpack_tl(arr)
         self.stats["mixed_steps"] += 1
         self.stats["mixed_chunk_steps"] += int(C > 1)
@@ -768,6 +794,7 @@ class Engine:
         following drain retires were still computing in the in-flight
         window; their writes land on their own or the trash pages and their
         tokens are discarded by the drain's valid/done guards."""
+        t0 = time.perf_counter() if self._timed else 0.0
         B = self.max_slots
         W = self.decode_window if W is None else W
         valid = np.zeros((B,), np.int32)
@@ -785,10 +812,13 @@ class Engine:
             tok_in = torch.where(self._dev(cont)[:, None], last_tok, tok_in)
         samp = self._samp_rows([r if valid[s] else None for s, r in enumerate(self.slots)])
         out, tk = self._window(tok_in, self._dev(valid), samp, W)
+        self._dispatch_seq += 1
         self._inflight = {
             "out": out, "fetch": _Fetch(out, tk), "slots": list(self.slots),
-            "valid": valid,
+            "valid": valid, "seq": self._dispatch_seq,
         }
+        if self._timed:
+            self.timing["window_dispatch"] += time.perf_counter() - t0
         self.stats["window_steps"] += 1
         self.stats["window_forwards"] += W
         self.stats["decode_slot_steps"] += int(valid.sum()) * W
@@ -801,7 +831,10 @@ class Engine:
 
     def _drain_window(self, inflight: dict) -> None:
         snapshot, valid = inflight["slots"], inflight["valid"]
+        t0 = time.perf_counter() if self._timed else 0.0
         arr, tk = inflight["fetch"].get()  # ONE wait for W tokens per slot
+        if self._timed:
+            self._add_fetch("window_fetch", time.perf_counter() - t0, inflight["seq"])
         toks, lps = self._unpack_tl(arr)  # [B, W] each
         for slot, req in enumerate(snapshot):
             if req is None or not valid[slot] or req.done:
@@ -822,6 +855,7 @@ class Engine:
         through the gathered sub-batch; decoding slots never pay for it. The
         first token of rows that complete their prompt is fetched at a later
         drain point (``_pending``), overlapping the in-flight window."""
+        t0 = time.perf_counter() if self._timed else 0.0
         P, C = self.prefill_rows, self.chunk
         rows = prefilling[:P]
         slot_ids = np.zeros((P,), np.int64)
@@ -851,15 +885,28 @@ class Engine:
         sub = self.cache.select(ids, row_valid)
         row, sub = self._forward_rows(sub, self._dev(tokens), valid_d)
         self.cache = self.cache.merge(sub, ids, row_valid)
+        self._dispatch_seq += 1
         if fin:
             samp = self._samp_rows([self.slots[s] for s in rows] + [None] * (P - len(rows)))
-            self._pending.append((_Fetch(*self._draw(row, samp)), fin))
+            self._pending.append((_Fetch(*self._draw(row, samp)), fin, self._dispatch_seq))
+        if self._timed:
+            self.timing["prefill_dispatch"] += time.perf_counter() - t0
+
+    def _add_fetch(self, key: str, dt: float, seq: int) -> None:
+        """Time blocked on a fetch; also under ``<key>_serial`` when nothing
+        was dispatched after the fetched work."""
+        self.timing[key] += dt
+        if seq == self._dispatch_seq:
+            self.timing[key + "_serial"] += dt
 
     def _drain_pending(self, pending=None) -> None:
         if pending is None:
             pending, self._pending = self._pending, []
-        for fetch, fin in pending:
+        for fetch, fin, seq in pending:
+            t0 = time.perf_counter() if self._timed else 0.0
             arr, tk = fetch.get()  # tiny [P, 2]; overlaps in-flight work
+            if self._timed:
+                self._add_fetch("pending_fetch", time.perf_counter() - t0, seq)
             toks, lps = self._unpack_tl(arr)
             for i, slot, req in fin:
                 if req.done:

@@ -1,7 +1,9 @@
-"""The port's CUDA kernels (K1 GEMM with its prologues, K2 flash prefill,
+"""The port's CUDA kernels (K1 GEMM with its prologues, at every decode row
+count on the 8-token body and graphed, K2 flash prefill,
 also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
 also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
-attention, K8 grouped MoE GEMM at G = 128, 64 and 32, K4q INT8 paged writes,
+attention on K5's kernel (edges, graphed), K8 grouped MoE GEMM at G = 128,
+64 and 32, K4q INT8 paged writes,
 K5q / K6q INT8 paged attention (K6q split, graphed), K9 small-group GEMM
 (every decode row count, graphed), K10 / K10q paged MLA
 decode attention, K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
@@ -223,6 +225,75 @@ def test_gemm_wgmma_body_odd_n_matches_plain(cuda_device, M, N):
     torch.cuda.synchronize()
     assert tqmm.KERNEL.launches == before + 1 and out.shape == (M, N) and out.is_contiguous()
     np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+#: (K, N) of K1's decode rows: the Mistral-7B widths (qkv, o, gate_up and
+#: down; K split over up to 16 blocks or not at all), a ragged N and an N %
+#: 4 == 2 (padded at the call)
+K1_DECODE_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (512, 200),
+                    (4096, 4098)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [None, "norm", "glu"])
+@pytest.mark.parametrize("K,N", K1_DECODE_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_gemm_decode_rows_match_plain(cuda_device, M, K, N, prologue):
+    """K1 at every decode row count on the 8-token wgmma body (rows >= M
+    zero, the prologue applied while the threads stage the B tile) against
+    its plain version; a second launch bit-equal to the first (the splits
+    merged in split order)."""
+    x, qw, s, zs = _wgmma_case(cuda_device, M, K, N, seed=M * 7 + K + N)
+    kw, xp = {}, x
+    if prologue == "norm":
+        w = (1 + 0.1 * torch.randn(K, device=cuda_device)).to(torch.bfloat16)
+        kw = dict(norm_weight=w, norm_eps=1e-5)
+        xp = rms_norm(x.cpu(), w.cpu(), 1e-5).to(cuda_device)
+    elif prologue == "glu":
+        x = torch.cat([x, torch.randn_like(x)], dim=1)
+        kw = dict(glu=True)
+        xp = tqmm.glu_plain(x)
+    before = tqmm.KERNEL.launches
+    out = tqmm.quantized_matmul_cuda(x, qw, s, zs, **kw)
+    again = tqmm.quantized_matmul_cuda(x, qw, s, zs, **kw)
+    ref = tqmm.quantized_matmul_plain(xp, qw, s, zs)
+    torch.cuda.synchronize()
+    assert tqmm.KERNEL.launches == before + 2 and out.shape == (M, N)
+    assert tqmm.launch_plan(M, K, N + (-N % 4), 132)[0] == 8
+    assert torch.equal(out, again)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [None, "norm", "glu"])
+def test_gemm_decode_rows_graph_replays(cuda_device, prologue):
+    """K1 at M = 4 with K split over blocks (the o projection's plan),
+    captured in a CUDA graph and replayed twice after x moved in place:
+    each replay equal to an eager launch bit for bit (the last block of
+    each tile resets its counter; the RMSNorm's first kernel is captured
+    with it)."""
+    K, N = 4096, 4096
+    x, qw, s, zs = _wgmma_case(cuda_device, 4, K, N, seed=11)
+    kw = {}
+    if prologue == "norm":
+        kw = dict(norm_weight=torch.ones(K, device=cuda_device, dtype=torch.bfloat16),
+                  norm_eps=1e-5)
+    elif prologue == "glu":
+        x = torch.cat([x, x.flip(1)], dim=1).contiguous()
+        kw = dict(glu=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tqmm.launch_plan(4, K, N, sms)[1] > 1
+    out = tqmm.quantized_matmul_cuda(x, qw, s, zs, **kw)  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tqmm.quantized_matmul_cuda(x, qw, s, zs, **kw)
+    for seed in range(2):
+        x.copy_(torch.randn(x.shape, device=cuda_device).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tqmm.quantized_matmul_cuda(x.clone(), qw, s, zs, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(f32(out), f32(want))
 
 
 FLASH_SHAPES = [64, 128, 256, (192, 128)]
@@ -704,6 +775,61 @@ def test_dense_decode_kernel_matches_plain(rng, cuda_device, case):
     assert (np.abs(f32(out) - f32(ref)) <= TOL["rtol"] * row_max).all()
     if case == "ragged":
         assert not f32(out)[1].any()  # the length-0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [{}, dict(logit_softcap=30.0), dict(alibi=True),
+                                  dict(logit_softcap=30.0, alibi=True)])
+@pytest.mark.parametrize("gq,Hkv", [(1, 8), (4, 8), (8, 2), (32, 1)])
+@pytest.mark.parametrize("D,T", [(64, 200), (128, 256), (256, 136), (128, 1000)])
+def test_dense_decode_split_kernel_edges(cuda_device, D, T, gq, Hkv, case):
+    """K7 on K5's key-split kernel (the dense cache as B pages of T keys)
+    at lengths 0, 1, 63, 64, T and past T, T % 64 != 0 too, gq 1 to 32 (two
+    head groups of 16), against its plain version; a second launch
+    bit-equal to the first."""
+    gen = torch.Generator().manual_seed(D + T + gq)
+    lengths = torch.tensor([0, 1, 63, 64, T, T + 9], dtype=torch.int32)
+    B, Hq = len(lengths), gq * Hkv
+    q = torch.randn((B, Hq, D), generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((2, B, Hkv, T, D), generator=gen).to(torch.bfloat16) for _ in range(2))
+    kw = dict(case)
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    dev = [t.to(cuda_device) for t in (q, k, v, lengths)]
+    before = tdda.KERNEL.launches
+    out = tdda.dense_decode_attention(*dev, layer=1, **kw)
+    again = tdda.dense_decode_attention(*dev, layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tdda.KERNEL.launches == before + 2
+    assert torch.equal(out, again)
+    ref = tdda.dense_decode_attention(q, k, v, lengths, layer=1, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    assert not f32(out)[0].any()  # length 0: no key, zeros
+
+
+@pytest.mark.cuda
+def test_dense_decode_graph_replays_at_moving_lengths(cuda_device):
+    """K7 captured in a CUDA graph and replayed after the lengths moved in
+    place (as the graphed decode step under QUICK_TPU_FUSED_STEP=0 moves
+    them): equal to eager launches at those lengths, bit for bit."""
+    B, Hq, Hkv, D, T = 16, 32, 8, 128, 512
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((B, Hq, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((2, B, Hkv, T, D), generator=gen, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([1 + 31 * i for i in range(B)], dtype=torch.int32, device=cuda_device)
+    out = tdda.dense_decode_attention(q, k, v, ln, layer=1)  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdda.dense_decode_attention(q, k, v, ln, layer=1)
+    for shift in (1, 200, 0):
+        new = torch.tensor([min(T, 1 + 31 * i + shift) for i in range(B)], dtype=torch.int32,
+                           device=cuda_device)
+        ln.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tdda.dense_decode_attention(q, k, v, new.clone(), layer=1)
+        np.testing.assert_array_equal(f32(out), f32(want))
 
 
 #: (bm, tile experts, live flags, N): 32-row blocks, 64-row blocks over

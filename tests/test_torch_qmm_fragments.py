@@ -190,10 +190,20 @@ def test_wgmma_launch_plan(K, N):
 
 @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8])
 def test_decode_rows_keep_their_plan(M):
-    """Up to 8 rows K1 keeps the CUDA-core decode plan (K9 and K11's)."""
+    """Up to 8 rows K1 takes K9's decode plan over its 128-deep groups (one
+    8-token tile, the same plan at every M <= 8): every group in exactly one
+    split, at most 16 splits (its merge stages them all at once in the
+    ring), and two blocks' shared memory fit an SM."""
+    smem = tqmm.decode_smem_bytes()
+    assert 2 * smem <= 228 * 1024 and 16 + 16 * 8 * 128 * 4 <= tqmm.DECODE_STAGES * 9 * 1024
     for K, N in PLAN_SHAPES:
-        assert tqmm.launch_plan(M, K, N, H100_SMS) == tqmm.mma_launch_plan(
-            M, K, N, H100_SMS)
+        ng = K // G
+        plan = tqmm.launch_plan(M, K, N, H100_SMS)
+        assert plan == tqmm.dequant_decode_plan(ng, N, H100_SMS) == tqmm.launch_plan(
+            1, K, N, H100_SMS)
+        bt, splits, gps = plan
+        assert bt == 8 and splits <= tqmm.DQ_MAX_SPLITS == 16
+        assert splits * gps >= ng and (splits - 1) * gps < ng
 
 
 @pytest.mark.parametrize("group", [128, 64, 32])

@@ -109,8 +109,9 @@ def test_bias_and_leading_dims(rng):
 )
 def test_launch_plan_covers_k(M, K, N):
     """Every group is covered exactly once by the split-K plan, and small
-    output grids are split to fill the card (132 SMs): up to 8 rows to two
-    blocks an SM, above (the wgmma body, up to 128 tokens a block) to at
+    output grids are split to fill the card (132 SMs): up to 8 rows (one
+    8-token tile, at most 16 splits) to a block an SM where the groups and
+    that cap allow, above (the wgmma body, up to 128 tokens a block) to at
     least half the blocks the card holds when the tiles fill no more."""
     rows, splits, gps = tqmm.launch_plan(M, K, N, 132)
     ng = K // 128
@@ -118,7 +119,8 @@ def test_launch_plan_covers_k(M, K, N):
     assert splits * gps >= ng and (splits - 1) * gps < ng
     tiles = math.ceil(N / 128) * math.ceil(M / rows)
     if M <= 8:
-        assert tiles * splits >= min(2 * 132, tiles * ng)
+        assert rows == 8 and splits <= 16
+        assert tiles * splits >= min(132, tiles * min(ng, 16))
     else:
         slots = 132 * tqmm.wgmma_blocks_per_sm(rows)
         assert 2 * tiles > slots or tiles * splits >= min(slots // 2, tiles * ng)
