@@ -60,7 +60,10 @@ Phases (any failure exits non-zero):
      launch counts exactly those of each path;
   9. INT8 KV pages: (a) K4q (decode and chunk writes, codes and scale tiles
      byte-equal), K5q and K6q (within tol, K5q also row-scaled) against
-     their plain versions at the INT8 Engine's shapes; (b) their times,
+     their plain versions at the INT8 Engine's shapes, K5q also at pages
+     of 16 and 256 keys, with window, softcap and ALiBi, on a skewed batch
+     (one slot at the whole 1,024-key table, so that its splits merge) and
+     captured in a CUDA graph replayed after the lengths moved; (b) their times,
      bounds and yardsticks; (c) the Engine over INT8 pages, as phase 5, on
      tools/serve_bench.py's INT8 command (128 requests, 64 slots; the
      first ENGINE_LAYERS layers); (d) the
@@ -81,6 +84,7 @@ Phases (any failure exits non-zero):
      K9's plain version on the CPU side;
  11. DeepSeek-V2-Lite (MLA with DeepSeekMoE, g=64, the published widths,
      27 layers): (a) K10 / K10q (paged MLA decode) at the Engine's decode,
+     K10q also at DeepSeek-V3's 128 heads (8 head groups),
      K4 / K4q on the latent planes (byte-equal), K2 at q / k 192, v 128, K9
      and K8 at its shapes, against their plain versions; (b) their times,
      bounds and yardsticks; (c) generate() at full width and depth, as
@@ -2357,6 +2361,59 @@ def int8_write_rows(cfg, gen, dev, trace):
     return out
 
 
+def int8_decode_edges(g, gen, dev, qd, lens, scale, cases) -> float:
+    """[9a] K5q beyond the Engine's pages: pages of 16 and 256 keys over the
+    same 1,024-key table (``cases``: plain, window, softcap, ALiBi); a
+    skewed batch, one slot at the whole table and the rest short, so that
+    that slot's splits merge; and a launch captured in a CUDA graph,
+    replayed after the lengths moved in place, equal to eager launches at
+    those lengths bit for bit. Each within TOL of the plain version, and
+    row-scaled. Returns the largest error."""
+    from quick_tpu_torch.ops import paged_attention as pa
+
+    tol, B, T = TOL["paged_attention"], g["B"], g["n_pt"] * g["page"]
+    err = 0.0
+    for page in (16, 256):
+        gp = dict(g, page=page, n_pt=T // page, P=B * (T // page) + 1)
+        pool, bt = int8_pool(gen, dev, gp, 2), block_table(gen, dev, gp, B)
+        for name, kw in cases:
+            what = f"K5q B={B} page={page}{name}"
+            got = pa.paged_decode_attention_int8_cuda(qd, *pool, bt, lens, 1, scale, **kw)
+            ref = pa.paged_decode_attention_int8_plain(qd, *pool, bt, lens, 1, scale, **kw)
+            err = max(err, max_err(got, ref, tol, what))
+            row_scaled_err(got, ref, tol, what)
+        del pool
+    pool, bt = int8_pool(gen, dev, g, 2), block_table(gen, dev, g, B)
+    skew = torch.randint(1, 65, (B,), generator=gen, device=dev).to(torch.int32)
+    skew[0] = T
+    chunk, splits = pa.int8_split_plan(B, g["Hkv"], g["Hq"] // g["Hkv"], g["page"], T,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    for name, kw in cases:
+        what = f"K5q B={B} skewed (slot 0 over {-(-T // chunk)} of {splits} splits){name}"
+        got = pa.paged_decode_attention_int8_cuda(qd, *pool, bt, skew, 1, scale, **kw)
+        ref = pa.paged_decode_attention_int8_plain(qd, *pool, bt, skew, 1, scale, **kw)
+        err = max(err, max_err(got, ref, tol, what))
+        row_scaled_err(got, ref, tol, what)
+    ln = lens.clone()
+    out = pa.paged_decode_attention_int8_cuda(qd, *pool, bt, ln, 1, scale)  # eager: the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_decode_attention_int8_cuda(qd, *pool, bt, ln, 1, scale)
+    for moved in (skew, torch.clamp(lens + 37, max=T), lens):
+        ln.copy_(moved)
+        graph.replay()
+        want = pa.paged_decode_attention_int8_cuda(qd, *pool, bt, moved.clone(), 1, scale)
+        ref = pa.paged_decode_attention_int8_plain(qd, *pool, bt, moved, 1, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            fail("K5q: a replayed graph differs from eager launches at the moved lengths")
+        what = f"K5q B={B} graph replayed at lengths {moved[:4].tolist()}..."
+        err = max(err, max_err(out, ref, tol, what))
+        row_scaled_err(out, ref, tol, what)
+    del graph, pool
+    return err
+
+
 def int8_attention_rows(cfg, gen, dev, trace):
     """9a / 9b for K5q and K6q: against their plain versions (the Pallas
     INT8 arithmetic) at the INT8 Engine's shapes, K5q also row-scaled;
@@ -2384,17 +2441,22 @@ def int8_attention_rows(cfg, gen, dev, trace):
     qc = torch.randn((Bp, S, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
     small = int8_pool(gen, dev, g, 2)
     err = {"decode": 0.0, "chunk": 0.0}
-    for name, kw in (("", {}), (", window 100", dict(window=100)),
-                     (", softcap 30", dict(logit_softcap=30.0))):
+    slopes = 2.0 ** (-8.0 * torch.arange(1, Hq + 1, device=dev, dtype=torch.float32) / Hq)
+    cases = (("", {}), (", window 100", dict(window=100)), (", softcap 30", dict(logit_softcap=30.0)),
+             (", ALiBi", dict(alibi_slopes=slopes)))
+    for name, kw in cases:
         got = pa.paged_decode_attention_int8_cuda(qd, *small, bt, lens, 1, scale, **kw)
         ref = pa.paged_decode_attention_int8_plain(qd, *small, bt, lens, 1, scale, **kw)
         err["decode"] = max(err["decode"], max_err(got, ref, tol, f"K5q B={B}{name}"))
         row_scaled_err(got, ref, tol, f"K5q B={B}{name}")
+        if "alibi_slopes" in kw:
+            continue  # the Engine's model has no ALiBi: K6q's ALiBi is in the card tests
         for st, what in ((starts, ""), (cross, " crossing pages")):
             err["chunk"] = max(err["chunk"], max_err(
                 pa.paged_chunk_attention_int8_cuda(qc, *small, bt[:Bp], st, 1, scale, **kw),
                 pa.paged_chunk_attention_int8_plain(qc, *small, bt[:Bp], st, 1, scale, **kw),
                 tol, f"K6q B={Bp} S={S}{what}{name}"))
+    err["decode"] = max(err["decode"], int8_decode_edges(g, gen, dev, qd, lens, scale, cases))
     del small
 
     print("[9b] K5q / K6q timing at the INT8 Engine's shapes (INT8 pool of all 32 layers)")
@@ -3027,6 +3089,17 @@ def mla_attention_rows(cfg, gen, dev, trace):
                 row_scaled_err(out, ref, tol, f"{name} {what}")
             elif out[0].any():
                 fail(f"{name}: an empty slot gave a non-zero context")
+        if int8:  # DeepSeek-V3's 128 heads: 8 head groups a slot
+            q128 = [torch.randn((B, 128, w), generator=gen, device=dev).to(torch.bfloat16)
+                    for w in (R, dr)]
+            for what, ln in (("trace lengths", lens), ("empty and full slots", edge)):
+                out = ml.mla_paged_decode_attention_cuda(*q128, small[0], small[1], bt, ln, 1,
+                                                         scale, small[2])
+                ref = ml.mla_paged_decode_attention_plain(*q128, small[0], small[1], bt, ln, 1,
+                                                          scale, small[2])
+                torch.cuda.synchronize()
+                err = max(err, max_err(out, ref, tol, f"{name} Hq=128 {what}"))
+                row_scaled_err(out, ref, tol, f"{name} Hq=128 {what}")
         del small
         big = mla_pool(gen, dev, L, P, page, (dr, R), int8)
         T = max(dec)

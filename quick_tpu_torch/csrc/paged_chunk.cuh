@@ -6,51 +6,15 @@
 // paged_attention.cu (K6) and below (the int8 staging).
 #pragma once
 
-#include "split_attention.cuh"
+#include "int8_stage.cuh"
 
 namespace {
 namespace k6 {
-
-// 4 bytes global -> shared, zero-filled when !ok (src must still be valid)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-// wait until at most the latest commit group of this thread is in flight
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-// the 8 int8 codes of words lo, hi as 8 bf16, exactly: each byte plus 128
-// under the exponent of 2^23, minus 2^23 + 128, is the code in f32, whose
-// high half is its bf16 (at most 8 significant bits)
-__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t u, int b) {
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + b)) - 8388736.f;
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-}
-__device__ __forceinline__ uint4 codes_bf16(uint32_t lo, uint32_t hi) {
-  lo ^= 0x80808080u;
-  hi ^= 0x80808080u;
-  return make_uint4(codes_bf16x2(lo, 0), codes_bf16x2(lo, 2), codes_bf16x2(hi, 0),
-                    codes_bf16x2(hi, 2));
-}
 
 constexpr int kRowTiles = 4;                 // m16 row tiles a block
 constexpr int kThreads = 2 * kRowTiles * 32; // two warps a row tile, one a key half
 constexpr int kBK = 64;                      // keys per tile
 constexpr int kRows = kRowTiles * 16;        // (position, head) rows a block
-
-// bf16 pages hold the codes themselves; int8 pages hold codes whose k and
-// v scales lie in the pages' scale tiles
-template <bool kI8>
-struct PageCode {
-  using T = bf16;
-};
-template <>
-struct PageCode<true> {
-  using T = int8_t;
-};
 
 template <int D, bool kI8 = false>
 struct Smem {

@@ -12,7 +12,7 @@ addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
 (``flash_attention.cu``), K3 (``fused_decode_step.cu``), K5 / K6
 (``paged_attention.cu``), K5q / K6q (``paged_attention_int8.cu``), K7
-(``decode_attention.cu``), K8
+(``decode_attention.cu``), K10 / K10q (``mla_paged_attention.cu``), K8
 (``grouped_matmul.cu``), K9
 (``quantized_matmul_dequant.cu``), K11 / K11f
 (``quantized_matmul_a8.cu``) and K12 (``grouped_matmul_a8.cu``) kernels
@@ -33,13 +33,14 @@ M = 1, 4, 8, 16, 128, 512 on the Mistral-7B projections at G = 32 and on
 DeepSeek-V2-Lite's seven at M = 1, 4, 8, 512, G = 64,
 K11 and K11f at M = 128 and 512 on the Mistral-7B projections, and K3
 through its wrapper at B = 4, 1 and 8 with S = 256 (length 191) and at
-B = 4, S = 1,536 (length 1,500), Mistral-7B's heads, and K7 through its
+B = 4, S = 1,536 (length 1,500), Mistral-7B's heads, K7 through its
 wrapper at ``chip_smoke.py``'s three shapes (B = 32 and 64 at T = 256, B
-= 4 at T = 2,048). Each row ends with
+= 4 at T = 2,048), and K10 / K10q at the DeepSeek-V2-Lite Engines' decode
+(``chip_smoke.py::mla_attention_rows``). Each row ends with
 this tree's mean over the other's; a row only one tree times is
 named apart. ``--sass-only`` stops after the SASS comparison; ``--only``
-times only the named groups (k1 k2 k3 k5 k5q k7 k8 k9 k11 k12; k5 is K5 /
-K6, k5q K5q / K6q), e.g. ``--only k9 k5q``.
+times only the named groups (k1 k2 k3 k5 k5q k7 k8 k9 k10 k11 k12; k5 is
+K5 / K6, k5q K5q / K6q, k10 K10 / K10q), e.g. ``--only k9 k5q``.
 """
 import argparse
 import json
@@ -66,7 +67,8 @@ regs = {}  # entry (build hash cut; K8's G=128 instantiation named as before G w
 for k in all_kernels():
     if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention", "paged_attention",
                   "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step",
-                  "grouped_matmul_a8", "paged_attention_int8", "decode_attention"):
+                  "grouped_matmul_a8", "paged_attention_int8", "decode_attention",
+                  "mla_paged_attention"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -103,6 +105,8 @@ with contextlib.redirect_stdout(io.StringIO()):
         rows += cs.paged_attention_rows(cfg, gen, dev, cs.serving_trace(cfg.vocab_size))
     if want("k5q"):
         rows += cs.int8_attention_rows(cfg, gen, dev, cs.serve_bench_trace(cfg.vocab_size))
+    if want("k10"):
+        rows += cs.mla_attention_rows(ds, gen, dev, cs.serving_trace(ds.vocab_size))
     if want("k9"):
         rows += cs.dequant_rows("", cs.gemm_shapes(cfg),
                                 [("ab", M) for M in (1, 4, 8, 16, 128, 512)], 32, gen, dev)

@@ -36,7 +36,15 @@ into a scratch directory and swapped into the wrapper for its timing:
   (16 rows a warp at every length);
 - K6q: ``no_convert`` (the staged codes never converted to bf16: the
   products read stale stages), the share of its time that converting each
-  code once a tile takes.
+  code once a tile takes;
+- K5q: its split plan, no rebuild: ``k5_plan`` (K5's plan uncapped:
+  ``INT8_DECODE_MAX_TILES`` = 16, one split at 64 slots x 8 kv heads),
+  ``max_tiles_2`` and ``max_tiles_8`` (a split's chunk cut to 2 or 8
+  64-key tiles), each against the kept cap of 4; and its body:
+  ``every_split`` (the blocks of splits without a key run and count too, as
+  K5's do), ``no_mma`` (neither product runs), ``no_convert`` (the staged
+  codes never converted), ``no_wait`` (no wait for an item's copies);
+- K10q: ``no_mma``, ``no_convert``, ``no_wait``, as K5q's.
 
 Times use ``chip_smoke.py``'s timing (CUDA events behind a device sleep), in
 turns with the unchanged source, at the Mistral-7B gate_up (K 4096, N
@@ -48,7 +56,10 @@ Mixtral-8x7B's decode (B = 4, Mp = 256) and Engine step (16 rows, Mp = 288),
 gate_up and down, and Qwen1.5-MoE's decode down (E = 60, K = 1408); K12 at
 Mixtral-8x7B's decode (Mp = 256) and B = 4 prefill (Mp = 2048), gate_up
 and down; on one random routing each; K6q at the INT8 Engine's chunk (B = 8,
-S = 16 at serve_bench's starts, 32 layers of INT8 pages).
+S = 16 at serve_bench's starts, 32 layers of INT8 pages); K5q at the INT8
+Engine's decode (B = 64 at ``chip_smoke.py::trace_positions``' lengths, the
+same pool); K10q at the DeepSeek-V2-Lite INT8 Engine's decode (B = 16, Hq =
+16, 27 layers of INT8 latent pages).
 """
 import argparse
 import ctypes
@@ -62,6 +73,7 @@ import torch
 
 from quick_tpu_torch.ops import flash_attention as fa
 from quick_tpu_torch.ops import grouped_matmul as gm
+from quick_tpu_torch.ops import mla_paged_attention as ml
 from quick_tpu_torch.ops import paged_attention as pa
 from quick_tpu_torch.ops import quantized_matmul as qm
 from quick_tpu_torch.ops._cuda import CSRC, NVCC_FLAGS, _nvcc
@@ -183,6 +195,19 @@ _K6Q_CONVERT = """        *reinterpret_cast<uint4*>(kb + swz<D>(j, 2 * ch)) = co
         *reinterpret_cast<uint4*>(kb + swz<D>(j, 2 * ch + 1)) = codes_bf16(k4.z, k4.w);
         *reinterpret_cast<uint4*>(vb + swz<D>(j, 2 * ch)) = codes_bf16(v4.x, v4.y);
         *reinterpret_cast<uint4*>(vb + swz<D>(j, 2 * ch + 1)) = codes_bf16(v4.z, v4.w);"""
+_K5Q_LIVE = """    nwait = wlo < end ? (end - 1) / chunk - first + 1 : 1;
+    if (sp < first || sp >= first + nwait) return;"""
+_K5Q_MMA = ["        mma16832(si[0], qa, kb[0], kb[1]);\n        mma16832(si[1], qa, kb[2], kb[3]);",
+            "        mma16816(c0v, pa, vb[0], vb[1]);\n        mma16816(c1v, pa, vb[2], vb[3]);"]
+_K5Q_CONVERT = """      *reinterpret_cast<uint4*>(dst + swz<D>(r, 2 * ch)) = codes_bf16(w.x, w.y);
+      *reinterpret_cast<uint4*>(dst + swz<D>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);"""
+_K5Q_WAIT = "    cp_async_wait1();  // this thread's copies of item i + 1 landed\n"
+_K10Q_MMA = ["      mma16816(sc[kk & 1][0], a, kb[0], kb[1]);\n      mma16816(sc[kk & 1][1], a, kb[2], kb[3]);",
+             "      mma16816(spe[0], a, kb[0], kb[1]);\n      mma16816(spe[1], a, kb[2], kb[3]);",
+             "        mma16816(o[2 * np], a, vb[0], vb[1]);\n        mma16816(o[2 * np + 1], a, vb[2], vb[3]);"]
+_K10Q_CONVERT = """      *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch)) = codes_bf16(w.x, w.y);
+      *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);"""
+_K10Q_WAIT = "    cp_async_wait1();  // this thread's copies of tile it (and q) landed\n"
 _K12_MMA = "  for (int s = 0; s < 4; ++s) WgmmaS8<W>::mma(d, a[s], desc_b(xb + s * 32), s > 0);"
 
 #: name -> (kernel, file, [(text, replacement)], {(module, attribute): value}
@@ -238,6 +263,17 @@ VARIANTS = {
     "K12 no_x": (gm.KERNEL_A8, "grouped_wgmma.cuh", _GROUPED_X),
     "K6q no_convert": (pa.KERNEL_INT8, "paged_chunk.cuh", [
         (_K6Q_CONVERT, "        kb[0] = k4.x ^ v4.y;  // read, never converted")]),
+    "K5q every_split": (pa.KERNEL_INT8, "paged_decode.cuh", [(_K5Q_LIVE, "    (void)first;")]),
+    "K5q no_mma": (pa.KERNEL_INT8, "paged_decode.cuh", [(m, "") for m in _K5Q_MMA]),
+    "K5q no_convert": (pa.KERNEL_INT8, "paged_decode.cuh", [(_K5Q_CONVERT, "      dst[0] = w.x ^ w.w;")]),
+    "K5q no_wait": (pa.KERNEL_INT8, "paged_decode.cuh", [(_K5Q_WAIT, "")]),
+    "K10q no_mma": (ml.KERNEL, "mla_paged_attention.cu", [(m, "") for m in _K10Q_MMA]),
+    "K10q no_convert": (ml.KERNEL, "mla_paged_attention.cu", [(_K10Q_CONVERT, "      smem[L::oC] = w.x ^ w.w;")]),
+    "K10q no_wait": (ml.KERNEL, "mla_paged_attention.cu", [(_K10Q_WAIT, "")]),
+
+    "K5q k5_plan": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 16}),
+    "K5q max_tiles_2": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 2}),
+    "K5q max_tiles_8": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 8}),
 }
 
 
@@ -274,7 +310,8 @@ def build(name: str, kernel, file: str, edits, root: Path):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
-                    help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q); all by default")
+                    help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q, K5q, K10q); all "
+                         "by default")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke as cs
@@ -304,16 +341,34 @@ def main(argv=None):
            for name, K, N, G in (("gate_up G=32", 4096, 28672, 32), ("qkv G=32", 4096, 6144, 32),
                                  ("DS q", 2048, 3072, 64), ("DS kv_a", 2048, 576, 64),
                                  ("DS shared gate_up", 2048, 5632, 64))}
-    chunk6q = None  # K6q: the INT8 Engine's chunk over a 32-layer INT8 pool
-    if not args.only or "K6q" in args.only:
+    chunk6q = decode5q = None  # K6q / K5q: the INT8 Engine's chunk and decode, 32 layers
+    if not args.only or "K6q" in args.only or "K5q" in args.only:
         from quick_tpu_torch import ModelConfig
 
         g = cs.paged_geometry(ModelConfig(**cs.MISTRAL_7B), cs.ENGINE_INT8)
-        _, starts = cs.trace_positions(cs.serve_bench_trace(32000), g)
+        lens, starts = cs.trace_positions(cs.serve_bench_trace(32000), g)
         pool = cs.int8_pool(gen, dev, g, 32)
         q = torch.randn((g["Bp"], g["S"], g["Hq"], g["D"]), generator=gen, device=dev)
         chunk6q = (q.to(torch.bfloat16), *pool, cs.block_table(gen, dev, g, g["Bp"]),
                    torch.tensor(starts, dtype=torch.int32, device=dev))
+        q = torch.randn((g["B"], g["Hq"], g["D"]), generator=gen, device=dev)
+        decode5q = (q.to(torch.bfloat16), *pool, cs.block_table(gen, dev, g, g["B"]),
+                    torch.tensor(lens, dtype=torch.int32, device=dev))
+    decode10q = None  # K10q: the DeepSeek-V2-Lite INT8 Engine's decode, 27 layers
+    if not args.only or "K10q" in args.only:
+        from quick_tpu_torch import ModelConfig
+        from quick_tpu_torch.modules.mla import mla_softmax_scale
+
+        ds = ModelConfig.from_hf_config(cs.DEEPSEEK_V2_LITE)
+        g = cs.paged_geometry(ds)
+        lens, _ = cs.trace_positions(cs.serving_trace(ds.vocab_size), g)
+        pool = cs.mla_pool(gen, dev, ds.num_hidden_layers, g["P"], g["page"],
+                           (ds.qk_rope_head_dim, ds.kv_lora_rank), True)
+        q = [torch.randn((g["B"], ds.num_attention_heads, w), generator=gen, device=dev)
+             .to(torch.bfloat16) for w in (ds.kv_lora_rank, ds.qk_rope_head_dim)]
+        decode10q = (*q, pool[0], pool[1], cs.block_table(gen, dev, g, g["B"]),
+                     torch.tensor(lens, dtype=torch.int32, device=dev), pool[2],
+                     ds.num_hidden_layers, mla_softmax_scale(ds))
     moe = {}  # K8: "<model> <projection> Mp=..." -> (x, [weight stacks], te, live, bm)
     moe_a8 = {}  # K12: the same, x as its int8 codes and row scales
     if not args.only or "K8" in args.only or "K12" in args.only:
@@ -364,6 +419,14 @@ def main(argv=None):
         if kernel is gm.KERNEL_A8:
             return {name: cs.device_ms(lambda i, c=c: gm.launch_grouped_a8(
                 *c[0], *c[1][i % 2], c[2], c[3], c[4]), 20) for name, c in moe_a8.items()}
+        if group == "K10q":
+            qc, qp, kpe, c, bt, ln, tiles, L, scale = decode10q
+            return {"K10q decode B=16": cs.device_ms(lambda i: ml.mla_paged_decode_attention_cuda(
+                qc, qp, kpe, c, bt, ln, i % L, scale, tiles), 50)}
+        if group == "K5q":
+            q, kp, vp, tiles, bt, ln = decode5q
+            return {"K5q decode B=64": cs.device_ms(lambda i: pa.paged_decode_attention_int8_cuda(
+                q, kp, vp, tiles, bt, ln, i % 32, 128 ** -0.5), 50)}
         if kernel is pa.KERNEL_INT8:
             q, kp, vp, tiles, bt, st = chunk6q
             return {"K6q chunk B=8 S=16": cs.device_ms(lambda i: pa.paged_chunk_attention_int8_cuda(

@@ -17,9 +17,12 @@ kernel's arithmetic over all of them at once: scores
 (q_c . c + q_pe . k_pe) * scale, on INT8 pages (s_c * cs + s_pe * ks) *
 scale over the codes; an f32 softmax masked at the length; p (times cs on
 INT8 pages) rounded to the page dtype (bf16 for INT8 codes) before the p @ c
-product; l == 0 -> 1. The kernel runs the same softmax online, so the two
+product; l == 0 -> 1. The kernels run the same softmax online, so the two
 differ by where p is rounded (against a running or the final max) and by
-the f32 sums' order.
+the f32 sums' order. K10q splits each slot's tokens over blocks
+(``int8_split_plan``) and merges the splits in split order;
+``mla_paged_decode_attention_split_plain`` models that arithmetic (64-token
+tiles, p rounded against each split's running max).
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from quick_tpu_torch.ops._cuda import CudaKernel, check, f32, i32, ptr, sm_count, stream_ptr
+from quick_tpu_torch.ops._cuda import (
+    CudaKernel, ZeroedWords, check, f32, i32, ptr, sm_count, stream_ptr,
+)
 from quick_tpu_torch.ops.paged_attention import gather_pages
 
 #: K10 and K10q (one source). ``KERNEL.launches`` counts both;
@@ -35,7 +40,7 @@ from quick_tpu_torch.ops.paged_attention import gather_pages
 KERNEL = CudaKernel(
     "mla_paged_attention.cu",
     {"qtt_mla_paged_decode": [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
         i32, i32, i32, i32, i32, i32, i32, f32, i32, ptr,
     ]},
 )
@@ -43,7 +48,10 @@ KERNEL = CudaKernel(
 #: qk_rope_head_dim
 KERNEL_WIDTHS = ((512, 64),)
 TILE = 64  # tokens per staged tile; a split's chunk is a multiple of it
+HEADS = 16  # query heads a block
 NEG_INF = -1e30
+_COUNTERS = ZeroedWords("K10q")  # its merge counters, zero between launches
+INT8_MAX_CHUNK = 1024  # K10q's tokens a split at most (its shared page-id list)
 
 
 def launch_key(B: int, Hq: int, R: int, dr: int, page: int, n_pt: int, int8: bool) -> str:
@@ -61,6 +69,14 @@ def pick_splits(B: int, n_pt: int, page: int, n_sm: int) -> Tuple[int, int]:
     want = max(1, min(tiles, -(-n_sm // B)))
     chunk = -(-tiles // want) * TILE
     return -(-T // chunk), chunk
+
+
+def int8_split_plan(B: int, n_pt: int, page: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, chunk) of K10q: ``pick_splits`` with the chunk cut to the
+    kernel's ``INT8_MAX_CHUNK``; from the shapes only."""
+    _, chunk = pick_splits(B, n_pt, page, n_sm)
+    chunk = min(chunk, INT8_MAX_CHUNK)
+    return -(-(n_pt * page) // chunk), chunk
 
 
 def mla_paged_decode_attention_plain(
@@ -98,13 +114,82 @@ def mla_paged_decode_attention_plain(
     return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q_c.dtype)
 
 
+def mla_paged_decode_attention_split_plain(
+    q_c: torch.Tensor, q_pe: torch.Tensor, kpe_pages: torch.Tensor,
+    c_pages: torch.Tensor, block_table: torch.Tensor, lengths: torch.Tensor,
+    layer: int, scale: float, kv_scales: Optional[torch.Tensor] = None,
+    chunk: Optional[int] = None, splits: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain model of K10q's split-and-merge arithmetic (the arguments of
+    the plain version; one split by default): per slot and split, its
+    64-token tiles up to the slot's length in an online softmax in f32, the
+    scores in f32 from q as given, (s_c cs + s_pe ks) * scale on INT8
+    pages; l sums the unrounded p; p (times cs on INT8 pages) rounded to
+    bf16 (the pages' dtype for float pages) against the split's running max
+    before p @ c; then the splits holding a token merged in split order, 0
+    where none does. Returns [B, Hq, R] in q_c's dtype."""
+    B, Hq, R = q_c.shape
+    c = gather_pages(c_pages, block_table, layer)[:, 0].to(torch.float32)  # [B, T, R]
+    kpe = gather_pages(kpe_pages, block_table, layer)[:, 0].to(torch.float32)
+    T = c.shape[1]
+    if chunk is None:
+        chunk, splits = -(-T // TILE) * TILE, 1
+    splits = -(-T // chunk) if splits is None else splits
+    qc, qp = q_c.to(torch.float32), q_pe.to(torch.float32)
+    ks = cs = None
+    if kv_scales is not None:
+        tiles = kv_scales[layer][block_table.long()]  # [B, n_pt, 8, page]
+        ks, cs = (tiles[:, :, r].reshape(B, 1, T).to(torch.float32) for r in (0, 1))
+    p_dtype = torch.bfloat16 if kv_scales is not None else c_pages.dtype
+    end = torch.clamp(lengths.to(q_c.device, torch.int64), 0, T).reshape(B, 1, 1)
+    t = torch.arange(T, device=q_c.device)
+    parts = []
+    for sp in range(splits):
+        lo, hi = sp * chunk, torch.clamp(end, max=sp * chunk + chunk)
+        m = torch.full((B, Hq, 1), NEG_INF, device=q_c.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hq, R), device=q_c.device)
+        for t0 in range(lo, min(T, lo + chunk), TILE):
+            t1 = min(t0 + TILE, T)
+            s_c = torch.einsum("bhr,btr->bht", qc, c[:, t0:t1])
+            s_pe = torch.einsum("bhd,btd->bht", qp, kpe[:, t0:t1])
+            if ks is not None:
+                s = (s_c * cs[..., t0:t1] + s_pe * ks[..., t0:t1]) * scale
+            else:
+                s = (s_c + s_pe) * scale
+            mask = t[t0:t1].reshape(1, 1, -1) < hi
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            if cs is not None:
+                p = p * cs[..., t0:t1]
+            acc = acc * alpha + torch.einsum("bht,btr->bhr", p.to(p_dtype).to(torch.float32),
+                                             c[:, t0:t1])
+            m = m_new
+        parts.append((lo < hi, m, l, acc))
+    big = torch.full((B, Hq, 1), NEG_INF, device=q_c.device)
+    for live, m, _, _ in parts:
+        big = torch.where(live, torch.maximum(big, m), big)
+    lt = torch.zeros_like(big)
+    acc = torch.zeros((B, Hq, R), device=q_c.device)
+    for live, m, l, a in parts:  # in split order
+        w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+        lt = lt + l * w
+        acc = acc + w * a
+    return (acc / torch.where(lt == 0, torch.ones_like(lt), lt)).to(q_c.dtype)
+
+
 def mla_paged_decode_attention_cuda(
     q_c: torch.Tensor, q_pe: torch.Tensor, kpe_pages: torch.Tensor,
     c_pages: torch.Tensor, block_table: torch.Tensor, lengths: torch.Tensor,
     layer: int, scale: float, kv_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K10 (bf16 pages) or K10q (INT8 pages) on CUDA tensors; same
-    arguments as the plain version, the queries in bf16."""
+    arguments as the plain version, the queries in bf16. K10q's merge
+    counters live on the device (``_COUNTERS``, made by an eager launch
+    before any capture): one K10q launch at a time on a device."""
     B, Hq, R = q_c.shape
     dr = q_pe.shape[-1]
     L, P, Hkv, page, _ = c_pages.shape
@@ -114,6 +199,8 @@ def mla_paged_decode_attention_cuda(
         raise NotImplementedError(f"K10 is built for (R, dr) in {KERNEL_WIDTHS}, got {(R, dr)}")
     if Hkv != 1:
         raise ValueError(f"MLA latent pages hold one kv head, got {Hkv}")
+    if int8 and (page < 16 or page & (page - 1)):
+        raise NotImplementedError(f"K10q takes pages of 16 or more tokens, a power of two: {page}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside {L}")
     page_dtype = torch.int8 if int8 else torch.bfloat16
@@ -125,12 +212,15 @@ def mla_paged_decode_attention_cuda(
         check(kv_scales, "kv_scales", torch.float32, (L, P, 8, page))
     check(block_table, "block_table", torch.int32, (B, n_pt))
     check(lengths, "lengths", torch.int32, (B,))
-    splits, chunk = pick_splits(B, n_pt, page, sm_count(q_c.device.index or 0))
+    splits, chunk = (int8_split_plan if int8 else pick_splits)(B, n_pt, page,
+                                                               sm_count(q_c.device.index or 0))
     out = q_c.new_empty((B, Hq, R))
-    part_acc = part_ml = None
+    part_acc = part_ml = counters = None
     if splits > 1:
         part_acc = torch.empty((B, Hq, splits, R), dtype=torch.float32, device=q_c.device)
         part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32, device=q_c.device)
+    if int8:
+        counters = _COUNTERS.get(q_c.device, B * -(-Hq // HEADS))
     KERNEL.launch(
         "qtt_mla_paged_decode", launch_key(B, Hq, R, dr, page, n_pt, int8),
         q_c.data_ptr(), q_pe.data_ptr(), kpe_pages.data_ptr(), c_pages.data_ptr(),
@@ -138,6 +228,7 @@ def mla_paged_decode_attention_cuda(
         lengths.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         B, Hq, R, dr, L, P, page, n_pt, layer, splits, chunk, float(scale), int(int8),
         stream_ptr(q_c.device),
     )

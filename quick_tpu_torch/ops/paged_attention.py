@@ -20,7 +20,10 @@ hold against the Pallas kernel. K6 does the same over a chunk's (position,
 head) rows, 64 rows a block (``chunk_split_plan``, ``chunk_block_range``),
 merging row by row; ``paged_chunk_attention_split_plain`` models it.
 K6q is K6's kernel over INT8 pages, with K6's plan and merge; the same
-model with ``kv_scales`` models its arithmetic.
+model with ``kv_scales`` models its arithmetic. K5q is K5's kernel over
+INT8 pages: its plan (``int8_split_plan``) keeps each page's p
+quantization group inside one split, and
+``paged_decode_attention_int8_split_plain`` models its arithmetic.
 
 INT8 pages (``kv_scales``, the [L, P, 8, Hkv*page] f32 tiles of
 ``PagedKVCache``) go to ``csrc/paged_attention_int8.cu`` on the card. Their
@@ -66,8 +69,8 @@ KERNEL_INT8 = CudaKernel(
     "paged_attention_int8.cu",
     {
         "qtt_paged_decode_attention_int8": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-            i32, i32, i32, f32, i32, f32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            i32, i32, i32, i32, i32, f32, i32, f32, ptr,
         ],
         "qtt_paged_chunk_attention_int8": [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
@@ -80,7 +83,13 @@ NEG_INF = -1e30  # the Pallas kernels' mask value
 TILE = decode_attention.TILE  # keys per tile of K5's blocks
 ROWS = 16  # query heads a K5 block (one m16 tile): gq = 32 takes two blocks a kv head
 CHUNK_ROWS = 64  # (position, head) rows a K6 / K6q block: four m16 tiles, two warps each
-_COUNTERS = ZeroedWords("K5")  # its merge counters, zero between launches
+#: K5q's cap on a split's chunk, in 64-key tiles (1-16; the kernel takes
+#: chunks of up to 1,024 keys). A block walks its tiles in sequence, so at
+#: the INT8 Engine's 64 slots, where K5's plan keeps one split, the longest
+#: slot sets the time; the cap was chosen from
+#: ``examples/kernel_ablate.py --only K5q``.
+INT8_DECODE_MAX_TILES = 4
+_COUNTERS = ZeroedWords("K5 / K5q")  # their merge counters, zero between launches
 _CHUNK_COUNTERS = ZeroedWords("K6 / K6q")
 
 
@@ -372,6 +381,126 @@ def _page_tiles(k_pages, v_pages, kv_scales, layer, pg):
             sc[:, 0].reshape(B, Hkv, 1, page), sc[:, 1].reshape(B, Hkv, 1, page))
 
 
+def int8_unit(page: int) -> int:
+    """Keys of one of K5q's units: a page of >= 64 keys, else a 64-key tile
+    of whole pages. A unit's scores are all taken before any of its p is
+    quantized, and a split holds whole units."""
+    return max(page, TILE)
+
+
+def int8_split_plan(B: int, Hkv: int, gq: int, page: int, T: int, sms: int) -> Tuple[int, int]:
+    """(chunk, splits) of K5q's key range [0, T = n_pt * page): K5's plan
+    (``split_plan``) with the chunk cut to ``INT8_DECODE_MAX_TILES`` tiles,
+    then rounded up to whole units (``int8_unit``), so that no page's p
+    quantization group is cut. From the shapes only: a captured step
+    replays it."""
+    chunk, _ = split_plan(B, Hkv, gq, T, sms)
+    chunk = min(chunk, INT8_DECODE_MAX_TILES * TILE)
+    unit = int8_unit(page)
+    chunk = -(-chunk // unit) * unit
+    return chunk, -(-T // chunk)
+
+
+def int8_decode_pages_ok(page: int) -> bool:
+    """The pages K5q takes: a power of two that lies inside one warp's
+    16-key quarter of a tile (16, 32, 64) or spans whole tiles (128,
+    256)."""
+    return page in (16, 32, 64, 128, 256)
+
+
+def paged_decode_attention_int8_split_plain(
+    q, k_pages, v_pages, kv_scales, block_table, lengths, layer, scale,
+    alibi_slopes=None, window=None, logit_softcap=None, chunk: Optional[int] = None,
+    splits: Optional[int] = None, ratios: Optional[dict] = None,
+) -> torch.Tensor:
+    """Plain model of K5q's split-and-merge arithmetic (the arguments of
+    ``paged_decode_attention_int8_plain``; one split by default). Per split,
+    its units (``int8_unit``) in order, each as the Pallas kernel takes a
+    page: the scores of all its keys (int8 q and k codes, ``sq * scale *
+    k_scale``, softcap, ALiBi, the split's mask), the running max over
+    them, p, l, then p * v_scale quantized per (head, page) and the pages'
+    int8 context dots times their ps; then the splits' (m, l, acc) merged
+    in split order, as K5's model, 0 where none has a key. With one split
+    and pages of >= 64 keys this is ``paged_decode_attention_int8_plain``
+    op for op. Returns [B, Hq, D]. ``ratios``, a dict, receives each unit's
+    p * v_scale / ps (the p codes before rounding) [B, Hkv, gq, keys] under
+    its first key."""
+    B, Hq, D = q.shape
+    Hkv, page = k_pages.shape[2], k_pages.shape[3]
+    gq = Hq // Hkv
+    T = block_table.shape[1] * page
+    unit = int8_unit(page)
+    if chunk is None:
+        chunk, splits = -(-T // unit) * unit, 1
+    splits = -(-T // chunk) if splits is None else splits
+    q8, sq = quantize_q(q)
+    q8 = q8.to(torch.float32).reshape(B, Hkv, gq, D)
+    qmul = (sq * scale).reshape(B, Hkv, gq, 1)
+    k = gather_pages(k_pages, block_table, layer).to(torch.float32)  # [B, Hkv, T, D]
+    v = gather_pages(v_pages, block_table, layer).to(torch.float32)
+    ks, vs = _gather_scales(kv_scales, block_table, layer, Hkv, page)  # [B, Hkv, 1, T]
+    ln = lengths.to(q.device, torch.int64)
+    wlo = torch.clamp(ln - window, min=0) if window else torch.zeros_like(ln)
+    end = torch.clamp(ln, 0, T)
+    slopes = (None if alibi_slopes is None else
+              alibi_slopes.to(q.device, torch.float32).reshape(1, Hkv, gq, 1))
+    t = torch.arange(T, device=q.device)
+    parts = []
+    for sp in range(splits):
+        lo = torch.clamp(wlo, min=sp * chunk)
+        hi = torch.clamp(end, max=sp * chunk + chunk)
+        m = torch.full((B, Hkv, gq, 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, gq, D), device=q.device)
+        for u0 in range(sp * chunk, min(T, sp * chunk + chunk), unit):
+            u1 = min(u0 + unit, T)
+            run = (lo < u1) & (hi > u0) & (lo < hi)  # the block walks this unit
+            s = torch.matmul(q8, k[:, :, u0:u1].transpose(-1, -2)) * qmul * ks[..., u0:u1]
+            if logit_softcap:
+                s = logit_softcap * torch.tanh(s * (1.0 / logit_softcap))
+            pos = t[u0:u1]
+            mask = ((pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None]))[:, None, None, :]
+            if slopes is not None:
+                s = s + slopes * (pos[None, :] - (ln[:, None] - 1)).to(torch.float32)[:, None, None, :]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            alpha = torch.exp(m - m_new)
+            l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+            p = p * vs[..., u0:u1]
+            if u1 - u0 == page:  # one page: the Pallas step's own ops
+                ps = div127(torch.clamp(p.abs().amax(dim=-1, keepdim=True), min=1e-30))
+                ratio = p / ps
+                p8 = torch.clamp(torch.round(ratio), -127, 127)
+                ctx = torch.matmul(p8, v[:, :, u0:u1]) * ps
+            else:  # a tile of whole pages: each page's own ps
+                n = (u1 - u0) // page
+                pp = p.reshape(B, Hkv, gq, n, page).transpose(2, 3)  # [B, Hkv, n, gq, page]
+                ps = div127(torch.clamp(pp.abs().amax(dim=-1, keepdim=True), min=1e-30))
+                ratio = pp / ps
+                p8 = torch.clamp(torch.round(ratio), -127, 127)
+                vv = v[:, :, u0:u1].reshape(B, Hkv, n, page, D)
+                ctx = (torch.matmul(p8, vv) * ps).sum(dim=2)
+                ratio = ratio.transpose(2, 3).reshape(B, Hkv, gq, u1 - u0)
+            if ratios is not None:
+                ratios[u0] = ratio
+            acc_new = acc * alpha + ctx
+            r = run[:, None, None, None]
+            m, l, acc = (torch.where(r, a, b) for a, b in ((m_new, m), (l_new, l), (acc_new, acc)))
+        parts.append(((lo < hi)[:, None, None, None], m, l, acc))
+    big = torch.full((B, Hkv, gq, 1), NEG_INF, device=q.device)
+    for live, m, _, _ in parts:
+        big = torch.where(live, torch.maximum(big, m), big)
+    lt = torch.zeros_like(big)
+    acc = torch.zeros((B, Hkv, gq, D), device=q.device)
+    for live, m, l, a in parts:  # in split order
+        w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+        lt = lt + l * w
+        acc = acc + w * a
+    out = acc / torch.where(lt == 0.0, 1.0, lt)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 def paged_decode_attention_int8_plain(
     q, k_pages, v_pages, kv_scales, block_table, lengths, layer, scale,
     alibi_slopes=None, window=None, logit_softcap=None,
@@ -577,16 +706,25 @@ def paged_decode_attention_int8_cuda(
     alibi_slopes=None, window=None, logit_softcap=None,
 ) -> torch.Tensor:
     """Launch K5q on CUDA tensors (it quantizes q itself); same arguments
-    as its plain version."""
+    as its plain version. K5's kernel over the codes: the key range split
+    by ``int8_split_plan``, the partials allocated here, K5's merge
+    counters (``_COUNTERS``: each launch leaves them at zero)."""
     B, Hq, Hkv, page, D, P, n_pt, slopes = _check_int8(
         q, k_pages, v_pages, kv_scales, block_table, lengths, layer, alibi_slopes)
+    if not int8_decode_pages_ok(page):
+        raise NotImplementedError(f"K5q takes pages of 16, 32, 64, 128 or 256 keys: {page}")
+    gq = Hq // Hkv
+    chunk, splits = int8_split_plan(B, Hkv, gq, page, n_pt * page, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
+    counters = _COUNTERS.get(q.device, B * Hkv * -(-gq // ROWS))
     KERNEL_INT8.launch(
         "qtt_paged_decode_attention_int8", launch_key(B, None, Hq, Hkv, page, D, n_pt),
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), kv_scales.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, page, D, P, n_pt, layer, float(scale), int(window or 0),
+        part.data_ptr(), part[B * Hq * splits * D:].data_ptr(), counters.data_ptr(),
+        B, Hq, Hkv, page, D, P, n_pt, layer, chunk, splits, float(scale), int(window or 0),
         float(logit_softcap or 0.0), stream_ptr(q.device),
     )
     return out

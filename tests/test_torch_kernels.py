@@ -4,9 +4,9 @@ also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
 also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention on K5's kernel (edges, graphed), K8 grouped MoE GEMM at G = 128,
 64 and 32, K4q INT8 paged writes,
-K5q / K6q INT8 paged attention (K6q split, graphed), K9 small-group GEMM
+K5q / K6q INT8 paged attention (split, graphed), K9 small-group GEMM
 (every decode row count, graphed), K10 / K10q paged MLA
-decode attention, K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
+decode attention (K10q at 16 to 128 heads, graphed), K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
 grouped W4A8 MoE GEMM (on build_routing's layouts, at bm = 96, split,
 graphed), K13 RMSNorm, K14 the decode layer tail) against
 their plain PyTorch versions,
@@ -676,8 +676,9 @@ def _int8_attention_case(rng, dev, B, Hq, Hkv, D, page, n_pt, per_slot, S=None):
     + [("plain", 32, 8, 128), ("plain", 4, 4, 64), ("window", 16, 2, 256)],
 )
 def test_paged_decode_int8_kernel_matches_plain(rng, cuda_device, case, Hq, Hkv, D):
-    """K5q (q and p quantized in the kernel, dp4a dots) against the plain
-    version of the Pallas INT8 arithmetic; ragged lengths, one slot of 1."""
+    """K5q (q and p quantized in the kernel, exact integer dots on tensor
+    cores) against the plain version of the Pallas INT8 arithmetic; ragged
+    lengths, one slot of 1."""
     cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, 4, Hq, Hkv, D, 32, 6,
                                            [1, 37, 192, 100])  # 192 fills the table
     kw = dict(PAGED_CASES[case])
@@ -1166,6 +1167,61 @@ def test_paged_chunk_int8_graph_replays_at_moving_starts(rng, cuda_device):
         np.testing.assert_array_equal(f32(out), f32(want))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_EDGE_CASES))
+@pytest.mark.parametrize("Hq,Hkv,D,page,n_pt", [(32, 8, 128, 64, 16), (8, 2, 64, 16, 64),
+                                                (32, 1, 256, 256, 4), (16, 4, 128, 128, 8)])
+def test_paged_decode_int8_split_kernel_edges(rng, cuda_device, case, Hq, Hkv, D, page, n_pt):
+    """K5q (K5's key-split kernel over INT8 pages) against its plain version
+    (the Pallas INT8 arithmetic page by page) and its split model, at lengths
+    0, 1, page - 1, page and n_pt * page; pages of 16 to 256 keys, gq 4 to
+    32."""
+    lengths = [0, 1, page - 1, page, n_pt * page]
+    cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, len(lengths), Hq, Hkv, D, page,
+                                           n_pt, lengths)
+    kw = dict(K5_EDGE_CASES[case])
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(Hq))
+    before = tpa.KERNEL_INT8.launches
+    out = tpa.paged_decode_attention(*gpu, layer=1, kv_scales=tiles.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL_INT8.launches == before + 1
+    ref = tpa.paged_decode_attention(*cpu, layer=1, kv_scales=tiles, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    assert not f32(out)[0].any()  # length 0: no visible key
+    chunk, splits = tpa.int8_split_plan(len(lengths), Hkv, Hq // Hkv, page, n_pt * page,
+                                        torch.cuda.get_device_properties(0).multi_processor_count)
+    q, kc, vc, bt, ln = (t.to(cuda_device) for t in cpu)
+    model = tpa.paged_decode_attention_int8_split_plain(
+        q, kc, vc, tiles.to(cuda_device), bt, ln, 1, D ** -0.5, chunk=chunk, splits=splits,
+        **{k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+    np.testing.assert_allclose(f32(out), f32(model), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_decode_int8_graph_replays_at_moving_lengths(rng, cuda_device):
+    """K5q captured in a CUDA graph and replayed after the lengths moved in
+    place (64 slots: several live splits a slot, then one): equal to eager
+    launches at those lengths, bit for bit."""
+    Hq, Hkv, D, page, n_pt = 32, 8, 128, 64, 16
+    cpu, gpu, tiles = _int8_attention_case(rng, cuda_device, 64, Hq, Hkv, D, page, n_pt,
+                                           [1 + 16 * i for i in range(64)])
+    q, kp, vp, bt, ln = gpu
+    tiles = tiles.to(cuda_device)
+    out = tpa.paged_decode_attention(q, kp, vp, bt, ln, layer=1, kv_scales=tiles)  # eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_decode_attention(q, kp, vp, bt, ln, layer=1, kv_scales=tiles)
+    for shift in (5, 300, -1000):
+        new = torch.tensor([min(n_pt * page, max(0, 1 + 16 * i + shift)) for i in range(64)],
+                           dtype=torch.int32, device=cuda_device)
+        ln.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpa.paged_decode_attention(q, kp, vp, bt, new.clone(), layer=1, kv_scales=tiles)
+        np.testing.assert_array_equal(f32(out), f32(want))
+
+
 # ---------------------------------------------------------- MLA latent pages
 
 def _randn(rng, *shape):
@@ -1266,6 +1322,65 @@ def test_mla_paged_kernel_matches_plain(rng, cuda_device, case, pages):
     for b, n in enumerate(lengths):
         if n == 0:
             assert not o[b].any()
+
+
+def _mla_int8_case(rng, dev, B, Hq, n_pt, page, lengths):
+    """K10q's inputs: INT8 latent pages (k_pe 64, latent 512) with their
+    scale tiles, a permuted block table, the lengths and bf16 queries."""
+    L, P = 2, 1 + B * n_pt
+    (kpe, ks), (c, cs) = (tpw.quantize_kv(_randn(rng, L, P, 1, page, w)) for w in (64, 512))
+    tiles = torch.zeros((L, P, 8, page))
+    tiles[:, :, 0], tiles[:, :, 1] = ks.reshape(L, P, -1), cs.reshape(L, P, -1)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(B, n_pt).astype(np.int32))
+    q_c = _randn(rng, B, Hq, 512).to(torch.bfloat16)
+    q_pe = _randn(rng, B, Hq, 64).to(torch.bfloat16)
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    return [t.to(dev) for t in (q_c, q_pe, kpe, c, bt, ln, tiles)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq", [16, 20, 128])
+def test_mla_int8_split_kernel_heads(rng, cuda_device, Hq):
+    """K10q at 16 heads, at 20 (a partial head group) and at DeepSeek-V3's
+    128 (8 head groups) against its plain version and its split model:
+    an empty slot, one token, a slot inside one split, a full table."""
+    B, n_pt, page = 4, 16, 64
+    q_c, q_pe, kpe, c, bt, ln, tiles = _mla_int8_case(rng, cuda_device, B, Hq, n_pt, page,
+                                                      [0, 1, 100, n_pt * page])
+    before = tmla.KERNEL.launches
+    out = tmla.mla_paged_decode_attention(q_c, q_pe, kpe, c, bt, ln, layer=1, scale=0.1147,
+                                          kv_scales=tiles)
+    torch.cuda.synchronize()
+    assert tmla.KERNEL.launches == before + 1
+    args = (q_c, q_pe, kpe, c, bt, ln, 1, 0.1147, tiles)
+    np.testing.assert_allclose(f32(out), f32(tmla.mla_paged_decode_attention_plain(*args)), **TOL)
+    splits, chunk = tmla.int8_split_plan(B, n_pt, page,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+    model = tmla.mla_paged_decode_attention_split_plain(*args, chunk=chunk, splits=splits)
+    np.testing.assert_allclose(f32(out), f32(model), **TOL)
+    assert not f32(out)[0].any()
+
+
+@pytest.mark.cuda
+def test_mla_int8_graph_replays_at_moving_lengths(rng, cuda_device):
+    """K10q captured in a CUDA graph and replayed after the lengths moved in
+    place: equal to eager launches at those lengths, bit for bit."""
+    B, Hq, n_pt, page = 16, 16, 16, 64
+    q_c, q_pe, kpe, c, bt, ln, tiles = _mla_int8_case(rng, cuda_device, B, Hq, n_pt, page,
+                                                      [1 + 60 * i for i in range(B)])
+    args = lambda lengths: (q_c, q_pe, kpe, c, bt, lengths, 1, 0.1147, tiles)  # noqa: E731
+    out = tmla.mla_paged_decode_attention(*args(ln))  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmla.mla_paged_decode_attention(*args(ln))
+    for shift in (5, 300, -2000):
+        new = torch.tensor([min(n_pt * page, max(0, 1 + 60 * i + shift)) for i in range(B)],
+                           dtype=torch.int32, device=cuda_device)
+        ln.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tmla.mla_paged_decode_attention(*args(new.clone()))
+        np.testing.assert_array_equal(f32(out), f32(want))
 
 
 # ------------------------------------------------------- W4A8 and RMSNorm
