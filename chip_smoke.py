@@ -59,9 +59,11 @@ Phases (any failure exits non-zero):
      gap under ROUTE_GAP), and Qwen1.5-MoE's generate() at full depth;
      launch counts exactly those of each path;
   9. INT8 KV pages: (a) K4q (decode and chunk writes, codes and scale tiles
-     byte-equal), K5q and K6q (within tol, K5q also row-scaled) against
-     their plain versions at the INT8 Engine's shapes, K5q also at pages
-     of 16 and 256 keys, with window, softcap and ALiBi, on a skewed batch
+     byte-equal; every input kind, rows of zeros and of exact halves, and
+     the scalar path for rows off 16 bytes or of no whole unit), K5q and
+     K6q (within tol, K5q also row-scaled) against their plain versions
+     at the INT8 Engine's shapes, K5q also at pages of 16 and 256 keys,
+     with window, softcap and ALiBi, on a skewed batch
      (one slot at the whole 1,024-key table, so that its splits merge) and
      captured in a CUDA graph replayed after the lengths moved; (b) their times,
      bounds and yardsticks; (c) the Engine over INT8 pages, as phase 5, on
@@ -84,8 +86,9 @@ Phases (any failure exits non-zero):
      K9's plain version on the CPU side;
  11. DeepSeek-V2-Lite (MLA with DeepSeekMoE, g=64, the published widths,
      27 layers): (a) K10 / K10q (paged MLA decode) at the Engine's decode,
-     K10q also at DeepSeek-V3's 128 heads (8 head groups),
-     K4 / K4q on the latent planes (byte-equal), K2 at q / k 192, v 128, K9
+     both also at DeepSeek-V3's 128 heads (8 head groups) and at 20 (a
+     partial group), K10 also over pages of 48 tokens,
+     K4 / K4q on the latent planes (byte-equal; K4q at every input kind), K2 at q / k 192, v 128, K9
      and K8 at its shapes, against their plain versions; (b) their times,
      bounds and yardsticks; (c) generate() at full width and depth, as
      phase 4 (random weights, seed 0; an untied bf16 head); (d) the Engine
@@ -786,8 +789,10 @@ def paged_write_rows(cfg, gen, dev, trace):
         pg = torch.where(r >= page, pids[:, 1:2], pids[:, 0:1]).long()
         row = torch.where(r >= page, r - page, r)
         if entry == "decode":
+            pid0 = pids[:, 0].contiguous()  # the kernel alone: no copy of a strided column
+
             def kern(i):
-                pw.paged_write_decode(*big, kn[:, 0], vn[:, 0], pids[:, 0], offs, i % L)
+                pw.paged_write_decode(*big, kn[:, 0], vn[:, 0], pid0, offs, i % L)
         else:
             def kern(i):
                 pw.paged_write_chunk(*big, kn, vn, pids, offs, vt, i % L)
@@ -2262,6 +2267,78 @@ def crossing_starts(g, pos):
     return [(p // page) % (n_pt - 1) * page + page - 2 - i for i, p in enumerate(pos[: g["Bp"]])]
 
 
+def k4q_kinds_check(gen, dev, Hkv, Dk, Dv, tag, scalar=False):
+    """[9a / 11a] K4q at every input kind (bf16 and f32 rows, quantized in
+    the kernel; int8 codes with their scales, copied), both entries, on a
+    9-page pool of 64-token pages: a page-crossing, an inside and a
+    trash-page slot, a masked chunk tail, a row of zeros (scale 1e-8) and
+    rows whose values divide to exact halves (round half to even); codes
+    and scale tiles byte-equal to the plain version outside the trash page.
+    ``scalar``: the rows handed over 16 bytes off, so the kernel's scalar
+    path runs."""
+    from quick_tpu_torch.ops import paged_write as pw
+
+    L, P, page, S, B = 2, 9, 64, 16, 3
+    pgs = torch.tensor([[3, 4], [5, 0], [0, 0]], dtype=torch.int32, device=dev)
+    offs = torch.tensor([60, 2, 9], dtype=torch.int32, device=dev)  # crossing, inside, trash
+    valid = torch.tensor([S, 5, S], dtype=torch.int32, device=dev)
+    halves = torch.tensor([127.0, 0.5, -0.5, 1.5, 2.5, -2.5, 126.5, -125.5], device=dev)
+
+    def rows(n, D):
+        x = 3 * torch.randn((B, n, Hkv, D), generator=gen, device=dev)
+        x[1, 0, 0] = 0.0
+        x[0, 0, -1, :8] = halves
+        return x
+
+    def off16(t):  # the same values at a data pointer 16 bytes + 1 element off
+        buf = torch.empty(t.numel() + 16 // t.element_size() + 1, dtype=t.dtype, device=dev)
+        view = buf[16 // t.element_size() + 1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for kind in (torch.bfloat16, torch.float32, torch.int8):
+        for entry in ("decode", "chunk"):
+            n = 1 if entry == "decode" else S
+            pages = [torch.randint(-127, 128, (L, P, Hkv, page, D), generator=gen, device=dev,
+                                   dtype=torch.int8) for D in (Dk, Dv)]
+            pages.append(torch.rand((L, P, 8, Hkv * page), generator=gen, device=dev))
+            kf, vf = rows(n, Dk), rows(n, Dv)
+            extra = {}
+            if kind == torch.int8:
+                (kn, ks), (vn, vs) = pw.quantize_kv(kf), pw.quantize_kv(vf)
+                extra = dict(ks_new=ks, vs_new=vs)
+            else:
+                kn, vn = kf.to(kind), vf.to(kind)
+            got = [t.clone() for t in pages]
+            ref = [t.clone() for t in pages]
+            kg, vg = (off16(kn), off16(vn)) if scalar else (kn, vn)
+            if kind == torch.int8:
+                kc, ksc, vc, vsc = kn, ks, vn, vs
+            else:
+                (kc, ksc), (vc, vsc) = pw.quantize_kv(kn), pw.quantize_kv(vn)
+            before = pw.KERNEL_INT8.launches
+            if entry == "decode":
+                pw.paged_write_decode(*got[:2], kg[:, 0], vg[:, 0], pgs[:, 0], offs, 1,
+                                      kv_scales=got[2], **{k: v[:, 0] for k, v in extra.items()})
+                pw.paged_write_plain(*ref[:2], kc, vc, pgs[:, :1].expand(B, 2), offs, None, 1,
+                                     ref[2], ksc, vsc)
+            else:
+                pw.paged_write_chunk(*got[:2], kg, vg, pgs, offs, valid, 1, kv_scales=got[2],
+                                     **extra)
+                pw.paged_write_plain(*ref[:2], kc, vc, pgs, offs, valid, 1, ref[2], ksc, vsc)
+            torch.cuda.synchronize()
+            key = f"{entry} {kind} Hkv={Hkv} Dk={Dk} Dv={Dv}{' scalar path' if scalar else ''}"
+            if pw.KERNEL_INT8.launches != before + 1:
+                fail(f"K4q {key}: not launched once")
+            if not all(same_bytes(a[:, 1:], b[:, 1:]) for a, b in zip(got, ref)) or \
+                    same_bytes(got[2][:, 1:], pages[2][:, 1:]):
+                fail(f"K4q {key}: codes or scale tiles differ from the plain version, "
+                     "or nothing written")
+    print(f"  [{tag}] K4q at every input kind, both entries, zero and half-way rows, "
+          f"Hkv={Hkv} Dk={Dk} Dv={Dv}{', scalar path' if scalar else ''}: byte-equal to the "
+          "plain version")
+
+
 def int8_write_rows(cfg, gen, dev, trace):
     """9a / 9b for K4q: its decode and chunk entries against the plain
     version (quantize_kv + scatter) at the INT8 Engine's shapes, codes and
@@ -2314,6 +2391,9 @@ def int8_write_rows(cfg, gen, dev, trace):
             fail(f"K4q {key}: codes or scale tiles differ from the plain version, or nothing written")
         print(f"  K4q {key}, {'crossing' if pids[:, 1].any() else 'aligned'}: codes and scale "
               f"tiles 1.. byte-equal to the plain version")
+    k4q_kinds_check(gen, dev, Hkv, D, D, "9a")
+    k4q_kinds_check(gen, dev, Hkv, D, D, "9a", scalar=True)
+    k4q_kinds_check(gen, dev, 2, 20, 36, "9a")  # widths of no whole 16-byte unit: scalar
 
     print("[9b] K4q timing at the INT8 Engine's shapes (INT8 pool of all 32 layers)")
     big = int8_pool(gen, dev, g, L)
@@ -2329,8 +2409,10 @@ def int8_write_rows(cfg, gen, dev, trace):
         row = torch.where(r >= page, r - page, r)
         col = torch.arange(Hkv, device=dev) * page + row[:, :, None]
         if entry == "decode":
+            pid0 = pids[:, 0].contiguous()  # the kernel alone: no copy of a strided column
+
             def kern(i):
-                pw.paged_write_decode(*big[:2], kn[:, 0], vn[:, 0], pids[:, 0], offs, i % L,
+                pw.paged_write_decode(*big[:2], kn[:, 0], vn[:, 0], pid0, offs, i % L,
                                       kv_scales=big[2])
         else:
             def kern(i):
@@ -3046,7 +3128,8 @@ def mla_pool(gen, dev, layers, P, page, widths, int8: bool, std=1.0):
 def mla_attention_rows(cfg, gen, dev, trace):
     """[11a / 11b] K10 and K10q against their plain version at the Engine's
     decode (16 slots, lengths from the trace), within TOL and row-scaled,
-    and with an empty and a full slot; then timed over a 27-layer pool: the
+    and with an empty and a full slot, at 16, 128 and 20 heads, K10 also
+    over pages of 48 tokens; then timed over a 27-layer pool: the
     bound from each valid token's latent row read once (bf16 1152 B, INT8
     576 B + two f32 scales) or from the dots; the plain version; SDPA on
     the gathered (dequantized) latent with q = [q_c | q_pe], k = [c | k_pe],
@@ -3089,18 +3172,34 @@ def mla_attention_rows(cfg, gen, dev, trace):
                 row_scaled_err(out, ref, tol, f"{name} {what}")
             elif out[0].any():
                 fail(f"{name}: an empty slot gave a non-zero context")
-        if int8:  # DeepSeek-V3's 128 heads: 8 head groups a slot
-            q128 = [torch.randn((B, 128, w), generator=gen, device=dev).to(torch.bfloat16)
-                    for w in (R, dr)]
+        # DeepSeek-V3's 128 heads (8 head groups a slot) and 20 (a partial group)
+        for heads in (128, 20):
+            qh = [torch.randn((B, heads, w), generator=gen, device=dev).to(torch.bfloat16)
+                  for w in (R, dr)]
             for what, ln in (("trace lengths", lens), ("empty and full slots", edge)):
-                out = ml.mla_paged_decode_attention_cuda(*q128, small[0], small[1], bt, ln, 1,
+                out = ml.mla_paged_decode_attention_cuda(*qh, small[0], small[1], bt, ln, 1,
                                                          scale, small[2])
-                ref = ml.mla_paged_decode_attention_plain(*q128, small[0], small[1], bt, ln, 1,
+                ref = ml.mla_paged_decode_attention_plain(*qh, small[0], small[1], bt, ln, 1,
                                                           scale, small[2])
                 torch.cuda.synchronize()
-                err = max(err, max_err(out, ref, tol, f"{name} Hq=128 {what}"))
-                row_scaled_err(out, ref, tol, f"{name} Hq=128 {what}")
+                err = max(err, max_err(out, ref, tol, f"{name} Hq={heads} {what}"))
+                row_scaled_err(out, ref, tol, f"{name} Hq={heads} {what}")
         del small
+        if not int8:  # K10 takes any page: 48 keys, no power of two
+            g48 = dict(g, page=48, n_pt=-(-n_pt * page // 48))
+            g48["P"] = B * g48["n_pt"] + 1
+            bt48 = block_table(gen, dev, g48, B)
+            pool48 = mla_pool(gen, dev, 2, g48["P"], 48, (dr, R), False)
+            for what, ln in (("trace lengths", lens), ("empty and full slots", edge)):
+                ln = torch.clamp(ln, max=g48["n_pt"] * 48)
+                out = ml.mla_paged_decode_attention_cuda(q_c, q_pe, pool48[0], pool48[1], bt48, ln,
+                                                         1, scale)
+                ref = ml.mla_paged_decode_attention_plain(q_c, q_pe, pool48[0], pool48[1], bt48,
+                                                          ln, 1, scale)
+                torch.cuda.synchronize()
+                err = max(err, max_err(out, ref, tol, f"{name} page=48 {what}"))
+                row_scaled_err(out, ref, tol, f"{name} page=48 {what}")
+            del pool48
         big = mla_pool(gen, dev, L, P, page, (dr, R), int8)
         T = max(dec)
         ms = device_ms(lambda i: ml.mla_paged_decode_attention_cuda(
@@ -3206,6 +3305,8 @@ def mla_write_rows(cfg, gen, dev, trace):
             print(f"  {name} {key}, {'crossing' if pids[:, 1].any() else 'aligned'}: "
                   f"byte-equal to the plain scatter")
         del small
+        if int8:
+            k4q_kinds_check(gen, dev, 1, dr, R, "11a")
         big = mla_pool(gen, dev, L, P, page, (dr, R), int8)
         for entry, n, pos, _ in cases[:2]:
             rows = len(pos)
@@ -3217,8 +3318,10 @@ def mla_write_rows(cfg, gen, dev, trace):
             row = torch.where(r >= page, r - page, r)
             (kq, ks), (vq, vs) = pw.quantize_kv(kn), pw.quantize_kv(vn)
             if entry == "decode":
+                pid0 = pids[:, 0].contiguous()  # the kernel alone: no copy of a strided column
+
                 def kern(i):
-                    pw.paged_write_decode(big[0], big[1], kn[:, 0], vn[:, 0], pids[:, 0], offs,
+                    pw.paged_write_decode(big[0], big[1], kn[:, 0], vn[:, 0], pid0, offs,
                                           i % L, kv_scales=big[2])
             else:
                 def kern(i):

@@ -4,7 +4,8 @@
 // Replaces the Pallas kernel quick_tpu/ops/mla_paged_attention.py::
 // _mla_paged_kernel (:41, launched by mla_paged_decode_attention through
 // pallas_call :199), both of its branches (float pages, and INT8 pages
-// :96-120). One source, two kernels; the wrapper counts them apart.
+// :96-120). One kernel template over the page dtype, two instantiations;
+// the wrapper counts them apart.
 //
 // What it computes. MLA caches one latent stream per token, shared by every
 // query head (MQA): the rope'd k_pe [L, P, 1, page, DR] in the k plane and
@@ -29,387 +30,44 @@
 // At the Engine's decode (16 slots, up to 1024 tokens) that is at most
 // 18.9 MB, 5.6 us at 3.35 TB/s.
 //
-// K10's design (bf16 pages). All heads share each token (MQA), so a block
-// stages each token's latent once, for a group of 16 query heads (a grid
-// over heads would read the latent 16 times). Blocks run over (split,
-// slot, head group): the key range [0, n_pt * page) is cut into `splits`
-// chunks of `chunk` tokens, a multiple of the 64-token tile, chosen by the
-// host from n_pt and B (never from the lengths), so that 16 slots still
-// fill the card; a block past its slot's length stages nothing. Per tile of
-// 64 tokens: the rows are gathered through the block table into shared
-// memory (latent rows padded to an odd word stride so that 32 lanes reading
-// 32 tokens hit 32 banks), each thread scores one token against 4 heads on
-// the CUDA cores, one warp per head runs the online-softmax update, and each
-// thread accumulates two latent columns of all 16 heads (p @ c). The splits
-// of a (slot, head) are merged by a second kernel in split order
-// (O = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M)), so the result does
-// not depend on block scheduling; with one split the first kernel writes the
-// output. Not carried over from the TPU: the page-pair grid steps with
-// clamped index maps (a block walks its own tokens), and the MXU-shaped
-// [Hq, R] x [R, page] dots (CUDA-core FMAs in K10). The template's kInt8
-// branches, the former CUDA-core body over INT8 pages, are not instantiated:
-// INT8 pages take K10q's kernel.
-//
-// K10q's design (INT8 pages): a tensor-core key split (namespace k10q).
-// Blocks of (split, slot, 16-head group), the split from the shapes
-// (ops/mla_paged_attention.py::pick_splits), each block clipping its chunk
+// Design: a tensor-core key split. All heads share each token (MQA), so a
+// block stages each token's rows once for a group of 16 query heads (one
+// m16 tile; a grid over heads would read the latent 16 times). Blocks run
+// over (split, slot, 16-head group), a partial last group where Hq is no
+// multiple of 16; the split comes from the shapes
+// (ops/mla_paged_attention.py::split_plan), each block clipping its chunk
 // to the slot's length read on the card (a captured step replays it). The
 // q_c and q_pe rows of the group wait in shared memory in bf16, beside the
-// split's page ids (loaded once: pages of 16 or more tokens, a power of
-// two; a split of at most 1,024 tokens); the tiles of
-// 64 tokens come through a two-stage cp.async ring of raw codes (512 latent
-// and 64 k_pe bytes a token, rows 0-1 of the pages' scale tiles beside
-// them) two tiles ahead, and each thread converts the chunks it copied,
-// exactly, into the tile's bf16 rows (one stage: 73.7 KB beside the 73.7 KB
-// ring). Scores: s_c = q_c c^T and s_pe = q_pe k_pe^T on mma.sync m16n8k16,
-// each warp 16 tokens, then s = (s_c cs + s_pe ks) scale per token. The
-// tile's row maxima go through shared memory; l keeps the unrounded p; p cs
-// is rounded to bf16 into a [16 x 64] tile, the A operand of the context
-// [16 x 64] x [64 x 512]: each warp owns 128 of the 512 output columns over
-// all 64 tokens, c read with ldmatrix.trans. Only the splits that hold a
-// token of the slot work; where one does, its block writes the output from
-// registers, otherwise the last live block to finish (an atomic counter it
-// resets) merges the splits' partials in split order, staging them in its
-// ring four splits at a time: the output does not depend on block
-// scheduling.
+// split's page ids (loaded once; a split spans at most kMaxPages pages and
+// 1,024 tokens). Tiles of 64 tokens:
+//  - K10 (bf16 pages, any page size) copies the latent and k_pe rows
+//    straight into swizzled bf16 tiles with 16-byte cp.async, a two-stage
+//    ring one tile ahead (2 x 73.7 KB); each tile's rows in the page stacks
+//    come from a table that 64 threads fill two tiles ahead from the page
+//    ids (one division by the page a token);
+//  - K10q (INT8 pages, a power of two of 16 or more) copies raw codes (512
+//    latent and 64 k_pe bytes a token, rows 0-1 of the pages' scale tiles
+//    beside them) two tiles ahead through a two-stage ring, and each
+//    thread converts the chunks it copied, exactly, into the tile's bf16
+//    rows (one stage: 73.7 KB beside the 73.7 KB ring).
+// Scores: s_c = q_c c^T and s_pe = q_pe k_pe^T on mma.sync m16n8k16, each
+// warp 16 tokens, then s = (s_c + s_pe) scale, or (s_c cs + s_pe ks) scale
+// on INT8 pages, per token. The tile's row maxima go through shared memory;
+// l keeps the unrounded p; p (p cs on INT8 pages) is rounded to bf16 into a
+// [16 x 64] tile, the A operand of the context [16 x 64] x [64 x 512]: each
+// warp owns 128 of the 512 output columns over all 64 tokens, c read with
+// ldmatrix.trans. Only the splits that hold a token of the slot work; where
+// one does, its block writes the output from registers, otherwise the last
+// live block to finish (an atomic counter it resets) merges the splits'
+// partials in split order, staging them in its ring four splits at a time:
+// the output does not depend on block scheduling. Not carried over from the
+// TPU: the page-pair grid steps with clamped index maps (a block walks its
+// own tokens) and the [Hq, R] x [R, page] dots over whole pages (64-token
+// tiles of m16n8k16 products).
 #include "int8_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kHG = 16;                     // query heads per block
-constexpr int kBK = 64;                     // tokens per staged tile
-constexpr int kHPT = kHG * kBK / kThreads;  // heads per thread when scoring
-
-template <int R, int DR>
-struct Smem {
-  static constexpr int kCStride = R / 2 + 1;   // padded latent row, in words
-  static constexpr int kPStride = DR / 2 + 1;  // padded k_pe row, in words
-  static constexpr size_t kQc = 0;                                // f32 [kHG][R]
-  static constexpr size_t kQpe = kQc + (size_t)kHG * R * 4;       // f32 [kHG][DR]
-  static constexpr size_t kC = kQpe + (size_t)kHG * DR * 4;       // [kBK][kCStride]
-  static constexpr size_t kKpe = kC + (size_t)kBK * kCStride * 4;  // [kBK][kPStride]
-  static constexpr size_t kS = kKpe + (size_t)kBK * kPStride * 4;  // f32 [kHG][kBK]
-  static constexpr size_t kP = kS + (size_t)kHG * kBK * 4;        // f32 [kBK][kHG]
-  static constexpr size_t kRow = kP + (size_t)kBK * kHG * 4;      // i64 [kBK]
-  static constexpr size_t kScale = kRow + (size_t)kBK * 8;        // f32 [2][kBK]
-  static constexpr size_t kML = kScale + 2 * (size_t)kBK * 4;     // f32 [3][kHG]
-  static constexpr size_t kBytes = kML + 3 * (size_t)kHG * 4;
-};
-
-__device__ __forceinline__ float2 unpack_bf2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
-}
-
-__device__ __forceinline__ uint32_t pack_codes(int8_t a, int8_t b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn((float)a, (float)b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Stage `W` columns of kBK token rows (row index rows[j] into a plane of
-// rows of W values, -1 for none) into shared memory as bf16 pairs with a
-// row stride of `stride` words. bf16 planes move 16 bytes (8 values) per
-// load; INT8 planes move 16 codes per load and convert them exactly.
-template <int W, bool kInt8>
-__device__ __forceinline__ void stage_rows(const void* __restrict__ plane,
-                                           const long long* rows,
-                                           uint32_t* dst, int stride) {
-  constexpr int kPer = kInt8 ? 16 : 8;  // values per 16-byte load
-  constexpr int kChunks = W / kPer;
-  constexpr int kLoads = kBK * kChunks / kThreads;
-  static_assert(W % kPer == 0 && (kBK * kChunks) % kThreads == 0,
-                "row width must tile the block's 16-byte loads");
-  uint4 v[kLoads];
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const long long r = rows[c / kChunks];
-    v[i] = make_uint4(0, 0, 0, 0);
-    if (r >= 0) {
-      const size_t off = (size_t)r * W + (size_t)(c % kChunks) * kPer;
-      v[i] = kInt8 ? *reinterpret_cast<const uint4*>(
-                         static_cast<const int8_t*>(plane) + off)
-                   : *reinterpret_cast<const uint4*>(
-                         static_cast<const bf16*>(plane) + off);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    uint32_t* d = dst + (c / kChunks) * stride + (c % kChunks) * (kPer / 2);
-    if constexpr (kInt8) {
-      const int8_t* q = reinterpret_cast<const int8_t*>(&v[i]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = pack_codes(q[2 * e], q[2 * e + 1]);
-    } else {
-      d[0] = v[i].x; d[1] = v[i].y; d[2] = v[i].z; d[3] = v[i].w;
-    }
-  }
-}
-
-template <int R, int DR, bool kInt8, bool kFinal>
-__global__ void __launch_bounds__(kThreads)
-mla_decode_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_pe,
-                  const void* __restrict__ kpe_pages,
-                  const void* __restrict__ c_pages,
-                  const float* __restrict__ kv_scales,
-                  const int* __restrict__ block_table,
-                  const int* __restrict__ lengths, bf16* __restrict__ out,
-                  float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  int Hq, int P, int page, int n_pt, int layer, int chunk,
-                  float scale) {
-  using SM = Smem<R, DR>;
-  constexpr int kCols = R / (2 * kThreads);  // latent column pairs per thread
-  static_assert(R % (2 * kThreads) == 0, "R must be a multiple of 512");
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qc_s = reinterpret_cast<float*>(smem + SM::kQc);
-  float* qpe_s = reinterpret_cast<float*>(smem + SM::kQpe);
-  uint32_t* c_s = reinterpret_cast<uint32_t*>(smem + SM::kC);
-  uint32_t* kpe_s = reinterpret_cast<uint32_t*>(smem + SM::kKpe);
-  float* s_s = reinterpret_cast<float*>(smem + SM::kS);
-  float* p_s = reinterpret_cast<float*>(smem + SM::kP);
-  long long* row_s = reinterpret_cast<long long*>(smem + SM::kRow);
-  float* ks_s = reinterpret_cast<float*>(smem + SM::kScale);  // k_pe scales
-  float* cs_s = ks_s + kBK;                                   // latent scales
-  float* m_s = reinterpret_cast<float*>(smem + SM::kML);
-  float* l_s = m_s + kHG;
-  float* alpha_s = l_s + kHG;
-
-  const int split = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * kHG;
-  const int splits = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int i = tid; i < kHG * R; i += kThreads) {
-    const int h = h0 + i / R;
-    qc_s[i] = h < Hq ? bf2f(q_c[((size_t)b * Hq + h) * R + i % R]) : 0.f;
-  }
-  for (int i = tid; i < kHG * DR; i += kThreads) {
-    const int h = h0 + i / DR;
-    qpe_s[i] = h < Hq ? bf2f(q_pe[((size_t)b * Hq + h) * DR + i % DR]) : 0.f;
-  }
-  if (tid < kHG) {
-    m_s[tid] = QTT_NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  const int length = max(0, min(lengths[b], n_pt * page));
-  const int t_begin = split * chunk;
-  const int t_end = min(length, t_begin + chunk);
-  const size_t layer_pages = (size_t)layer * P;
-
-  float acc[kHG][kCols][2];
-#pragma unroll
-  for (int h = 0; h < kHG; ++h)
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) acc[h][k][0] = acc[h][k][1] = 0.f;
-
-  for (int t0 = t_begin; t0 < t_end; t0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and q staged)
-    if (tid < kBK) {  // each token's page row (-1: past the length)
-      const int t = t0 + tid;
-      long long r = -1;
-      float ks = 0.f, cs = 0.f;
-      if (t < t_end) {
-        const int pg = block_table[(size_t)b * n_pt + t / page];
-        if (pg >= 0 && pg < P) {
-          const int row = t % page;
-          r = (long long)(layer_pages + pg) * page + row;  // one kv head
-          if constexpr (kInt8) {
-            const float* tile = kv_scales + (layer_pages + pg) * 8 * (size_t)page;
-            ks = tile[row];
-            cs = tile[page + row];
-          }
-        }
-      }
-      row_s[tid] = r;
-      ks_s[tid] = ks;
-      cs_s[tid] = cs;
-    }
-    __syncthreads();
-    stage_rows<R, kInt8>(c_pages, row_s, c_s, SM::kCStride);
-    stage_rows<DR, kInt8>(kpe_pages, row_s, kpe_s, SM::kPStride);
-    __syncthreads();
-
-    {  // scores: token j against heads hb .. hb + kHPT - 1
-      const int j = tid % kBK, hb = (tid / kBK) * kHPT;
-      float sc[kHPT], sp[kHPT];
-#pragma unroll
-      for (int u = 0; u < kHPT; ++u) sc[u] = sp[u] = 0.f;
-      const uint32_t* crow = c_s + j * SM::kCStride;
-#pragma unroll 4
-      for (int d2 = 0; d2 < R / 2; ++d2) {
-        const float2 cf = unpack_bf2(crow[d2]);
-#pragma unroll
-        for (int u = 0; u < kHPT; ++u) {
-          const float2 qv = *reinterpret_cast<const float2*>(qc_s + (hb + u) * R + 2 * d2);
-          sc[u] = fmaf(qv.y, cf.y, fmaf(qv.x, cf.x, sc[u]));
-        }
-      }
-      const uint32_t* prow = kpe_s + j * SM::kPStride;
-#pragma unroll 4
-      for (int d2 = 0; d2 < DR / 2; ++d2) {
-        const float2 kf = unpack_bf2(prow[d2]);
-#pragma unroll
-        for (int u = 0; u < kHPT; ++u) {
-          const float2 qv = *reinterpret_cast<const float2*>(qpe_s + (hb + u) * DR + 2 * d2);
-          sp[u] = fmaf(qv.y, kf.y, fmaf(qv.x, kf.x, sp[u]));
-        }
-      }
-      const bool ok = t0 + j < t_end;
-#pragma unroll
-      for (int u = 0; u < kHPT; ++u) {
-        const float s = kInt8 ? (sc[u] * cs_s[j] + sp[u] * ks_s[j]) * scale
-                              : (sc[u] + sp[u]) * scale;
-        s_s[(hb + u) * kBK + j] = ok ? s : QTT_NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, one warp per head; p (times the latent scale on INT8
-    // pages) rounded to bf16 into p_s [token][head]
-    for (int h = warp; h < kHG; h += kWarps) {
-      const bool ok0 = t0 + lane < t_end, ok1 = t0 + lane + 32 < t_end;
-      const float s0 = s_s[h * kBK + lane], s1 = s_s[h * kBK + lane + 32];
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(ok0 ? s0 : QTT_NEG_INF,
-                                                      ok1 ? s1 : QTT_NEG_INF)));
-      float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      const float psum = warp_sum(p0 + p1);
-      if constexpr (kInt8) {
-        p0 *= cs_s[lane];
-        p1 *= cs_s[lane + 32];
-      }
-      p_s[lane * kHG + h] = round_bf16(p0);
-      p_s[(lane + 32) * kHG + h] = round_bf16(p1);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        alpha_s[h] = alpha;
-        l_s[h] = l_s[h] * alpha + psum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // p @ c: this thread's latent column pairs, all heads
-#pragma unroll
-    for (int h = 0; h < kHG; ++h) {
-      const float a = alpha_s[h];
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) {
-        acc[h][k][0] *= a;
-        acc[h][k][1] *= a;
-      }
-    }
-    const int n = min(kBK, t_end - t0);
-    for (int j = 0; j < n; ++j) {
-      float pj[kHG];
-#pragma unroll
-      for (int h4 = 0; h4 < kHG / 4; ++h4) {
-        const float4 v = *reinterpret_cast<const float4*>(p_s + j * kHG + 4 * h4);
-        pj[4 * h4] = v.x; pj[4 * h4 + 1] = v.y; pj[4 * h4 + 2] = v.z; pj[4 * h4 + 3] = v.w;
-      }
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) {
-        const float2 cf = unpack_bf2(c_s[j * SM::kCStride + k * kThreads + tid]);
-#pragma unroll
-        for (int h = 0; h < kHG; ++h) {
-          acc[h][k][0] = fmaf(pj[h], cf.x, acc[h][k][0]);
-          acc[h][k][1] = fmaf(pj[h], cf.y, acc[h][k][1]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // m_s / l_s are final
-
-#pragma unroll
-  for (int h = 0; h < kHG; ++h) {
-    if (h0 + h >= Hq) break;
-    const size_t row = (size_t)b * Hq + h0 + h;
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      const int col = 2 * (k * kThreads + tid);
-      if constexpr (kFinal) {
-        const float l = l_s[h] == 0.f ? 1.f : l_s[h];
-        *reinterpret_cast<__nv_bfloat162*>(out + row * R + col) =
-            __floats2bfloat162_rn(acc[h][k][0] / l, acc[h][k][1] / l);
-      } else {
-        *reinterpret_cast<float2*>(part_acc + (row * splits + split) * R + col) =
-            make_float2(acc[h][k][0], acc[h][k][1]);
-      }
-    }
-  }
-  if constexpr (!kFinal) {
-    if (tid < kHG && h0 + tid < Hq) {
-      const size_t slot = ((size_t)b * Hq + h0 + tid) * splits + split;
-      part_ml[2 * slot] = m_s[tid];
-      part_ml[2 * slot + 1] = l_s[tid];
-    }
-  }
-}
-
-// Merge the splits of each (slot, head), one warp per pair, in split order.
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-mla_merge_kernel(const float* __restrict__ part_acc,
-                 const float* __restrict__ part_ml, bf16* __restrict__ out,
-                 int rows, int splits) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* ml = part_ml + (size_t)row * splits * 2;
-  float M = QTT_NEG_INF;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[2 * s]);
-  float L = 0.f;
-  for (int s = 0; s < splits; ++s) L += ml[2 * s + 1] * expf(ml[2 * s] - M);
-  if (L == 0.f) L = 1.f;
-  const float* a = part_acc + (size_t)row * splits * R;
-  for (int d = lane; d < R; d += 32) {
-    float o = 0.f;
-    for (int s = 0; s < splits; ++s) o += a[(size_t)s * R + d] * expf(ml[2 * s] - M);
-    out[(size_t)row * R + d] = __float2bfloat16_rn(o / L);
-  }
-}
-
-template <int R, int DR, bool kInt8>
-cudaError_t launch(const void* q_c, const void* q_pe, const void* kpe_pages,
-                   const void* c_pages, const void* kv_scales,
-                   const void* block_table, const void* lengths, void* out,
-                   void* part_acc, void* part_ml, int B, int Hq, int P,
-                   int page, int n_pt, int layer, int splits, int chunk,
-                   float scale, cudaStream_t st) {
-  const size_t smem = Smem<R, DR>::kBytes;
-  dim3 grid(splits, B, (Hq + kHG - 1) / kHG);
-  const bf16* qc = static_cast<const bf16*>(q_c);
-  const bf16* qp = static_cast<const bf16*>(q_pe);
-  const float* sc = static_cast<const float*>(kv_scales);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* ln = static_cast<const int*>(lengths);
-  bf16* o = static_cast<bf16*>(out);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  cudaError_t err;
-  if (splits == 1) {
-    auto k = mla_decode_kernel<R, DR, kInt8, true>;
-    if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
-    k<<<grid, kThreads, smem, st>>>(qc, qp, kpe_pages, c_pages, sc, bt, ln, o,
-                                    pa, pm, Hq, P, page, n_pt, layer, chunk,
-                                    scale);
-    return cudaGetLastError();
-  }
-  auto k = mla_decode_kernel<R, DR, kInt8, false>;
-  if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
-  k<<<grid, kThreads, smem, st>>>(qc, qp, kpe_pages, c_pages, sc, bt, ln, o, pa,
-                                  pm, Hq, P, page, n_pt, layer, chunk, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int rows = B * Hq;
-  mla_merge_kernel<R><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      pa, pm, o, rows, splits);
-  return cudaGetLastError();
-}
-
-
-// ------------------------------------------------------------------ K10q
 namespace k10q {
 
 constexpr int kWarps = 4;
@@ -418,9 +76,10 @@ constexpr int kBK = 64;    // tokens a tile; warp w scores tokens 16w .. 16w + 1
 constexpr int kRows = 16;  // query heads a block (one m16 tile)
 constexpr int kMergeSplits = 4;  // splits' partials staged at a time by the merge
 constexpr int kMaxChunk = 1024;  // tokens of a split at most
-constexpr int kMaxPages = kMaxChunk / 16 + 2;  // pages of a split at most (pages >= 16)
+constexpr int kMaxPages = kMaxChunk / 16 + 2;  // pages of a split at most
 
-template <int R, int DR>
+// K10q's layout (INT8 pages)
+template <int R, int DR, bool kI8>
 struct Smem {
   static constexpr int kQc = kRows * R * 2;    // the q_c rows in bf16, swizzled
   static constexpr int kQp = kRows * DR * 2;   // the q_pe rows
@@ -442,16 +101,38 @@ struct Smem {
                 "the merge's staged partials fit the tile stages");
 };
 
+// K10's layout (bf16 pages): a two-stage ring of bf16 tiles
 template <int R, int DR>
+struct Smem<R, DR, false> {
+  static constexpr int kQc = kRows * R * 2;
+  static constexpr int kQp = kRows * DR * 2;
+  static constexpr int kC = kBK * R * 2;
+  static constexpr int kStage = kC + kBK * DR * 2;  // a stage: latent rows, then k_pe rows
+  static constexpr int oQp = kQc;
+  static constexpr int oC = oQp + kQp;              // stage s at oC + s * kStage
+  static constexpr int oPe = oC + kC;
+  static constexpr int oRow = oC + 2 * kStage;      // [2][kBK] the tiles' rows in the stacks
+  static constexpr int oPid = oRow + 2 * kBK * 4;
+  static constexpr int oP = oPid + (kMaxPages + 3) / 4 * 16;
+  static constexpr int oMax = oP + kRows * kBK * 2;
+  static constexpr int oL = oMax + kWarps * kRows * 4;
+  static constexpr int oFlag = oL + kWarps * kRows * 4;
+  static constexpr size_t kBytes = oFlag + 16;
+  static_assert((size_t)kMergeSplits * kRows * R * 4 <= (size_t)oRow - oC,
+                "the merge's staged partials fit the tile stages");
+};
+
+template <int R, int DR, bool kI8>
 __global__ void __launch_bounds__(kThreads)
-mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_pe,
-                      const int8_t* __restrict__ kpe_pages, const int8_t* __restrict__ c_pages,
-                      const float* __restrict__ kv_scales, const int* __restrict__ block_table,
-                      const int* __restrict__ lengths, bf16* __restrict__ out,
-                      float* __restrict__ part_acc, float* __restrict__ part_ml,
-                      int* __restrict__ counters, int Hq, int P, int page, int n_pt, int layer,
-                      int chunk, float scale) {
-  using L = Smem<R, DR>;
+mla_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_pe,
+                 const typename PageCode<kI8>::T* __restrict__ kpe_pages,
+                 const typename PageCode<kI8>::T* __restrict__ c_pages,
+                 const float* __restrict__ kv_scales, const int* __restrict__ block_table,
+                 const int* __restrict__ lengths, bf16* __restrict__ out,
+                 float* __restrict__ part_acc, float* __restrict__ part_ml,
+                 int* __restrict__ counters, int Hq, int P, int page, int n_pt, int layer,
+                 int chunk, float scale) {
+  using L = Smem<R, DR, kI8>;
   constexpr int kNT = R / kWarps / 8;  // n8 tiles of a warp's 128 output columns
   const int sp = blockIdx.x, b = blockIdx.y, hg = blockIdx.z;
   const int splits = gridDim.x;
@@ -461,7 +142,8 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = smem_u32(smem);
   int* pid = reinterpret_cast<int*>(smem + L::oPid);
-  const float* sc_ring = reinterpret_cast<const float*>(smem + L::oSc);
+  const float* sc_ring = nullptr;  // K10q: ks, cs of three tiles
+  if constexpr (kI8) sc_ring = reinterpret_cast<const float*>(smem + L::oSc);
   float* smax = reinterpret_cast<float*>(smem + L::oMax);
   float* lsum = reinterpret_cast<float*>(smem + L::oL);
   int* flag = reinterpret_cast<int*>(smem + L::oFlag);
@@ -477,51 +159,84 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
   const int* bt = block_table + (size_t)b * n_pt;
   const size_t lp = (size_t)layer * P;
 
-  // the page ids of the split's pages, loaded once (pages are a power of
-  // two: token t is row t & (page - 1) of page pid[(t >> sh) - fp])
-  const int sh = 31 - __clz(page), fp = t_begin >> sh;
-  const int n_pages = n_tiles > 0 ? ((t_end - 1) >> sh) - fp + 1 : 0;
+  // the page ids of the split's pages, loaded once: token t lies in row
+  // t % page of page pid[t / page - fp] (INT8 pages are a power of two:
+  // row t & (page - 1) of pid[(t >> sh) - fp])
+  const int sh = 31 - __clz(page);
+  const int fp = kI8 ? t_begin >> sh : t_begin / page;
+  const int n_pages = n_tiles > 0 ? (kI8 ? (t_end - 1) >> sh : (t_end - 1) / page) - fp + 1 : 0;
   const int pid0 = tid < n_pages ? bt[fp + tid] : 0;
-  // token t's row in the page stacks (one kv head)
+  // K10q: token t's row in the page stacks (one kv head)
   auto row_of = [&](int t) { return (lp + pid[(t >> sh) - fp]) * page + (t & (page - 1)); };
-  // copy tile i's codes into raw stage i & 1 (zero-filled at or past t_end)
-  // and its tokens' ks / cs (threads 0-63 / 64-127) into scale slot i % 3
-  auto load_raw = [&](int i) {
+  // K10q: copy tile i's codes into raw stage i & 1 (zero-filled at or past
+  // t_end) and its tokens' ks / cs (threads 0-63 / 64-127) into scale slot
+  // i % 3. K10: copy tile i's bf16 rows into ring stage i & 1, at the rows
+  // of table i & 1 (zero-filled at or past t_end)
+  auto load = [&](int i) {
     const int t0 = t_begin + i * kBK;
-    const uint32_t raw = qs + L::oRaw + (i & 1) * L::kRaw;
-    for (int c = tid; c < kBK * (R / 16); c += kThreads) {
-      const int r = c / (R / 16), ch = c % (R / 16);
-      const bool ok = t0 + r < t_end;
-      const size_t off = ok ? row_of(t0 + r) * R + ch * 16 : 0;
-      cp_async16(raw + r * R + ch * 16, c_pages + off, ok);
+    if constexpr (kI8) {
+      const uint32_t raw = qs + L::oRaw + (i & 1) * L::kRaw;
+      for (int c = tid; c < kBK * (R / 16); c += kThreads) {
+        const int r = c / (R / 16), ch = c % (R / 16);
+        const bool ok = t0 + r < t_end;
+        const size_t off = ok ? row_of(t0 + r) * R + ch * 16 : 0;
+        cp_async16(raw + r * R + ch * 16, c_pages + off, ok);
+      }
+      for (int c = tid; c < kBK * (DR / 16); c += kThreads) {
+        const int r = c / (DR / 16), ch = c % (DR / 16);
+        const bool ok = t0 + r < t_end;
+        const size_t off = ok ? row_of(t0 + r) * DR + ch * 16 : 0;
+        cp_async16(raw + kBK * R + r * DR + ch * 16, kpe_pages + off, ok);
+      }
+      const int t = t0 + tid % kBK;
+      const bool ok = t < t_end;
+      const size_t off = ok ? ((lp + pid[(t >> sh) - fp]) * 8 + tid / kBK) * page +
+                                  (t & (page - 1))
+                            : 0;
+      cp_async4(qs + L::oSc + ((i % 3) * 2 * kBK + tid) * 4, kv_scales + off, ok);
+    } else {
+      const uint32_t st = qs + L::oC + (i & 1) * L::kStage;
+      const uint32_t* rows = reinterpret_cast<const uint32_t*>(smem + L::oRow) + (i & 1) * kBK;
+      for (int c = tid; c < kBK * (R / 8); c += kThreads) {
+        const int r = c / (R / 8), ch = c % (R / 8);
+        cp_async16(st + swz<R>(r, ch), c_pages + (size_t)rows[r] * R + ch * 8, t0 + r < t_end);
+      }
+      for (int c = tid; c < kBK * (DR / 8); c += kThreads) {
+        const int r = c / (DR / 8), ch = c % (DR / 8);
+        cp_async16(st + L::kC + swz<DR>(r, ch), kpe_pages + (size_t)rows[r] * DR + ch * 8,
+                   t0 + r < t_end);
+      }
     }
-    for (int c = tid; c < kBK * (DR / 16); c += kThreads) {
-      const int r = c / (DR / 16), ch = c % (DR / 16);
-      const bool ok = t0 + r < t_end;
-      const size_t off = ok ? row_of(t0 + r) * DR + ch * 16 : 0;
-      cp_async16(raw + kBK * R + r * DR + ch * 16, kpe_pages + off, ok);
-    }
-    const int t = t0 + tid % kBK;
-    const bool ok = t < t_end;
-    const size_t off = ok ? ((lp + pid[(t >> sh) - fp]) * 8 + tid / kBK) * page +
-                                (t & (page - 1))
-                          : 0;
-    cp_async4(qs + L::oSc + ((i % 3) * 2 * kBK + tid) * 4, kv_scales + off, ok);
   };
-  // the chunks of tile i this thread copied, converted into the bf16 rows
-  auto convert = [&](int i) {
-    const unsigned char* raw = smem + L::oRaw + (i & 1) * L::kRaw;
-    for (int c = tid; c < kBK * (R / 16); c += kThreads) {
-      const int r = c / (R / 16), ch = c % (R / 16);
-      const uint4 w = *reinterpret_cast<const uint4*>(raw + r * R + ch * 16);
-      *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch)) = codes_bf16(w.x, w.y);
-      *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);
+  // K10: token j of tile i's row in the page stacks into table i & 1 (0
+  // at or past t_end: its copy is zero-filled)
+  auto set_row = [&](int i, int j) {
+    if constexpr (!kI8) {
+      const int t = t_begin + i * kBK + j;
+      uint32_t row = 0;
+      if (t < t_end) {
+        const int pg = t / page;
+        row = static_cast<uint32_t>((lp + pid[pg - fp]) * page + (t - pg * page));
+      }
+      reinterpret_cast<uint32_t*>(smem + L::oRow)[(i & 1) * kBK + j] = row;
     }
-    for (int c = tid; c < kBK * (DR / 16); c += kThreads) {
-      const int r = c / (DR / 16), ch = c % (DR / 16);
-      const uint4 w = *reinterpret_cast<const uint4*>(raw + kBK * R + r * DR + ch * 16);
-      *reinterpret_cast<uint4*>(smem + L::oPe + swz<DR>(r, 2 * ch)) = codes_bf16(w.x, w.y);
-      *reinterpret_cast<uint4*>(smem + L::oPe + swz<DR>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);
+  };
+  // K10q: the chunks of tile i this thread copied, converted into the bf16 rows
+  auto convert = [&](int i) {
+    if constexpr (kI8) {
+      const unsigned char* raw = smem + L::oRaw + (i & 1) * L::kRaw;
+      for (int c = tid; c < kBK * (R / 16); c += kThreads) {
+        const int r = c / (R / 16), ch = c % (R / 16);
+        const uint4 w = *reinterpret_cast<const uint4*>(raw + r * R + ch * 16);
+        *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch)) = codes_bf16(w.x, w.y);
+        *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);
+      }
+      for (int c = tid; c < kBK * (DR / 16); c += kThreads) {
+        const int r = c / (DR / 16), ch = c % (DR / 16);
+        const uint4 w = *reinterpret_cast<const uint4*>(raw + kBK * R + r * DR + ch * 16);
+        *reinterpret_cast<uint4*>(smem + L::oPe + swz<DR>(r, 2 * ch)) = codes_bf16(w.x, w.y);
+        *reinterpret_cast<uint4*>(smem + L::oPe + swz<DR>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);
+      }
     }
   };
   // the group's q rows in bf16; rows past nrows are zeros
@@ -538,10 +253,17 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
   }
   if (tid < n_pages) pid[tid] = pid0;
   __syncthreads();  // the page ids
-  if (n_tiles > 0) load_raw(0);
-  cp_async_commit();  // q and tile 0
-  if (n_tiles > 1) load_raw(1);
-  cp_async_commit();
+  if constexpr (kI8) {
+    if (n_tiles > 0) load(0);
+    cp_async_commit();  // q and tile 0
+    if (n_tiles > 1) load(1);
+    cp_async_commit();
+  } else {
+    set_row(tid / kBK, tid % kBK);  // the tables of tiles 0 and 1
+    __syncthreads();
+    if (n_tiles > 0) load(0);
+    cp_async_commit();  // q and tile 0
+  }
 
   float o[kNT][4];
 #pragma unroll
@@ -551,12 +273,24 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
   const int qchunk = lane >> 4;
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = t_begin + it * kBK;
-    cp_async_wait1();  // this thread's copies of tile it (and q) landed
-    __syncthreads();   // tile it - 1's products are done: its rows and p are free
-    convert(it);
-    if (it + 2 < n_tiles) load_raw(it + 2);
-    cp_async_commit();
-    __syncthreads();  // the tile's bf16 rows (and q) are whole
+    // the tile's bf16 rows: K10q's one converted stage, K10's ring stage it & 1
+    uint32_t c_st = qs + L::oC, pe_st = qs + L::oPe;
+    if constexpr (kI8) {
+      cp_async_wait1();  // this thread's copies of tile it (and q) landed
+      __syncthreads();   // tile it - 1's products are done: its rows and p are free
+      convert(it);
+      if (it + 2 < n_tiles) load(it + 2);
+      cp_async_commit();
+      __syncthreads();  // the tile's bf16 rows (and q) are whole
+    } else {
+      cp_async_wait_all();  // this thread's copies of tile it (and q) landed
+      __syncthreads();  // every thread's; tile it - 1's products are done: its stage is free
+      if (it + 1 < n_tiles) load(it + 1);
+      cp_async_commit();
+      if (tid < kBK && it + 2 < n_tiles) set_row(it + 2, tid);  // table it & 1 is read
+      c_st += (it & 1) * L::kStage;
+      pe_st += (it & 1) * L::kStage;
+    }
     // s_c and s_pe for the warp's 16 tokens: two n8 tiles each, even and
     // odd k steps in separate accumulators (shorter dependent chains)
     float sc[2][2][4] = {}, spe[2][4] = {};
@@ -564,8 +298,8 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
     for (int kk = 0; kk < R / 16; ++kk) {
       uint32_t a[4], kb[4];
       ldsm_x4(a, qs + swz<R>(qrow, 2 * kk + qchunk));
-      ldsm_x4(kb, qs + L::oC + swz<R>(warp * 16 + (lane >> 4) * 8 + (lane & 7),
-                                      2 * kk + ((lane >> 3) & 1)));
+      ldsm_x4(kb, c_st + swz<R>(warp * 16 + (lane >> 4) * 8 + (lane & 7),
+                                2 * kk + ((lane >> 3) & 1)));
       mma16816(sc[kk & 1][0], a, kb[0], kb[1]);
       mma16816(sc[kk & 1][1], a, kb[2], kb[3]);
     }
@@ -573,14 +307,16 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
     for (int kk = 0; kk < DR / 16; ++kk) {
       uint32_t a[4], kb[4];
       ldsm_x4(a, qs + L::oQp + swz<DR>(qrow, 2 * kk + qchunk));
-      ldsm_x4(kb, qs + L::oPe + swz<DR>(warp * 16 + (lane >> 4) * 8 + (lane & 7),
-                                        2 * kk + ((lane >> 3) & 1)));
+      ldsm_x4(kb, pe_st + swz<DR>(warp * 16 + (lane >> 4) * 8 + (lane & 7),
+                                  2 * kk + ((lane >> 3) & 1)));
       mma16816(spe[0], a, kb[0], kb[1]);
       mma16816(spe[1], a, kb[2], kb[3]);
     }
-    // s = (s_c cs + s_pe ks) scale, the Pallas order; register e of tile nt:
-    // row g + 8 * (e >> 1), token t0 + 16 * warp + 8 * nt + 2 * tq + (e & 1)
-    const float* scl = sc_ring + (it % 3) * 2 * kBK;  // ks [kBK], then cs [kBK]
+    // s = (s_c + s_pe) scale, on INT8 pages (s_c cs + s_pe ks) scale, the
+    // Pallas order; register e of tile nt: row g + 8 * (e >> 1), token
+    // t0 + 16 * warp + 8 * nt + 2 * tq + (e & 1)
+    const float* scl = nullptr;  // K10q: ks [kBK], then cs [kBK]
+    if constexpr (kI8) scl = sc_ring + (it % 3) * 2 * kBK;
     float s[2][4], mx[2] = {QTT_NEG_INF, QTT_NEG_INF};
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
@@ -588,8 +324,12 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
       for (int e = 0; e < 4; ++e) {
         const int j = warp * 16 + nt * 8 + 2 * tq + (e & 1);
         const float c = sc[0][nt][e] + sc[1][nt][e];
-        const float v = __fmul_rn(__fadd_rn(__fmul_rn(c, scl[kBK + j]),
-                                            __fmul_rn(spe[nt][e], scl[j])), scale);
+        float v;
+        if constexpr (kI8)
+          v = __fmul_rn(__fadd_rn(__fmul_rn(c, scl[kBK + j]), __fmul_rn(spe[nt][e], scl[j])),
+                        scale);
+        else
+          v = __fmul_rn(__fadd_rn(c, spe[nt][e]), scale);
         s[nt][e] = t0 + j < t_end ? v : QTT_NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
@@ -621,7 +361,10 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
           const float v = s[nt][2 * hh + k];
           const float p = v == QTT_NEG_INF ? 0.f : expf(v - mn);
           psum += p;  // l keeps the unrounded p
-          pc[k] = p * scl[kBK + warp * 16 + nt * 8 + 2 * tq + k];
+          if constexpr (kI8)
+            pc[k] = p * scl[kBK + warp * 16 + nt * 8 + 2 * tq + k];
+          else
+            pc[k] = p;
         }
         *reinterpret_cast<uint32_t*>(pt + swz<kBK>(g + 8 * hh, 2 * warp + nt) + 4 * tq) =
             pack_bf16(pc[0], pc[1]);
@@ -633,8 +376,8 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
         o[i][2 * hh + 1] *= alpha;
       }
     }
-    __syncthreads();  // the tile's p cs rows are whole
-    // o += (p cs) c over the tile's 64 tokens, the warp's 128 columns
+    __syncthreads();  // the tile's p (p cs) rows are whole
+    // o += p c over the tile's 64 tokens, the warp's 128 columns
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t a[4];
@@ -642,8 +385,8 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t vb[4];
-        ldsm_x4_t(vb, qs + L::oC + swz<R>(16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                          warp * (kNT) + 2 * np + (lane >> 4)));
+        ldsm_x4_t(vb, c_st + swz<R>(16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                    warp * (kNT) + 2 * np + (lane >> 4)));
         mma16816(o[2 * np], a, vb[0], vb[1]);
         mma16816(o[2 * np + 1], a, vb[2], vb[3]);
       }
@@ -767,20 +510,21 @@ mla_int8_split_kernel(const bf16* __restrict__ q_c, const bf16* __restrict__ q_p
   }
 }
 
-template <int R, int DR>
+template <int R, int DR, bool kI8>
 cudaError_t launch(const void* q_c, const void* q_pe, const void* kpe_pages,
                    const void* c_pages, const void* kv_scales, const void* block_table,
                    const void* lengths, void* out, void* part_acc, void* part_ml,
                    void* counters, int B, int Hq, int P, int page, int n_pt, int layer,
                    int splits, int chunk, float scale, cudaStream_t st) {
-  const auto kernel = mla_int8_split_kernel<R, DR>;
-  const size_t smem = Smem<R, DR>::kBytes;
+  using T = typename PageCode<kI8>::T;
+  const auto kernel = mla_split_kernel<R, DR, kI8>;
+  const size_t smem = Smem<R, DR, kI8>::kBytes;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(splits, B, (Hq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q_c), static_cast<const bf16*>(q_pe),
-      static_cast<const int8_t*>(kpe_pages), static_cast<const int8_t*>(c_pages),
+      static_cast<const T*>(kpe_pages), static_cast<const T*>(c_pages),
       static_cast<const float*>(kv_scales), static_cast<const int*>(block_table),
       static_cast<const int*>(lengths), static_cast<bf16*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), static_cast<int*>(counters),
@@ -797,32 +541,33 @@ cudaError_t launch(const void* q_c, const void* q_pe, const void* kpe_pages,
 // int8 codes (int8 = 1, K10q, with kv_scales f32 [L, P, 8, page]; null
 // otherwise); block_table: int32 [B, n_pt]; lengths: int32 [B], read on the
 // card; out: bf16 [B, Hq, R]; part_acc: f32 [B, Hq, splits, R] and part_ml:
-// f32 [B, Hq, splits, 2] (unused when splits == 1); counters (K10q): int32
+// f32 [B, Hq, splits, 2] (unused when splits == 1); counters: int32
 // [B * ceil(Hq / 16)], zero before the launch and left at zero by it (one
-// launch at a time); chunk: tokens per split, a multiple of 64 with splits
-// * chunk >= n_pt * page (K10q: at most 1,024, pages a power of two of 16
-// or more). R = 512 and DR = 64.
+// launch at a time); chunk: tokens per split, a multiple of 64 of at most
+// 1,024 whose tokens lie on at most kMaxPages pages, with splits * chunk >=
+// n_pt * page (K10q: pages a power of two of 16 or more). R = 512 and DR =
+// 64.
 extern "C" int qtt_mla_paged_decode(
     const void* q_c, const void* q_pe, const void* kpe_pages,
     const void* c_pages, const void* kv_scales, const void* block_table,
     const void* lengths, void* out, void* part_acc, void* part_ml, void* counters, int B,
     int Hq, int R, int DR, int L, int P, int page, int n_pt, int layer,
     int splits, int chunk, float scale, int int8, void* stream) {
+  using namespace k10q;
   if (B <= 0 || B > 65535 || Hq <= 0 || P <= 0 || page <= 0 || n_pt <= 0 || layer < 0 ||
-      layer >= L || splits <= 0 || chunk <= 0 || chunk % kBK != 0 ||
+      layer >= L || splits <= 0 || chunk <= 0 || chunk % kBK != 0 || chunk > kMaxChunk ||
+      (chunk - 1) / page + 2 > kMaxPages || counters == nullptr ||
       (long long)splits * chunk < (long long)n_pt * page ||
-      (int8 && (kv_scales == nullptr || counters == nullptr || page < 16 ||
-                (page & (page - 1)) != 0 || chunk > k10q::kMaxChunk)) ||
+      (int8 && (kv_scales == nullptr || page < 16 || (page & (page - 1)) != 0)) ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return cudaErrorInvalidValue;
   if (R != 512 || DR != 64) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int8)
-    return k10q::launch<512, 64>(q_c, q_pe, kpe_pages, c_pages, kv_scales, block_table,
-                                 lengths, out, part_acc, part_ml, counters, B, Hq, P, page,
-                                 n_pt, layer, splits, chunk, scale, st);
-  return launch<512, 64, false>(q_c, q_pe, kpe_pages, c_pages, kv_scales,
-                         block_table, lengths, out, part_acc, part_ml, B,
-                         Hq, P, page, n_pt, layer, splits, chunk, scale,
-                         st);
+    return launch<512, 64, true>(q_c, q_pe, kpe_pages, c_pages, kv_scales, block_table, lengths,
+                                 out, part_acc, part_ml, counters, B, Hq, P, page, n_pt, layer,
+                                 splits, chunk, scale, st);
+  return launch<512, 64, false>(q_c, q_pe, kpe_pages, c_pages, kv_scales, block_table, lengths,
+                                out, part_acc, part_ml, counters, B, Hq, P, page, n_pt, layer,
+                                splits, chunk, scale, st);
 }

@@ -1,6 +1,6 @@
-"""Time the wgmma bodies above 8 rows (K1, K9, K11f), K8, K12 and K2 with parts
-of their bodies removed or their launch changed, on one card, to see where
-their time goes:
+"""Time the wgmma bodies above 8 rows (K1, K9, K11f), K8, K12, K2 and the
+attention and page-write kernels with parts of their bodies removed or their
+launch changed, on one card, to see where their time goes:
 
     python -m quick_tpu_torch.examples.kernel_ablate [--only K8 K9 K11f]
 
@@ -44,7 +44,15 @@ into a scratch directory and swapped into the wrapper for its timing:
   ``every_split`` (the blocks of splits without a key run and count too, as
   K5's do), ``no_mma`` (neither product runs), ``no_convert`` (the staged
   codes never converted), ``no_wait`` (no wait for an item's copies);
-- K10q: ``no_mma``, ``no_convert``, ``no_wait``, as K5q's.
+- K10q: ``no_mma``, ``no_convert``, ``no_wait``, as K5q's;
+- K10 (the same kernel over bf16 pages): ``no_mma``, ``no_wait`` (no wait
+  for a tile's copies: the products read a stage still in flight);
+- K4q: ``no_divide`` (x times the scale, not x over it: no IEEE division),
+  ``scalar`` (every row on the scalar path: ``WRITE_MAX_UNITS`` = 0, a
+  warp a row, values read twice, byte stores), ``lanes_64`` and
+  ``lanes_1024`` (``WRITE_LANES``: blocks of fewer or more rows), and
+  ``no_pdl`` (a plain launch, not a programmatic dependent of the kernel
+  before).
 
 Times use ``chip_smoke.py``'s timing (CUDA events behind a device sleep), in
 turns with the unchanged source, at the Mistral-7B gate_up (K 4096, N
@@ -58,8 +66,12 @@ Mixtral-8x7B's decode (Mp = 256) and B = 4 prefill (Mp = 2048), gate_up
 and down; on one random routing each; K6q at the INT8 Engine's chunk (B = 8,
 S = 16 at serve_bench's starts, 32 layers of INT8 pages); K5q at the INT8
 Engine's decode (B = 64 at ``chip_smoke.py::trace_positions``' lengths, the
-same pool); K10q at the DeepSeek-V2-Lite INT8 Engine's decode (B = 16, Hq =
-16, 27 layers of INT8 latent pages).
+same pool); K10q and K10 at the DeepSeek-V2-Lite INT8 and bf16 Engines'
+decode (B = 16, Hq = 16, 27 layers of latent pages); K4q at the INT8
+Engine's decode (B = 64) and chunk (B = 8, S = 16), 32 layers of INT8
+pages, on DeepSeek-V2-Lite's latent planes (B = 16, B = 8 x 16), 27
+layers, and in a captured graph of the INT8 Engine's decode writes (32 x
+K1's qkv projection at M = 64, then K4q).
 """
 import argparse
 import ctypes
@@ -75,6 +87,7 @@ from quick_tpu_torch.ops import flash_attention as fa
 from quick_tpu_torch.ops import grouped_matmul as gm
 from quick_tpu_torch.ops import mla_paged_attention as ml
 from quick_tpu_torch.ops import paged_attention as pa
+from quick_tpu_torch.ops import paged_write as pw
 from quick_tpu_torch.ops import quantized_matmul as qm
 from quick_tpu_torch.ops._cuda import CSRC, NVCC_FLAGS, _nvcc
 
@@ -205,9 +218,12 @@ _K5Q_WAIT = "    cp_async_wait1();  // this thread's copies of item i + 1 landed
 _K10Q_MMA = ["      mma16816(sc[kk & 1][0], a, kb[0], kb[1]);\n      mma16816(sc[kk & 1][1], a, kb[2], kb[3]);",
              "      mma16816(spe[0], a, kb[0], kb[1]);\n      mma16816(spe[1], a, kb[2], kb[3]);",
              "        mma16816(o[2 * np], a, vb[0], vb[1]);\n        mma16816(o[2 * np + 1], a, vb[2], vb[3]);"]
-_K10Q_CONVERT = """      *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch)) = codes_bf16(w.x, w.y);
-      *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);"""
-_K10Q_WAIT = "    cp_async_wait1();  // this thread's copies of tile it (and q) landed\n"
+_K10Q_CONVERT = """        *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch)) = codes_bf16(w.x, w.y);
+        *reinterpret_cast<uint4*>(smem + L::oC + swz<R>(r, 2 * ch + 1)) = codes_bf16(w.z, w.w);"""
+_K10Q_WAIT = "      cp_async_wait1();  // this thread's copies of tile it (and q) landed\n"
+_K10_WAIT = "      cp_async_wait_all();  // this thread's copies of tile it (and q) landed\n"
+_K4Q_QUANT = "  return fminf(fmaxf(rintf(x / scale), -127.f), 127.f);"
+_K4Q_PDL = "  attr[0].val.programmaticStreamSerializationAllowed = 1;"
 _K12_MMA = "  for (int s = 0; s < 4; ++s) WgmmaS8<W>::mma(d, a[s], desc_b(xb + s * 32), s > 0);"
 
 #: name -> (kernel, file, [(text, replacement)], {(module, attribute): value}
@@ -270,6 +286,13 @@ VARIANTS = {
     "K10q no_mma": (ml.KERNEL, "mla_paged_attention.cu", [(m, "") for m in _K10Q_MMA]),
     "K10q no_convert": (ml.KERNEL, "mla_paged_attention.cu", [(_K10Q_CONVERT, "      smem[L::oC] = w.x ^ w.w;")]),
     "K10q no_wait": (ml.KERNEL, "mla_paged_attention.cu", [(_K10Q_WAIT, "")]),
+    "K10 no_mma": (ml.KERNEL, "mla_paged_attention.cu", [(m, "") for m in _K10Q_MMA]),
+    "K10 no_wait": (ml.KERNEL, "mla_paged_attention.cu", [(_K10_WAIT, "")]),
+    "K4q no_divide": (pw.KERNEL_INT8, "paged_write_int8.cu", [(_K4Q_QUANT, _K4Q_QUANT.replace("x / scale", "x * scale"))]),
+    "K4q no_pdl": (pw.KERNEL_INT8, "paged_write_int8.cu", [(_K4Q_PDL, _K4Q_PDL.replace("= 1", "= 0"))]),
+    "K4q scalar": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_MAX_UNITS"): 0}),
+    "K4q lanes_64": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_LANES"): 64}),
+    "K4q lanes_1024": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_LANES"): 1024}),
 
     "K5q k5_plan": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 16}),
     "K5q max_tiles_2": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 2}),
@@ -310,7 +333,8 @@ def build(name: str, kernel, file: str, edits, root: Path):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
-                    help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q, K5q, K10q); all "
+                    help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q, K5q, K10q, K10, "
+                         "K4q); all "
                          "by default")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
@@ -354,21 +378,52 @@ def main(argv=None):
         q = torch.randn((g["B"], g["Hq"], g["D"]), generator=gen, device=dev)
         decode5q = (q.to(torch.bfloat16), *pool, cs.block_table(gen, dev, g, g["B"]),
                     torch.tensor(lens, dtype=torch.int32, device=dev))
-    decode10q = None  # K10q: the DeepSeek-V2-Lite INT8 Engine's decode, 27 layers
-    if not args.only or "K10q" in args.only:
+    decode10 = {}  # K10 / K10q: the DeepSeek-V2-Lite Engines' decode, 27 layers
+    want10 = [k for k in ("K10", "K10q") if not args.only or k in args.only]
+    if want10:
         from quick_tpu_torch import ModelConfig
         from quick_tpu_torch.modules.mla import mla_softmax_scale
 
         ds = ModelConfig.from_hf_config(cs.DEEPSEEK_V2_LITE)
         g = cs.paged_geometry(ds)
         lens, _ = cs.trace_positions(cs.serving_trace(ds.vocab_size), g)
-        pool = cs.mla_pool(gen, dev, ds.num_hidden_layers, g["P"], g["page"],
-                           (ds.qk_rope_head_dim, ds.kv_lora_rank), True)
         q = [torch.randn((g["B"], ds.num_attention_heads, w), generator=gen, device=dev)
              .to(torch.bfloat16) for w in (ds.kv_lora_rank, ds.qk_rope_head_dim)]
-        decode10q = (*q, pool[0], pool[1], cs.block_table(gen, dev, g, g["B"]),
-                     torch.tensor(lens, dtype=torch.int32, device=dev), pool[2],
-                     ds.num_hidden_layers, mla_softmax_scale(ds))
+        for k in want10:
+            pool = cs.mla_pool(gen, dev, ds.num_hidden_layers, g["P"], g["page"],
+                               (ds.qk_rope_head_dim, ds.kv_lora_rank), k == "K10q")
+            decode10[k] = (*q, pool[0], pool[1], cs.block_table(gen, dev, g, g["B"]),
+                           torch.tensor(lens, dtype=torch.int32, device=dev), pool[2],
+                           ds.num_hidden_layers, mla_softmax_scale(ds))
+    # K4q: the INT8 Engine's decode and chunk, DeepSeek's latent planes
+    writes4q, graph4q = {}, None
+    if not args.only or "K4q" in args.only:
+        from quick_tpu_torch import ModelConfig
+
+        for name, cfg4, engine, dk, dv in (
+                ("", ModelConfig(**cs.MISTRAL_7B), cs.ENGINE_INT8, None, None),
+                ("latent ", ModelConfig.from_hf_config(cs.DEEPSEEK_V2_LITE), cs.ENGINE, 64, 512)):
+            g = cs.paged_geometry(cfg4, engine)
+            dec, starts = cs.trace_positions(cs.serve_bench_trace(cfg4.vocab_size), g)
+            Hkv = 1 if dk else g["Hkv"]
+            dk, dv = dk or g["D"], dv or g["D"]
+            L = cfg4.num_hidden_layers
+            pool = [torch.zeros((L, g["P"], Hkv, g["page"], d), dtype=torch.int8, device=dev)
+                    for d in (dk, dv)]
+            pool.append(torch.zeros((L, g["P"], 8, Hkv * g["page"]), device=dev))
+            bt = cs.block_table(gen, dev, g, g["B"]).long()
+            for entry, n, pos in (("decode", 1, dec), ("chunk", g["S"], starts)):
+                pids, offs = cs.span_addresses(bt, g, pos, n)
+                if entry == "decode":
+                    pids = pids[:, :1].contiguous()  # the kernel alone: no copy in the call
+                rows = [torch.randn((len(pos), n, Hkv, d), generator=gen, device=dev)
+                        .to(torch.bfloat16) for d in (dk, dv)]
+                vt = torch.full((len(pos),), n, dtype=torch.int32, device=dev)
+                writes4q[f"{name}{entry} B={len(pos)}"] = (pool, rows, pids, offs, vt, entry, L)
+        # the INT8 Engine's decode writes in a captured step: each layer's qkv
+        # projection (K1, M = 64), then its K4q launch
+        graph4q = (torch.randn((64, 4096), generator=gen, device=dev).to(torch.bfloat16),
+                   cs.rand_qlinear(gen, dev, 4096, 6144)[0])
     moe = {}  # K8: "<model> <projection> Mp=..." -> (x, [weight stacks], te, live, bm)
     moe_a8 = {}  # K12: the same, x as its int8 codes and row scales
     if not args.only or "K8" in args.only or "K12" in args.only:
@@ -419,10 +474,36 @@ def main(argv=None):
         if kernel is gm.KERNEL_A8:
             return {name: cs.device_ms(lambda i, c=c: gm.launch_grouped_a8(
                 *c[0], *c[1][i % 2], c[2], c[3], c[4]), 20) for name, c in moe_a8.items()}
-        if group == "K10q":
-            qc, qp, kpe, c, bt, ln, tiles, L, scale = decode10q
-            return {"K10q decode B=16": cs.device_ms(lambda i: ml.mla_paged_decode_attention_cuda(
-                qc, qp, kpe, c, bt, ln, i % L, scale, tiles), 50)}
+        if group in ("K10", "K10q"):
+            qc, qp, kpe, c, bt, ln, tiles, L, scale = decode10[group]
+            return {f"{group} decode B=16": cs.device_ms(
+                lambda i: ml.mla_paged_decode_attention_cuda(qc, qp, kpe, c, bt, ln, i % L, scale,
+                                                             tiles), 50)}
+        if group == "K4q":
+            def write(i, w):
+                pool, rows, pids, offs, vt, entry, L = w
+                if entry == "decode":
+                    pw.paged_write_decode(*pool[:2], rows[0][:, 0], rows[1][:, 0], pids[:, 0],
+                                          offs, i % L, kv_scales=pool[2])
+                else:
+                    pw.paged_write_chunk(*pool[:2], *rows, pids, offs, vt, i % L,
+                                         kv_scales=pool[2])
+            out = {name: cs.device_ms(lambda i, w=w: write(i, w), 200)
+                   for name, w in writes4q.items()}
+            x, wq = graph4q
+            L = writes4q["decode B=64"][-1]
+
+            def step():
+                for layer in range(L):
+                    qm.quantized_matmul_cuda(x, *wq)
+                    write(layer, writes4q["decode B=64"])
+            step()  # eager: makes any counters
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            out[f"graph {L} x (K1 qkv M=64, K4q decode B=64)"] = cs.device_ms(
+                lambda i: graph.replay(), 20)
+            return out
         if group == "K5q":
             q, kp, vp, tiles, bt, ln = decode5q
             return {"K5q decode B=64": cs.device_ms(lambda i: pa.paged_decode_attention_int8_cuda(

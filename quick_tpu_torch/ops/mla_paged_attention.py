@@ -11,18 +11,18 @@ lengths (current token included) on the device, and for INT8 pages the
 scales). Returns the latent-space context [B, Hq, R] in q_c's dtype; the
 caller re-projects it through W_UV (modules/mla.py).
 
-CUDA tensors go to ``csrc/mla_paged_attention.cu``; CPU tensors to the
-plain version, which gathers the slot's pages and computes the Pallas
-kernel's arithmetic over all of them at once: scores
-(q_c . c + q_pe . k_pe) * scale, on INT8 pages (s_c * cs + s_pe * ks) *
-scale over the codes; an f32 softmax masked at the length; p (times cs on
-INT8 pages) rounded to the page dtype (bf16 for INT8 codes) before the p @ c
-product; l == 0 -> 1. The kernels run the same softmax online, so the two
-differ by where p is rounded (against a running or the final max) and by
-the f32 sums' order. K10q splits each slot's tokens over blocks
-(``int8_split_plan``) and merges the splits in split order;
-``mla_paged_decode_attention_split_plain`` models that arithmetic (64-token
-tiles, p rounded against each split's running max).
+CUDA tensors go to ``csrc/mla_paged_attention.cu``, one tensor-core key
+split instantiated for both page dtypes; CPU tensors to the plain version,
+which gathers the slot's pages and computes the Pallas kernel's arithmetic
+over all of them at once: scores (q_c . c + q_pe . k_pe) * scale, on INT8
+pages (s_c * cs + s_pe * ks) * scale over the codes; an f32 softmax masked
+at the length; p (times cs on INT8 pages) rounded to the page dtype (bf16
+for INT8 codes) before the p @ c product; l == 0 -> 1. The kernels run the
+same softmax online, so the two differ by where p is rounded (against a
+running or the final max) and by the f32 sums' order. Both kernels split
+each slot's tokens over blocks (``split_plan``) and merge the splits in
+split order; ``mla_paged_decode_attention_split_plain`` models that
+arithmetic (64-token tiles, p rounded against each split's running max).
 """
 from __future__ import annotations
 
@@ -50,8 +50,11 @@ KERNEL_WIDTHS = ((512, 64),)
 TILE = 64  # tokens per staged tile; a split's chunk is a multiple of it
 HEADS = 16  # query heads a block
 NEG_INF = -1e30
-_COUNTERS = ZeroedWords("K10q")  # its merge counters, zero between launches
-INT8_MAX_CHUNK = 1024  # K10q's tokens a split at most (its shared page-id list)
+#: the merge counters of both kernels, zero between launches (one launch at
+#: a time on a device: K10 and K10q share them)
+_COUNTERS = ZeroedWords("K10 / K10q")
+MAX_CHUNK = 1024  # tokens of a split at most
+MAX_PAGES = MAX_CHUNK // 16 + 2  # pages of a split at most (the kernel's page-id list)
 
 
 def launch_key(B: int, Hq: int, R: int, dr: int, page: int, n_pt: int, int8: bool) -> str:
@@ -59,24 +62,20 @@ def launch_key(B: int, Hq: int, R: int, dr: int, page: int, n_pt: int, int8: boo
     return f"{'int8' if int8 else 'bf16'} B={B} Hq={Hq} R={R} dr={dr} page={page} n_pt={n_pt}"
 
 
-def pick_splits(B: int, n_pt: int, page: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, chunk): cut the key range [0, n_pt * page) into ``splits``
-    chunks of ``chunk`` tokens (a multiple of the 64-token tile) so that
-    B x splits blocks fill about ``n_sm`` SMs; from the shapes only, never
-    from the lengths."""
+def split_plan(B: int, n_pt: int, page: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, chunk) of K10 / K10q, from the shapes only, never from the
+    lengths: the key range [0, n_pt * page) cut into ``splits`` chunks of
+    ``chunk`` tokens (a multiple of the 64-token tile) so that B x splits
+    blocks fill about ``n_sm`` SMs, with the chunk cut to ``MAX_CHUNK``
+    tokens and to what keeps a split's pages within the kernel's
+    ``MAX_PAGES`` page ids at any start (at most (chunk - 1) // page + 2
+    pages)."""
     T = n_pt * page
     tiles = -(-T // TILE)
     want = max(1, min(tiles, -(-n_sm // B)))
     chunk = -(-tiles // want) * TILE
+    chunk = min(chunk, MAX_CHUNK, (MAX_PAGES - 1) * page // TILE * TILE)
     return -(-T // chunk), chunk
-
-
-def int8_split_plan(B: int, n_pt: int, page: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, chunk) of K10q: ``pick_splits`` with the chunk cut to the
-    kernel's ``INT8_MAX_CHUNK``; from the shapes only."""
-    _, chunk = pick_splits(B, n_pt, page, n_sm)
-    chunk = min(chunk, INT8_MAX_CHUNK)
-    return -(-(n_pt * page) // chunk), chunk
 
 
 def mla_paged_decode_attention_plain(
@@ -120,7 +119,7 @@ def mla_paged_decode_attention_split_plain(
     layer: int, scale: float, kv_scales: Optional[torch.Tensor] = None,
     chunk: Optional[int] = None, splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain model of K10q's split-and-merge arithmetic (the arguments of
+    """Plain model of K10 / K10q's split-and-merge arithmetic (the arguments of
     the plain version; one split by default): per slot and split, its
     64-token tiles up to the slot's length in an online softmax in f32, the
     scores in f32 from q as given, (s_c cs + s_pe ks) * scale on INT8
@@ -187,9 +186,11 @@ def mla_paged_decode_attention_cuda(
     layer: int, scale: float, kv_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K10 (bf16 pages) or K10q (INT8 pages) on CUDA tensors; same
-    arguments as the plain version, the queries in bf16. K10q's merge
+    arguments as the plain version, the queries in bf16. Their merge
     counters live on the device (``_COUNTERS``, made by an eager launch
-    before any capture): one K10q launch at a time on a device."""
+    before any capture, since ``ZeroedWords.get`` raises inside one) and
+    are shared by both kernels: one K10 / K10q launch at a time on a device
+    (launches on one stream run in turn)."""
     B, Hq, R = q_c.shape
     dr = q_pe.shape[-1]
     L, P, Hkv, page, _ = c_pages.shape
@@ -212,23 +213,20 @@ def mla_paged_decode_attention_cuda(
         check(kv_scales, "kv_scales", torch.float32, (L, P, 8, page))
     check(block_table, "block_table", torch.int32, (B, n_pt))
     check(lengths, "lengths", torch.int32, (B,))
-    splits, chunk = (int8_split_plan if int8 else pick_splits)(B, n_pt, page,
-                                                               sm_count(q_c.device.index or 0))
+    splits, chunk = split_plan(B, n_pt, page, sm_count(q_c.device.index or 0))
     out = q_c.new_empty((B, Hq, R))
-    part_acc = part_ml = counters = None
+    part_acc = part_ml = None
     if splits > 1:
         part_acc = torch.empty((B, Hq, splits, R), dtype=torch.float32, device=q_c.device)
         part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32, device=q_c.device)
-    if int8:
-        counters = _COUNTERS.get(q_c.device, B * -(-Hq // HEADS))
+    counters = _COUNTERS.get(q_c.device, B * -(-Hq // HEADS))
     KERNEL.launch(
         "qtt_mla_paged_decode", launch_key(B, Hq, R, dr, page, n_pt, int8),
         q_c.data_ptr(), q_pe.data_ptr(), kpe_pages.data_ptr(), c_pages.data_ptr(),
         kv_scales.data_ptr() if int8 else None, block_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        None if counters is None else counters.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), counters.data_ptr(),
         B, Hq, R, dr, L, P, page, n_pt, layer, splits, chunk, float(scale), int(int8),
         stream_ptr(q_c.device),
     )

@@ -27,13 +27,18 @@ the page's tile, as ``_write_kernel_quant`` (:40) and
 int8 codes with their scales ``ks_new`` / ``vs_new`` (the JAX functions'
 signature) or float rows, which are quantized first with ``quantize_kv``
 (``PagedKVCache._quantize_kv``'s numerics; on the card inside K4q, so a
-page write is one launch).
+page write is one launch). K4q reads each row once: a group of lanes holds
+the row in registers, 16-byte units a lane, with every load of the lane
+started before any is used, and writes the codes as 8- or 16-byte stores;
+``int8_write_plan`` picks the lanes a row and the rows a block (and the
+scalar path for widths of no whole unit or pointers off 16 bytes), and
+``int8_write_lane`` models the kernel's map from lanes to rows.
 """
 from __future__ import annotations
 
 import os
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,11 +61,86 @@ KERNEL_INT8 = CudaKernel(
     "paged_write_int8.cu",
     {"qtt_paged_write_int8": [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-        i32, i32, i32, i32, i32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]},
 )
 #: K4q's input kinds: float rows it quantizes, or int8 codes it copies
 _IN_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+#: K4q's unit by input kind, in values: what a lane loads at once (one
+#: 16-byte vector of bf16 or of int8 codes, two of f32) and writes as one
+#: code store (8 bytes, 16 for copied codes)
+WRITE_UNIT = {0: 8, 1: 8, 2: 16}
+WRITE_MAX_UNITS = 4  # units a lane holds at most (``kMaxUnits``)
+WRITE_LANES = 256  # lanes a block aims at
+
+
+class Int8WritePlan(NamedTuple):
+    """K4q's launch plan: per plane log2 of the lanes a row and the units a
+    lane (0: the scalar path, a warp a row), tokens and heads a block."""
+    lgk: int
+    vk: int
+    lgv: int
+    vv: int
+    tokens_per_block: int
+    heads_per_block: int
+
+    @property
+    def threads(self) -> int:
+        """A block's threads: its rows' lanes (tokens x heads x both planes'
+        groups) in whole warps."""
+        lanes = self.tokens_per_block * self.heads_per_block * ((1 << self.lgk) + (1 << self.lgv))
+        return -(-lanes // 32) * 32
+
+    def grid(self, tokens: int, Hkv: int) -> Tuple[int, int]:
+        return -(-tokens // self.tokens_per_block), -(-Hkv // self.heads_per_block)
+
+
+def _plane_plan(D: int, kind: int, aligned: bool) -> Tuple[int, int]:
+    """(log2 lanes, units a lane) of one plane's rows: the fewest lanes (a
+    power of two, at most a warp) whose units cover the row's, or (5, 0), the
+    scalar path, for a width of no whole units, more than 32 x
+    ``WRITE_MAX_UNITS`` units, or pointers off 16 bytes."""
+    values = WRITE_UNIT[kind]
+    units = D // values
+    if not aligned or D % values or units > 32 * WRITE_MAX_UNITS:
+        return 5, 0
+    lg = min(5, (units - 1).bit_length())
+    return lg, -(-units // (1 << lg))
+
+
+def int8_write_plan(Hkv: int, Dk: int, Dv: int, kind: int, tokens: int,
+                    aligned: bool = True) -> Int8WritePlan:
+    """K4q's plan for ``tokens`` (B x S) rows of ``Hkv`` heads: every head
+    of a token in one block where both planes' lanes fit ``WRITE_LANES``, as
+    many tokens as fit beside it (Mistral's 8 heads x 2 x 16 lanes: one;
+    DeepSeek's latent, 32 + 8 lanes: six); else one token and as many heads
+    as fit."""
+    lgk, vk = _plane_plan(Dk, kind, aligned)
+    lgv, vv = _plane_plan(Dv, kind, aligned)
+    per_head = (1 << lgk) + (1 << lgv)
+    if Hkv * per_head <= WRITE_LANES:
+        return Int8WritePlan(lgk, vk, lgv, vv, max(1, min(tokens, WRITE_LANES // (Hkv * per_head))),
+                             Hkv)
+    return Int8WritePlan(lgk, vk, lgv, vv, 1, max(1, WRITE_LANES // per_head))
+
+
+def int8_write_lane(plan: Int8WritePlan, tokens: int, Hkv: int, bx: int, by: int, t: int):
+    """The row of thread ``t`` of block (``bx``, ``by``) under ``plan``, as
+    K4q computes it: (plane, token, head, lane in the row's group), or None
+    for a lane that holds no row."""
+    T, HB = plan.tokens_per_block, plan.heads_per_block
+    first = 1 if plan.lgv >= plan.lgk else 0
+    n_first = (T * HB) << (plan.lgv if first else plan.lgk)
+    local, plane = t, first
+    if local >= n_first:
+        local, plane = local - n_first, 1 - first
+    lg = plan.lgv if plane else plan.lgk
+    task = local >> lg
+    tok, hl = task // HB, task % HB
+    n, h = bx * T + tok, by * HB + hl
+    if tok >= T or n >= tokens or h >= Hkv:
+        return None
+    return plane, n, h, local & ((1 << lg) - 1)
 
 
 def launch_key(entry: str, B: int, S: int, Hkv: int, page: int, D: int,
@@ -195,7 +275,8 @@ def paged_write_int8_cuda(
     """Launch K4q on CUDA tensors: int8 pages, their scale tiles, and new
     rows that are bf16 / f32 (quantized in the kernel; ``ks_new`` and
     ``vs_new`` None) or int8 codes with f32 scales [B, S, Hkv]. Addressing
-    and ``valid`` as ``paged_write_cuda``."""
+    and ``valid`` as ``paged_write_cuda``; the launch plan from
+    ``int8_write_plan`` (the scalar path where a pointer is off 16 bytes)."""
     L, P, Hkv, page, D = k_pages.shape
     Dv = v_pages.shape[-1]
     B, S = k_new.shape[:2]
@@ -220,6 +301,8 @@ def paged_write_int8_cuda(
     check(offs, "offs", torch.int32, (B,))
     if valid is not None:
         check(valid, "valid", torch.int32, (B,))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k_pages, v_pages, k_new, v_new))
+    plan = int8_write_plan(Hkv, D, Dv, kind, B * S, aligned)
     KERNEL_INT8.launch(
         "qtt_paged_write_int8",
         launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D,
@@ -229,7 +312,7 @@ def paged_write_int8_cuda(
         None if ks_new is None else ks_new.data_ptr(),
         None if vs_new is None else vs_new.data_ptr(), page_ids.data_ptr(),
         offs.data_ptr(), None if valid is None else valid.data_ptr(), B, S,
-        Hkv, page, D, Dv, P, layer, n_pg, L, kind, stream_ptr(k_new.device),
+        Hkv, page, D, Dv, P, layer, n_pg, L, kind, *plan, stream_ptr(k_new.device),
     )
 
 

@@ -3,10 +3,12 @@ count on the 8-token body and graphed, K2 flash prefill,
 also at DeepSeek's q / k 192, v 128, K3 fused decode step, K4 paged writes,
 also of MLA's latent planes, K5 / K6 paged attention, K7 dense decode
 attention on K5's kernel (edges, graphed), K8 grouped MoE GEMM at G = 128,
-64 and 32, K4q INT8 paged writes,
+64 and 32, K4q INT8 paged writes (every input kind, latent and narrow
+widths, the scalar path),
 K5q / K6q INT8 paged attention (split, graphed), K9 small-group GEMM
 (every decode row count, graphed), K10 / K10q paged MLA
-decode attention (K10q at 16 to 128 heads, graphed), K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
+decode attention (both at 16 to 128 heads, K10 at pages of 64, 48 and 8,
+graphed), K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
 grouped W4A8 MoE GEMM (on build_routing's layouts, at bm = 96, split,
 graphed), K13 RMSNorm, K14 the decode layer tail) against
 their plain PyTorch versions,
@@ -1324,18 +1326,23 @@ def test_mla_paged_kernel_matches_plain(rng, cuda_device, case, pages):
             assert not o[b].any()
 
 
-def _mla_int8_case(rng, dev, B, Hq, n_pt, page, lengths):
+def _mla_case(rng, dev, B, Hq, n_pt, page, lengths, int8=True):
     """K10q's inputs: INT8 latent pages (k_pe 64, latent 512) with their
-    scale tiles, a permuted block table, the lengths and bf16 queries."""
+    scale tiles, or K10's (bf16 pages, no tiles), a permuted block table,
+    the lengths and bf16 queries."""
     L, P = 2, 1 + B * n_pt
-    (kpe, ks), (c, cs) = (tpw.quantize_kv(_randn(rng, L, P, 1, page, w)) for w in (64, 512))
-    tiles = torch.zeros((L, P, 8, page))
-    tiles[:, :, 0], tiles[:, :, 1] = ks.reshape(L, P, -1), cs.reshape(L, P, -1)
+    if int8:
+        (kpe, ks), (c, cs) = (tpw.quantize_kv(_randn(rng, L, P, 1, page, w)) for w in (64, 512))
+        tiles = torch.zeros((L, P, 8, page))
+        tiles[:, :, 0], tiles[:, :, 1] = ks.reshape(L, P, -1), cs.reshape(L, P, -1)
+    else:
+        kpe, c = (_randn(rng, L, P, 1, page, w).to(torch.bfloat16) for w in (64, 512))
+        tiles = None
     bt = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(B, n_pt).astype(np.int32))
     q_c = _randn(rng, B, Hq, 512).to(torch.bfloat16)
     q_pe = _randn(rng, B, Hq, 64).to(torch.bfloat16)
     ln = torch.tensor(lengths, dtype=torch.int32)
-    return [t.to(dev) for t in (q_c, q_pe, kpe, c, bt, ln, tiles)]
+    return [None if t is None else t.to(dev) for t in (q_c, q_pe, kpe, c, bt, ln, tiles)]
 
 
 @pytest.mark.cuda
@@ -1345,7 +1352,7 @@ def test_mla_int8_split_kernel_heads(rng, cuda_device, Hq):
     128 (8 head groups) against its plain version and its split model:
     an empty slot, one token, a slot inside one split, a full table."""
     B, n_pt, page = 4, 16, 64
-    q_c, q_pe, kpe, c, bt, ln, tiles = _mla_int8_case(rng, cuda_device, B, Hq, n_pt, page,
+    q_c, q_pe, kpe, c, bt, ln, tiles = _mla_case(rng, cuda_device, B, Hq, n_pt, page,
                                                       [0, 1, 100, n_pt * page])
     before = tmla.KERNEL.launches
     out = tmla.mla_paged_decode_attention(q_c, q_pe, kpe, c, bt, ln, layer=1, scale=0.1147,
@@ -1354,7 +1361,7 @@ def test_mla_int8_split_kernel_heads(rng, cuda_device, Hq):
     assert tmla.KERNEL.launches == before + 1
     args = (q_c, q_pe, kpe, c, bt, ln, 1, 0.1147, tiles)
     np.testing.assert_allclose(f32(out), f32(tmla.mla_paged_decode_attention_plain(*args)), **TOL)
-    splits, chunk = tmla.int8_split_plan(B, n_pt, page,
+    splits, chunk = tmla.split_plan(B, n_pt, page,
                                          torch.cuda.get_device_properties(0).multi_processor_count)
     model = tmla.mla_paged_decode_attention_split_plain(*args, chunk=chunk, splits=splits)
     np.testing.assert_allclose(f32(out), f32(model), **TOL)
@@ -1366,7 +1373,7 @@ def test_mla_int8_graph_replays_at_moving_lengths(rng, cuda_device):
     """K10q captured in a CUDA graph and replayed after the lengths moved in
     place: equal to eager launches at those lengths, bit for bit."""
     B, Hq, n_pt, page = 16, 16, 16, 64
-    q_c, q_pe, kpe, c, bt, ln, tiles = _mla_int8_case(rng, cuda_device, B, Hq, n_pt, page,
+    q_c, q_pe, kpe, c, bt, ln, tiles = _mla_case(rng, cuda_device, B, Hq, n_pt, page,
                                                       [1 + 60 * i for i in range(B)])
     args = lambda lengths: (q_c, q_pe, kpe, c, bt, lengths, 1, 0.1147, tiles)  # noqa: E731
     out = tmla.mla_paged_decode_attention(*args(ln))  # eager: makes the counters
@@ -1381,6 +1388,123 @@ def test_mla_int8_graph_replays_at_moving_lengths(rng, cuda_device):
         torch.cuda.synchronize()
         want = tmla.mla_paged_decode_attention(*args(new.clone()))
         np.testing.assert_array_equal(f32(out), f32(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,n_pt", [(64, 16), (48, 22), (8, 128)])
+@pytest.mark.parametrize("Hq", [16, 20, 128])
+def test_mla_bf16_split_kernel_heads(rng, cuda_device, Hq, page, n_pt):
+    """K10 (K10q's kernel over bf16 latent pages) at 16 heads, at 20 (a
+    partial head group) and at DeepSeek-V3's 128, over pages of 64, 48 (no
+    power of two) and 8 tokens, against its plain version and its split
+    model: an empty slot, one token, a slot inside one split, a full table."""
+    B = 4
+    q_c, q_pe, kpe, c, bt, ln, _ = _mla_case(rng, cuda_device, B, Hq, n_pt, page,
+                                             [0, 1, 100, n_pt * page], int8=False)
+    before = tmla.KERNEL.launches
+    out = tmla.mla_paged_decode_attention(q_c, q_pe, kpe, c, bt, ln, layer=1, scale=0.1147)
+    torch.cuda.synchronize()
+    assert tmla.KERNEL.launches == before + 1
+    args = (q_c, q_pe, kpe, c, bt, ln, 1, 0.1147)
+    np.testing.assert_allclose(f32(out), f32(tmla.mla_paged_decode_attention_plain(*args)), **TOL)
+    splits, chunk = tmla.split_plan(B, n_pt, page,
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
+    model = tmla.mla_paged_decode_attention_split_plain(*args, chunk=chunk, splits=splits)
+    np.testing.assert_allclose(f32(out), f32(model), **TOL)
+    assert not f32(out)[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,n_pt", [(64, 16), (48, 22)])
+def test_mla_bf16_graph_replays_at_moving_lengths(rng, cuda_device, page, n_pt):
+    """K10 captured in a CUDA graph and replayed after the lengths moved in
+    place: equal to eager launches at those lengths, bit for bit."""
+    B, Hq = 16, 16
+    q_c, q_pe, kpe, c, bt, ln, _ = _mla_case(rng, cuda_device, B, Hq, n_pt, page,
+                                             [1 + 60 * i for i in range(B)], int8=False)
+    args = lambda lengths: (q_c, q_pe, kpe, c, bt, lengths, 1, 0.1147)  # noqa: E731
+    out = tmla.mla_paged_decode_attention(*args(ln))  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmla.mla_paged_decode_attention(*args(ln))
+    for shift in (5, 300, -2000):
+        new = torch.tensor([min(n_pt * page, max(0, 1 + 60 * i + shift)) for i in range(B)],
+                           dtype=torch.int32, device=cuda_device)
+        ln.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tmla.mla_paged_decode_attention(*args(new.clone()))
+        np.testing.assert_array_equal(f32(out), f32(want))
+
+
+#: K4q's widths beyond test_paged_write_int8_kernel_matches_plain's: MLA's
+#: latent planes, narrow rows, rows of no whole 16-byte unit (the scalar
+#: path), Mistral's rows handed over off 16 bytes (the scalar path)
+K4Q_EDGE_WIDTHS = {"latent": (1, 64, 512, False), "narrow": (2, 16, 16, False),
+                   "no_whole_unit": (2, 20, 36, False), "off_16_bytes": (8, 128, 128, True)}
+
+
+def _off16(t):
+    """The same values at a data pointer 16 bytes and one element off."""
+    k = 16 // t.element_size() + 1
+    view = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["bf16", "f32", "int8_codes"])
+@pytest.mark.parametrize("widths", list(K4Q_EDGE_WIDTHS))
+def test_paged_write_int8_kernel_edges(rng, cuda_device, widths, rows):
+    """K4q at the other widths and on the scalar path, both entries: codes
+    and scale tiles byte-equal to the plain version, with a row of zeros
+    (scale 1e-8) and a row whose values divide to exact halves (rounded
+    half to even); page-crossing, masked and trash-page writes (page 0 is
+    not compared)."""
+    Hkv, Dk, Dv, off = K4Q_EDGE_WIDTHS[widths]
+    L, P, page, B, S = 2, 9, 64, 3, 16
+    for entry in ("decode", "chunk"):
+        n = 1 if entry == "decode" else S
+        kp, ks = tpw.quantize_kv(_randn(rng, L, P, Hkv, page, Dk))
+        vp, vs = tpw.quantize_kv(_randn(rng, L, P, Hkv, page, Dv))
+        tiles = torch.zeros((L, P, 8, Hkv * page))
+        tiles[:, :, 0], tiles[:, :, 1] = ks.reshape(L, P, -1), vs.reshape(L, P, -1)
+        pages = [kp, vp, tiles]
+        kn, vn = (3 * _randn(rng, B, n, Hkv, D) for D in (Dk, Dv))
+        for x in (kn, vn):
+            x[1, 0, 0] = 0.0
+            x[0, 0, -1, :8] = torch.tensor([127.0, 0.5, -0.5, 1.5, 2.5, -2.5, 126.5, -125.5])
+        extra = {}
+        if rows == "bf16":
+            kn, vn = kn.to(torch.bfloat16), vn.to(torch.bfloat16)
+        elif rows == "int8_codes":
+            (kn, ks), (vn, vs) = tpw.quantize_kv(kn), tpw.quantize_kv(vn)
+            extra = dict(ks_new=ks, vs_new=vs)
+        pgs = torch.tensor([[3, 4], [5, 0], [0, 0]], dtype=torch.int32)
+        offs = torch.tensor([60, 2, 9], dtype=torch.int32)  # crossing, inside, trash
+        valid = torch.tensor([S, 5, S], dtype=torch.int32)
+        ref = [t.clone() for t in pages]
+        got = [t.to(cuda_device) for t in pages]
+        kd, vd = kn.to(cuda_device), vn.to(cuda_device)
+        if off:
+            kd, vd = _off16(kd), _off16(vd)
+        dev = {k: v.to(cuda_device) for k, v in extra.items()}
+        before = tpw.KERNEL_INT8.launches
+        if entry == "decode":
+            tpw.paged_write_decode(*ref[:2], kn[:, 0], vn[:, 0], pgs[:, 0], offs, 1,
+                                   kv_scales=ref[2], **{k: v[:, 0] for k, v in extra.items()})
+            tpw.paged_write_decode(*got[:2], kd[:, 0], vd[:, 0], pgs[:, 0].to(cuda_device),
+                                   offs.to(cuda_device), 1, kv_scales=got[2],
+                                   **{k: v[:, 0] for k, v in dev.items()})
+        else:
+            tpw.paged_write_chunk(*ref[:2], kn, vn, pgs, offs, valid, 1, kv_scales=ref[2], **extra)
+            tpw.paged_write_chunk(*got[:2], kd, vd, pgs.to(cuda_device), offs.to(cuda_device),
+                                  valid.to(cuda_device), 1, kv_scales=got[2], **dev)
+        torch.cuda.synchronize()
+        assert tpw.KERNEL_INT8.launches == before + 1
+        for r, g in zip(ref, got):
+            assert torch.equal(g[:, 1:].cpu(), r[:, 1:])
+        assert not torch.equal(got[2][:, 1:].cpu(), tiles[:, 1:])  # something was written
 
 
 # ------------------------------------------------------- W4A8 and RMSNorm

@@ -1,4 +1,4 @@
-"""K10q's key split on the CPU: the split plan (``int8_split_plan``) gives every
+"""K10q's key split on the CPU: the split plan (``split_plan``) gives every
 token of a slot to exactly one split, and the plain model of the kernel's
 arithmetic (``mla_paged_decode_attention_split_plain``: 64-token tiles, p
 rounded against each split's running max, the splits merged in split
@@ -31,10 +31,10 @@ def test_mla_split_plan_covers_every_token_once(B, n_pt, page):
     a split, enough splits to cover the table and no empty one past it; at
     every length each token lies in exactly one of the splits the kernel
     counts as live ((length - 1) // chunk + 1 of them)."""
-    splits, chunk = tmla.int8_split_plan(B, n_pt, page, H100_SMS)
+    splits, chunk = tmla.split_plan(B, n_pt, page, H100_SMS)
     T = n_pt * page
     assert chunk % tmla.TILE == 0 and splits * chunk >= T and (splits - 1) * chunk < T
-    assert chunk <= tmla.INT8_MAX_CHUNK
+    assert chunk <= tmla.MAX_CHUNK
     for length in range(T + 1):
         live = (length - 1) // chunk + 1 if length else 0
         seen = np.zeros(T, np.int64)
