@@ -106,7 +106,9 @@ Phases (any failure exits non-zero):
      torch._grouped_mm), K13 (RMSNorm) at
      the paths' shapes and on the strided latent slice, each against its
      plain version; (b) their times,
-     bounds and yardsticks, and the aten calls per layer and busy share of
+     bounds and yardsticks, K13 in a captured graph of 32 x (K13, K1 at M =
+     16) with and without its programmatic dependent launch, and the aten
+     calls per layer and busy share of
      the norms as K13 and as plain torch ops in the same call (Mistral's
      Engine, DeepSeek-V2-Lite's decode and bf16 Engine); (c)
      phase 4's model through generate() under QUICK_TPU_A8=1, then with
@@ -116,9 +118,10 @@ Phases (any failure exits non-zero):
      2-layer full-width kernel path against the plain path under A8
      (dense, and Mixtral with MOE_A8);
  13. the decode layer tail and the decode step as one CUDA graph: (a) K14
-     at Mistral-7B width and M = 1, 4, 8 against its plain version, timed
+     at Mistral-7B width and M = 1-8 against its plain version, timed
      beside the unfused K1 chain and three torch.matmul on bf16 weights;
-     (b) phase 4's generate() under QUICK_TPU_LAYER_TAIL=1; (c) phase 6's
+     (b) phase 4's generate() under QUICK_TPU_LAYER_TAIL=1, its graphed
+     step's device ms printed beside phase 4's; (c) phase 6's
      dense (K3) and paged checks under the switch; (d) graphed against
      eager decode: every generate() path compares its eager loop's tokens
      with the graphed one's (phases 4, 8, 10, 11, 12c, 13b), B=32 decode
@@ -3700,6 +3703,45 @@ def rms_norm_rows(gen, dev):
     return rows
 
 
+def k13_graph_pdl(gen, dev, layers: int = 32) -> dict:
+    """[12b] K13 in a captured graph of ``layers`` x (K13, then K1's qkv
+    projection) at the Engine's decode rows (M = 16, D = 4096), replayed
+    with K13's programmatic dependent launch and with a plain one, in turns
+    (on, off, off, on): ms a replay of each and their ratio."""
+    from quick_tpu_torch.ops import norms
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    M, D = ENGINE["max_slots"], 4096
+    x = torch.randn((M, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    wq = rand_qlinear(gen, dev, D, 6144)[0]
+
+    def step():
+        for _ in range(layers):
+            qm.quantized_matmul_cuda(norms.rms_norm_cuda(x, w, 1e-5), *wq)
+
+    graphs = {}
+    for pdl in (True, False):
+        norms.NORM_PDL = pdl
+        try:
+            step()  # eager: makes any counters
+            graphs[pdl] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[pdl]):
+                step()
+        finally:
+            norms.NORM_PDL = True
+    ms = {True: [], False: []}
+    for pdl in (True, False, False, True):
+        ms[pdl].append(device_ms(lambda i, g=graphs[pdl]: g.replay(), 20))
+    out = dict(layers=layers, rows=M, pdl_ms=sum(ms[True]) / 2,
+               plain_launch_ms=sum(ms[False]) / 2)
+    out["plain_over_pdl"] = out["plain_launch_ms"] / out["pdl_ms"]
+    print(f"[12b] a graph of {layers} x (K13, K1 qkv) at M = {M}: " + json.dumps(out))
+    del graphs
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def plain_norms():
     """Measurement only: every standalone rms_norm of the port runs as the
@@ -3812,7 +3854,7 @@ def phase12_generate(params, cfg, dev):
 
 #: phase 13b's path: phase 4's generate() under QUICK_TPU_LAYER_TAIL=1
 TAIL_GEN = "generate_layer_tail"
-TAIL_ROWS = (1, BATCH, 8)  # K14 checked and timed at M = 1, 4 (the path's) and 8
+TAIL_ROWS = tuple(range(1, 9))  # K14 checked and timed at every M = 1-8 (4: the path's)
 #: K14 against its plain version, of max|ref|: tests/test_layer_tail.py's
 #: bound between two orders of the f32 group sums (about two bf16 steps)
 TOL_TAIL = 8e-3
@@ -3829,7 +3871,7 @@ ENGINE_AB_LAYERS = 2
 
 def tail_rows(cfg, gen, dev):
     """[13a] K14 at Mistral-7B width (o 4096x4096, gate_up 4096x28672, down
-    14336x4096) and M = 1, 4, 8 against its plain version, twice (the same
+    14336x4096) and M = 1-8 against its plain version, twice (the same
     bits: split sums in a fixed order), then timed beside its plain version,
     the unfused K1 chain the path runs without the switch (o; residual;
     gate_up with the RMSNorm prologue; down with the SiLU-GLU prologue;
@@ -4178,6 +4220,7 @@ def main() -> None:
     ds_a8 = a8_rows("DeepSeek-V2-Lite", ds_k9_shapes(ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)),
                     (("no path", None, BATCH * PROMPT),), DS_G, gen, dev)
     rows += rms_norm_rows(gen, dev)
+    k13_graph = k13_graph_pdl(gen, dev)
     print(f"  phase 12a-b (K11, K11f, K13) done at {time.perf_counter() - t_start:.0f} s")
     tail_row, tail_every = tail_rows(cfg, gen, dev)
     rows.append(tail_row)
@@ -4187,6 +4230,10 @@ def main() -> None:
     a8_counts, a8_gen_stats = phase12_generate(params, cfg, dev)
     counts.update(a8_counts)
     counts[TAIL_GEN], tail_gen_stats = phase13_generate(params, cfg, dev)
+    print("[13b] the graphed decode step's device ms (32 profiled steps, B=4): "
+          f"{tail_gen_stats['decode_profile']['device_busy_ms_per_step']:.3f} under "
+          "QUICK_TPU_LAYER_TAIL=1, "
+          f"{gen_stats['decode_profile']['device_busy_ms_per_step']:.3f} without it (phase 4)")
     counts[FUSED_SHAPES_PATH], fused_shape_stats = phase4b_fused_step(params, cfg, dev)
     graph_ab = dict(k7_b32=graph_vs_eager_k7(params, cfg, dev),
                     engine_bf16=engine_graph_ab(params, cfg, "13d"),
@@ -4262,6 +4309,7 @@ def main() -> None:
                               dense=a8_err, mixtral=moe_report["plain_vs_kernel_a8"]["max_abs_err"])),
                   phase6_max_abs_err=dict(dense=dense_err, dense_k7=dense_k7_err, paged=paged_err,
                                           int8_paged=int8_err, **small_g_err),
+                  k13_graph=k13_graph,
                   layer_tail=dict(kernel=tail_every, generate=tail_gen_stats,
                                   plain_vs_kernel_max_abs_err=tail_err),
                   graphs=dict(graph_ab, mixtral_engine=moe_report["mixtral_engine_graph_ab"],

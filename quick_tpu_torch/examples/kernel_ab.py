@@ -10,7 +10,8 @@ and prints, per source, how many of the other tree's functions have an
 instruction-for-instruction identical body here (``cuobjdump -sass``,
 addresses and names aside), naming those that have none. It then prints
 the register lines of the other build's K1 (``quantized_matmul.cu``), K2
-(``flash_attention.cu``), K3 (``fused_decode_step.cu``), K5 / K6
+(``flash_attention.cu``), K3 (``fused_decode_step.cu``), K14
+(``fused_layer_tail.cu``), K13 (``rms_norm.cu``), K5 / K6
 (``paged_attention.cu``), K5q / K6q (``paged_attention_int8.cu``), K7
 (``decode_attention.cu``), K10 / K10q (``mla_paged_attention.cu``), K4q
 (``paged_write_int8.cu``), K8
@@ -41,11 +42,14 @@ wrapper at ``chip_smoke.py``'s three shapes (B = 32 and 64 at T = 256, B
 the INT8 Engine's decode (B = 64) and chunk (B = 8, S = 16) and, beside
 K4, on DeepSeek-V2-Lite's latent planes (B = 16 and 8 x 16), and a captured
 graph of the INT8 Engine's decode writes (32 x K1's qkv projection at M =
-64, then K4q). Each row ends with
+64, then K4q), K14 through its wrapper at M = 1, 4 and 8 on the Mistral-7B
+widths beside the unfused K1 chain, and K13 through its wrapper at
+``chip_smoke.py``'s five shapes and in a captured graph of 32 x (K13, K1's
+qkv projection) at M = 16. Each row ends with
 this tree's mean over the other's; a row only one tree times is
 named apart. ``--sass-only`` stops after the SASS comparison; ``--only``
-times only the named groups (k1 k2 k3 k4q k5 k5q k7 k8 k9 k10 k11 k12; k5
-is K5 / K6, k5q K5q / K6q, k10 K10 / K10q), e.g. ``--only k10 k4q``.
+times only the named groups (k1 k2 k3 k4q k5 k5q k7 k8 k9 k10 k11 k12 k13
+k14; k5 is K5 / K6, k5q K5q / K6q, k10 K10 / K10q), e.g. ``--only k14 k13``.
 """
 import argparse
 import json
@@ -73,7 +77,7 @@ for k in all_kernels():
     if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention", "paged_attention",
                   "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step",
                   "grouped_matmul_a8", "paged_attention_int8", "decode_attention",
-                  "mla_paged_attention", "paged_write_int8"):
+                  "mla_paged_attention", "paged_write_int8", "fused_layer_tail", "rms_norm"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -204,6 +208,51 @@ if want("k4q"):
                 rows.append(dict(name=f"graph[{L} x (K1 qkv M={B4}, K4q {tag})]", ms=ms))
                 del graph
         del q8, tiles, bf
+# K14 through its wrapper (the same arguments in both trees) at M = 1, 4 and 8
+# on the Mistral-7B widths, two weight copies rotated (217 MB), beside the
+# unfused K1 chain it replaces (o; gate_up with the RMSNorm prologue; down
+# with the SiLU-GLU prologue)
+from quick_tpu_torch.ops import fused_layer_tail as ft, norms as nm, quantized_matmul as qm
+if want("k14"):
+    ws = [cs.rand_qlinear(gen, dev, K, N, copies=2)
+          for K, N in ((4096, 4096), (4096, 28672), (14336, 4096))]
+    nw = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
+    for M in (1, 4, 8):
+        ao, xr = (torch.randn((M, 4096), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        a = [(ao, xr, nw, *ws[0][c], *ws[1][c], *ws[2][c]) for c in range(2)]
+        ms = cs.device_ms(lambda i: ft.fused_layer_tail_cuda(*a[i % 2], eps=1e-5), 50)
+        rows.append(dict(name=f"fused_layer_tail[M={M}]", ms=ms))
+
+        def chain(i):
+            c = i % 2
+            h = xr + qm.quantized_matmul_cuda(ao, *ws[0][c])
+            gu = qm.quantized_matmul_cuda(h, *ws[1][c], norm_weight=nw, norm_eps=1e-5)
+            return h + qm.quantized_matmul_cuda(gu, *ws[2][c], glu=True)
+        rows.append(dict(name=f"K1 chain[M={M}]", ms=cs.device_ms(chain, 50)))
+    del ws
+# K13 through its wrapper at chip_smoke's five shapes (K13_CASES), then a
+# captured graph of 32 x (K13, K1's qkv projection) at the Engine's M = 16
+if want("k13"):
+    for _, M, D, ld in cs.K13_CASES:
+        x = torch.randn((M, ld or D), generator=gen, device=dev).to(torch.bfloat16)[:, :D]
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+        ms = cs.device_ms(lambda i: nm.rms_norm_cuda(x, w, 1e-5), 200)
+        rows.append(dict(name=f"rms_norm[M={M} D={D}{f' ld={ld}' if ld else ''}]", ms=ms))
+    x = torch.randn((16, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
+    wq = cs.rand_qlinear(gen, dev, 4096, 6144)[0]
+
+    def step():
+        for _ in range(32):
+            qm.quantized_matmul_cuda(nm.rms_norm_cuda(x, w, 1e-5), *wq)
+    step()  # eager: makes any counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    rows.append(dict(name="graph[32 x (K13 M=16, K1 qkv M=16)]",
+                     ms=cs.device_ms(lambda i: graph.replay(), 20)))
+    del graph
 print(json.dumps({"registers": regs, "ms": {r["name"]: r["ms"] for r in rows}}))
 '''
 

@@ -52,7 +52,19 @@ into a scratch directory and swapped into the wrapper for its timing:
   warp a row, values read twice, byte stores), ``lanes_64`` and
   ``lanes_1024`` (``WRITE_LANES``: blocks of fewer or more rows), and
   ``no_pdl`` (a plain launch, not a programmatic dependent of the kernel
-  before).
+  before);
+- K14: ``drain`` (the producer never runs into the next GEMM's weights:
+  the ring drains at each grid barrier, ``kAhead`` 0), ``no_pdl`` (a plain
+  launch), ``one_block`` (120 KB more shared memory: one block an SM,
+  half the grid), and, to see where its time goes, ``no_merge`` (no
+  tile's sums merged or stored), ``no_barrier`` (the grid barriers cut to
+  block barriers), ``no_mma`` (the shared body's MMAs cut), ``empty`` (no
+  GEMM: the launch, both barriers and the norm's statistics alone) and
+  ``o_only`` / ``gate_up_only`` / ``down_only`` (one GEMM's items kept, its
+  stream started at its phase);
+- K13: ``scalar`` (every row on the scalar path: ``NORM_MAX_UNITS`` 0),
+  ``no_pdl`` (``NORM_PDL`` off: a plain launch) and ``block_a_row``
+  (``NORM_MAX_ROWS`` 1).
 
 Times use ``chip_smoke.py``'s timing (CUDA events behind a device sleep), in
 turns with the unchanged source, at the Mistral-7B gate_up (K 4096, N
@@ -71,7 +83,10 @@ decode (B = 16, Hq = 16, 27 layers of latent pages); K4q at the INT8
 Engine's decode (B = 64) and chunk (B = 8, S = 16), 32 layers of INT8
 pages, on DeepSeek-V2-Lite's latent planes (B = 16, B = 8 x 16), 27
 layers, and in a captured graph of the INT8 Engine's decode writes (32 x
-K1's qkv projection at M = 64, then K4q).
+K1's qkv projection at M = 64, then K4q); K14 at M = 1, 4, 8 on the
+Mistral-7B widths (two weight copies rotated); K13 at ``chip_smoke.py``'s
+five shapes (``K13_CASES``) and in a captured graph of 32 x (K13, then
+K1's qkv projection) at M = 16.
 """
 import argparse
 import ctypes
@@ -84,8 +99,10 @@ from pathlib import Path
 import torch
 
 from quick_tpu_torch.ops import flash_attention as fa
+from quick_tpu_torch.ops import fused_layer_tail as ft
 from quick_tpu_torch.ops import grouped_matmul as gm
 from quick_tpu_torch.ops import mla_paged_attention as ml
+from quick_tpu_torch.ops import norms as nm
 from quick_tpu_torch.ops import paged_attention as pa
 from quick_tpu_torch.ops import paged_write as pw
 from quick_tpu_torch.ops import quantized_matmul as qm
@@ -101,13 +118,14 @@ _K1_BUILD = """      a[j][0] = code_pair(w[0][0], w[1][0], j);  // channel c0, d
       a[j][1] = code_pair(w[0][1], w[1][1], j);  // channel c0 + 8
       a[j][2] = code_pair(w[2][0], w[3][0], j);  // channel c0, depths 2t + 8, 2t + 9
       a[j][3] = code_pair(w[2][1], w[3][1], j);"""
-# K1's decode rows: from the group dot's MMAs to the end of the loop, and
-# the ping-pong that replaces them (two accumulators in turn, each stage's
-# fold under the next stage's MMAs after wgmma.wait_group 1, three B tiles)
+# K1's decode rows: from the group dot's MMAs to the end of the shared body
+# (qmm_decode_rows.cuh), and the ping-pong that replaces them (two
+# accumulators in turn, each stage's fold under the next stage's MMAs after
+# wgmma.wait_group 1, three B tiles; a stage is released a turn later, so
+# the copies run one stage less ahead)
 _K1D_LOOP = ("  // stage `it`'s group dot into dot: 8 MMAs, one commit group\n",
-             "  qwd::decode_store(")
-_K1D_PINGPONG = """  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  auto issue = [&](int it, const uint32_t (&a)[8][4], float (&d)[4]) {
+             "\n}\n\n}  // namespace qwk")
+_K1D_PINGPONG = """  auto issue = [&](int it, const uint32_t (&a)[8][4], float (&d)[4]) {
     const uint32_t xb = sbase + L::oX + (it % kXStages) * L::kX;
     qwg::hold(d);
     qwg::wgmma_fence();
@@ -119,7 +137,8 @@ _K1D_PINGPONG = """  float acc[4] = {0.f, 0.f, 0.f, 0.f};
   auto fold = [&](int it, uint32_t (&a)[8][4], float (&d)[4]) {
     qwg::hold(d);
     qwg::hold(a);
-    const float* ssm = reinterpret_cast<const float*>(smem + (it % kStages) * L::kStage + L::kW);
+    const int st = (base + it) % kStages;
+    const float* ssm = reinterpret_cast<const float*>(smem + st * L::kStage + L::kW);
     const float s0 = ssm[c0], s1 = ssm[c0 + 8];
     const float z0 = -ssm[kBN + c0], z1 = -ssm[kBN + c0 + 8];
     const float2 xv = *reinterpret_cast<const float2*>(xsums + (it % kXStages) * 8 + 2 * t);
@@ -127,11 +146,11 @@ _K1D_PINGPONG = """  float acc[4] = {0.f, 0.f, 0.f, 0.f};
     acc[1] = fmaf(xv.y, z0, fmaf(d[1], s0, acc[1]));
     acc[2] = fmaf(xv.x, z1, fmaf(d[2], s1, acc[2]));
     acc[3] = fmaf(xv.y, z1, fmaf(d[3], s1, acc[3]));
-    qwg::mbar_arrive(empty + 8 * (it % kStages));
+    qwg::mbar_arrive(empty + 8 * st);
   };
   auto head = [&](int it) {
     __syncthreads();
-    if (tid == 0 && it + kStages - 2 < nit) load(it + kStages - 2);
+    if (it > 0) ahead(it - 1);
   };
   uint2 raw[2];
   if (nit > 0) {
@@ -168,8 +187,7 @@ _K1D_PINGPONG = """  float acc[4] = {0.f, 0.f, 0.f, 0.f};
     }
     stage_x(it + 2, raw);
     if (it + 3 < nit) load_raw(it + 3, raw);
-  }
-"""
+  }"""
 _K9_MMA = "      Wgmma<BT>::mma(acc, a[j], desc_b(xb + (j >> 2) * (BT * 128) + (j & 3) * 32), 1);"
 _K9_MERGE = "    // the last split of this output tile to finish sums the splits' partials"
 _K9_ATOM = """      int done;
@@ -224,17 +242,36 @@ _K10Q_WAIT = "      cp_async_wait1();  // this thread's copies of tile it (and q
 _K10_WAIT = "      cp_async_wait_all();  // this thread's copies of tile it (and q) landed\n"
 _K4Q_QUANT = "  return fminf(fmaxf(rintf(x / scale), -127.f), 127.f);"
 _K4Q_PDL = "  attr[0].val.programmaticStreamSerializationAllowed = 1;"
+_K14_PDL = "  attr[0].val.programmaticStreamSerializationAllowed = 1;"
+_K14_SMEM = "constexpr size_t kSmemBytes = Layout::kBytes;"
+# K14's three GEMM phases, and the block's work list made at its start
+_K14_CALLS = [
+    "  tail_phase<kNone, kEpiResid>(a, 0, a.ao, a.w[0].K, nullptr, smem, items, prod, k, base, "
+    "stile,\n                               red, last);",
+    "  tail_phase<kRmsNorm, kEpiStore>(a, 1, a.h, a.D, rstd, smem, items, prod, k, base, stile, "
+    "red,\n                                  last);",
+    "  tail_phase<kSiluGlu, kEpiOut>(a, 2, a.gub, 2 * a.w[2].K, nullptr, smem, items, prod, k, "
+    "base,\n                                stile, red, last);"]
+_K14_LIST = "  for (int q = 0; q < kPhases; ++q) {"
+
+
+def _k14_only(p):
+    """K14 with GEMM p's items alone (the other phases' calls cut, their
+    items never listed, no stage issued before a phase starts)."""
+    return [("constexpr int kAhead = 2;", "constexpr int kAhead = 0;"),
+            (_K14_LIST, f"  for (int q = {p}; q <= {p}; ++q) {{")] + [
+        (c, "") for q, c in enumerate(_K14_CALLS) if q != p]
+
+_K14_MMA = ("      qwg::Wgmma<8>::mma(dot, a[j], qwg::desc_b(xb + (j >> 2) * 1024 + (j & 3) * 32), "
+            "j > 0);")
 _K12_MMA = "  for (int s = 0; s < 4; ++s) WgmmaS8<W>::mma(d, a[s], desc_b(xb + s * 32), s > 0);"
 
 #: name -> (kernel, file, [(text, replacement)], {(module, attribute): value}
 #: set while the cut version runs)
 VARIANTS = {
-    "K1d pingpong": (qm.KERNEL, "quantized_matmul.cu", [
+    "K1d pingpong": (qm.KERNEL, "qmm_decode_rows.cuh", [
         (_K1D_LOOP, _K1D_PINGPONG),
-        ("constexpr int kXStages = 2;", "constexpr int kXStages = 3;"),
-        # a stage is released a turn later: the copies run one stage less ahead
-        ("    for (int j = 0; j < kStages - 1 && j < nit; ++j) load(j);",
-         "    for (int j = 0; j < kStages - 2 && j < nit; ++j) load(j);")]),
+        ("constexpr int kXStages = 2;", "constexpr int kXStages = 3;")]),
     "K1 no_mma": (qm.KERNEL, "qmm_wgmma.cuh",
                   [(_K1_MMA, "      dot[j] += __uint_as_float(a[j][0] ^ a[j][3]);")]),
     "K1 no_fold": (qm.KERNEL, "qmm_wgmma.cuh", [(_K1_FOLD, """      acc[4 * i + 0] += dot[4 * i + 0];
@@ -293,6 +330,26 @@ VARIANTS = {
     "K4q scalar": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_MAX_UNITS"): 0}),
     "K4q lanes_64": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_LANES"): 64}),
     "K4q lanes_1024": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_LANES"): 1024}),
+    "K14 drain": (ft.KERNEL, "fused_layer_tail.cu", [
+        ("constexpr int kAhead = 2;", "constexpr int kAhead = 0;")]),
+    "K14 no_pdl": (ft.KERNEL, "fused_layer_tail.cu", [(_K14_PDL, _K14_PDL.replace("= 1", "= 0"))]),
+    "K14 one_block": (ft.KERNEL, "fused_layer_tail.cu", [
+        (_K14_SMEM, _K14_SMEM.replace(";", " + 120 * 1024;"))]),
+    "K14 no_merge": (ft.KERNEL, "fused_layer_tail.cu", [
+        ("    if (last) {\n", "    if (false) {\n")]),
+    "K14 no_barrier": (ft.KERNEL, "fused_layer_tail.cu", [
+        ("  grid_barrier(a.bar);", "  __syncthreads();")]),
+    "K14 no_mma": (ft.KERNEL, "qmm_decode_rows.cuh", [(_K14_MMA, "      dot[j & 3] += __uint_as_float(a[j][0] ^ a[j][3]);")]),
+    "K14 empty": (ft.KERNEL, "fused_layer_tail.cu", [
+        ("    if (!list_items(a, items, prod)) __trap();",
+         "    if (!list_items(a, items, prod)) __trap();\n    prod.items = 0;")] + [
+        (c, "") for c in _K14_CALLS]),
+    "K14 o_only": (ft.KERNEL, "fused_layer_tail.cu", _k14_only(0)),
+    "K14 gate_up_only": (ft.KERNEL, "fused_layer_tail.cu", _k14_only(1)),
+    "K14 down_only": (ft.KERNEL, "fused_layer_tail.cu", _k14_only(2)),
+    "K13 scalar": (nm.KERNEL, "rms_norm.cu", [], {(nm, "NORM_MAX_UNITS"): 0}),
+    "K13 no_pdl": (nm.KERNEL, "rms_norm.cu", [], {(nm, "NORM_PDL"): False}),
+    "K13 block_a_row": (nm.KERNEL, "rms_norm.cu", [], {(nm, "NORM_MAX_ROWS"): 1}),
 
     "K5q k5_plan": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 16}),
     "K5q max_tiles_2": (pa.KERNEL_INT8, "paged_decode.cuh", [], {(pa, "INT8_DECODE_MAX_TILES"): 2}),
@@ -334,7 +391,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
                     help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q, K5q, K10q, K10, "
-                         "K4q); all "
+                         "K4q, K14, K13); all "
                          "by default")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
@@ -424,6 +481,23 @@ def main(argv=None):
         # projection (K1, M = 64), then its K4q launch
         graph4q = (torch.randn((64, 4096), generator=gen, device=dev).to(torch.bfloat16),
                    cs.rand_qlinear(gen, dev, 4096, 6144)[0])
+    tail = {}  # K14: M -> its arguments with each of two weight copies (Mistral-7B widths)
+    if not args.only or "K14" in args.only:
+        ws = [cs.rand_qlinear(gen, dev, K, N, copies=2)
+              for K, N in ((4096, 4096), (4096, 28672), (14336, 4096))]
+        nw = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
+        for M in (1, 4, 8):
+            ao, xr = (torch.randn((M, 4096), generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            tail[M] = [(ao, xr, nw, *ws[0][c], *ws[1][c], *ws[2][c]) for c in range(2)]
+    norm13 = {}  # K13: chip_smoke's shapes (K13_CASES), and [K13, K1 at M = 16] x 32
+    if not args.only or "K13" in args.only:
+        for _, M, D, ld in cs.K13_CASES:
+            base = torch.randn((M, ld or D), generator=gen, device=dev).to(torch.bfloat16)
+            w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+            norm13[f"M={M} D={D}{f' ld={ld}' if ld else ''}"] = (base[:, :D], w)
+        norm13["graph"] = (torch.randn((16, 4096), generator=gen, device=dev).to(torch.bfloat16),
+                           norm13["M=16 D=4096"][1], cs.rand_qlinear(gen, dev, 4096, 6144)[0])
     moe = {}  # K8: "<model> <projection> Mp=..." -> (x, [weight stacks], te, live, bm)
     moe_a8 = {}  # K12: the same, x as its int8 codes and row scales
     if not args.only or "K8" in args.only or "K12" in args.only:
@@ -503,6 +577,25 @@ def main(argv=None):
                 step()
             out[f"graph {L} x (K1 qkv M=64, K4q decode B=64)"] = cs.device_ms(
                 lambda i: graph.replay(), 20)
+            return out
+        if group == "K14":
+            return {f"K14 M={M}": cs.device_ms(
+                lambda i, a=a: ft.fused_layer_tail_cuda(*a[i % 2], eps=1e-5), 50)
+                for M, a in tail.items()}
+        if group == "K13":
+            out = {f"K13 {name}": cs.device_ms(
+                lambda i, c=c: nm.rms_norm_cuda(c[0], c[1], 1e-5), 200)
+                for name, c in norm13.items() if name != "graph"}
+            x, w, wq = norm13["graph"]
+
+            def step():
+                for _ in range(32):
+                    qm.quantized_matmul_cuda(nm.rms_norm_cuda(x, w, 1e-5), *wq)
+            step()  # eager: makes any counters
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            out["graph 32 x (K13 M=16, K1 qkv M=16)"] = cs.device_ms(lambda i: graph.replay(), 20)
             return out
         if group == "K5q":
             q, kp, vp, tiles, bt, ln = decode5q

@@ -1863,35 +1863,80 @@ def test_grouped_a8_graph_replays_after_routing_moves(rng, cuda_device, bm):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "shape,xdt,wdt,sliced",
-    [((4, 4096), torch.bfloat16, torch.bfloat16, None),
-     ((512, 4096), torch.bfloat16, torch.bfloat16, None),
-     ((2, 8, 128), torch.float32, torch.bfloat16, None),
-     ((16, 5000), torch.bfloat16, torch.float32, None),  # past the registers' 4096
-     ((16, 576), torch.bfloat16, torch.bfloat16, 512),   # ckv[..., :512]
-     ((2, 8, 576), torch.bfloat16, torch.float32, 512)],
+    "shape,xdt,wdt,sliced,offset",
+    [((4, 4096), torch.bfloat16, torch.bfloat16, None, 0),
+     ((512, 4096), torch.bfloat16, torch.bfloat16, None, 0),
+     ((1, 4096), torch.bfloat16, torch.bfloat16, None, 0),       # one row
+     ((16, 512), torch.bfloat16, torch.bfloat16, None, 0),       # a warp a row, 8 rows a block
+     ((2, 8, 128), torch.float32, torch.bfloat16, None, 0),
+     ((16, 5000), torch.bfloat16, torch.float32, None, 0),  # past the registers' 4096: scalar
+     ((16, 576), torch.bfloat16, torch.bfloat16, 512, 0),   # ckv[..., :512]
+     ((2, 8, 576), torch.bfloat16, torch.float32, 512, 0),
+     ((16, 576), torch.bfloat16, torch.bfloat16, 512, 1)],  # a row 2 bytes off 16: scalar
 )
-def test_rms_norm_kernel_matches_plain(rng, cuda_device, shape, xdt, wdt, sliced):
+def test_rms_norm_kernel_matches_plain(rng, cuda_device, shape, xdt, wdt, sliced, offset):
     """K13 through rms_norm on CUDA tensors against rms_norm_plain on the
     same tensors: within one step of x's type (bf16 or f32 rounding of the
-    same f32 value, summed in another order), contiguous or a strided
-    last-dim slice, one launch each."""
+    same f32 value, summed in another order), contiguous, a strided
+    last-dim slice or one starting ``offset`` values in (the scalar path),
+    one launch each; the same bits on a second launch."""
     from quick_tpu_torch.ops import norms
 
     x = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(cuda_device, xdt)
     if sliced:
-        x = x[..., :sliced]
+        x = x[..., offset:offset + sliced]
     D = x.shape[-1]
     w = torch.from_numpy((1 + 0.1 * rng.standard_normal(D)).astype(np.float32)).to(cuda_device, wdt)
+    plan = norms.norm_plan(x.numel() // D, D, x.stride(-2) if x.dim() > 1 else D, xdt,
+                           x.data_ptr() % 16 == 0)
+    assert plan.vector == (offset == 0 and D != 5000)
     before = norms.KERNEL.launches
     out = rms_norm(x, w, 1e-5)
+    again = rms_norm(x, w, 1e-5)
     torch.cuda.synchronize()
-    assert norms.KERNEL.launches == before + 1
+    assert norms.KERNEL.launches == before + 2
+    assert torch.equal(out, again)
     ref = norms.rms_norm_plain(x, w, 1e-5)
     assert out.shape == ref.shape and out.dtype == ref.dtype == xdt
     step = 2.0 ** -7 if xdt == torch.bfloat16 else 2.0 ** -20
     o, r = f32(out), f32(ref)
     assert (np.abs(o - r) <= step * np.abs(r) + 1e-30).all(), np.abs(o - r).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdl", [True, False])
+def test_rms_norm_graph_behind_decode_rows(cuda_device, monkeypatch, pdl):
+    """K13 between two of K1's decode-row launches (M = 4, programmatic
+    dependents), captured in a CUDA graph and replayed after x moved in
+    place: each replay equal to an eager chain bit for bit, K13's output
+    within one bf16 step of its plain version on the replayed input; with
+    K13's programmatic launch and without it."""
+    from quick_tpu_torch.ops import norms
+
+    monkeypatch.setattr(norms, "NORM_PDL", pdl)
+    K = N = 4096
+    x, qw, s, zs = _wgmma_case(cuda_device, 4, K, N, seed=13)
+    w = (1 + 0.1 * torch.randn(N, device=cuda_device)).to(torch.bfloat16)
+
+    def chain(x):
+        y = tqmm.quantized_matmul_cuda(x, qw, s, zs)
+        z = rms_norm(y, w, 1e-5)
+        return y, z, tqmm.quantized_matmul_cuda(z, qw, s, zs)
+
+    chain(x)  # eager: makes the counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = chain(x)
+    for _ in range(2):
+        x.copy_(torch.randn(x.shape, device=cuda_device).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = chain(x.clone())
+        torch.cuda.synchronize()
+        for got, ref in zip(outs, want):
+            np.testing.assert_array_equal(f32(got), f32(ref))
+        ref = f32(norms.rms_norm_plain(outs[0], w, 1e-5))
+        assert (np.abs(f32(outs[1]) - ref) <= 2.0 ** -7 * np.abs(ref) + 1e-30).all()
 
 
 def _tail_case(rng, dev, M, K1, D, I):
@@ -1910,14 +1955,15 @@ def _tail_case(rng, dev, M, K1, D, I):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K1,D,I", [(1, 4096, 4096, 14336), (4, 4096, 4096, 14336),
-                                      (8, 4096, 4096, 14336), (3, 512, 384, 768)])
+@pytest.mark.parametrize("M,K1,D,I", [(M, 4096, 4096, 14336) for M in range(1, 9)]
+                         + [(3, 512, 384, 768)])
 def test_layer_tail_kernel_matches_plain(rng, cuda_device, M, K1, D, I):
     """K14 against its plain version on the same tensors, at Mistral-7B
-    width and tests/test_layer_tail.py's shapes: within 8e-3 of max|ref|
-    (that test's bound between two orders of the f32 group sums), one launch
-    a call, the same bits on a second launch (split sums in a fixed order;
-    the barrier and tile counters left at zero)."""
+    width and M = 1-8 and at tests/test_layer_tail.py's shape: within 8e-3
+    of max|ref| (that test's bound between two orders of the f32 group
+    sums), one launch a call, the same bits on a second launch (split sums
+    in a fixed order; the barrier and tile counters left at zero) and in a
+    CUDA graph replayed twice after the input moved in place."""
     from quick_tpu_torch.ops import fused_layer_tail as tft
 
     args = _tail_case(rng, cuda_device, M, K1, D, I)
@@ -1926,11 +1972,23 @@ def test_layer_tail_kernel_matches_plain(rng, cuda_device, M, K1, D, I):
     again = tft.fused_layer_tail(*args)
     torch.cuda.synchronize()
     assert tft.KERNEL.launches == before + 2
+    plan = tft.tail_plan(K1, D, I, tft.resident_blocks(cuda_device))
+    assert plan.grid <= tft.resident_blocks(cuda_device)
     ref = tft.fused_layer_tail_plain(*args)
     assert out.shape == ref.shape == (M, D) and out.dtype == torch.bfloat16
     assert torch.equal(out, again)
     o, r = f32(out), f32(ref)
     assert np.abs(o - r).max() <= 8e-3 * np.abs(r).max(), (np.abs(o - r).max(), np.abs(r).max())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = tft.fused_layer_tail(*args)
+    for _ in range(2):
+        args[0].copy_((torch.randn(args[0].shape, device=cuda_device) * 0.1).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tft.fused_layer_tail(*[a.clone() for a in args])
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(f32(gout), f32(want))
 
 
 #: tiny models for the decode graphs: (config, group, batch, max_seq, new
