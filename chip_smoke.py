@@ -12,13 +12,15 @@ Phases (any failure exits non-zero):
      shapes of the main paths, in bf16, with the tolerance stated (K1 at
      every decode row count, M = 1-8, with each prologue, and at N % 4 ==
      2, timed beside N - 2: the cost of padding N; K3 at B=4, 1 and 8 and
-     at S = 1,536, lengths 0 to S - 1); (2c) the dense-dequant route of
+     at S = 1,536, lengths 0 to S - 1; K4 byte-equal over bf16 and f32
+     pages and on its scalar path); (2c) the dense-dequant route of
      QUICK_TPU_DENSE_M (torch ops, no kernel of its own) against its plain
      version, and timed beside K1 at M = 128, 512, 4096: the crossover;
   3. each kernel's time (CUDA events over many launches queued behind a
      device sleep, weights and KV pages rotated past the 50 MB L2), its
      bound from bytes and operations, its plain version's time and a
-     one-call PyTorch yardstick where one exists;
+     one-call PyTorch yardstick where one exists; K4 in a captured graph of
+     32 x (K1, K4) with and without its programmatic dependent launch;
   4. the generate() path: AutoQuickModel at Mistral-7B width, 32 layers,
      random QTPU weights from a seed, 4 prompts of 128 tokens plus 64
      greedy tokens; the kernels' launch counts must be exactly those of
@@ -129,7 +131,16 @@ Phases (any failure exits non-zero):
      Mixtral, DeepSeek-V2-Lite over bf16 and INT8 latent pages) at
      ENGINE_AB_LAYERS layers with graphed and with eager windows: the same
      streams and launch counts; (e) penalised greedy generate() at 2
-     layers, graphed against eager, then against the plain path.
+     layers, graphed against eager, then against the plain path;
+ 14. beam search: (a) beam_generate() at Mistral-7B width and depth on
+     phase 4's weights, 128-token prompts, 32 new tokens and an EOS token,
+     at B=2 x 4 beams (K3) and B=4 x 4 (K7): exact launch counts, graphed
+     and eager searches equal, ms a step of each and the beam reorder's
+     share; (b) at 2 layers, the kernel path against the plain path;
+ 15. the Engine under enable_penalties=True on phase 5's trace and model
+     (half the requests penalised, a quarter with a logit_bias): as phase 5
+     (counted, timed, beside phase 5's run), its greedy windows replayed,
+     then graphed against eager windows over bf16 and INT8 pages.
      On the card generate()'s decode loop and the Engine's greedy windows
      replay a captured step; a replay adds the launches counted at capture.
      Launch counts exact throughout, K13's in every phase.
@@ -737,15 +748,15 @@ def paged_write_rows(cfg, gen, dev, trace):
     B, Bp, S, page, Hkv, D = (g[k] for k in ("B", "Bp", "S", "page", "Hkv", "D"))
     L = cfg.num_hidden_layers
     dec, chunk = trace_positions(trace, g)
-    print("[2] K4 (paged write) against its plain scatter, bf16: equal outside "
-          "the trash page 0")
+    print("[2] K4 (paged write) against its plain scatter, bf16 and f32 pages, and bf16 rows "
+          "handed over off 16 bytes (its scalar path): equal outside the trash page 0")
     bt = block_table(gen, dev, g, B).long()
 
     def addresses(pos, n):
         return span_addresses(bt, g, pos, n)
 
-    def new_rows(rows, n):
-        return [torch.randn((rows, n, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    def new_rows(rows, n, dtype=torch.bfloat16):
+        return [torch.randn((rows, n, Hkv, D), generator=gen, device=dev).to(dtype)
                 for _ in range(2)]
 
     # (entry, tokens, positions, valid): the serving path's decode and
@@ -754,31 +765,42 @@ def paged_write_rows(cfg, gen, dev, trace):
     span = g["n_pt"] * page - S
     cases = [("decode", 1, dec, None), ("chunk", S, chunk, [S] * Bp),
              ("chunk", S, [(p * 7) % span for p in dec], [S - i % 5 for i in range(B)])]
-    small = page_pool(gen, dev, g, 2)
+    small = {torch.bfloat16: page_pool(gen, dev, g, 2)}
+    small[torch.float32] = [t.float() for t in small[torch.bfloat16]]
     err = {}
-    for entry, n, pos, valid in cases:
-        rows = len(pos)
-        pids, offs = addresses(pos, n)
-        if entry == "decode":
-            pids[-3:] = 0  # idle slots: colliding writes to the trash page
-        vt = torch.tensor(valid or [1] * rows, dtype=torch.int32, device=dev)
-        kn, vn = new_rows(rows, n)
-        got = [t.clone() for t in small]
-        ref = [t.clone() for t in small]
-        if entry == "decode":
-            pw.paged_write_decode(*got, kn[:, 0], vn[:, 0], pids[:, 0], offs, 1)
-            pw.paged_write_plain(*ref, kn, vn, pids[:, :1].expand(rows, 2), offs, vt, 1)
-        else:
-            pw.paged_write_chunk(*got, kn, vn, pids, offs, vt, 1)
-            pw.paged_write_plain(*ref, kn, vn, pids, offs, vt, 1)
-        torch.cuda.synchronize()
-        key = pw.launch_key(entry, rows, n, Hkv, page, D, torch.bfloat16)
-        e = max(float((a[:, 1:].float() - b[:, 1:].float()).abs().max()) for a, b in zip(got, ref))
-        if e != 0.0 or torch.equal(got[0][:, 1:], small[0][:, 1:]):
-            fail(f"K4 {key}: pages differ from the plain scatter (max {e}) or nothing written")
-        print(f"  K4 {key}, {'crossing' if pids[:, 1].any() else 'aligned'}: "
-              f"pages 1.. equal to the plain scatter")
-        err[key] = max(err.get(key, 0.0), e)
+    for dtype, scalar in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True)):
+        for entry, n, pos, valid in cases:
+            rows = len(pos)
+            pids, offs = addresses(pos, n)
+            if entry == "decode":
+                pids[-3:] = 0  # idle slots: colliding writes to the trash page
+            vt = torch.tensor(valid or [1] * rows, dtype=torch.int32, device=dev)
+            kn, vn = new_rows(rows, n, dtype)
+            kg, vg = (off16(kn), off16(vn)) if scalar else (kn, vn)
+            got = [t.clone() for t in small[dtype]]
+            ref = [t.clone() for t in small[dtype]]
+            before = pw.KERNEL.launches
+            if entry == "decode":
+                pw.paged_write_decode(*got, kg[:, 0], vg[:, 0], pids[:, 0], offs, 1)
+                pw.paged_write_plain(*ref, kn, vn, pids[:, :1].expand(rows, 2), offs, vt, 1)
+            else:
+                pw.paged_write_chunk(*got, kg, vg, pids, offs, vt, 1)
+                pw.paged_write_plain(*ref, kn, vn, pids, offs, vt, 1)
+            torch.cuda.synchronize()
+            key = pw.launch_key(entry, rows, n, Hkv, page, D, dtype)
+            e = max(float((a[:, 1:].float() - b[:, 1:].float()).abs().max())
+                    for a, b in zip(got, ref))
+            if pw.KERNEL.launches != before + 1:
+                fail(f"K4 {key}: not launched once")
+            if not all(same_bytes(a[:, 1:], b[:, 1:]) for a, b in zip(got, ref)) or \
+                    torch.equal(got[0][:, 1:], small[dtype][0][:, 1:]):
+                fail(f"K4 {key}: pages differ from the plain scatter (max {e}) or nothing written")
+            print(f"  K4 {key}{', scalar path' if scalar else ''}, "
+                  f"{'crossing' if pids[:, 1].any() else 'aligned'}: pages 1.. byte-equal to "
+                  "the plain scatter")
+            if dtype == torch.bfloat16 and not scalar:
+                err[key] = max(err.get(key, 0.0), e)
+    del small
 
     print("[3] K4 timing at the serving shapes (page pool of all 32 layers)")
     big = page_pool(gen, dev, g, L)
@@ -819,7 +841,70 @@ def paged_write_rows(cfg, gen, dev, trace):
             launches=("engine", "paged_write", key), max_abs_err=err[key],
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         ))
-    del big, small
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def k4_graph_pdl(cfg, gen, dev, trace, layers: int = 32) -> dict:
+    """[3] K4 in a captured graph of ``layers`` x (K1's qkv projection at the
+    Engine's M = 16 decode rows, then that layer's K4 decode write of the 16
+    slots), captured with K4's programmatic dependent launch and with a plain
+    one: the pages after one replay of each byte-equal to the plain
+    scatter's; then ms a replay of each, in turns (on, off, off, on), and
+    their ratio."""
+    from quick_tpu_torch.ops import paged_write as pw
+    from quick_tpu_torch.ops import quantized_matmul as qm
+
+    g = paged_geometry(cfg)
+    B, Hkv, D = g["B"], g["Hkv"], g["D"]
+    pool = [torch.zeros((layers, g["P"], Hkv, g["page"], D), dtype=torch.bfloat16, device=dev)
+            for _ in range(2)]
+    dec, _ = trace_positions(trace, g)
+    pids, offs = span_addresses(block_table(gen, dev, g, B).long(), g, dec, 1)
+    pid0 = pids[:, 0].contiguous()
+    kn, vn = (torch.randn((B, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    x = torch.randn((B, cfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    wq = rand_qlinear(gen, dev, *gemm_shapes(cfg)["qkv"])[0]
+
+    def step():
+        for layer in range(layers):
+            qm.quantized_matmul_cuda(x, *wq)
+            pw.paged_write_decode(*pool, kn, vn, pid0, offs, layer)
+
+    graphs = {}
+    for pdl in (True, False):
+        pw.WRITE_PDL = pdl
+        try:
+            step()  # eager: makes any counters
+            graphs[pdl] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[pdl]):
+                step()
+        finally:
+            pw.WRITE_PDL = True
+    ref = [torch.zeros_like(t) for t in pool]
+    for layer in range(layers):
+        pw.paged_write_plain(*ref, kn[:, None], vn[:, None], pids[:, :1].expand(B, 2), offs,
+                             None, layer)
+    for pdl in (True, False):
+        for t in pool:
+            t.zero_()
+        graphs[pdl].replay()
+        torch.cuda.synchronize()
+        if not all(same_bytes(a[:, 1:], b[:, 1:]) for a, b in zip(pool, ref)):
+            fail(f"K4 in a captured graph ({'PDL' if pdl else 'plain launch'}): pages differ "
+                 "from the plain scatter")
+    ms = {True: [], False: []}
+    for pdl in (True, False, False, True):
+        ms[pdl].append(device_ms(lambda i, gr=graphs[pdl]: gr.replay(), 20))
+    out = dict(layers=layers, rows=B, pdl_ms=sum(ms[True]) / 2,
+               plain_launch_ms=sum(ms[False]) / 2)
+    out["plain_over_pdl"] = out["plain_launch_ms"] / out["pdl_ms"]
+    print(f"[3] a graph of {layers} x (K1 qkv, K4 decode) at M = {B}, pages byte-equal to the "
+          "plain scatter with and without K4's PDL: " + json.dumps(out))
+    del graphs, pool, ref
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1412,6 +1497,12 @@ def engine_launches(cfg, stats, engine=ENGINE) -> dict:
     return want
 
 
+def submit_all(eng, trace) -> list:
+    """Submit every request of ``trace``: (prompt, max_new_tokens) or
+    (prompt, max_new_tokens, submit keywords: sampling, logit_bias)."""
+    return [eng.submit(t[0], t[1], **(t[2] if len(t) > 2 else {})) for t in trace]
+
+
 def sync_checked(eng, checked: dict) -> None:
     """Make ``eng``'s dispatch methods named in ``checked`` raise on any
     host sync (torch's sync debug mode) and count their calls there."""
@@ -1437,8 +1528,7 @@ def engine_timing(params, cfg, tag: str, engine=ENGINE, trace=None) -> dict:
     trace = trace or serving_trace(cfg.vocab_size)
     with switches(QUICK_TPU_ENGINE_TIMING="1"):
         eng = Engine(params, cfg, **engine)
-    for p, n in trace:
-        eng.submit(p, n)
+    submit_all(eng, trace)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run()
@@ -1453,7 +1543,7 @@ def engine_timing(params, cfg, tag: str, engine=ENGINE, trace=None) -> dict:
 
 
 def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None,
-                 warmup: bool = True):
+                 warmup: bool = True, keep_streams: bool = False):
     """The Engine over a request trace (default: the 32-request trace with
     a shared prefix): a warm-up run whose every decode-window and prefill
     sub-batch dispatch is sync-checked and in which one scheduler turn of
@@ -1462,21 +1552,22 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
     those its recorded schedule implies (``launches(cfg, stats, engine)``,
     default engine_launches). ``warmup=False``: one run, sync-checked,
     profiled for one turn, counted and timed (its wall time includes the
-    profiled turn)."""
+    profiled turn). ``keep_streams``: the timed run's streams are returned
+    too (under "streams")."""
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import Engine
 
     if trace is None:
         trace = serving_trace(cfg.vocab_size)
     launches = launches or engine_launches
-    n_prompt = sum(len(p) for p, _ in trace)
-    n_out = sum(n for _, n in trace)
-    shared = len(os.path.commonprefix([p for p, _ in trace]))
+    n_prompt = sum(len(t[0]) for t in trace)
+    n_out = sum(t[1] for t in trace)
+    shared = len(os.path.commonprefix([t[0] for t in trace]))
     print(f"[{tag}] serving path: {cfg.model_type}, {cfg.num_hidden_layers} layers, "
           f"Engine({engine}), {len(trace)} requests, {n_prompt} prompt tokens "
           f"({shared}-token shared prefix) + {n_out} output tokens")
     kernels = all_kernels()
-    lengths = [n for _, n in trace]
+    lengths = [t[1] for t in trace]
 
     def run(checked):
         """One run of the trace; with ``checked``, no host sync is allowed
@@ -1489,7 +1580,7 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
                 (eng.cache.k_pages, eng.cache.v_pages, eng.cache.kv_scales) if t is not None]
         if checked is not None:
             sync_checked(eng, checked)
-        uids = [eng.submit(p, n) for p, n in trace]
+        uids = submit_all(eng, trace)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         profile = None
@@ -1510,7 +1601,7 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
         if [len(st) for st in streams] != lengths:
             fail(f"{cfg.model_type} Engine: a request did not finish with exactly its "
                  "max_new_tokens")
-        stats = dict(eng.stats)
+        stats = dict(eng.stats, graph_replays=eng.graph_replays)
         if checked is not None:
             if not all(checked.values()):
                 fail(f"the sync check saw no dispatch: {checked}")
@@ -1553,7 +1644,7 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
             print(f"    {name} {key}: {v}")
     torch.cuda.empty_cache()
     return counts, dict(runs=[run_stats], warmup_s=wall0, sync_checked_dispatches=checked,
-                        profile=profile)
+                        profile=profile, **({"streams": streams} if keep_streams else {}))
 
 
 # ---------------------------------------------------------------------------
@@ -2263,6 +2354,15 @@ def int8_pool(gen, dev, g, layers, std=1.0):
     return codes[0], codes[1], tiles
 
 
+def off16(t: torch.Tensor) -> torch.Tensor:
+    """The same values at a data pointer 16 bytes and one element off (the
+    page writes' scalar path)."""
+    k = 16 // t.element_size() + 1
+    view = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def crossing_starts(g, pos):
     """Chunk starts 2 + i tokens before a page boundary near each of the
     first prefill_rows positions: every chunk crosses into its next page."""
@@ -2292,12 +2392,6 @@ def k4q_kinds_check(gen, dev, Hkv, Dk, Dv, tag, scalar=False):
         x[1, 0, 0] = 0.0
         x[0, 0, -1, :8] = halves
         return x
-
-    def off16(t):  # the same values at a data pointer 16 bytes + 1 element off
-        buf = torch.empty(t.numel() + 16 // t.element_size() + 1, dtype=t.dtype, device=dev)
-        view = buf[16 // t.element_size() + 1:].view(t.shape)
-        view.copy_(t)
-        return view
 
     for kind in (torch.bfloat16, torch.float32, torch.int8):
         for entry in ("decode", "chunk"):
@@ -4060,7 +4154,7 @@ def engine_graph_ab(params, cfg, tag, engine=ENGINE, trace=None, layers=ENGINE_A
     for graphs in (True, False):
         def run():
             eng = Engine(p, c, **engine, _graphs=graphs)
-            uids = [eng.submit(q, n) for q, n in trace]
+            uids = submit_all(eng, trace)
             outs = eng.run()
             return [outs[u] for u in uids], dict(eng.stats), eng.cache
 
@@ -4137,6 +4231,252 @@ def phase13_penalties(cfg, dev):
     return dict(max_abs_err=worst, tokens_moved_by_penalties=moved)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: beam search; phase 15: the Engine's history penalties and logit_bias
+# ---------------------------------------------------------------------------
+
+#: phase 14: beam_generate at Mistral-7B width and depth on phase 4's
+#: weights, (B, num_beams) of each run: B x num_beams = 8 rows decode on K3,
+#: 16 on K7; BEAM_PROMPT + BEAM_NEW tokens, an EOS token set
+BEAM_RUNS = ((2, 4), (4, 4))
+BEAM_PROMPT, BEAM_NEW = 128, 32
+#: a step's time: (t(BEAM_NEW) - t(BEAM_SHORT)) / (BEAM_NEW - BEAM_SHORT)
+#: over whole calls, so that the prefill and the capture drop out
+BEAM_SHORT = 8
+#: phase 14's 2-layer kernel-vs-plain check: prompt, new tokens, cache, and
+#: the least gap between the nb-th and (nb + 1)-th candidate score (on the
+#: plain path) at a step where the two paths' beams may part
+BEAM_CHECK_PROMPT, BEAM_CHECK_NEW, BEAM_CHECK_SEQ, BEAM_TIE = 32, 8, MAX_SEQ, 1e-3
+#: phase 14b scales the 2-layer model's final norm weight by this: random
+#: full-width weights give logits of up to ~100 (phase 6), where one token
+#: takes all the mass and every beam scores 0.0 in f32; at ~5 beams compete
+BEAM_CHECK_NORM = 0.05
+#: phase 15: the penalised requests' SamplingParams fields, and the bias
+PEN_ENGINE = dict(repetition_penalty=1.2, frequency_penalty=0.5, presence_penalty=0.5)
+PEN_BIAS = 5.0
+
+
+def beam_launches(cfg, B: int, nb: int, prompt: int, new: int, T: int) -> dict:
+    """Launches per kernel and key of one beam_generate() call: the prefill
+    of B x nb rows of ``prompt`` tokens (K1 at M = rows x prompt, K2, K13)
+    and ``new`` one-token forwards of the B x nb rows (K1's decode rows with
+    their prologues at <= 8 rows, K3 there, K7 above; K13), each with the
+    final norm over its last tokens."""
+    from quick_tpu_torch.ops._cuda import sm_count
+    from quick_tpu_torch.ops.decode_attention import launch_key as k7_key, split_plan
+
+    L, R = cfg.num_hidden_layers, B * nb
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    want = {}
+
+    def add(kernel, key, n):
+        if n:
+            want.setdefault(kernel, {})
+            want[kernel][key] = want[kernel].get(key, 0) + n
+
+    add_forward_launches(cfg, R * prompt, L, add)
+    add_forward_launches(cfg, R, L * new, add)
+    add("rms_norm", k13_key(R, cfg.hidden_size), 1 + new)
+    add("flash_attention", f"B={R} S={prompt} T={T} Hq={Hq} Hkv={Hkv} D={D}", L)
+    if R <= 8:
+        add("fused_decode_step", f"B={R} Hq={Hq} Hkv={Hkv} S={T} D={D}", L * new)
+    else:
+        add("decode_attention", k7_key(R, Hq, Hkv, T, D, split_plan(R, Hkv, T, sm_count(0))[1]),
+            L * new)
+    return want
+
+
+def phase14_beam(params, cfg, dev) -> tuple:
+    """[14a] beam_generate() at Mistral-7B width and depth (phase 4's random
+    g=128 weights), 128-token prompts, 32 new tokens, at B=2 x 4 beams (8
+    rows: K3) and B=4 x 4 beams (16 rows: K7): a warm-up picks an EOS token
+    the search emits; then one counted call with that EOS whose launches must
+    equal the path's, graphed and eager searches with the same tokens and
+    scores, ms a step of each (BEAM_SHORT's differential timing, in turns),
+    and the beam reorder's share of the graphed step (``KVCache.take_rows``
+    over the whole cache, timed alone). Returns (launch counts by path,
+    stats)."""
+    from quick_tpu_torch.modules.blocks import dense_decode_route
+    from quick_tpu_torch.runtime import beam_generate, make_cache
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    counts, stats = {}, {}
+    T = BEAM_PROMPT + BEAM_NEW
+    for B, nb in BEAM_RUNS:
+        R = B * nb
+        route = dense_decode_route(cfg, make_cache(cfg, R, T, device=dev), R, params.rope_cos, 0,
+                                   dev)
+        want_route = "fused" if R <= 8 else "dense_kernel"
+        print(f"[14a] beam_generate(): {cfg.num_hidden_layers} layers, B={B} x {nb} beams "
+              f"({R} rows, decode on {'K3' if R <= 8 else 'K7'}), {BEAM_PROMPT} + {BEAM_NEW} "
+              "tokens")
+        if route != want_route:
+            fail(f"beam search at {R} rows takes the {route} route, not {want_route}")
+        prompts = torch.randint(0, cfg.vocab_size, (B, BEAM_PROMPT), generator=gen, device=dev)
+        free, _ = beam_generate(params, cfg, prompts, BEAM_NEW, nb)  # warm-up
+        eos = int(free[0, BEAM_PROMPT + 2])
+        (toks, scores), n = counted(lambda: beam_generate(params, cfg, prompts, BEAM_NEW, nb,
+                                                          eos_token_id=eos))
+        want = beam_launches(cfg, B, nb, BEAM_PROMPT, BEAM_NEW, T)
+        if n != want:
+            fail(f"beam search B={B} x {nb}: launch counts {n} differ from the path's {want}")
+        if tuple(toks.shape) != (B, T) or not torch.equal(toks[:, :BEAM_PROMPT], prompts) or \
+                not torch.isfinite(scores).all() or int(toks.max()) >= cfg.vocab_size:
+            fail(f"beam search B={B} x {nb}: malformed tokens or scores")
+        wall = {}
+        for graph in (None, False, False, None):
+            for n_new in (BEAM_SHORT, BEAM_NEW):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = beam_generate(params, cfg, prompts, n_new, nb, eos_token_id=eos,
+                                      max_seq=T, _graph=graph)
+                torch.cuda.synchronize()
+                wall.setdefault((graph, n_new), []).append(time.perf_counter() - t0)
+            if not torch.equal(again[0], toks) or not torch.equal(again[1], scores):
+                fail(f"beam search B={B} x {nb}: the {'eager' if graph is False else 'graphed'} "
+                     "search gave other beams or scores")
+        cache = make_cache(cfg, R, T, device=dev)
+        src = torch.randint(0, R, (R,), generator=gen, device=dev)
+        gather_ms = device_ms(lambda i: cache.take_rows(src), 10)
+        del cache
+        step_ms = {("graphed" if g is None else "eager"):
+                   (min(wall[(g, BEAM_NEW)]) - min(wall[(g, BEAM_SHORT)])) * 1e3
+                   / (BEAM_NEW - BEAM_SHORT) for g in (None, False)}
+        res = dict(rows=R, eos_token_id=eos, best_scores=scores.tolist(),
+                   ms_per_step_graphed=step_ms["graphed"], ms_per_step_eager=step_ms["eager"],
+                   call_s=dict(graphed=min(wall[(None, BEAM_NEW)]),
+                               eager=min(wall[(False, BEAM_NEW)])), gather_ms=gather_ms,
+                   gather_bytes_each_way=2 * cfg.num_hidden_layers * R * cfg.num_key_value_heads
+                   * T * cfg.head_dim * 2,
+                   gather_share_of_graphed_step=gather_ms / step_ms["graphed"],
+                   launches=sum(sum(v.values()) for v in n.values()))
+        print(f"  launches equal to the path's; graphed and eager beams equal: " + json.dumps(res))
+        key = f"beam_b{B}_nb{nb}"
+        counts[key], stats[key] = n, res
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase14_plain_vs_kernel(cfg, dev) -> dict:
+    """[14b] beam_generate() on a 2-layer full-width model (random g=128
+    weights, seed 1, the final norm's weight scaled by BEAM_CHECK_NORM), the
+    kernel path on the card against the plain path on the CPU, at B=2 x 4
+    beams (K3) and B=4 x 4 (K7): the same beams, scores within 2e-3 x (1 +
+    |s|); a batch row's beams may part only where the plain search's nb-th
+    and (nb + 1)-th candidate scores were within BEAM_TIE at some step
+    (counted and printed)."""
+    import importlib
+
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.runtime import beam_generate
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    p_gpu = init_quant_params(cfg2, seed=1, device=dev)
+    p_gpu.final_norm.mul_(BEAM_CHECK_NORM)
+    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+    tgen = importlib.import_module("quick_tpu_torch.runtime.generate")
+    orig = tgen.top_k
+    for B, nb in BEAM_RUNS:
+        print(f"[14b] beam_generate() at 2 layers of full width, B={B} x {nb} beams, "
+              f"{BEAM_CHECK_PROMPT} + {BEAM_CHECK_NEW} tokens: kernel path (card) vs plain path "
+              "(CPU)")
+        prompts = torch.randint(0, cfg.vocab_size, (B, BEAM_CHECK_PROMPT), generator=gen,
+                                device=dev)
+        gaps = []
+
+        def recording(cand, k):  # the plain search's candidate gaps, per batch row
+            v, i = orig(cand, k + 1)
+            gaps.append((v[:, k - 1] - v[:, k]).cpu())
+            return v[:, :k], i[:, :k]
+
+        (tk, sk), n = counted(lambda: beam_generate(p_gpu, cfg2, prompts, BEAM_CHECK_NEW, nb,
+                                                    max_seq=BEAM_CHECK_SEQ))
+        kern = "fused_decode_step" if B * nb <= 8 else "decode_attention"
+        if sum(n.get(kern, {}).values()) != 2 * BEAM_CHECK_NEW:
+            fail(f"the 2-layer beam search did not run {kern} once per layer per step: {n}")
+        tgen.top_k = recording
+        try:
+            tc, sc = beam_generate(p_cpu, cfg2, prompts.cpu(), BEAM_CHECK_NEW, nb,
+                                   max_seq=BEAM_CHECK_SEQ)
+        finally:
+            tgen.top_k = orig
+        least = torch.stack(gaps).min(dim=0).values  # [B]
+        tk, sk = tk.cpu(), sk.cpu()
+        parted = [b for b in range(B) if not torch.equal(tk[b], tc[b])]
+        for b in parted:
+            if float(least[b]) > BEAM_TIE:
+                fail(f"beam search B={B} x {nb}: row {b}'s beams part from the plain path's with "
+                     f"a least candidate gap of {float(least[b]):.2e}")
+        same = [b for b in range(B) if b not in parted]
+        d = (sk[same] - sc[same]).abs()
+        if not bool((d <= 2e-3 * (1 + sc[same].abs())).all()):
+            fail(f"beam search B={B} x {nb}: scores {sk.tolist()} vs plain {sc.tolist()}")
+        res = dict(rows_equal=len(same), rows_parted_at_near_ties=len(parted),
+                   max_score_err=float(d.max()) if same else None, scores=sk.tolist(),
+                   least_candidate_gap=least.tolist())
+        print("  " + json.dumps(res))
+        out[f"b{B}_nb{nb}"] = res
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def penalised_trace(trace) -> list:
+    """Phase 5's requests with submit keywords: every second one carries
+    PEN_ENGINE's penalties, every fourth (from the second) a PEN_BIAS bias
+    on its prompt's last token."""
+    out = []
+    for i, (p, n) in enumerate(trace):
+        kw = {}
+        if i % 2 == 0:
+            from quick_tpu_torch.runtime import SamplingParams
+
+            kw["sampling"] = SamplingParams(**PEN_ENGINE)
+        if i % 4 == 1:
+            kw["logit_bias"] = {p[-1]: PEN_BIAS}
+        out.append((p, n, kw))
+    return out
+
+
+def phase15_penalties(params, cfg, unpenalised: dict, int8_trace) -> dict:
+    """[15] The Engine with enable_penalties=True, phase 5's bf16 Engine at
+    ENGINE_LAYERS layers on phase 5's trace, half its requests penalised and a
+    quarter biased (``penalised_trace``): phase_engine's sync-checked,
+    profiled, counted and timed runs (every request at its length, launch
+    counts those of phase 5's schedule), its greedy windows replayed from the
+    captured step (replays > 0), streams other than phase 5's; the graphed
+    against the eager windows (streams, stats, pages and launches equal) at
+    ENGINE_AB_LAYERS layers over bf16 and INT8 pages; wall time and busy
+    share beside phase 5's."""
+    eng_kw = dict(ENGINE, enable_penalties=True)
+    counts, st = phase_engine(params, cfg, "15", eng_kw, penalised_trace(
+        serving_trace(cfg.vocab_size)), keep_streams=True)
+    streams = st.pop("streams")
+    moved = sum(a != b for a, b in zip(streams, unpenalised["streams"]))
+    replays = st["runs"][0]["stats"]["graph_replays"]
+    if not replays:
+        fail("the penalised Engine replayed no captured window step")
+    if not moved:
+        fail("the penalties and biases moved no stream: the check cannot see them act")
+    st["streams_moved_by_penalties"] = moved
+    st["graph_ab"] = dict(
+        bf16=engine_graph_ab(params, cfg, "15", eng_kw, penalised_trace(
+            serving_trace(cfg.vocab_size))),
+        int8=engine_graph_ab(params, cfg, "15", dict(ENGINE_INT8, enable_penalties=True),
+                             penalised_trace(int8_trace)))
+    side = dict(
+        wall_s=dict(penalised=st["runs"][0]["wall_s"], phase5=unpenalised["runs"][0]["wall_s"]),
+        device_busy_share=dict(penalised=st["profile"]["device_busy_share"],
+                               phase5=unpenalised["profile"]["device_busy_share"]))
+    st["beside_phase5"] = side
+    print(f"[15] {moved} of {len(streams)} streams moved by the penalties, {replays} graph "
+          "replays; beside phase 5's unpenalised run: " + json.dumps(side))
+    return counts, st
+
+
 def depth_costs(dev) -> dict:
     """``python3 chip_smoke.py --depth-costs``: the seconds of the phases
     that the time limit runs at a cut depth, run at full depth instead
@@ -4206,6 +4546,7 @@ def main() -> None:
     rows.append(flash_row(cfg, gen, dev))
     rows += [fused_row(cfg, gen, dev, *shape) for shape in FUSED_SHAPES]
     rows += paged_write_rows(cfg, gen, dev, trace)
+    k4_graph = k4_graph_pdl(cfg, gen, dev, trace)
     rows += paged_attention_rows(cfg, gen, dev, trace)
     rows += time_gemms(cfg, gen, dev, gemm_errs, checkpoint_gemms(cfg), "checkpoint")
     rows += [flash_row(cfg, gen, dev, B=B, S=S, T=T, path="checkpoint")
@@ -4239,9 +4580,15 @@ def main() -> None:
                     engine_bf16=engine_graph_ab(params, cfg, "13d"),
                     engine_int8=engine_graph_ab(params, cfg, "13d", ENGINE_INT8, int8_trace))
     print(f"  phases 13b and 13d (Mistral width) done at {time.perf_counter() - t_start:.0f} s")
+    beam_counts, beam_stats = phase14_beam(params, cfg, dev)
+    counts.update(beam_counts)
+    print(f"  phase 14a (beam search) done at {time.perf_counter() - t_start:.0f} s")
     cut = (dataclasses.replace(params, blocks=params.blocks[:ENGINE_LAYERS]),
            dataclasses.replace(cfg, num_hidden_layers=ENGINE_LAYERS))
-    counts["engine"], engine_stats = phase_engine(*cut, "5")
+    counts["engine"], engine_stats = phase_engine(*cut, "5", keep_streams=True)
+    counts["penalised_engine"], pen_engine_stats = phase15_penalties(*cut, engine_stats, int8_trace)
+    del engine_stats["streams"]
+    print(f"  phases 5 and 15 done at {time.perf_counter() - t_start:.0f} s")
     engine_stats["timing"] = engine_timing(*cut, "5")
     engine_stats["k13_host_ab"] = engine_host_ab(*cut, "12b")
     counts["checkpoint"], ckpt_stats = phase7_checkpoint(params, cfg, dev)
@@ -4298,6 +4645,7 @@ def main() -> None:
             paged=phase6_paged_plain_vs_kernel(
                 cfg, dev, tag="13c", require={"fused_layer_tail": 2 * PHASE6_DECODE}))
     penalties = phase13_penalties(cfg, dev)
+    beam_stats["plain_vs_kernel"] = phase14_plain_vs_kernel(cfg, dev)
     report = dict(card=card, kernels=rows, dense_route=dense_route, generate_path=gen_stats,
                   engine_path=engine_stats,
                   fused_step_shapes=fused_shape_stats,
@@ -4314,7 +4662,8 @@ def main() -> None:
                                   plain_vs_kernel_max_abs_err=tail_err),
                   graphs=dict(graph_ab, mixtral_engine=moe_report["mixtral_engine_graph_ab"],
                               deepseek_engines=ds_report["engine_graph_ab"]),
-                  penalties=penalties,
+                  penalties=penalties, k4_graph=k4_graph, beam=beam_stats,
+                  penalised_engine=pen_engine_stats,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

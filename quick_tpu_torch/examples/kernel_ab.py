@@ -13,8 +13,8 @@ the register lines of the other build's K1 (``quantized_matmul.cu``), K2
 (``flash_attention.cu``), K3 (``fused_decode_step.cu``), K14
 (``fused_layer_tail.cu``), K13 (``rms_norm.cu``), K5 / K6
 (``paged_attention.cu``), K5q / K6q (``paged_attention_int8.cu``), K7
-(``decode_attention.cu``), K10 / K10q (``mla_paged_attention.cu``), K4q
-(``paged_write_int8.cu``), K8
+(``decode_attention.cu``), K10 / K10q (``mla_paged_attention.cu``), K4
+(``paged_write.cu``), K4q (``paged_write_int8.cu``), K8
 (``grouped_matmul.cu``), K9
 (``quantized_matmul_dequant.cu``), K11 / K11f
 (``quantized_matmul_a8.cu``) and K12 (``grouped_matmul_a8.cu``) kernels
@@ -38,17 +38,21 @@ through its wrapper at B = 4, 1 and 8 with S = 256 (length 191) and at
 B = 4, S = 1,536 (length 1,500), Mistral-7B's heads, K7 through its
 wrapper at ``chip_smoke.py``'s three shapes (B = 32 and 64 at T = 256, B
 = 4 at T = 2,048), K10 / K10q at the DeepSeek-V2-Lite Engines' decode
-(``chip_smoke.py::mla_attention_rows``), and K4q through its wrapper at
-the INT8 Engine's decode (B = 64) and chunk (B = 8, S = 16) and, beside
-K4, on DeepSeek-V2-Lite's latent planes (B = 16 and 8 x 16), and a captured
+(``chip_smoke.py::mla_attention_rows``), K4q through its wrapper at
+the INT8 Engine's decode (B = 64) and chunk (B = 8, S = 16) and on
+DeepSeek-V2-Lite's latent planes (B = 16 and 8 x 16), and a captured
 graph of the INT8 Engine's decode writes (32 x K1's qkv projection at M =
-64, then K4q), K14 through its wrapper at M = 1, 4 and 8 on the Mistral-7B
+64, then K4q), K4 through its wrapper at the bf16 Engine's decode (B = 16)
+and chunk (B = 8, S = 16) over 32 layers of bf16 pages, on
+DeepSeek-V2-Lite's latent planes (B = 16 and 8 x 16, 27 layers) and in a
+captured graph of the bf16 Engine's decode writes (32 x K1's qkv
+projection at M = 16, then K4), K14 through its wrapper at M = 1, 4 and 8 on the Mistral-7B
 widths beside the unfused K1 chain, and K13 through its wrapper at
 ``chip_smoke.py``'s five shapes and in a captured graph of 32 x (K13, K1's
 qkv projection) at M = 16. Each row ends with
 this tree's mean over the other's; a row only one tree times is
 named apart. ``--sass-only`` stops after the SASS comparison; ``--only``
-times only the named groups (k1 k2 k3 k4q k5 k5q k7 k8 k9 k10 k11 k12 k13
+times only the named groups (k1 k2 k3 k4 k4q k5 k5q k7 k8 k9 k10 k11 k12 k13
 k14; k5 is K5 / K6, k5q K5q / K6q, k10 K10 / K10q), e.g. ``--only k14 k13``.
 """
 import argparse
@@ -77,7 +81,8 @@ for k in all_kernels():
     if k.name in ("quantized_matmul", "grouped_matmul", "flash_attention", "paged_attention",
                   "quantized_matmul_dequant", "quantized_matmul_a8", "fused_decode_step",
                   "grouped_matmul_a8", "paged_attention_int8", "decode_attention",
-                  "mla_paged_attention", "paged_write_int8", "fused_layer_tail", "rms_norm"):
+                  "mla_paged_attention", "paged_write", "paged_write_int8", "fused_layer_tail",
+                  "rms_norm"):
         entry = "?"
         for l in k.build_log.splitlines():
             m = re.search(r"Compiling entry function '\S+?_cu_[0-9a-f]{8}(\S+)'", l)
@@ -157,20 +162,23 @@ if want("k7"):
         del kc, vc
 # K4q through its wrapper (the same arguments in both trees) at the INT8 Engine's
 # decode (B = 64, Hkv 8, D 128) and chunk (B = 8, S = 16) over 32 layers of INT8
-# pages, and on DeepSeek-V2-Lite's latent planes (Hkv 1, k 64 / v 512, 27 layers)
-# beside K4 there (unchanged); page ids handed over contiguous
+# pages, and on DeepSeek-V2-Lite's latent planes (Hkv 1, k 64 / v 512, 27 layers);
+# K4 at the bf16 Engine's decode (B = 16) and chunk (B = 8, S = 16) over 32 layers
+# of bf16 pages and on the latent planes; page ids handed over contiguous
 from quick_tpu_torch.ops import paged_write as pw
-if want("k4q"):
-    for lat, cfg4, eng, trace in ((False, cfg, cs.ENGINE_INT8, cs.serve_bench_trace(cfg.vocab_size)),
-                                  (True, ds, cs.ENGINE, cs.serving_trace(ds.vocab_size))):
+for k4, lat, cfg4, eng, trace in (
+        (False, False, cfg, cs.ENGINE_INT8, cs.serve_bench_trace(cfg.vocab_size)),
+        (False, True, ds, cs.ENGINE, cs.serving_trace(ds.vocab_size)),
+        (True, False, cfg, cs.ENGINE, cs.serving_trace(cfg.vocab_size)),
+        (True, True, ds, cs.ENGINE, cs.serving_trace(ds.vocab_size))):
+    if want("k4" if k4 else "k4q"):
         g = cs.paged_geometry(cfg4, eng)
         Hkv, dk, dv = (1, 64, 512) if lat else (g["Hkv"], g["D"], g["D"])
         L, shape = cfg4.num_hidden_layers, (g["P"], Hkv, g["page"])
         gk = torch.Generator(device=dev).manual_seed(7)
-        q8 = [torch.zeros((L, *shape, d), dtype=torch.int8, device=dev) for d in (dk, dv)]
-        tiles = torch.zeros((L, g["P"], 8, Hkv * g["page"]), device=dev)
-        bf = [torch.zeros((L, *shape, d), dtype=torch.bfloat16, device=dev) for d in (dk, dv)] \
-            if lat else None
+        dt = torch.bfloat16 if k4 else torch.int8
+        pool = [torch.zeros((L, *shape, d), dtype=dt, device=dev) for d in (dk, dv)]
+        tiles = None if k4 else torch.zeros((L, g["P"], 8, Hkv * g["page"]), device=dev)
         bt = cs.block_table(gk, dev, g, g["B"]).long()
         dec, starts = cs.trace_positions(trace, g)
         for entry, n, pos in (("decode", 1, dec), ("chunk", g["S"], starts)):
@@ -181,16 +189,16 @@ if want("k4q"):
             vt = None if entry == "decode" else torch.full((B4,), n, dtype=torch.int32, device=dev)
             pg = pids[:, :1].contiguous() if entry == "decode" else pids
             tag = f"{'latent ' if lat else ''}{entry} B={B4} S={n}"
-            ms = cs.device_ms(lambda i: pw.paged_write_int8_cuda(
-                *q8, tiles, kn, vn, None, None, pg, offs, vt, i % L), 200)
-            rows.append(dict(name=f"paged_write_int8[{tag}]", ms=ms))
-            if lat:
-                ms = cs.device_ms(lambda i: pw.paged_write_cuda(*bf, kn, vn, pg, offs, vt, i % L),
-                                  200)
-                rows.append(dict(name=f"paged_write[{tag}]", ms=ms))
-            elif entry == "decode":
-                # K4q in the INT8 Engine's graphed decode step: each layer's qkv
-                # projection (K1, M = 64), then its page write, one captured graph
+            if k4:
+                write = lambda layer: pw.paged_write_cuda(*pool, kn, vn, pg, offs, vt, layer)
+            else:
+                write = lambda layer: pw.paged_write_int8_cuda(*pool, tiles, kn, vn, None, None,
+                                                               pg, offs, vt, layer)
+            ms = cs.device_ms(lambda i: write(i % L), 200)
+            rows.append(dict(name=f"paged_write{'' if k4 else '_int8'}[{tag}]", ms=ms))
+            if not lat and entry == "decode":
+                # the write in the Engine's graphed decode step: each layer's qkv
+                # projection (K1, M = B), then its page write, one captured graph
                 from quick_tpu_torch.ops import quantized_matmul as qm
                 x = torch.randn((B4, 4096), generator=gk, device=dev).to(torch.bfloat16)
                 w = cs.rand_qlinear(gk, dev, 4096, 6144)[0]
@@ -198,16 +206,16 @@ if want("k4q"):
                 def step():
                     for layer in range(L):
                         qm.quantized_matmul_cuda(x, *w)
-                        pw.paged_write_int8_cuda(*q8, tiles, kn, vn, None, None, pg, offs, None,
-                                                 layer)
+                        write(layer)
                 step()  # eager: makes any counters
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
                     step()
                 ms = cs.device_ms(lambda i: graph.replay(), 20)
-                rows.append(dict(name=f"graph[{L} x (K1 qkv M={B4}, K4q {tag})]", ms=ms))
+                rows.append(dict(name=f"graph[{L} x (K1 qkv M={B4}, K4{'' if k4 else 'q'} "
+                                      f"{tag})]", ms=ms))
                 del graph
-        del q8, tiles, bf
+        del pool, tiles
 # K14 through its wrapper (the same arguments in both trees) at M = 1, 4 and 8
 # on the Mistral-7B widths, two weight copies rotated (217 MB), beside the
 # unfused K1 chain it replaces (o; gate_up with the RMSNorm prologue; down

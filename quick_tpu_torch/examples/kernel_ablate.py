@@ -52,7 +52,11 @@ into a scratch directory and swapped into the wrapper for its timing:
   warp a row, values read twice, byte stores), ``lanes_64`` and
   ``lanes_1024`` (``WRITE_LANES``: blocks of fewer or more rows), and
   ``no_pdl`` (a plain launch, not a programmatic dependent of the kernel
-  before);
+  before); their cuts are in the row body K4q shares with K4,
+  ``paged_write_rows.cuh``, built into K4q's library only;
+- K4 (the same body's copy kind): ``no_pdl`` (``WRITE_PDL`` off: a plain
+  launch), ``scalar`` (every row on the scalar path: ``WRITE_MAX_UNITS`` 0, a
+  warp a row, byte copies), ``lanes_64`` and ``lanes_1024`` (``WRITE_LANES``);
 - K14: ``drain`` (the producer never runs into the next GEMM's weights:
   the ring drains at each grid barrier, ``kAhead`` 0), ``no_pdl`` (a plain
   launch), ``one_block`` (120 KB more shared memory: one block an SM,
@@ -83,7 +87,10 @@ decode (B = 16, Hq = 16, 27 layers of latent pages); K4q at the INT8
 Engine's decode (B = 64) and chunk (B = 8, S = 16), 32 layers of INT8
 pages, on DeepSeek-V2-Lite's latent planes (B = 16, B = 8 x 16), 27
 layers, and in a captured graph of the INT8 Engine's decode writes (32 x
-K1's qkv projection at M = 64, then K4q); K14 at M = 1, 4, 8 on the
+K1's qkv projection at M = 64, then K4q); K4 at the bf16 Engine's decode
+(B = 16) and chunk (B = 8, S = 16), 32 layers of bf16 pages, on the latent
+planes, and in a captured graph of 32 x (K1's qkv projection at M = 16,
+then K4); K14 at M = 1, 4, 8 on the
 Mistral-7B widths (two weight copies rotated); K13 at ``chip_smoke.py``'s
 five shapes (``K13_CASES``) and in a captured graph of 32 x (K13, then
 K1's qkv projection) at M = 16.
@@ -325,11 +332,15 @@ VARIANTS = {
     "K10q no_wait": (ml.KERNEL, "mla_paged_attention.cu", [(_K10Q_WAIT, "")]),
     "K10 no_mma": (ml.KERNEL, "mla_paged_attention.cu", [(m, "") for m in _K10Q_MMA]),
     "K10 no_wait": (ml.KERNEL, "mla_paged_attention.cu", [(_K10_WAIT, "")]),
-    "K4q no_divide": (pw.KERNEL_INT8, "paged_write_int8.cu", [(_K4Q_QUANT, _K4Q_QUANT.replace("x / scale", "x * scale"))]),
-    "K4q no_pdl": (pw.KERNEL_INT8, "paged_write_int8.cu", [(_K4Q_PDL, _K4Q_PDL.replace("= 1", "= 0"))]),
+    "K4q no_divide": (pw.KERNEL_INT8, "paged_write_rows.cuh", [(_K4Q_QUANT, _K4Q_QUANT.replace("x / scale", "x * scale"))]),
+    "K4q no_pdl": (pw.KERNEL_INT8, "paged_write_rows.cuh", [(_K4Q_PDL, _K4Q_PDL.replace("= 1", "= 0"))]),
     "K4q scalar": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_MAX_UNITS"): 0}),
     "K4q lanes_64": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_LANES"): 64}),
     "K4q lanes_1024": (pw.KERNEL_INT8, "paged_write_int8.cu", [], {(pw, "WRITE_LANES"): 1024}),
+    "K4 no_pdl": (pw.KERNEL, "paged_write.cu", [], {(pw, "WRITE_PDL"): False}),
+    "K4 scalar": (pw.KERNEL, "paged_write.cu", [], {(pw, "WRITE_MAX_UNITS"): 0}),
+    "K4 lanes_64": (pw.KERNEL, "paged_write.cu", [], {(pw, "WRITE_LANES"): 64}),
+    "K4 lanes_1024": (pw.KERNEL, "paged_write.cu", [], {(pw, "WRITE_LANES"): 1024}),
     "K14 drain": (ft.KERNEL, "fused_layer_tail.cu", [
         ("constexpr int kAhead = 2;", "constexpr int kAhead = 0;")]),
     "K14 no_pdl": (ft.KERNEL, "fused_layer_tail.cu", [(_K14_PDL, _K14_PDL.replace("= 1", "= 0"))]),
@@ -391,7 +402,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
                     help="kernels to cut (K1d, K1, K9, K11f, K8, K12, K2, K6q, K5q, K10q, K10, "
-                         "K4q, K14, K13); all "
+                         "K4q, K4, K14, K13); all "
                          "by default")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
@@ -452,8 +463,33 @@ def main(argv=None):
             decode10[k] = (*q, pool[0], pool[1], cs.block_table(gen, dev, g, g["B"]),
                            torch.tensor(lens, dtype=torch.int32, device=dev), pool[2],
                            ds.num_hidden_layers, mla_softmax_scale(ds))
-    # K4q: the INT8 Engine's decode and chunk, DeepSeek's latent planes
-    writes4q, graph4q = {}, None
+    # K4q: the INT8 Engine's decode and chunk, DeepSeek's latent planes; K4:
+    # the bf16 Engine's decode and chunk, the latent planes
+    writes4q, graph4q, writes4, graph4 = {}, None, {}, None
+    if not args.only or "K4" in args.only:
+        from quick_tpu_torch import ModelConfig
+
+        for name, cfg4, dk, dv in (("", ModelConfig(**cs.MISTRAL_7B), None, None),
+                                   ("latent ", ModelConfig.from_hf_config(cs.DEEPSEEK_V2_LITE),
+                                    64, 512)):
+            g = cs.paged_geometry(cfg4)
+            dec, starts = cs.trace_positions(cs.serving_trace(cfg4.vocab_size), g)
+            Hkv = 1 if dk else g["Hkv"]
+            dk, dv = dk or g["D"], dv or g["D"]
+            L = cfg4.num_hidden_layers
+            pool = [torch.zeros((L, g["P"], Hkv, g["page"], d), dtype=torch.bfloat16, device=dev)
+                    for d in (dk, dv)]
+            bt = cs.block_table(gen, dev, g, g["B"]).long()
+            for entry, n, pos in (("decode", 1, dec), ("chunk", g["S"], starts)):
+                pids, offs = cs.span_addresses(bt, g, pos, n)
+                if entry == "decode":
+                    pids = pids[:, :1].contiguous()  # the kernel alone: no copy in the call
+                rows = [torch.randn((len(pos), n, Hkv, d), generator=gen, device=dev)
+                        .to(torch.bfloat16) for d in (dk, dv)]
+                vt = torch.full((len(pos),), n, dtype=torch.int32, device=dev)
+                writes4[f"{name}{entry} B={len(pos)}"] = (pool, rows, pids, offs, vt, entry, L)
+        graph4 = (torch.randn((16, 4096), generator=gen, device=dev).to(torch.bfloat16),
+                  cs.rand_qlinear(gen, dev, 4096, 6144)[0])
     if not args.only or "K4q" in args.only:
         from quick_tpu_torch import ModelConfig
 
@@ -553,29 +589,31 @@ def main(argv=None):
             return {f"{group} decode B=16": cs.device_ms(
                 lambda i: ml.mla_paged_decode_attention_cuda(qc, qp, kpe, c, bt, ln, i % L, scale,
                                                              tiles), 50)}
-        if group == "K4q":
+        if group in ("K4q", "K4"):
+            writes, (x, wq), dec = ((writes4q, graph4q, "decode B=64") if group == "K4q" else
+                                    (writes4, graph4, "decode B=16"))
+
             def write(i, w):
                 pool, rows, pids, offs, vt, entry, L = w
+                tiles = dict(kv_scales=pool[2]) if group == "K4q" else {}
                 if entry == "decode":
                     pw.paged_write_decode(*pool[:2], rows[0][:, 0], rows[1][:, 0], pids[:, 0],
-                                          offs, i % L, kv_scales=pool[2])
+                                          offs, i % L, **tiles)
                 else:
-                    pw.paged_write_chunk(*pool[:2], *rows, pids, offs, vt, i % L,
-                                         kv_scales=pool[2])
+                    pw.paged_write_chunk(*pool[:2], *rows, pids, offs, vt, i % L, **tiles)
             out = {name: cs.device_ms(lambda i, w=w: write(i, w), 200)
-                   for name, w in writes4q.items()}
-            x, wq = graph4q
-            L = writes4q["decode B=64"][-1]
+                   for name, w in writes.items()}
+            L = writes[dec][-1]
 
             def step():
                 for layer in range(L):
                     qm.quantized_matmul_cuda(x, *wq)
-                    write(layer, writes4q["decode B=64"])
+                    write(layer, writes[dec])
             step()  # eager: makes any counters
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 step()
-            out[f"graph {L} x (K1 qkv M=64, K4q decode B=64)"] = cs.device_ms(
+            out[f"graph {L} x (K1 qkv M={x.shape[0]}, {group} {dec})"] = cs.device_ms(
                 lambda i: graph.replay(), 20)
             return out
         if group == "K14":

@@ -92,6 +92,16 @@ class KVCache:
         """Layer ``i``'s K/V as [B, H_kv, S_max, D] views."""
         return self.k[i], self.v[i]
 
+    def take_rows(self, src: torch.Tensor) -> "KVCache":
+        """Reorder the batch rows in place: row r becomes old row
+        ``src[r]`` in every layer of k and v (beam search's reorder, the
+        JAX package's ``take(src, axis=1)`` over the cache pytree,
+        runtime/generate.py:296-300). The lengths stay: every row has the
+        same one. A torch gather, capturable in a graph."""
+        self.k.copy_(self.k.index_select(1, src))
+        self.v.copy_(self.v.index_select(1, src))
+        return self
+
     def with_length(self, length: int) -> "KVCache":
         """Both lengths set to ``length`` (a forward moves them with
         ``advance``)."""

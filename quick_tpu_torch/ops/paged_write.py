@@ -32,7 +32,12 @@ the row in registers, 16-byte units a lane, with every load of the lane
 started before any is used, and writes the codes as 8- or 16-byte stores;
 ``int8_write_plan`` picks the lanes a row and the rows a block (and the
 scalar path for widths of no whole unit or pointers off 16 bytes), and
-``int8_write_lane`` models the kernel's map from lanes to rows.
+``int8_write_lane`` models the kernel's map from lanes to rows. K4 is the
+same body's copy kind (``csrc/paged_write_rows.cuh``): bf16 / f32 rows
+copied as 16-byte units with no scale tile, planned by ``copy_write_plan``
+over the rows' bytes; ``write_lane_units`` models which units (or, on the
+scalar path, which elements) each lane writes. Both are programmatic
+dependent launches (``WRITE_PDL``).
 """
 from __future__ import annotations
 
@@ -50,9 +55,12 @@ KERNEL = CudaKernel(
     "paged_write.cu",
     {"qtt_paged_write": [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        i32, i32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]},
 )
+#: K4 as a programmatic dependent launch (False: a plain one, for a
+#: measurement's comparison); K4q always is one
+WRITE_PDL = True
 
 
 #: K4q, the INT8 page write (one library of its own, so its launches count
@@ -66,10 +74,12 @@ KERNEL_INT8 = CudaKernel(
 )
 #: K4q's input kinds: float rows it quantizes, or int8 codes it copies
 _IN_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
-#: K4q's unit by input kind, in values: what a lane loads at once (one
+#: K4's kind: rows of any dtype copied as bytes (``kCopy``)
+COPY_KIND = 3
+#: the unit by input kind, in values: what a lane loads at once (one
 #: 16-byte vector of bf16 or of int8 codes, two of f32) and writes as one
-#: code store (8 bytes, 16 for copied codes)
-WRITE_UNIT = {0: 8, 1: 8, 2: 16}
+#: code store (8 bytes, 16 for copied codes); K4's in bytes, 16
+WRITE_UNIT = {0: 8, 1: 8, 2: 16, COPY_KIND: 16}
 WRITE_MAX_UNITS = 4  # units a lane holds at most (``kMaxUnits``)
 WRITE_LANES = 256  # lanes a block aims at
 
@@ -122,6 +132,29 @@ def int8_write_plan(Hkv: int, Dk: int, Dv: int, kind: int, tokens: int,
         return Int8WritePlan(lgk, vk, lgv, vv, max(1, min(tokens, WRITE_LANES // (Hkv * per_head))),
                              Hkv)
     return Int8WritePlan(lgk, vk, lgv, vv, 1, max(1, WRITE_LANES // per_head))
+
+
+def copy_write_plan(Hkv: int, Dk: int, Dv: int, esize: int, tokens: int,
+                    aligned: bool = True) -> Int8WritePlan:
+    """K4's plan: ``int8_write_plan``'s in the copy kind over the rows'
+    bytes (``Dk`` / ``Dv`` values of ``esize`` bytes): Mistral's bf16 128-
+    wide rows 16 lanes of one unit, 8 heads x two planes a block of 256
+    lanes; DeepSeek's latent planes 8 + 32 lanes, six tokens a block."""
+    return int8_write_plan(Hkv, Dk * esize, Dv * esize, COPY_KIND, tokens, aligned)
+
+
+def write_lane_units(plan: Int8WritePlan, plane: int, lane: int, D: int, kind: int):
+    """What lane ``lane`` of a plane-``plane`` row writes under ``plan``
+    (``D`` the plane's width in the kind's values, bytes for K4): ("units",
+    [u, ...]) of ``WRITE_UNIT[kind]`` values each, or ("values", [d, ...])
+    on the scalar path, as the kernel's loops run."""
+    lg, V = (plan.lgv, plan.vv) if plane else (plan.lgk, plan.vk)
+    G = 1 << lg
+    if V == 0:
+        return "values", list(range(lane, D, G))
+    units = D // WRITE_UNIT[kind]
+    return "units", [lane + (v << lg) for v in range(min(V, WRITE_MAX_UNITS))
+                     if lane + (v << lg) < units]
 
 
 def int8_write_lane(plan: Int8WritePlan, tokens: int, Hkv: int, bx: int, by: int, t: int):
@@ -238,14 +271,12 @@ def paged_write_cuda(
     """Launch K4 on CUDA tensors; same arguments as the plain version,
     except that the decode entry passes one ``page_ids`` column and no
     ``valid`` (every token written), the chunk entry two columns and
-    ``valid``."""
+    ``valid``. The plan from ``copy_write_plan`` (the scalar path where a
+    row is no whole number of 16-byte units or a pointer is off 16 bytes)."""
     L, P, Hkv, page, D = k_pages.shape
     Dv = v_pages.shape[-1]
     B, S = k_new.shape[:2]
     esize = k_pages.element_size()
-    if (D * esize) % 16 or (Dv * esize) % 16:
-        raise NotImplementedError(
-            f"K4 copies 16-byte chunks: D={D} / Dv={Dv} x {esize} B")
     if S > page or not 0 <= layer < L:
         raise ValueError(f"chunk S={S} > page {page} or layer {layer} outside {L}")
     check(k_pages, "k_pages", k_pages.dtype)
@@ -257,6 +288,8 @@ def paged_write_cuda(
     check(offs, "offs", torch.int32, (B,))
     if valid is not None:
         check(valid, "valid", torch.int32, (B,))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k_pages, v_pages, k_new, v_new))
+    plan = copy_write_plan(Hkv, D, Dv, esize, B * S, aligned)
     KERNEL.launch(
         "qtt_paged_write",
         launch_key("decode" if valid is None else "chunk", B, S, Hkv, page, D,
@@ -264,7 +297,8 @@ def paged_write_cuda(
         k_pages.data_ptr(), v_pages.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), page_ids.data_ptr(), offs.data_ptr(),
         None if valid is None else valid.data_ptr(), B, S, Hkv, page,
-        D * esize, Dv * esize, P, layer, n_pg, L, stream_ptr(k_new.device),
+        D * esize, Dv * esize, P, layer, n_pg, L, *plan, int(WRITE_PDL),
+        stream_ptr(k_new.device),
     )
 
 

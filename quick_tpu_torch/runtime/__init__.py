@@ -1,6 +1,7 @@
 from quick_tpu_torch.modules.paged_cache import PagedKVCache
 from quick_tpu_torch.runtime.generate import (
     SamplingParams,
+    beam_generate,
     decode_loop,
     decode_step,
     filter_logits,
@@ -17,6 +18,7 @@ __all__ = [
     "PagedKVCache",
     "Request",
     "SamplingParams",
+    "beam_generate",
     "decode_loop",
     "decode_step",
     "filter_logits",

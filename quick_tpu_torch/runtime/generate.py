@@ -12,14 +12,18 @@ the CPU, for sampled (temperature > 0) decoding (its draws take a
 the plain einsum route, which slices the cache by the host length.
 History penalties (repetition / frequency / presence, ``apply_penalties``)
 carry a [B, V] count of generated tokens through the steps, inside the
-graph. ``sample_token_rows`` serves the continuous-batching engine.
-``beam_generate`` and the Engine's penalties are not ported yet (ROADMAP
-A6): the Engine refuses penalised ``SamplingParams``.
+graph. ``sample_token_rows`` serves the continuous-batching engine, which
+applies the same penalties under ``Engine(enable_penalties=True)``.
+``beam_generate`` runs beam search over a [B x num_beams]-row dense cache;
+on the card its search step (the beam reorder, a one-token forward,
+log-softmax, top-k and the EOS mask) is captured and replayed as
+``decode_loop``'s is.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -28,7 +32,7 @@ import torch
 from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.device import DeviceLike, to_device
 from quick_tpu_torch.models.model import ModelParams, model_forward
-from quick_tpu_torch.modules.blocks import dense_decode_route
+from quick_tpu_torch.modules.blocks import dense_decode_route, top_k
 from quick_tpu_torch.modules.cache import KVCache
 
 
@@ -38,8 +42,8 @@ class SamplingParams(NamedTuple):
     top_p: float = 1.0
     min_p: float = 0.0        # keep tokens with prob >= min_p * max_prob
     # history-dependent penalties (vLLM/OpenAI semantics), as in the JAX
-    # package: applied by generate() and decode_loop(); refused by the
-    # Engine (ROADMAP A6)
+    # package: applied by generate(), decode_loop() and the Engine (with
+    # enable_penalties=True)
     repetition_penalty: float = 1.0
     frequency_penalty: float = 0.0
     presence_penalty: float = 0.0
@@ -50,16 +54,6 @@ class SamplingParams(NamedTuple):
             self.repetition_penalty != 1.0
             or self.frequency_penalty != 0.0
             or self.presence_penalty != 0.0
-        )
-
-
-def refuse_penalties(sampling: Optional[SamplingParams]) -> None:
-    """Raise for sampling parameters that need history penalties (the
-    Engine's)."""
-    if sampling is not None and sampling.has_penalties:
-        raise NotImplementedError(
-            "history penalties (repetition / frequency / presence) in the "
-            "Engine are not ported yet — ROADMAP A6"
         )
 
 
@@ -328,3 +322,100 @@ def generate(
         gen = torch.where(hit, torch.full_like(gen, eos_token_id), gen)
         out = torch.cat([out[:, :S], gen], dim=1)
     return out
+
+
+@torch.inference_mode()
+def beam_generate(
+    params: ModelParams,
+    cfg: ModelConfig,
+    prompt_tokens: torch.Tensor,  # [B, S]
+    max_new_tokens: int,
+    num_beams: int = 4,
+    length_penalty: float = 1.0,
+    eos_token_id: Optional[int] = None,
+    max_seq: Optional[int] = None,
+    _graph: Optional[bool] = None,  # None: capture where ``graphable``;
+    # False: the eager search (a measurement's or a test's comparison)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search (``beam_generate`` :245-346). The prompts are tiled to
+    B x num_beams rows, one prefill each; only beam 0 is live at the first
+    step. Each step ranks the [B, num_beams x V] cumulative candidates in
+    ``lax.top_k``'s order (``blocks.top_k``), reorders the beams' cache rows,
+    histories and lengths by a batch-axis gather (``KVCache.take_rows``),
+    and runs one token per row. A beam that emitted ``eos_token_id`` only
+    extends with EOS at cost 0 and stops growing. Returns (tokens [B, S +
+    max_new_tokens] int64, scores [B] f32): per batch row the beam with the
+    best ``score / max(length, 1) ** length_penalty``, and its summed
+    logprob.
+
+    On the card the step is captured once (after an eager first step) and
+    replayed, where every layer reads the cache length on the device
+    (``graphable``); a layer on the plain einsum route keeps the search
+    eager, with a warning."""
+    B, S = prompt_tokens.shape
+    nb, V, n = num_beams, cfg.vocab_size, max_new_tokens
+    R = B * nb
+    if max_seq is None:
+        max_seq = S + n
+    dev = params.embed.device
+    prompt_tokens = prompt_tokens.to(dev)
+    cache = make_cache(cfg, R, max_seq, device=dev)
+    logits, cache = prefill(params, cfg, prompt_tokens.repeat_interleave(nb, dim=0), cache)
+    # the search's static state, advanced in place by each step
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)  # [R, V]
+    scores = torch.where(torch.arange(R, device=dev) % nb == 0, 0.0, -1e9).to(torch.float32)
+    hist = torch.zeros((R, n), dtype=torch.int64, device=dev)
+    lens = torch.zeros((R,), dtype=torch.int32, device=dev)
+    pos = torch.zeros((1,), dtype=torch.int64, device=dev)  # the step's column of hist
+    base = (torch.arange(B, device=dev) * nb)[:, None]
+    eos_row = None
+    if eos_token_id is not None:
+        eos_row = torch.full((V,), -1e9, dtype=torch.float32, device=dev)
+        eos_row[eos_token_id] = 0.0
+    cache.check_room(n)  # a replayed step cannot raise
+    cache = dataclasses.replace(cache, length_dev=cache.length_dev.clone())
+
+    def step(cache):
+        cand = (scores[:, None] + logp).reshape(B, nb * V)
+        top, idx = top_k(cand, nb)  # [B, nb]
+        src = (base + idx // V).reshape(-1)
+        tok = (idx % V).reshape(-1)
+        cache.take_rows(src)
+        hist.copy_(hist.index_select(0, src))
+        lens.copy_(lens.index_select(0, src))
+        scores.copy_(top.reshape(-1))
+        hist.index_copy_(1, pos, tok[:, None])
+        logits, nxt = decode_step(params, cfg, tok, cache)
+        cache.length_dev.copy_(nxt.length_dev)
+        nxt = dataclasses.replace(nxt, length_dev=cache.length_dev)
+        lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        if eos_row is None:
+            lens.add_(1)
+        else:
+            frozen = tok == eos_token_id
+            lp = torch.where(frozen[:, None], eos_row[None, :], lp)
+            lens.add_((~frozen).to(torch.int32))
+        logp.copy_(lp)
+        pos.add_(1)
+        return nxt
+
+    if n > 0:
+        use_graph = graphable(params, cfg, cache, SamplingParams()) if _graph is None else _graph
+        if _graph is None and cache.k.is_cuda and not use_graph:
+            warnings.warn("beam_generate: a layer attends through the einsum route; the "
+                          "search runs eager")
+        cache = step(cache)  # eager: builds and allocates what a capture needs
+        if use_graph and n > 1:
+            from quick_tpu_torch.runtime.graphs import StepGraph
+
+            graph = StepGraph(lambda: step(cache))
+            for _ in range(n - 1):
+                graph.replay()
+        else:
+            for _ in range(n - 1):
+                cache = step(cache)
+    ranked = scores / torch.clamp(lens, min=1).to(torch.float32) ** length_penalty
+    best = torch.argmax(ranked.reshape(B, nb), dim=1)
+    rows = torch.arange(B, device=dev) * nb + best
+    out = torch.cat([prompt_tokens.to(torch.int64), hist[rows]], dim=1)
+    return out, scores.reshape(B, nb)[torch.arange(B, device=dev), best]

@@ -41,9 +41,18 @@ plus per-page scale tiles, written by K4q and read by K5q / K6q on the
 card); preemption and the prefix cache hand pages on whole, scale tiles
 with them. MLA models (DeepSeek-V2 / V3) serve from paged LATENT pages:
 one kv head, k_pe in the k plane, the latent in the v plane, bf16 or INT8,
-read at decode by K10 / K10q. Not ported, each raising
-``NotImplementedError``: tensor-parallel serving (``mesh``, ROADMAP A15),
-history penalties and ``logit_bias`` (``enable_penalties``, ROADMAP A6).
+read at decode by K10 / K10q. Not ported, raising ``NotImplementedError``:
+tensor-parallel serving (``mesh``, ROADMAP A15).
+
+``enable_penalties=True`` keeps the JAX Engine's per-slot penalty state on
+the device, three static [max_slots, V] buffers: the generated-token counts
+(int32), the prompt-token mask (int8) and the additive ``logit_bias`` row
+(f32), rebuilt on the host at each admission (and so after a preemption).
+Every program applies ``apply_penalties`` and the bias to its rows before
+it samples (the delivered logprobs are post-penalty) and counts the tokens
+it will deliver; a greedy window replays the penalised step as one graph.
+Without it, penalised ``SamplingParams`` and ``logit_bias`` raise the JAX
+Engine's ``ValueError``.
 
 The JAX package's two switches: ``QUICK_TPU_ENGINE_TIMING=1`` (read when the
 Engine is made) fills ``timing`` with the host seconds of each phase of a
@@ -66,7 +75,7 @@ from quick_tpu_torch.config import ModelConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device, to_device
 from quick_tpu_torch.models.model import ModelParams, check_supported, model_forward
 from quick_tpu_torch.modules.paged_cache import TRASH_PAGE, PageAllocator, PagedKVCache
-from quick_tpu_torch.runtime.generate import SamplingParams, refuse_penalties, sample_token_rows
+from quick_tpu_torch.runtime.generate import SamplingParams, apply_penalties, sample_token_rows
 from quick_tpu_torch.runtime.prefix_cache import PrefixCache, page_hashes
 
 
@@ -85,7 +94,11 @@ class Request:
     sampling: Optional[tuple] = None
     # runtime state
     output: List[int] = dataclasses.field(default_factory=list)
-    # per delivered token: its logprob under the model distribution, and
+    # OpenAI logit_bias: {token_id: additive bias} added to every sampling
+    # distribution of this request (needs enable_penalties)
+    logit_bias: Optional[dict] = None
+    # per delivered token: its logprob under the (post-penalty) model
+    # distribution, and
     # with Engine(logprobs_topk=K) the top-K [(token_id, logprob), ...]
     logprobs: List[float] = dataclasses.field(default_factory=list)
     top_logprobs: List[list] = dataclasses.field(default_factory=list)
@@ -103,7 +116,7 @@ class Request:
     # once output has grown past it (the prefill-completion sample landed)
     resume_out: int = 0
     admit_seq: int = 0  # admission order; preemption evicts the youngest
-    # cached [4] f32 sampling row (temp, top_k, top_p, min_p)
+    # cached [7] f32 sampling row (temp, top_k, top_p, min_p, rep, freq, pres)
     _samp_np: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
     #: scheduling priority (higher admits first; ties FIFO). Preemption
     #: evicts the lowest-priority slot first, youngest within a priority.
@@ -212,12 +225,8 @@ class Engine:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet — ROADMAP A15"
             )
-        if enable_penalties:
-            raise NotImplementedError(
-                "history penalties and logit_bias (enable_penalties) are not "
-                "ported yet — ROADMAP A6"
-            )
-        refuse_penalties(sampling)
+        if sampling is not None and sampling.has_penalties and not enable_penalties:
+            raise ValueError("history penalties need Engine(enable_penalties=True)")
         check_supported(cfg)  # other families raise (A12)
         dev = resolve_device(device)
         if params.embed.device.type != dev.type:
@@ -251,6 +260,13 @@ class Engine:
             raise ValueError(f"reserve must be 'full'|'optimistic': {reserve}")
         self.optimistic = reserve == "optimistic"
         self.topk = int(logprobs_topk)
+        self.penalties = enable_penalties
+        if enable_penalties:
+            # per slot: generated-token counts, prompt-token mask, logit_bias
+            V = cfg.vocab_size
+            self.counts = torch.zeros((max_slots, V), dtype=torch.int32, device=self.device)
+            self.pseen = torch.zeros((max_slots, V), dtype=torch.int8, device=self.device)
+            self.lbias = torch.zeros((max_slots, V), dtype=torch.float32, device=self.device)
         self.alloc = PageAllocator(n_pages)
         self._admit_seq = 0
         self.prefix: Optional[PrefixCache] = PrefixCache(self.alloc) if prefix_cache else None
@@ -268,7 +284,8 @@ class Engine:
         # (token, valid, lengths); keyed by the page and table tensors it reads
         self._graphs = _graphs and self.device.type == "cuda"
         self._graph = self._graph_key = None
-        self._g_tok = self._g_valid = self._g_len = None
+        self.graph_replays = 0  # replays of the captured step (windows' steps)
+        self._g_tok = self._g_valid = self._g_len = self._g_pen = None
         # completed prefills' first-token samples not yet fetched:
         # (_Fetch, [(row, slot, request)], dispatch seq) — see _drain_pending
         self._pending = []
@@ -308,6 +325,32 @@ class Engine:
         )
         return logits[:, 0], cache
 
+    def _penalised(self, row, pen, rows=None):
+        """Under ``enable_penalties``: the rows' logits with the history
+        penalties and the logit bias applied (:357-359), ``pen`` the
+        [3, B] (rep, freq, pres) on the device and ``rows`` the slots of a
+        gathered sub-batch (None: every slot)."""
+        if not self.penalties:
+            return row
+        c, m, b = ((self.counts, self.pseen, self.lbias) if rows is None else
+                   (self.counts[rows], self.pseen[rows], self.lbias[rows]))
+        return apply_penalties(row, c, m, pen[0], pen[1], pen[2]) + b
+
+    def _count(self, tokens, emit, rows=None) -> None:
+        """Add ``emit`` [B] (1 for a sample that will be delivered) to each
+        row's slot count of its sampled token."""
+        if self.penalties:
+            slots = torch.arange(self.max_slots, device=self.device) if rows is None else rows
+            self.counts.index_put_((slots, tokens.to(torch.int64)), emit.to(torch.int32),
+                                   accumulate=True)
+
+    def _pen_rows(self, samp):
+        """The (rep, freq, pres) rows of ``_samp_rows`` as one [3, B] f32
+        device tensor, or None without penalties."""
+        if not self.penalties:
+            return None
+        return self._dev(np.ascontiguousarray(np.stack(samp[4:7])))
+
     def _draw(self, row: torch.Tensor, samp):
         """Sample one token per row and its logprob. Returns (tl [B, 2] int32
         (token, bitcast-f32 logprob), tk [B, K, 2] int32 (id, bitcast-f32
@@ -335,9 +378,11 @@ class Engine:
         if self._graphs and not (np.asarray(samp[0]) > 0).any():
             return self._window_graphed(tokens, valid, samp, W, tl_all, tk_all)
         cache = self.cache
+        pen = self._pen_rows(samp)
         for i in range(W):
             row, cache = self._forward_rows(cache, tokens, valid)
-            tl, tk = self._draw(row, samp)
+            tl, tk = self._draw(self._penalised(row, pen), samp)
+            self._count(tl[:, 0], valid)
             tl_all[:, i] = tl
             if tk_all is not None:
                 tk_all[:, i] = tk
@@ -350,7 +395,8 @@ class Engine:
         sampled token feeds the next step, the lengths advance in place."""
         cache = dataclasses.replace(self.cache, length=self._g_len)
         row, cache = self._forward_rows(cache, self._g_tok, self._g_valid)
-        tl, tk = self._draw(row, samp)
+        tl, tk = self._draw(self._penalised(row, self._g_pen), samp)
+        self._count(tl[:, 0], self._g_valid)
         self._g_len.copy_(cache.length)
         self._g_tok.copy_(tl[:, :1].to(torch.int64))
         return tl, tk
@@ -369,7 +415,11 @@ class Engine:
             self._g_tok = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
             self._g_valid = torch.zeros((B,), dtype=torch.int32, device=self.device)
             self._g_len = torch.zeros((B,), dtype=torch.int32, device=self.device)
+            if self.penalties:
+                self._g_pen = torch.zeros((3, B), dtype=torch.float32, device=self.device)
         self._g_tok.copy_(tokens)
+        if self.penalties:
+            self._g_pen.copy_(self._pen_rows(samp))
         self._g_valid.copy_(valid)
         self._g_len.copy_(c.length)
         first = 0
@@ -383,6 +433,7 @@ class Engine:
         tl, tk = self._graph.out
         for i in range(first, W):
             self._graph.replay()
+            self.graph_replays += 1
             tl_all[:, i] = tl
             if tk_all is not None:
                 tk_all[:, i] = tk
@@ -401,9 +452,10 @@ class Engine:
         logit_bias: Optional[dict] = None,
         priority: int = 0,  # higher admits first; preempted last
     ) -> int:
-        if logit_bias:
-            raise NotImplementedError("logit_bias is not ported yet — ROADMAP A6")
-        refuse_penalties(sampling)
+        if sampling is not None and sampling.has_penalties and not self.penalties:
+            raise ValueError("history penalties need Engine(enable_penalties=True)")
+        if logit_bias and not self.penalties:
+            raise ValueError("logit_bias needs Engine(enable_penalties=True)")
         if not prompt:
             raise ValueError("empty prompt")
         full_need = -(-(len(prompt) + max_new_tokens) // self.page_size)
@@ -420,7 +472,7 @@ class Engine:
         req = Request(
             uid, list(prompt), max_new_tokens, eos_token_id,
             frozenset(stop_token_ids) if stop_token_ids else None,
-            on_token, sampling, priority=priority,
+            on_token, sampling, logit_bias=dict(logit_bias or {}) or None, priority=priority,
         )
         self.queue.append(req)
         # uid -> Request registry (logprobs live here); callers pop it
@@ -428,11 +480,13 @@ class Engine:
         return uid
 
     def _samp_rows(self, reqs):
-        """Per-row sampling host arrays (temps, top_ks, top_ps, min_ps).
-        None rows (idle or padding) are greedy, so an all-greedy batch stays
-        on the argmax-only path of sample_token_rows."""
-        m = np.zeros((len(reqs), 4), np.float32)
+        """Per-row sampling host arrays (temps, top_ks, top_ps, min_ps), and
+        under ``enable_penalties`` (reps, freqs, press) after them. None rows
+        (idle or padding) are greedy and unpenalised, so an all-greedy batch
+        stays on the argmax-only path of sample_token_rows."""
+        m = np.zeros((len(reqs), 7), np.float32)
         m[:, 2] = 1.0  # top_p
+        m[:, 4] = 1.0  # repetition_penalty
         for i, r in enumerate(reqs):
             if r is None:
                 continue
@@ -440,12 +494,14 @@ class Engine:
             if row is None:
                 sp = r.sampling or self.sampling
                 row = np.asarray(
-                    [sp.temperature, sp.top_k, sp.top_p, getattr(sp, "min_p", 0.0)],
+                    [sp.temperature, sp.top_k, sp.top_p, getattr(sp, "min_p", 0.0),
+                     sp.repetition_penalty, sp.frequency_penalty, sp.presence_penalty],
                     np.float32,
                 )
                 r._samp_np = row
             m[i] = row
-        return m[:, 0], m[:, 1].astype(np.int64), m[:, 2], m[:, 3]
+        base = (m[:, 0], m[:, 1].astype(np.int64), m[:, 2], m[:, 3])
+        return base + (m[:, 4], m[:, 5], m[:, 6]) if self.penalties else base
 
     def pop_finished(self, uid: int) -> Optional[List[int]]:
         """Release a completed request's bookkeeping (its ``finished``
@@ -505,6 +561,23 @@ class Engine:
         row[: len(pages)] = pages
         self.cache.block_table[slot] = self._dev(row)
 
+    def _set_penalty_rows(self, slot: int, req: Request) -> None:
+        """The slot's penalty state, rebuilt on the host at admission
+        (:686-706): the prompt's tokens marked seen (repetition), the output
+        already delivered (a preempted request's) counted (frequency and
+        presence), and the request's ``logit_bias`` row."""
+        V = self.cfg.vocab_size
+        seen = np.zeros((V,), np.int8)
+        seen[np.asarray(req.prompt, np.int64)] = 1
+        cnt = np.bincount(np.asarray(req.output, np.int64), minlength=V).astype(np.int32)
+        bias = np.zeros((V,), np.float32)
+        for tid, b in (req.logit_bias or {}).items():
+            if 0 <= int(tid) < V:
+                bias[int(tid)] = float(b)
+        self.pseen[slot] = self._dev(seen)
+        self.counts[slot] = self._dev(cnt[:V])
+        self.lbias[slot] = self._dev(bias)
+
     def _reset_slot(self, slot: int) -> None:
         # an idle slot still takes part in every batched step (padding
         # tokens): its writes must land on the trash page, never on pages
@@ -554,6 +627,8 @@ class Engine:
             req.admit_seq = self._admit_seq
             self._admit_seq += 1
             self.slots[slot] = req
+            if self.penalties:
+                self._set_penalty_rows(slot, req)
             self.slot_pages[slot] = pages
             self._set_table_row(slot, pages)
             # reused prefix pages are valid context: the slot starts
@@ -758,7 +833,17 @@ class Engine:
                 tokens[slot, 0] = req.output[-1] if req.output else req.prompt[-1]
                 valid[slot] = 1
         row, self.cache = self._forward_rows(self.cache, self._dev(tokens), self._dev(valid))
-        tl, tk = self._draw(row, self._samp_rows(self.slots))
+        samp = self._samp_rows(self.slots)
+        tl, tk = self._draw(self._penalised(row, self._pen_rows(samp)), samp)
+        if self.penalties:
+            # count only the samples the host will deliver: decode rows and
+            # prefill completions (:1006-1013)
+            emit = np.zeros((B,), np.int32)
+            for s2, r2 in enumerate(self.slots):
+                if r2 is not None and (r2.prefill_done
+                                       or r2.prefill_cursor + int(valid[s2]) >= r2._resume):
+                    emit[s2] = 1
+            self._count(tl[:, 0], self._dev(emit))
         arr, tk = _Fetch(tl, tk).get()
         if self._timed:
             self.timing["mixed"] += time.perf_counter() - t0
@@ -888,7 +973,13 @@ class Engine:
         self._dispatch_seq += 1
         if fin:
             samp = self._samp_rows([self.slots[s] for s in rows] + [None] * (P - len(rows)))
-            self._pending.append((_Fetch(*self._draw(row, samp)), fin, self._dispatch_seq))
+            tl, tk = self._draw(self._penalised(row, self._pen_rows(samp), ids), samp)
+            if self.penalties:  # the completion samples, delivered via pending
+                emit = np.zeros((P,), np.int32)
+                for i, _, _ in fin:
+                    emit[i] = 1
+                self._count(tl[:, 0], self._dev(emit), ids)
+            self._pending.append((_Fetch(tl, tk), fin, self._dispatch_seq))
         if self._timed:
             self.timing["prefill_dispatch"] += time.perf_counter() - t0
 

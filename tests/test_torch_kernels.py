@@ -1507,6 +1507,57 @@ def test_paged_write_int8_kernel_edges(rng, cuda_device, widths, rows):
         assert not torch.equal(got[2][:, 1:].cpu(), tiles[:, 1:])  # something was written
 
 
+#: K4's widths beyond test_paged_write_kernel_matches_plain's (Hkv, Dk, Dv,
+#: rows off 16 bytes): MLA's latent planes, rows of no whole 16-byte unit
+#: (the scalar path), Mistral's rows off 16 bytes (the scalar path), 32
+#: heads (a token over four blocks)
+K4_EDGE_WIDTHS = {"latent": (1, 64, 512, False), "no_whole_unit": (2, 20, 36, False),
+                  "off_16_bytes": (8, 128, 128, True), "many_heads": (32, 128, 128, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths", list(K4_EDGE_WIDTHS))
+def test_paged_write_kernel_edges(rng, cuda_device, widths, dtype):
+    """K4 at the other widths, on the scalar path and with a page id outside
+    the pool (no write), both entries, with and without its programmatic
+    dependent launch: pages byte-equal to the plain scatter outside the
+    trash page 0."""
+    Hkv, Dk, Dv, off = K4_EDGE_WIDTHS[widths]
+    L, P, page, B, S = 2, 9, 16, 4, 8
+    for entry in ("decode", "chunk"):
+        for pdl in (True, False):
+            n = 1 if entry == "decode" else S
+            pages = [_randn(rng, L, P, Hkv, page, D).to(dtype) for D in (Dk, Dv)]
+            kn, vn = (_randn(rng, B, n, Hkv, D).to(dtype) for D in (Dk, Dv))
+            pgs = torch.tensor([[3, 4], [5, 0], [0, 0], [P + 3, 2]], dtype=torch.int32)
+            offs = torch.tensor([12, 2, 9, 1], dtype=torch.int32)  # crossing, inside, trash, bad
+            valid = torch.tensor([S, 5, S, S], dtype=torch.int32)
+            ref = [t.clone() for t in pages]
+            got = [t.to(cuda_device) for t in pages]
+            kd, vd = kn.to(cuda_device), vn.to(cuda_device)
+            if off:
+                kd, vd = _off16(kd), _off16(vd)
+            before = tpw.KERNEL.launches
+            tpw.WRITE_PDL = pdl
+            try:
+                if entry == "decode":
+                    tpw.paged_write_decode(*ref, kn[:3, 0], vn[:3, 0], pgs[:3, 0], offs[:3], 1)
+                    tpw.paged_write_decode(*got, kd[:, 0], vd[:, 0], pgs[:, 0].to(cuda_device),
+                                           offs.to(cuda_device), 1)
+                else:
+                    tpw.paged_write_chunk(*ref, kn[:3], vn[:3], pgs[:3], offs[:3], valid[:3], 1)
+                    tpw.paged_write_chunk(*got, kd, vd, pgs.to(cuda_device),
+                                          offs.to(cuda_device), valid.to(cuda_device), 1)
+            finally:
+                tpw.WRITE_PDL = True
+            torch.cuda.synchronize()
+            assert tpw.KERNEL.launches == before + 1
+            for r, g, p in zip(ref, got, pages):
+                assert torch.equal(g[:, 1:].cpu(), r[:, 1:]), (entry, pdl)
+                assert not torch.equal(g[:, 1:].cpu(), p[:, 1:])  # something was written
+
+
 # ------------------------------------------------------- W4A8 and RMSNorm
 
 def _a8_case(rng, M, K, N, G):
@@ -2107,3 +2158,73 @@ def test_graphed_engine_matches_eager(cuda_device, monkeypatch, name):
     # without the trash page, which idle slots' rows write in no fixed order
     _assert_planes_equal(c_e, c_g, ("k_pages", "v_pages"), first_page=TRASH_PAGE + 1)
     assert n_eager == n_graphed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nb", [(2, 4), (4, 4)])
+def test_graphed_beam_search_matches_eager(cuda_device, monkeypatch, B, nb):
+    """beam_generate with its search step (the beam reorder, a one-token
+    forward on K3 at 8 rows or K7 at 16, log-softmax, top-k, the EOS mask)
+    replayed from a CUDA graph against the eager search: the same beams,
+    scores and launch counts."""
+    from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.runtime import beam_generate
+
+    monkeypatch.setenv("QUICK_TPU_LAYER_TAIL", "0")
+    cfg = ModelConfig(**_LLAMA)
+    params = init_quant_params(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, 16), generator=gen, device=cuda_device)
+    eos = int(beam_generate(params, cfg, prompt, 12, nb, max_seq=1024)[0][0, 18])
+    (eager, sc_e), n_eager = _counted(lambda: beam_generate(
+        params, cfg, prompt, 12, nb, eos_token_id=eos, max_seq=1024, _graph=False))
+    (graphed, sc_g), n_graphed = _counted(lambda: beam_generate(
+        params, cfg, prompt, 12, nb, eos_token_id=eos, max_seq=1024))
+    assert torch.equal(eager, graphed) and torch.equal(sc_e, sc_g)
+    assert n_eager == n_graphed
+    kern = "fused_decode_step" if B * nb <= 8 else "decode_attention"
+    assert sum(n_graphed[kern].values()) == 12 * cfg.num_hidden_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("llama_k3", torch.bfloat16), ("llama_k3", torch.int8),
+                                        ("mixtral", torch.bfloat16),
+                                        ("deepseek_v2", torch.bfloat16),
+                                        ("deepseek_v2", torch.int8)])
+def test_graphed_penalised_engine_matches_eager(cuda_device, monkeypatch, name, dtype):
+    """Engine(enable_penalties=True) over bf16 and INT8 pages, dense, MoE
+    and MLA: penalised and biased requests with greedy windows replayed from
+    the captured step (the penalties, the bias and the count update inside
+    it) against eager windows: the same streams, stats, pages and launch
+    counts, and the graph replayed."""
+    from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.runtime import Engine, SamplingParams
+
+    kw, G, _, _, _ = GRAPH_MODELS[name]
+    monkeypatch.setenv("QUICK_TPU_LAYER_TAIL", "0")
+    cfg = ModelConfig(**kw)
+    params = init_quant_params(cfg, seed=0, group_size=G, device=cuda_device)
+    rng = np.random.default_rng(4)
+    pen = SamplingParams(repetition_penalty=1.2, frequency_penalty=0.5, presence_penalty=0.5)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(n)).tolist(), int(m))
+            for n, m in zip(rng.integers(3, 30, 6), rng.integers(4, 20, 6))]
+
+    def run(graphs):
+        eng = Engine(params, cfg, max_slots=4, max_seq=64, page_size=16, chunk=8,
+                     decode_window=4, dtype=dtype, enable_penalties=True, device=cuda_device,
+                     _graphs=graphs)
+        uids = [eng.submit(p, m, sampling=pen if i % 2 == 0 else None,
+                           logit_bias={p[-1]: 5.0} if i % 4 == 1 else None)
+                for i, (p, m) in enumerate(reqs)]
+        out = eng.run()
+        return [out[u] for u in uids], eng.stats, eng.cache, eng.graph_replays
+
+    (eager, st_e, c_e, r_e), n_eager = _counted(lambda: run(False))
+    (graphed, st_g, c_g, r_g), n_graphed = _counted(lambda: run(True))
+    assert eager == graphed and st_e == st_g and n_eager == n_graphed
+    assert r_e == 0 < r_g
+    assert [len(o) for o in graphed] == [m for _, m in reqs]
+    names = ("k_pages", "v_pages") + (("kv_scales",) if dtype == torch.int8 else ())
+    _assert_planes_equal(c_e, c_g, names, first_page=TRASH_PAGE + 1)

@@ -152,9 +152,24 @@ def test_sample_token_rows_greedy_rows_match_jax(rng):
     (dict(mesh=object()), "A15"), (dict(enable_penalties=True), "A6"),
 ])
 def test_engine_refuses_unported_options(models, kw, match):
-    _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match=match):
-        Engine(tparams, tcfg, device="cpu", **GEOMETRY, **kw)
-    eng = Engine(tparams, tcfg, device="cpu", **GEOMETRY)
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.submit([1, 2], 3, logit_bias={5: 1.0})
+    """``mesh`` (ROADMAP A15) is refused. ``enable_penalties`` (A6, ported)
+    behaves as in the JAX Engine: it constructs and a ``logit_bias`` that
+    outweighs every logit forces its token in both engines; without it, a
+    ``logit_bias`` raises the JAX Engine's ValueError in both."""
+    jcfg, jparams, tcfg, tparams = models
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match=match):
+            Engine(tparams, tcfg, device="cpu", **GEOMETRY, **kw)
+    else:
+        outs = []
+        for engine_cls, params, cfg, dev in ((Engine, tparams, tcfg, dict(device="cpu")),
+                                             (JaxEngine, jparams, jcfg, {})):
+            eng = engine_cls(params, cfg, **GEOMETRY, **kw, **dev)
+            uid = eng.submit([1, 2], 3, logit_bias={5: 1e4})
+            outs.append(eng.run()[uid])
+        assert outs[0] == outs[1] == [5, 5, 5]
+    for engine_cls, params, cfg, dev in ((Engine, tparams, tcfg, dict(device="cpu")),
+                                         (JaxEngine, jparams, jcfg, {})):
+        eng = engine_cls(params, cfg, **GEOMETRY, **dev)
+        with pytest.raises(ValueError, match="enable_penalties"):
+            eng.submit([1, 2], 3, logit_bias={5: 1.0})

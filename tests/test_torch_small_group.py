@@ -2,8 +2,8 @@
 K9's plain version against the Pallas ``_make_kernel_dequant`` (interpret
 mode) and the JAX package's jnp route, K8's plain version at small G
 against ``_grouped_fallback``, tiny g=32 llama and g=64 qwen2_moe models
-through greedy generate(), and the Engine's refusal of history penalties
-(ROADMAP A6)."""
+through greedy generate(), and SamplingParams' history penalties at every
+entry point (the Engine's only under enable_penalties, ROADMAP A6)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -199,8 +199,10 @@ PENALTIES = [dict(repetition_penalty=1.1), dict(frequency_penalty=0.5),
 def test_penalty_fields_construct_and_every_entry_point_refuses_them(kw):
     """The JAX package's three penalty fields construct (no TypeError), carry
     the same defaults and ``has_penalties``; generate() and decode_loop()
-    apply them (tests/test_torch_penalties.py holds their values), the
-    Engine and Engine.submit raise NotImplementedError naming A6."""
+    apply them (tests/test_torch_penalties.py holds their values). The
+    Engine and Engine.submit raise the JAX Engine's ValueError naming
+    ``enable_penalties`` without it, and with it serve the request
+    (tests/test_torch_engine_penalties.py holds the streams)."""
     sp = SamplingParams(**kw)
     assert sp.has_penalties == JaxSamplingParams(**kw).has_penalties is True
     assert SamplingParams()._asdict() == JaxSamplingParams()._asdict()
@@ -211,10 +213,14 @@ def test_penalty_fields_construct_and_every_entry_point_refuses_them(kw):
     assert tuple(generate(params, cfg, toks, 2, sampling=sp).shape) == (1, 6)
     cache = make_cache(cfg, 1, 8, device="cpu")
     assert tuple(decode_loop(params, cfg, toks[:, 0], cache, 2, sp)[0].shape) == (1, 2)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="enable_penalties"):
         Engine(params, cfg, max_slots=2, max_seq=16, page_size=16, sampling=sp, device="cpu")
     eng = Engine(params, cfg, max_slots=2, max_seq=16, page_size=16, chunk=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="enable_penalties"):
         eng.submit([1, 2, 3], 2, sampling=sp)
     uid = eng.submit([1, 2, 3], 2, sampling=SamplingParams())
+    assert len(eng.run()[uid]) == 2
+    eng = Engine(params, cfg, max_slots=2, max_seq=16, page_size=16, chunk=4,
+                 enable_penalties=True, device="cpu")
+    uid = eng.submit([1, 2, 3], 2, sampling=sp)
     assert len(eng.run()[uid]) == 2
