@@ -140,7 +140,19 @@ Phases (any failure exits non-zero):
  15. the Engine under enable_penalties=True on phase 5's trace and model
      (half the requests penalised, a quarter with a logit_bias): as phase 5
      (counted, timed, beside phase 5's run), its greedy windows replayed,
-     then graphed against eager windows over bf16 and INT8 pages.
+     then graphed against eager windows over bf16 and INT8 pages;
+ 16. AWQ: (a) AutoQuickModel.quantize(calib) at Mistral-7B width, 4 of 32
+     layers (random float weights, 8 embedding channels x 8), 32 x 512
+     synthetic calibration tokens: K2 and K13 at their exact counts, each
+     block's seconds, the peak memory; (b) each block's search again on the
+     plain route (QUICK_TPU_FLASH=0, plain norms) from the same input: scale
+     picks, clip-pick agreement, the packed codes before the first moved
+     pick, x_next with the kernel route's clips imposed; (c) the float, RTN
+     and AWQ models scored on 4 held-out windows of 512 (evaluate_perplexity,
+     eval_kl_divergence: K1, K2, K13), KL_AWQ < 2.5 x KL_RTN; (d) one block
+     each of Mixtral-8x7B and DeepSeek-V2-Lite (layer 1's shapes, g=64) at
+     full width, timed, the packed block's forward (K8, K9) against the
+     plain path on the CPU.
      On the card generate()'s decode loop and the Engine's greedy windows
      replay a captured step; a replay adds the launches counted at capture.
      Launch counts exact throughout, K13's in every phase.
@@ -3844,8 +3856,9 @@ def plain_norms():
     from quick_tpu_torch.models import model
     from quick_tpu_torch.modules import blocks, mla
     from quick_tpu_torch.ops import norms, quantized_matmul as qm
+    from quick_tpu_torch.quantize import awq
 
-    mods = (norms, blocks, mla, model, qm)
+    mods = (norms, blocks, mla, model, qm, awq)
     orig = [m.rms_norm for m in mods]
     for m in mods:
         m.rms_norm = norms.rms_norm_plain
@@ -4477,6 +4490,350 @@ def phase15_penalties(params, cfg, unpenalised: dict, int8_trace) -> dict:
     return counts, st
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: AWQ on the card (the scale / clip search, its quality, two more
+# widths)
+# ---------------------------------------------------------------------------
+
+#: examples/basic_quant.py's calibration (--n_calib_samples 32 --calib_block
+#: 512) from get_calib_tokens' synthetic draw; Mistral-7B width at AWQ_LAYERS
+#: of its 32 layers; AWQ_HOT embedding channels boosted x AWQ_BOOST, as
+#: tools/mla_rtn_kl.py:50-56 does (random weights have no outlier channels,
+#: the regime AWQ exists for)
+AWQ_CALIB = dict(n_samples=32, block_size=512)
+AWQ_LAYERS = 4
+AWQ_HOT, AWQ_BOOST = 8, 8.0
+#: held-out scoring: AWQ_EVAL_WINDOWS windows of 512 tokens from seed 1
+AWQ_EVAL_WINDOWS = 4
+#: tests/test_awq.py:104: AWQ's mean KL must stay below 2.5 x RTN's
+AWQ_KL_BOUND = 2.5
+#: [16b] a scale pick may differ between the kernel and the plain route only
+#: where both routes' losses at the two picks lie within this relative gap
+AWQ_PICK_GAP = 1e-2
+#: [16b] the share of each clip search's (group, channel) picks that must
+#: agree between the routes
+AWQ_CLIP_AGREE = 0.95
+#: [16b] x_next of the plain route, the kernel route's clips imposed, within
+#: AWQ_XNEXT_TOL * (1 + |ref|): K2 rounds p to bf16 and K13 rounds once, a
+#: bf16 step of the attention and norm outputs that the MLP (gate_up over
+#: 4096, SiLU-GLU, down over 14336) carries to a few steps on the boosted
+#: channels (0.020-0.023 measured on the card before this bound was set)
+AWQ_XNEXT_TOL = 5e-2
+AWQ_MODELS = ("mixtral-8x7b", "deepseek-v2-lite")
+
+
+def boost_channels(params, cfg, seed: int = 0) -> list:
+    """AWQ_HOT embedding channels (chosen from ``seed``) x AWQ_BOOST, in
+    place: the activation outliers of real models."""
+    import numpy as np
+
+    hot = np.random.default_rng(seed).choice(cfg.hidden_size, AWQ_HOT, replace=False)
+    idx = torch.from_numpy(hot).to(params.embed.device)
+    params.embed[:, idx] = params.embed[:, idx] * AWQ_BOOST
+    return sorted(int(h) for h in hot)
+
+
+@contextlib.contextmanager
+def awq_block_calls():
+    """Record each AWQ block search that ``awq_quantize_model`` makes: its
+    arguments, result, seconds (synchronized) and grid searches."""
+    from quick_tpu_torch.quantize import awq
+
+    calls, clips = [], []
+    orig = awq.awq_quantize_block, awq.awq_quantize_mla_block, awq.search_clip
+
+    def wrap(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clips.clear()
+            with awq.recorded_searches() as rec:
+                res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append(dict(fn=fn, args=args, kw=kw, res=res, rec=rec, clips=list(clips),
+                              seconds=time.perf_counter() - t0))
+            return res
+        return run
+
+    def clip(*args, **kw):
+        out = orig[2](*args, **kw)
+        clips.append(out)
+        return out
+
+    awq.awq_quantize_block, awq.awq_quantize_mla_block = map(wrap, orig[:2])
+    awq.search_clip = clip
+    try:
+        yield calls
+    finally:
+        awq.awq_quantize_block, awq.awq_quantize_mla_block, awq.search_clip = orig
+
+
+@contextlib.contextmanager
+def imposed_clips(bounds: list):
+    """Every search_clip of the block returns the next of ``bounds`` (the
+    other route's picks) instead of searching."""
+    from quick_tpu_torch.quantize import awq
+
+    orig, it = awq.search_clip, iter(bounds)
+    awq.search_clip = lambda *args, **kw: next(it)
+    try:
+        yield
+    finally:
+        awq.search_clip = orig
+
+
+def awq_quantize_timed(model, cfg, calib, tag: str, qcfg=None) -> dict:
+    """``model.quantize(calib)`` on the card, host clock ended by
+    synchronize(), counted, with each block's seconds and the peak memory."""
+    from quick_tpu_torch import QuantConfig
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.max_memory_allocated()
+    with awq_block_calls() as calls:
+        t0 = time.perf_counter()
+        _, launched = counted(lambda: model.quantize(calib, qcfg or QuantConfig()))
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    blocks = [c["seconds"] for c in calls]
+    print(f"  [{tag}] quantize(): {seconds:.2f} s for {len(blocks)} blocks (each "
+          f"{', '.join(f'{b:.2f}' for b in blocks)} s); peak {peak / 1e9:.2f} GB "
+          f"({before / 1e9:.2f} GB before); launches "
+          f"{ {k: sum(v.values()) for k, v in launched.items()} }")
+    return dict(seconds=seconds, block_seconds=blocks, peak_gb=peak / 1e9, launches=launched,
+                calls=calls)
+
+
+def awq_expected_launches(cfg) -> dict:
+    """The kernels an AWQ search launches. A llama-path block: K2 at every
+    attention of the qkv group's loss forward (the float output and N_GRID
+    candidates) and once for the o group's input; K13 at the attention and
+    MLP norms. An MLA block (no q-LoRA): K2 at every MLA forward (the float
+    attention, the qkv group's float output and N_GRID candidates, the o
+    group's input), K13 at each forward's kv_a norm and at the two block
+    norms."""
+    from quick_tpu_torch.quantize.awq import N_GRID
+
+    L = cfg.num_hidden_layers
+    if cfg.is_mla:
+        forwards = N_GRID + 3
+        return {"flash_attention": L * forwards, "rms_norm": L * (forwards + 2)}
+    return {"flash_attention": L * (N_GRID + 2), "rms_norm": 2 * L}
+
+
+def awq_code_check(kernel_blk, plain_blk, agree: list) -> dict:
+    """[16b] the packed codes of the llama-path block's linears, kernel
+    route against plain route: equal for every linear whose searches and
+    every search before them picked alike (``agree``: each search's picks
+    equal, in call order). Returns the differing int32 words by linear."""
+    mha_o = len(agree) == 8  # MHA adds the o scale search
+    # searches in call order: qkv scale, [o scale], v clip, o clip, gate_up
+    # scale, down scale, gate_up clip, down clip
+    last = dict(qkv=2 + mha_o, o=3 + mha_o, gate_up=6 + mha_o, down=7 + mha_o)
+    lins = dict(qkv=(kernel_blk.attn.qkv_proj, plain_blk.attn.qkv_proj),
+                o=(kernel_blk.attn.o_proj, plain_blk.attn.o_proj),
+                gate_up=(kernel_blk.mlp.gate_up_proj, plain_blk.mlp.gate_up_proj),
+                down=(kernel_blk.mlp.down_proj, plain_blk.mlp.down_proj))
+    out = {}
+    for name, (a, b) in lins.items():
+        n = int((a.qweight != b.qweight).sum())
+        out[name] = n
+        if all(agree[:last[name]]) and n:
+            fail(f"[16b] {name}: {n} packed words differ between the routes though every "
+                 "search up to it picked alike")
+    return out
+
+
+def awq_route_check(calls, cfg) -> dict:
+    """[16b] each block's search again from the same input on the plain
+    route (QUICK_TPU_FLASH=0: the einsum attention; plain-torch norms),
+    against the kernel route's (K2, K13). Scale picks must agree or differ
+    under a loss gap < AWQ_PICK_GAP; at least AWQ_CLIP_AGREE of each clip
+    search's picks must agree (the clip loss jumps where both ends of a
+    group are clipped: its zero point sits at round(7.5), which an ulp of
+    the inputs moves, so such a pick can move at any loss gap); the packed
+    codes of every linear before the first differing pick must be equal
+    (awq_code_check). Then the plain route again with the kernel route's
+    clip bounds imposed: x_next within AWQ_XNEXT_TOL * (1 + |ref|)."""
+    from quick_tpu_torch.quantize import awq
+
+    print(f"[16b] the search on the plain route (QUICK_TPU_FLASH=0, plain norms) from each "
+          f"block's input, against the kernel route (K2, K13): scale picks equal or under a loss "
+          f"gap < {AWQ_PICK_GAP}; >= {AWQ_CLIP_AGREE:.0%} of each clip search's picks equal; "
+          f"x_next within {AWQ_XNEXT_TOL} * (1 + |ref|) with the kernel route's clips imposed")
+    report = []
+    for i, c in enumerate(calls):
+        with switches(QUICK_TPU_FLASH="0"), plain_norms(), awq.recorded_searches() as rec:
+            res, launched = counted(lambda: c["fn"](*c["args"], **c["kw"]))
+        if launched:
+            fail(f"[16b] the plain route launched kernels: {launched}")
+        cmp = awq.compare_searches(c["rec"], rec)
+        print(f"  block {i}: searches (kind, picks differ, of, largest loss gap of a differing "
+              f"pick) {[(r['kind'], r['differ'], r['picks'], float('%.3g' % r['gap'])) for r in cmp]}",
+              flush=True)
+        for j, r in enumerate(cmp):
+            if r["kind"] == "scale" and r["differ"] and r["gap"] >= AWQ_PICK_GAP:
+                fail(f"[16b] block {i} search {j}: the routes picked different scales at a "
+                     f"loss gap of {r['gap']:.3e}")
+            if r["kind"] == "clip" and r["differ"] > (1 - AWQ_CLIP_AGREE) * r["picks"]:
+                fail(f"[16b] block {i} search {j}: {r['differ']} of {r['picks']} clip picks differ")
+        words = awq_code_check(c["res"].block, res.block, [r["differ"] == 0 for r in cmp])
+        with switches(QUICK_TPU_FLASH="0"), plain_norms(), imposed_clips(c["clips"]):
+            fixed = c["fn"](*c["args"], **c["kw"])
+        err = max_err(fixed.x_next, c["res"].x_next, AWQ_XNEXT_TOL,
+                      f"block {i} x_next, the kernel route's clips imposed")
+        ref = c["res"].x_next.float()
+        rms = float((fixed.x_next.float() - ref).norm() / ref.norm())
+        free = (res.x_next.float() - ref).abs()
+        print(f"  relative RMS of the difference {rms:.3e}; packed int32 words differing "
+              f"{words}; x_next with each route's own clips: max |d| {float(free.max()):.3e}",
+              flush=True)
+        report.append(dict(searches=cmp, words_differ=words, x_next_max_abs_err=err,
+                           x_next_rel_rms=rms, x_next_own_clips_max_abs_err=float(free.max())))
+    return dict(blocks=report)
+
+
+def awq_scores(float_params, rtn_params, awq_params, cfg, tokens) -> dict:
+    """[16c] perplexity of the float, RTN and AWQ models and the KL of RTN
+    and AWQ against the float model over ``tokens``' 512-token windows."""
+    from quick_tpu_torch.evaluation import eval_kl_divergence, evaluate_perplexity
+
+    out = {}
+    for name, p in (("float", float_params), ("rtn", rtn_params), ("awq", awq_params)):
+        t0 = time.perf_counter()
+        out[f"ppl_{name}"], launched = counted(
+            lambda: evaluate_perplexity(p, cfg, tokens, seqlen=512))
+        out[f"ppl_{name}_s"] = time.perf_counter() - t0
+        out[f"ppl_{name}_launches"] = {k: sum(v.values()) for k, v in launched.items()}
+    for name, p in (("rtn", rtn_params), ("awq", awq_params)):
+        rep, launched = counted(lambda: eval_kl_divergence(float_params, cfg, p, cfg, tokens,
+                                                           seqlen=512))
+        out[f"kl_{name}"] = dataclasses.asdict(rep)
+        out[f"kl_{name}_launches"] = {k: sum(v.values()) for k, v in launched.items()}
+        print(f"  KL(float || {name}): {rep}")
+    print(f"  perplexity: float {out['ppl_float']:.4f}, RTN {out['ppl_rtn']:.4f}, "
+          f"AWQ {out['ppl_awq']:.4f}")
+    return out
+
+
+def awq_block_forward_check(name, cfg, packed, x, group: int, tag: str = "16d") -> dict:
+    """[16d] the packed block's forward on the card (K8 and K9 or K1, K2,
+    K13) against its plain path on the CPU, one row of ``x``: tokens whose
+    expert set differs between the paths need a router gap < ROUTE_GAP,
+    the rest agree within AWQ_XNEXT_TOL (16b's reason)."""
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+    from quick_tpu_torch.modules.blocks import block_forward
+
+    cpu = params_from_flat(params_to_flat(packed), cfg, device="cpu", group_size=group)
+    xs = x[:1, :AWQ_FORWARD_TOKENS]
+    S = xs.shape[1]
+    pos = torch.arange(S, device=x.device)[None]
+    k = cfg.num_experts_per_tok
+    with recorded_routes(k) as routes, torch.inference_mode():
+        (yg, _), launched = counted(lambda: block_forward(
+            packed.blocks[0], cfg, xs, packed.rope_cos, packed.rope_sin, None, 0, pos))
+        yc, _ = block_forward(cpu.blocks[0], cfg, xs.cpu(), cpu.rope_cos, cpu.rope_sin, None, 0,
+                              pos.cpu())
+    flipped = torch.zeros(1, dtype=torch.bool)
+    (sg, gg), (sc, gc) = routes["cuda"][0], routes["cpu"][0]
+    differ = (sg != sc).any(-1)[0]  # [S]
+    if differ.any() and float(torch.minimum(gg, gc)[0][differ].max()) >= ROUTE_GAP:
+        fail(f"[{tag}] {name}: a token's experts differ between the paths at a router gap "
+             f">= {ROUTE_GAP}")
+    keep = ~differ
+    err = max_err(yg[0, keep.to(yg.device)].cpu(), yc[0, keep], AWQ_XNEXT_TOL,
+                  f"{name} packed block forward, {int(keep.sum())} of {S} tokens")
+    print(f"  launches {({n: sum(v.values()) for n, v in launched.items()})}, "
+          f"{int(differ.sum())} tokens routed differently")
+    return dict(max_abs_err=err, launches=launched, routed_differently=int(differ.sum()))
+
+
+AWQ_FORWARD_TOKENS = 128
+
+
+def phase16_awq(dev) -> tuple:
+    """Phase 16: (a) AWQ through AutoQuickModel.quantize at Mistral-7B width,
+    AWQ_LAYERS layers, timed and counted; (b) each block's search on the
+    plain route against the kernel route; (c) the float, RTN and AWQ models
+    scored (perplexity, KL); (d) one block of Mixtral-8x7B and of
+    DeepSeek-V2-Lite (layer 1's shapes) at full width, timed, and the packed
+    block's forward against the plain path. Returns (launch counts, report)."""
+    from quick_tpu_torch import ModelConfig, QuantConfig
+    from quick_tpu_torch.examples.basic_quant import PRESETS, default_group
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.models.model import quantize_params
+    from quick_tpu_torch.quantize.calib import get_calib_tokens
+
+    t_phase = time.perf_counter()
+    report, counts = {}, {}
+    cfg = dataclasses.replace(ModelConfig(**MISTRAL_7B), num_hidden_layers=AWQ_LAYERS)
+    calib = get_calib_tokens(vocab_size=cfg.vocab_size, **AWQ_CALIB)
+    print(f"[16a] AWQ: AutoQuickModel.quantize(calib) at Mistral-7B width, {AWQ_LAYERS} of 32 "
+          f"layers, random float weights (seed 0) with {AWQ_HOT} embedding channels x "
+          f"{AWQ_BOOST}; calibration {calib.shape[0]} x {calib.shape[1]} synthetic tokens "
+          "(get_calib_tokens)")
+    model = AutoQuickModel.from_random(cfg, seed=0, device=dev)
+    hot = boost_channels(model.params, cfg)
+    float_params = model.params
+    a = awq_quantize_timed(model, cfg, calib, "16a")
+    want = awq_expected_launches(cfg)
+    got = {k: sum(v.values()) for k, v in a["launches"].items()}
+    if got != want:
+        fail(f"[16a] the AWQ search launched {got}, expected {want}")
+    counts["awq_search"] = a["launches"]
+    per_block = sum(a["block_seconds"]) / len(a["block_seconds"])
+    report["mistral_7b"] = dict(
+        layers=AWQ_LAYERS, hot_channels=hot, calib=list(calib.shape), seconds=a["seconds"],
+        block_seconds=a["block_seconds"], peak_gb=a["peak_gb"],
+        seconds_32_layers_extrapolated=a["seconds"] - sum(a["block_seconds"]) + 32 * per_block)
+    print(f"  32 layers at {per_block:.2f} s a block: ~{report['mistral_7b']['seconds_32_layers_extrapolated']:.0f} s")
+    report["route_check"] = awq_route_check(a["calls"], cfg)
+    del a
+    print(f"[16c] quality on {AWQ_EVAL_WINDOWS} held-out windows of 512 synthetic tokens "
+          f"(seed 1): the float model, RTN and AWQ; KL_AWQ < {AWQ_KL_BOUND} x KL_RTN")
+    tokens = get_calib_tokens(vocab_size=cfg.vocab_size, n_samples=AWQ_EVAL_WINDOWS,
+                              block_size=512, seed=1)
+    rtn_params = quantize_params(float_params, cfg)
+    scores = awq_scores(float_params, rtn_params, model.params, cfg, tokens)
+    for k in ("quantized_matmul", "flash_attention", "rms_norm"):
+        if not scores["ppl_awq_launches"].get(k):
+            fail(f"[16c] scoring the AWQ model did not launch {k}")
+    if not scores["kl_awq"]["mean_kl"] < AWQ_KL_BOUND * scores["kl_rtn"]["mean_kl"]:
+        fail(f"[16c] KL_AWQ {scores['kl_awq']['mean_kl']} is not below {AWQ_KL_BOUND} x KL_RTN "
+             f"{scores['kl_rtn']['mean_kl']}")
+    report["scores"] = scores
+    del model, float_params, rtn_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in AWQ_MODELS:
+        mcfg = dataclasses.replace(PRESETS[name], num_hidden_layers=1, first_k_dense_replace=0)
+        G = default_group(PRESETS[name])
+        print(f"[16d] {name}: one block at full width (layer 1's shapes), G={G}, random float "
+              f"weights (seed 0), the same calibration")
+        m = AutoQuickModel.from_random(mcfg, seed=0, device=dev)
+        boost_channels(m.params, mcfg)
+        x = m.params.embed[torch.from_numpy(calib[:1].astype("int64")).to(dev)].to(torch.bfloat16)
+        r = awq_quantize_timed(m, mcfg, calib, "16d", QuantConfig(q_group_size=G))
+        got = {k: sum(v.values()) for k, v in r["launches"].items()}
+        if got != awq_expected_launches(mcfg):
+            fail(f"[16d] {name}: the AWQ search launched {got}, expected "
+                 f"{awq_expected_launches(mcfg)}")
+        fwd = awq_block_forward_check(name, mcfg, m.params, x, G)
+        gemm = "quantized_matmul" if G == 128 else "quantized_matmul_dequant"
+        for k in ("grouped_matmul", gemm, "flash_attention", "rms_norm"):
+            if not fwd["launches"].get(k):
+                fail(f"[16d] {name}: the packed block's forward did not launch {k}")
+        counts[f"awq_{name}"] = r["launches"]
+        report[name] = dict(seconds=r["seconds"], block_seconds=r["block_seconds"],
+                            peak_gb=r["peak_gb"], forward=fwd)
+        del m, r, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16 took {report['seconds']:.1f} s")
+    return counts, report
+
+
 def depth_costs(dev) -> dict:
     """``python3 chip_smoke.py --depth-costs``: the seconds of the phases
     that the time limit runs at a cut depth, run at full depth instead
@@ -4646,6 +5003,9 @@ def main() -> None:
                 cfg, dev, tag="13c", require={"fused_layer_tail": 2 * PHASE6_DECODE}))
     penalties = phase13_penalties(cfg, dev)
     beam_stats["plain_vs_kernel"] = phase14_plain_vs_kernel(cfg, dev)
+    print(f"  phases 6-15 done at {time.perf_counter() - t_start:.0f} s")
+    awq_counts, awq_report = phase16_awq(dev)
+    counts.update(awq_counts)
     report = dict(card=card, kernels=rows, dense_route=dense_route, generate_path=gen_stats,
                   engine_path=engine_stats,
                   fused_step_shapes=fused_shape_stats,
@@ -4663,7 +5023,7 @@ def main() -> None:
                   graphs=dict(graph_ab, mixtral_engine=moe_report["mixtral_engine_graph_ab"],
                               deepseek_engines=ds_report["engine_graph_ab"]),
                   penalties=penalties, k4_graph=k4_graph, beam=beam_stats,
-                  penalised_engine=pen_engine_stats,
+                  penalised_engine=pen_engine_stats, awq=awq_report,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

@@ -1,23 +1,31 @@
-"""Quantize a model (RTN) and save the packed checkpoint; the port's
-counterpart of ``examples/basic_quant.py``:
+"""Quantize a model (AWQ scale / clip search, or RTN) and save the packed
+checkpoint; the port's counterpart of ``examples/basic_quant.py``:
 
     python -m quick_tpu_torch.examples.basic_quant --model_path <hf_dir> --quant_path out/
+    python -m quick_tpu_torch.examples.basic_quant --random mistral-7b --n_calib_samples 32 --quant_path out/
     python -m quick_tpu_torch.examples.basic_quant --random debug --quant_path out/ --device cpu
 
+The AWQ search calibrates on ``--calib_tokens`` (a .npy of token ids) or,
+without them, on ``get_calib_tokens``' synthetic draw: ``--n_calib_samples``
+blocks of ``--calib_block`` tokens; ``--no_awq_search`` packs RTN instead.
+The float model must fit the device (on one 80 GB card: Mistral-7B,
+DeepSeek-V2-Lite, Qwen1.5-MoE; not Mixtral-8x7B's 93 GB).
 ``--random <preset>`` builds a random-init float model from seed 0 instead
 of reading a checkpoint (``--q_group_size 32`` or ``64`` quantizes it for
 the card's small-group kernel; the group defaults to 128, or to 64 where a
 linear's input width is no multiple of 128, as DeepSeek-V2-Lite's 10944-wide
 dense FFN; ``benchmark.py --random --group`` makes the
 packed weights directly, for the presets whose float model is too large); ``--awq_format`` writes an AutoAWQ-GEMM checkpoint
-instead of the native QTPU one. The AWQ scale / clip search is not ported
-(ROADMAP A9), so the calibration options of the JAX example are absent.
+instead of the native QTPU one.
 Runs on the card unless given ``--device cpu``.
 """
 import argparse
 
+import numpy as np
+
 from quick_tpu_torch import ModelConfig, QuantConfig
 from quick_tpu_torch.models.auto import AutoQuickModel
+from quick_tpu_torch.quantize.calib import get_calib_tokens
 
 #: deepseek-ai/DeepSeek-V2-Lite config.json, the fields the port reads
 DEEPSEEK_V2_LITE = dict(
@@ -96,6 +104,11 @@ def main(argv=None):
     ap.add_argument("--w_bit", type=int, default=4)
     ap.add_argument("--awq_format", action="store_true",
                     help="write an AutoAWQ-GEMM checkpoint instead of QTPU")
+    ap.add_argument("--calib_tokens", help=".npy of pre-tokenized calibration data")
+    ap.add_argument("--no_awq_search", action="store_true",
+                    help="plain RTN instead of the AWQ scale / clip search")
+    ap.add_argument("--n_calib_samples", type=int, default=32)
+    ap.add_argument("--calib_block", type=int, default=512)
     ap.add_argument("--device", default=None, help="'cpu' for the plain path (default: the card)")
     args = ap.parse_args(argv)
 
@@ -107,7 +120,15 @@ def main(argv=None):
         ap.error("need --model_path or --random")
     group = args.q_group_size or default_group(model.cfg)
     qcfg = QuantConfig(zero_point=bool(args.zero_point), q_group_size=group, w_bit=args.w_bit)
-    model.quantize(quant_config=qcfg, use_awq_search=False)
+    calib = None
+    if not args.no_awq_search:
+        data = np.load(args.calib_tokens) if args.calib_tokens else None
+        calib = get_calib_tokens(
+            data, n_samples=args.n_calib_samples,
+            block_size=min(args.calib_block, model.cfg.max_position_embeddings),
+            vocab_size=model.cfg.vocab_size,
+        )
+    model.quantize(calib, qcfg, use_awq_search=not args.no_awq_search)
     model.save_quantized(args.quant_path, awq_format=args.awq_format)
     print(f"quantized model saved to {args.quant_path}")
 

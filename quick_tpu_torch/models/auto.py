@@ -3,6 +3,7 @@ with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe; and DeepSeek-V2
 / V3, MLA with DeepSeekMoE):
 
     model = AutoQuickModel.from_pretrained(hf_dir)             # float import
+    model.quantize(calib_tokens, QuantConfig())                # AWQ search + pack
     model.quantize(quant_config=QuantConfig())                 # RTN + pack
     model.save_quantized(out_dir)                              # native QTPU
     model.save_quantized(awq_dir, awq_format=True)             # AutoAWQ GEMM
@@ -11,8 +12,8 @@ with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe; and DeepSeek-V2
     out = model.generate(tokens, max_new_tokens=64)
 
 Every constructor puts the weights on the card unless given
-``device="cpu"``. Not ported: the AWQ scale / clip search (ROADMAP A9), the
-tokenizer and ``generate_text`` (``transformers`` is not a dependency of
+``device="cpu"``; the AWQ search runs where the weights are
+(``quantize/awq.py``). Not ported: the tokenizer and ``generate_text`` (``transformers`` is not a dependency of
 the port; a GGUF file's tokenizer waits for A14), the vision tower and
 ``shard`` (ROADMAP A7, A15, A16).
 """
@@ -136,32 +137,33 @@ class AutoQuickModel:
         return m
 
     @classmethod
-    def from_random(cls, cfg: ModelConfig, seed: int = 0,
-                    device: DeviceLike = None) -> "AutoQuickModel":
+    def from_random(cls, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                    dtype: torch.dtype = torch.bfloat16) -> "AutoQuickModel":
         """Random-init float model (hermetic testing). For an
         already-quantized random model, construct from
         ``models.init_quant_params``."""
         from quick_tpu_torch.models.model import init_float_params
 
         cfg = apply_model_type(cfg)
-        return cls(init_float_params(cfg, seed, device=device), cfg)
+        return cls(init_float_params(cfg, seed, dtype, device=device), cfg)
 
     # -- pipeline ------------------------------------------------------------
     def quantize(self, calib_tokens=None, quant_config: Optional[QuantConfig] = None,
-                 use_awq_search: bool = True) -> "AutoQuickModel":
-        """Quantize + pack the block linears (RTN). The AWQ scale / clip
-        search (with calibration tokens and ``use_awq_search``) is not
-        ported yet."""
+                 use_awq_search: bool = True, verbose: bool = True) -> "AutoQuickModel":
+        """AWQ scale / clip search + quantize + pack (reference
+        base.py:91-121) on the weights' device, block by block. With
+        ``use_awq_search=False`` or no calibration tokens: RTN."""
         from quick_tpu_torch.models.model import quantize_params
+        from quick_tpu_torch.quantize.awq import awq_quantize_model
 
-        if use_awq_search and calib_tokens is not None:
-            raise NotImplementedError(
-                "the AWQ scale / clip search is not ported yet (ROADMAP A9); "
-                "pass use_awq_search=False for RTN"
-            )
         qcfg = quant_config or QuantConfig()
-        self.params = quantize_params(self.params, self.cfg, qcfg.q_group_size, qcfg.zero_point,
-                                      modules_to_not_convert=qcfg.modules_to_not_convert)
+        if use_awq_search and calib_tokens is not None:
+            self.params = awq_quantize_model(self.params, self.cfg, calib_tokens, qcfg,
+                                             verbose=verbose)
+        else:
+            self.params = quantize_params(self.params, self.cfg, qcfg.q_group_size,
+                                          qcfg.zero_point,
+                                          modules_to_not_convert=qcfg.modules_to_not_convert)
         self.qcfg = qcfg
         return self
 

@@ -97,6 +97,8 @@ def mla_attention_forward(
     # or the PagedKVCache of latent pages; None without a cache
     layer_idx: int,
     positions: torch.Tensor,    # [B, S]
+    return_pre_o: bool = False,  # return the [B, S, hq*dv] activation BEFORE
+    # o_proj (the AWQ o-group calibration input); prefill branches only
 ) -> Tuple[torch.Tensor, Optional[object]]:
     """``mla_attention_forward`` (:94); the cache is written in place."""
     from quick_tpu_torch.modules.blocks import _use_paged_kernel
@@ -155,8 +157,8 @@ def mla_attention_forward(
             [k_nope, kpe_all[:, :, None, :].expand(B, T, hq, dr).to(k_nope.dtype)], dim=-1)
         q_full = torch.cat([q_nope, q_pe.to(q_nope.dtype)], dim=-1)
         out = causal_attention(q_full, k_full, v_exp, q_offset=q_offset, kv_len=kv_len,
-                               scale=scale)
-        return p.o_proj(out.reshape(B, S, hq * dv)), cache
+                               scale=scale).reshape(B, S, hq * dv)
+        return (out if return_pre_o else p.o_proj(out)), cache
 
     # absorbed MQA over the latent: no cache expansion
     q_c = _f32_einsum("bshd,rhd->bshr", q_nope, w_uk.to(q_nope.dtype)).to(q_nope.dtype)
@@ -174,7 +176,8 @@ def mla_attention_forward(
     # probabilities stay f32, as the dense einsum path
     ctx_c = _f32_einsum("bhst,btr->bshr", attn, c_all).to(x.dtype)  # [B, S, hq, R]
     out = _f32_einsum("bshr,rhd->bshd", ctx_c, w_uv.to(ctx_c.dtype)).to(x.dtype)
-    return p.o_proj(out.reshape(B, S, hq * dv)), cache
+    out = out.reshape(B, S, hq * dv)
+    return (out if return_pre_o else p.o_proj(out)), cache
 
 
 def make_mla_cache(

@@ -2,6 +2,7 @@
 AutoAWQ and exllama packers, the native save / load, the AutoAWQ import /
 export and the HF float import, each against ``quick_tpu`` on the same
 files; and greedy generation from a checkpoint both packages load."""
+import dataclasses
 import json
 
 import jax
@@ -24,6 +25,7 @@ from quick_tpu_torch import ModelConfig, QuantConfig
 from quick_tpu_torch.models.auto import AutoQuickModel
 from quick_tpu_torch.models.convert import params_to_flat
 from quick_tpu_torch.models.model import model_forward, quantize_params
+from quick_tpu_torch.modules.linear import QuantLinear
 from quick_tpu_torch.runtime import generate
 from quick_tpu_torch.utils import safetensors_io as sio
 
@@ -357,8 +359,16 @@ def test_hf_import_refuses_unported_branches(tmp_path, case):
 
 
 def test_awq_search_is_refused():
+    """The AWQ search is ported: quantize(calib) runs it and packs every
+    block linear; the other families' switches (ROADMAP A12) still raise."""
     m = AutoQuickModel.from_random(ModelConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    m.quantize(np.zeros((1, 8), np.int32), QuantConfig(), verbose=False)
+    blk = m.params.blocks[0]
+    assert all(isinstance(lin, QuantLinear) for lin in (
+        blk.attn.qkv_proj, blk.attn.o_proj, blk.mlp.gate_up_proj, blk.mlp.down_proj))
+    m = AutoQuickModel.from_random(ModelConfig(**TINY), device="cpu")
+    m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True)
+    with pytest.raises(NotImplementedError, match="A12"):
         m.quantize(np.zeros((1, 8), np.int32), QuantConfig())
 
 

@@ -11,7 +11,8 @@ decode attention (both at 16 to 128 heads, K10 at pages of 64, 48 and 8,
 graphed), K11 / K11f W4A8 GEMM, K11f's quantization kernel, K12
 grouped W4A8 MoE GEMM (on build_routing's layouts, at bm = 96, split,
 graphed), K13 RMSNorm, K14 the decode layer tail) against
-their plain PyTorch versions,
+their plain PyTorch versions, an AWQ block search through K2 and K13
+against its plain route,
 and the decode step replayed from a CUDA graph (generate() and the Engine)
 against the eager step, on a card. Skipped without one. Imports no
 JAX; on the card run:
@@ -2228,3 +2229,85 @@ def test_graphed_penalised_engine_matches_eager(cuda_device, monkeypatch, name, 
     assert [len(o) for o in graphed] == [m for _, m in reqs]
     names = ("k_pages", "v_pages") + (("kv_scales",) if dtype == torch.int8 else ())
     _assert_planes_equal(c_e, c_g, names, first_page=TRASH_PAGE + 1)
+
+
+AWQ_BLOCKS = {
+    # a GQA llama block: K2 at head_dim 128 over 128 calibration tokens, K13
+    "llama": dict(vocab_size=512, hidden_size=512, intermediate_size=1024, num_hidden_layers=1,
+                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256),
+    # MLA at DeepSeek's head widths (K2 at q / k 192, v 128) over a dense MLP
+    "deepseek_v2": dict(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                        num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=4,
+                        max_position_embeddings=256, model_type="deepseek_v2",
+                        kv_lora_rank=128, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                        v_head_dim=128, head_dim=192, rotary_dim=64, num_local_experts=4,
+                        num_experts_per_tok=2, moe_router="deepseek", moe_intermediate_size=256,
+                        first_k_dense_replace=1, n_shared_experts=1),
+}
+
+
+#: the share of each clip search's picks the routes must agree on: MLA keeps
+#: its folded projections in f32, so every ulp of a scale moves its o weights
+#: and their half-way ties more often (93.5 % of o's picks agreed on the card)
+CLIP_AGREE = {"llama": 0.95, "deepseek_v2": 0.9}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(AWQ_BLOCKS))
+def test_awq_block_kernel_route_matches_plain_route(cuda_device, monkeypatch, name):
+    """One AWQ block search on the card through K2 and K13 against the same
+    search on the plain route (QUICK_TPU_FLASH=0, the plain RMSNorm) from
+    the same input: scale picks equal or within a 1e-2 loss gap, at least
+    CLIP_AGREE of each clip search's picks equal (a group clipped at both
+    ends has its zero point at round(7.5), which an ulp of the inputs moves);
+    with the kernel route's clip bounds imposed, x_next within 5e-2 *
+    (1 + |ref|)."""
+    from quick_tpu_torch import ModelConfig, QuantConfig
+    from quick_tpu_torch.models.auto import apply_model_type
+    from quick_tpu_torch.models.model import init_float_params
+    from quick_tpu_torch.modules import mla
+    from quick_tpu_torch.ops import norms
+    from quick_tpu_torch.quantize import awq
+
+    cfg = apply_model_type(ModelConfig(**AWQ_BLOCKS[name]))
+    params = init_float_params(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, device=cuda_device)
+    x = params.embed[toks].to(torch.bfloat16)
+    pos = torch.arange(128, device=cuda_device)[None].expand(2, 128)
+    fn = awq.awq_quantize_mla_block if cfg.is_mla else awq.awq_quantize_block
+    qcfg = QuantConfig(q_group_size=64 if cfg.is_mla else 128)
+
+    def search():
+        return fn(params.blocks[0], cfg, x, pos, params.rope_cos, params.rope_sin, qcfg)
+
+    clips = []
+    orig_clip = awq.search_clip
+
+    def recorded_clip(*a, **kw):
+        clips.append(orig_clip(*a, **kw))
+        return clips[-1]
+
+    monkeypatch.setattr(awq, "search_clip", recorded_clip)
+    with awq.recorded_searches() as kernel_rec:
+        kernel, launched = _counted(search)
+    assert launched.get("flash_attention") and launched.get("rms_norm"), launched
+    monkeypatch.setattr(awq, "search_clip", orig_clip)
+    monkeypatch.setenv("QUICK_TPU_FLASH", "0")
+    monkeypatch.setattr(awq, "rms_norm", norms.rms_norm_plain)
+    monkeypatch.setattr(mla, "rms_norm", norms.rms_norm_plain)
+    with awq.recorded_searches() as plain_rec:
+        _, launched = _counted(search)
+    assert not launched, launched
+    cmp = awq.compare_searches(kernel_rec, plain_rec)
+    it = iter(clips)
+    monkeypatch.setattr(awq, "search_clip", lambda *a, **kw: next(it))
+    imposed = search()
+    ref = kernel.x_next.float()
+    err = float(((imposed.x_next.float() - ref).abs() / (1 + ref.abs())).max())
+    for r in cmp:
+        if r["kind"] == "scale":
+            assert r["differ"] == 0 or r["gap"] < 1e-2, (r, cmp, err)
+        else:
+            assert r["differ"] <= (1 - CLIP_AGREE[name]) * r["picks"], (r, cmp, err)
+    assert err <= 5e-2, (err, cmp)
