@@ -152,7 +152,20 @@ Phases (any failure exits non-zero):
      eval_kl_divergence: K1, K2, K13), KL_AWQ < 2.5 x KL_RTN; (d) one block
      each of Mixtral-8x7B and DeepSeek-V2-Lite (layer 1's shapes, g=64) at
      full width, timed, the packed block's forward (K8, K9) against the
-     plain path on the CPU.
+     plain path on the CPU;
+ 17. Qwen3 (per-head q / k RMSNorm on K13): (a) K1 at Qwen3-8B's four
+     projections and K13 at its qk-norm shapes held and timed (and the copy
+     the qk-norm's column slices take), then Qwen3-8B at full width and
+     depth (random g=128 QTPU weights and q / k norms, an untied bf16 head)
+     through generate() as phase 4; (b) 2-layer dense and paged checks as
+     phase 6, K13's launches exact; (c) eval_mmlu on 8 synthetic 4-choice
+     rows at full depth, timed, and a 2-layer model's per-choice scores
+     against the plain route on the CPU; (d) eval_humaneval on two
+     hand-written problems, generate() on the card, pass@1 0.5 and pass@2
+     1.0 by construction; (e) K8 at Qwen3-30B-A3B's 128 experts held and
+     timed, 2 layers of it against the plain path with phase 8's routing
+     rule; (f) one Qwen3-8B block of AWQ through quantize(calib) on phase
+     16's calibration, against the plain route as 16b.
      On the card generate()'s decode loop and the Engine's greedy windows
      replay a captured step; a replay adds the launches counted at capture.
      Launch counts exact throughout, K13's in every phase.
@@ -408,9 +421,29 @@ def rand_qlinear(gen, dev, K, N, copies=1, group=128):
     return out
 
 
-def check_gemms(cfg, gen, dev):
+def check_gemm(prologue, M, K, N, gen, dev):
+    """K1 at (prologue, M, K, N) on random weights against its plain
+    version: (launch key, max |err|, (x, qw, s, zs))."""
     from quick_tpu_torch.ops import quantized_matmul as qm
     from quick_tpu_torch.ops.norms import rms_norm_plain
+
+    (qw, s, zs), = rand_qlinear(gen, dev, K, N)
+    x = torch.randn((M, 2 * K if prologue == "glu" else K), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    nw = (1 + 0.1 * torch.randn(K, generator=gen, device=dev)).to(torch.bfloat16)
+    out = qm.quantized_matmul_cuda(
+        x, qw, s, zs, norm_weight=nw if prologue == "rmsnorm" else None,
+        norm_eps=1e-5, glu=prologue == "glu")
+    xp = qm.glu_plain(x) if prologue == "glu" else (
+        rms_norm_plain(x, nw, 1e-5) if prologue == "rmsnorm" else x)
+    ref = qm.quantized_matmul_plain(xp, qw, s, zs)
+    torch.cuda.synchronize()
+    key = qm.launch_key(prologue, M, K, N)
+    return key, max_err(out, ref, TOL["quantized_matmul"], f"K1 {key}"), (x, qw, s, zs)
+
+
+def check_gemms(cfg, gen, dev):
+    from quick_tpu_torch.ops import quantized_matmul as qm
 
     print("[2] K1 (W4A16 GEMM) against its plain version, bf16")
     errs = {}
@@ -422,19 +455,8 @@ def check_gemms(cfg, gen, dev):
     # N % 4 == 2 above 8 rows: the wrapper pads the weight for the tensor copies
     cases += [(None, M, 4096, N) for M in (16, BATCH * PROMPT) for N in (130, 4098)]
     for prologue, M, K, N in cases:
-        (qw, s, zs), = rand_qlinear(gen, dev, K, N)
-        x = torch.randn((M, 2 * K if prologue == "glu" else K), generator=gen,
-                        device=dev).to(torch.bfloat16)
-        nw = (1 + 0.1 * torch.randn(K, generator=gen, device=dev)).to(torch.bfloat16)
-        out = qm.quantized_matmul_cuda(
-            x, qw, s, zs, norm_weight=nw if prologue == "rmsnorm" else None,
-            norm_eps=1e-5, glu=prologue == "glu")
-        xp = qm.glu_plain(x) if prologue == "glu" else (
-            rms_norm_plain(x, nw, 1e-5) if prologue == "rmsnorm" else x)
-        ref = qm.quantized_matmul_plain(xp, qw, s, zs)
-        torch.cuda.synchronize()
-        key = qm.launch_key(prologue, M, K, N)
-        errs[key] = max_err(out, ref, TOL["quantized_matmul"], f"K1 {key}")
+        key, err, (x, qw, s, zs) = check_gemm(prologue, M, K, N, gen, dev)
+        errs[key] = err
         if M > 8 and N % 4:  # what the padding costs: beside the width 2 narrower
             w4 = (qw[:, :N - 2].contiguous(), s[:, :N - 2].contiguous(),
                   zs[:, :N - 2].contiguous())
@@ -1434,7 +1456,9 @@ def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
     K1 prologue or K14 takes: the attention norm and a dense MLP's at rows >
     8, at G != 128 or under A8 (which unfuses the prologues); an MoE layer's
     MLP norm always. Under QUICK_TPU_LAYER_TAIL a dense layer of <= 8 rows
-    at G = 128 runs o, the MLP norm, gate_up and down in K14."""
+    at G = 128 runs o, the MLP norm, gate_up and down in K14. qwen3's
+    per-head qk-norm adds two K13 launches a layer, over [rows x heads, 128]
+    of q and of k."""
     from quick_tpu_torch.ops.fused_layer_tail import launch_key as tail_key
     from quick_tpu_torch.ops.quantized_matmul import (
         a8_launch_key,
@@ -1467,6 +1491,9 @@ def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
                 add("grouped_matmul", key, n)
     add("rms_norm", k13_key(rows, cfg.hidden_size),
         n * ((0 if prologues else 1) + (0 if tail else 1 if cfg.is_moe or not prologues else 0)))
+    if cfg.use_qk_norm:
+        for heads in (cfg.num_attention_heads, cfg.num_key_value_heads):
+            add("rms_norm", k13_key(rows * heads, cfg.head_dim), n)
 
 
 def engine_launches(cfg, stats, engine=ENGINE) -> dict:
@@ -1663,12 +1690,14 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
 # Phase 6: kernel path against the plain path on a 2-layer full-width model
 # ---------------------------------------------------------------------------
 
-def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None):
+def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None, params=None):
     """model_forward over a PagedKVCache: one 16-token chunk for 4 slots at
     different starts (one crossing a page boundary) over random earlier
     context, then PHASE6_DECODE decode steps; the card's kernel path
     (K4-K6) against the plain path on the CPU. ``require``: {kernel:
-    launches} the run must also make (phase 13c: K14 under the switch)."""
+    launches} the run must also make (phase 13c: K14 under the switch).
+    ``params``: the 2-layer model on the card and on the CPU (default:
+    random g=128 QTPU weights, seed 2)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.modules.paged_cache import PagedKVCache
@@ -1682,8 +1711,11 @@ def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None):
     print(f"[{tag}] 2 layers at full width, paged cache (page {page}), chunk at starts "
           f"{starts} + {PHASE6_DECODE} decode steps: kernel path (card) vs plain path (CPU), "
           f"tol {TOL_MODEL} * (1 + |ref|)")
-    p_gpu = init_quant_params(cfg2, seed=2, device=dev)
-    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    if params is None:
+        p_gpu = init_quant_params(cfg2, seed=2, device=dev)
+        p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
+    else:
+        p_gpu, p_cpu = params
     gen = torch.Generator(device=dev).manual_seed(2)
     bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1).reshape(B, n_pt).to(torch.int32)
     shape = (2, P, cfg.num_key_value_heads, page, cfg.head_dim)
@@ -2222,13 +2254,16 @@ def fold_routes(routes, flipped_rows, name: str, step: int) -> int:
 
 
 def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=64, group=128,
-                           tag="8", tol=TOL_MODEL, expert_kernel="grouped_matmul"):
+                           tag="8", tol=TOL_MODEL, expert_kernel="grouped_matmul", params=None,
+                           require=None):
     """[8e] A 2-layer full-width MoE model over a dense cache: a prefill of
     B x prompt tokens and ``steps`` decode steps, the card's kernel path
     against the plain path on the CPU, logits within ``tol``, with the
     routing rule of ROUTE_GAP. ``group``: the quant group of every linear;
     ``expert_kernel``: the grouped kernel that runs the experts (K8, or K12
-    under QUICK_TPU_MOE_A8)."""
+    under QUICK_TPU_MOE_A8); ``params``: the 2-layer model on the card and
+    on the CPU (default: random QTPU weights, seed 1); ``require``: {kernel:
+    launches} the run must also make (phase 17e: K13's, qk-norm included)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.ops import all_kernels
@@ -2241,8 +2276,11 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
           f"(CPU), tol "
           f"{tol} * (1 + |ref|) on rows whose routing agrees; a differing top-{k} set "
           f"needs a router gap < {ROUTE_GAP}")
-    p_gpu = init_quant_params(cfg2, seed=1, group_size=group, device=dev)
-    p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu", group_size=group)
+    if params is None:
+        p_gpu = init_quant_params(cfg2, seed=1, group_size=group, device=dev)
+        p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu", group_size=group)
+    else:
+        p_gpu, p_cpu = params
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen, device=dev)
     cg = make_cache(cfg2, B, max_seq, device=dev)
@@ -2266,16 +2304,20 @@ def phase8_plain_vs_kernel(name, cfg, dev, B=BATCH, prompt=32, steps=2, max_seq=
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     torch.cuda.synchronize()
     launched = {kern.name: kern.launches for kern in kernels if kern.launches}
+    by_key = {kern.name: dict(kern.launches_by_key) for kern in kernels if kern.launches}
     n_moe = sum(cfg2.layer_is_moe(i) for i in range(2))
     if launched.get(expert_kernel) != 2 * n_moe * (1 + steps) or compared == 0:
         fail(f"{name}: the 2-layer MoE path did not run {expert_kernel} twice per MoE layer per "
              f"forward, or no row was compared: {launched}, {compared} rows")
+    for kname, n in (require or {}).items():
+        if launched.get(kname) != n:
+            fail(f"{name}: the 2-layer MoE path did not run {kname} {n} times: {launched}")
     print(f"  launches {launched}; {flips} tokens routed differently; "
           f"{time.perf_counter() - t0:.1f} s")
     del p_gpu, p_cpu, cg, cc
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, flipped_tokens=flips, rows_compared=compared,
-                launches=launched)
+                launches=launched, launches_by_key=by_key)
 
 
 def phase8_moe(dev):
@@ -3765,17 +3807,17 @@ def a8_rows(name, shapes, cases, G, gen, dev, tag="12a"):
     return rows
 
 
-def rms_norm_rows(gen, dev):
-    """[12a, 12b] K13 against rms_norm_plain at K13_CASES (a strided
+def rms_norm_rows(gen, dev, cases=K13_CASES, tag="12a"):
+    """[12a, 12b] K13 against rms_norm_plain at ``cases`` (a strided
     last-dim slice where the case gives a row stride): within one bf16 step
     of the plain value; then timed (the rows stay in L2, as the path's
     freshly written activations do): the bound from x read, the weight read
     and y written; the plain version; torch.nn.functional.rms_norm."""
     from quick_tpu_torch.ops import norms
 
-    print("[12a] K13 (RMSNorm) against rms_norm_plain, within one bf16 step")
+    print(f"[{tag}] K13 (RMSNorm) against rms_norm_plain, within one bf16 step")
     rows = []
-    for path, M, D, ld in K13_CASES:
+    for path, M, D, ld in cases:
         base = (3 * torch.randn((M, ld or D), generator=gen, device=dev)).to(torch.bfloat16)
         x = base[:, :D]
         w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
@@ -4611,14 +4653,16 @@ def awq_expected_launches(cfg) -> dict:
     MLP norms. An MLA block (no q-LoRA): K2 at every MLA forward (the float
     attention, the qkv group's float output and N_GRID candidates, the o
     group's input), K13 at each forward's kv_a norm and at the two block
-    norms."""
+    norms. qwen3's qk-norm adds K13 on q and k at each attention forward."""
     from quick_tpu_torch.quantize.awq import N_GRID
 
     L = cfg.num_hidden_layers
     if cfg.is_mla:
         forwards = N_GRID + 3
         return {"flash_attention": L * forwards, "rms_norm": L * (forwards + 2)}
-    return {"flash_attention": L * (N_GRID + 2), "rms_norm": 2 * L}
+    # qwen3's qk-norm: K13 on q and on k in each attention forward
+    qk = 2 * (N_GRID + 2) if cfg.use_qk_norm else 0
+    return {"flash_attention": L * (N_GRID + 2), "rms_norm": L * (2 + qk)}
 
 
 def awq_code_check(kernel_blk, plain_blk, agree: list) -> dict:
@@ -4644,8 +4688,8 @@ def awq_code_check(kernel_blk, plain_blk, agree: list) -> dict:
     return out
 
 
-def awq_route_check(calls, cfg) -> dict:
-    """[16b] each block's search again from the same input on the plain
+def awq_route_check(calls, cfg, tag: str = "16b") -> dict:
+    """[16b, 17f] each block's search again from the same input on the plain
     route (QUICK_TPU_FLASH=0: the einsum attention; plain-torch norms),
     against the kernel route's (K2, K13). Scale picks must agree or differ
     under a loss gap < AWQ_PICK_GAP; at least AWQ_CLIP_AGREE of each clip
@@ -4657,7 +4701,7 @@ def awq_route_check(calls, cfg) -> dict:
     clip bounds imposed: x_next within AWQ_XNEXT_TOL * (1 + |ref|)."""
     from quick_tpu_torch.quantize import awq
 
-    print(f"[16b] the search on the plain route (QUICK_TPU_FLASH=0, plain norms) from each "
+    print(f"[{tag}] the search on the plain route (QUICK_TPU_FLASH=0, plain norms) from each "
           f"block's input, against the kernel route (K2, K13): scale picks equal or under a loss "
           f"gap < {AWQ_PICK_GAP}; >= {AWQ_CLIP_AGREE:.0%} of each clip search's picks equal; "
           f"x_next within {AWQ_XNEXT_TOL} * (1 + |ref|) with the kernel route's clips imposed")
@@ -4666,17 +4710,18 @@ def awq_route_check(calls, cfg) -> dict:
         with switches(QUICK_TPU_FLASH="0"), plain_norms(), awq.recorded_searches() as rec:
             res, launched = counted(lambda: c["fn"](*c["args"], **c["kw"]))
         if launched:
-            fail(f"[16b] the plain route launched kernels: {launched}")
+            fail(f"[{tag}] the plain route launched kernels: {launched}")
         cmp = awq.compare_searches(c["rec"], rec)
         print(f"  block {i}: searches (kind, picks differ, of, largest loss gap of a differing "
               f"pick) {[(r['kind'], r['differ'], r['picks'], float('%.3g' % r['gap'])) for r in cmp]}",
               flush=True)
         for j, r in enumerate(cmp):
             if r["kind"] == "scale" and r["differ"] and r["gap"] >= AWQ_PICK_GAP:
-                fail(f"[16b] block {i} search {j}: the routes picked different scales at a "
+                fail(f"[{tag}] block {i} search {j}: the routes picked different scales at a "
                      f"loss gap of {r['gap']:.3e}")
             if r["kind"] == "clip" and r["differ"] > (1 - AWQ_CLIP_AGREE) * r["picks"]:
-                fail(f"[16b] block {i} search {j}: {r['differ']} of {r['picks']} clip picks differ")
+                fail(f"[{tag}] block {i} search {j}: {r['differ']} of {r['picks']} clip picks "
+                     "differ")
         words = awq_code_check(c["res"].block, res.block, [r["differ"] == 0 for r in cmp])
         with switches(QUICK_TPU_FLASH="0"), plain_norms(), imposed_clips(c["clips"]):
             fixed = c["fn"](*c["args"], **c["kw"])
@@ -4834,6 +4879,316 @@ def phase16_awq(dev) -> tuple:
     return counts, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: Qwen3 (per-head q / k RMSNorm) and the task harnesses
+# ---------------------------------------------------------------------------
+
+#: the paths of phase 17's counted runs: Qwen3-8B's generate() (17a) and
+#: Qwen3-30B-A3B's 2-layer kernel path (17e)
+QWEN3_GEN, QWEN3_MOE = "qwen3_generate", "qwen3_moe_2layer"
+#: random q / k norm weights: 1 + QK_SPREAD x N(0, 1), so that the norm
+#: weights move q and k and a port that skipped them would show
+QK_SPREAD = 0.1
+#: [17c] the 2-layer model's per-choice scores (mean per-token logprob),
+#: kernel route against the plain route on the CPU: the bf16 head's logits
+#: (|l| < 8 with the final norm scaled by BEAM_CHECK_NORM; 17b reads
+#: max|l| 5.3-5.4) may round one bf16 step (2^-8 x 8) apart, which moves a
+#: log-softmax value by up to twice that
+MMLU_SCORE_TOL = 2 * 2.0 ** -8 * 8
+#: [17c] synthetic 4-choice rows (question words, the answer), their prompts
+#: 40-230 bytes: the 64-token bucket (einsum attention) and the 128 / 192 /
+#: 256-token buckets (K2 by _use_flash's gate: S >= 64, T >= 128)
+MMLU_WORDS = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta", "theta")
+MMLU_QUESTION_WORDS = (2, 5, 12, 20, 3, 28, 8, 34)
+#: [17c] rows of the 2-layer check against the plain route: those of the
+#: 64-, 128- and 192-token buckets (its CPU side computes the 151,936-wide
+#: head at every position: the slow part)
+MMLU_CHECK_ROWS = (0, 1, 2, 3, 4, 6)
+#: [17d] hand-written HumanEval problems: (prompt, test, entry point, a
+#: completion that passes, one that fails)
+HUMANEVAL_PROBLEMS = (
+    ("def add(a, b):\n", "def check(f):\n    assert f(2, 3) == 5\n    assert f(-4, 4) == 0\n",
+     "add", "    return a + b\n", "    return a - b\n"),
+    ("def largest(xs):\n",
+     "def check(f):\n    assert f([3, 9, 2]) == 9\n    assert f([-1]) == -1\n",
+     "largest", "    return max(xs)\n", "    return xs[0]\n"),
+)
+
+
+def byte_tokenize(vocab: int):
+    """A deterministic tokenizer for synthetic text: UTF-8 bytes mod vocab."""
+    return lambda text: [b % vocab for b in text.encode("utf-8")]
+
+
+def mmlu_rows() -> list:
+    rows = []
+    for i, n in enumerate(MMLU_QUESTION_WORDS):
+        words = [MMLU_WORDS[(i + j) % len(MMLU_WORDS)] for j in range(n)]
+        rows.append(dict(question=" ".join(words) + "?", answer=i % 4,
+                         choices=[str(7 * c + i) for c in range(4)]))
+    return rows
+
+
+def qwen3_params(cfg, dev, seed: int = 0, layers=None):
+    """(cfg, params): random g=128 QTPU weights (seed), an untied bf16 head
+    (seed + 11) and random q / k norm weights (1 + QK_SPREAD N(0, 1)), the
+    first ``layers`` layers if given."""
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.modules.linear import Linear
+
+    if layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    params = init_quant_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    D = cfg.hidden_size
+    params.lm_head = Linear((torch.randn((D, cfg.vocab_size), generator=gen, device=dev)
+                             / math.sqrt(D)).to(torch.bfloat16))
+    random_qk_norms(params, gen)
+    return cfg, params
+
+
+def random_qk_norms(params, gen) -> None:
+    """Every block's q / k norm weights, in place: 1 + QK_SPREAD N(0, 1)."""
+    for blk in params.blocks:
+        for name in ("q_norm", "k_norm"):
+            w = getattr(blk.attn, name)
+            noise = torch.randn(w.shape, generator=gen, device=w.device)
+            setattr(blk.attn, name, (1 + QK_SPREAD * noise).to(torch.bfloat16))
+
+
+def cpu_copy(params, cfg):
+    from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
+
+    return params_from_flat(params_to_flat(params), cfg, device="cpu")
+
+
+def k13_launches(cfg, forwards) -> int:
+    """K13's launches of model_forward calls over ``forwards`` (the rows of
+    each call): add_forward_launches' at every layer and the final norm's one
+    launch a call (the bf16 head takes no prologue)."""
+    n = []
+    for rows in forwards:
+        add_forward_launches(cfg, rows, cfg.num_hidden_layers,
+                             lambda kernel, key, k: n.append(k if kernel == "rms_norm" else 0))
+        n.append(1)
+    return sum(n)
+
+
+def qk_copy_ms(gen, dev, rows: int, cfg) -> dict:
+    """[17a] the qk-norm as the path runs it: q and k column slices of the
+    qkv output, which the K13 wrapper copies to contiguous rows before the
+    launch; ms of the copy and K13 together beside K13 on contiguous rows."""
+    from quick_tpu_torch.ops import norms
+
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    qkv = torch.randn((rows, 1, (hq + 2 * hkv) * hd), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.ones(hd, device=dev, dtype=torch.bfloat16)
+    out = {}
+    for name, lo, h in (("q", 0, hq), ("k", hq * hd, hkv)):
+        x = qkv[..., lo:lo + h * hd].reshape(rows, 1, h, hd)
+        xc = x.contiguous()
+        out[name] = dict(
+            slice_ms=device_ms(lambda i: norms.rms_norm_cuda(x, w, 1e-6), 100),
+            contiguous_ms=device_ms(lambda i: norms.rms_norm_cuda(xc, w, 1e-6), 100))
+    print(f"  qk-norm at {rows} rows, slice (copy + K13) against contiguous (K13): "
+          + json.dumps(out))
+    return out
+
+
+def phase17_mmlu(model, cfg, dev) -> dict:
+    """[17c] eval_mmlu over mmlu_rows() with the 17a model at full depth
+    (the kernel route), timed and counted; then per-choice scores of a
+    2-layer model (the final norm scaled by BEAM_CHECK_NORM) on the card
+    against the plain route on the CPU at MMLU_CHECK_ROWS, within
+    MMLU_SCORE_TOL, the same argmax wherever the two best scores lie more
+    than MMLU_SCORE_TOL apart."""
+    from quick_tpu_torch.evaluation import eval_mmlu, score_choices
+    from quick_tpu_torch.evaluation.mmlu import build_prompt
+
+    rows, tok = mmlu_rows(), byte_tokenize(cfg.vocab_size)
+    lens = [len(tok(build_prompt(r))) for r in rows]
+    print(f"[17c] eval_mmlu: {len(rows)} synthetic 4-choice rows (prompts of {min(lens)}-"
+          f"{max(lens)} byte tokens), {cfg.num_hidden_layers} layers on the card")
+    eval_mmlu(model.params, cfg, tok, rows[:1])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, launched = counted(lambda: eval_mmlu(model.params, cfg, tok, rows))
+    seconds = time.perf_counter() - t0
+    for k in ("quantized_matmul", "flash_attention", "rms_norm"):
+        if not launched.get(k):
+            fail(f"[17c] eval_mmlu did not launch {k}: {launched}")
+    print(f"  accuracy {res['accuracy']:.3f} of {res['n']} rows (random weights) in "
+          f"{seconds:.2f} s; launches { {k: sum(v.values()) for k, v in launched.items()} }")
+    cfg2, p2 = qwen3_params(cfg, dev, seed=3, layers=2)
+    p2.final_norm.mul_(BEAM_CHECK_NORM)
+    p2c = cpu_copy(p2, cfg2)
+    print(f"  2 layers, the final norm x {BEAM_CHECK_NORM}: scores on the card against the plain "
+          f"route (CPU) at rows {MMLU_CHECK_ROWS}, tol {MMLU_SCORE_TOL}")
+    worst, same = 0.0, 0
+    for i in MMLU_CHECK_ROWS:
+        prompt = build_prompt(rows[i])
+        sg = score_choices(p2, cfg2, tok, prompt, rows[i]["choices"])
+        sc = score_choices(p2c, cfg2, tok, prompt, rows[i]["choices"])
+        d = float(abs(sg - sc).max())
+        worst = max(worst, d)
+        top = sorted(sc)[-2:]
+        print(f"  row {i} ({lens[i]} tokens): card {[round(float(v), 4) for v in sg]}, plain "
+              f"{[round(float(v), 4) for v in sc]}, max |d| {d:.3e}")
+        if not d <= MMLU_SCORE_TOL:
+            fail(f"[17c] row {i}: a choice's score differs by {d} between the routes")
+        if top[1] - top[0] > MMLU_SCORE_TOL:
+            same += 1
+            if int(sg.argmax()) != int(sc.argmax()):
+                fail(f"[17c] row {i}: the routes pick other choices at a score gap "
+                     f"{top[1] - top[0]}")
+    del p2, p2c
+    torch.cuda.empty_cache()
+    return dict(accuracy=res["accuracy"], n=res["n"], seconds=seconds, prompt_tokens=lens,
+                launches={k: sum(v.values()) for k, v in launched.items()},
+                score_max_abs_err=worst, argmax_compared=same)
+
+
+def phase17_humaneval(model, cfg, dev) -> dict:
+    """[17d] eval_humaneval on HUMANEVAL_PROBLEMS: generate_fn runs the
+    port's generate() on the card (8 greedy tokens after the prompt's byte
+    tokens), writes them as a comment line and appends the problem's
+    passing and failing completions, so pass@1 is 0.5 and pass@2 1.0."""
+    from quick_tpu_torch.evaluation import eval_humaneval
+
+    tok = byte_tokenize(cfg.vocab_size)
+    known = {p[0]: p for p in HUMANEVAL_PROBLEMS}
+    generated = []
+
+    def generate_fn(prompt):
+        toks = torch.tensor([tok(prompt)], device=dev)
+        out = model.generate(toks, 8, max_seq=64)
+        new = out[0, toks.shape[1]:].tolist()
+        generated.append(len(new))
+        note = "    # " + "".join(chr(32 + t % 95) for t in new) + "\n"
+        return [note + known[prompt][3], note + known[prompt][4]]
+
+    problems = [dict(task_id=f"synthetic/{i}", prompt=p, test=t, entry_point=e)
+                for i, (p, t, e, _, _) in enumerate(HUMANEVAL_PROBLEMS)]
+    print(f"[17d] eval_humaneval: {len(problems)} hand-written problems, generate() on the card "
+          "plus a passing and a failing completion each")
+    t0 = time.perf_counter()
+    scores, launched = counted(lambda: eval_humaneval(generate_fn, problems, ks=(1, 2)))
+    seconds = time.perf_counter() - t0
+    print(f"  {scores} in {seconds:.2f} s; launches "
+          f"{ {k: sum(v.values()) for k, v in launched.items()} }")
+    if scores != {"pass@1": 0.5, "pass@2": 1.0} or generated != [8] * len(problems):
+        fail(f"[17d] eval_humaneval gave {scores} (generated {generated}), not pass@1 0.5, "
+             "pass@2 1.0")
+    if not launched.get("fused_decode_step") or not launched.get("quantized_matmul"):
+        fail(f"[17d] generate_fn did not run the decode kernels: {launched}")
+    return dict(scores=scores, seconds=seconds)
+
+
+def phase17_qwen3(dev) -> tuple:
+    """Phase 17: (a) Qwen3-8B at full width and depth through generate(), K1
+    at its four projections and K13 at its qk-norm shapes held and timed;
+    (b) 2-layer dense and paged logits against the plain path, K13 counted
+    exactly; (c) eval_mmlu; (d) eval_humaneval; (e) Qwen3-30B-A3B: K8 at 128
+    experts held and timed, 2 layers against the plain path with phase 8's
+    routing rule; (f) one Qwen3-8B block of AWQ through quantize(calib)
+    against the plain route. Returns (launch counts, report, kernel rows)."""
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.quantize.calib import get_calib_tokens
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["qwen3-8b"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    report, counts = {}, {}
+    gemms = main_path_gemms(cfg)
+    print(f"[17a] K1 at Qwen3-8B's projections, K13 at its qk-norm shapes")
+    errs = {}
+    for prologue, M, K, N in gemms:
+        key, errs[key], _ = check_gemm(prologue, M, K, N, gen, dev)
+    rows = time_gemms(cfg, gen, dev, errs, gemms, QWEN3_GEN)
+    hd = cfg.head_dim
+    rows += rms_norm_rows(gen, dev, tag="17a", cases=tuple(
+        (QWEN3_GEN, r * h, hd, None) for r in (BATCH, BATCH * PROMPT)
+        for h in (cfg.num_attention_heads, cfg.num_key_value_heads)))
+    report["qk_norm_copy"] = {r: qk_copy_ms(gen, dev, r, cfg) for r in (BATCH, BATCH * PROMPT)}
+    print(f"[17a] generate() path: Qwen3-8B, {cfg.num_hidden_layers} layers, B={BATCH}, "
+          f"{PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg, params = qwen3_params(cfg, dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    print(f"  random weights in {time.perf_counter() - t0:.1f} s: {weights / 1e9:.2f} GB on "
+          "the card")
+    model = AutoQuickModel(params, cfg)
+    counts[QWEN3_GEN], stats = run_generate(model, cfg, dev, "qwen3-8b", generate_launches(cfg))
+    stats["weights_gb"] = weights / 1e9
+    prof = stats["decode_profile"]
+    print(f"[17a] Qwen3-8B: prefill {min(stats['prefill_ms']):.2f} ms, graphed decode "
+          f"{min(stats['decode_ms_per_step']):.3f} ms a token, device "
+          f"{prof['device_busy_ms_per_step']:.3f} ms a step, busy share "
+          f"{prof['device_busy_share']:.3f}")
+    report["generate"] = stats
+    report["mmlu"] = phase17_mmlu(model, cfg, dev)
+    report["humaneval"] = phase17_humaneval(model, cfg, dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 17a, 17c, 17d done at {time.perf_counter() - t_phase:.0f} s of the phase")
+
+    cfg2, p2 = qwen3_params(cfg, dev, seed=1, layers=2)
+    pair = (p2, cpu_copy(p2, cfg2))
+    dense_rows = [BATCH * PROMPT] + [BATCH] * PHASE6_DECODE
+    paged_rows = [4 * 16] + [4] * PHASE6_DECODE  # phase 6's paged chunk: 4 slots x 16
+    report["plain_vs_kernel"] = dict(
+        dense=phase6_dense_plain_vs_kernel(cfg, dev, params=pair, tag="17b", require={
+            "rms_norm": k13_launches(cfg2, dense_rows)}),
+        paged=phase6_paged_plain_vs_kernel(cfg, dev, tag="17b", params=pair, require={
+            "rms_norm": k13_launches(cfg2, paged_rows)}))
+    del p2, pair
+    torch.cuda.empty_cache()
+
+    mcfg = PRESETS["qwen3-30b-a3b"]
+    moe_prompt = 32
+    rows += grouped_rows("qwen3-30b-a3b", mcfg, gen, dev, tag="17e",
+                         cases=[(QWEN3_MOE, BATCH), (QWEN3_MOE, BATCH * moe_prompt)])
+    mcfg2, m2 = qwen3_params(mcfg, dev, seed=1, layers=2)
+    moe = phase8_plain_vs_kernel(
+        "qwen3-30b-a3b", mcfg, dev, prompt=moe_prompt, steps=2, max_seq=64, tag="17e",
+        params=(m2, cpu_copy(m2, mcfg2)),
+        require={"rms_norm": k13_launches(mcfg2, [BATCH * moe_prompt, BATCH, BATCH])})
+    counts[QWEN3_MOE] = moe.pop("launches_by_key")
+    report["qwen3_30b_a3b_plain_vs_kernel"] = moe
+    del m2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(cfg, num_hidden_layers=1)
+    calib = get_calib_tokens(vocab_size=fcfg.vocab_size, **AWQ_CALIB)
+    print(f"[17f] AWQ: one Qwen3-8B block at full width through quantize(calib), random float "
+          f"weights (seed 0) with random q / k norms and {AWQ_HOT} embedding channels x "
+          f"{AWQ_BOOST}; phase 16's calibration ({calib.shape[0]} x {calib.shape[1]})")
+    m = AutoQuickModel.from_random(fcfg, seed=0, device=dev)
+    random_qk_norms(m.params, torch.Generator(device=dev).manual_seed(5))
+    boost_channels(m.params, fcfg)
+    a = awq_quantize_timed(m, fcfg, calib, "17f")
+    got = {k: sum(v.values()) for k, v in a["launches"].items()}
+    if got != awq_expected_launches(fcfg):
+        fail(f"[17f] the AWQ search launched {got}, expected {awq_expected_launches(fcfg)}")
+    report["awq_block"] = dict(seconds=a["seconds"], block_seconds=a["block_seconds"],
+                               peak_gb=a["peak_gb"], route_check=awq_route_check(a["calls"], fcfg,
+                                                                                 tag="17f"))
+    counts["awq_qwen3_8b"] = a["launches"]
+    del m, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 17 took {report['seconds']:.1f} s")
+    return counts, report, rows
+
+
 def depth_costs(dev) -> dict:
     """``python3 chip_smoke.py --depth-costs``: the seconds of the phases
     that the time limit runs at a cut depth, run at full depth instead
@@ -4981,6 +5336,10 @@ def main() -> None:
     counts.update(ds_counts)
     rows += ds_rows
     print(f"  phase 11 done at {time.perf_counter() - t_start:.0f} s")
+    qwen3_counts, qwen3_report, qwen3_rows = phase17_qwen3(dev)
+    counts.update(qwen3_counts)
+    rows += qwen3_rows
+    print(f"  phase 17 done at {time.perf_counter() - t_start:.0f} s")
     for row in rows:  # (path, kernel, key) -> this shape's launches on that path
         path, kernel, key = row["launches"]
         row["launches"] = counts[path][kernel].get(key, 0)
@@ -5023,7 +5382,7 @@ def main() -> None:
                   graphs=dict(graph_ab, mixtral_engine=moe_report["mixtral_engine_graph_ab"],
                               deepseek_engines=ds_report["engine_graph_ab"]),
                   penalties=penalties, k4_graph=k4_graph, beam=beam_stats,
-                  penalised_engine=pen_engine_stats, awq=awq_report,
+                  penalised_engine=pen_engine_stats, awq=awq_report, qwen3=qwen3_report,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

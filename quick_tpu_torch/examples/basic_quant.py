@@ -42,6 +42,28 @@ DEEPSEEK_V2_LITE = dict(
     rms_norm_eps=1e-6, tie_word_embeddings=False,
 )
 
+#: Qwen/Qwen3-8B config.json, the fields the port reads: per-head q / k
+#: RMSNorm, head_dim 128, GQA 32 / 8, untied head; about 6.4 GB at W4A16 g=128
+QWEN3_8B = dict(
+    model_type="qwen3", vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+    num_hidden_layers=36, num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+    max_position_embeddings=40960, rope_theta=1000000, rms_norm_eps=1e-6,
+    attention_bias=False, tie_word_embeddings=False, sliding_window=None,
+    use_sliding_window=False,
+)
+
+#: Qwen/Qwen3-30B-A3B config.json: 128 experts of 768, top-8 with
+#: norm_topk_prob, no shared expert, per-head q / k RMSNorm, GQA 32 / 4
+QWEN3_30B_A3B = dict(
+    model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+    moe_intermediate_size=768, num_hidden_layers=48, num_attention_heads=32,
+    num_key_value_heads=4, head_dim=128, num_experts=128, num_experts_per_tok=8,
+    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+    max_position_embeddings=40960, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    attention_bias=False, tie_word_embeddings=False, sliding_window=None,
+    use_sliding_window=False,
+)
+
 PRESETS = {
     "tinyllama": ModelConfig(
         vocab_size=32000, hidden_size=2048, intermediate_size=5632,
@@ -76,6 +98,8 @@ PRESETS = {
     # top-6, 2 shared, a dense first layer), yarn rope x40; 15.7 B float
     # parameters, about 10.5 GB at W4A16 g=64
     "deepseek-v2-lite": ModelConfig.from_hf_config(DEEPSEEK_V2_LITE),
+    "qwen3-8b": ModelConfig.from_hf_config(QWEN3_8B),
+    "qwen3-30b-a3b": ModelConfig.from_hf_config(QWEN3_30B_A3B),
     "debug": ModelConfig(
         vocab_size=1024, hidden_size=256, intermediate_size=512,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

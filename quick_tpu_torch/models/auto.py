@@ -1,6 +1,7 @@
 """High-level model API (port of ``quick_tpu/models/auto.py``, llama path
-with dense or MoE MLPs: llama, mistral, mixtral, qwen2_moe; and DeepSeek-V2
-/ V3, MLA with DeepSeekMoE):
+with dense or MoE MLPs: llama, mistral, qwen2, qwen, baichuan, phi3,
+internlm2, llava's language tower, mixtral, qwen2_moe, qwen3 and qwen3_moe;
+and DeepSeek-V2 / V3, MLA with DeepSeekMoE):
 
     model = AutoQuickModel.from_pretrained(hf_dir)             # float import
     model.quantize(calib_tokens, QuantConfig())                # AWQ search + pack
@@ -28,51 +29,90 @@ import torch
 from quick_tpu_torch.config import ModelConfig, QuantConfig
 from quick_tpu_torch.device import DeviceLike, resolve_device
 
-#: the ported part of quick_tpu's MODEL_TYPE_MAP (:30-88): the llama
-#: architecture types, mixtral (MoE through ``num_local_experts``),
-#: qwen2_moe and deepseek_v2 / v3 with their config switch overrides.
+#: the ported part of quick_tpu's MODEL_TYPE_MAP (:30-88), model_type ->
+#: config switch overrides: the llama architecture types (baichuan, qwen v1,
+#: phi3, internlm2 and llava's language tower import through schema
+#: importers of their own), mixtral (MoE through ``num_local_experts``),
+#: qwen2_moe, qwen3 / qwen3_moe (per-head q / k RMSNorm) and deepseek_v2 /
+#: v3. The other families are ROADMAP A12.
 MODEL_TYPE_MAP: Dict[str, dict] = {
     "llama": {},
     "mistral": {},
     "vicuna": {},
     "yi": {},
     "aquila": {},
+    "qwen2": {},
+    "qwen": {"attention_bias": True},
     "mixtral": {},
+    "baichuan": {},
+    "llava": {},  # the language tower; the vision tower is A16
+    "qwen3": {"use_qk_norm": True},
     "qwen2_moe": {
         "moe_router": "softmax_all", "moe_freq_shifted": True,
         "attention_bias": True, "shared_expert_gate": True,
         "n_shared_experts": 1, "norm_topk_prob": False,
     },
+    "qwen3_moe": {
+        "use_qk_norm": True, "moe_router": "softmax_all",
+        "moe_freq_shifted": True, "norm_topk_prob": True,
+    },
+    "phi3": {},
+    "internlm2": {},
     "deepseek_v2": {"moe_router": "deepseek"},
     "deepseek_v3": {"moe_router": "deepseek", "scoring_func": "sigmoid"},
 }
+
+#: the rest of quick_tpu's MODEL_TYPE_MAP and ``_HF_IMPORTERS``: families
+#: with switches, importers or both that the port does not run yet. Their
+#: configs must not fall back to the llama path, which the JAX package
+#: does not run them on
+A12_TYPES = frozenset({
+    "gpt_neox", "gptj", "opt", "bloom", "mpt", "falcon", "RefinedWeb", "RefinedWebModel",
+    "gpt_bigcode", "phi", "gemma", "gemma2", "gemma3", "cohere", "granite", "olmo2",
+    "minicpm", "starcoder2", "stablelm",
+})
+
+
+def check_not_a12(model_type: str, what: str) -> None:
+    """Refuse a family the JAX package maps that the port does not run yet."""
+    if model_type in A12_TYPES:
+        raise NotImplementedError(
+            f"{what}: model_type {model_type!r} is not ported yet; the port maps "
+            f"{sorted(MODEL_TYPE_MAP)} (ROADMAP A12)")
+
 
 #: QuantConfig versions that name an AutoAWQ layout (converted at load)
 AUTOAWQ_VERSIONS = ("gemm", "gemv", "exllama", "exllamav2")
 
 
-def check_and_get_model_type(model_type: str) -> str:
-    """Check a loaded model's type against the registry
-    (``check_and_get_model_type`` :92, as its loaders call it): an unmapped
-    type (a native checkpoint whose config passes ``check_supported``) runs
-    with a warning; the HF and AutoAWQ importers refuse such types before
-    this is asked."""
+def check_and_get_model_type(model_type: str, allow_fallback: bool = False) -> str:
+    """Check a model type against the registry (``check_and_get_model_type``
+    :92). With ``allow_fallback=True`` (the HF and quantized loaders) an
+    unmapped type whose tensors imported through the generic llama schema
+    runs with llama-family semantics and a warning; otherwise it raises
+    ``TypeError``."""
+    check_not_a12(model_type, "model type")
     if model_type not in MODEL_TYPE_MAP:
-        warnings.warn(
-            f"model_type '{model_type}' is not in the registry; it runs with "
-            "llama-family semantics. Verify outputs against the source model.",
-            stacklevel=2,
-        )
+        if allow_fallback:
+            warnings.warn(
+                f"model_type '{model_type}' is not in the registry; it "
+                "was imported via the generic llama-family fallback and "
+                "will RUN with llama-family semantics. Verify outputs "
+                "against the source model — family-specific switches "
+                "(norm kind, softcaps, windows, qk-norm, ...) are NOT "
+                "auto-detected.",
+                stacklevel=2,
+            )
+            return model_type
+        raise TypeError(f"{model_type} isn't supported yet. Supported: {sorted(MODEL_TYPE_MAP)}")
     return model_type
 
 
 def apply_model_type(cfg: ModelConfig) -> ModelConfig:
-    if cfg.model_type not in MODEL_TYPE_MAP:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported yet; supported: "
-            f"{sorted(MODEL_TYPE_MAP)}"
-        )
-    overrides = MODEL_TYPE_MAP[cfg.model_type]
+    """The registry's switch overrides for ``cfg.model_type`` (none for an
+    unmapped type, which runs the llama path: ``apply_model_type`` :125)."""
+    check_not_a12(cfg.model_type, "model type")
+    overrides = MODEL_TYPE_MAP.get(cfg.model_type, {})
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
@@ -102,7 +142,7 @@ class AutoQuickModel:
 
         device = resolve_device(device)  # refuse before reading anything
         params, cfg = load_hf_float(model_dir, dtype, device=device)
-        check_and_get_model_type(cfg.model_type)
+        check_and_get_model_type(cfg.model_type, allow_fallback=True)
         return cls(params, cfg)
 
     @classmethod
@@ -118,7 +158,7 @@ class AutoQuickModel:
             qcfg = dataclasses.replace(qcfg, version="qtpu")
         else:
             params, cfg, qcfg = load_quantized(model_dir, device=device)
-        check_and_get_model_type(cfg.model_type)
+        check_and_get_model_type(cfg.model_type, allow_fallback=True)
         return cls(params, cfg, qcfg)
 
     @classmethod

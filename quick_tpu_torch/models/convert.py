@@ -60,7 +60,8 @@ def params_from_flat(
     them; a block with ``mlp.router.weight`` is an MoE block, one with
     ``attn.kv_a_norm`` an MLA block (``attn.q``, ``attn.q_b``,
     ``attn.kv_a``, ``attn.kv_a_norm``, ``attn.kv_b``, ``attn.q_a_norm``,
-    ``attn.o``). The rope tables are rebuilt from ``cfg``."""
+    ``attn.o``); qwen3's per-head norms are ``attn.q_norm`` /
+    ``attn.k_norm``. The rope tables are rebuilt from ``cfg``."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -99,7 +100,13 @@ def params_from_flat(
                           if f"{p}.attn.q_a_norm" in flat else None),
             )
         else:
-            attn = AttentionParams(qkv_proj=lin(f"{p}.attn.qkv"), o_proj=lin(f"{p}.attn.o"))
+            attn = AttentionParams(
+                qkv_proj=lin(f"{p}.attn.qkv"), o_proj=lin(f"{p}.attn.o"),
+                q_norm=(to_tensor(flat[f"{p}.attn.q_norm"], dev)
+                        if f"{p}.attn.q_norm" in flat else None),
+                k_norm=(to_tensor(flat[f"{p}.attn.k_norm"], dev)
+                        if f"{p}.attn.k_norm" in flat else None),
+            )
         blocks.append(BlockParams(
             attn_norm=to_tensor(flat[f"{p}.attn_norm"], dev),
             attn=attn,
@@ -158,6 +165,9 @@ def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Ten
         else:
             _lin_to_flat(f"{p}.attn.qkv", a.qkv_proj, out, put)
             _lin_to_flat(f"{p}.attn.o", a.o_proj, out, put)
+            if a.q_norm is not None:
+                out[f"{p}.attn.q_norm"] = put(a.q_norm)
+                out[f"{p}.attn.k_norm"] = put(a.k_norm)
         mlp = blk.mlp
         if isinstance(mlp, MoEParams):
             _lin_to_flat(f"{p}.mlp.router", mlp.router, out, put)

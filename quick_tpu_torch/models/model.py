@@ -46,10 +46,12 @@ class ModelParams:
 
 
 #: the other families' config switches, each at the value the dense llama
-#: path has; the port does not run them yet (ROADMAP A12)
+#: path has; the port does not run them yet (ROADMAP A12). qwen3's per-head
+#: RMS qk-norm runs (``use_qk_norm`` without ``qk_norm_full``, under
+#: ``layernorm == "rmsnorm"``)
 _LLAMA_PATH = dict(
     use_alibi=False, parallel_residual=False, use_rope=True, learned_pos=False,
-    embed_norm=False, embed_scale=False, use_qk_norm=False,
+    embed_norm=False, embed_scale=False, qk_norm_full=False,
     use_post_norms=False, pre_norms=True, query_pre_attn_scalar=None,
     rope_local_theta=None, logit_scale=None, embed_multiplier=None,
     residual_multiplier=None, final_logit_softcap=None, layernorm="rmsnorm",
@@ -63,9 +65,10 @@ PORTED_ROUTERS = ("mixtral", "softmax_all", "deepseek")
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs the llama path with dense or MoE ("mixtral",
-    "softmax_all" and "deepseek" routers) MLPs, and DeepSeek's MLA
-    attention; the other families' switches raise until their slices
-    land."""
+    "softmax_all" and "deepseek" routers) MLPs, qwen3's per-head RMS
+    qk-norm, and DeepSeek's MLA attention; the other families' switches
+    (olmo2's full-width and cohere's LayerNorm qk-norm among them) raise
+    until their slices land."""
     if cfg.is_moe and cfg.moe_router not in PORTED_ROUTERS:
         raise NotImplementedError(
             f"{cfg.model_type}: the {cfg.moe_router!r} MoE router is not ported "
@@ -164,6 +167,15 @@ def _block(attn: AttentionParams, mlp: MLPParams, D: int, dtype, device) -> Bloc
                        mlp_norm=_ones(D, dtype, device), mlp=mlp)
 
 
+def _qk_norms(cfg: ModelConfig, dtype, device) -> dict:
+    """qwen3's per-head q / k RMSNorm weights, ones of [head_dim] (the
+    initializers' :246-251 and :379-384), or none."""
+    if not cfg.use_qk_norm:
+        return {}
+    return dict(q_norm=_ones(cfg.head_dim, dtype, device),
+                k_norm=_ones(cfg.head_dim, dtype, device))
+
+
 def _tables(cfg: ModelConfig, device) -> dict:
     cos, sin = rope_table(
         cfg.max_position_embeddings, cfg.rotary_dim or cfg.head_dim,
@@ -240,7 +252,8 @@ def init_float_params(
             qkv = dense(D, (hq + 2 * hkv) * hd)
             if cfg.attention_bias:
                 qkv = Linear(qkv.weight, torch.zeros((hq + 2 * hkv) * hd, dtype=dtype, device=dev))
-            attn = AttentionParams(qkv_proj=qkv, o_proj=dense(hq * hd, D))
+            attn = AttentionParams(qkv_proj=qkv, o_proj=dense(hq * hd, D),
+                                   **_qk_norms(cfg, dtype, dev))
         if cfg.layer_is_moe(i):
             mlp = _moe_params(cfg, dense, dense)
         else:
@@ -289,7 +302,8 @@ def init_quant_params(
             attn = _init_mla(cfg, qlin, fdense, dtype, dev)
         else:
             attn = AttentionParams(
-                qkv_proj=qlin(D, (hq + 2 * hkv) * hd), o_proj=qlin(hq * hd, D)
+                qkv_proj=qlin(D, (hq + 2 * hkv) * hd), o_proj=qlin(hq * hd, D),
+                **_qk_norms(cfg, dtype, dev),
             )
         if cfg.layer_is_moe(i):
             mlp = _moe_params(cfg, qlin, fdense)

@@ -1,15 +1,16 @@
 """Decoder blocks, llama path with dense or MoE MLPs, and DeepSeek's MLA
 attention (port of ``quick_tpu/modules/blocks.py``).
 
-The port covers the llama-family block: pre-RMSNorm, fused QKV and
-gate_up linears, RoPE, the head-major dense KV cache or the paged cache,
-attention (with the sliding window and the attention-logit softcap the
-kernels take), the SwiGLU MLP and the sparse MoE MLP (``moe_forward``:
-the "mixtral", "softmax_all" and "deepseek" routers, shared experts,
-ungated or gated by a sigmoid, quantized experts through the grouped kernel
-K8, or K12 under ``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 / V3 block,
-MLA attention (``modules/mla.py``) with DeepSeekMoE. The other families'
-switches (qk-norm, sandwich norms, ALiBi, parallel residual, LayerNorm, plain MLPs, ...), expert and context
+The port covers the llama-family block: pre-RMSNorm, fused QKV and gate_up
+linears, qwen3's per-head q / k RMSNorm, RoPE, the head-major dense KV cache
+or the paged cache, attention (with the sliding window and the
+attention-logit softcap the kernels take), the SwiGLU MLP and the sparse MoE
+MLP (``moe_forward``: the "mixtral", "softmax_all" and "deepseek" routers,
+shared experts, ungated or gated by a sigmoid, quantized experts through the
+grouped kernel K8, or K12 under ``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 /
+V3 block, MLA attention (``modules/mla.py``) with DeepSeekMoE. The other
+families' switches (full-width or LayerNorm qk-norm, sandwich norms, ALiBi,
+parallel residual, LayerNorm, plain MLPs, ...), expert and context
 parallelism are not ported yet: such configs are refused by
 ``models/model.py::check_supported`` (ROADMAP.md). Under
 ``QUICK_TPU_LAYER_TAIL=1`` a decode layer's post-attention tail (o-proj,
@@ -50,6 +51,10 @@ AnyCache = Union[KVCache, PagedKVCache]
 class AttentionParams:
     qkv_proj: AnyLinear  # fused [D, (Hq + 2*Hkv) * hd]
     o_proj: AnyLinear
+    #: qwen3-style per-head RMSNorm weights [head_dim], applied to q / k
+    #: after the head reshape, before RoPE (cfg.use_qk_norm)
+    q_norm: Optional[torch.Tensor] = None
+    k_norm: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -223,6 +228,14 @@ def attention_forward(
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hkv, hd)
     v = v.reshape(B, S, hkv, hd)
+    if cfg.use_qk_norm:
+        # qwen3's per-head RMSNorm ([hd] weights shared by the heads) before
+        # RoPE, on every route (:288-298). On the card K13 runs it over
+        # [B*S*h, hd] rows; q and k are column slices of the qkv output, so
+        # their rows do not flatten to one stride and the wrapper copies them
+        # into contiguous rows first (one copy each, per layer)
+        q = rms_norm(q, p.q_norm, cfg.rms_norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.rms_norm_eps)
     window = _attention_window(cfg, layer_idx, cache.max_seq if cache is not None else S)
     softcap = cfg.attn_logit_softcap
     route = None

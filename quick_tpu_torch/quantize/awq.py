@@ -25,8 +25,9 @@ is read back per candidate. Eager PyTorch: no counterpart of the JAX
 package's one jitted program per block.
 
 The port runs what ``models/model.py::check_supported`` admits: the llama
-path (dense and the three ported MoE routers) and MLA. The JAX package's
-branches for the other families' switches (qk-norm, post-norms, no
+path (dense and the three ported MoE routers, qwen3's per-head RMS
+qk-norm) and MLA. The JAX package's branches for the other families'
+switches (full-width and LayerNorm qk-norm, post-norms, no
 pre-norms, LayerNorm, residual multipliers, parallel residual, ALiBi,
 non-gated MLPs, gemma3's local rope tables) wait for ROADMAP A12; such
 configs raise there.
@@ -316,14 +317,18 @@ def awq_quantize_block(
 
     def attn_fwd(qkv_w: torch.Tensor, attn_in: torch.Tensor) -> torch.Tensor:
         """The attention output (the o projection's input) for a qkv
-        weight, with the block forward's rope, window and softcap."""
+        weight, with the block forward's per-head q / k RMSNorm (qwen3,
+        :219-225), rope, window and softcap."""
         qkv = torch.matmul(attn_in, qkv_w.to(attn_in.dtype))
         if qkv_b is not None:
             qkv = qkv + qkv_b.to(qkv.dtype)
         q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-        q = apply_rope(q.reshape(B, S, hq, hd), positions, rope_cos, rope_sin)
-        k = apply_rope(k.reshape(B, S, hkv, hd), positions, rope_cos, rope_sin)
-        v = v.reshape(B, S, hkv, hd)
+        q, k, v = q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd), v.reshape(B, S, hkv, hd)
+        if cfg.use_qk_norm:
+            q = rms_norm(q, blk.attn.q_norm, cfg.rms_norm_eps)
+            k = rms_norm(k, blk.attn.k_norm, cfg.rms_norm_eps)
+        q = apply_rope(q, positions, rope_cos, rope_sin)
+        k = apply_rope(k, positions, rope_cos, rope_sin)
         window = cfg.sliding_window if sliding else None
         if window is not None and S <= window:
             window = None
@@ -393,6 +398,7 @@ def awq_quantize_block(
     new_attn = AttentionParams(
         qkv_proj=_pack(qkv_w, qkv_b, "qkv", skip, qcfg),
         o_proj=_pack(o_w, blk.attn.o_proj.bias, "o", skip, qcfg),
+        q_norm=blk.attn.q_norm, k_norm=blk.attn.k_norm,
     )
     new_block = BlockParams(
         attn_norm=attn_norm.to(blk.attn_norm.dtype), attn=new_attn,

@@ -10,19 +10,24 @@ and DeepSeek-V2 / V3).
   package loads in the other.
 - **HF float import** (``_LazyRaw`` :588, ``load_hf_float`` :673,
   ``_import_llama_family`` :708): the llama schema, q/k/v and gate/up fused
-  offline, with its MoE branches: mixtral's ``block_sparse_moe`` and
-  qwen2_moe's ``mlp.experts`` with the gated shared expert, experts
-  stacked on a leading axis. The sandwich-norm, qk-norm and norm-bias
-  branches and every other ``model_type`` raise, naming the ROADMAP item
-  that ports them (A12); no tensor is dropped silently. DeepSeek-V2 / V3
+  offline, with qwen3's per-head ``q_norm`` / ``k_norm`` and its MoE
+  branches: mixtral's ``block_sparse_moe`` and qwen2_moe's / qwen3_moe's
+  ``mlp.experts`` (qwen2_moe's with the gated shared expert), experts
+  stacked on a leading axis; an unmapped type whose tensors follow the
+  llama schema imports through it (the generic fallback). baichuan, qwen
+  v1, phi3, internlm2 and llava's language tower take schema importers of
+  their own (:1322-1680). The sandwich-norm and norm-bias branches and the
+  JAX package's other families raise, naming the ROADMAP item that ports
+  them (A12); no tensor is dropped silently. DeepSeek-V2 / V3
   take ``_import_deepseek`` (:1731): MLA (the rope channels permuted from
   HF's interleaved order to rotate-half) and DeepSeekMoE (shared experts,
   v3's ``e_score_correction_bias``); like the JAX importer it reads the
   first ``num_hidden_layers`` layers (V3's extra prediction layer stays
   unread).
 - **AutoAWQ** (``load_autoawq`` :1924 with GEMM / GEMV / exllama dispatch on
-  ``QuantConfig.version``, ``export_autoawq`` :312), dense llama models
-  only: the JAX package maps no MoE or MLA keys there either.
+  ``QuantConfig.version``, ``export_autoawq`` :312), dense llama models of
+  the JAX package's ``_AUTOAWQ_OK`` types only: it maps no MoE or MLA keys
+  there either.
 
 Everything streams one tensor at a time (``utils/safetensors_io.py``):
 each tensor is read from its file, converted and moved to the device
@@ -160,37 +165,46 @@ class _LazyRaw:
 # HF float import (llama schema, dense and MoE)
 # ---------------------------------------------------------------------------
 
-def _check_llama_schema(model_type: str, what: str) -> None:
-    from quick_tpu_torch.models.auto import MODEL_TYPE_MAP
-
-    if model_type not in MODEL_TYPE_MAP:
-        raise NotImplementedError(
-            f"{what}: model_type {model_type!r} is not ported yet; the port "
-            f"maps the llama schema {sorted(MODEL_TYPE_MAP)} (ROADMAP A12)"
-        )
-
-
 def load_hf_float(
     model_dir: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
 ) -> Tuple[ModelParams, ModelConfig]:
-    """Import an HF float checkpoint of the llama schema (dense, mixtral or
-    qwen2_moe) or of DeepSeek-V2 / V3 into ModelParams on ``device``,
-    fusing q/k/v and gate/up (``load_hf_float`` :673)."""
+    """Import an HF float checkpoint into ModelParams on ``device``, fusing
+    q/k/v and gate/up (``load_hf_float`` :673): the llama schema (dense,
+    mixtral, qwen2_moe, qwen3 / qwen3_moe), a schema importer of its own
+    for baichuan, qwen v1, phi3, internlm2, llava and DeepSeek-V2 / V3, and
+    the generic llama fallback for an unmapped type whose tensors follow the
+    llama schema. The JAX package's other families raise (ROADMAP A12)."""
+    from quick_tpu_torch.models.auto import MODEL_TYPE_MAP, check_not_a12
+
     dev = resolve_device(device)
     with open(os.path.join(model_dir, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = ModelConfig.from_hf_config(hf_cfg)
-    _check_llama_schema(cfg.model_type, "HF import")
+    check_not_a12(cfg.model_type, "HF import")
     check_supported(cfg)
     raw = _LazyRaw(model_dir)  # tensor at a time
-    importer = _HF_IMPORTERS.get(cfg.model_type, _import_llama_family)
-    return importer(raw, cfg, dtype, dev), cfg
+    importer = _HF_IMPORTERS.get(cfg.model_type)
+    if importer is not None:
+        return importer(raw, cfg, dtype, dev), cfg
+    # the generic llama-schema fallback: unmapped types that are llama clones
+    # with a new model_type string import; anything else names the missing
+    # tensor
+    try:
+        return _import_llama_family(raw, cfg, dtype, dev), cfg
+    except KeyError as e:
+        if cfg.model_type in MODEL_TYPE_MAP:
+            raise  # a mapped llama-family type: a real missing tensor
+        raise NotImplementedError(
+            f"model_type '{cfg.model_type}' has no schema importer and its "
+            f"checkpoint does not match the generic llama schema (missing tensor "
+            f"{e}). Add an importer to utils/checkpoint.py::_HF_IMPORTERS."
+        ) from None
 
 
-def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelParams:
-    """The llama branch of ``_import_llama_family`` (:708), with its mixtral
-    (:748) and qwen2_moe (:761) MoE layers. Each tensor is cast on the
-    host, as the JAX package casts it, then moved."""
+def _mk_wv(raw, dtype, dev):
+    """(W, V, B) bound to one raw tensor mapping (``_mk_wv`` :854): W pops a
+    linear weight as [in, out], V a vector, B a bias or None; each is cast
+    on the host, as the JAX package casts it, then moved."""
 
     def W(key):  # HF stores [out, in]; the port uses [in, out]
         return raw.pop(key).transpose(-1, -2).to(dtype).contiguous().to(dev)
@@ -198,14 +212,31 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
     def V(key):
         return raw.pop(key).to(dtype).to(dev)
 
-    def maybe_bias(base):
+    def B(base):
         k = base + ".bias"
         return V(k) if k in raw else None
 
+    return W, V, B
+
+
+def _check_consumed(raw, cfg: ModelConfig, what: str) -> None:
+    """No tensor dropped silently: what an importer left unread raises."""
+    left = [k for k in raw.keys() if not k.endswith("rotary_emb.inv_freq")]
+    if left:
+        raise NotImplementedError(
+            f"{cfg.model_type}: the {what} importer has no place for "
+            f"{len(left)} tensors, e.g. {left[:4]} (ROADMAP A12)")
+
+
+def _import_llama_family(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """The llama branch of ``_import_llama_family`` (:708), with qwen3's
+    per-head ``q_norm`` / ``k_norm`` (:739-746) and its mixtral (:748) and
+    qwen2_moe / qwen3_moe (:761) MoE layers. The sandwich-norm and
+    norm-bias branches raise (ROADMAP A12)."""
+    W, V, maybe_bias = _mk_wv(raw, dtype, dev)
+
     for key in raw.keys():
         for part, item in ((".pre_feedforward_layernorm.", "sandwich norms, ROADMAP A12"),
-                           (".self_attn.q_norm.", "qk-norm, ROADMAP A12"),
-                           (".self_attn.k_norm.", "qk-norm, ROADMAP A12"),
                            ("layernorm.bias", "LayerNorm biases, ROADMAP A12"),
                            ("model.norm.bias", "LayerNorm biases, ROADMAP A12")):
             if part in key:
@@ -224,10 +255,19 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
         bias = torch.cat([qb, kb, vb]) if qb is not None else None
         qkv = Linear(torch.cat([qw, kw, vw], dim=1), bias)
         o = Linear(W(f"{p}.self_attn.o_proj.weight"), maybe_bias(f"{p}.self_attn.o_proj"))
+        qn_key, kn_key = f"{p}.self_attn.q_norm.weight", f"{p}.self_attn.k_norm.weight"
+        if (qn_key in raw or kn_key in raw) and not cfg.use_qk_norm:
+            # the JAX importer would carry them and its forward ignore them
+            raise NotImplementedError(
+                f"{cfg.model_type}: the checkpoint has q_norm / k_norm tensors but "
+                "its config turns no qk-norm on: a family whose qk-norm is not "
+                "mapped yet (ROADMAP A12)")
+        qn = V(qn_key) if qn_key in raw else None
+        kn = V(kn_key) if kn_key in raw else None
         mlp = _import_mlp(p, raw, cfg, W)
         blocks.append(BlockParams(
             attn_norm=V(f"{p}.input_layernorm.weight"),
-            attn=AttentionParams(qkv_proj=qkv, o_proj=o),
+            attn=AttentionParams(qkv_proj=qkv, o_proj=o, q_norm=qn, k_norm=kn),
             mlp_norm=V(f"{p}.post_attention_layernorm.weight"),
             mlp=mlp,
         ))
@@ -238,11 +278,7 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
     else:
         lm_head = Linear(W("lm_head.weight"))
     final_norm = V("model.norm.weight")
-    left = [k for k in raw.keys() if not k.endswith("rotary_emb.inv_freq")]
-    if left:
-        raise NotImplementedError(
-            f"{cfg.model_type}: the llama importer has no place for "
-            f"{len(left)} tensors, e.g. {left[:4]} (ROADMAP A12)")
+    _check_consumed(raw, cfg, "llama")
     return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm,
                        lm_head=lm_head, **_tables(cfg, dev))
 
@@ -250,8 +286,9 @@ def _import_llama_family(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelPa
 def _import_mlp(p: str, raw: _LazyRaw, cfg: ModelConfig, W) -> "MLPParams | MoEParams":
     """Layer ``p``'s MLP, chosen by its keys as the JAX importer chooses:
     mixtral's ``block_sparse_moe`` (experts w1 | w3 fused, w2), qwen2_moe's
-    ``mlp.experts`` with the shared expert and its [D, 1] gate, or the
-    dense gate / up / down. ``W`` pops a weight as [in, out]."""
+    and qwen3_moe's ``mlp.experts`` (qwen2_moe's with the shared expert and
+    its [D, 1] gate, qwen3_moe's without), or the dense gate / up / down.
+    ``W`` pops a weight as [in, out]."""
 
     def fused(gate_key, up_key):
         return torch.cat([W(gate_key), W(up_key)], dim=1)
@@ -360,14 +397,200 @@ def _import_deepseek(raw: _LazyRaw, cfg: ModelConfig, dtype, dev) -> ModelParams
                        lm_head=lm_head, **_tables(cfg, dev))
 
 
-#: model types with an importer of their own (the JAX ``_HF_IMPORTERS``);
-#: every other mapped type takes ``_import_llama_family``
-_HF_IMPORTERS = {"deepseek_v2": _import_deepseek, "deepseek_v3": _import_deepseek}
+def _degroup_falcon_qkv(w: torch.Tensor, hq: int, hkv: int, hd: int) -> torch.Tensor:
+    """A grouped fused qkv (columns [kv groups, q per group + 2, hd]: falcon's
+    new decoder, internlm2) -> straight [q | k | v] (``_degroup_falcon_qkv``
+    :892)."""
+    D = w.shape[0]
+    g = hq // hkv
+    w4 = w.reshape(D, hkv, g + 2, hd)
+    return torch.cat([w4[:, :, :g].reshape(D, hq * hd), w4[:, :, g].reshape(D, hkv * hd),
+                      w4[:, :, g + 1].reshape(D, hkv * hd)], dim=1)
+
+
+def _import_baichuan(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """Baichuan (``_import_baichuan`` :1322): the llama layout with a fused
+    ``W_pack`` qkv. Baichuan2 (vocab 125696, the same model_type) L2-normalizes
+    each output row of its head at inference (NormHead): the normalization
+    is folded into the stored weight in f32, as at :1352-1359."""
+    W, V, _ = _mk_wv(raw, dtype, dev)
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        gate = W(f"{p}.mlp.gate_proj.weight")
+        up = W(f"{p}.mlp.up_proj.weight")
+        blocks.append(BlockParams(
+            attn_norm=V(f"{p}.input_layernorm.weight"),
+            attn=AttentionParams(qkv_proj=Linear(W(f"{p}.self_attn.W_pack.weight")),
+                                 o_proj=Linear(W(f"{p}.self_attn.o_proj.weight"))),
+            mlp_norm=V(f"{p}.post_attention_layernorm.weight"),
+            mlp=MLPParams(gate_up_proj=Linear(torch.cat([gate, up], dim=1)),
+                          down_proj=Linear(W(f"{p}.mlp.down_proj.weight"))),
+        ))
+    embed = V("model.embed_tokens.weight")
+    if "lm_head.weight" in raw:
+        hw = W("lm_head.weight")  # [D, vocab]
+        if cfg.vocab_size == 125696:
+            hf = hw.to(torch.float32)
+            norm = torch.linalg.norm(hf, dim=0, keepdim=True)  # jnp.linalg.norm's sums
+            hw = (hf / torch.clamp(norm, min=1e-7)).to(embed.dtype)
+        lm_head = Linear(hw)
+    else:
+        lm_head = Linear(embed.T)
+    final_norm = V("model.norm.weight")
+    _check_consumed(raw, cfg, "baichuan")
+    return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm, lm_head=lm_head,
+                       **_tables(cfg, dev))
+
+
+def _import_qwen(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """Qwen v1 (``_import_qwen`` :1373): ``transformer.h.{i}`` with ln_1, the
+    fused ``attn.c_attn`` with its bias, a bias-free ``attn.c_proj``, ln_2 and
+    the SwiGLU ``mlp.w1`` / ``w2`` / ``c_proj``. HF Qwen computes
+    c_proj(w1(x) * silu(w2(x))): w2 is the gate and w1 the up. Within the
+    training sequence length only (no dynamic NTK / logn attention, as in
+    the JAX package)."""
+    W, V, B = _mk_wv(raw, dtype, dev)
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"transformer.h.{i}"
+        w2 = W(f"{p}.mlp.w2.weight")
+        w1 = W(f"{p}.mlp.w1.weight")
+        blocks.append(BlockParams(
+            attn_norm=V(f"{p}.ln_1.weight"),
+            attn=AttentionParams(
+                qkv_proj=Linear(W(f"{p}.attn.c_attn.weight"), B(f"{p}.attn.c_attn")),
+                o_proj=Linear(W(f"{p}.attn.c_proj.weight"))),
+            mlp_norm=V(f"{p}.ln_2.weight"),
+            mlp=MLPParams(gate_up_proj=Linear(torch.cat([w2, w1], dim=1)),
+                          down_proj=Linear(W(f"{p}.mlp.c_proj.weight"))),
+        ))
+    embed = V("transformer.wte.weight")
+    lm_head = Linear(W("lm_head.weight")) if "lm_head.weight" in raw else Linear(embed.T)
+    final_norm = V("transformer.ln_f.weight")
+    _check_consumed(raw, cfg, "qwen")
+    return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm, lm_head=lm_head,
+                       **_tables(cfg, dev))
+
+
+class _Prefixed:
+    """The tensors of a raw mapping under ``prefix``, with the prefix
+    stripped (llava's ``language_model.``), read on access."""
+
+    def __init__(self, raw, prefix: str):
+        self._raw, self._prefix = raw, prefix
+
+    def __contains__(self, key) -> bool:
+        return self._prefix + key in self._raw
+
+    def __getitem__(self, key):
+        return self._raw[self._prefix + key]
+
+    def pop(self, key, *default):
+        return self._raw.pop(self._prefix + key, *default)
+
+    def keys(self) -> List[str]:
+        n = len(self._prefix)
+        return [k[n:] for k in self._raw.keys() if k.startswith(self._prefix)]
+
+
+def _import_llava(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """LLaVA (``_import_llava`` :1425): the language tower only, the llama
+    importer over the ``language_model.`` tensors. The vision tower's
+    tensors stay unread (ROADMAP A16)."""
+    lang = _Prefixed(raw, "language_model.")
+    if not lang.keys():
+        raise ValueError("no language_model.* tensors found in llava checkpoint")
+    return _import_llama_family(lang, cfg, dtype, dev)
+
+
+def _import_phi3(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """Phi-3 / 3.5 / 4 (``_import_phi3`` :1524): the llama tree with
+    pre-fused ``qkv_proj`` ([q | k | v] rows) and ``gate_up_proj`` ([gate |
+    up] rows), the port's fused column layout after the transpose. Rope over
+    ``rotary_dim or head_dim``, longrope through ``cfg.rope_scaling``."""
+    W, V, B = _mk_wv(raw, dtype, dev)
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        blocks.append(BlockParams(
+            attn_norm=V(f"{p}.input_layernorm.weight"),
+            attn=AttentionParams(
+                qkv_proj=Linear(W(f"{p}.self_attn.qkv_proj.weight"), B(f"{p}.self_attn.qkv_proj")),
+                o_proj=Linear(W(f"{p}.self_attn.o_proj.weight"), B(f"{p}.self_attn.o_proj"))),
+            mlp_norm=V(f"{p}.post_attention_layernorm.weight"),
+            mlp=MLPParams(gate_up_proj=Linear(W(f"{p}.mlp.gate_up_proj.weight")),
+                          down_proj=Linear(W(f"{p}.mlp.down_proj.weight"))),
+        ))
+    embed = V("model.embed_tokens.weight")
+    if "lm_head.weight" in raw and not cfg.tie_word_embeddings:
+        lm_head = Linear(W("lm_head.weight"))
+    else:
+        raw.pop("lm_head.weight", None)
+        lm_head = Linear(embed.T)
+    final_norm = V("model.norm.weight")
+    _check_consumed(raw, cfg, "phi3")
+    return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm, lm_head=lm_head,
+                       **_tables(cfg, dev))
+
+
+def _import_internlm2(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """InternLM2 (``_import_internlm2`` :1625): llama numerics with renamed
+    tensors (attention.wqkv / wo, feed_forward.w1 / w3 / w2, attention_norm /
+    ffn_norm, model.tok_embeddings, output) and a grouped fused ``wqkv``
+    whose columns are [hkv, g + 2, hd], degrouped with its bias."""
+    W, V, B = _mk_wv(raw, dtype, dev)
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        wqkv = _degroup_falcon_qkv(W(f"{p}.attention.wqkv.weight"), hq, hkv, hd)
+        b = B(f"{p}.attention.wqkv")
+        bqkv = None if b is None else _degroup_falcon_qkv(b[None, :], hq, hkv, hd)[0]
+        gate = W(f"{p}.feed_forward.w1.weight")
+        up = W(f"{p}.feed_forward.w3.weight")
+        blocks.append(BlockParams(
+            attn_norm=V(f"{p}.attention_norm.weight"),
+            attn=AttentionParams(qkv_proj=Linear(wqkv, bqkv),
+                                 o_proj=Linear(W(f"{p}.attention.wo.weight"),
+                                               B(f"{p}.attention.wo"))),
+            mlp_norm=V(f"{p}.ffn_norm.weight"),
+            mlp=MLPParams(gate_up_proj=Linear(torch.cat([gate, up], dim=1)),
+                          down_proj=Linear(W(f"{p}.feed_forward.w2.weight"))),
+        ))
+    embed = V("model.tok_embeddings.weight")
+    lm_head = Linear(W("output.weight")) if "output.weight" in raw else Linear(embed.T)
+    final_norm = V("model.norm.weight")
+    _check_consumed(raw, cfg, "internlm2")
+    return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm, lm_head=lm_head,
+                       **_tables(cfg, dev))
+
+
+#: model types with an importer of their own (the ported part of the JAX
+#: ``_HF_IMPORTERS``, :1890); every other type takes ``_import_llama_family``
+_HF_IMPORTERS = {
+    "llava": _import_llava,
+    "baichuan": _import_baichuan,
+    "qwen": _import_qwen,
+    "phi3": _import_phi3,
+    "internlm2": _import_internlm2,
+    "deepseek_v2": _import_deepseek,
+    "deepseek_v3": _import_deepseek,
+}
 
 
 # ---------------------------------------------------------------------------
 # AutoAWQ interop
 # ---------------------------------------------------------------------------
+
+#: the model types ``load_autoawq`` maps: the JAX package's ``_AUTOAWQ_OK``
+#: (:1946-1949), the plain llama rmsnorm schema. Other families (qk-norms,
+#: fused or renamed tensors, norm conventions) would load into garbage
+_AUTOAWQ_OK = frozenset({
+    "llama", "mistral", "vicuna", "yi", "aquila", "qwen2", "mixtral",
+    "tinyllama", "deepseek",
+})
+
 
 def load_autoawq(
     model_dir: str, device: DeviceLike = None,
@@ -382,7 +605,13 @@ def load_autoawq(
     with open(os.path.join(model_dir, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = ModelConfig.from_hf_config(hf_cfg)
-    _check_llama_schema(cfg.model_type, "AutoAWQ import")
+    if cfg.model_type not in _AUTOAWQ_OK:
+        raise NotImplementedError(
+            f"AutoAWQ import supports the plain llama-schema families "
+            f"{sorted(_AUTOAWQ_OK)}; '{cfg.model_type}' checkpoints carry "
+            f"norm/attention conventions this loader does not map — "
+            f"quantize from the float checkpoint instead "
+            f"(AutoQuickModel.from_pretrained + .quantize)")
     check_supported(cfg)
     if cfg.is_moe or cfg.is_mla:
         raise NotImplementedError(
@@ -453,7 +682,8 @@ def export_autoawq(params: ModelParams, cfg: ModelConfig, qcfg: QuantConfig, sav
         raise NotImplementedError(
             f"export_autoawq: MoE and MLA models are not exported, as in the JAX "
             f"package (:332; model_type={cfg.model_type}) — ROADMAP A10")
-    if not cfg.gated_mlp or cfg.layernorm != "rmsnorm":
+    if not cfg.gated_mlp or cfg.layernorm != "rmsnorm" or cfg.use_qk_norm:
+        # AutoAWQ files carry no q / k norms (``load_autoawq`` refuses qwen3)
         raise NotImplementedError(
             f"export_autoawq supports the llama-family layout only (model_type={cfg.model_type})")
     hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim

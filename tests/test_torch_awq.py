@@ -258,10 +258,15 @@ A12 = dict(use_qk_norm=True, use_post_norms=True, pre_norms=False, layernorm="la
            rope_local_theta=10000.0, query_pre_attn_scalar=64.0)
 
 
+#: set with a switch: qk-norm in olmo2's full-width form (qwen3's per-head
+#: form runs, tests/test_torch_qk_norm.py)
+WITH = {"use_qk_norm": dict(qk_norm_full=True)}
+
+
 @pytest.mark.parametrize("switch", sorted(A12))
 def test_awq_refuses_a12_switches(switch):
     """The JAX AWQ's branches for the other families wait for A12."""
     m = AutoQuickModel.from_random(ModelConfig(**TINY), seed=0, device="cpu")
-    m.cfg = dataclasses.replace(m.cfg, **{switch: A12[switch]})
+    m.cfg = dataclasses.replace(m.cfg, **{switch: A12[switch]}, **WITH.get(switch, {}))
     with pytest.raises(NotImplementedError, match="A12"):
         m.quantize(_calib(), QuantConfig(q_group_size=G))

@@ -367,7 +367,7 @@ def test_awq_search_is_refused():
     assert all(isinstance(lin, QuantLinear) for lin in (
         blk.attn.qkv_proj, blk.attn.o_proj, blk.mlp.gate_up_proj, blk.mlp.down_proj))
     m = AutoQuickModel.from_random(ModelConfig(**TINY), device="cpu")
-    m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True)
+    m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True, qk_norm_full=True)  # olmo2's form
     with pytest.raises(NotImplementedError, match="A12"):
         m.quantize(np.zeros((1, 8), np.int32), QuantConfig())
 

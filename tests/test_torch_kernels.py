@@ -972,6 +972,35 @@ def test_grouped_routes_match_plain(rng, cuda_device, name, G):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 512], ids=["decode", "prefill"])
+@pytest.mark.parametrize("K,N", [(2048, 1536), (768, 2048)], ids=["gate_up", "down"])
+def test_grouped_kernel_at_128_experts(cuda_device, T, K, N):
+    """K8 at Qwen3-30B-A3B's routed shapes (128 experts, top-8; gate_up
+    2048 -> 1536, down 768 -> 2048: K of 6 groups) on build_routing's
+    layouts at the bm pick_grouped_bm takes for T tokens, against its plain
+    version, the whole output compared; one launch a call."""
+    import quick_tpu_torch.ops.grouped_matmul as tgm
+
+    E, k = 128, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(T + K)
+    sel = torch.argsort(torch.rand((T, E), generator=gen, device=cuda_device), dim=1)[:, :k]
+    bm = tgm.pick_grouped_bm(T * k, E)
+    _, _, te, live, _ = tgm.build_routing(sel, E, bm)
+    qw = torch.randint(-2**31, 2**31, (E, K // 8, N), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    s = torch.rand((E, K // 128, N), generator=gen, device=cuda_device) * 0.01 + 0.001
+    zs = torch.round(torch.rand((E, K // 128, N), generator=gen, device=cuda_device) * 15) * s
+    x = torch.randn((te.shape[0] * bm, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = tgm.KERNEL.launches
+    out = tgm.quantized_matmul_grouped(x, qw, s, zs, te, live, bm)
+    torch.cuda.synchronize()
+    assert tgm.KERNEL.launches == before + 1
+    ref = tgm.quantized_matmul_grouped_plain(x, qw, s, zs, te, live, bm)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    assert not f32(out)[np.repeat(live.cpu().numpy() == 0, bm)].any()
+
+
+@pytest.mark.cuda
 def test_grouped_graph_replays_after_routing_moves(rng, cuda_device):
     """K8 captured in a CUDA graph, then replayed after the routing (tile
     experts, live flags) and the rows changed in place: equal to an eager
@@ -1953,6 +1982,32 @@ def test_rms_norm_kernel_matches_plain(rng, cuda_device, shape, xdt, wdt, sliced
     step = 2.0 ** -7 if xdt == torch.bfloat16 else 2.0 ** -20
     o, r = f32(out), f32(ref)
     assert (np.abs(o - r) <= step * np.abs(r) + 1e-30).all(), np.abs(o - r).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 512])
+@pytest.mark.parametrize("part", ["q", "k"])
+def test_rms_norm_kernel_at_the_qk_norm_shape(cuda_device, rows, part):
+    """K13 as qwen3's per-head qk-norm runs it (Qwen3-8B: 32 q / 8 kv heads
+    of 128): q or k a column slice of the fused qkv output, viewed [rows,
+    h, 128], whose rows do not flatten to one stride (the wrapper copies
+    them); one launch, contiguous, within one bf16 step of rms_norm_plain."""
+    from quick_tpu_torch.ops import norms
+
+    hq, hkv, hd = 32, 8, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    qkv = torch.randn((rows, 1, (hq + 2 * hkv) * hd), generator=gen, device=cuda_device) * 3
+    qkv = qkv.to(torch.bfloat16)
+    lo, h = (0, hq) if part == "q" else (hq * hd, hkv)
+    x = qkv[..., lo:lo + h * hd].reshape(rows, 1, h, hd)
+    w = (1 + 0.1 * torch.randn(hd, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    before = norms.KERNEL.launches
+    out = rms_norm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert norms.KERNEL.launches == before + 1
+    assert out.is_contiguous() and out.shape == x.shape
+    o, r = f32(out), f32(norms.rms_norm_plain(x, w, 1e-6))
+    assert (np.abs(o - r) <= 2.0 ** -7 * np.abs(r) + 1e-30).all(), np.abs(o - r).max()
 
 
 @pytest.mark.cuda

@@ -97,19 +97,21 @@ def _tokens(S, seed):
 
 def _jax_decode(jcfg, jparams, monkeypatch, tail: bool, paged: bool):
     """quick_tpu's logits of one decode step after a prefill, with the
-    switch as given (read when it traces: its caches are cleared)."""
+    switch as given, run eagerly (``jax.disable_jit``: the switch is read
+    at every call). The jitted forward rounds as XLA-CPU fuses it, which
+    moves with the host; the port equals the eager forward."""
     monkeypatch.setenv("QUICK_TPU_LAYER_TAIL", "1" if tail else "0")
-    jax.clear_caches()
-    if paged:
-        jc = JPaged.create(TINY["num_hidden_layers"], 9, 8, max_slots=B, max_seq=MAX_SEQ,
-                           n_kv=TINY["num_key_value_heads"], head_dim=64, dtype=jnp.bfloat16)
-        jc = dataclasses.replace(jc, block_table=jnp.asarray(TABLE))
-    else:
-        jc = jax_cache(jcfg, B, MAX_SEQ)
-    _, jc = jax_forward(jparams, jcfg, jnp.asarray(_tokens(PROMPT, 1)), jc)
-    jl, _ = jax_forward(jparams, jcfg, jnp.asarray(_tokens(1, 2)), jc)
+    with jax.disable_jit():
+        if paged:
+            jc = JPaged.create(TINY["num_hidden_layers"], 9, 8, max_slots=B, max_seq=MAX_SEQ,
+                               n_kv=TINY["num_key_value_heads"], head_dim=64,
+                               dtype=jnp.bfloat16)
+            jc = dataclasses.replace(jc, block_table=jnp.asarray(TABLE))
+        else:
+            jc = jax_cache(jcfg, B, MAX_SEQ)
+        _, jc = jax_forward(jparams, jcfg, jnp.asarray(_tokens(PROMPT, 1)), jc)
+        jl, _ = jax_forward(jparams, jcfg, jnp.asarray(_tokens(1, 2)), jc)
     return f32(jl)
-
 
 
 def _port_decode(tcfg, tparams, monkeypatch, tail: bool, paged: bool):

@@ -284,7 +284,8 @@ def test_moe_forward_matches_jax(quant_models, float_models, case):
 
 
 def test_moe_router_and_model_type_refusals(tmp_path):
-    """A router the port does not run and qwen3_moe's qk-norm (A12) raise;
+    """A router the port does not run and qk-norm in olmo2's full-width form
+    (A12; qwen3_moe's per-head form runs, tests/test_torch_qk_norm.py) raise;
     so do AutoAWQ import and export of MoE models (the JAX package maps
     none either, A10)."""
     with pytest.raises(NotImplementedError, match="router"):
@@ -292,7 +293,8 @@ def test_moe_router_and_model_type_refusals(tmp_path):
                      device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         t_init_quant(ModelConfig(**dict(MODELS["qwen2_moe"], model_type="qwen3_moe",
-                                        use_qk_norm=True, norm_topk_prob=True)), device="cpu")
+                                        use_qk_norm=True, qk_norm_full=True,
+                                        norm_topk_prob=True)), device="cpu")
     m = AutoQuickModel(t_init_quant(ModelConfig(**MODELS["mixtral"]), device="cpu"),
                        ModelConfig(**MODELS["mixtral"]), QuantConfig())
     with pytest.raises(NotImplementedError, match="A10"):
