@@ -94,9 +94,9 @@ Phases (any failure exits non-zero):
      and K8 at its shapes, against their plain versions; (b) their times,
      bounds and yardsticks; (c) generate() at full width and depth, as
      phase 4 (random weights, seed 0; an untied bf16 head); (d) the Engine
-     over bf16, then INT8 latent pages at full depth on phase
-     5's trace, one sync-checked, profiled, counted and timed run each,
-     the INT8 pool 0.528x the bf16 pool; (e) a 2-layer checkpoint round
+     over bf16, then INT8 latent pages at 4 of its 27 layers
+     (``--depth-costs`` runs them at 27) on phase 5's trace, one sync-checked, profiled, counted
+     and timed run each, the INT8 pool 0.528x the bf16 pool; (e) a 2-layer checkpoint round
      trip, and the
      2-layer kernel path against the plain path for generate() and for
      the paged path over bf16 and INT8 pages, with phase 8's routing rule;
@@ -169,11 +169,33 @@ Phases (any failure exits non-zero):
      On the card generate()'s decode loop and the Engine's greedy windows
      replay a captured step; a replay adds the launches counted at capture.
      Launch counts exact throughout, K13's in every phase.
+ 18. the RMSNorm families off the llama path (random g=128 QTPU weights, every
+     norm weight random): (a) K1 at Gemma2-9B's four projections, K2 / K3
+     at head_dim 256 with softcap 50 and K13 at its post-norm shapes held
+     and timed, then Gemma2-9B at full width and depth through generate()
+     as phase 4 (K13's post-norm launches exact); (b) one 4,400-token
+     stream in a 4,608-token cache at full depth (K2 with the 4,096 window
+     and softcap 50 on the sliding layers, K7 on the global ones, both held
+     and timed at its shapes), then 2-layer dense (the 4,400-token prompt)
+     and paged (a 16-token chunk at 4,400 over random context, K4-K6 with
+     the window) checks against the plain path on the CPU; (c) Gemma3-12B
+     as (a) (K13 also at its per-head qk-norm shapes), and a 6-layer check
+     (five sliding layers with their local rope tables, one global) dense
+     (B = 1, a 1,280-token prompt, 1,536-token cache, 4 steps) and paged,
+     held by each row's relative RMS (TOL_DEEP_RMS);
+     (d) OLMo-2-7B, Granite-3.1-8B and MiniCPM-2B at 2 layers of full width
+     against the plain path (a 64-token prompt: K2 at MiniCPM's head_dim 64
+     and K3, held and timed); (e) one Gemma2-9B block of AWQ through
+     quantize(calib) on phase 16's calibration, against the plain route
+     (x_next by its relative RMS).
 The line before the last three is free text; then the kernels' JSON line,
 the card line, and last {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --depth-costs`` runs, after phase 1, only the
-depth-cut phases at full depth and prints their seconds (``depth_costs``).
+depth-cut phases at full depth and prints their seconds (``depth_costs``);
+``python3 chip_smoke.py --phase18`` runs, after phase 1, only phase 18 and
+prints its report and kernel rows (a measurement: no kernels line, no
+``ok`` line).
 """
 import contextlib
 import dataclasses
@@ -370,16 +392,11 @@ def gemm_shapes(cfg):
 
 def main_path_gemms(cfg):
     """(prologue, M, K, N) of every kind of K1 launch on the generate()
-    path: the four projections at prefill (M = B * S), then at decode
-    (M = B)."""
-    s = gemm_shapes(cfg)
+    path of a dense model: the four projections at prefill (M = B * S),
+    then at decode (M = B) with their prologues (k1_projections)."""
     M0, M1 = BATCH * PROMPT, BATCH
-    return [
-        (None, M0, *s["qkv"]), (None, M0, *s["o"]), (None, M0, *s["gate_up"]),
-        (None, M0, *s["down"]),
-        ("rmsnorm", M1, *s["qkv"]), (None, M1, *s["o"]),
-        ("rmsnorm", M1, *s["gate_up"]), ("glu", M1, *s["down"]),
-    ]
+    return ([(None, M0, K, N) for K, N, _ in k1_projections(cfg)]
+            + [(pro, M1, K, N) for K, N, pro in k1_projections(cfg)])
 
 
 def engine_gemms(cfg):
@@ -584,18 +601,21 @@ def attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv=None):
 
 
 def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate", heads=None,
-              tag="2"):
+              tag="2", path_kw=None):
     """K2 against its plain version and timed at a prefill of B x S tokens
     into a T-token cache; ``heads`` (Hq, Hkv, D, Dv) overrides cfg's (MLA's
-    expanded prefill: q / k 192, v 128)."""
+    expanded prefill: q / k 192, v 128). ``path_kw``: the window and softcap
+    the path runs K2 with (gemma2's softcap 50, its bound window), checked
+    too and timed (the yardstick, SDPA, takes neither)."""
     import torch.nn.functional as F
 
     from quick_tpu_torch.ops import flash_attention as fa
 
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     Hq, Hkv, D, Dv = heads or (Hq, Hkv, D, D)
+    path_kw = path_kw or {}
     print(f"[{tag}] K2 (flash attention) against its plain version, B={B} S={S} T={T} "
-          f"D={D} Dv={Dv}")
+          f"D={D} Dv={Dv}{f', path {path_kw}' if path_kw else ''}")
     q, k, v = attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv)
     qoff = torch.zeros(B, dtype=torch.int32, device=dev)
     klen = torch.full((B,), S, dtype=torch.int32, device=dev)  # prefill into the cache
@@ -604,8 +624,11 @@ def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate", head
     ref = fa.flash_attention_plain(q, k, v, qoff, klen, scale)
     torch.cuda.synchronize()
     err = max_err(out, ref, TOL["flash_attention"], "K2 prefill")
-    for name, kw, r in (("window 48", dict(window=48), None),
-                        ("softcap 30 + offsets", dict(logit_softcap=30.0), 1)):
+    cases = [("window 48", dict(window=48), None),
+             ("softcap 30 + offsets", dict(logit_softcap=30.0), 1)]
+    if path_kw:
+        cases.append((f"path {path_kw}", path_kw, None))
+    for name, kw, r in cases:
         qo = qoff + 40 if r else qoff
         kl = klen + 40 if r else klen
         e = max_err(fa.flash_attention_cuda(q, k, v, qo, kl, scale, **kw),
@@ -614,15 +637,19 @@ def flash_row(cfg, gen, dev, B=BATCH, S=PROMPT, T=MAX_SEQ, path="generate", head
         err = max(err, e)
     copies = 8
     kvs = [attn_inputs(gen, dev, B, S, T, Hq, Hkv, D, Dv) for _ in range(copies)]
-    ms = device_ms(lambda i: fa.flash_attention_cuda(*kvs[i % copies], qoff, klen, scale), 50)
-    plain_ms = device_ms(lambda i: fa.flash_attention_plain(*kvs[i % copies], qoff, klen, scale), 5)
+    ms = device_ms(lambda i: fa.flash_attention_cuda(*kvs[i % copies], qoff, klen, scale,
+                                                     **path_kw), 50)
+    plain_ms = device_ms(lambda i: fa.flash_attention_plain(*kvs[i % copies], qoff, klen, scale,
+                                                            **path_kw), 5)
     qb = [x[0].transpose(1, 2) for x in kvs]
     kb = [x[1][:, :, :S] for x in kvs]
     vb = [x[2][:, :, :S] for x in kvs]
     lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
         qb[i % copies], kb[i % copies], vb[i % copies], is_causal=True,
         enable_gqa=True), 50)
-    pairs = S * (S + 1) / 2
+    w = path_kw.get("window")
+    # (query, key) pairs the causal mask (and a window of w keys) keeps
+    pairs = S * (S + 1) / 2 if not w or w >= S else w * (w + 1) / 2 + (S - w) * w
     nbytes = B * S * Hq * (D + Dv) * 2 + B * Hkv * S * (D + Dv) * 2
     b_ms, b_by = bound(nbytes, 2.0 * B * Hq * pairs * (D + Dv))
     print(f"  {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), plain "
@@ -648,16 +675,20 @@ FUSED_SHAPES = ((BATCH, MAX_SEQ, PROMPT + NEW_TOKENS - 1, "generate"),
 
 
 def fused_row(cfg, gen, dev, B=BATCH, S=MAX_SEQ, length=PROMPT + NEW_TOKENS - 1,
-              path="generate"):
+              path="generate", path_kw=None, tag="2"):
     """[2, 3] K3 against its plain version at lengths 0, 1, 63, 64, 65, the
     timed length and S - 1, then timed at ``length`` beside SDPA's attention
     alone over the same cache rows; the bound from the bytes (the cache rows
-    read, the new rows written, q, k/v_new, cos/sin and the output)."""
+    read, the new rows written, q, k/v_new, cos/sin and the output).
+    ``path_kw``: the window and softcap the path runs K3 with, in the checks
+    and the timing."""
     from quick_tpu_torch.ops import fused_decode_step as fs
 
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     L = cfg.num_hidden_layers
-    print(f"[2] K3 (fused decode step) against its plain version, B={B} S={S}")
+    path_kw = path_kw or {}
+    print(f"[{tag}] K3 (fused decode step) against its plain version, B={B} S={S} D={D}"
+          f"{f', path {path_kw}' if path_kw else ''}")
 
     def inputs():
         q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -670,13 +701,13 @@ def fused_row(cfg, gen, dev, B=BATCH, S=MAX_SEQ, length=PROMPT + NEW_TOKENS - 1,
     vc = torch.randn((L, B, Hkv, S, D), generator=gen, device=dev).to(torch.bfloat16)
     scale = D ** -0.5
     err = 0.0
-    for ln in sorted({0, 1, 63, 64, 65, PROMPT, length, S - 1}):
+    for ln in sorted(n for n in {0, 1, 63, 64, 65, PROMPT, length, S - 1} if n < S):
         q, kn, vn, c, s = inputs()
         k1, v1 = kc[3:4].clone(), vc[3:4].clone()  # one layer: the check reads layer 0 of it
         k2, v2 = k1.clone(), v1.clone()
         lt = torch.full((1,), ln, dtype=torch.int32, device=dev)  # as the path's length_dev
-        out = fs.fused_decode_attention_cuda(q, kn, vn, k1, v1, c, s, lt, 0, scale)
-        ref = fs.fused_decode_attention_plain(q, kn, vn, k2, v2, c, s, ln, 0, scale)
+        out = fs.fused_decode_attention_cuda(q, kn, vn, k1, v1, c, s, lt, 0, scale, **path_kw)
+        ref = fs.fused_decode_attention_plain(q, kn, vn, k2, v2, c, s, ln, 0, scale, **path_kw)
         torch.cuda.synchronize()
         err = max(err, max_err(out, ref, TOL["fused_decode_step"], f"K3 B={B} S={S} length={ln}"))
         max_err(k1[0, :, :, ln], k2[0, :, :, ln], TOL_CACHE, "K3 written k row")
@@ -686,9 +717,9 @@ def fused_row(cfg, gen, dev, B=BATCH, S=MAX_SEQ, length=PROMPT + NEW_TOKENS - 1,
     q, kn, vn, c, s = inputs()
     ln = torch.full((1,), length, dtype=torch.int32, device=dev)  # as the path's length_dev
     ms = device_ms(lambda i: fs.fused_decode_attention_cuda(
-        q, kn, vn, kc, vc, c, s, ln, i % L, scale), 100)
+        q, kn, vn, kc, vc, c, s, ln, i % L, scale, **path_kw), 100)
     plain_ms = device_ms(lambda i: fs.fused_decode_attention_plain(
-        q, kn, vn, kc, vc, c, s, length, i % L, scale), 5)
+        q, kn, vn, kc, vc, c, s, length, i % L, scale, **path_kw), 5)
     # no one PyTorch call does rope, the cache write and attention together:
     # the yardstick is SDPA's attention alone over the same cache rows
     q4 = q[:, :, None, :]
@@ -1063,10 +1094,28 @@ def dense_lengths(gen, dev, name, B, T):
 
 def dense_decode_rows(cfg, gen, dev):
     """K7 against its plain version at the shapes of DENSE_B_T (softcap 30
-    and ALiBi slopes at the protocol shape too), within tol * (1 + |ref|)
-    and tol * max|ref| of each query row, then timed over a 4-layer
-    stack rotated past L2, against its byte bound and SDPA (enable_gqa)
-    over the cache view with a length mask."""
+    and ALiBi slopes at the protocol shape too), on the checkpoint path."""
+    Hq = cfg.num_attention_heads
+    slopes = 2.0 ** (-8.0 * torch.arange(1, Hq + 1, device=dev, dtype=torch.float32) / Hq)
+    rows = []
+    for name, (B, T) in DENSE_B_T.items():
+        cases = [("", {})]
+        if name == "protocol":
+            cases += [(", softcap 30", dict(logit_softcap=30.0)),
+                      (", ALiBi", dict(alibi_slopes=slopes)),
+                      (", softcap 30 + ALiBi", dict(logit_softcap=30.0, alibi_slopes=slopes))]
+        rows.append(k7_row(cfg, gen, dev, name, B, T, dense_lengths(gen, dev, name, B, T),
+                           cases, "checkpoint"))
+    return rows
+
+
+def k7_row(cfg, gen, dev, name, B, T, lengths, cases, path, timed_kw=None, tag="2"):
+    """K7 against its plain version at B rows of a T-key cache with
+    ``lengths``, each of ``cases`` ((label, kwargs)), within tol * (1 +
+    |ref|) and tol * max|ref| of each query row, then timed (with
+    ``timed_kw``, the path's softcap) over a 4-layer stack rotated past L2,
+    against its byte bound and SDPA (enable_gqa) over the cache view with a
+    length mask; its launches read from ``path``'s run."""
     import torch.nn.functional as F
 
     from quick_tpu_torch.ops import decode_attention as dda
@@ -1074,52 +1123,45 @@ def dense_decode_rows(cfg, gen, dev):
 
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     scale = D ** -0.5
-    slopes = 2.0 ** (-8.0 * torch.arange(1, Hq + 1, device=dev, dtype=torch.float32) / Hq)
-    rows = []
     L = 4
-    for name, (B, T) in DENSE_B_T.items():
-        lengths = dense_lengths(gen, dev, name, B, T).to(torch.int32)
-        print(f"[2] K7 (dense decode attention) against its plain version, {name}: B={B} "
-              f"T={T}, lengths {int(lengths.min())}-{int(lengths.max())}")
-        k, v = [torch.randn((L, B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
-                for _ in range(2)]
-        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
-        cases = [("", {})]
-        if name == "protocol":
-            cases += [(", softcap 30", dict(logit_softcap=30.0)),
-                      (", ALiBi", dict(alibi_slopes=slopes)),
-                      (", softcap 30 + ALiBi", dict(logit_softcap=30.0, alibi_slopes=slopes))]
-        err = 0.0
-        for label, kw in cases:
-            out = dda.dense_decode_attention_cuda(q, k, v, lengths, 1, scale, **kw)
-            ref = dda.dense_decode_attention_plain(q, k, v, lengths, 1, scale, **kw)
-            torch.cuda.synchronize()
-            err = max(err, max_err(out, ref, TOL["decode_attention"], f"K7 {name}{label}"))
-            row_scaled_err(out, ref, TOL["decode_attention"], f"K7 {name}{label}")
-        _, splits = dda.split_plan(B, Hkv, T, sm_count(dev.index or 0))
-        key = dda.launch_key(B, Hq, Hkv, T, D, splits)
-        ar = torch.arange(T, device=dev)
-        mask = (ar[None, :] < lengths[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        ms = device_ms(lambda i: dda.dense_decode_attention_cuda(q, k, v, lengths, i % L, scale), 100)
-        plain_ms = device_ms(lambda i: dda.dense_decode_attention_plain(
-            q, k, v, lengths, i % L, scale), 5, warmup=1)
-        lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
-            q4, k[i % L], v[i % L], attn_mask=mask, scale=scale, enable_gqa=True), 100)
-        keys = int(lengths.sum())
-        b_ms, b_by = bound(2 * keys * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * 4,
-                           4.0 * Hq * D * keys)
-        print(f"  {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
-              f"{plain_ms * 1e3:.1f} us, sdpa over the cache view {lib_ms * 1e3:.1f} us")
-        rows.append(dict(
-            name=f"decode_attention[{key}]", route="cuda",
-            source="quick_tpu_torch/csrc/decode_attention.cu",
-            replaces="quick_tpu/ops/decode_attention.py:46",
-            launches=("checkpoint", "decode_attention", key), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        ))
-        del k, v
-    return rows
+    timed_kw = timed_kw or {}
+    lengths = lengths.to(torch.int32)
+    print(f"[{tag}] K7 (dense decode attention) against its plain version, {name}: B={B} "
+          f"T={T} D={D}, lengths {int(lengths.min())}-{int(lengths.max())}")
+    k, v = [torch.randn((L, B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    err = 0.0
+    for label, kw in cases:
+        out = dda.dense_decode_attention_cuda(q, k, v, lengths, 1, scale, **kw)
+        ref = dda.dense_decode_attention_plain(q, k, v, lengths, 1, scale, **kw)
+        torch.cuda.synchronize()
+        err = max(err, max_err(out, ref, TOL["decode_attention"], f"K7 {name}{label}"))
+        row_scaled_err(out, ref, TOL["decode_attention"], f"K7 {name}{label}")
+    _, splits = dda.split_plan(B, Hkv, T, sm_count(dev.index or 0))
+    key = dda.launch_key(B, Hq, Hkv, T, D, splits)
+    ar = torch.arange(T, device=dev)
+    mask = (ar[None, :] < lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    ms = device_ms(lambda i: dda.dense_decode_attention_cuda(q, k, v, lengths, i % L, scale,
+                                                             **timed_kw), 100)
+    plain_ms = device_ms(lambda i: dda.dense_decode_attention_plain(
+        q, k, v, lengths, i % L, scale, **timed_kw), 5, warmup=1)
+    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        q4, k[i % L], v[i % L], attn_mask=mask, scale=scale, enable_gqa=True), 100)
+    keys = int(lengths.sum())
+    b_ms, b_by = bound(2 * keys * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * 4,
+                       4.0 * Hq * D * keys)
+    print(f"  {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa over the cache view {lib_ms * 1e3:.1f} us")
+    del k, v
+    return dict(
+        name=f"decode_attention[{key}]", route="cuda",
+        source="quick_tpu_torch/csrc/decode_attention.cu",
+        replaces="quick_tpu/ops/decode_attention.py:46",
+        launches=(path, "decode_attention", key), max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -1403,13 +1445,16 @@ def device_profile(run, steps: int) -> dict:
 
 def k1_projections(cfg):
     """(K, N, prologue at <= 8 decode rows) of each K1 launch of one layer's
-    forward: qkv (RMSNorm prologue) and o; the dense MLP's gate_up (RMSNorm)
-    and down (SiLU-GLU); an MoE layer's shared expert, if any, takes no
-    prologue (its norm is never fused, its gate runs first)."""
+    forward: qkv (RMSNorm prologue; none without pre-norms, olmo2) and o;
+    the dense MLP's gate_up (RMSNorm, or none) and down (SiLU-GLU; none
+    under gelu, whose gate runs as torch ops); an MoE layer's shared expert,
+    if any, takes no prologue (its norm is never fused, its gate runs
+    first)."""
     s = gemm_shapes(cfg)
-    out = [(*s["qkv"], "rmsnorm"), (*s["o"], None)]
+    norm = "rmsnorm" if cfg.pre_norms else None
+    out = [(*s["qkv"], norm), (*s["o"], None)]
     if not cfg.is_moe:
-        return out + [(*s["gate_up"], "rmsnorm"), (*s["down"], "glu")]
+        return out + [(*s["gate_up"], norm), (*s["down"], "glu" if cfg.act_fn == "silu" else None)]
     D = cfg.hidden_size
     Fe = cfg.moe_intermediate_size or cfg.intermediate_size
     Fs = cfg.shared_intermediate_size or Fe * cfg.n_shared_experts
@@ -1455,10 +1500,12 @@ def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
     of these models is dense, or every one MoE). K13 runs each norm that no
     K1 prologue or K14 takes: the attention norm and a dense MLP's at rows >
     8, at G != 128 or under A8 (which unfuses the prologues); an MoE layer's
-    MLP norm always. Under QUICK_TPU_LAYER_TAIL a dense layer of <= 8 rows
-    at G = 128 runs o, the MLP norm, gate_up and down in K14. qwen3's
-    per-head qk-norm adds two K13 launches a layer, over [rows x heads, 128]
-    of q and of k."""
+    MLP norm always; none without pre-norms (olmo2). Under
+    QUICK_TPU_LAYER_TAIL a dense layer of <= 8 rows at G = 128 runs o, the
+    MLP norm, gate_up and down in K14. The per-head qk-norm (qwen3, gemma3)
+    adds two K13 launches a layer, over [rows x heads, head_dim] of q and of
+    k; olmo2's full-width one two over [rows, heads x head_dim]; the
+    post-norms (gemma2, gemma3, olmo2) two over [rows, D]."""
     from quick_tpu_torch.ops.fused_layer_tail import launch_key as tail_key
     from quick_tpu_torch.ops.quantized_matmul import (
         a8_launch_key,
@@ -1489,11 +1536,17 @@ def add_forward_launches(cfg, rows: int, n: int, add, group: int = 128) -> None:
                 add("grouped_matmul_a8", key, n)  # K12 keys as K8's at G = 128
             else:
                 add("grouped_matmul", key, n)
-    add("rms_norm", k13_key(rows, cfg.hidden_size),
-        n * ((0 if prologues else 1) + (0 if tail else 1 if cfg.is_moe or not prologues else 0)))
+    if cfg.pre_norms:
+        add("rms_norm", k13_key(rows, cfg.hidden_size),
+            n * ((0 if prologues else 1)
+                 + (0 if tail else 1 if cfg.is_moe or not prologues else 0)))
+    if cfg.use_post_norms:
+        add("rms_norm", k13_key(rows, cfg.hidden_size), 2 * n)
     if cfg.use_qk_norm:
+        hd = cfg.head_dim
         for heads in (cfg.num_attention_heads, cfg.num_key_value_heads):
-            add("rms_norm", k13_key(rows * heads, cfg.head_dim), n)
+            add("rms_norm", k13_key(rows, heads * hd) if cfg.qk_norm_full
+                else k13_key(rows * heads, hd), n)
 
 
 def engine_launches(cfg, stats, engine=ENGINE) -> dict:
@@ -1690,26 +1743,66 @@ def phase_engine(params, cfg, tag: str, engine=ENGINE, trace=None, launches=None
 # Phase 6: kernel path against the plain path on a 2-layer full-width model
 # ---------------------------------------------------------------------------
 
-def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None, params=None):
-    """model_forward over a PagedKVCache: one 16-token chunk for 4 slots at
-    different starts (one crossing a page boundary) over random earlier
-    context, then PHASE6_DECODE decode steps; the card's kernel path
-    (K4-K6) against the plain path on the CPU. ``require``: {kernel:
-    launches} the run must also make (phase 13c: K14 under the switch).
-    ``params``: the 2-layer model on the card and on the CPU (default:
-    random g=128 QTPU weights, seed 2)."""
+#: [18c] the logits of the 6-layer Gemma3-12B check, kernel route against
+#: plain route: each row's relative RMS difference. Phase 6's 1e-2 x (1 +
+#: |ref|) assumes the paths differ by single bf16 steps of the logits, which
+#: holds at 2 layers. Through 6 post-normed layers (each sub-layer's output
+#: normalized to unit scale before the residual add, so its rounding is not
+#: damped) the final hidden states differ by about one bf16 step (2^-8) of
+#: their RMS, and a logit inherits that times |embedding row| ~1.2: the
+#: largest of 262,208 such differences reached 0.03 (H100 80GB HBM3, 700 W),
+#: which 1e-2 x (1 + |ref|) refuses at small logits. The RMS over the row
+#: holds the same relative error without the max over the vocabulary:
+#: 2^-6 is four bf16 steps. [18e] holds a Gemma2-9B AWQ block's x_next so
+#: too: its post-norms add each sub-layer's output at unit scale, and the
+#: largest of its 58.7 M per-element differences (5.13e-2 x (1 + |ref|) on
+#: the same card) exceeds the Mistral block's AWQ_XNEXT_TOL (5e-2),
+#: set where the sub-layer outputs are small beside the residual
+TOL_DEEP_RMS = 2.0 ** -6
+
+
+def deep_logits_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """[18c] rows of logits: the largest ||out - ref|| / ||ref|| of a row
+    within TOL_DEEP_RMS, and the same argmax in every row whose two best
+    plain logits lie more than 4 x the largest |out - ref| apart."""
+    o, r = out.float(), ref.float()
+    d = o - r
+    rel = float((d.norm(dim=-1) / r.norm(dim=-1)).max())
+    top2 = r.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 4 * float(d.abs().max())
+    same = o.argmax(-1) == r.argmax(-1)
+    print(f"  {what}: relative RMS {rel:.3e} (tol {TOL_DEEP_RMS:.3e}), max_abs_err "
+          f"{float(d.abs().max()):.3e}, max|ref| {float(r.abs().max()):.3e}, argmax compared in "
+          f"{int(clear.sum())} of {len(clear)} rows")
+    if not rel <= TOL_DEEP_RMS or not bool(same[clear].all()):
+        fail(f"{what}: kernel disagrees with its plain version")
+    return rel
+
+
+def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None, params=None,
+                                 starts=(0, 21, 56, 100), max_seq=256, steps=PHASE6_DECODE,
+                                 deep=False):
+    """model_forward over a PagedKVCache: one 16-token chunk for a slot at
+    each of ``starts`` (by default 4 slots, one crossing a page boundary)
+    over random earlier context, then ``steps`` decode steps; the card's
+    kernel path (K4-K6) against the plain path on the CPU. ``require``:
+    {kernel: launches} the run must also make (phase 13c: K14 under the
+    switch). ``params``: the model on the card and on the CPU (default:
+    random g=128 QTPU weights, seed 2, 2 layers). ``deep``: as in
+    ``phase6_dense_plain_vs_kernel``."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.modules.paged_cache import PagedKVCache
     from quick_tpu_torch.ops import all_kernels
 
-    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
-    B, S, page, max_seq = 4, 16, 64, 256
+    L = 2 if params is None else len(params[0].blocks)
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=L)
+    B, S, page = len(starts), 16, 64
     n_pt = max_seq // page
     P = 1 + B * n_pt
-    starts = [0, 21, 56, 100]  # 56 + 16 crosses the page boundary at 64
-    print(f"[{tag}] 2 layers at full width, paged cache (page {page}), chunk at starts "
-          f"{starts} + {PHASE6_DECODE} decode steps: kernel path (card) vs plain path (CPU), "
+    starts = list(starts)
+    print(f"[{tag}] {L} layers at full width, paged cache (page {page}), chunk at starts "
+          f"{starts} + {steps} decode steps: kernel path (card) vs plain path (CPU), "
           f"tol {TOL_MODEL} * (1 + |ref|)")
     if params is None:
         p_gpu = init_quant_params(cfg2, seed=2, device=dev)
@@ -1718,12 +1811,12 @@ def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None, params=None):
         p_gpu, p_cpu = params
     gen = torch.Generator(device=dev).manual_seed(2)
     bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1).reshape(B, n_pt).to(torch.int32)
-    shape = (2, P, cfg.num_key_value_heads, page, cfg.head_dim)
+    shape = (L, P, cfg.num_key_value_heads, page, cfg.head_dim)
     context = [(0.5 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
                for _ in range(2)]
     caches = []
     for d in (dev, torch.device("cpu")):
-        c = PagedKVCache.create(2, P, page, B, max_seq, cfg.num_key_value_heads,
+        c = PagedKVCache.create(L, P, page, B, max_seq, cfg.num_key_value_heads,
                                 cfg.head_dim, device=d)
         c.k_pages.copy_(context[0])
         c.v_pages.copy_(context[1])
@@ -1736,23 +1829,25 @@ def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None, params=None):
         k.reset_counts()
     worst = 0.0
     with torch.inference_mode():
-        for step in range(1 + PHASE6_DECODE):
+        for step in range(1 + steps):
             n = S if step == 0 else 1
             adv = [torch.full((B,), n, dtype=torch.int32, device=d) for d in (dev, "cpu")]
             lg, cg = model_forward(p_gpu, cfg2, toks, cg, advance=adv[0], last_valid=adv[0])
             lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, advance=adv[1], last_valid=adv[1])
-            worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], TOL_MODEL,
-                                       "chunk logits" if step == 0 else f"decode step {step}"))
+            what = "chunk logits" if step == 0 else f"decode step {step}"
+            worst = max(worst, deep_logits_err(lg[:, -1].cpu(), lc[:, -1], what) if deep
+                        else max_err(lg[:, -1].cpu(), lc[:, -1], TOL_MODEL, what))
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     torch.cuda.synchronize()
     launched = {k.name: k.launches for k in kernels if k.launches}
-    if launched.get("paged_write") != 2 * (1 + PHASE6_DECODE) or \
-            launched.get("paged_attention") != 2 * (1 + PHASE6_DECODE):
-        fail(f"the paged 2-layer path did not run K4-K6 once per layer per step: {launched}")
+    if launched.get("paged_write") != L * (1 + steps) or \
+            launched.get("paged_attention") != L * (1 + steps):
+        fail(f"the paged {L}-layer path did not run K4-K6 once per layer per step: {launched}")
     for name, n in (require or {}).items():
         if launched.get(name) != n:
-            fail(f"the paged 2-layer path did not run {name} {n} times: {launched}")
-    if cg.length.tolist() != cc.length.tolist() or cc.length.tolist() != [s + S + PHASE6_DECODE for s in starts]:
+            fail(f"the paged {L}-layer path did not run {name} {n} times: {launched}")
+    if cg.length.tolist() != cc.length.tolist() or \
+            cc.length.tolist() != [s + S + steps for s in starts]:
         fail(f"lengths {cg.length.tolist()} / {cc.length.tolist()}")
     print(f"  launches {launched}")
     return worst
@@ -1760,25 +1855,34 @@ def phase6_paged_plain_vs_kernel(cfg, dev, tag="6", require=None, params=None):
 
 def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROMPT,
                                  decode_kernel="fused_decode_step", params=None, tag="6",
-                                 tol=TOL_MODEL, prefill_kernel=None, require=None):
-    """model_forward over a dense cache: a prefill and PHASE6_DECODE decode
+                                 tol=TOL_MODEL, prefill_kernel=None, require=None,
+                                 steps=PHASE6_DECODE, decode_layers=None, counts=None,
+                                 deep=False):
+    """model_forward over a dense cache: a prefill and ``steps`` decode
     steps, the card's kernel path against the plain path on the CPU. At B=4 and
     max_seq 256 decode takes K3; at B=16 and max_seq 512 (32 MiB of K+V per
-    layer) the dense decode kernel K7. ``params``: the 2-layer model on the
-    card and on the CPU (default: random g=128 QTPU weights, seed 1).
-    ``prefill_kernel``: a GEMM kernel that must run the prefill's four
-    projections (phase 12f: K11 under QUICK_TPU_A8). ``require``: {kernel:
-    launches} the run must also make (phase 13c: K14 under the switch)."""
+    layer) the dense decode kernel K7. ``params``: the model on the card and
+    on the CPU (default: random g=128 QTPU weights, seed 1, 2 layers).
+    ``decode_layers``: the layers whose decode runs ``decode_kernel`` (all
+    by default; K7 takes no window, so a sliding layer whose window binds
+    decodes on the einsum, as in the JAX package). ``prefill_kernel``: a
+    GEMM kernel that must run the prefill's four projections (phase 12f:
+    K11 under QUICK_TPU_A8). ``require``: {kernel: launches} the run must
+    also make (phase 13c: K14 under the switch). ``counts``: a dict that
+    receives the run's launches by kernel and key. ``deep``: the logits
+    held by ``deep_logits_err`` instead of ``tol`` (a model deeper than 2
+    layers with post-norms)."""
     from quick_tpu_torch.models.convert import params_from_flat, params_to_flat
     from quick_tpu_torch.models.model import init_quant_params, model_forward
     from quick_tpu_torch.ops import all_kernels
     from quick_tpu_torch.runtime import make_cache
 
-    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    L = 2 if params is None else len(params[0].blocks)
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=L)
     kv_mb = 2 * B * max_seq * cfg.num_key_value_heads * cfg.head_dim * 2 / 2**20
-    print(f"[{tag}] 2 layers at full width, dense cache B={B} max_seq {max_seq} ({kv_mb:.0f} MiB "
-          f"of K+V per layer), prompt {prompt}: kernel path (card) vs plain path (CPU), tol "
-          f"{tol} * (1 + |ref|)")
+    print(f"[{tag}] {L} layers at full width, dense cache B={B} max_seq {max_seq} ({kv_mb:.0f} "
+          f"MiB of K+V per layer), prompt {prompt}, {steps} decode steps: kernel path (card) vs "
+          f"plain path (CPU), tol {tol} * (1 + |ref|)")
     if params is None:
         p_gpu = init_quant_params(cfg2, seed=1, device=dev)
         p_cpu = params_from_flat(params_to_flat(p_gpu), cfg2, device="cpu")
@@ -1794,22 +1898,25 @@ def phase6_dense_plain_vs_kernel(cfg, dev, B=BATCH, max_seq=MAX_SEQ, prompt=PROM
     worst = 0.0
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for step in range(1 + PHASE6_DECODE):
+        for step in range(1 + steps):
             lg, cg = model_forward(p_gpu, cfg2, toks, cg, last_token_only=True)
             lc, cc = model_forward(p_cpu, cfg2, toks.cpu(), cc, last_token_only=True)
-            worst = max(worst, max_err(lg[:, -1].cpu(), lc[:, -1], tol,
-                                       "prefill logits" if step == 0 else f"decode step {step}"))
+            what = "prefill logits" if step == 0 else f"decode step {step}"
+            worst = max(worst, deep_logits_err(lg[:, -1].cpu(), lc[:, -1], what) if deep
+                        else max_err(lg[:, -1].cpu(), lc[:, -1], tol, what))
             toks = torch.argmax(lg[:, -1], dim=-1)[:, None]  # both paths take it
     launched = {k.name: k.launches for k in kernels if k.launches}
-    if launched.get(decode_kernel) != 2 * PHASE6_DECODE:
-        fail(f"the dense 2-layer path did not run {decode_kernel} once per layer per decode "
+    if launched.get(decode_kernel) != (L if decode_layers is None else decode_layers) * steps:
+        fail(f"the dense {L}-layer path did not run {decode_kernel} once per layer per decode "
              f"step: {launched}")
-    if prefill_kernel and launched.get(prefill_kernel) != 2 * 4:
-        fail(f"the dense 2-layer prefill did not run {prefill_kernel} for its four projections "
+    if prefill_kernel and launched.get(prefill_kernel) != L * 4:
+        fail(f"the dense {L}-layer prefill did not run {prefill_kernel} for its four projections "
              f"per layer: {launched}")
     for name, n in (require or {}).items():
         if launched.get(name) != n:
-            fail(f"the dense 2-layer path did not run {name} {n} times: {launched}")
+            fail(f"the dense {L}-layer path did not run {name} {n} times: {launched}")
+    if counts is not None:
+        counts.update({k.name: dict(k.launches_by_key) for k in kernels if k.launches})
     print(f"  launches {launched}; {time.perf_counter() - t0:.1f} s")
     return worst
 
@@ -3144,6 +3251,11 @@ DEEPSEEK_V2_LITE = dict(
 )
 #: its quant group: 10944 = 85.5 x 128 allows no larger one
 DS_G = 64
+#: [11d] the DeepSeek-V2-Lite Engines run their first DS_ENGINE_LAYERS
+#: layers (the dense one and three MoE layers) of the 27, for phase 18's
+#: room in the time limit (at 27 layers the two timed runs took 30.2 and
+#: ~28 s on an H100 80GB HBM3 at 700 W; ``--depth-costs`` runs them at 27)
+DS_ENGINE_LAYERS = 4
 DS_GEN, DS_ENGINE, DS_ENGINE_INT8 = "deepseek_generate", "deepseek_engine", "deepseek_int8_engine"
 #: the INT8 latent pool over the bf16 one: 576 code bytes plus an 8 x 64 f32
 #: scale tile per 64-token page (8 B a token), against 1152 bytes a token
@@ -3624,9 +3736,10 @@ def phase11_deepseek(dev):
     """Phase 11: DeepSeek-V2-Lite. (a, b) K10 / K10q, K4 / K4q on the latent
     planes, K2 at q / k 192, v 128, K9 and K8 at its shapes, each against
     its plain version, then timed; (c) generate() at full width and depth;
-    (d) the Engine over bf16, then INT8 latent pages (one counted, timed
-    run each, one turn profiled); (e) a 2-layer checkpoint round trip and
-    the 2-layer kernel path against the plain path for generate() and the
+    (d) the Engine over bf16, then INT8 latent pages at DS_ENGINE_LAYERS of
+    its 27 layers (one counted, timed run each, one turn profiled); (e) a
+    2-layer checkpoint round trip and the 2-layer kernel path against the
+    plain path for generate() and the
     paged path over bf16 and INT8 pages (K9's plain version on the CPU)."""
     from quick_tpu_torch import ModelConfig
 
@@ -3643,9 +3756,12 @@ def phase11_deepseek(dev):
                          tag="11a")
     counts, report = {}, {}
     counts[DS_GEN], report["generate"], params = phase11_generate(cfg, dev)
+    cut = (dataclasses.replace(params, blocks=params.blocks[:DS_ENGINE_LAYERS]),
+           dataclasses.replace(cfg, num_hidden_layers=DS_ENGINE_LAYERS))
     for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8))):
-        counts[path], report[path] = phase_engine(params, cfg, "11d", engine, trace,
+        counts[path], report[path] = phase_engine(*cut, "11d", engine, trace,
                                                   ds_engine_launches, warmup=False)
+    del cut
     report["engine_graph_ab"] = {
         path: engine_graph_ab(params, cfg, "13d", engine, trace)
         for path, engine in ((DS_ENGINE, ENGINE), (DS_ENGINE_INT8, dict(ENGINE, dtype=torch.int8)))}
@@ -4653,23 +4769,37 @@ def awq_expected_launches(cfg) -> dict:
     MLP norms. An MLA block (no q-LoRA): K2 at every MLA forward (the float
     attention, the qkv group's float output and N_GRID candidates, the o
     group's input), K13 at each forward's kv_a norm and at the two block
-    norms. qwen3's qk-norm adds K13 on q and k at each attention forward."""
+    norms. The qk-norm adds K13 on q and k at each attention forward, the
+    post-norms K13 on the two sub-layer outputs."""
     from quick_tpu_torch.quantize.awq import N_GRID
 
     L = cfg.num_hidden_layers
     if cfg.is_mla:
         forwards = N_GRID + 3
         return {"flash_attention": L * forwards, "rms_norm": L * (forwards + 2)}
-    # qwen3's qk-norm: K13 on q and on k in each attention forward
+    # the qk-norm: K13 on q and on k in each attention forward; the
+    # post-norms (gemma2, gemma3) K13 on each sub-layer's output
     qk = 2 * (N_GRID + 2) if cfg.use_qk_norm else 0
-    return {"flash_attention": L * (N_GRID + 2), "rms_norm": L * (2 + qk)}
+    norms = 2 + (2 if cfg.use_post_norms else 0)
+    return {"flash_attention": L * (N_GRID + 2), "rms_norm": L * (norms + qk)}
 
 
-def awq_code_check(kernel_blk, plain_blk, agree: list) -> dict:
+#: [18e] the share of a linear's packed int32 words that may differ between
+#: the routes though every search up to it picked alike. With random
+#: pre-norm weights K13 and the plain norm round the normed input up to one
+#: bf16 step apart (phase 18's K13 rows), which moves the mean |activation|
+#: and so the scales by f32 ulps, and flips a code that sits at a half-way
+#: point: 22 of qkv's 3.67 M words (H100 80GB HBM3, 700 W). At unit pre-norm
+#: weights (16b, 17f) the two norms agree bit for bit and no word may differ
+AWQ_HALFWAY_SHARE = 1e-4
+
+
+def awq_code_check(kernel_blk, plain_blk, agree: list, share: float = 0.0) -> dict:
     """[16b] the packed codes of the llama-path block's linears, kernel
-    route against plain route: equal for every linear whose searches and
-    every search before them picked alike (``agree``: each search's picks
-    equal, in call order). Returns the differing int32 words by linear."""
+    route against plain route: equal (at most ``share`` of a linear's words
+    differing) for every linear whose searches and every search before them
+    picked alike (``agree``: each search's picks equal, in call order).
+    Returns the differing int32 words by linear."""
     mha_o = len(agree) == 8  # MHA adds the o scale search
     # searches in call order: qkv scale, [o scale], v clip, o clip, gate_up
     # scale, down scale, gate_up clip, down clip
@@ -4682,13 +4812,13 @@ def awq_code_check(kernel_blk, plain_blk, agree: list) -> dict:
     for name, (a, b) in lins.items():
         n = int((a.qweight != b.qweight).sum())
         out[name] = n
-        if all(agree[:last[name]]) and n:
+        if all(agree[:last[name]]) and n > share * a.qweight.numel():
             fail(f"[16b] {name}: {n} packed words differ between the routes though every "
                  "search up to it picked alike")
     return out
 
 
-def awq_route_check(calls, cfg, tag: str = "16b") -> dict:
+def awq_route_check(calls, cfg, tag: str = "16b", share: float = 0.0, deep: bool = False) -> dict:
     """[16b, 17f] each block's search again from the same input on the plain
     route (QUICK_TPU_FLASH=0: the einsum attention; plain-torch norms),
     against the kernel route's (K2, K13). Scale picks must agree or differ
@@ -4697,14 +4827,17 @@ def awq_route_check(calls, cfg, tag: str = "16b") -> dict:
     group are clipped: its zero point sits at round(7.5), which an ulp of
     the inputs moves, so such a pick can move at any loss gap); the packed
     codes of every linear before the first differing pick must be equal
-    (awq_code_check). Then the plain route again with the kernel route's
-    clip bounds imposed: x_next within AWQ_XNEXT_TOL * (1 + |ref|)."""
+    (awq_code_check, ``share``). Then the plain route again with the kernel route's
+    clip bounds imposed: x_next within AWQ_XNEXT_TOL * (1 + |ref|), or with
+    ``deep`` (post-norms) its relative RMS difference within TOL_DEEP_RMS."""
     from quick_tpu_torch.quantize import awq
 
+    xnext = (f"x_next's relative RMS within {TOL_DEEP_RMS:.3e}" if deep
+             else f"x_next within {AWQ_XNEXT_TOL} * (1 + |ref|)")
     print(f"[{tag}] the search on the plain route (QUICK_TPU_FLASH=0, plain norms) from each "
           f"block's input, against the kernel route (K2, K13): scale picks equal or under a loss "
           f"gap < {AWQ_PICK_GAP}; >= {AWQ_CLIP_AGREE:.0%} of each clip search's picks equal; "
-          f"x_next within {AWQ_XNEXT_TOL} * (1 + |ref|) with the kernel route's clips imposed")
+          f"{xnext} with the kernel route's clips imposed")
     report = []
     for i, c in enumerate(calls):
         with switches(QUICK_TPU_FLASH="0"), plain_norms(), awq.recorded_searches() as rec:
@@ -4722,13 +4855,21 @@ def awq_route_check(calls, cfg, tag: str = "16b") -> dict:
             if r["kind"] == "clip" and r["differ"] > (1 - AWQ_CLIP_AGREE) * r["picks"]:
                 fail(f"[{tag}] block {i} search {j}: {r['differ']} of {r['picks']} clip picks "
                      "differ")
-        words = awq_code_check(c["res"].block, res.block, [r["differ"] == 0 for r in cmp])
+        words = awq_code_check(c["res"].block, res.block, [r["differ"] == 0 for r in cmp],
+                               share)
         with switches(QUICK_TPU_FLASH="0"), plain_norms(), imposed_clips(c["clips"]):
             fixed = c["fn"](*c["args"], **c["kw"])
-        err = max_err(fixed.x_next, c["res"].x_next, AWQ_XNEXT_TOL,
-                      f"block {i} x_next, the kernel route's clips imposed")
         ref = c["res"].x_next.float()
         rms = float((fixed.x_next.float() - ref).norm() / ref.norm())
+        what = f"block {i} x_next, the kernel route's clips imposed"
+        if deep:
+            err = float(((fixed.x_next.float() - ref).abs() / (1 + ref.abs())).max())
+            print(f"  {what}: relative RMS {rms:.3e} (tol {TOL_DEEP_RMS:.3e}), max |err| / "
+                  f"(1 + |ref|) {err:.3e}")
+            if not rms <= TOL_DEEP_RMS:
+                fail(f"[{tag}] {what}: the routes differ by a relative RMS of {rms:.3e}")
+        else:
+            err = max_err(fixed.x_next, c["res"].x_next, AWQ_XNEXT_TOL, what)
         free = (res.x_next.float() - ref).abs()
         print(f"  relative RMS of the difference {rms:.3e}; packed int32 words differing "
               f"{words}; x_next with each route's own clips: max |d| {float(free.max()):.3e}",
@@ -5189,12 +5330,340 @@ def phase17_qwen3(dev) -> tuple:
     return counts, report, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the RMSNorm families off the llama path
+# ---------------------------------------------------------------------------
+
+GEMMA2_GEN, GEMMA3_GEN = "gemma2_generate", "gemma3_generate"
+GEMMA2_LONG = "gemma2_long"
+#: [18b] one long stream through the window: a 4,400-token prompt in a
+#: 4,608-token cache (K2 with window 4,096 and softcap 50 on the 21 sliding
+#: layers; 18 MiB of keys a row in each layer close K3's 3 MiB gate and open
+#: K7's 8 MB one on the 21 global layers, the sliding ones decode on the
+#: einsum: K7 takes no window, in either package), 16 greedy tokens
+LONG18_PROMPT, LONG18_SEQ, LONG18_NEW = 4400, 4608, 16
+#: [18c] the 6-layer check (layers 0-4 slide, 5 is global): a 1,280-token
+#: prompt in a 1,536-token cache, past the 1,024 window, then phase 6's 4
+#: decode steps. B = 1 and 4 steps for the time limit: the CPU's plain
+#: prefill of 2 x 1,280 tokens and 8 steps at 6 layers of full width took
+#: 90 s (a CPU step dequantizes every weight, ~3.6 s at 6 layers)
+G3_CHECK = dict(layers=6, B=1, prompt=1280, max_seq=1536, steps=PHASE6_DECODE)
+#: [18d] 2 layers at full width of each; a 64-token prompt in a 128-token
+#: cache, where K2's gate (S >= 64, T >= 128) opens
+SMALL18 = dict(B=BATCH, prompt=64, max_seq=128, steps=2)
+#: allenai/OLMo-2-1124-7B, ibm-granite/granite-3.1-8b-base and
+#: openbmb/MiniCPM-2B-sft-bf16 config.json, the fields the port reads
+OLMO2_7B = dict(model_type="olmo2", vocab_size=100352, hidden_size=4096,
+                intermediate_size=11008, num_hidden_layers=32, num_attention_heads=32,
+                num_key_value_heads=32, rope_theta=500000.0, rms_norm_eps=1e-6,
+                max_position_embeddings=4096, tie_word_embeddings=False)
+GRANITE_8B = dict(model_type="granite", vocab_size=49155, hidden_size=4096,
+                  intermediate_size=12800, num_hidden_layers=40, num_attention_heads=32,
+                  num_key_value_heads=8, embedding_multiplier=12.0, residual_multiplier=0.22,
+                  attention_multiplier=0.0078125, logits_scaling=16.0, rope_theta=10000000.0,
+                  rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=True)
+MINICPM_2B = dict(model_type="minicpm", vocab_size=122753, hidden_size=2304,
+                  intermediate_size=5760, num_hidden_layers=40, num_attention_heads=36,
+                  num_key_value_heads=36, scale_emb=12, scale_depth=1.4, dim_model_base=256,
+                  rms_norm_eps=1e-5, max_position_embeddings=4096, rope_theta=10000.0,
+                  tie_word_embeddings=True)
+SMALL18_MODELS = {"olmo2-7b": OLMO2_7B, "granite-3.1-8b": GRANITE_8B,
+                  "minicpm-2b": MINICPM_2B}
+MINICPM_CHECK = "minicpm_2layer"
+#: every norm weight of the phase's models: 1 + NORM_SPREAD N(0, 1), so that
+#: neither the pre- nor the post-norms nor the q / k norms are all ones
+NORM_SPREAD = 0.1
+
+
+def random_norms(params, gen) -> None:
+    """Every norm weight of ``params`` in place (pre-, post-, q / k and the
+    final norm): 1 + NORM_SPREAD N(0, 1), bf16."""
+    def r(w):
+        if w is None:
+            return None
+        return (1 + NORM_SPREAD * torch.randn(w.shape, generator=gen, device=w.device)).to(
+            torch.bfloat16)
+
+    for blk in params.blocks:
+        for name in ("attn_norm", "mlp_norm", "attn_post_norm", "mlp_post_norm"):
+            setattr(blk, name, r(getattr(blk, name)))
+        for name in ("q_norm", "k_norm"):
+            setattr(blk.attn, name, r(getattr(blk.attn, name)))
+    params.final_norm = r(params.final_norm)
+
+
+def family_params(cfg, dev, seed: int = 0, layers=None):
+    """(cfg, params): random g=128 QTPU weights (seed), random norms
+    (random_norms, seed + 11), the tied bf16 head, or a random untied one
+    (seed + 11) where the config unties it; the first ``layers`` layers if
+    given."""
+    from quick_tpu_torch.models.model import init_quant_params
+    from quick_tpu_torch.modules.linear import Linear
+
+    if layers:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    params = init_quant_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    if not cfg.tie_word_embeddings:
+        D = cfg.hidden_size
+        params.lm_head = Linear((torch.randn((D, cfg.vocab_size), generator=gen, device=dev)
+                                 / math.sqrt(D)).to(torch.bfloat16))
+    random_norms(params, gen)
+    return cfg, params
+
+
+def long_launches(cfg, B=1, prompt=LONG18_PROMPT, T=LONG18_SEQ, new=LONG18_NEW) -> dict:
+    """[18b] launches of one generate() call of B x (prompt + new) tokens in
+    a T-token cache past K3's gate: the prefill (K1, K2 at every layer, K13),
+    then new - 1 eager decode forwards, K7 at the global layers (the sliding
+    ones decode on the einsum)."""
+    from quick_tpu_torch.ops import decode_attention as dda
+    from quick_tpu_torch.ops._cuda import sm_count
+
+    L = cfg.num_hidden_layers
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    want = {}
+
+    def add(kernel, key, n):
+        if n:
+            want.setdefault(kernel, {})
+            want[kernel][key] = want[kernel].get(key, 0) + n
+
+    add_forward_launches(cfg, B * prompt, L, add)
+    add_forward_launches(cfg, B, L * (new - 1), add)
+    add("rms_norm", k13_key(B, cfg.hidden_size), new)
+    add("flash_attention", f"B={B} S={prompt} T={T} Hq={Hq} Hkv={Hkv} D={D}", L)
+    globals_ = sum(not cfg.layer_is_sliding(i) for i in range(L))
+    _, splits = dda.split_plan(B, Hkv, T, sm_count(0))
+    add("decode_attention", dda.launch_key(B, Hq, Hkv, T, D, splits), globals_ * (new - 1))
+    return want
+
+
+def phase18_long(model, cfg, dev) -> tuple:
+    """[18b] generate() of one 4,400-token prompt and 16 greedy tokens at
+    full depth, counted exactly (a warm-up first), then prefill and the
+    eager decode timed apart."""
+    from quick_tpu_torch.runtime import decode_loop, make_cache, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    prompts = torch.randint(0, cfg.vocab_size, (1, LONG18_PROMPT), generator=gen, device=dev)
+    print(f"[18b] generate(): B=1, a {LONG18_PROMPT}-token prompt + {LONG18_NEW} tokens in a "
+          f"{LONG18_SEQ}-token cache, {cfg.num_hidden_layers} layers (the window of "
+          f"{cfg.sliding_window} binds on the sliding layers)")
+    model.generate(prompts, 2, max_seq=LONG18_SEQ)  # warm-up
+    want = long_launches(cfg)
+    t0 = time.perf_counter()
+    out, launched = counted(lambda: model.generate(prompts, LONG18_NEW, max_seq=LONG18_SEQ))
+    seconds = time.perf_counter() - t0
+    if launched != want:
+        fail(f"[18b] launch counts {launched} differ from the path's {want}")
+    if tuple(out.shape) != (1, LONG18_PROMPT + LONG18_NEW) or not torch.equal(
+            out[:, :LONG18_PROMPT], prompts):
+        fail(f"[18b] generate returned {tuple(out.shape)} or lost the prompt")
+    cache = make_cache(cfg, 1, LONG18_SEQ, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model.params, cfg, prompts, cache)
+    first = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest, cache = decode_loop(model.params, cfg, first, cache, LONG18_NEW - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    if not torch.equal(torch.cat([first[:, None], rest], 1), out[:, LONG18_PROMPT:]):
+        fail("[18b] a second greedy run gave other tokens")
+    stats = dict(generate_s=seconds, prefill_ms=t_prefill * 1e3,
+                 prefill_tok_s=LONG18_PROMPT / t_prefill,
+                 decode_ms_per_step=t_decode * 1e3 / (LONG18_NEW - 1),
+                 launches={k: sum(v.values()) for k, v in launched.items()})
+    print(f"  launches exact {stats['launches']}; prefill {stats['prefill_ms']:.1f} ms "
+          f"({stats['prefill_tok_s']:.0f} tok/s), eager decode {stats['decode_ms_per_step']:.2f} "
+          "ms a token")
+    del cache
+    return launched, stats
+
+
+def phase18_generate(name, cfg, dev, path) -> tuple:
+    """[18a, 18c] ``name`` at full width and depth through generate() as
+    phase 4 (random weights and norms, seed 0), its launches exact. Returns
+    (counts, stats, model)."""
+    from quick_tpu_torch.models.auto import AutoQuickModel
+
+    print(f"[18] generate() path: {name}, {cfg.num_hidden_layers} layers, B={BATCH}, "
+          f"{PROMPT} + {NEW_TOKENS} tokens, max_seq {MAX_SEQ}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg, params = family_params(cfg, dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    print(f"  random weights in {time.perf_counter() - t0:.1f} s: {weights / 1e9:.2f} GB on the "
+          "card")
+    model = AutoQuickModel(params, cfg)
+    counts, stats = run_generate(model, cfg, dev, name, generate_launches(cfg))
+    stats["weights_gb"] = weights / 1e9
+    prof = stats["decode_profile"]
+    print(f"[18] {name}: prefill {min(stats['prefill_ms']):.2f} ms, graphed decode "
+          f"{min(stats['decode_ms_per_step']):.3f} ms a token, device "
+          f"{prof['device_busy_ms_per_step']:.3f} ms a step, busy share "
+          f"{prof['device_busy_share']:.3f}")
+    return counts, stats, model
+
+
+def phase18_kernel_rows(cfg, gen, dev, path, tag) -> list:
+    """[18a, 18c] K1 at the model's four projections (prefill and decode
+    rows, the decode rows' prologues as the path takes them), K2 and K3 at
+    head_dim 256 with the path's softcap, K13 at the post-norm (and gemma3's
+    qk-norm) shapes: each held against its plain version and timed."""
+    errs = {}
+    gemms = main_path_gemms(cfg)
+    print(f"[{tag}] K1 at {cfg.model_type}'s projections, K2 / K3 at head_dim {cfg.head_dim}, "
+          "K13 at its norm shapes")
+    for prologue, M, K, N in gemms:
+        key, errs[key], _ = check_gemm(prologue, M, K, N, gen, dev)
+    rows = time_gemms(cfg, gen, dev, errs, gemms, path)
+    kw = {} if cfg.attn_logit_softcap is None else dict(logit_softcap=cfg.attn_logit_softcap)
+    rows.append(flash_row(cfg, gen, dev, path=path, tag=tag, path_kw=kw))
+    rows.append(fused_row(cfg, gen, dev, path=path, path_kw=kw, tag=tag))
+    D, hd = cfg.hidden_size, cfg.head_dim
+    cases = [(path, r, D, None) for r in (BATCH, BATCH * PROMPT)]
+    if cfg.use_qk_norm:
+        cases += [(path, r * h, hd, None) for r in (BATCH, BATCH * PROMPT)
+                  for h in (cfg.num_attention_heads, cfg.num_key_value_heads)]
+    return rows + rms_norm_rows(gen, dev, tag=tag, cases=tuple(cases))
+
+
+def phase18_rms_families(dev) -> tuple:
+    """Phase 18: (a) Gemma2-9B at full width and depth through generate(),
+    K1 at its projections, K2 / K3 at head_dim 256 with softcap 50 and K13
+    at the post-norm shapes held and timed; (b) one 4,400-token stream
+    through the window at full depth, K2 windowed and K7 at its shape held
+    and timed, then 2-layer dense and paged checks against the plain path;
+    (c) Gemma3-12B as (a), and a 6-layer dense and paged check past its
+    1,024 window; (d) OLMo-2-7B, Granite-3.1-8B and MiniCPM-2B at 2 layers
+    of full width against the plain path, K2 / K3 at MiniCPM's head_dim 64
+    held and timed; (e) one Gemma2-9B block of AWQ through quantize(calib)
+    against the plain route. Returns (launch counts, report, kernel rows)."""
+    from quick_tpu_torch import ModelConfig
+    from quick_tpu_torch.examples.basic_quant import PRESETS
+    from quick_tpu_torch.models.auto import AutoQuickModel
+    from quick_tpu_torch.quantize.calib import get_calib_tokens
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    report, counts = {}, {}
+    g2, g3 = PRESETS["gemma2-9b"], PRESETS["gemma3-12b"]
+    rows = phase18_kernel_rows(g2, gen, dev, GEMMA2_GEN, "18a")
+    counts[GEMMA2_GEN], report["gemma2_generate"], model = phase18_generate(
+        "gemma2-9b", g2, dev, GEMMA2_GEN)
+    print(f"  phase 18a done at {time.perf_counter() - t_phase:.0f} s of the phase")
+
+    # [18b] the window binds: K2 and K7 at the stream's shapes, then the stream
+    soft = dict(logit_softcap=g2.attn_logit_softcap)
+    rows.append(flash_row(g2, gen, dev, B=1, S=LONG18_PROMPT, T=LONG18_SEQ, path=GEMMA2_LONG,
+                          tag="18b", path_kw=dict(soft, window=g2.sliding_window)))
+    lengths = LONG18_PROMPT + torch.randint(0, LONG18_NEW, (1,), generator=gen, device=dev)
+    rows.append(k7_row(g2, gen, dev, "gemma2 long stream", 1, LONG18_SEQ, lengths,
+                       [("", {}), (", softcap 50", soft)], GEMMA2_LONG, timed_kw=soft,
+                       tag="18b"))
+    counts[GEMMA2_LONG], report["gemma2_long"] = phase18_long(model, model.cfg, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2, p2 = family_params(g2, dev, seed=1, layers=2)
+    pair = (p2, cpu_copy(p2, cfg2))
+    report["gemma2_plain_vs_kernel"] = dict(
+        dense=phase6_dense_plain_vs_kernel(
+            g2, dev, B=1, max_seq=LONG18_SEQ, prompt=LONG18_PROMPT, params=pair, tag="18b",
+            decode_kernel="decode_attention", decode_layers=1),
+        paged=phase6_paged_plain_vs_kernel(
+            g2, dev, tag="18b", params=pair, starts=(LONG18_PROMPT,), max_seq=LONG18_SEQ))
+    del p2, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 18b done at {time.perf_counter() - t_phase:.0f} s of the phase")
+
+    rows += phase18_kernel_rows(g3, gen, dev, GEMMA3_GEN, "18c")
+    counts[GEMMA3_GEN], report["gemma3_generate"], model = phase18_generate(
+        "gemma3-12b", g3, dev, GEMMA3_GEN)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = G3_CHECK
+    cfg6, p6 = family_params(g3, dev, seed=1, layers=c["layers"])
+    pair = (p6, cpu_copy(p6, cfg6))
+    globals_ = sum(not cfg6.layer_is_sliding(i) for i in range(c["layers"]))
+    start = c["prompt"] - 16
+    report["gemma3_plain_vs_kernel"] = dict(
+        dense=phase6_dense_plain_vs_kernel(
+            g3, dev, B=c["B"], max_seq=c["max_seq"], prompt=c["prompt"], params=pair,
+            tag="18c", steps=c["steps"], decode_kernel="decode_attention",
+            decode_layers=globals_, deep=True),
+        paged=phase6_paged_plain_vs_kernel(
+            g3, dev, tag="18c", params=pair, starts=(start, start - 200),
+            max_seq=c["max_seq"], steps=c["steps"], deep=True))
+    del p6, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 18c done at {time.perf_counter() - t_phase:.0f} s of the phase")
+
+    small = {}
+    for name, hf in SMALL18_MODELS.items():
+        cfg = ModelConfig.from_hf_config(hf)
+        m = SMALL18
+        cfgs, ps = family_params(cfg, dev, seed=1, layers=2)
+        pair = (ps, cpu_copy(ps, cfgs))
+        launched = {}
+        small[name] = phase6_dense_plain_vs_kernel(
+            cfg, dev, B=m["B"], max_seq=m["max_seq"], prompt=m["prompt"], params=pair,
+            tag=f"18d {name}", steps=m["steps"], counts=launched)
+        if name == "minicpm-2b":
+            counts[MINICPM_CHECK] = launched
+            mcfg = cfg
+        del ps, pair
+        torch.cuda.empty_cache()
+    report["small_plain_vs_kernel"] = small
+    rows.append(flash_row(mcfg, gen, dev, B=SMALL18["B"], S=SMALL18["prompt"],
+                          T=SMALL18["max_seq"], path=MINICPM_CHECK, tag="18d"))
+    rows.append(fused_row(mcfg, gen, dev, B=SMALL18["B"], S=SMALL18["max_seq"],
+                          length=SMALL18["prompt"] + SMALL18["steps"] - 1, path=MINICPM_CHECK,
+                          tag="18d"))
+    print(f"  phase 18d done at {time.perf_counter() - t_phase:.0f} s of the phase")
+
+    fcfg = dataclasses.replace(g2, num_hidden_layers=1)
+    calib = get_calib_tokens(vocab_size=fcfg.vocab_size, **AWQ_CALIB)
+    print(f"[18e] AWQ: one Gemma2-9B block at full width through quantize(calib), random float "
+          f"weights (seed 0) with random norms and {AWQ_HOT} embedding channels x {AWQ_BOOST}; "
+          f"phase 16's calibration ({calib.shape[0]} x {calib.shape[1]})")
+    m = AutoQuickModel.from_random(fcfg, seed=0, device=dev)
+    random_norms(m.params, torch.Generator(device=dev).manual_seed(5))
+    boost_channels(m.params, fcfg)
+    a = awq_quantize_timed(m, fcfg, calib, "18e")
+    got = {k: sum(v.values()) for k, v in a["launches"].items()}
+    if got != awq_expected_launches(fcfg):
+        fail(f"[18e] the AWQ search launched {got}, expected {awq_expected_launches(fcfg)}")
+    report["awq_block"] = dict(seconds=a["seconds"], block_seconds=a["block_seconds"],
+                               peak_gb=a["peak_gb"],
+                               route_check=awq_route_check(a["calls"], fcfg, tag="18e",
+                                                           share=AWQ_HALFWAY_SHARE, deep=True))
+    counts["awq_gemma2_9b"] = a["launches"]
+    del m, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 18 took {report['seconds']:.1f} s")
+    return counts, report, rows
+
+
 def depth_costs(dev) -> dict:
     """``python3 chip_smoke.py --depth-costs``: the seconds of the phases
     that the time limit runs at a cut depth, run at full depth instead
     (phase 5's Engine and phase 12b's Engine host A/B, phase 9c's INT8
     Engine and phase 8's Mixtral Engine at 32 layers, phase 10b's GGUF file
-    at 32), for PERF.md section 4. A measurement only: it checks what those
+    at 32, phase 11d's DeepSeek-V2-Lite Engines at 27), for PERF.md
+    section 4. A measurement only: it checks what those
     phases check and ends without the kernels line."""
     from quick_tpu_torch import ModelConfig
     from quick_tpu_torch.examples.basic_quant import PRESETS
@@ -5226,6 +5695,12 @@ def depth_costs(dev) -> dict:
     torch.cuda.empty_cache()
     GGUF_LAYERS = 32
     timed("10b GGUF file, 32 layers", lambda: phase10_gguf(dev))
+    dcfg = ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)
+    dparams = init_quant_params(dcfg, seed=0, group_size=DS_G, device=dev)
+    trace = serving_trace(dcfg.vocab_size)
+    for kind, engine in (("bf16", ENGINE), ("INT8", dict(ENGINE, dtype=torch.int8))):
+        timed(f"11d DeepSeek-V2-Lite {kind} Engine, 27 layers", lambda: phase_engine(
+            dparams, dcfg, "11d", engine, trace, ds_engine_launches, warmup=False))
     return out
 
 
@@ -5247,6 +5722,11 @@ def main() -> None:
     phase1_build()
     if "--depth-costs" in sys.argv[1:]:
         print("depth costs: " + json.dumps(depth_costs(dev)))
+        return
+    if "--phase18" in sys.argv[1:]:
+        _, family_report, family_rows = phase18_rms_families(dev)
+        print("phase 18: " + json.dumps(dict(report=family_report, kernels=[
+            {k: v for k, v in r.items() if k != "launches"} for r in family_rows]), default=str))
         return
     cfg = ModelConfig(**MISTRAL_7B)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -5340,6 +5820,10 @@ def main() -> None:
     counts.update(qwen3_counts)
     rows += qwen3_rows
     print(f"  phase 17 done at {time.perf_counter() - t_start:.0f} s")
+    family_counts, family_report, family_rows = phase18_rms_families(dev)
+    counts.update(family_counts)
+    rows += family_rows
+    print(f"  phase 18 done at {time.perf_counter() - t_start:.0f} s")
     for row in rows:  # (path, kernel, key) -> this shape's launches on that path
         path, kernel, key = row["launches"]
         row["launches"] = counts[path][kernel].get(key, 0)
@@ -5383,6 +5867,7 @@ def main() -> None:
                               deepseek_engines=ds_report["engine_graph_ab"]),
                   penalties=penalties, k4_graph=k4_graph, beam=beam_stats,
                   penalised_engine=pen_engine_stats, awq=awq_report, qwen3=qwen3_report,
+                  rms_families=family_report,
                   seconds=time.perf_counter() - t_start)
     out = ROOT / "build" / "chip_smoke_report.json"
     out.parent.mkdir(exist_ok=True)

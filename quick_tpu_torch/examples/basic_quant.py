@@ -64,6 +64,34 @@ QWEN3_30B_A3B = dict(
     use_sliding_window=False,
 )
 
+#: google/gemma-2-9b config.json: GeGLU (tanh), sandwich norms, head_dim
+#: 256 with query_pre_attn_scalar 256, a 4,096-token window on the even
+#: layers, attention softcap 50 and final softcap 30, a tied head over 256,000
+#: tokens; 8.32 G linear weights, about 6.5 GB at W4A16 g=128 with the bf16
+#: embedding
+GEMMA2_9B = dict(
+    model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+    num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+    query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0,
+    final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
+    max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+    attention_bias=False,
+)
+
+#: google/gemma-3-12b-pt config.json's text_config: gemma2's block plus
+#: per-head q / k RMSNorm, no softcaps, a 1,024-token window on five layers of
+#: six, global rope theta 1e6 with linear scaling x8, local theta 1e4;
+#: about 8.1 GB at W4A16 g=128 with the bf16 embedding
+GEMMA3_12B = dict(
+    model_type="gemma3_text", vocab_size=262208, hidden_size=3840, intermediate_size=15360,
+    num_hidden_layers=48, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+    query_pre_attn_scalar=256, sliding_window=1024, sliding_window_pattern=6,
+    rope_theta=1000000.0, rope_local_base_freq=10000.0,
+    rope_scaling={"factor": 8.0, "rope_type": "linear"}, max_position_embeddings=131072,
+    rms_norm_eps=1e-6, final_logit_softcapping=None, attn_logit_softcapping=None,
+    hidden_activation="gelu_pytorch_tanh",
+)
+
 PRESETS = {
     "tinyllama": ModelConfig(
         vocab_size=32000, hidden_size=2048, intermediate_size=5632,
@@ -100,6 +128,8 @@ PRESETS = {
     "deepseek-v2-lite": ModelConfig.from_hf_config(DEEPSEEK_V2_LITE),
     "qwen3-8b": ModelConfig.from_hf_config(QWEN3_8B),
     "qwen3-30b-a3b": ModelConfig.from_hf_config(QWEN3_30B_A3B),
+    "gemma2-9b": ModelConfig.from_hf_config(GEMMA2_9B),
+    "gemma3-12b": ModelConfig.from_hf_config(GEMMA3_12B),
     "debug": ModelConfig(
         vocab_size=1024, hidden_size=256, intermediate_size=512,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

@@ -1,7 +1,8 @@
-"""High-level model API (port of ``quick_tpu/models/auto.py``, llama path
-with dense or MoE MLPs: llama, mistral, qwen2, qwen, baichuan, phi3,
-internlm2, llava's language tower, mixtral, qwen2_moe, qwen3 and qwen3_moe;
-and DeepSeek-V2 / V3, MLA with DeepSeekMoE):
+"""High-level model API (port of ``quick_tpu/models/auto.py``, the RMSNorm
+families with dense or MoE MLPs: llama, mistral, qwen2, qwen, baichuan,
+phi3, internlm2, llava's language tower, mixtral, qwen2_moe, qwen3,
+qwen3_moe, gemma, gemma2, gemma3, olmo2, granite and minicpm; and
+DeepSeek-V2 / V3, MLA with DeepSeekMoE):
 
     model = AutoQuickModel.from_pretrained(hf_dir)             # float import
     model.quantize(calib_tokens, QuantConfig())                # AWQ search + pack
@@ -33,8 +34,9 @@ from quick_tpu_torch.device import DeviceLike, resolve_device
 #: config switch overrides: the llama architecture types (baichuan, qwen v1,
 #: phi3, internlm2 and llava's language tower import through schema
 #: importers of their own), mixtral (MoE through ``num_local_experts``),
-#: qwen2_moe, qwen3 / qwen3_moe (per-head q / k RMSNorm) and deepseek_v2 /
-#: v3. The other families are ROADMAP A12.
+#: qwen2_moe, qwen3 / qwen3_moe (per-head q / k RMSNorm), deepseek_v2 / v3,
+#: and gemma, gemma2, gemma3, olmo2, granite and minicpm (:57-81). The
+#: LayerNorm families are ROADMAP A12.
 MODEL_TYPE_MAP: Dict[str, dict] = {
     "llama": {},
     "mistral": {},
@@ -60,16 +62,30 @@ MODEL_TYPE_MAP: Dict[str, dict] = {
     "internlm2": {},
     "deepseek_v2": {"moe_router": "deepseek"},
     "deepseek_v3": {"moe_router": "deepseek", "scoring_func": "sigmoid"},
+    # the RMSNorm families off the llama path: gemma's GeGLU, sqrt(D)
+    # embedding scale and +1 norms, gemma2's sandwich norms and softcaps,
+    # gemma3's per-head qk-norm and dual rope, olmo2's post-norms and
+    # full-width qk-norm, granite's and minicpm's multipliers (their values
+    # come from the HF config)
+    "gemma": {"act_fn": "gelu", "embed_scale": True, "tie_word_embeddings": True},
+    "gemma2": {"act_fn": "gelu", "embed_scale": True, "tie_word_embeddings": True,
+               "use_post_norms": True, "attn_logit_softcap": 50.0,
+               "final_logit_softcap": 30.0},
+    "gemma3": {"act_fn": "gelu", "embed_scale": True, "tie_word_embeddings": True,
+               "use_post_norms": True, "use_qk_norm": True},
+    "granite": {"tie_word_embeddings": True},
+    "olmo2": {"use_post_norms": True, "pre_norms": False, "use_qk_norm": True,
+              "qk_norm_full": True},
+    "minicpm": {"tie_word_embeddings": True},
 }
 
-#: the rest of quick_tpu's MODEL_TYPE_MAP and ``_HF_IMPORTERS``: families
-#: with switches, importers or both that the port does not run yet. Their
-#: configs must not fall back to the llama path, which the JAX package
-#: does not run them on
+#: the rest of quick_tpu's MODEL_TYPE_MAP and ``_HF_IMPORTERS``: the
+#: LayerNorm, ALiBi and parallel-residual families, which the port does not
+#: run yet. Their configs must not fall back to the llama path, which the JAX
+#: package does not run them on
 A12_TYPES = frozenset({
     "gpt_neox", "gptj", "opt", "bloom", "mpt", "falcon", "RefinedWeb", "RefinedWebModel",
-    "gpt_bigcode", "phi", "gemma", "gemma2", "gemma3", "cohere", "granite", "olmo2",
-    "minicpm", "starcoder2", "stablelm",
+    "gpt_bigcode", "phi", "cohere", "starcoder2", "stablelm",
 })
 
 

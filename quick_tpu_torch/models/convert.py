@@ -1,5 +1,5 @@
-"""Flat parameter dicts <-> ModelParams (port of the llama part, dense and
-MoE, and of the DeepSeek MLA blocks, of
+"""Flat parameter dicts <-> ModelParams (port of the RMSNorm families' part,
+dense and MoE, and of the DeepSeek MLA blocks, of
 ``quick_tpu/utils/checkpoint.py::params_to_flat`` (:60) and
 ``flat_to_params`` (:143)).
 
@@ -60,13 +60,18 @@ def params_from_flat(
     them; a block with ``mlp.router.weight`` is an MoE block, one with
     ``attn.kv_a_norm`` an MLA block (``attn.q``, ``attn.q_b``,
     ``attn.kv_a``, ``attn.kv_a_norm``, ``attn.kv_b``, ``attn.q_a_norm``,
-    ``attn.o``); qwen3's per-head norms are ``attn.q_norm`` /
-    ``attn.k_norm``. The rope tables are rebuilt from ``cfg``."""
+    ``attn.o``); the q / k norms are ``attn.q_norm`` / ``attn.k_norm``, the
+    post-norms ``attn_post_norm`` / ``mlp_post_norm``, and a block without
+    pre-norms (olmo2) has no ``attn_norm`` / ``mlp_norm``. The rope tables,
+    gemma3's local ones too, are rebuilt from ``cfg`` (:249-261)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def lin(prefix):
         return _flat_to_lin(prefix, flat, group_size, dev)
+
+    def opt(key):
+        return to_tensor(flat[key], dev) if key in flat else None
 
     def opt_lin(prefix):
         has = f"{prefix}.weight" in flat or f"{prefix}.qweight" in flat
@@ -108,10 +113,8 @@ def params_from_flat(
                         if f"{p}.attn.k_norm" in flat else None),
             )
         blocks.append(BlockParams(
-            attn_norm=to_tensor(flat[f"{p}.attn_norm"], dev),
-            attn=attn,
-            mlp_norm=to_tensor(flat[f"{p}.mlp_norm"], dev),
-            mlp=mlp,
+            attn_norm=opt(f"{p}.attn_norm"), attn=attn, mlp_norm=opt(f"{p}.mlp_norm"), mlp=mlp,
+            attn_post_norm=opt(f"{p}.attn_post_norm"), mlp_post_norm=opt(f"{p}.mlp_post_norm"),
         ))
     return ModelParams(
         embed=to_tensor(flat["embed"], dev),
@@ -135,8 +138,9 @@ def _lin_to_flat(prefix: str, lin, out: Dict[str, torch.Tensor], put) -> None:
 
 def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`params_from_flat`: the keys, dtypes and bytes of
-    ``quick_tpu.utils.checkpoint.params_to_flat`` (:60) for the llama path
-    with dense or MoE blocks and for MLA blocks, in its order (which decides the shard
+    ``quick_tpu.utils.checkpoint.params_to_flat`` (:60) for the RMSNorm
+    families with dense or MoE blocks (post-norms at :87-90) and for MLA
+    blocks, in its order (which decides the shard
     boundaries on save), as contiguous tensors — on the CPU, or where they
     lie with ``cpu=False``.
     A tied ``lm_head.weight`` (a transposed view of the embedding) becomes
@@ -150,8 +154,10 @@ def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Ten
     out: Dict[str, torch.Tensor] = {"embed": put(params.embed)}
     for i, blk in enumerate(params.blocks):
         p = f"blocks.{i}"
-        out[f"{p}.attn_norm"] = put(blk.attn_norm)
-        out[f"{p}.mlp_norm"] = put(blk.mlp_norm)
+        if blk.attn_norm is not None:
+            out[f"{p}.attn_norm"] = put(blk.attn_norm)
+        if blk.mlp_norm is not None:
+            out[f"{p}.mlp_norm"] = put(blk.mlp_norm)
         a = blk.attn
         if isinstance(a, MLAParams):
             _lin_to_flat(f"{p}.attn.q", a.q_proj, out, put)
@@ -168,6 +174,10 @@ def params_to_flat(params: ModelParams, cpu: bool = True) -> Dict[str, torch.Ten
             if a.q_norm is not None:
                 out[f"{p}.attn.q_norm"] = put(a.q_norm)
                 out[f"{p}.attn.k_norm"] = put(a.k_norm)
+        if blk.attn_post_norm is not None:
+            out[f"{p}.attn_post_norm"] = put(blk.attn_post_norm)
+        if blk.mlp_post_norm is not None:
+            out[f"{p}.mlp_post_norm"] = put(blk.mlp_post_norm)
         mlp = blk.mlp
         if isinstance(mlp, MoEParams):
             _lin_to_flat(f"{p}.mlp.router", mlp.router, out, put)

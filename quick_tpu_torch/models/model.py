@@ -27,12 +27,13 @@ from quick_tpu_torch.modules.blocks import (
     _fuse_decode_norm_ok,
     block_forward,
     dense_decode_route,
+    scalar_as,
 )
 from quick_tpu_torch.modules.cache import KVCache
 from quick_tpu_torch.modules.linear import Linear, QuantLinear, cast_scales_env
 from quick_tpu_torch.modules.mla import MLAParams
 from quick_tpu_torch.ops.norms import rms_norm
-from quick_tpu_torch.ops.rope import rope_table
+from quick_tpu_torch.ops.rope import local_rope_tables, rope_table
 
 
 @dataclasses.dataclass
@@ -43,20 +44,31 @@ class ModelParams:
     lm_head: "Linear | QuantLinear"
     rope_cos: torch.Tensor
     rope_sin: torch.Tensor
+    #: gemma3's dual rope: the sliding-window layers read these tables
+    #: (``cfg.rope_local_theta``, no scaling) instead of rope_cos / rope_sin
+    rope_cos_local: Optional[torch.Tensor] = None
+    rope_sin_local: Optional[torch.Tensor] = None
+
+    def layer_tables(self, cfg: ModelConfig, layer_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cos, sin) that layer ``layer_idx`` ropes with: the local tables
+        on a sliding layer where the model has them (``model_forward``
+        :131-139)."""
+        if self.rope_cos_local is not None and cfg.layer_is_sliding(layer_idx):
+            return self.rope_cos_local, self.rope_sin_local
+        return self.rope_cos, self.rope_sin
 
 
-#: the other families' config switches, each at the value the dense llama
-#: path has; the port does not run them yet (ROADMAP A12). qwen3's per-head
-#: RMS qk-norm runs (``use_qk_norm`` without ``qk_norm_full``, under
-#: ``layernorm == "rmsnorm"``)
-_LLAMA_PATH = dict(
+#: the other families' config switches, each at the value the RMSNorm
+#: families' path has; the port does not run them yet (ROADMAP A12): the
+#: LayerNorm families (cohere's LayerNorm qk-norm among them), ALiBi,
+#: parallel residual, learned positions, the embedding norm, the ungated
+#: MLP, relu and MPT's qkv clip
+_RMSNORM_PATH = dict(
     use_alibi=False, parallel_residual=False, use_rope=True, learned_pos=False,
-    embed_norm=False, embed_scale=False, qk_norm_full=False,
-    use_post_norms=False, pre_norms=True, query_pre_attn_scalar=None,
-    rope_local_theta=None, logit_scale=None, embed_multiplier=None,
-    residual_multiplier=None, final_logit_softcap=None, layernorm="rmsnorm",
-    act_fn="silu", qkv_clip=None, gated_mlp=True,
+    embed_norm=False, layernorm="rmsnorm", qkv_clip=None, gated_mlp=True,
 )
+#: the MLP activations the port runs (GeGLU is gelu's tanh form)
+_ACTS = ("silu", "gelu")
 
 
 #: the MoE routers ``moe_forward`` runs
@@ -64,22 +76,37 @@ PORTED_ROUTERS = ("mixtral", "softmax_all", "deepseek")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the llama path with dense or MoE ("mixtral",
-    "softmax_all" and "deepseek" routers) MLPs, qwen3's per-head RMS
-    qk-norm, and DeepSeek's MLA attention; the other families' switches
-    (olmo2's full-width and cohere's LayerNorm qk-norm among them) raise
+    """The port runs the RMSNorm families: the llama path with dense or MoE
+    ("mixtral", "softmax_all" and "deepseek" routers) MLPs, DeepSeek's MLA
+    attention, qwen3's and gemma3's per-head and olmo2's full-width RMS
+    qk-norm, gemma's GeGLU, embedding scale, sandwich norms, query scale,
+    dual rope and logit softcap, olmo2's post-norms without pre-norms, and
+    granite's and minicpm's multipliers. The other families' switches raise
     until their slices land."""
     if cfg.is_moe and cfg.moe_router not in PORTED_ROUTERS:
         raise NotImplementedError(
             f"{cfg.model_type}: the {cfg.moe_router!r} MoE router is not ported "
             f"(the port runs {PORTED_ROUTERS})"
         )
-    off = [k for k, v in _LLAMA_PATH.items() if getattr(cfg, k) != v]
+    off = [k for k, v in _RMSNORM_PATH.items() if getattr(cfg, k) != v]
+    if cfg.act_fn not in _ACTS:
+        off.append(f"act_fn={cfg.act_fn!r}")
     if off:
         raise NotImplementedError(
             f"{cfg.model_type}: {', '.join(off)} not ported yet; the port "
-            "runs the dense llama path (ROADMAP A12)"
+            "runs the RMSNorm families (ROADMAP A12)"
         )
+
+
+def embed_scaled(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The embedding path's scales (``model_forward`` :98-104): gemma's
+    x * sqrt(D), with the scalar rounded to x's dtype first (59.75 for D =
+    3584), then granite's embedding_multiplier / minicpm's scale_emb."""
+    if cfg.embed_scale:
+        x = x * scalar_as(cfg.hidden_size ** 0.5, x.dtype)
+    if cfg.embed_multiplier is not None:
+        x = x * scalar_as(cfg.embed_multiplier, x.dtype)
+    return x
 
 
 def model_forward(
@@ -123,6 +150,7 @@ def model_forward(
         token_mask = (torch.arange(S, device=dev)[None, :]
                       < torch.as_tensor(advance, device=dev).reshape(-1, 1))
     x = params.embed[tokens].to(torch.bfloat16)
+    x = embed_scaled(x, cfg)
     decode_lengths = None
     if dense_step and not cfg.is_mla and any(
         dense_decode_route(cfg, cache, B, params.rope_cos, i, dev) == "dense_kernel"
@@ -133,7 +161,7 @@ def model_forward(
         decode_lengths = (cache.length_dev + 1).expand(B).contiguous()
     for i, blk in enumerate(params.blocks):
         x, cache = block_forward(
-            blk, cfg, x, params.rope_cos, params.rope_sin, cache, i, positions,
+            blk, cfg, x, *params.layer_tables(cfg, i), cache, i, positions,
             decode_lengths=decode_lengths, token_mask=token_mask,
         )
     if isinstance(cache, KVCache) and advance is None:
@@ -151,7 +179,15 @@ def model_forward(
         logits = params.lm_head(x, fuse_norm=(params.final_norm, cfg.rms_norm_eps))
     else:
         logits = params.lm_head(rms_norm(x, params.final_norm, cfg.rms_norm_eps))
-    return logits.to(torch.float32), cache
+    logits = logits.to(torch.float32)
+    if cfg.logit_scale is not None:
+        # granite's 1 / logits_scaling, minicpm's dim_model_base / D: in f32,
+        # before any softcap (:174-178)
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap is not None:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -162,26 +198,41 @@ def _ones(n, dtype, device):
     return torch.ones(n, dtype=dtype, device=device)
 
 
-def _block(attn: AttentionParams, mlp: MLPParams, D: int, dtype, device) -> BlockParams:
-    return BlockParams(attn_norm=_ones(D, dtype, device), attn=attn,
-                       mlp_norm=_ones(D, dtype, device), mlp=mlp)
+def _block(cfg: ModelConfig, attn: AttentionParams, mlp: MLPParams, dtype,
+           device) -> BlockParams:
+    """Ones for the block's norms: the pre-norms unless ``pre_norms`` is
+    off (olmo2), the post-norms under ``use_post_norms`` (gemma2 / gemma3 /
+    olmo2; the initializers' :290-300 and :420-430)."""
+    D = cfg.hidden_size
+    pre = _ones(D, dtype, device) if cfg.pre_norms else None
+    return BlockParams(
+        attn_norm=pre, attn=attn, mlp_norm=None if pre is None else _ones(D, dtype, device),
+        mlp=mlp,
+        attn_post_norm=_ones(D, dtype, device) if cfg.use_post_norms else None,
+        mlp_post_norm=_ones(D, dtype, device) if cfg.use_post_norms else None,
+    )
 
 
 def _qk_norms(cfg: ModelConfig, dtype, device) -> dict:
-    """qwen3's per-head q / k RMSNorm weights, ones of [head_dim] (the
+    """The q / k RMSNorm weights, ones: per-head [head_dim] (qwen3, gemma3)
+    or full-width [heads * head_dim] (olmo2's ``qk_norm_full``; the
     initializers' :246-251 and :379-384), or none."""
     if not cfg.use_qk_norm:
         return {}
-    return dict(q_norm=_ones(cfg.head_dim, dtype, device),
-                k_norm=_ones(cfg.head_dim, dtype, device))
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    return dict(q_norm=_ones(hq * hd if cfg.qk_norm_full else hd, dtype, device),
+                k_norm=_ones(hkv * hd if cfg.qk_norm_full else hd, dtype, device))
 
 
 def _tables(cfg: ModelConfig, device) -> dict:
+    """The rope tables, and gemma3's local ones where the config has them
+    (:305, :435)."""
     cos, sin = rope_table(
         cfg.max_position_embeddings, cfg.rotary_dim or cfg.head_dim,
         cfg.rope_theta, cfg.rope_scaling, device=device,
     )
-    return dict(rope_cos=cos, rope_sin=sin)
+    lcos, lsin = local_rope_tables(cfg, device=device)
+    return dict(rope_cos=cos, rope_sin=sin, rope_cos_local=lcos, rope_sin_local=lsin)
 
 
 def _randn(gen, shape, dtype, device, scale):
@@ -258,7 +309,7 @@ def init_float_params(
             mlp = _moe_params(cfg, dense, dense)
         else:
             mlp = MLPParams(gate_up_proj=dense(D, 2 * F), down_proj=dense(F, D))
-        blocks.append(_block(attn, mlp, D, dtype, dev))
+        blocks.append(_block(cfg, attn, mlp, dtype, dev))
     embed = _randn(gen, (cfg.vocab_size, D), dtype, dev, 0.02)
     lm_head = Linear(embed.T) if cfg.tie_word_embeddings else dense(D, cfg.vocab_size)
     return ModelParams(
@@ -309,7 +360,7 @@ def init_quant_params(
             mlp = _moe_params(cfg, qlin, fdense)
         else:
             mlp = MLPParams(gate_up_proj=qlin(D, 2 * F), down_proj=qlin(F, D))
-        blocks.append(_block(attn, mlp, D, dtype, dev))
+        blocks.append(_block(cfg, attn, mlp, dtype, dev))
     embed = _randn(gen, (cfg.vocab_size, D), dtype, dev, 0.02)
     # QUICK_TPU_BF16_SCALES=1: scales rounded through bf16 (:437-455)
     return cast_scales_env(ModelParams(

@@ -1,20 +1,24 @@
-"""Decoder blocks, llama path with dense or MoE MLPs, and DeepSeek's MLA
-attention (port of ``quick_tpu/modules/blocks.py``).
+"""Decoder blocks of the RMSNorm families, with dense or MoE MLPs, and
+DeepSeek's MLA attention (port of ``quick_tpu/modules/blocks.py``).
 
-The port covers the llama-family block: pre-RMSNorm, fused QKV and gate_up
-linears, qwen3's per-head q / k RMSNorm, RoPE, the head-major dense KV cache
-or the paged cache, attention (with the sliding window and the
-attention-logit softcap the kernels take), the SwiGLU MLP and the sparse MoE
-MLP (``moe_forward``: the "mixtral", "softmax_all" and "deepseek" routers,
-shared experts, ungated or gated by a sigmoid, quantized experts through the
-grouped kernel K8, or K12 under ``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 /
-V3 block, MLA attention (``modules/mla.py``) with DeepSeekMoE. The other
-families' switches (full-width or LayerNorm qk-norm, sandwich norms, ALiBi,
-parallel residual, LayerNorm, plain MLPs, ...), expert and context
-parallelism are not ported yet: such configs are refused by
-``models/model.py::check_supported`` (ROADMAP.md). Under
-``QUICK_TPU_LAYER_TAIL=1`` a decode layer's post-attention tail (o-proj,
-residual, MLP norm, SwiGLU MLP, residual) runs as one call of
+The port covers the llama-family block and its RMSNorm relatives:
+pre-RMSNorm (none for olmo2), fused QKV and gate_up linears, the per-head
+(qwen3, gemma3) or full-width (olmo2) q / k RMSNorm, gemma2's query scale
+(also granite's attention multiplier), RoPE (gemma3's local tables on its
+sliding layers), the head-major dense KV cache or the paged cache, attention
+(with the sliding window and the attention-logit softcap the kernels take),
+the SwiGLU or GeGLU MLP, the post-norms on each sub-layer's output (gemma2,
+gemma3, olmo2) and the residual multiplier (granite, minicpm), and the
+sparse MoE MLP (``moe_forward``: the "mixtral", "softmax_all" and
+"deepseek" routers, shared experts, ungated or gated by a sigmoid,
+quantized experts through the grouped kernel K8, or K12 under
+``QUICK_TPU_MOE_A8``); and the DeepSeek-V2 / V3 block, MLA attention
+(``modules/mla.py``) with DeepSeekMoE. The LayerNorm families' switches
+(LayerNorm, cohere's LayerNorm qk-norm, ALiBi, parallel residual, plain
+MLPs, ...), expert and context parallelism are not ported yet: such
+configs are refused by ``models/model.py::check_supported`` (ROADMAP.md).
+Under ``QUICK_TPU_LAYER_TAIL=1`` a decode layer's post-attention tail
+(o-proj, residual, MLP norm, SwiGLU MLP, residual) runs as one call of
 ``ops/fused_layer_tail.py`` (K14 on the card), gated by ``_use_layer_tail``
 (:185) as in the JAX package.
 
@@ -80,10 +84,23 @@ class MoEParams:
 
 @dataclasses.dataclass
 class BlockParams:
-    attn_norm: torch.Tensor
+    attn_norm: Optional[torch.Tensor]  # None: no pre-norms (olmo2)
     attn: Union[AttentionParams, MLAParams]
-    mlp_norm: torch.Tensor
+    mlp_norm: Optional[torch.Tensor]
     mlp: Union[MLPParams, MoEParams]
+    #: the sandwich norms of gemma2 / gemma3 and olmo2's post-norms: an
+    #: RMSNorm on each sub-layer's OUTPUT before the residual add (HF's
+    #: post_attention_layernorm / post_feedforward_layernorm)
+    attn_post_norm: Optional[torch.Tensor] = None
+    mlp_post_norm: Optional[torch.Tensor] = None
+
+
+def scalar_as(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` through f32, as ``jnp.asarray(v, dtype)``
+    rounds a Python scalar, returned as a Python float: a tensor times it
+    computes in f32 and rounds once, as the JAX package's product of two
+    bf16 operands."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
 
 
 def _use_paged_kernel(cache) -> bool:
@@ -131,7 +148,8 @@ def _fuse_decode_norm_ok(lin, x) -> bool:
 def _use_layer_tail(p: "BlockParams", cfg: ModelConfig, x: torch.Tensor) -> bool:
     """Gate of the decode layer tail (``_use_layer_tail`` :185): opt-in by
     ``QUICK_TPU_LAYER_TAIL=1`` (read at every call), at most 8 rows, the
-    llama-family pre-RMSNorm block with a gated SiLU MLP, G = 128 bias-free
+    llama-family pre-RMSNorm block (no post-norms, no residual multiplier)
+    with a gated SiLU MLP, G = 128 bias-free
     quantized o / gate_up / down linears, no MoE and no MLA (the port has no
     tensor or sequence parallelism to refuse)."""
     if os.environ.get("QUICK_TPU_LAYER_TAIL", "") != "1":
@@ -144,6 +162,7 @@ def _use_layer_tail(p: "BlockParams", cfg: ModelConfig, x: torch.Tensor) -> bool
         rows <= 8
         and cfg.pre_norms and not cfg.parallel_residual
         and cfg.residual_multiplier is None and cfg.layernorm == "rmsnorm"
+        and p.attn_post_norm is None and p.mlp_post_norm is None
         and not cfg.is_mla and isinstance(p.attn, AttentionParams)
         and isinstance(mlp, MLPParams)
         and cfg.gated_mlp and cfg.act_fn == "silu"
@@ -198,6 +217,39 @@ def dense_decode_route(cfg: ModelConfig, cache: KVCache, B: int, rope_cos, layer
     return "einsum"
 
 
+def qkv_heads(p: AttentionParams, cfg: ModelConfig, qkv: torch.Tensor):
+    """q, k, v [B, S, h, hd] of the fused qkv output [B, S, (hq + 2 hkv) hd]
+    as RoPE takes them, on every route and in the AWQ search's loss forward
+    (:269-305, awq :205-231): the q / k RMSNorm and the query scale."""
+    B, S, _ = qkv.shape
+    hq, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    if cfg.use_qk_norm and cfg.qk_norm_full:
+        # olmo2: one RMSNorm over the whole projection width, before the head
+        # reshape (``_full_rms`` :269-284). On the card K13 runs it over
+        # [B*S, hq*hd] and [B*S, hkv*hd] rows: column slices of the qkv
+        # output whose rows K13 reads at the qkv row stride, no copy
+        q = rms_norm(q, p.q_norm, cfg.rms_norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.rms_norm_eps)
+    q = q.reshape(B, S, hq, hd)
+    k = k.reshape(B, S, hkv, hd)
+    v = v.reshape(B, S, hkv, hd)
+    if cfg.use_qk_norm and not cfg.qk_norm_full:
+        # qwen3's and gemma3's per-head RMSNorm ([hd] weights shared by the
+        # heads) before RoPE (:288-298). On the card K13 runs it over
+        # [B*S*h, hd] rows; q and k are column slices of the qkv output, so
+        # their rows do not flatten to one stride and the wrapper copies them
+        # into contiguous rows first (one copy each, per layer)
+        q = rms_norm(q, p.q_norm, cfg.rms_norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.rms_norm_eps)
+    if cfg.query_pre_attn_scalar is not None:
+        # gemma2's query scale and granite's attention_multiplier, folded
+        # into q after the qk-norm as qpas^-0.5 * hd^0.5 in q's dtype
+        # (:299-305): every attention kernel keeps its default hd^-0.5
+        q = q * scalar_as(cfg.query_pre_attn_scalar ** -0.5 * hd ** 0.5, q.dtype)
+    return q, k, v
+
+
 def attention_forward(
     p: AttentionParams,
     cfg: ModelConfig,
@@ -224,18 +276,7 @@ def attention_forward(
         return out if return_pre_o else p.o_proj(out)
 
     qkv = p.qkv_proj(x, fuse_norm=pre_norm) if pre_norm is not None else p.qkv_proj(x)
-    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
-    if cfg.use_qk_norm:
-        # qwen3's per-head RMSNorm ([hd] weights shared by the heads) before
-        # RoPE, on every route (:288-298). On the card K13 runs it over
-        # [B*S*h, hd] rows; q and k are column slices of the qkv output, so
-        # their rows do not flatten to one stride and the wrapper copies them
-        # into contiguous rows first (one copy each, per layer)
-        q = rms_norm(q, p.q_norm, cfg.rms_norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.rms_norm_eps)
+    q, k, v = qkv_heads(p, cfg, qkv)
     window = _attention_window(cfg, layer_idx, cache.max_seq if cache is not None else S)
     softcap = cfg.attn_logit_softcap
     route = None
@@ -310,16 +351,18 @@ def attention_forward(
 
 
 def mlp_forward(
-    p: MLPParams, x: torch.Tensor, pre_norm: Optional[tuple] = None,
+    p: MLPParams, cfg: ModelConfig, x: torch.Tensor, pre_norm: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """SwiGLU MLP with fused gate + up."""
+    """The gated MLP with fused gate + up: SwiGLU, or GeGLU under
+    ``act_fn="gelu"`` (gemma)."""
     gu = p.gate_up_proj(x, fuse_norm=pre_norm) if pre_norm is not None else p.gate_up_proj(x)
-    if isinstance(p.down_proj, QuantLinear):
+    if cfg.act_fn == "silu" and isinstance(p.down_proj, QuantLinear):
         # silu(gate) * up rides in the down GEMM's prologue at decode rows;
-        # other routes gate first inside the call
+        # other routes gate first inside the call. gelu never takes the
+        # prologue (the JAX package fuses only SiLU, :523)
         return p.down_proj(gu, fuse_glu=True)
     gate, up = torch.chunk(gu, 2, dim=-1)
-    return p.down_proj(silu(gate) * up)
+    return p.down_proj(act(gate, cfg) * up)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -327,6 +370,25 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     rounded to x's dtype (``F.silu`` rounds once, which in bf16 differs
     from the JAX package in a third of the values)."""
     return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) with its rounding:
+    x * (0.5 * (1 + tanh(c * (x + k * x^3)))) with c = sqrt(2 / pi) and k =
+    0.044715 rounded to x's dtype, x^3 as (x * x) * x, each op rounded to
+    x's dtype (``F.gelu(approximate="tanh")`` rounds once)."""
+    c = scalar_as(math.sqrt(2 / math.pi), x.dtype)
+    k = scalar_as(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP activation ``cfg.act_fn`` (``_act`` :503-508): silu or gelu."""
+    if cfg.act_fn == "silu":
+        return silu(x)
+    if cfg.act_fn == "gelu":
+        return gelu(x)
+    raise NotImplementedError(f"act_fn={cfg.act_fn!r} is not ported (ROADMAP A12)")
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -526,6 +588,10 @@ def block_forward(
     decode_lengths: Optional[torch.Tensor] = None,
     token_mask: Optional[torch.Tensor] = None,  # [B, S] valid tokens (MoE)
 ) -> Tuple[torch.Tensor, Optional[AnyCache]]:
+    """One block (``block_forward`` :787-872): the pre-norms (none for
+    olmo2, whose sub-layers read the raw residual), the attention, the
+    post-norms on each sub-layer's output (gemma2 / gemma3 / olmo2) and the
+    residual multiplier (granite, minicpm) before each residual add."""
     eps = cfg.rms_norm_eps
     tail = _use_layer_tail(p, cfg, x)
     if cfg.is_mla:
@@ -536,7 +602,7 @@ def block_forward(
             p.attn, cfg, rms_norm(x, p.attn_norm, eps), rope_cos, rope_sin, cache,
             layer_idx, positions,
         )
-    elif _fuse_decode_norm_ok(p.attn.qkv_proj, x):
+    elif cfg.pre_norms and _fuse_decode_norm_ok(p.attn.qkv_proj, x):
         # the norm rides in the qkv GEMM's prologue
         attn_out, cache = attention_forward(
             p.attn, cfg, x, rope_cos, rope_sin, cache, layer_idx, positions,
@@ -545,8 +611,8 @@ def block_forward(
         )
     else:
         attn_out, cache = attention_forward(
-            p.attn, cfg, rms_norm(x, p.attn_norm, eps), rope_cos, rope_sin,
-            cache, layer_idx, positions, decode_lengths=decode_lengths,
+            p.attn, cfg, rms_norm(x, p.attn_norm, eps) if cfg.pre_norms else x,
+            rope_cos, rope_sin, cache, layer_idx, positions, decode_lengths=decode_lengths,
             return_pre_o=tail,
         )
     if tail:
@@ -563,12 +629,25 @@ def block_forward(
             dn.qweight, dn.scales, dn.zeros_x_scales, eps=float(eps),
         )
         return y.reshape(B, S, D).to(x.dtype), cache
-    x = x + attn_out
-    if isinstance(p.mlp, MoEParams):
-        # the MLP norm is never fused into an MoE layer (:851-857)
-        mlp_out = moe_forward(p.mlp, cfg, rms_norm(x, p.mlp_norm, eps), token_mask)
-    elif _fuse_decode_norm_ok(p.mlp.gate_up_proj, x):
-        mlp_out = mlp_forward(p.mlp, x, pre_norm=(p.mlp_norm, eps))
+    x = x + sublayer_out(attn_out, p.attn_post_norm, cfg)
+    if isinstance(p.mlp, MLPParams) and cfg.pre_norms and _fuse_decode_norm_ok(
+            p.mlp.gate_up_proj, x):
+        mlp_out = mlp_forward(p.mlp, cfg, x, pre_norm=(p.mlp_norm, eps))
     else:
-        mlp_out = mlp_forward(p.mlp, rms_norm(x, p.mlp_norm, eps))
-    return x + mlp_out, cache
+        h = rms_norm(x, p.mlp_norm, eps) if cfg.pre_norms else x
+        # the MLP norm is never fused into an MoE layer (:851-857)
+        mlp_out = (moe_forward(p.mlp, cfg, h, token_mask) if isinstance(p.mlp, MoEParams)
+                   else mlp_forward(p.mlp, cfg, h))
+    return x + sublayer_out(mlp_out, p.mlp_post_norm, cfg), cache
+
+
+def sublayer_out(y: torch.Tensor, post_norm: Optional[torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """A sub-layer's output as the residual adds it: its post-norm (K13 on
+    the card), then the residual multiplier in y's dtype (:835-838,
+    :869-872; in the AWQ search awq :321-327, :371-376)."""
+    if post_norm is not None:
+        y = rms_norm(y, post_norm, cfg.rms_norm_eps)
+    if cfg.residual_multiplier is not None:
+        y = y * scalar_as(cfg.residual_multiplier, y.dtype)
+    return y

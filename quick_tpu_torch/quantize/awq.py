@@ -24,12 +24,13 @@ running best of each grid stays on the device (``torch.where``): nothing
 is read back per candidate. Eager PyTorch: no counterpart of the JAX
 package's one jitted program per block.
 
-The port runs what ``models/model.py::check_supported`` admits: the llama
-path (dense and the three ported MoE routers, qwen3's per-head RMS
-qk-norm) and MLA. The JAX package's branches for the other families'
-switches (full-width and LayerNorm qk-norm, post-norms, no
-pre-norms, LayerNorm, residual multipliers, parallel residual, ALiBi,
-non-gated MLPs, gemma3's local rope tables) wait for ROADMAP A12; such
+The port runs what ``models/model.py::check_supported`` admits: the
+RMSNorm families (dense and the three ported MoE routers; the per-head and
+full-width RMS qk-norm, query_pre_attn_scalar, post-norms, no pre-norms
+with unit qkv and gate_up scales, residual multipliers, GeGLU, the
+embedding scales, gemma3's local rope tables) and MLA. The JAX package's
+branches for the LayerNorm families' switches (LayerNorm and its qk-norm,
+parallel residual, ALiBi, non-gated MLPs) wait for ROADMAP A12; such
 configs raise there.
 """
 from __future__ import annotations
@@ -48,8 +49,10 @@ from quick_tpu_torch.modules.blocks import (
     BlockParams,
     MLPParams,
     MoEParams,
+    act,
     moe_forward,
-    silu,
+    qkv_heads,
+    sublayer_out,
 )
 from quick_tpu_torch.modules.linear import Linear, QuantLinear
 from quick_tpu_torch.ops.attention import causal_attention
@@ -317,16 +320,13 @@ def awq_quantize_block(
 
     def attn_fwd(qkv_w: torch.Tensor, attn_in: torch.Tensor) -> torch.Tensor:
         """The attention output (the o projection's input) for a qkv
-        weight, with the block forward's per-head q / k RMSNorm (qwen3,
-        :219-225), rope, window and softcap."""
+        weight, with the block forward's q / k RMSNorm (olmo2's full-width
+        one before the head reshape, qwen3's and gemma3's per-head one
+        after, :205-231), query_pre_attn_scalar, rope, window and softcap."""
         qkv = torch.matmul(attn_in, qkv_w.to(attn_in.dtype))
         if qkv_b is not None:
             qkv = qkv + qkv_b.to(qkv.dtype)
-        q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-        q, k, v = q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd), v.reshape(B, S, hkv, hd)
-        if cfg.use_qk_norm:
-            q = rms_norm(q, blk.attn.q_norm, cfg.rms_norm_eps)
-            k = rms_norm(k, blk.attn.k_norm, cfg.rms_norm_eps)
+        q, k, v = qkv_heads(blk.attn, cfg, qkv)
         q = apply_rope(q, positions, rope_cos, rope_sin)
         k = apply_rope(k, positions, rope_cos, rope_sin)
         window = cfg.sliding_window if sliding else None
@@ -337,16 +337,22 @@ def awq_quantize_block(
 
     # ---------------- attention: norm -> qkv group --------------------------
     qkv_w = blk.attn.qkv_proj.weight
-    attn_norm = blk.attn_norm.to(torch.float32)
-    attn_in = rms_norm(x, blk.attn_norm, cfg.rms_norm_eps)
-    s_qkv = search_scale(
-        _flat(attn_in), [qkv_w], loss_forward=lambda ws: attn_fwd(ws[0], attn_in),
-        group_size=G, zero_point=zp,
-    )
-    # the norm /= s, qkv rows *= s (reference scale_ln_fcs, scale.py:71-98)
-    attn_norm = attn_norm / s_qkv
-    qkv_w = _scale_rows(qkv_w, s_qkv)
-    attn_in = attn_in / s_qkv.to(attn_in.dtype)
+    if blk.attn_norm is not None:
+        attn_norm = blk.attn_norm.to(torch.float32)
+        attn_in = rms_norm(x, blk.attn_norm, cfg.rms_norm_eps)
+        s_qkv = search_scale(
+            _flat(attn_in), [qkv_w], loss_forward=lambda ws: attn_fwd(ws[0], attn_in),
+            group_size=G, zero_point=zp,
+        )
+        # the norm /= s, qkv rows *= s (reference scale_ln_fcs, scale.py:71-98)
+        attn_norm = attn_norm / s_qkv
+        qkv_w = _scale_rows(qkv_w, s_qkv)
+        attn_in = attn_in / s_qkv.to(attn_in.dtype)
+    else:
+        # olmo2 (no pre-norms): qkv reads the raw residual, with no op before
+        # it to fold a scale into, so it keeps unit scales; its clip search
+        # still runs (:279-286)
+        attn_norm, attn_in = None, x
 
     # o group: prev_op = the v section, only when the shapes match (MHA;
     # reference models/llama.py:52-58)
@@ -376,11 +382,16 @@ def awq_quantize_block(
     attn_out = torch.matmul(o_in, o_w.to(o_in.dtype))
     if blk.attn.o_proj.bias is not None:
         attn_out = attn_out + blk.attn.o_proj.bias.to(attn_out.dtype)
-    x_mid = x + attn_out
+    x_mid = x + sublayer_out(attn_out, blk.attn_post_norm, cfg)
 
     # ---------------- MLP ---------------------------------------------------
-    mlp_in = rms_norm(x_mid, blk.mlp_norm, cfg.rms_norm_eps)
-    ones = torch.ones_like(blk.mlp_norm, dtype=torch.float32)
+    if blk.mlp_norm is not None:
+        mlp_in = rms_norm(x_mid, blk.mlp_norm, cfg.rms_norm_eps)
+        ones = torch.ones_like(blk.mlp_norm, dtype=torch.float32)
+    else:
+        # olmo2: gate_up reads the raw residual and keeps unit scales
+        # (:338-343)
+        mlp_in, ones = x_mid, None
     if isinstance(blk.mlp, MoEParams):
         new_mlp, mlp_out, mlp_norm_scale = _awq_moe(blk.mlp, cfg, mlp_in, ones, qcfg,
                                                     apply_clips, skip=skip)
@@ -392,8 +403,7 @@ def awq_quantize_block(
             down_proj=_pack(new_mlp.down_proj.weight, new_mlp.down_proj.bias, "down", skip, qcfg),
         )
     # the MLP searches return the norm's multiplicative adjustment (1 / s_gu)
-    mlp_norm = blk.mlp_norm.to(torch.float32) * mlp_norm_scale
-    x_next = x_mid + mlp_out
+    x_next = x_mid + sublayer_out(mlp_out, blk.mlp_post_norm, cfg)
 
     new_attn = AttentionParams(
         qkv_proj=_pack(qkv_w, qkv_b, "qkv", skip, qcfg),
@@ -401,22 +411,29 @@ def awq_quantize_block(
         q_norm=blk.attn.q_norm, k_norm=blk.attn.k_norm,
     )
     new_block = BlockParams(
-        attn_norm=attn_norm.to(blk.attn_norm.dtype), attn=new_attn,
-        mlp_norm=mlp_norm.to(blk.mlp_norm.dtype), mlp=new_mlp,
+        attn_norm=None if attn_norm is None else attn_norm.to(blk.attn_norm.dtype),
+        attn=new_attn,
+        mlp_norm=(None if blk.mlp_norm is None
+                  else (blk.mlp_norm.to(torch.float32) * mlp_norm_scale).to(blk.mlp_norm.dtype)),
+        mlp=new_mlp,
+        # the post-norms act on sub-layer outputs: no scale folds into them
+        attn_post_norm=blk.attn_post_norm, mlp_post_norm=blk.mlp_post_norm,
     )
     return AwqBlockResult(block=new_block, x_next=x_next)
 
 
-def _glu(z: torch.Tensor) -> torch.Tensor:
+def _glu(z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """act(gate) * up of a fused gate_up output: SwiGLU or GeGLU (:443)."""
     gate, up = torch.chunk(z, 2, dim=-1)
-    return silu(gate) * up
+    return act(gate, cfg) * up
 
 
 def _awq_mlp(mlp: MLPParams, cfg: ModelConfig, mlp_in, mlp_norm, qcfg: QuantConfig,
              apply_clips: bool):
-    """Dense SwiGLU MLP (``_awq_mlp`` :424): the norm -> gate_up group
-    searched against the whole MLP, then the up -> down group. Returns the
-    scaled float MLPParams, the MLP output and ``mlp_norm`` / s_gu."""
+    """Dense gated MLP (``_awq_mlp`` :424): the norm -> gate_up group
+    searched against the whole MLP (not without a norm, ``mlp_norm`` None:
+    unit scales), then the up -> down group. Returns the scaled float
+    MLPParams, the MLP output and ``mlp_norm`` / s_gu."""
     G, zp = qcfg.q_group_size, qcfg.zero_point
     F = cfg.intermediate_size
     gu_w, gu_b = mlp.gate_up_proj.weight, mlp.gate_up_proj.bias
@@ -426,16 +443,18 @@ def _awq_mlp(mlp: MLPParams, cfg: ModelConfig, mlp_in, mlp_norm, qcfg: QuantConf
         z = torch.matmul(h, gu.to(h.dtype))
         if b is not None:
             z = z + b.to(z.dtype)
-        return _glu(z)
+        return _glu(z, cfg)
 
-    s_gu = search_scale(
-        _flat(mlp_in), [gu_w],
-        loss_forward=lambda ws: torch.matmul(gate_up(mlp_in, ws[0], gu_b), dn_w.to(mlp_in.dtype)),
-        group_size=G, zero_point=zp,
-    )
-    mlp_norm = mlp_norm / s_gu
-    gu_w = _scale_rows(gu_w, s_gu)
-    mlp_in = mlp_in / s_gu.to(mlp_in.dtype)
+    if mlp_norm is not None:
+        s_gu = search_scale(
+            _flat(mlp_in), [gu_w],
+            loss_forward=lambda ws: torch.matmul(gate_up(mlp_in, ws[0], gu_b),
+                                                 dn_w.to(mlp_in.dtype)),
+            group_size=G, zero_point=zp,
+        )
+        mlp_norm = mlp_norm / s_gu
+        gu_w = _scale_rows(gu_w, s_gu)
+        mlp_in = mlp_in / s_gu.to(mlp_in.dtype)
 
     # down group: prev_op = the up half (reference models/llama.py:64-71)
     dn_in = gate_up(mlp_in, gu_w, gu_b)
@@ -518,7 +537,7 @@ def _awq_moe(moe: MoEParams, cfg: ModelConfig, mlp_in, mlp_norm, qcfg: QuantConf
 
     def down_group(gu_e, dn_e, Fe):
         """One expert's up -> down fold and its clips."""
-        dn_in = _glu(torch.matmul(mlp_in, gu_e.to(mlp_in.dtype)))
+        dn_in = _glu(torch.matmul(mlp_in, gu_e.to(mlp_in.dtype)), cfg)
         s_dn = search_scale(
             _flat(dn_in), [dn_e],
             loss_forward=lambda ws: torch.matmul(dn_in, ws[0].to(dn_in.dtype)),
@@ -716,9 +735,9 @@ def awq_quantize_model(
     (``awq_quantize_model`` :838; reference BaseAWQForCausalLM.quantize,
     models/base.py:91), block by block on the params' device; the head is
     RTN-packed under ``quantize_lm_head``."""
-    from quick_tpu_torch.models.model import canonical_skips, check_supported
+    from quick_tpu_torch.models.model import canonical_skips, check_supported, embed_scaled
 
-    check_supported(cfg)  # the other families' switches: ROADMAP A12
+    check_supported(cfg)  # the LayerNorm families' switches: ROADMAP A12
     qcfg = qcfg or QuantConfig()
     skip = canonical_skips(qcfg.modules_to_not_convert)
     dev = params.embed.device
@@ -730,15 +749,17 @@ def awq_quantize_model(
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     new_blocks = []
     with torch.no_grad():
-        # model_forward's embedding path (the other families' embedding
-        # scales, positions and norms are A12)
-        x = params.embed[tokens].to(torch.bfloat16)
+        # model_forward's embedding path: gemma's sqrt(D) scale, granite's
+        # and minicpm's multiplier (:861-864; learned positions and the
+        # embedding norm are A12)
+        x = embed_scaled(params.embed[tokens].to(torch.bfloat16), cfg)
         for i, blk in enumerate(params.blocks):
             if cfg.is_mla:
                 res = awq_quantize_mla_block(blk, cfg, x, positions, params.rope_cos,
                                              params.rope_sin, qcfg, apply_clips, skip=skip)
             else:
-                res = awq_quantize_block(blk, cfg, x, positions, params.rope_cos, params.rope_sin,
+                # gemma3's sliding layers rope with the local tables (:892-899)
+                res = awq_quantize_block(blk, cfg, x, positions, *params.layer_tables(cfg, i),
                                          qcfg, apply_clips, skip=skip,
                                          sliding=cfg.layer_is_sliding(i))
             new_blocks.append(res.block)

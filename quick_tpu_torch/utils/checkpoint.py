@@ -14,11 +14,14 @@ and DeepSeek-V2 / V3).
   branches: mixtral's ``block_sparse_moe`` and qwen2_moe's / qwen3_moe's
   ``mlp.experts`` (qwen2_moe's with the gated shared expert), experts
   stacked on a leading axis; an unmapped type whose tensors follow the
-  llama schema imports through it (the generic fallback). baichuan, qwen
-  v1, phi3, internlm2 and llava's language tower take schema importers of
-  their own (:1322-1680). The sandwich-norm and norm-bias branches and the
-  JAX package's other families raise, naming the ROADMAP item that ports
-  them (A12); no tensor is dropped silently. DeepSeek-V2 / V3
+  llama schema imports through it (the generic fallback); gemma2's
+  sandwich norms take its branch. gemma / gemma2 / gemma3 (the +1 norm
+  fold, gemma3's multimodal layout), olmo2, baichuan, qwen v1, phi3,
+  internlm2 and llava's language tower take schema importers of their own
+  (:1322-1680); granite and minicpm the llama importer. The norm-bias
+  branch and the JAX package's LayerNorm families raise, naming the ROADMAP
+  item that ports them (A12); no tensor is dropped silently (gemma3's
+  vision tower is dropped unread, as in the JAX package). DeepSeek-V2 / V3
   take ``_import_deepseek`` (:1731): MLA (the rope channels permuted from
   HF's interleaved order to rotate-half) and DeepSeekMoE (shared experts,
   v3's ``e_score_correction_bias``); like the JAX importer it reads the
@@ -157,6 +160,10 @@ class _LazyRaw:
         del self._where[key]
         return t
 
+    def discard(self, key) -> None:
+        """Drop a tensor unread (gemma3's vision tower)."""
+        del self._where[key]
+
     def keys(self) -> List[str]:
         return list(self._where)
 
@@ -170,10 +177,12 @@ def load_hf_float(
 ) -> Tuple[ModelParams, ModelConfig]:
     """Import an HF float checkpoint into ModelParams on ``device``, fusing
     q/k/v and gate/up (``load_hf_float`` :673): the llama schema (dense,
-    mixtral, qwen2_moe, qwen3 / qwen3_moe), a schema importer of its own
-    for baichuan, qwen v1, phi3, internlm2, llava and DeepSeek-V2 / V3, and
-    the generic llama fallback for an unmapped type whose tensors follow the
-    llama schema. The JAX package's other families raise (ROADMAP A12)."""
+    mixtral, qwen2_moe, qwen3 / qwen3_moe, granite, minicpm), a schema
+    importer of its own for gemma / gemma2 / gemma3, olmo2, baichuan, qwen
+    v1, phi3, internlm2, llava and DeepSeek-V2 / V3, and the generic llama
+    fallback for an unmapped type whose tensors follow the llama schema; the
+    rope tables, and gemma3's local ones (:836-844). The JAX package's
+    LayerNorm families raise (ROADMAP A12)."""
     from quick_tpu_torch.models.auto import MODEL_TYPE_MAP, check_not_a12
 
     dev = resolve_device(device)
@@ -229,20 +238,18 @@ def _check_consumed(raw, cfg: ModelConfig, what: str) -> None:
 
 
 def _import_llama_family(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
-    """The llama branch of ``_import_llama_family`` (:708), with qwen3's
-    per-head ``q_norm`` / ``k_norm`` (:739-746) and its mixtral (:748) and
-    qwen2_moe / qwen3_moe (:761) MoE layers. The sandwich-norm and
-    norm-bias branches raise (ROADMAP A12)."""
+    """The llama branch of ``_import_llama_family`` (:708), with the
+    per-head ``q_norm`` / ``k_norm`` (:739-746), its mixtral (:748) and
+    qwen2_moe / qwen3_moe (:761) MoE layers and gemma2's sandwich norms
+    (:798-812). The norm-bias branch raises (ROADMAP A12)."""
     W, V, maybe_bias = _mk_wv(raw, dtype, dev)
 
     for key in raw.keys():
-        for part, item in ((".pre_feedforward_layernorm.", "sandwich norms, ROADMAP A12"),
-                           ("layernorm.bias", "LayerNorm biases, ROADMAP A12"),
-                           ("model.norm.bias", "LayerNorm biases, ROADMAP A12")):
+        for part in ("layernorm.bias", "model.norm.bias"):
             if part in key:
                 raise NotImplementedError(
                     f"{cfg.model_type}: tensor {key} belongs to a branch of the "
-                    f"llama importer that is not ported yet ({item})")
+                    "llama importer that is not ported yet (LayerNorm biases, ROADMAP A12)")
     blocks = []
     for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}"
@@ -265,11 +272,21 @@ def _import_llama_family(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
         qn = V(qn_key) if qn_key in raw else None
         kn = V(kn_key) if kn_key in raw else None
         mlp = _import_mlp(p, raw, cfg, W)
+        attn = AttentionParams(qkv_proj=qkv, o_proj=o, q_norm=qn, k_norm=kn)
+        if f"{p}.pre_feedforward_layernorm.weight" in raw:
+            # gemma2 / gemma3's sandwich norms (:798-812): HF's
+            # post_attention_layernorm is the attention OUTPUT norm here, and
+            # the MLP has its own pre / post pair
+            blocks.append(BlockParams(
+                attn_norm=V(f"{p}.input_layernorm.weight"), attn=attn,
+                mlp_norm=V(f"{p}.pre_feedforward_layernorm.weight"), mlp=mlp,
+                attn_post_norm=V(f"{p}.post_attention_layernorm.weight"),
+                mlp_post_norm=V(f"{p}.post_feedforward_layernorm.weight"),
+            ))
+            continue
         blocks.append(BlockParams(
-            attn_norm=V(f"{p}.input_layernorm.weight"),
-            attn=AttentionParams(qkv_proj=qkv, o_proj=o, q_norm=qn, k_norm=kn),
-            mlp_norm=V(f"{p}.post_attention_layernorm.weight"),
-            mlp=mlp,
+            attn_norm=V(f"{p}.input_layernorm.weight"), attn=attn,
+            mlp_norm=V(f"{p}.post_attention_layernorm.weight"), mlp=mlp,
         ))
     embed = V("model.embed_tokens.weight")
     if cfg.tie_word_embeddings or "lm_head.weight" not in raw:
@@ -473,32 +490,34 @@ def _import_qwen(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
                        **_tables(cfg, dev))
 
 
-class _Prefixed:
-    """The tensors of a raw mapping under ``prefix``, with the prefix
-    stripped (llava's ``language_model.``), read on access."""
+class _Renamed:
+    """The tensors of a raw mapping under other names (``names``: new name
+    -> the file's key), read on access."""
 
-    def __init__(self, raw, prefix: str):
-        self._raw, self._prefix = raw, prefix
+    def __init__(self, raw, names: Dict[str, str]):
+        self._raw, self._names = raw, names
 
     def __contains__(self, key) -> bool:
-        return self._prefix + key in self._raw
+        return key in self._names
 
     def __getitem__(self, key):
-        return self._raw[self._prefix + key]
+        return self._raw[self._names[key]]
 
     def pop(self, key, *default):
-        return self._raw.pop(self._prefix + key, *default)
+        if key not in self._names and default:
+            return default[0]
+        return self._raw.pop(self._names.pop(key))
 
     def keys(self) -> List[str]:
-        n = len(self._prefix)
-        return [k[n:] for k in self._raw.keys() if k.startswith(self._prefix)]
+        return list(self._names)
 
 
 def _import_llava(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
     """LLaVA (``_import_llava`` :1425): the language tower only, the llama
     importer over the ``language_model.`` tensors. The vision tower's
     tensors stay unread (ROADMAP A16)."""
-    lang = _Prefixed(raw, "language_model.")
+    n = len("language_model.")
+    lang = _Renamed(raw, {k[n:]: k for k in raw.keys() if k.startswith("language_model.")})
     if not lang.keys():
         raise ValueError("no language_model.* tensors found in llava checkpoint")
     return _import_llama_family(lang, cfg, dtype, dev)
@@ -566,9 +585,105 @@ def _import_internlm2(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
                        **_tables(cfg, dev))
 
 
+class _Folded:
+    """A raw mapping whose zero-centered norm weights (``fold(key)``) read
+    as w + 1.0, added in the file's own dtype before any cast, as the JAX
+    importers add it to the raw array (:1447-1449, :1467-1469): folding
+    after a bf16 cast would move a weight by an ulp."""
+
+    def __init__(self, raw, fold):
+        self._raw, self._fold = raw, fold
+
+    def __contains__(self, key) -> bool:
+        return key in self._raw
+
+    def _folded(self, key, t):
+        return t + 1.0 if self._fold(key) else t
+
+    def __getitem__(self, key):
+        return self._folded(key, self._raw[key])
+
+    def pop(self, key, *default):
+        if key not in self._raw and default:
+            return default[0]
+        return self._folded(key, self._raw.pop(key))
+
+    def keys(self) -> List[str]:
+        return self._raw.keys()
+
+
+def _import_gemma(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """Gemma / Gemma2 (``_import_gemma`` :1439): the llama layout (gemma2's
+    four sandwich norms through the llama importer's branch) with its
+    RMSNorm weights stored zero-centered: every ``*layernorm.weight`` and
+    ``model.norm.weight`` reads as w + 1. The sqrt(D) embedding scale is a
+    config switch; the head is tied."""
+    fold = _Folded(raw, lambda k: k.endswith("layernorm.weight") or k == "model.norm.weight")
+    return _import_llama_family(fold, cfg, dtype, dev)
+
+
+def _import_gemma3(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """Gemma3 (``_import_gemma3`` :1453): gemma2's layout plus per-head q / k
+    RMSNorms, every ``*norm.weight`` stored zero-centered (q / k norms
+    included). A multimodal checkpoint's language tower is under
+    ``language_model.``, stripped here; its ``vision_tower.*`` and
+    ``multi_modal_projector.*`` tensors are dropped unread, as the JAX
+    importer drops them."""
+    names = {}  # the language tower's names -> the file's keys
+    n = len("language_model.")
+    for k in raw.keys():
+        if k.startswith("language_model."):
+            names[k[n:]] = k
+        elif k.startswith(("vision_tower.", "multi_modal_projector.")):
+            raw.discard(k)
+        else:
+            names[k] = k
+    lang = _Renamed(raw, names)
+    return _import_llama_family(_Folded(lang, lambda k: k.endswith("norm.weight")), cfg, dtype,
+                                dev)
+
+
+def _import_olmo2(raw, cfg: ModelConfig, dtype, dev) -> ModelParams:
+    """OLMo-2 (``_import_olmo2`` :1680): the llama tree whose only norms are
+    the post-norms on each sub-layer's output (no pre-norms), plus the
+    full-width q / k RMSNorm before the head reshape; the head untied where
+    the file has one."""
+    W, V, _ = _mk_wv(raw, dtype, dev)
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        qw, kw, vw = (W(f"{p}.self_attn.{n}_proj.weight") for n in "qkv")
+        gate = W(f"{p}.mlp.gate_proj.weight")
+        up = W(f"{p}.mlp.up_proj.weight")
+        blocks.append(BlockParams(
+            attn_norm=None,
+            attn=AttentionParams(
+                qkv_proj=Linear(torch.cat([qw, kw, vw], dim=1)),
+                o_proj=Linear(W(f"{p}.self_attn.o_proj.weight")),
+                q_norm=V(f"{p}.self_attn.q_norm.weight"),
+                k_norm=V(f"{p}.self_attn.k_norm.weight")),
+            mlp_norm=None,
+            mlp=MLPParams(gate_up_proj=Linear(torch.cat([gate, up], dim=1)),
+                          down_proj=Linear(W(f"{p}.mlp.down_proj.weight"))),
+            attn_post_norm=V(f"{p}.post_attention_layernorm.weight"),
+            mlp_post_norm=V(f"{p}.post_feedforward_layernorm.weight"),
+        ))
+    embed = V("model.embed_tokens.weight")
+    lm_head = Linear(W("lm_head.weight")) if "lm_head.weight" in raw else Linear(embed.T)
+    final_norm = V("model.norm.weight")
+    _check_consumed(raw, cfg, "olmo2")
+    return ModelParams(embed=embed, blocks=blocks, final_norm=final_norm, lm_head=lm_head,
+                       **_tables(cfg, dev))
+
+
 #: model types with an importer of their own (the ported part of the JAX
 #: ``_HF_IMPORTERS``, :1890); every other type takes ``_import_llama_family``
+#: (granite's and minicpm's multipliers are config switches)
 _HF_IMPORTERS = {
+    "gemma": _import_gemma,
+    "gemma2": _import_gemma,
+    "gemma3": _import_gemma3,
+    "olmo2": _import_olmo2,
     "llava": _import_llava,
     "baichuan": _import_baichuan,
     "qwen": _import_qwen,

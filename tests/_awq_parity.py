@@ -173,13 +173,13 @@ def assert_close(port: torch.Tensor, ref, tol: float, what: str = "") -> None:
 
 def assert_params_equal(port, ref, what: str = "") -> None:
     """Walk a port params dataclass (a block, a whole model) beside the JAX
-    package's: every tensor byte-equal (the rope tables, rebuilt from the
-    config, skipped)."""
+    package's: every tensor byte-equal (the rope tables and gemma3's local
+    ones, rebuilt from the config, skipped)."""
     import dataclasses
 
     if dataclasses.is_dataclass(port):
         for f in dataclasses.fields(port):
-            if f.name not in ("rope_cos", "rope_sin"):
+            if f.name not in ("rope_cos", "rope_sin", "rope_cos_local", "rope_sin_local"):
                 assert_params_equal(getattr(port, f.name), getattr(ref, f.name),
                                     f"{what}.{f.name}")
     elif isinstance(port, (list, tuple)):

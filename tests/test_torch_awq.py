@@ -253,19 +253,20 @@ def test_awq_kl_stays_below_rtn_bound():
     assert np.isfinite(kl_awq) and kl_awq < 2.5 * kl_rtn, (kl_awq, kl_rtn)
 
 
-A12 = dict(use_qk_norm=True, use_post_norms=True, pre_norms=False, layernorm="layernorm",
-           residual_multiplier=0.5, parallel_residual=True, use_alibi=True, gated_mlp=False,
-           rope_local_theta=10000.0, query_pre_attn_scalar=64.0)
+A12 = dict(use_qk_norm=True, learned_pos=True, use_rope=False, layernorm="layernorm",
+           embed_norm=True, parallel_residual=True, use_alibi=True, gated_mlp=False,
+           act_fn="relu", qkv_clip=8.0)
 
 
-#: set with a switch: qk-norm in olmo2's full-width form (qwen3's per-head
-#: form runs, tests/test_torch_qk_norm.py)
-WITH = {"use_qk_norm": dict(qk_norm_full=True)}
+#: set with a switch: cohere's LayerNorm qk-norm (the RMS qk-norms run,
+#: tests/test_torch_qk_norm.py, tests/test_torch_gemma.py and
+#: tests/test_torch_olmo2_granite.py)
+WITH = {"use_qk_norm": dict(layernorm="layernorm")}
 
 
 @pytest.mark.parametrize("switch", sorted(A12))
 def test_awq_refuses_a12_switches(switch):
-    """The JAX AWQ's branches for the other families wait for A12."""
+    """The JAX AWQ's branches for the LayerNorm families wait for A12."""
     m = AutoQuickModel.from_random(ModelConfig(**TINY), seed=0, device="cpu")
     m.cfg = dataclasses.replace(m.cfg, **{switch: A12[switch]}, **WITH.get(switch, {}))
     with pytest.raises(NotImplementedError, match="A12"):

@@ -340,14 +340,16 @@ def test_hf_float_import_and_rtn_match(tmp_path, tie):
     assert skip.blocks[0].mlp.down_proj is m.params.blocks[0].mlp.down_proj
 
 
-@pytest.mark.parametrize("case", ["qk_norm", "sandwich", "norm_bias", "moe_keys", "stray", "gpt_neox"])
+@pytest.mark.parametrize("case", ["qk_norm", "final_norm_bias", "norm_bias", "moe_keys", "stray",
+                                  "gpt_neox"])
 def test_hf_import_refuses_unported_branches(tmp_path, case):
     """Branches of the JAX importer the port has not taken over raise,
-    naming their ROADMAP item, instead of dropping tensors."""
+    naming their ROADMAP item, instead of dropping tensors (gemma2's
+    sandwich norms import: tests/test_torch_gemma.py)."""
     D = TINY["hidden_size"]
     extra = {
         "qk_norm": {"model.layers.0.self_attn.q_norm.weight": np.ones(64, np.float32)},
-        "sandwich": {"model.layers.0.pre_feedforward_layernorm.weight": np.ones(D, np.float32)},
+        "final_norm_bias": {"model.norm.bias": np.zeros(D, np.float32)},
         "norm_bias": {"model.layers.1.input_layernorm.bias": np.zeros(D, np.float32)},
         "moe_keys": {"model.layers.0.block_sparse_moe.gate.weight": np.ones((4, D), np.float32)},
         "stray": {"model.layers.0.self_attn.extra.weight": np.ones(4, np.float32)},
@@ -367,7 +369,8 @@ def test_awq_search_is_refused():
     assert all(isinstance(lin, QuantLinear) for lin in (
         blk.attn.qkv_proj, blk.attn.o_proj, blk.mlp.gate_up_proj, blk.mlp.down_proj))
     m = AutoQuickModel.from_random(ModelConfig(**TINY), device="cpu")
-    m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True, qk_norm_full=True)  # olmo2's form
+    # cohere's LayerNorm qk-norm
+    m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True, layernorm="layernorm")
     with pytest.raises(NotImplementedError, match="A12"):
         m.quantize(np.zeros((1, 8), np.int32), QuantConfig())
 

@@ -270,7 +270,7 @@ def test_unmapped_non_llama_schema_fails_clearly(tmp_path):
         jck.load_hf_float(path)
 
 
-@pytest.mark.parametrize("model_type", ["gemma", "olmo2", "cohere", "gpt_neox"])
+@pytest.mark.parametrize("model_type", ["bloom", "falcon", "cohere", "gpt_neox"])
 def test_other_families_are_refused(tmp_path, model_type):
     """The JAX package's families the port does not run yet raise naming
     ROADMAP A12, at import and in apply_model_type, instead of falling back
@@ -286,7 +286,8 @@ def test_other_families_are_refused(tmp_path, model_type):
 
 
 AWQ_TYPES = ["llama", "mistral", "qwen2", "mixtral", "yi", "qwen", "baichuan", "phi3",
-             "internlm2", "llava", "qwen3", "qwen3_moe", "gemma", "frontierlm_v9"]
+             "internlm2", "llava", "qwen3", "qwen3_moe", "gemma", "frontierlm_v9",
+             "gemma2", "gemma3", "olmo2", "granite", "minicpm"]
 
 
 def _awq_refused(load, path) -> bool:

@@ -2366,3 +2366,121 @@ def test_awq_block_kernel_route_matches_plain_route(cuda_device, monkeypatch, na
         else:
             assert r["differ"] <= (1 - CLIP_AGREE[name]) * r["picks"], (r, cmp, err)
     assert err <= 5e-2, (err, cmp)
+
+
+# the RMSNorm families' shapes: gemma2 / gemma3 (16 q / 8 kv heads of 256,
+# softcap 50, windows of 4,096 and 1,024), MiniCPM (36 / 36 heads of 64)
+GEMMA_HEADS = (16, 8, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,kw", [
+    (4, 128, 256, dict(logit_softcap=50.0)),                 # gemma2 generate()
+    (2, 1280, 1536, dict(window=1024)),                      # gemma3's window binding
+    (1, 1100, 1152, dict(window=1024, logit_softcap=50.0)),  # window and softcap
+], ids=["softcap", "window", "window_softcap"])
+def test_flash_kernel_at_head_dim_256_matches_plain(cuda_device, B, S, T, kw):
+    """K2 at gemma's heads (head_dim 256, GQA 2) as the model prefills into
+    its cache (q at 0, kv_len S), with the softcap of 50 and a window that
+    binds: one launch, within tol of the plain version."""
+    Hq, Hkv, D = GEMMA_HEADS
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    q = torch.randn((B, S, Hq, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    qoff = torch.zeros(B, dtype=torch.int32, device=cuda_device)
+    klen = torch.full((B,), S, dtype=torch.int32, device=cuda_device)
+    before = tflash.KERNEL.launches
+    out = tflash.flash_attention_cuda(q, k, v, qoff, klen, D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert tflash.KERNEL.launches == before + 1
+    ref = tflash.flash_attention_plain(q, k, v, qoff, klen, D ** -0.5, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,S,kw", [
+    (GEMMA_HEADS, 256, dict(logit_softcap=50.0)),
+    (GEMMA_HEADS, 1536, dict(window=1024, logit_softcap=50.0)),
+    ((36, 36, 64), 128, {}),
+], ids=["gemma_softcap", "gemma_window_softcap", "minicpm_d64"])
+def test_fused_step_kernel_at_family_heads_matches_plain(cuda_device, heads, S, kw):
+    """K3 at gemma's heads (head_dim 256) with softcap 50 and a binding
+    window, and at MiniCPM's 36 heads of 64, B = 4, at lengths 0, 63, 64,
+    the window's edge and S - 1: within tol of the plain version, the cache
+    changed at the length only."""
+    hq, hkv, D = heads
+    B = 4
+    bf, cs = _fused_case(B, hq, hkv, S, D, seed=S + D)
+    dev = cuda_device
+    for length in sorted({0, 63, 64, min(1025, S - 2), S - 1}):
+        ln = torch.tensor([length], dtype=torch.int32)
+        kref, vref = bf[3].clone(), bf[4].clone()
+        ref, _, _ = tfused.fused_decode_attention(*bf[:3], kref, vref, *cs, ln, 1, **kw)
+        kc, vc = bf[3].to(dev), bf[4].to(dev)
+        out, _, _ = tfused.fused_decode_attention(*(a.to(dev) for a in bf[:3]), kc, vc,
+                                                  *(a.to(dev) for a in cs), ln.to(dev), 1, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+        np.testing.assert_allclose(f32(kc), f32(kref), atol=1e-2, rtol=1e-2)
+        np.testing.assert_array_equal(f32(vc), f32(vref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(logit_softcap=50.0)], ids=["plain", "softcap"])
+def test_dense_decode_kernel_at_gemma_long_stream(cuda_device, kw):
+    """K7 at a gemma2 global layer's decode of a long stream (head_dim 256,
+    16 / 8 heads, a 4,608-key cache, lengths 4,400-4,415, softcap 50). K7
+    takes no window in either package: the sliding layers decode on the
+    einsum. Within tol and tol * max|ref| of each row of the plain version."""
+    Hq, Hkv, D = GEMMA_HEADS
+    gen = torch.Generator().manual_seed(4608)
+    B, T = 2, 4608
+    lengths = torch.tensor([4400, 4415], dtype=torch.int32)
+    q = torch.randn((B, Hq, D), generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((2, B, Hkv, T, D), generator=gen).to(torch.bfloat16) for _ in range(2))
+    before = tdda.KERNEL.launches
+    out = tdda.dense_decode_attention(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+                                      lengths.to(cuda_device), layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tdda.KERNEL.launches == before + 1
+    ref = tdda.dense_decode_attention(q, k, v, lengths, layer=1, **kw)
+    np.testing.assert_allclose(f32(out), f32(ref), **TOL)
+    row_max = np.abs(f32(ref)).max(axis=-1, keepdims=True)
+    assert (np.abs(f32(out) - f32(ref)) <= TOL["rtol"] * row_max).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 512])
+@pytest.mark.parametrize("case", ["gemma3_q", "gemma3_k", "olmo2_q", "olmo2_k", "post_norm"])
+def test_rms_norm_kernel_at_family_norm_shapes(cuda_device, rows, case):
+    """K13 as the RMSNorm families run it: gemma3's per-head qk-norm over
+    [rows x heads, 256] column slices of the qkv output (copied by the
+    wrapper), olmo2's full-width qk-norm over [rows, 4096] column slices read
+    at the qkv row stride (no copy), and a post-norm over [rows, 3584]
+    (Gemma2-9B's width): one launch, within one bf16 step of
+    rms_norm_plain."""
+    from quick_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    if case == "post_norm":
+        x = (torch.randn((rows, 1, 3584), generator=gen, device=cuda_device) * 3).to(
+            torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(3584, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    else:
+        hq, hkv, hd = (16, 8, 256) if case.startswith("gemma3") else (32, 32, 128)
+        qkv = (torch.randn((rows, 1, (hq + 2 * hkv) * hd), generator=gen, device=cuda_device)
+               * 3).to(torch.bfloat16)
+        lo, h = (0, hq) if case.endswith("_q") else (hq * hd, hkv)
+        x = qkv[..., lo:lo + h * hd]
+        width = hd if case.startswith("gemma3") else h * hd
+        if case.startswith("gemma3"):
+            x = x.reshape(rows, 1, h, hd)
+        w = (1 + 0.1 * torch.randn(width, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    before = norms.KERNEL.launches
+    out = rms_norm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert norms.KERNEL.launches == before + 1
+    assert out.is_contiguous() and out.shape == x.shape
+    o, r = f32(out), f32(norms.rms_norm_plain(x, w, 1e-6))
+    assert (np.abs(o - r) <= 2.0 ** -7 * np.abs(r) + 1e-30).all(), np.abs(o - r).max()

@@ -100,15 +100,16 @@ def test_window_and_softcap_match(variant):
 
 
 @pytest.mark.parametrize("switch", [
-    dict(use_alibi=True, use_rope=False), dict(use_qk_norm=True, qk_norm_full=True),
-    dict(use_post_norms=True), dict(parallel_residual=True),
+    dict(use_alibi=True, use_rope=False), dict(learned_pos=True),
+    dict(embed_norm=True), dict(parallel_residual=True),
     dict(layernorm="layernorm"), dict(gated_mlp=False, act_fn="gelu"),
-    dict(final_logit_softcap=30.0), dict(num_local_experts=4, moe_router="expert_choice"),
+    dict(qkv_clip=8.0), dict(num_local_experts=4, moe_router="expert_choice"),
 ])
 def test_other_families_are_refused(switch):
-    """Configs off the dense llama path raise instead of running a path the
-    port has not taken over yet (qk-norm in olmo2's full-width form: qwen3's
-    per-head form runs, tests/test_torch_qk_norm.py)."""
+    """Configs off the RMSNorm families' path raise instead of running a
+    path the port has not taken over yet (the LayerNorm families' switches:
+    the RMSNorm families' run, tests/test_torch_gemma.py and
+    tests/test_torch_olmo2_granite.py)."""
     from quick_tpu_torch.models.model import init_quant_params as t_init
 
     cfg = ModelConfig(**dict(TINY, **switch))

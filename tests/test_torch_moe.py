@@ -284,8 +284,8 @@ def test_moe_forward_matches_jax(quant_models, float_models, case):
 
 
 def test_moe_router_and_model_type_refusals(tmp_path):
-    """A router the port does not run and qk-norm in olmo2's full-width form
-    (A12; qwen3_moe's per-head form runs, tests/test_torch_qk_norm.py) raise;
+    """A router the port does not run and cohere's LayerNorm qk-norm (A12;
+    qwen3_moe's per-head RMS form runs, tests/test_torch_qk_norm.py) raise;
     so do AutoAWQ import and export of MoE models (the JAX package maps
     none either, A10)."""
     with pytest.raises(NotImplementedError, match="router"):
@@ -293,7 +293,7 @@ def test_moe_router_and_model_type_refusals(tmp_path):
                      device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         t_init_quant(ModelConfig(**dict(MODELS["qwen2_moe"], model_type="qwen3_moe",
-                                        use_qk_norm=True, qk_norm_full=True,
+                                        use_qk_norm=True, layernorm="layernorm",
                                         norm_topk_prob=True)), device="cpu")
     m = AutoQuickModel(t_init_quant(ModelConfig(**MODELS["mixtral"]), device="cpu"),
                        ModelConfig(**MODELS["mixtral"]), QuantConfig())

@@ -155,10 +155,16 @@ def test_mma_sync_b_fragments_equal_codes(codes_and_words, grp, n0):
 # (K, N) of the G = 128 projections that reach K1 above 8 rows: Mistral-7B
 # and Mixtral-8x7B's attention (qkv, o) and Mistral's MLP (gate_up, down);
 # DeepSeek-V2-Lite's q, kv_a, o, dense gate_up and shared-expert widths
-# (its dense down, K = 10944, is no multiple of 128)
+# (its dense down, K = 10944, is no multiple of 128); the four projections of
+# Gemma2-9B and Gemma3-12B, OLMo-2-7B's, Granite-3.1-8B's and MiniCPM-2B's
+# other widths: K of 28, 30, 86, 100 and 45 groups among them
 PLAN_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
                (2048, 3072), (2048, 576), (2048, 2048), (2048, 21888),
-               (2048, 5632), (2816, 2048), (512, 200)]
+               (2048, 5632), (2816, 2048), (512, 200),
+               (3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584),
+               (3840, 8192), (4096, 3840), (3840, 30720), (15360, 3840),
+               (4096, 12288), (4096, 22016), (11008, 4096), (4096, 25600), (12800, 4096),
+               (2304, 6912), (2304, 2304), (2304, 11520), (5760, 2304)]
 
 
 @pytest.mark.parametrize("K,N", PLAN_SHAPES)
